@@ -6,8 +6,9 @@ to PyTorch, with the TPU's Pallas kernels rewritten by hand for NVIDIA Hopper
 has the same path.  The port imports ``torch`` and numpy and never ``jax`` or
 ``solid_dsp_tpu``.
 
-Ported so far: the receive chain's collapsed FM path (``models.rx_chain``),
-with the fused DDC + FM discriminator kernel (``ops.cuda_ddc``).
+Ported so far: the config-4 receive chain in all its branches
+(``models.rx_chain``: FM, QPSK, AM or none; planar, cf32 or ci16 input),
+with the fused DDC + FM kernel and the DDC body kernel (``ops.cuda_ddc``).
 """
 
 __version__ = "0.1.0"

@@ -1,3 +1,3 @@
-"""Composed chains."""
+"""Demodulators and the composed receive chain."""
 
-from . import rx_chain  # noqa: F401
+from . import fm, qpsk, rx_chain  # noqa: F401

@@ -1,3 +1,3 @@
-"""Block operations on tensors: NCO, AGC, the fused DDC + FM body."""
+"""Block operations on tensors: NCO, AGC, the DDC bodies and their glue."""
 
 from . import agc, cuda_ddc, ddc, fir, nco  # noqa: F401

@@ -1,16 +1,18 @@
-"""AGC carry and the block-mode gain update.
+"""AGC carry, the block-mode gain update and the block-mode AGC.
 
-Port of ``solid_dsp_tpu/ops/agc.py::agc_init`` and ``block_gain_update``
-(reference ``src/auto_gain_control/mod.rs``).  Block mode applies one gain
-per block and updates it from the block's mean energy; the exact per-sample
-and parallel modes are not ported yet (ROADMAP queue 1).
+Port of ``solid_dsp_tpu/ops/agc.py::agc_init``, ``block_gain_update`` and
+``agc_apply_block_mode`` (reference ``src/auto_gain_control/mod.rs``).
+Block mode applies one gain per block and updates it from the block's mean
+energy; the exact per-sample and parallel modes are not ported yet
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["SquelchMode", "agc_init", "block_gain_update"]
+__all__ = ["SquelchMode", "agc_init", "block_gain_update",
+           "agc_apply_block_mode"]
 
 
 class SquelchMode:
@@ -49,3 +51,11 @@ def block_gain_update(state: dict, ee: torch.Tensor, alpha: float, T: int):
                        gain * torch.exp(-0.5 * torch.log(energy)), gain)
     gain = torch.clamp(gain, max=1e6)
     return {**state, "gain": gain, "energy": energy}
+
+
+def agc_apply_block_mode(state: dict, x: torch.Tensor, alpha: float):
+    """Block-mode AGC: scale the block by the carried gain, then update the
+    gain from the mean |out|^2 of the scaled block.  Returns (out, state)."""
+    out = x * state["gain"].to(x.dtype)
+    ee = torch.mean((out * out.conj()).real, dim=-1)
+    return out, block_gain_update(state, ee, alpha, x.shape[-1])

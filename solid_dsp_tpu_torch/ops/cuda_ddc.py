@@ -1,9 +1,20 @@
-"""Fused DDC + FM discriminator body: the Hopper kernel and its plain version.
+"""The DDC bodies on Hopper: the kernels, their wrappers and plain versions.
 
-Port of ``solid_dsp_tpu/ops/pallas_ddc.py::make_pallas_ddc_fm`` (K1) with
-its bank builders ``_banks_full_cached`` and ``_seam_bank_cached``.  For a
-planar block x (2, L) and the carried tail x[-D .. -1] (D = n - M) it
-computes, for every decimated output t = 0 .. T-1 (T = L / M),
+Ports of the three TPU kernels of ``solid_dsp_tpu/ops/pallas_ddc.py``:
+
+* the fused DDC + FM body (K1, ``make_pallas_ddc_fm`` with its bank
+  constructors ``_banks_full_cached`` and ``_seam_bank_cached``):
+  :class:`DdcFmBody`, ``csrc/ddc_fm.cu``;
+* the unrotated DDC body (K2 ``make_pallas_ddc_full`` on blocks that are
+  a multiple of 64*M, K3 ``make_pallas_ddc_body`` on the others):
+  :class:`DdcBody`, ``csrc/ddc_body.cu``, one kernel counted apart on the
+  two routes by :func:`ddc_body_cuda` and :func:`ddc_body_unaligned_cuda`.
+  For the block x (2, L), L any multiple of M, and the carried tail
+  x[-D .. -1] (D = n - M) it computes z[t] = sum_i h_bp[i] x[tM - D + i],
+  (2, T) f32; its plain version is ``ops/ddc.py::ddc_body_torch``.
+
+For a planar block x (2, L) and the carried tail x[-D .. -1] K1 computes,
+for every decimated output t = 0 .. T-1 (T = L / M),
 
     z[t]     = sum_i h_bp[i] x[tM - D + i]
     audio[t] = atan2(z[t] conj(z[t-1]) e^{-j rad(dw)}) / (2 pi kf)
@@ -12,43 +23,47 @@ and the stats [sum |z|^2, z[T-1].re, z[T-1].im, z[0].re, z[0].im].  As in
 K1, z[-1] is computed from a window one sample short (x[-n] is read as 0),
 so audio[0] is left for the caller to overwrite (``ops/ddc.py``).
 
-Two implementations of that one function:
+Two implementations of K1's function:
 
 * :func:`ddc_fm_cuda` launches ``csrc/ddc_fm.cu`` (direct-form FIR in FP32
   FMA with the input staged in shared memory, discriminator and energy in
-  the same pass).  The extension is built from the repository's sources
-  with ``torch.utils.cpp_extension.load`` at its first call, into
-  ``solid_dsp_tpu_torch/_build/``.
+  the same pass).
 * :func:`ddc_fm_torch` is the plain PyTorch version: matmuls of the frame
   view (2, F, 64*M) against folded banded-Toeplitz banks, then the
   discriminator in torch ops.  CPU tensors take it under ``engine="auto"``;
   on the card it is the reference and the timing baseline.
 
-Calling a :class:`DdcFmBody` picks between them from the tensor's device
-alone; a build or launch failure propagates.
+Both kernels are built into one extension from the repository's sources
+with ``torch.utils.cpp_extension.load`` at the first launch, into
+``solid_dsp_tpu_torch/_build/``.  Calling a :class:`DdcFmBody` or a
+:class:`DdcBody` picks the kernel or the plain version from the tensor's
+device alone; a build or launch failure propagates.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from .ddc import _fold_banks, ddc_taps
+from .ddc import _fold_banks, ddc_body_torch, ddc_taps
 from .fir import _banks_np
 from .nco import TWO_PI, U32, U32_MASK
 
 __all__ = ["DdcFmBody", "make_ddc_fm", "fm_supported", "ddc_fm_cuda",
-           "ddc_fm_torch", "build", "launch_geometry", "DEFAULT_P"]
+           "ddc_fm_torch", "DdcBody", "make_ddc_body", "ddc_body_cuda",
+           "ddc_body_unaligned_cuda", "build", "launch_geometry",
+           "DEFAULT_P"]
 
 DEFAULT_P = 64          # outputs per frame: the block length quantum is P*M
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "ddc_fm.cu", _PKG / "csrc" / "ddc_fm_binding.cpp")
+_SOURCES = tuple(_PKG / "csrc" / f
+                 for f in ("ddc_fm.cu", "ddc_body.cu", "ddc_binding.cpp"))
 _BUILD_DIR = _PKG / "_build"
-_OUTPUTS_PER_THREAD = 4          # kOutputsPerThread in csrc/ddc_fm.cu
+_OUTPUTS_PER_THREAD = 4          # kOutputsPerThread in csrc/ddc_*.cu
 _SMEM_LIMIT = 227 * 1024         # shared memory one block may use on sm_90
 
 
@@ -186,8 +201,8 @@ def ddc_fm_torch(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
 def launch_geometry(n: int, M: int):
     """(threads, outputs per block, shared-memory bytes) of one kernel
     launch: the largest block of threads whose staged input span fits the
-    shared memory of one block (same formula as ddc_fm_smem_bytes in
-    csrc/ddc_fm.cu)."""
+    shared memory of one block (the formula of ddc_fm_smem_bytes in
+    csrc/ddc_fm.cu, which also bounds csrc/ddc_body.cu's smaller tile)."""
     for threads in (256, 128, 64, 32):
         tbo = threads * _OUTPUTS_PER_THREAD
         U = tbo + -(-n // M)
@@ -200,13 +215,13 @@ def launch_geometry(n: int, M: int):
 
 @functools.cache
 def build():
-    """Build (once per process) and load the CUDA extension from
-    ``csrc/``; needs ``nvcc`` and a CUDA build of PyTorch."""
+    """Build (once per process) and load the CUDA extension of both
+    kernels from ``csrc/``; needs ``nvcc`` and a CUDA build of PyTorch."""
     from torch.utils.cpp_extension import load
 
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return load(
-        name="solid_dsp_tpu_torch_ddc_fm",
+        name="solid_dsp_tpu_torch_ddc",
         sources=[str(s) for s in _SOURCES],
         build_directory=str(_BUILD_DIR),
         extra_cflags=["-O3"],
@@ -243,3 +258,107 @@ def ddc_fm_cuda(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
 
 ddc_fm_cuda.launches = 0
 
+
+@dataclass(frozen=True, eq=False)
+class DdcBody:
+    """Constants of one unrotated DDC body, on one device in one dtype."""
+
+    n: int                   # taps
+    M: int                   # decimation
+    P: int                   # outputs per frame: blocks of P*M samples are K2's
+    dtheta: int              # NCO phase increment (u32 word)
+    dw: int                  # M * dtheta mod 2^32: the rotation per output
+    taps: torch.Tensor       # (2, n) [re; im] of h_bp
+    # the plain version's folded banks on the device, built at first use
+    banks: dict = field(default_factory=dict, repr=False)
+
+    def __call__(self, x2: torch.Tensor, tail: torch.Tensor,
+                 engine: str = "auto") -> torch.Tensor:
+        """z (2, L / M) of x2 (2, L) and tail (2, n-M): ``"auto"`` launches
+        the kernel for CUDA tensors (on K2's route when L is a multiple of
+        P*M, on K3's otherwise) and takes the plain version for CPU
+        tensors; ``"cuda"`` always launches; ``"torch"`` always takes the
+        plain version."""
+        if engine == "torch" or (engine == "auto" and not x2.is_cuda):
+            return ddc_body_torch(self, x2, tail)
+        if engine in ("auto", "cuda"):
+            if x2.shape[-1] % (self.P * self.M) == 0:
+                return ddc_body_cuda(self, x2, tail)
+            return ddc_body_unaligned_cuda(self, x2, tail)
+        raise ValueError(f"unknown ddc_engine {engine!r}")
+
+
+def make_ddc_body(taps: np.ndarray, dtheta, M: int, device,
+                  dtype: torch.dtype = torch.float32) -> DdcBody:
+    """Design-time constants for real prototype taps, NCO word dtheta and
+    decimation M (numpy on the host, then one copy to ``device``)."""
+    taps = np.asarray(taps)
+    n = len(taps)
+    if n <= M:
+        raise ValueError(f"the DDC body needs more taps than the decimation "
+                         f"(n={n}, M={M})")
+    d = int(np.uint32(dtheta))
+    h_bp = ddc_taps(taps, np.uint32(d))
+    bank_dt = np.float64 if dtype == torch.float64 else np.float32
+    return DdcBody(
+        n=n, M=M, P=DEFAULT_P, dtheta=d, dw=(M * d) & U32_MASK,
+        taps=torch.tensor(np.stack([h_bp.real, h_bp.imag]).astype(bank_dt),
+                          dtype=dtype, device=device))
+
+
+def _launch_body(body: DdcBody, x2: torch.Tensor, tail: torch.Tensor,
+                 name: str) -> torch.Tensor:
+    if not (x2.is_cuda and tail.is_cuda and body.taps.is_cuda):
+        raise ValueError(f"{name} needs CUDA tensors (x2, tail and the body's "
+                         "taps); CPU tensors take ddc_body_torch")
+    if x2.dtype != torch.float32 or body.taps.dtype != torch.float32:
+        raise TypeError(f"{name} computes in float32")
+    if not x2.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous (2, L) block")
+    if tuple(tail.shape) != (2, body.n - body.M):
+        raise ValueError(f"tail must be (2, {body.n - body.M}), "
+                         f"got {tuple(tail.shape)}")
+    ext = build()
+    threads, _, _ = launch_geometry(body.n, body.M)
+    z = torch.empty((2, x2.shape[-1] // body.M), dtype=torch.float32,
+                    device=x2.device)
+    ext.ddc_body(x2, tail.contiguous(), body.taps, z, body.n, body.M,
+                 threads)
+    return z
+
+
+def _check_route(body: DdcBody, x2: torch.Tensor, aligned: bool, name: str):
+    L = int(x2.shape[-1])
+    hop = body.P * body.M
+    if x2.dim() != 2 or x2.shape[0] != 2 or L == 0 or L % body.M:
+        raise ValueError(f"x2 must be (2, L) with L a positive multiple of "
+                         f"{body.M}, got {tuple(x2.shape)}")
+    if (L % hop == 0) != aligned:
+        raise ValueError(f"{name} takes blocks whose length is "
+                         f"{'' if aligned else 'not '}a multiple of {hop}; "
+                         f"got L = {L}")
+
+
+def ddc_body_cuda(body: DdcBody, x2: torch.Tensor,
+                  tail: torch.Tensor) -> torch.Tensor:
+    """K2's route: launch ``csrc/ddc_body.cu`` on a block whose length is a
+    multiple of P*M; returns z (2, L / M).  Takes f32 CUDA tensors only and
+    raises on anything else.  Adds one to ``ddc_body_cuda.launches``."""
+    _check_route(body, x2, True, "ddc_body_cuda")
+    z = _launch_body(body, x2, tail, "ddc_body_cuda")
+    ddc_body_cuda.launches += 1
+    return z
+
+
+def ddc_body_unaligned_cuda(body: DdcBody, x2: torch.Tensor,
+                            tail: torch.Tensor) -> torch.Tensor:
+    """K3's route: the same kernel on a block whose length is a multiple of
+    M but not of P*M.  Adds one to ``ddc_body_unaligned_cuda.launches``."""
+    _check_route(body, x2, False, "ddc_body_unaligned_cuda")
+    z = _launch_body(body, x2, tail, "ddc_body_unaligned_cuda")
+    ddc_body_unaligned_cuda.launches += 1
+    return z
+
+
+ddc_body_cuda.launches = 0
+ddc_body_unaligned_cuda.launches = 0

@@ -1,18 +1,26 @@
-"""Fused digital down-converter + FM discriminator: design helpers and glue.
+"""Fused digital down-converter: design helpers, the plain body and glue.
 
-Port of the collapsed-FM path of ``solid_dsp_tpu/ops/ddc.py``.  With u32
-phase words theta(k) = theta0 + k*dtheta and decimation M, the NCO mix folds
-into the filter (the one-stage DDC identity):
+Port of ``solid_dsp_tpu/ops/ddc.py``.  With u32 phase words
+theta(k) = theta0 + k*dtheta and decimation M, the NCO mix folds into the
+filter (the one-stage DDC identity):
 
     y[t] = e^{-j rad(w_t)} z[t],   z[t] = sum_i h_bp[i] x[tM - D + i],
-    h_bp[i] = h[i] e^{-j i drad},  w_t = w0 + t*dw (u32),
+    h_bp[i] = h[i] e^{-j i drad},  w_t = w0 + t*dw (u32),  D = n - M.
 
-and the FM discriminator of the rotated, gained signal only needs
+The body z is computed by a Hopper kernel or its plain version
+(``ops/cuda_ddc.py``); :func:`ddc_body_torch` here is that plain version,
+the JAX module's non-Pallas pieces (head straddling the carried tail,
+banded-Toeplitz frames, straggler).  Where the JAX module returns the body
+as tagged pieces in TPU-lane layouts, the port returns one planar (2, T)
+z [re; im], and the ``*_pieces`` epilogues are functions of that z.
+
+The rest is glue around a body: the decimated-rate rotation
+(:func:`ddc_apply_planar`), the rotation-invariant FM and AM epilogues,
+the energy for the AGC, and the carried tail and phase words.  The FM
+discriminator of the rotated, gained signal only needs
 z[t] conj(z[t-1]) e^{-j rad(dw)}: the rotation and the positive AGC gain
-cancel in the phase difference.  ``ops/cuda_ddc.py`` computes that body
-(the CUDA kernel or its plain version); :func:`ddc_fm_fused` is the glue
-around it: the exact first output from the carried ``fm_prev``, the energy
-for the AGC, the new ``fm_prev``, tail and phase word.
+cancel in the phase difference; :func:`ddc_fm_fused` is the glue around the
+fused DDC + FM body (K1).
 """
 
 from __future__ import annotations
@@ -20,9 +28,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .nco import TWO_PI, U32, U32_MASK, phase_to_rad
+from .fir import _bank_rem_np, _banks_np
+from .nco import (TWO_PI, U32, U32_MASK, nco_complex_exponential,
+                  phase_to_rad)
 
-__all__ = ["ddc_taps", "fm_first_sample", "ddc_fm_fused"]
+__all__ = ["ddc_taps", "ddc_body_torch", "ddc_apply_planar_pieces",
+           "ddc_apply_planar_raw",
+           "ddc_apply_planar", "ddc_apply", "ddc_fm_epilogue",
+           "ddc_am_epilogue", "ddc_energy_pieces", "ddc_pieces_last_rotated",
+           "fm_first_sample", "ddc_fm_fused"]
 
 
 def ddc_taps(taps: np.ndarray, dtheta: np.uint32) -> np.ndarray:
@@ -48,11 +62,231 @@ def _fold_banks(Hr: np.ndarray, Hi: np.ndarray, bank_dt) -> np.ndarray:
     return H
 
 
+def _plane_dot(lhs: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+    """lhs (2, ..., W) x folded bank (2, W, 2K) -> (..., 2K), contracting
+    the plane dim and W together."""
+    return torch.matmul(lhs[0], bank[0]) + torch.matmul(lhs[1], bank[1])
+
+
+def _bank(body, key, build):
+    """The body's folded bank ``key`` on its device and in its dtype, built
+    on the host by ``build(taps_re, taps_im, bank_dt)`` at first use."""
+    bank = body.banks.get(key)
+    if bank is None:
+        dt = body.taps.dtype
+        bank_dt = np.float64 if dt == torch.float64 else np.float32
+        h = body.taps.cpu().numpy().astype(bank_dt)
+        bank = torch.tensor(build(h[0][:, None], h[1][:, None], bank_dt),
+                            dtype=dt, device=body.taps.device)
+        body.banks[key] = bank
+    return bank
+
+
+def _rem_bank(body, Tr: int) -> torch.Tensor:
+    M = body.M
+    return _bank(body, ("rem", Tr), lambda hr, hi, dt: _fold_banks(
+        _bank_rem_np(hr, Tr, M), _bank_rem_np(hi, Tr, M), dt))
+
+
+def _frame_banks(body, P: int):
+    M = body.M
+    body_bank = _bank(body, ("body", P), lambda hr, hi, dt: _fold_banks(
+        _banks_np(hr, P, M)[0], _banks_np(hi, P, M)[0], dt))
+    head_bank = _bank(body, ("head", P), lambda hr, hi, dt: _fold_banks(
+        _banks_np(hr, P, M)[1], _banks_np(hi, P, M)[1], dt))
+    return body_bank, head_bank
+
+
+def ddc_body_torch(body, x2: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the unrotated DDC body (K2 and K3).
+
+    ``body`` holds the taps ``(2, n)`` [re; im] of h_bp, n and M
+    (``ops/cuda_ddc.py::DdcBody``); x2 is the (2, L) block, L any multiple
+    of M, and tail the carried x[-D .. -1], (2, D).  Returns z (2, L / M).
+    The pieces of the JAX module's XLA path, in its order: the first
+    outputs, whose windows straddle the tail, as one small matmul; whole
+    frames of P outputs as banded-Toeplitz matmuls on the free frame view
+    plus the next frame's head; the straggler outputs past the last frame.
+    Every product is a float32 (or float64) matmul: on the card TF32 must
+    be off for f32 accuracy.
+    """
+    n, M = body.n, body.M
+    n1 = n - 1
+    first = M - 1                # decimator phase 0
+    L = int(x2.shape[-1])
+    if x2.dim() != 2 or x2.shape[0] != 2 or L % M or L == 0:
+        raise ValueError(f"x2 must be (2, L) with L a positive multiple of "
+                         f"{M}, got {tuple(x2.shape)}")
+    if tuple(tail.shape) != (2, n - M):
+        raise ValueError(f"tail must be (2, {n - M}), got {tuple(tail.shape)}")
+    T = L // M
+    pieces = []
+    # head outputs whose windows straddle the carried tail
+    Th = min(max(-(-(n1 - first) // M), 0), T)
+    if Th > 0:
+        from_x = (Th - 1) * M + n - (n1 - first)
+        zhead = torch.cat([tail, x2[:, :from_x]], dim=1)
+        pieces.append(_plane_dot(zhead, _rem_bank(body, Th)).reshape(2, Th))
+    # whole frames of P outputs, aligned to x
+    start = first + Th * M - n1
+    Tb = T - Th
+    P = max(min(64, max((4 * n) // M, 8), max(Tb, 1)),
+            max(-(-n1 // M), 1))
+    hop = P * M
+    Fb = min(max((L - start - n1) // hop, 0), Tb // P) if Tb > 0 else 0
+    if Fb > 0:
+        body_bank, head_bank = _frame_banks(body, P)
+        frames = x2[:, start : start + Fb * hop].reshape(2, Fb, hop)
+        heads = x2[:, start + hop :].unfold(1, n1, hop)[:, :Fb]
+        y = _plane_dot(frames, body_bank) + _plane_dot(heads, head_bank)
+        pieces.append(y.reshape(Fb, 2, P).transpose(0, 1).reshape(2, Fb * P))
+    # straggler outputs past the last whole frame
+    Trem = Tb - Fb * P
+    if Trem > 0:
+        srem = start + Fb * hop
+        zrem = x2[:, srem : srem + (Trem - 1) * M + n]
+        pieces.append(_plane_dot(zrem, _rem_bank(body, Trem))
+                      .reshape(2, Trem))
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
+
+
+def _phase_words(body, theta0: torch.Tensor, L: int):
+    """(w0, theta_end): the rotation word of output 0,
+    theta0 + (M-1)*d - (n-1)*d, and the block's end phase theta0 + L*d,
+    both wrapping as u32 (int64 masked to 32 bits)."""
+    d = body.dtheta
+    w0 = (theta0 + (((body.M - 1) * d) & U32_MASK)
+          - (((body.n - 1) * d) & U32_MASK)) & U32_MASK
+    theta_end = (theta0 + ((L * d) & U32_MASK)) & U32_MASK
+    return w0, theta_end
+
+
+def _new_tail(tail2: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """The last n-1 raw samples after this block: a short block keeps part
+    of the old tail."""
+    n1 = int(tail2.shape[-1])
+    L = int(x2.shape[-1])
+    if L >= n1:
+        return x2[:, L - n1 :]
+    return torch.cat([tail2[:, L:], x2], dim=1)
+
+
+def ddc_apply_planar_pieces(body, tail2, theta0, x2, engine: str = "auto"):
+    """Unrotated fused-DDC body on input planes.
+
+    Args:
+      body: the body's constants (``ops/cuda_ddc.py::DdcBody``), which pick
+        the kernel or the plain version from ``engine`` and the device.
+      tail2: carried raw-input tail planes (2, n-1).
+      theta0: int64 phase word of the block's first sample.
+      x2: input planes (2, L), L a multiple of M (any length, short
+        blocks included).
+
+    Returns (z, new_tail2, theta_end, w0, dw): the true DDC output is
+    y[t] = (z[0, t] + j z[1, t]) e^{-j rad(w_t)}, w_t = w0 + t*dw.  The
+    JAX function returns the body as tagged pieces in TPU-lane layouts;
+    here the body is one planar z (2, L / M).
+    """
+    z = body(x2, tail2[:, body.M - 1 :].contiguous(), engine)
+    w0, theta_end = _phase_words(body, theta0, int(x2.shape[-1]))
+    return z, _new_tail(tail2, x2), theta_end, w0, body.dw
+
+
+def ddc_apply_planar_raw(body, tail2, theta0, x2, engine: str = "auto"):
+    """:func:`ddc_apply_planar_pieces` with the body as two rows: returns
+    (yre, yim, new_tail2, theta_end, w0, dw)."""
+    z, new_tail2, theta_end, w0, dw = ddc_apply_planar_pieces(
+        body, tail2, theta0, x2, engine)
+    return z[0], z[1], new_tail2, theta_end, w0, dw
+
+
+def ddc_apply_planar(body, tail2, theta0, x2, engine: str = "auto",
+                     rot_mode: str = "fast"):
+    """One fused DDC block on input planes: the body, then the
+    decimated-rate rotation by e^{-j rad(w_t)} (``rot_mode`` "fast", the
+    factorized oscillator, or "exact").  Returns
+    (out_re, out_im, new_tail2, theta_end), out equal to the exact mix
+    followed by the decimating FIR to float rounding."""
+    yre, yim, new_tail2, theta_end, w0, dw = ddc_apply_planar_raw(
+        body, tail2, theta0, x2, engine)
+    rot = nco_complex_exponential(w0, dw, int(yre.shape[-1]), mode=rot_mode)
+    c = rot.real.to(x2.dtype)
+    s = rot.imag.to(x2.dtype)
+    return yre * c + yim * s, yim * c - yre * s, new_tail2, theta_end
+
+
+def ddc_apply(body, tail, theta0, x, engine: str = "auto",
+              rot_mode: str = "fast"):
+    """Complex-in, complex-out :func:`ddc_apply_planar`: ``tail`` is the
+    carried complex raw-input tail (n-1,), ``x`` the complex block (L,).
+    Returns (y, new_tail, theta_end)."""
+    tail2 = torch.stack([tail.real, tail.imag])
+    x2 = torch.stack([x.real, x.imag])
+    out_re, out_im, new_tail2, theta_end = ddc_apply_planar(
+        body, tail2, theta0, x2, engine, rot_mode)
+    return (torch.complex(out_re, out_im).to(x.dtype),
+            torch.complex(new_tail2[0], new_tail2[1]).to(x.dtype), theta_end)
+
+
 def _rot_scalar(w: torch.Tensor, rdtype: torch.dtype):
     """e^{-j rad(w)} for one phase word -> (cos, -sin), with the radians
     taken at the output precision (f32 chains in f32, f64 in f64)."""
     rad = phase_to_rad(w, rdtype)
     return torch.cos(rad), -torch.sin(rad)
+
+
+def _last_rotated(zre, zim, w0, dw: int, T: int, gain):
+    """g * z[T-1] * e^{-j rad(w0 + (T-1) dw)} for the block's last raw body
+    sample -> (re, im): the chain's ``fm_prev`` carry."""
+    c, s = _rot_scalar((w0 + ((dw * (T - 1)) & U32_MASK)) & U32_MASK,
+                       zre.dtype)
+    g = gain.to(zre.dtype)
+    return g * (zre * c - zim * s), g * (zim * c + zre * s)
+
+
+def ddc_pieces_last_rotated(z: torch.Tensor, w0, dw: int, gain):
+    """Gained, rotated last output of the block from its raw body z
+    (2, T): the chain's ``fm_prev`` carry.  The JAX function takes the
+    body's pieces; here it takes the one planar z."""
+    return _last_rotated(z[0, -1], z[1, -1], w0, dw, int(z.shape[-1]), gain)
+
+
+def ddc_energy_pieces(z: torch.Tensor) -> torch.Tensor:
+    """mean |z|^2 over the block (= mean |y|^2: |rot| = 1).  The JAX
+    function sums over the body's pieces; here over the one planar z."""
+    return torch.sum(z * z) / z.shape[-1]
+
+
+def ddc_fm_epilogue(yre, yim, w0, dw: int, prev_re, prev_im, kf, gain):
+    """FM discriminator straight off the unrotated body output.
+
+    The rotation and the real, positive AGC gain cancel in the phase
+    difference: (g y[t]) conj(g y[t-1]) = g^2 z[t] conj(z[t-1]) e^{-j drad},
+    so arg needs the raw cross products and one constant rotation.  Output
+    0 uses the carried previous chain output (rotated, gained).
+
+    Returns (out, new_prev_re, new_prev_im): out equal to
+    rotate -> AGC -> fm_demodulate to float rounding, and the gained,
+    rotated last sample (the rotated path's ``fm_prev``).
+    """
+    # e^{-j drad} in float64 on the host, rounded to the output dtype
+    dt = np.float64 if yre.dtype == torch.float64 else np.float32
+    drad = float(np.float64(dw) * (TWO_PI / U32))
+    cd, sd = float(dt(np.cos(drad))), float(dt(-np.sin(drad)))
+    ure = yre[1:] * yre[:-1] + yim[1:] * yim[:-1]
+    uim = yim[1:] * yre[:-1] - yre[1:] * yim[:-1]
+    rest = torch.atan2(uim * cd + ure * sd, ure * cd - uim * sd)
+    out = torch.cat([
+        fm_first_sample(yre[0], yim[0], w0, prev_re, prev_im, kf)[None],
+        rest * (1.0 / (2.0 * np.pi * float(kf)))])
+    new_prev_re, new_prev_im = _last_rotated(
+        yre[-1], yim[-1], w0, dw, int(yre.shape[-1]), gain)
+    return out, new_prev_re, new_prev_im
+
+
+def ddc_am_epilogue(yre, yim, gain):
+    """AM envelope off the unrotated body output: |g z e^{-j w}| = g |z|."""
+    return gain.to(yre.dtype) * torch.sqrt(yre * yre + yim * yim)
 
 
 def fm_first_sample(z0re, z0im, w0, prev_re, prev_im, kf):
@@ -82,20 +316,17 @@ def ddc_fm_fused(body, tail2, theta0, x2, prev_re, prev_im, gain,
 
     Returns (out, new_prev_re, new_prev_im, ee_mean, new_tail2, theta_end):
     out (L/M,) audio equal to rotate -> AGC -> fm_demodulate to float
-    rounding, ee_mean = mean |z|^2 for the AGC update.
+    rounding, ee_mean = mean |z|^2 for the AGC update.  Other block lengths
+    take the body and :func:`ddc_fm_epilogue` (``models/rx_chain.py``).
     """
-    n, M = body.n, body.M
-    n1 = n - 1
+    M = body.M
     L = int(x2.shape[-1])
     if L % (body.P * M):
-        raise ValueError(
-            f"block length {L} must be a multiple of {body.P * M} (64*M): "
-            "other lengths take the K2 pieces path, which is not ported yet")
+        raise ValueError(f"block length {L} must be a multiple of "
+                         f"{body.P * M} (64*M) for the fused FM body")
     T = L // M
-    first = M - 1
-    d = body.dtheta
-    w0 = (theta0 + ((first * d) & U32_MASK) - ((n1 * d) & U32_MASK)) & U32_MASK
-    audio, stats = body(x2, tail2[:, first:].contiguous(), engine)
+    w0, theta_end = _phase_words(body, theta0, L)
+    audio, stats = body(x2, tail2[:, M - 1 :].contiguous(), engine)
     # stats = [sum |z|^2, z_last re, z_last im, z_first re, z_first im]
     # Output 0: the body's window for z[-1] is one sample short (the tail
     # carries n-1 samples); the carried fm_prev gives the exact value.  In
@@ -103,11 +334,7 @@ def ddc_fm_fused(body, tail2, theta0, x2, prev_re, prev_im, gain,
     audio[0] = fm_first_sample(stats[3], stats[4], w0, prev_re, prev_im,
                                body.kf)
     ee_mean = stats[0] / T
-    wl = (w0 + ((body.dw * (T - 1)) & U32_MASK)) & U32_MASK
-    cl, sl = _rot_scalar(wl, x2.dtype)
-    g = gain.to(x2.dtype)
-    new_prev_re = g * (stats[1] * cl - stats[2] * sl)
-    new_prev_im = g * (stats[2] * cl + stats[1] * sl)
-    new_tail2 = x2[:, L - n1:]
-    theta_end = (theta0 + ((L * d) & U32_MASK)) & U32_MASK
-    return audio, new_prev_re, new_prev_im, ee_mean, new_tail2, theta_end
+    new_prev_re, new_prev_im = _last_rotated(stats[1], stats[2], w0,
+                                             body.dw, T, gain)
+    return (audio, new_prev_re, new_prev_im, ee_mean, _new_tail(tail2, x2),
+            theta_end)

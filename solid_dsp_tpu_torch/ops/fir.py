@@ -1,8 +1,8 @@
-"""Host-side banded-Toeplitz bank builder (numpy).
+"""Host-side banded-Toeplitz banks (numpy).
 
-Port of ``solid_dsp_tpu/ops/fir.py::_banks_np``.  The plain version of the
-fused DDC+FM body (``ops/cuda_ddc.py``) runs its filter as matmuls of input
-frames against these banks.
+Port of ``solid_dsp_tpu/ops/fir.py::_banks_np`` and ``_bank_rem_np``.  The
+plain versions of the DDC bodies (``ops/cuda_ddc.py``, ``ops/ddc.py``) run
+their filter as matmuls of input frames against these banks.
 """
 
 from __future__ import annotations
@@ -20,3 +20,14 @@ def _banks_np(taps2: np.ndarray, P: int, stride: int):
     for p in range(P):
         H[p * stride : p * stride + n, p * O : (p + 1) * O] = taps2
     return H[:hop], H[hop:]
+
+
+def _bank_rem_np(taps2: np.ndarray, Tr: int, stride: int):
+    """Bank (width_r, Tr*O) of Tr outputs over the (Tr-1)*stride + n input
+    samples they read: the head and straggler pieces of a block."""
+    n, O = taps2.shape
+    wr = (Tr - 1) * stride + n
+    H = np.zeros((wr, Tr * O), taps2.dtype)
+    for p in range(Tr):
+        H[p * stride : p * stride + n, p * O : (p + 1) * O] = taps2
+    return H

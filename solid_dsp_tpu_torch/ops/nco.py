@@ -1,7 +1,8 @@
 """NCO phase words and the exact-mode mixer.
 
 Port of ``solid_dsp_tpu/ops/nco.py``: ``constrain`` (design time, numpy),
-``nco_phases`` and the exact-mode ``mix_down_block`` (reference
+``nco_phases``, ``nco_complex_exponential`` in its ``fast`` and ``exact``
+modes and the exact-mode ``mix_down_block`` (reference
 ``src/nco/mod.rs``).  The phase sequence is closed-form,
 theta[k] = theta0 + k * dtheta (mod 2^32), so a whole block is one
 vectorized expression.
@@ -18,8 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["constrain", "nco_phases", "phase_to_rad", "mix_down_block",
-           "U32_MASK", "TWO_PI", "U32"]
+__all__ = ["constrain", "nco_phases", "phase_to_rad",
+           "nco_complex_exponential", "mix_down_block", "U32_MASK", "TWO_PI",
+           "U32"]
 
 TWO_PI = 2.0 * np.pi
 U32 = 4294967296.0
@@ -47,6 +49,45 @@ def phase_to_rad(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     first and then scaled, as the JAX package does for u32 words."""
     step = np.float32(TWO_PI / U32) if dtype == torch.float32 else TWO_PI / U32
     return w.to(dtype) * float(step)
+
+
+def _nco_cexp_fast(theta0: torch.Tensor, delta_theta: int,
+                   n: int) -> torch.Tensor:
+    """Factorized oscillator block e^{j(theta0 + k d)}, k = 0..n-1, complex64.
+
+    With V = 128 when n is a multiple of 128, k = uV + v and e^{j theta_k}
+    is the outer product of e^{j(theta0 + uVd)} and e^{jvd}: n/V + V
+    sin/cos instead of n.  Otherwise every sample takes its own sin/cos.
+    Phase words wrap as u32, and each becomes radians as the JAX package
+    does it: word -> float32 -> times 2 pi / 2^32.
+    """
+    d = int(np.uint32(delta_theta))
+    V = 128 if n % 128 == 0 and n >= 128 else 1
+    if V == 1:
+        ph = phase_to_rad(nco_phases(theta0, d, n), torch.float32)
+        return torch.complex(torch.cos(ph), torch.sin(ph))
+    pc = phase_to_rad(nco_phases(theta0, (V * d) & U32_MASK, n // V),
+                      torch.float32)
+    pf = phase_to_rad(nco_phases(torch.zeros_like(theta0), d, V),
+                      torch.float32)
+    ec = torch.complex(torch.cos(pc), torch.sin(pc))
+    ef = torch.complex(torch.cos(pf), torch.sin(pf))
+    return (ec[:, None] * ef[None, :]).reshape(n)
+
+
+def nco_complex_exponential(theta0: torch.Tensor, delta_theta: int, n: int,
+                            mode: str = "exact") -> torch.Tensor:
+    """Block of e^{+j theta_k}, k = 0..n-1: ``"fast"`` is the factorized
+    complex64 oscillator; ``"exact"`` takes sin/cos of every phase in
+    float64 (complex128), as the JAX package does with x64 enabled."""
+    if mode == "fast":
+        return _nco_cexp_fast(theta0, delta_theta, n)
+    if mode == "exact":
+        ph = phase_to_rad(nco_phases(theta0, delta_theta, n), torch.float64)
+        return torch.complex(torch.cos(ph), torch.sin(ph))
+    raise NotImplementedError(
+        f"nco mode {mode!r} is not ported to solid_dsp_tpu_torch yet: see "
+        "ROADMAP.md queue 1 item 7 (the LUT oscillator)")
 
 
 def mix_down_block(x: torch.Tensor, theta0: torch.Tensor, delta_theta: int):

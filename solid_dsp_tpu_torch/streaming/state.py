@@ -7,9 +7,10 @@ block-to-block carry and the checkpoint format.
 
 Phase words are int64 tensors in [0, 2^32) here and numpy ``uint32`` at the
 numpy boundary (:func:`to_numpy`, :func:`from_numpy`, the checkpoint), as in
-the JAX package.  Checkpoints are ``.npz`` files with the leaves in sorted-key
-order; reading a checkpoint written by the JAX package is not supported yet
-(ROADMAP queue 1).
+the JAX package.  Checkpoints are the JAX package's ``.npz`` format, so each
+package reads the other's: ``__version__``, ``__treedef__`` (the uint8 bytes
+of the JAX treedef's repr, which :func:`treedef_repr` builds without JAX)
+and the leaves ``leaf_i`` in sorted-key order.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Any, Iterator, Mapping
 import numpy as np
 import torch
 
-__all__ = ["ChainState", "to_numpy", "from_numpy"]
+__all__ = ["ChainState", "to_numpy", "from_numpy", "treedef_repr"]
 
 _PHASE_KEYS = ("nco_theta",)     # u32 phase words: int64 tensors in the port
 
@@ -35,6 +36,22 @@ def _flatten(tree: Mapping, prefix: str = ""):
         else:
             out.append((f"{prefix}{k}", v))
     return out
+
+
+def _node_repr(v) -> str:
+    if isinstance(v, Mapping):
+        return "{" + ", ".join(f"{k!r}: {_node_repr(v[k])}"
+                               for k in sorted(v)) + "}"
+    return "*"
+
+
+def treedef_repr(state: Mapping) -> str:
+    """The repr of the JAX treedef of a ChainState with the same keys, as
+    the JAX package's checkpoints store it: the sorted component keys, then
+    each component as a leaf ``*`` or a dict of sorted keys."""
+    keys = tuple(sorted(state))
+    children = ", ".join(_node_repr(state[k]) for k in keys)
+    return f"PyTreeDef(CustomNode(ChainState[{keys!r}], [{children}]))"
 
 
 def _leaf_to_numpy(key: str, v) -> np.ndarray:
@@ -81,23 +98,26 @@ class ChainState(Mapping):
         return f"ChainState({parts})"
 
     def save(self, path: str) -> str:
-        """Write every leaf to an ``.npz`` checkpoint (versioned; written to
-        a temporary name, then renamed).  Returns the path written."""
+        """Write every leaf to an ``.npz`` checkpoint in the JAX package's
+        format (versioned; written to a temporary name, then renamed).
+        Returns the path written."""
         if not path.endswith(".npz"):
             path = path + ".npz"
         leaves = _flatten(to_numpy(self))
         tmp = os.path.join(os.path.dirname(path) or ".",
                            ".tmp_" + os.path.basename(path))
         np.savez(tmp, __version__=np.asarray(self.CHECKPOINT_VERSION),
-                 __keys__=np.asarray([k for k, _ in leaves]),
+                 __treedef__=np.frombuffer(treedef_repr(self).encode(),
+                                           np.uint8),
                  **{f"leaf_{i}": a for i, (_, a) in enumerate(leaves)})
         os.replace(tmp, path)
         return path
 
     @classmethod
     def load(cls, path: str, like: "ChainState") -> "ChainState":
-        """Read a checkpoint onto ``like``'s device, checking its keys, leaf
-        shapes and dtypes against ``like``."""
+        """Read a checkpoint (the port's or the JAX package's) onto
+        ``like``'s device, checking its treedef, leaf count, and each leaf's
+        shape and dtype against ``like``."""
         want = _flatten(to_numpy(like))
         device = next(v for _, v in _flatten(like)).device
         with np.load(path) as data:
@@ -105,10 +125,15 @@ class ChainState(Mapping):
             if version > cls.CHECKPOINT_VERSION:
                 raise ValueError(f"checkpoint {path!r} has version {version}, "
                                  f"newer than {cls.CHECKPOINT_VERSION}")
-            keys = [str(k) for k in data["__keys__"]]
-            if keys != [k for k, _ in want]:
-                raise ValueError(f"checkpoint keys {keys} != expected "
-                                 f"{[k for k, _ in want]}")
+            saved = bytes(data["__treedef__"]).decode()
+            if saved != treedef_repr(like):
+                raise ValueError("checkpoint structure mismatch:\n"
+                                 f"  saved:    {saved}\n"
+                                 f"  expected: {treedef_repr(like)}")
+            n_leaves = len(data.files) - 2
+            if n_leaves != len(want):
+                raise ValueError(f"checkpoint has {n_leaves} leaves, "
+                                 f"expected {len(want)}")
             tree: dict = {}
             for i, (key, ref) in enumerate(want):
                 got = data[f"leaf_{i}"]

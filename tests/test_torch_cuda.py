@@ -1,14 +1,15 @@
-"""The port's CUDA kernel on the card (marker ``gpu``; skips without one).
+"""The port's CUDA kernels on the card (marker ``gpu``; skips without one).
 
 Imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-(``--noconftest``: tests/conftest.py configures JAX.)  The kernel is held
-against the port's plain PyTorch version, itself held against the JAX
-package by tests/test_torch_ddc_fm.py and test_torch_rx_chain.py.
-Tolerances: audio >= 90 dB (the chain's x3 gate); stats rtol 1e-5 with
-atol 1e-6 (FP32 sums in another order); phase word and tail exact.
+(``--noconftest``: tests/conftest.py configures JAX.)  Each kernel is
+held against the port's plain PyTorch version, itself held against the JAX
+package by tests/test_torch_ddc_fm.py, test_torch_ddc_body.py and
+test_torch_rx_chain*.py.  Tolerances: audio and z >= 90 dB (the chain's x3
+gate; QPSK 60 dB, BASELINE.json's bound); stats rtol 1e-5 with atol 1e-6
+(FP32 sums in another order); phase word and tail exact.
 """
 
 import numpy as np
@@ -17,7 +18,8 @@ import torch
 
 from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig
 from solid_dsp_tpu_torch.ops import cuda_ddc, nco
-from torch_parity import L_SMALL, make_blocks, require_cuda, run_torch, snr_db
+from torch_parity import (L_SMALL, make_blocks, make_qpsk_blocks,
+                          require_cuda, run_torch, snr_db)
 
 pytestmark = pytest.mark.gpu
 
@@ -95,10 +97,66 @@ def test_chain_on_card_matches_cpu_plain_chain():
     assert torch.equal(st["fir_tail"].cpu(), st_cpu["fir_tail"])
 
 
-def test_engine_torch_on_card_never_launches():
+def _counts():
+    return (cuda_ddc.ddc_fm_cuda.launches, cuda_ddc.ddc_body_cuda.launches,
+            cuda_ddc.ddc_body_unaligned_cuda.launches)
+
+
+@pytest.mark.parametrize("demod", ["fm", "am", "qpsk"])
+def test_engine_torch_on_card_never_launches(demod):
     dev = require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
     blocks = make_blocks(1, seed=14)
-    before = cuda_ddc.ddc_fm_cuda.launches
-    run_torch(blocks, device=dev, ddc_engine="torch")
+    before = _counts()
+    run_torch(blocks, device=dev, ddc_engine="torch", demod=demod)
     torch.cuda.synchronize()
-    assert cuda_ddc.ddc_fm_cuda.launches == before
+    assert _counts() == before
+
+
+def _dbody(device, n=64, M=4):
+    taps = RxChainConfig(fir_taps=n).design_taps()
+    return cuda_ddc.make_ddc_body(taps, nco.constrain(0.2), M, device)
+
+
+@pytest.mark.parametrize("n,M,L", [(64, 4, L_SMALL), (64, 4, L_SMALL + 52),
+                                   (64, 4, 32), (64, 4, 1000),
+                                   (48, 8, 512 * 9 + 8), (33, 2, 128 * 77),
+                                   (64, 32, 2048 * 3), (64, 32, 32 * 5)])
+def test_body_kernel_matches_plain_on_card(n, M, L):
+    """The DDC body kernel vs its plain version on the card: z >= 90 dB,
+    counted on K2's route for blocks that are a multiple of 64*M and on
+    K3's otherwise (short blocks included)."""
+    dev = require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    body = _dbody(dev, n=n, M=M)
+    x2, tail = (t.to(dev) for t in _inputs(17, L, n - M))
+    before = _counts()
+    z = body(x2, tail)
+    ref = cuda_ddc.ddc_body_torch(body, x2, tail)
+    torch.cuda.synchronize()
+    aligned = L % (64 * M) == 0
+    assert _counts() == (before[0], before[1] + aligned,
+                         before[2] + (not aligned))
+    assert z.shape == (2, L // M) and bool(torch.isfinite(z).all())
+    assert snr_db(z.cpu().numpy(), ref.cpu().numpy()) >= 90.0
+
+
+@pytest.mark.parametrize("demod,L", [("am", L_SMALL), ("qpsk", L_SMALL),
+                                     ("fm", L_SMALL + 52), ("none", 4100)])
+def test_body_chains_on_card_match_cpu_plain_chain(demod, L):
+    """AM, QPSK, unaligned FM and "none" chains through the body kernel vs
+    the port's plain chain on the CPU over 4 blocks: >= 90 dB (QPSK 60),
+    nco_theta and fir_tail equal, one body launch per block."""
+    dev = require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blocks = (make_qpsk_blocks(4, L=L, seed=15)[0] if demod == "qpsk"
+              else make_blocks(4, L=L, seed=15))
+    want, st_cpu = run_torch(blocks, demod=demod)
+    before = _counts()
+    got, st = run_torch(blocks, device=dev, demod=demod)
+    aligned = L % 256 == 0
+    assert _counts() == (before[0], before[1] + 4 * aligned,
+                         before[2] + 4 * (not aligned))
+    assert snr_db(got, want) >= (60.0 if demod == "qpsk" else 90.0)
+    assert int(st["nco_theta"]) == int(st_cpu["nco_theta"])
+    assert torch.equal(st["fir_tail"].cpu(), st_cpu["fir_tail"])

@@ -22,9 +22,11 @@ import torch
 
 from solid_dsp_tpu_torch.interop import state_from_numpy, state_to_numpy
 from solid_dsp_tpu_torch.models.rx_chain import (RxChain, RxChainConfig,
-                                                  make_rx_chain)
+                                                  make_rx_chain,
+                                                  make_rx_chain_stream)
 from solid_dsp_tpu_torch.streaming.state import ChainState
-from torch_parity import CONFIG4, make_blocks, run_jax, run_torch, snr_db
+from torch_parity import (CONFIG4, as_format, make_blocks, run_jax, run_torch,
+                          snr_db)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -113,9 +115,24 @@ def test_rx_chain_module_execute_block_and_reset():
     np.testing.assert_array_equal(torch.cat(a).numpy(), want)
 
 
+def test_rx_chain_module_keeps_ci16_int16():
+    """execute_block hands int16 IQ to the chain as int16 (numpy or torch,
+    any other dtype cast to it) and matches the chain's apply."""
+    blocks = as_format(make_blocks(2, seed=4), "ci16")
+    cfg = RxChainConfig(**{**CONFIG4, "input_format": "ci16"})
+    chain = RxChain(cfg)
+    a = [chain.execute_block(b) for b in blocks]
+    want, _ = run_torch(blocks, input_format="ci16")
+    np.testing.assert_array_equal(torch.cat(a).numpy(), want)
+    chain.reset()
+    again = chain.execute_block(torch.from_numpy(blocks[0].astype(np.int32)))
+    assert torch.equal(again, a[0])
+
+
 def test_port_never_imports_jax():
-    """Importing the port and running a chain block loads no jax module and
-    no module of the JAX package (fresh interpreter: this one has jax)."""
+    """Importing the port and running FM, QPSK and ci16 chain blocks loads
+    no jax module and no module of the JAX package (fresh interpreter: this
+    one has jax)."""
     code = (
         "import sys, numpy as np, torch\n"
         "from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig, "
@@ -124,6 +141,14 @@ def test_port_never_imports_jax():
         "x = torch.from_numpy(np.ones((2, 4096), np.float32))\n"
         "out, st = apply(init(), x)\n"
         "assert out.shape == (1024,)\n"
+        "init, apply = make_rx_chain(RxChainConfig(input_format='planar', "
+        "demod='qpsk'))\n"
+        "out, st = apply(init(), torch.randn(2, 4000))\n"
+        "assert out.shape == (1000,) and out.dtype == torch.complex64\n"
+        "init, apply = make_rx_chain(RxChainConfig(input_format='ci16'))\n"
+        "xi = torch.randint(-900, 900, (4100, 2), dtype=torch.int16)\n"
+        "out, st = apply(init(), xi)\n"
+        "assert out.shape == (1025,)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'solid_dsp_tpu' or m.startswith('solid_dsp_tpu.')]\n"
         "print('BAD', bad)\n")
@@ -136,18 +161,23 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("override", [
-    dict(demod="am"), dict(demod="qpsk"), dict(agc_mode="exact"),
-    dict(agc_mode="parallel"), dict(input_format="cf32"),
-    dict(input_format="ci16"), dict(fused_ddc="off"),
+    dict(agc_mode="exact"), dict(agc_mode="parallel"),
+    dict(agc_mode="exact", demod="qpsk"), dict(fused_ddc="off"),
+    dict(fused_ddc="off", demod="am", input_format="ci16"),
     dict(nco_mode="lut", fused_ddc="auto"), dict(impairment_bw=0.1),
-    dict(debug_checks=True), dict(epilogue="rotate"),
-    dict(fir_precision="default"), dict(dtype=torch.complex128),
-    dict(fir_taps=4), dict(fir_taps=300),
+    dict(debug_checks=True), dict(fir_precision="default"),
+    dict(dtype=torch.complex128), dict(fir_taps=4), dict(fir_taps=300),
 ])
 def test_unported_settings_raise_not_implemented(override):
-    """Each setting outside the collapsed FM branch names its ROADMAP item."""
+    """Each setting outside config 4's ported branches names its ROADMAP
+    item."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
         make_rx_chain(RxChainConfig(**{**CONFIG4, **override}))
+
+
+def test_rx_chain_stream_raises_not_implemented():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
+        make_rx_chain_stream(RxChainConfig(**CONFIG4), 4096)
 
 
 @pytest.mark.parametrize("override", [dict(agc_mode="fast"),
@@ -158,12 +188,17 @@ def test_invalid_settings_raise_value_error(override):
         make_rx_chain(RxChainConfig(**{**CONFIG4, **override}))
 
 
-@pytest.mark.parametrize("L", [1000, 4096 + 4, 128])
-def test_block_length_not_multiple_of_256_raises(L):
-    """The JAX chain takes its pieces path (K2) there: not ported."""
-    init, apply = make_rx_chain(RxChainConfig(**CONFIG4))
-    with pytest.raises(ValueError, match="multiple of 256"):
-        apply(init(), torch.zeros((2, L)))
+@pytest.mark.parametrize("fmt,shape", [("planar", (2, 1002)),
+                                       ("cf32", (1002,)), ("ci16", (1002, 2)),
+                                       ("planar", (2, 0))])
+def test_block_length_not_multiple_of_decimation_raises(fmt, shape):
+    init, apply = make_rx_chain(RxChainConfig(**{**CONFIG4,
+                                                 "input_format": fmt}))
+    x = torch.zeros(shape, dtype={"planar": torch.float32,
+                                  "cf32": torch.complex64,
+                                  "ci16": torch.int16}[fmt])
+    with pytest.raises(ValueError, match="multiple of the decimation"):
+        apply(init(), x)
 
 
 def test_engine_cuda_on_cpu_chain_raises():

@@ -25,8 +25,13 @@ CONFIG4 = dict(carrier_freq=0.2, decimation=4, fir_taps=64, agc_mode="block",
 
 
 def snr_db(got, ref) -> float:
-    got = np.asarray(got, np.float64)
-    ref = np.asarray(ref, np.float64)
+    """Signal-to-error ratio in dB; complex arrays count both parts."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    if np.iscomplexobj(got) or np.iscomplexobj(ref):
+        got = np.stack([got.real, got.imag])
+        ref = np.stack([ref.real, ref.imag])
+    got = got.astype(np.float64)
+    ref = ref.astype(np.float64)
     err = float(np.sum((got - ref) ** 2))
     return 10.0 * np.log10(float(np.sum(ref ** 2)) / max(err, 1e-300))
 
@@ -42,6 +47,33 @@ def make_blocks(n_blocks: int, L: int = L_SMALL, seed: int = 7):
                                          + 0.3))
         out.append(np.stack([x.real, x.imag]).astype(np.float32))
     return out
+
+
+def make_qpsk_blocks(n_blocks: int, L: int = L_SMALL, seed: int = 7,
+                     offset: float = 5e-4, sps: int = 32):
+    """Planar (2, L) f32 QPSK blocks: Gray symbols held for ``sps`` input
+    samples, mixed to the carrier 0.2 rad/sample plus ``offset``, with
+    complex noise.  Returns (blocks, symbols)."""
+    rng = np.random.default_rng(seed)
+    n = n_blocks * L
+    gray = np.array([1 + 1j, -1 + 1j, 1 - 1j, -1 - 1j]) / np.sqrt(2.0)
+    sym = rng.integers(0, 4, -(-n // sps))
+    x = 0.5 * np.repeat(gray[sym], sps)[:n] * np.exp(
+        1j * ((0.2 + offset) * np.arange(n) + 0.4))
+    x += 0.05 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    blocks = [np.stack([x[b * L:(b + 1) * L].real, x[b * L:(b + 1) * L].imag]
+                       ).astype(np.float32) for b in range(n_blocks)]
+    return blocks, sym
+
+
+def as_format(blocks, input_format: str):
+    """Planar (2, L) f32 blocks in another ingest format: complex64 (L,)
+    for "cf32", interleaved int16 (L, 2) for "ci16" (scaled by 16000)."""
+    if input_format == "cf32":
+        return [(b[0] + 1j * b[1]).astype(np.complex64) for b in blocks]
+    if input_format == "ci16":
+        return [np.round(b.T * 16000.0).astype(np.int16) for b in blocks]
+    return blocks
 
 
 def run_jax(blocks, state=None, **overrides):
