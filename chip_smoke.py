@@ -2,16 +2,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths, the config-4 receive chain of bench.py and
-BASELINE.json (solid_dsp_tpu_torch.models.rx_chain: 16M-sample planar f32
-blocks, 64-tap NCO-folded bandpass FIR decimating by 4, block AGC, FM, QPSK
-and AM demodulation), through the kernels built from
-solid_dsp_tpu_torch/csrc/: the fused DDC+FM kernel (ddc_fm.cu) and the DDC
-body kernel (ddc_body.cu), on its aligned (K2) and unaligned (K3) routes.
+Drives the port's main paths through the kernels built from
+solid_dsp_tpu_torch/csrc/:
+
+* the config-4 receive chain of bench.py and BASELINE.json
+  (solid_dsp_tpu_torch.models.rx_chain: 16M-sample planar f32 blocks,
+  64-tap NCO-folded bandpass FIR decimating by 4, block AGC, FM, QPSK and AM
+  demodulation): the fused DDC+FM kernel (ddc_fm.cu) and the DDC body
+  kernel (ddc_body.cu), on its aligned (K2) and unaligned (K3) routes;
+* config 5, the 256-channel polyphase filterbank of BASELINE.json and
+  bench_all.py's channelizer rows (M = 256, K = 8, blocks of 2^22 complex
+  samples): PolyphaseChannelizer through the fused channelizer kernel (K4,
+  channelizer.cu) and the front-end kernel (K5, channelizer.cu),
+  ChannelBank through K4 and the IIR bank kernel (K6, iir_bank.cu), and
+  SpectrumMonitor through K4.
+
 Phases, one line each:
 
   1. device: GPU name and power limit, torch and CUDA versions;
-  2. build: the extension of both kernels from the repository's sources;
+  2. build: every kernel from the repository's sources (one nvcc each, all
+     at once), with ptxas's registers and spills;
   3. FM kernel vs its plain PyTorch version on the card, L = 2^24 (f32);
   4. FM kernel vs the plain version in float64 on the CPU, L = 2^20;
   5. FM chain (kernel) vs chain (plain version) over 4 blocks with the state
@@ -23,11 +33,27 @@ Phases, one line each:
   9. QPSK, AM and unaligned-FM chains (kernel vs plain version) over 4
      blocks each with the state carried, launches counted: QPSK symbols
      and carrier offset, the AM envelope's tone, the FM tone read back;
- 10. throughput of the QPSK and AM chains with CUDA events over 20 blocks.
+ 10. throughput of the QPSK and AM chains with CUDA events over 20 blocks;
+ 11. K4 vs its plain version on the card, x3 and fast, and x3 vs the plain
+     version in float64 on the CPU at 2^18;
+ 12. K5 vs its plain version, beside one grouped conv1d (the library call);
+ 13. K6 vs its plain version at T = 2^14, C = 256, shared and per-channel
+     sections, two blocks with the state carried;
+ 14. PolyphaseChannelizer(256, 8) over 4 blocks, fused (K4, x3) then pallas
+     (K5), against the "xla" formulation and the plain versions, launches
+     counted; a +c/M tone lands in channel c;
+ 15. ChannelBank(256, fused, AGC) over 4 blocks, kernels vs plain, launches
+     counted; SpectrumMonitor(256, fused) events vs the plain run;
+ 16. throughput in Msamples/s of input over 20 blocks with CUDA events
+     (fused x3, fused fast, "xla", ChannelBank), host enqueue time, and the
+     device's busy time from torch.profiler with the idle share it leaves.
 
-Then the kernels' JSON line, the nvidia-smi line and, last,
-{"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Needs
-one CUDA GPU; imports neither jax nor solid_dsp_tpu.
+Then the kernels' JSON line (each kernel's launches on the main paths, its
+time, its plain version's, the library call's where one PyTorch call
+computes the same function, and its bound: the larger of its bytes over
+3.35 TB/s and its operations over the peak of their type), the nvidia-smi
+line and, last, {"ok": true, "device": {...}}.  Any failed phase exits
+non-zero.  Needs one CUDA GPU; imports neither jax nor solid_dsp_tpu.
 """
 
 from __future__ import annotations
@@ -48,6 +74,7 @@ L_F64 = 1 << 20
 N_CHAIN = 4               # blocks of the chain comparison
 N_TIMED = 20              # blocks of the throughput phase
 SEED = 0
+DEVICE = "cuda"
 # the JAX package's own gates (tests/test_rx_chain_fused.py, test_epilogue.py)
 MIN_SNR_DB = 90.0
 ENERGY_RTOL = 1e-5
@@ -58,6 +85,21 @@ MAX_SER = 1e-3
 QPSK_OFFSET = 5e-4        # rad per input sample beyond the 0.2 carrier
 F_HAT_ATOL = 1e-6         # rad per decimated sample, ~3 FFT bins at 2^22
 AM_TONE = 1.0 / 4096      # cycles per input sample: bin T / 1024 of a block
+# config 5: bench_all.py:386-403, BASELINE.json config 5
+M5, K5 = 256, 8
+L5 = 1 << 22              # complex samples a block: U = 16384 frame rows
+L5_F64 = 1 << 18
+T_IIR = 1 << 14           # ChannelBank's rows a block at M = 256
+N_MON = 16                # SpectrumMonitor blocks
+N_PLAIN_BANK = 2          # blocks a timed turn of the plain ChannelBank
+FRONTEND_ATOL = 2e-5      # x max|Y| (tests/test_pallas.py:42)
+IIR_ATOL = 3e-5           # tests/test_pallas.py:152
+FAST_MIN_SNR_DB = 45.0    # tests/test_models.py:582
+PEAK_DB_ATOL = 0.05       # event peaks, kernel vs plain (fast mode)
+# H100 SXM peaks (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 def fail(msg: str):
@@ -146,18 +188,378 @@ def cuda_ms(fn, n: int) -> float:
     return e0.elapsed_time(e1) / n
 
 
+def cuda_ms_once(fn) -> float:
+    """ms of one call of fn(), CUDA events, nothing warm but the build."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def bound_ms(nbytes: float, flops: float, peak: float):
+    """(ms, "bytes" | "operations"): the larger of the bytes over the
+    memory rate and the operations over ``peak``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain, bound,
+                 library=None):
+    return {"name": name, "route": "cuda",
+            "source": f"solid_dsp_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library}
+
+
+def cnoise(rng, shape, scale=1.0) -> np.ndarray:
+    """Complex Gaussian noise, complex64."""
+    return (scale * (rng.standard_normal(shape)
+                     + 1j * rng.standard_normal(shape))).astype(np.complex64)
+
+
+def tone(c: int, L: int, amp: float = 1.0, start: int = 0) -> np.ndarray:
+    """A tone at +c/M5 of the input rate: the centre of channel c."""
+    k = np.arange(start, start + L)
+    return (amp * np.exp(2j * np.pi * c / M5 * k)).astype(np.complex64)
+
+
+def tone_ok(Y: torch.Tensor, c: int):
+    """(ok, ratio): the mean |Y| past the transient peaks in channel c, at
+    least 20 times any other channel's (tests/test_pallas.py:70-84)."""
+    power = Y[2 * K5:].abs().mean(dim=0).cpu().numpy()
+    ratio = float(power[c] / np.delete(power, c).max())
+    return int(power.argmax()) == c and ratio > 20.0, ratio
+
+
+def config5(dev, smi) -> list:
+    """Phases 11-16: config 5 at full width.  Returns the kernels' entries
+    of K4, K5 and K6."""
+    from solid_dsp_tpu_torch.models.channel_bank import (ChannelBank,
+                                                         design_channel_sos)
+    from solid_dsp_tpu_torch.models.channelizer import (PolyphaseChannelizer,
+                                                        channelizer_taps)
+    from solid_dsp_tpu_torch.models.monitor import SpectrumMonitor
+    from solid_dsp_tpu_torch.ops import cuda_chan, cuda_ddc, cuda_iir
+
+    counters = {"channelizer": cuda_chan.chan_fused_cuda,
+                "pfb_frontend": cuda_chan.pfb_frontend_cuda,
+                "iir_bank": cuda_iir.iir_bank_cuda,
+                "ddc_fm": cuda_ddc.ddc_fm_cuda,
+                "ddc_body": cuda_ddc.ddc_body_cuda,
+                "ddc_body_unaligned": cuda_ddc.ddc_body_unaligned_cuda}
+    launches = {k: 0 for k in ("channelizer", "pfb_frontend", "iir_bank")}
+
+    def main_path(run):
+        """Run one main path with every count at 0 just before it; add its
+        counts of the config-5 kernels; return run()'s result and them."""
+        for c in counters.values():
+            c.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        for k in launches:
+            launches[k] += counts[k]
+        return out, counts
+
+    rng = np.random.default_rng(SEED + 5)
+    U = L5 // M5
+    taps = channelizer_taps(M5, K5)
+
+    # 11. K4 vs plain on the card, x3 and fast; x3 vs float64 on the CPU
+    x = cnoise(rng, L5)
+    xf = torch.from_numpy(np.stack([x.real, x.imag])).to(dev).reshape(2, U, M5)
+    tail = torch.from_numpy(rng.standard_normal((2, 8, M5)).astype(
+        np.float32)).to(dev)
+    chan = {}
+    for mode in ("x3", "fast"):
+        body = cuda_chan.make_chan_body(taps, M5, mode, dev)
+        yk = cuda_chan.chan_fused_cuda(body, xf, tail)
+        yp = cuda_chan.chan_fused_torch(body, xf, tail)
+        torch.cuda.synchronize()
+        chan[mode] = (body, yk, yp)
+    yx3 = chan["x3"][2].cpu().numpy()
+    stats11 = {}
+    for mode, (body, yk, yp) in chan.items():
+        yk, yp = yk.cpu().numpy(), yp.cpu().numpy()
+        snr_same = snr_db(yk, yp)
+        snr_x3 = snr_db(yk, yx3)
+        kms = cuda_ms(lambda: cuda_chan.chan_fused_cuda(body, xf, tail), 20)
+        pms = cuda_ms(lambda: cuda_chan.chan_fused_torch(body, xf, tail), 20)
+        flops = 8 * U * M5 * M5 + 4 * (K5 + 1) * U * M5
+        nbytes = 4 * (2 * L5 + 16 * M5 + (K5 + 1) * M5 + 2 * M5 * M5
+                      + 2 * U * M5)
+        # x3 is f32-grade: three bf16 tensor-core passes at the least
+        bnd = bound_ms(nbytes, flops * (3 if mode == "x3" else 1),
+                       BF16_FLOPS)
+        stats11[mode] = (float(np.max(np.abs(yk - yp))), kms, pms, bnd)
+        gate = MIN_SNR_DB if mode == "x3" else FAST_MIN_SNR_DB
+        print(f"[11 channelizer kernel vs plain, {mode}, M=256 K=8 L=2^22] "
+              f"{snr_same:.1f} dB vs plain {mode}, {snr_x3:.1f} dB vs plain "
+              f"x3 (gate {gate}), max |err| {stats11[mode][0]:.3g}; kernel "
+              f"{kms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}) | {smi}", flush=True)
+        if not (snr_x3 >= gate and snr_same >= MIN_SNR_DB
+                and np.all(np.isfinite(yk)) and yk.shape == (U, 2 * M5)):
+            fail(f"phase 11: the channelizer kernel disagrees ({mode})")
+    U64 = L5_F64 // M5
+    xf1 = xf[:, :U64].contiguous()
+    yk1 = cuda_chan.chan_fused_cuda(chan["x3"][0], xf1, tail)
+    body64 = cuda_chan.make_chan_body(taps, M5, "x3", "cpu", torch.float64)
+    y64 = cuda_chan.chan_fused_torch(body64, xf1.cpu().double(),
+                                     tail.cpu().double())
+    snr11 = snr_db(yk1.cpu().numpy(), y64.numpy())
+    print(f"[11 channelizer kernel vs plain f64 (CPU), x3, L=2^18] "
+          f"{snr11:.1f} dB (gate {MIN_SNR_DB})", flush=True)
+    if not snr11 >= MIN_SNR_DB:
+        fail("phase 11: the channelizer kernel disagrees with float64")
+
+    # 12. K5 vs plain, and one grouped conv1d as the library call
+    h_il = torch.from_numpy(cuda_chan.pfb_frontend_taps(taps, M5)).to(dev)
+    xc = torch.from_numpy(x).to(dev)
+    tail_c = torch.from_numpy(cnoise(rng, (K5, M5))).to(dev)
+    zk = cuda_chan.pfb_frontend_cuda(xc, h_il, tail_c, M5, K5)
+    zp = cuda_chan.pfb_frontend_torch(xc, h_il, tail_c, M5, K5)
+    Yk = torch.fft.fft(zk, dim=-1).cpu().numpy()
+    Yp = torch.fft.fft(zp, dim=-1).cpu().numpy()
+    err12 = float(np.max(np.abs(Yk - Yp)))
+    lim12 = FRONTEND_ATOL * float(np.max(np.abs(Yp)))
+    max_abs12 = float((zk - zp).abs().max())
+    k12 = cuda_ms(lambda: cuda_chan.pfb_frontend_cuda(xc, h_il, tail_c, M5,
+                                                      K5), 20)
+    p12 = cuda_ms(lambda: cuda_chan.pfb_frontend_torch(xc, h_il, tail_c, M5,
+                                                       K5), 20)
+    # grouped conv1d over the 2M real lanes on the transposed layout: lane
+    # l reads rows u .. u + K of [tail; x] with the taps reversed
+    xp_t = torch.cat([torch.view_as_real(tail_c).reshape(K5, 2 * M5),
+                      torch.view_as_real(xc).reshape(U, 2 * M5)]).T[None]
+    xp_t = xp_t.contiguous()
+    w12 = h_il.flip(0).T[:, None, :].contiguous()            # (2M, 1, K+1)
+    zl = torch.nn.functional.conv1d(xp_t, w12, groups=2 * M5)[0].T
+    snr_lib12 = snr_db(zl.cpu().numpy(),
+                       torch.view_as_real(zp).reshape(U, 2 * M5).cpu().numpy())
+    l12 = cuda_ms(lambda: torch.nn.functional.conv1d(xp_t, w12,
+                                                     groups=2 * M5), 20)
+    b12 = bound_ms(8 * L5 + 8 * K5 * M5 + 8 * (K5 + 1) * M5 + 8 * U * M5,
+                   4 * (K5 + 1) * U * M5, FP32_FLOPS)
+    print(f"[12 front-end kernel vs plain, M=256 K=8 L=2^22] channels max "
+          f"|err| {err12:.3g} (gate {lim12:.3g}), z max |err| "
+          f"{max_abs12:.3g}; kernel {k12:.4f} ms, plain {p12:.4f} ms, "
+          f"library grouped conv1d {l12:.4f} ms ({snr_lib12:.1f} dB vs "
+          f"plain), bound {b12[0]:.4f} ms ({b12[1]}) | {smi}", flush=True)
+    if not (err12 <= lim12 and np.all(np.isfinite(Yk))):
+        fail("phase 12: the front-end kernel disagrees")
+
+    # 13. K6 vs plain, T = 2^14, C = 256, two blocks with the state carried
+    xi = torch.from_numpy(cnoise(rng, (2 * T_IIR, M5))).to(dev)
+    stats13 = {}
+    for label, sos in (
+            ("shared", design_channel_sos()),
+            ("per-channel", np.stack([design_channel_sos(0.1 + 0.3 * c / M5)
+                                      for c in range(M5)], axis=-1))):
+        sos_l = cuda_iir.iir_bank_lanes(sos, M5, dev)
+        st_k = st_p = cuda_iir.iir_bank_init(sos.shape[0], M5, dev)
+        outs_k, outs_p = [], []
+        for blk in (xi[:T_IIR], xi[T_IIR:]):
+            y, st_k = cuda_iir.iir_bank_cuda(sos_l, st_k, blk)
+            outs_k.append(y)
+            y, st_p = cuda_iir.iir_bank_torch(sos_l, st_p, blk)
+            outs_p.append(y)
+        yk = torch.cat(outs_k).cpu().numpy()
+        yp = torch.cat(outs_p).cpu().numpy()
+        err13 = max(float(np.max(np.abs(yk - yp))),
+                    float((st_k - st_p).abs().max()))
+        blk = xi[:T_IIR]
+        st0 = cuda_iir.iir_bank_init(sos.shape[0], M5, dev)
+        k13 = cuda_ms(lambda: cuda_iir.iir_bank_cuda(sos_l, st0, blk), 20)
+        p13 = cuda_ms_once(lambda: cuda_iir.iir_bank_torch(sos_l, st0, blk))
+        S = sos.shape[0]
+        b13 = bound_ms(16 * T_IIR * M5 + 32 * S * M5 + 40 * S * M5,
+                       9 * S * 2 * M5 * T_IIR, FP32_FLOPS)
+        stats13[label] = (err13, k13, p13, b13)
+        print(f"[13 iir bank kernel vs plain, {label}, T=2^14 C=256 S={S}, "
+              f"2 blocks] max |err| {err13:.3g} (gate {IIR_ATOL}); kernel "
+              f"{k13:.4f} ms, plain {p13:.1f} ms (once), bound "
+              f"{b13[0]:.4f} ms ({b13[1]}) | {smi}", flush=True)
+        if not (err13 <= IIR_ATOL and np.all(np.isfinite(yk))):
+            fail(f"phase 13: the IIR bank kernel disagrees ({label})")
+
+    # 14. PolyphaseChannelizer over 4 blocks: fused (K4) and pallas (K5)
+    blocks = [torch.from_numpy(cnoise(rng, L5)).to(dev)
+              for _ in range(N_CHAIN)]
+    ref = PolyphaseChannelizer(M5, K5, backend="xla", device=dev)
+    y_ref = torch.cat([ref.execute_block(b) for b in blocks]).cpu().numpy()
+    for backend, key in (("fused", "channelizer"), ("pallas", "pfb_frontend")):
+        kern = PolyphaseChannelizer(M5, K5, backend=backend, precision="x3",
+                                    device=dev)
+        y_k, counts = main_path(
+            lambda: torch.cat([kern.execute_block(b) for b in blocks]))
+        plain = PolyphaseChannelizer(M5, K5, backend=backend,
+                                     precision="x3", device=dev,
+                                     engine="torch")
+        y_p = torch.cat([plain.execute_block(b) for b in blocks])
+        y_k, y_p = y_k.cpu().numpy(), y_p.cpu().numpy()
+        snr_ref, snr_plain = snr_db(y_k, y_ref), snr_db(y_k, y_p)
+        tails = torch.equal(kern.state, plain.state)
+        flat = (torch.complex(kern.state[0], kern.state[1]).reshape(-1)
+                if backend == "fused" else kern.state.reshape(-1))
+        tails = tails and torch.equal(flat[-(K5 * M5 - 1):], ref.state)
+        c = 37 if backend == "fused" else 201
+        ok_tone, ratio = tone_ok(PolyphaseChannelizer(
+            M5, K5, backend=backend, device=dev).execute_block(
+                torch.from_numpy(tone(c, L5)).to(dev)), c)
+        print(f"[14 PolyphaseChannelizer {backend} x3, {N_CHAIN} x 2^22] "
+              f"{snr_ref:.1f} dB vs xla, {snr_plain:.1f} dB vs plain (gate "
+              f"{MIN_SNR_DB}), tails equal {tails}, launches {key} "
+              f"{counts[key]}, tone in channel {c} {ratio:.0f}x the others",
+              flush=True)
+        if not (snr_ref >= MIN_SNR_DB and snr_plain >= MIN_SNR_DB and tails
+                and counts[key] == N_CHAIN and ok_tone
+                and y_k.shape == (N_CHAIN * U, M5)):
+            fail(f"phase 14: PolyphaseChannelizer({backend}) is wrong")
+
+    # 15. ChannelBank over 4 blocks, kernels vs plain; SpectrumMonitor
+    bk = ChannelBank(M5, backend="fused", agc_bandwidth=0.05, device=dev)
+    y_k, counts = main_path(
+        lambda: torch.cat([bk.execute_block(b) for b in blocks]))
+    bp = ChannelBank(M5, backend="fused", agc_bandwidth=0.05, device=dev,
+                     engine="torch")
+    y_p = torch.cat([bp.execute_block(b) for b in blocks])
+    snr15 = snr_db(y_k.cpu().numpy(), y_p.cpu().numpy())
+    gain_err = float((bk.state["agc"]["gain"] - bp.state["agc"]["gain"]
+                      ).abs().max() / bp.state["agc"]["gain"].abs().max())
+    print(f"[15 ChannelBank fused + AGC, {N_CHAIN} x 2^22] {snr15:.1f} dB vs "
+          f"plain (gate {MIN_SNR_DB}), gain rel err {gain_err:.3g}, launches "
+          f"channelizer {counts['channelizer']} iir_bank "
+          f"{counts['iir_bank']}", flush=True)
+    if not (snr15 >= MIN_SNR_DB and counts["channelizer"] == N_CHAIN
+            and counts["iir_bank"] == N_CHAIN
+            and bool(torch.isfinite(y_k).all())):
+        fail("phase 15: ChannelBank through the kernels is wrong")
+
+    mon_blocks = []
+    for b in range(N_MON):
+        xm = cnoise(rng, L5, 0.05)
+        if 2 <= b < 6:
+            xm += tone(40, L5, 0.1, b * L5)
+        if 8 <= b < 11:
+            xm += tone(200, L5, 0.07, b * L5)
+        mon_blocks.append(torch.from_numpy(xm).to(dev))
+    mon_k = SpectrumMonitor(M5, backend="fused", device=dev)
+    _, counts = main_path(lambda: [mon_k.execute_block(b) for b in mon_blocks])
+    mon_p = SpectrumMonitor(M5, backend="fused", device=dev, engine="torch")
+    for b in mon_blocks:
+        mon_p.execute_block(b)
+
+    def key(e):
+        return (e["channel"], e["start_block"], e["end_block"])
+
+    same = ([key(e) for e in mon_k.events] == [key(e) for e in mon_p.events]
+            and all(abs(a["peak_rel_db"] - b["peak_rel_db"]) <= PEAK_DB_ATOL
+                    for a, b in zip(mon_k.events, mon_p.events)))
+    print(f"[15 SpectrumMonitor fused, {N_MON} x 2^22] events {mon_k.events}"
+          f", plain run's {mon_p.events}, same {same}, launches channelizer "
+          f"{counts['channelizer']}", flush=True)
+    if not (same and sorted(e["channel"] for e in mon_k.events) == [40, 200]
+            and counts["channelizer"] == N_MON):
+        fail("phase 15: SpectrumMonitor's events are wrong")
+
+    # 16. throughput (turns plain, kernel, kernel, plain), host enqueue,
+    # device busy time
+    def rate(obj, n_blocks):
+        for b in blocks[:2]:                                 # warm-up
+            obj.execute_block(b)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        for i in range(n_blocks):
+            obj.execute_block(blocks[i % N_CHAIN])
+        e1.record()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n_blocks
+        torch.cuda.synchronize()
+        return n_blocks * L5 / (e0.elapsed_time(e1) * 1e3), host_ms
+
+    def busy_ms(obj, n_blocks=10):
+        """(device ms a block, its three largest kernels as text): the
+        kernels' rows of the profile only (an op's row repeats the time of
+        the kernels it launched)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        for b in blocks[:2]:
+            obj.execute_block(b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(n_blocks):
+                obj.execute_block(blocks[i % N_CHAIN])
+            torch.cuda.synchronize()
+        rows = sorted(((e.self_device_time_total / 1e3 / n_blocks, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), reverse=True)
+        top = ", ".join(f"{k[:40]} {t:.4f}" for t, k in rows[:3])
+        return sum(t for t, _ in rows), top
+
+    for label, make in (
+            ("fused x3", lambda eng: PolyphaseChannelizer(
+                M5, K5, backend="fused", precision="x3", device=dev,
+                engine=eng)),
+            ("fused fast", lambda eng: PolyphaseChannelizer(
+                M5, K5, backend="fused", precision="fast", device=dev,
+                engine=eng)),
+            ("xla", lambda eng: PolyphaseChannelizer(
+                M5, K5, backend="xla", device=dev, engine=eng)),
+            ("ChannelBank", lambda eng: ChannelBank(
+                M5, backend="fused", agc_bandwidth=0.05, device=dev,
+                engine=eng))):
+        n_plain = N_PLAIN_BANK if label == "ChannelBank" else N_TIMED
+        p1 = rate(make("torch"), n_plain)
+        k1 = rate(make("auto"), N_TIMED)
+        k2 = rate(make("auto"), N_TIMED)
+        p2 = rate(make("torch"), n_plain)
+        busy, top = busy_ms(make("auto"))
+        wall = L5 / (0.5 * (k1[0] + k2[0]) * 1e3)        # ms a block
+        print(f"[16 throughput {label}, 2^22-sample blocks] with kernels "
+              f"{k1[0]:.1f} / {k2[0]:.1f} Msamples/s (host enqueue "
+              f"{k1[1]:.4f} / {k2[1]:.4f} ms a block, device busy "
+              f"{busy:.4f} ms a block, idle {max(0.0, 1 - busy / wall):.0%}"
+              f"; largest kernels, ms a block: {top}), plain {p1[0]:.1f} / "
+              f"{p2[0]:.1f} Msamples/s over {n_plain} blocks | {smi}",
+              flush=True)
+
+    b11 = stats11["x3"]
+    e13 = stats13["shared"]
+    return [
+        kernel_entry("channelizer", "channelizer.cu",
+                     "solid_dsp_tpu/ops/pallas_kernels.py:384",
+                     launches["channelizer"], b11[0], b11[1], b11[2], b11[3]),
+        kernel_entry("pfb_frontend", "channelizer.cu",
+                     "solid_dsp_tpu/ops/pallas_kernels.py:90",
+                     launches["pfb_frontend"], max_abs12, k12, p12, b12, l12),
+        kernel_entry("iir_bank", "iir_bank.cu",
+                     "solid_dsp_tpu/ops/pallas_kernels.py:239",
+                     launches["iir_bank"], e13[0], e13[1], e13[2], e13[3]),
+    ]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
     from solid_dsp_tpu_torch.models import qpsk as qpsk_ops
     from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig, make_rx_chain
-    from solid_dsp_tpu_torch.ops import cuda_ddc
+    from solid_dsp_tpu_torch.ops import cuda_build, cuda_ddc
     from solid_dsp_tpu_torch.ops import ddc as ddc_ops
     from solid_dsp_tpu_torch.ops.nco import constrain
 
     torch.backends.cuda.matmul.allow_tf32 = False   # TF32 would fail 90 dB
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    dev = torch.device(DEVICE, 0)
 
     # 1. device
     smi = subprocess.run(
@@ -170,9 +572,14 @@ def main() -> None:
 
     # 2. build
     t = time.perf_counter()
-    cuda_ddc.build()
-    print(f"[2 build] ddc extension (ddc_fm.cu, ddc_body.cu) built in "
+    cuda_build.build()
+    print(f"[2 build] {', '.join(cuda_build.SOURCES)} built in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
+    for source, log in cuda_build.build_logs().items():
+        usage = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
+                 if "Used" in ln or "spill" in ln]
+        print(f"[2 build] {source}: {' | '.join(usage) or 'built earlier'}",
+              flush=True)
 
     cfg = RxChainConfig(carrier_freq=0.2, decimation=4, fir_taps=64,
                         agc_mode="block", demod="fm", nco_mode="exact",
@@ -307,8 +714,20 @@ def main() -> None:
         if route != "short":
             k7 = cuda_ms(lambda: kernel(dbody, x, tail), 20)
             p7 = cuda_ms(lambda: cuda_ddc.ddc_body_torch(dbody, x, tail), 20)
-            body_stats[route] = (max_abs7, k7, p7)
-            timed = f"; kernel {k7:.4f} ms, plain {p7:.4f} ms"
+            # the library call: one strided conv1d over the tail and the
+            # block as 2 in-channels, the folded complex taps as a
+            # (2, 2, n) weight (TF32 off)
+            x_ext = torch.cat([tail, x], dim=1)[None]
+            h = dbody.taps
+            w = torch.stack([torch.stack([h[0], -h[1]]),
+                             torch.stack([h[1], h[0]])])
+            zl = torch.nn.functional.conv1d(x_ext, w, stride=M)[0]
+            snr_lib = snr_db(zl.cpu().numpy(), zp)
+            l7 = cuda_ms(lambda: torch.nn.functional.conv1d(x_ext, w,
+                                                            stride=M), 20)
+            body_stats[route] = (max_abs7, k7, p7, l7, L)
+            timed = (f"; kernel {k7:.4f} ms, plain {p7:.4f} ms, library "
+                     f"conv1d {l7:.4f} ms ({snr_lib:.1f} dB vs plain)")
         print(f"[7 body kernel vs plain f32, {route}, L={L}] z {snr7:.1f} dB "
               f"(gate {MIN_SNR_DB}), max |err| {max_abs7:.3g}, energy rel "
               f"err {err_e:.3g} (gate {ENERGY_RTOL}), one launch {once}"
@@ -443,28 +862,23 @@ def main() -> None:
           f"kernel {rates['am'][0]:.1f} / {rates['am'][1]:.1f}, plain "
           f"{rates['am'][2]:.1f} / {rates['am'][3]:.1f} | {smi}", flush=True)
 
-    kernels = [{
-        "name": "ddc_fm",
-        "route": "cuda",
-        "source": "solid_dsp_tpu_torch/csrc/ddc_fm.cu",
-        "replaces": "solid_dsp_tpu/ops/pallas_ddc.py:590",
-        "launches": launches_main["ddc_fm"],
-        "max_abs_err": max_abs,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]
+    # bounds: each input read once, each output written once; the FIR's
+    # 8 FLOPs a complex tap a decimated output in FP32 (x3)
+    n, D = cfg.fir_taps, cfg.fir_taps - M
+    T = L_FULL // M
+    kernels = [kernel_entry(
+        "ddc_fm", "ddc_fm.cu", "solid_dsp_tpu/ops/pallas_ddc.py:590",
+        launches_main["ddc_fm"], max_abs, k_ms, p_ms,
+        bound_ms(4 * (2 * L_FULL + 2 * D + 2 * n + T + 5), 8 * n * T,
+                 FP32_FLOPS))]
     for route, line in (("ddc_body", 359), ("ddc_body_unaligned", 135)):
-        err, kms, pms = body_stats[route]
-        kernels.append({
-            "name": route,
-            "route": "cuda",
-            "source": "solid_dsp_tpu_torch/csrc/ddc_body.cu",
-            "replaces": f"solid_dsp_tpu/ops/pallas_ddc.py:{line}",
-            "launches": launches_main[route],
-            "max_abs_err": err,
-            "ms": kms,
-            "plain_ms": pms,
-        })
+        err, kms, pms, lms, L = body_stats[route]
+        kernels.append(kernel_entry(
+            route, "ddc_body.cu", f"solid_dsp_tpu/ops/pallas_ddc.py:{line}",
+            launches_main[route], err, kms, pms,
+            bound_ms(4 * (2 * L + 2 * D + 2 * n + 2 * (L // M)),
+                     8 * n * (L // M), FP32_FLOPS), lms))
+    kernels += config5(dev, smi)
     if not all(k["launches"] > 0 for k in kernels):
         fail("a kernel of the main paths was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,9 +8,16 @@ has the same path.  The port imports ``torch`` and numpy and never ``jax`` or
 
 Ported so far: the config-4 receive chain in all its branches
 (``models.rx_chain``: FM, QPSK, AM or none; planar, cf32 or ci16 input),
-with the fused DDC + FM kernel and the DDC body kernel (``ops.cuda_ddc``).
+with the fused DDC + FM kernel and the DDC body kernel (``ops.cuda_ddc``);
+config 5, the polyphase channelizer (``models.channelizer``: the
+commutator form, the fused kernel and the front-end kernel
+``ops.cuda_chan``; the synthesis and 2x-oversampled banks),
+``models.channel_bank.ChannelBank`` with the IIR bank kernel
+(``ops.cuda_iir``) and ``models.monitor.SpectrumMonitor``.  Entry points
+run on the CUDA card unless the caller passes ``device="cpu"``
+(``device.py``).
 """
 
 __version__ = "0.1.0"
 
-from . import design, interop, models, ops, streaming  # noqa: F401
+from . import design, device, interop, models, ops, streaming  # noqa: F401

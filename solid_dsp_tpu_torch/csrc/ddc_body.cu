@@ -124,14 +124,16 @@ static size_t ddc_body_smem_bytes(int n, int M, int threads) {
 }
 
 // x (2, L), tail (2, n - M), taps (2, n) [re row; im row], z (2, L / M):
-// f32, contiguous, on the device.  Launches on `stream`, does not
-// synchronise, returns the launch's cudaError_t.
+// f32, contiguous, on the device.  Launches on `stream` of card `device`,
+// does not synchronise, returns the launch's cudaError_t.
 extern "C" int ddc_body_launch(const float* x, const float* tail, const float* taps,
                                float* z, long long L, int n, int M, int threads,
-                               cudaStream_t stream) {
+                               int device, cudaStream_t stream) {
   if (M <= 0 || n <= M || L % M != 0 || L / M <= 0 || threads < 32 ||
       threads > 1024 || threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
   const long long T = L / M;
   const int tbo = threads * kOutputsPerThread;
   const int U = tbo + (n + M - 1) / M;

@@ -172,15 +172,18 @@ static size_t ddc_fm_smem_bytes(int n, int M, int threads) {
 
 // x (2, L), tail (2, n - M), taps (2, n) [re row; im row]: f32, contiguous,
 // on the device.  audio (L / M,), energy (blocks,), edges (4,) =
-// [z_last re, z_last im, z_first re, z_first im].  Launches on `stream`,
-// does not synchronise, returns the launch's cudaError_t.
+// [z_last re, z_last im, z_first re, z_first im].  Launches on `stream` of
+// card `device`, does not synchronise, returns the launch's cudaError_t.
 extern "C" int ddc_fm_launch(const float* x, const float* tail, const float* taps,
                              float* audio, float* energy, float* edges,
                              long long L, int n, int M, int threads,
-                             float cd, float sd, float scale, cudaStream_t stream) {
+                             float cd, float sd, float scale, int device,
+                             cudaStream_t stream) {
   if (M <= 0 || n <= M || L % M != 0 || L / M <= 0 || threads < 32 ||
       threads > 1024 || threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
   const long long T = L / M;
   const int tbo = threads * kOutputsPerThread;
   const int U = tbo + (n + M - 1) / M;

@@ -1,3 +1,6 @@
-"""Demodulators and the composed receive chain."""
+"""Demodulators, the composed receive chain, and the config-5 channel
+models: the channelizer banks, ChannelBank, SpectrumMonitor and the burst
+detector's pieces."""
 
-from . import fm, qpsk, rx_chain  # noqa: F401
+from . import (channel_bank, channelizer, detect, fm, monitor, qpsk,  # noqa: F401
+               rx_chain)

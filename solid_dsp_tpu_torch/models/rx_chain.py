@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..design import firdes
+from ..device import bind_device, resolve_device
 from ..ops import agc as agc_ops
 from ..ops import cuda_ddc
 from ..ops import ddc as ddc_ops
@@ -117,9 +118,10 @@ def _check_config(cfg: RxChainConfig):
 
 
 def rx_chain_init(cfg: RxChainConfig, device=None) -> ChainState:
-    """Initial state on ``device``: the JAX package's keys and dtypes, with
-    the phase word as int64."""
+    """Initial state on ``device`` (the card unless told otherwise): the JAX
+    package's keys and dtypes, with the phase word as int64."""
     _check_config(cfg)
+    device = resolve_device(device)
     return ChainState(
         nco_theta=torch.zeros((), dtype=torch.int64, device=device),
         fir_tail=torch.zeros(max(cfg.fir_taps - 1, 0), dtype=cfg.dtype,
@@ -144,7 +146,8 @@ def _planar(cfg: RxChainConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def make_rx_chain(cfg: RxChainConfig, device=None):
-    """Build (init_state, apply) for ``device``.
+    """Build (init_state, apply) for ``device``: the card unless told
+    otherwise (``device="cpu"`` runs the plain PyTorch bodies).
 
     ``apply(state, x)`` takes one block on ``device`` in the configured
     ``input_format``, its length L a multiple of the decimation M, and
@@ -152,7 +155,7 @@ def make_rx_chain(cfg: RxChainConfig, device=None):
     AM, complex64 for QPSK (derotated symbols) and ``demod="none"``.
     """
     _check_config(cfg)
-    device = torch.empty(0, device=device).device   # "cuda" -> "cuda:0"
+    device = bind_device(device)                      # None -> "cuda:0"
     M = cfg.decimation
     dtheta = nco_ops.constrain(cfg.carrier_freq)
     taps = cfg.design_taps()
@@ -228,13 +231,13 @@ def make_rx_chain_stream(cfg: RxChainConfig, block_size: int):
 
 class RxChain(nn.Module):
     """Stateful streaming wrapper: the chain and its carried state on one
-    device, fixed at construction."""
+    device, fixed at construction (the card unless told otherwise)."""
 
     def __init__(self, cfg: RxChainConfig | None = None, device=None,
                  **overrides):
         super().__init__()
         self.cfg = cfg or RxChainConfig(**overrides)
-        self.device = torch.device(device or "cpu")
+        self.device = bind_device(device)
         self._init, self._step = make_rx_chain(self.cfg, self.device)
         self.state = self._init()
 

@@ -33,36 +33,35 @@ Two implementations of K1's function:
   discriminator in torch ops.  CPU tensors take it under ``engine="auto"``;
   on the card it is the reference and the timing baseline.
 
-Both kernels are built into one extension from the repository's sources
-with ``torch.utils.cpp_extension.load`` at the first launch, into
-``solid_dsp_tpu_torch/_build/``.  Calling a :class:`DdcFmBody` or a
+Both kernels are built from the repository's sources by ``nvcc`` at the
+first launch, into ``solid_dsp_tpu_torch/_build/``, and called through
+ctypes (``ops/cuda_build.py``).  Calling a :class:`DdcFmBody` or a
 :class:`DdcBody` picks the kernel or the plain version from the tensor's
 device alone; a build or launch failure propagates.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass, field
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from .cuda_build import check_launch, launcher, stream_of
 from .ddc import _fold_banks, ddc_body_torch, ddc_taps
 from .fir import _banks_np
 from .nco import TWO_PI, U32, U32_MASK
 
 __all__ = ["DdcFmBody", "make_ddc_fm", "fm_supported", "ddc_fm_cuda",
            "ddc_fm_torch", "DdcBody", "make_ddc_body", "ddc_body_cuda",
-           "ddc_body_unaligned_cuda", "build", "launch_geometry",
-           "DEFAULT_P"]
+           "ddc_body_unaligned_cuda", "launch_geometry", "DEFAULT_P"]
 
 DEFAULT_P = 64          # outputs per frame: the block length quantum is P*M
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCES = tuple(_PKG / "csrc" / f
-                 for f in ("ddc_fm.cu", "ddc_body.cu", "ddc_binding.cpp"))
-_BUILD_DIR = _PKG / "_build"
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_DDC_FM_ARGS = (_P,) * 6 + (_LL, _I, _I, _I, _F, _F, _F, _I, _P)
+_DDC_BODY_ARGS = (_P,) * 4 + (_LL, _I, _I, _I, _I, _P)
 _OUTPUTS_PER_THREAD = 4          # kOutputsPerThread in csrc/ddc_*.cu
 _SMEM_LIMIT = 227 * 1024         # shared memory one block may use on sm_90
 
@@ -213,23 +212,6 @@ def launch_geometry(n: int, M: int):
                      "kernel's shared-memory tile")
 
 
-@functools.cache
-def build():
-    """Build (once per process) and load the CUDA extension of both
-    kernels from ``csrc/``; needs ``nvcc`` and a CUDA build of PyTorch."""
-    from torch.utils.cpp_extension import load
-
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    return load(
-        name="solid_dsp_tpu_torch_ddc",
-        sources=[str(s) for s in _SOURCES],
-        build_directory=str(_BUILD_DIR),
-        extra_cflags=["-O3"],
-        extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
-        verbose=False,
-    )
-
-
 def ddc_fm_cuda(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
     """Launch the Hopper kernel: returns (audio (T,), stats (5,)).
 
@@ -244,14 +226,19 @@ def ddc_fm_cuda(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
         raise TypeError("ddc_fm_cuda computes in float32")
     if not x2.is_contiguous():
         raise ValueError("ddc_fm_cuda needs a contiguous (2, L) block")
-    ext = build()
+    if tail.dtype != torch.float32 or tail.device != x2.device:
+        raise TypeError("ddc_fm_cuda needs a float32 tail on the block's card")
     threads, tbo, _ = launch_geometry(body.n, body.M)
     T = x2.shape[-1] // body.M
+    tail = tail.contiguous()
     audio = torch.empty(T, dtype=torch.float32, device=x2.device)
     energy = torch.empty(-(-T // tbo), dtype=torch.float32, device=x2.device)
     edges = torch.empty(4, dtype=torch.float32, device=x2.device)
-    ext.ddc_fm(x2, tail.contiguous(), body.taps, audio, energy, edges,
-               body.n, body.M, threads, body.cd, body.sd, body.scale)
+    fn = launcher("ddc_fm.cu", "ddc_fm_launch", _DDC_FM_ARGS)
+    check_launch(fn(x2.data_ptr(), tail.data_ptr(), body.taps.data_ptr(),
+                    audio.data_ptr(), energy.data_ptr(), edges.data_ptr(),
+                    x2.shape[-1], body.n, body.M, threads, body.cd, body.sd,
+                    body.scale, x2.device.index, stream_of(x2)), "ddc_fm_cuda")
     ddc_fm_cuda.launches += 1
     return audio, torch.cat([energy.sum().reshape(1), edges])
 
@@ -318,12 +305,16 @@ def _launch_body(body: DdcBody, x2: torch.Tensor, tail: torch.Tensor,
     if tuple(tail.shape) != (2, body.n - body.M):
         raise ValueError(f"tail must be (2, {body.n - body.M}), "
                          f"got {tuple(tail.shape)}")
-    ext = build()
+    if tail.dtype != torch.float32 or tail.device != x2.device:
+        raise TypeError(f"{name} needs a float32 tail on the block's card")
     threads, _, _ = launch_geometry(body.n, body.M)
+    tail = tail.contiguous()
     z = torch.empty((2, x2.shape[-1] // body.M), dtype=torch.float32,
                     device=x2.device)
-    ext.ddc_body(x2, tail.contiguous(), body.taps, z, body.n, body.M,
-                 threads)
+    fn = launcher("ddc_body.cu", "ddc_body_launch", _DDC_BODY_ARGS)
+    check_launch(fn(x2.data_ptr(), tail.data_ptr(), body.taps.data_ptr(),
+                    z.data_ptr(), x2.shape[-1], body.n, body.M, threads,
+                    x2.device.index, stream_of(x2)), name)
     return z
 
 

@@ -21,6 +21,8 @@ from typing import Any, Iterator, Mapping
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 __all__ = ["ChainState", "to_numpy", "from_numpy", "treedef_repr"]
 
 _PHASE_KEYS = ("nco_theta",)     # u32 phase words: int64 tensors in the port
@@ -157,7 +159,8 @@ def to_numpy(state: Mapping) -> dict:
 
 def from_numpy(tree: Mapping, device=None) -> ChainState:
     """Nested mapping of numpy-compatible leaves -> ChainState on
-    ``device`` (phase words as int64)."""
+    ``device``, the card unless told otherwise (phase words as int64)."""
+    device = resolve_device(device)
 
     def conv(t):
         return {k: conv(v) if isinstance(v, Mapping)

@@ -37,7 +37,7 @@ def _assert_equal_trees(a, b):
 
 
 def test_treedef_repr_matches_jax():
-    init, _ = make_rx_chain(RxChainConfig(**CONFIG4))
+    init, _ = make_rx_chain(RxChainConfig(**CONFIG4), "cpu")
     assert treedef_repr(init()) == str(
         jax.tree_util.tree_structure(_jax_like()))
 
@@ -50,7 +50,7 @@ def test_jax_checkpoint_loads_into_port(tmp_path):
     with np.load(path) as data:
         assert "__keys__" not in data and "__treedef__" in data
         assert data["leaf_8"].dtype == np.uint32
-    init, _ = make_rx_chain(RxChainConfig(**CONFIG4))
+    init, _ = make_rx_chain(RxChainConfig(**CONFIG4), "cpu")
     st = ChainState.load(path, like=init())
     assert st["nco_theta"].dtype == torch.int64
     _assert_equal_trees(state_to_numpy(st), jst)
@@ -68,12 +68,12 @@ def test_port_checkpoint_loads_into_jax(tmp_path):
     _assert_equal_trees(jax.tree_util.tree_map(np.asarray, back),
                         state_to_numpy(st))
     # and the port resumes from what the JAX package reads back
-    again = state_from_numpy(jax.tree_util.tree_map(np.asarray, back))
+    again = state_from_numpy(jax.tree_util.tree_map(np.asarray, back), "cpu")
     _assert_equal_trees(state_to_numpy(again), state_to_numpy(st))
 
 
 def test_load_rejects_other_structures(tmp_path):
-    init, _ = make_rx_chain(RxChainConfig(**CONFIG4))
+    init, _ = make_rx_chain(RxChainConfig(**CONFIG4), "cpu")
     path = init().save(str(tmp_path / "ckpt"))
     extra = init().replace(impair={"dc": torch.zeros(())})
     with pytest.raises(ValueError, match="structure mismatch"):

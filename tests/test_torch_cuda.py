@@ -6,18 +6,26 @@ Imports no JAX, so it also runs where only the port is installed:
 
 (``--noconftest``: tests/conftest.py configures JAX.)  Each kernel is
 held against the port's plain PyTorch version, itself held against the JAX
-package by tests/test_torch_ddc_fm.py, test_torch_ddc_body.py and
-test_torch_rx_chain*.py.  Tolerances: audio and z >= 90 dB (the chain's x3
-gate; QPSK 60 dB, BASELINE.json's bound); stats rtol 1e-5 with atol 1e-6
-(FP32 sums in another order); phase word and tail exact.
+package by tests/test_torch_ddc_fm.py, test_torch_ddc_body.py,
+test_torch_rx_chain*.py, test_torch_channelizer.py and
+test_torch_channel_bank.py.  Tolerances: audio and z >= 90 dB (the chain's
+x3 gate; QPSK 60 dB, BASELINE.json's bound); stats rtol 1e-5 with atol 1e-6
+(FP32 sums in another order); phase word and tail exact.  Channelizer (K4)
+x3 >= 90 dB and fast >= 90 dB against the plain version in the same mode
+(>= 45 dB against x3, the JAX gate); front end (K5) atol 2e-5 max|Y|; IIR
+bank (K6) atol 3e-5 (tests/test_pallas.py's gates).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from solid_dsp_tpu_torch.models.channel_bank import (ChannelBank,
+                                                     design_channel_sos)
+from solid_dsp_tpu_torch.models.channelizer import (PolyphaseChannelizer,
+                                                    channelizer_taps)
 from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig
-from solid_dsp_tpu_torch.ops import cuda_ddc, nco
+from solid_dsp_tpu_torch.ops import cuda_chan, cuda_ddc, cuda_iir, nco
 from torch_parity import (L_SMALL, make_blocks, make_qpsk_blocks,
                           require_cuda, run_torch, snr_db)
 
@@ -160,3 +168,142 @@ def test_body_chains_on_card_match_cpu_plain_chain(demod, L):
     assert snr_db(got, want) >= (60.0 if demod == "qpsk" else 90.0)
     assert int(st["nco_theta"]) == int(st_cpu["nco_theta"])
     assert torch.equal(st["fir_tail"].cpu(), st_cpu["fir_tail"])
+
+
+def _chan_counts():
+    return (cuda_chan.chan_fused_cuda.launches,
+            cuda_chan.pfb_frontend_cuda.launches,
+            cuda_iir.iir_bank_cuda.launches)
+
+
+def _cnoise(seed, *shape):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+            ).astype(np.complex64)
+
+
+@pytest.mark.parametrize("M,U", [(16, 64), (64, 200), (48, 72),
+                                 (256, 16384)])
+@pytest.mark.parametrize("mode", ["x3", "fast"])
+def test_chan_fused_kernel_matches_plain_on_card(M, U, mode):
+    """K4 vs its plain version on the card, same mode, TF32 off: >= 90 dB;
+    fast against the x3 plain version >= 45 dB; one launch."""
+    dev = require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    body = cuda_chan.make_chan_body(channelizer_taps(M, 8), M, mode, dev)
+    rng = np.random.default_rng(M + U)
+    xf = torch.from_numpy(rng.standard_normal((2, U, M)).astype(np.float32)
+                          ).to(dev)
+    tail = torch.from_numpy(rng.standard_normal((2, 8, M)).astype(np.float32)
+                            ).to(dev)
+    before = _chan_counts()
+    got = body(xf, tail)
+    want = cuda_chan.chan_fused_torch(body, xf, tail)
+    torch.cuda.synchronize()
+    assert _chan_counts() == (before[0] + 1, before[1], before[2])
+    assert got.shape == (U, 2 * M) and bool(torch.isfinite(got).all())
+    assert snr_db(got.cpu().numpy(), want.cpu().numpy()) >= 90.0
+    if mode == "fast":
+        x3 = cuda_chan.make_chan_body(channelizer_taps(M, 8), M, "x3", dev)
+        ref = cuda_chan.chan_fused_torch(x3, xf, tail)
+        assert snr_db(got.cpu().numpy(), ref.cpu().numpy()) >= 45.0
+
+
+@pytest.mark.parametrize("M,K,U", [(16, 8, 300), (64, 4, 300), (8, 7, 300),
+                                   (256, 8, 16384), (16, 8, 3), (16, 12, 300)])
+def test_pfb_frontend_kernel_matches_plain_on_card(M, K, U):
+    """K5 vs its plain version: channels within 2e-5 max|Y|; the new tail
+    rows equal; one launch."""
+    dev = require_cuda()
+    h_il = torch.from_numpy(cuda_chan.pfb_frontend_taps(
+        channelizer_taps(M, K), M)).to(dev)
+    x = torch.from_numpy(_cnoise(U, U * M)).to(dev)
+    tail = torch.from_numpy(_cnoise(K, K, M)).to(dev)
+    before = _chan_counts()
+    Y, t1 = cuda_chan.channelizer_apply_pallas(h_il, tail, x, M, K)
+    Yp, t2 = cuda_chan.channelizer_apply_pallas(h_il, tail, x, M, K,
+                                                engine="torch")
+    torch.cuda.synchronize()
+    assert _chan_counts() == (before[0], before[1] + 1, before[2])
+    Y, Yp = Y.cpu().numpy(), Yp.cpu().numpy()
+    np.testing.assert_allclose(Y, Yp, rtol=0, atol=2e-5 * np.abs(Yp).max())
+    assert torch.equal(t1, t2)
+
+
+@pytest.mark.parametrize("C,T,per_channel", [(16, 300, False), (8, 250, True),
+                                             (256, 16384, False),
+                                             (256, 16384, True), (3, 1, False)])
+def test_iir_bank_kernel_matches_plain_on_card(C, T, per_channel):
+    """K6 vs its plain version over two blocks with the state carried:
+    atol 3e-5 on the outputs and the state; one launch per block."""
+    dev = require_cuda()
+    sos = (np.stack([design_channel_sos(0.1 + 0.3 * c / C) for c in range(C)],
+                    axis=-1) if per_channel else design_channel_sos(0.2))
+    x = torch.from_numpy(_cnoise(C + T, 2 * T, C)).to(dev)
+    st_k = st_p = cuda_iir.iir_bank_init(2, C, dev)
+    before = _chan_counts()
+    outs_k, outs_p = [], []
+    for blk in (x[:T], x[T:]):
+        yk, st_k = cuda_iir.iir_bank_apply(sos, st_k, blk.contiguous())
+        yp, st_p = cuda_iir.iir_bank_apply(sos, st_p, blk.contiguous(),
+                                           engine="torch")
+        outs_k.append(yk)
+        outs_p.append(yp)
+    torch.cuda.synchronize()
+    assert _chan_counts() == (before[0], before[1], before[2] + 2)
+    np.testing.assert_allclose(torch.cat(outs_k).cpu().numpy(),
+                               torch.cat(outs_p).cpu().numpy(), rtol=0,
+                               atol=3e-5)
+    np.testing.assert_allclose(st_k.cpu().numpy(), st_p.cpu().numpy(),
+                               rtol=0, atol=3e-5)
+
+
+def test_iir_bank_kernel_rejects_too_many_sections():
+    dev = require_cuda()
+    x = torch.zeros((8, 4), dtype=torch.complex64, device=dev)
+    sos = np.tile(design_channel_sos(0.2)[:1], (9, 1))
+    with pytest.raises(ValueError, match="sections"):
+        cuda_iir.iir_bank_apply(sos, cuda_iir.iir_bank_init(9, 4, dev), x)
+
+
+@pytest.mark.parametrize("backend", ["fused", "pallas"])
+def test_channelizer_default_device_runs_kernels(backend):
+    """PolyphaseChannelizer with no device runs on the card through its
+    kernel and matches the same class on the CPU: >= 90 dB over 2 blocks."""
+    require_cuda()
+    M = 64
+    x = _cnoise(5, 2 * 8 * M * 8)
+    ch = PolyphaseChannelizer(M, 8, backend=backend)
+    assert ch.device.type == "cuda"
+    cpu = PolyphaseChannelizer(M, 8, backend=backend, device="cpu")
+    before = _chan_counts()
+    half = x.size // 2
+    got = torch.cat([ch.execute_block(x[:half]), ch.execute_block(x[half:])])
+    want = torch.cat([cpu.execute_block(x[:half]),
+                      cpu.execute_block(x[half:])])
+    after = _chan_counts()
+    assert after[0] - before[0] == (2 if backend == "fused" else 0)
+    assert after[1] - before[1] == (2 if backend == "pallas" else 0)
+    assert snr_db(got.cpu().numpy(), want.numpy()) >= 90.0
+
+
+@pytest.mark.parametrize("squelch", [None, -10.0])
+def test_channel_bank_on_card_matches_cpu(squelch):
+    """ChannelBank (fused) on the card vs on the CPU over 3 blocks: >= 90
+    dB, gate masks equal, K4 and K6 launched once a block."""
+    dev = require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M = 16
+    x = 0.3 * _cnoise(6, 3 * 64 * M)
+    x += np.exp(2j * np.pi * 3 / M * np.arange(x.size)).astype(np.complex64)
+    kw = dict(backend="fused", agc_bandwidth=0.05, squelch_high_db=squelch)
+    bk = ChannelBank(M, device=dev, **kw)
+    bp = ChannelBank(M, device="cpu", **kw)
+    before = _chan_counts()
+    for blk in np.split(x, 3):
+        yk, yp = bk.execute_block(blk), bp.execute_block(blk)
+        assert snr_db(yk.cpu().numpy(), yp.numpy()) >= 90.0
+        if squelch is not None:
+            assert torch.equal(bk.last_gate.cpu(), bp.last_gate)
+    after = _chan_counts()
+    assert (after[0] - before[0], after[2] - before[2]) == (3, 3)

@@ -177,7 +177,7 @@ def test_agc_apply_block_mode_matches_jax(gain, energy):
     rng = np.random.default_rng(8)
     x = (rng.standard_normal(5000) + 1j * rng.standard_normal(5000)
          ).astype(np.complex64) * np.float32(0.3)
-    st = agc.agc_init()
+    st = agc.agc_init(device="cpu")
     st = {**st, "gain": torch.tensor(np.float32(gain)),
           "energy": torch.tensor(np.float32(energy))}
     out, st2 = agc.agc_apply_block_mode(st, torch.from_numpy(x), 0.01)

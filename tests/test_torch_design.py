@@ -126,7 +126,7 @@ def test_banks_equal_jax_banks(n, M):
                                         (1e-9, 0.5, 1)])
 def test_block_gain_update_matches_jax(ee, alpha, T):
     """Block AGC update (f32 both sides): rtol 1e-6."""
-    st = {**agc.agc_init(), "gain": torch.tensor(1.7), "energy":
+    st = {**agc.agc_init(device="cpu"), "gain": torch.tensor(1.7), "energy":
           torch.tensor(0.3)}
     jst = {**jagc.agc_init(np.float32, xp=np), "gain": np.float32(1.7),
            "energy": np.float32(0.3)}

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from solid_dsp_tpu_torch.device import resolve_device
 from solid_dsp_tpu_torch.interop import state_from_numpy, state_to_numpy
 from solid_dsp_tpu_torch.models.rx_chain import (RxChain, RxChainConfig,
                                                   make_rx_chain,
@@ -90,7 +91,7 @@ def test_checkpoint_save_load_round_trip(tmp_path):
     blocks = make_blocks(1, seed=9)
     _, st = run_torch(blocks)
     path = st.save(str(tmp_path / "ckpt"))
-    init, _ = make_rx_chain(RxChainConfig(**CONFIG4))
+    init, _ = make_rx_chain(RxChainConfig(**CONFIG4), "cpu")
     back = ChainState.load(path, like=init())
     a, b = state_to_numpy(back), state_to_numpy(st)
     for key in ("nco_theta", "fir_tail", "fir_phase", "fm_prev"):
@@ -104,7 +105,7 @@ def test_checkpoint_save_load_round_trip(tmp_path):
 
 def test_rx_chain_module_execute_block_and_reset():
     blocks = make_blocks(2, seed=3)
-    chain = RxChain(RxChainConfig(**CONFIG4))
+    chain = RxChain(RxChainConfig(**CONFIG4), device="cpu")
     assert isinstance(chain, torch.nn.Module)
     a = [chain.execute_block(b) for b in blocks]
     chain.reset()
@@ -120,7 +121,7 @@ def test_rx_chain_module_keeps_ci16_int16():
     any other dtype cast to it) and matches the chain's apply."""
     blocks = as_format(make_blocks(2, seed=4), "ci16")
     cfg = RxChainConfig(**{**CONFIG4, "input_format": "ci16"})
-    chain = RxChain(cfg)
+    chain = RxChain(cfg, device="cpu")
     a = [chain.execute_block(b) for b in blocks]
     want, _ = run_torch(blocks, input_format="ci16")
     np.testing.assert_array_equal(torch.cat(a).numpy(), want)
@@ -130,25 +131,42 @@ def test_rx_chain_module_keeps_ci16_int16():
 
 
 def test_port_never_imports_jax():
-    """Importing the port and running FM, QPSK and ci16 chain blocks loads
-    no jax module and no module of the JAX package (fresh interpreter: this
-    one has jax)."""
+    """Importing the port and running FM, QPSK and ci16 chain blocks and
+    config 5's channelizers (all backends), synthesis and oversampled banks,
+    ChannelBank and SpectrumMonitor loads no jax module and no module of
+    the JAX package (fresh interpreter: this one has jax)."""
     code = (
         "import sys, numpy as np, torch\n"
         "from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig, "
         "make_rx_chain\n"
-        "init, apply = make_rx_chain(RxChainConfig(input_format='planar'))\n"
+        "init, apply = make_rx_chain(RxChainConfig(input_format='planar'), 'cpu')\n"
         "x = torch.from_numpy(np.ones((2, 4096), np.float32))\n"
         "out, st = apply(init(), x)\n"
         "assert out.shape == (1024,)\n"
         "init, apply = make_rx_chain(RxChainConfig(input_format='planar', "
-        "demod='qpsk'))\n"
+        "demod='qpsk'), 'cpu')\n"
         "out, st = apply(init(), torch.randn(2, 4000))\n"
         "assert out.shape == (1000,) and out.dtype == torch.complex64\n"
-        "init, apply = make_rx_chain(RxChainConfig(input_format='ci16'))\n"
+        "init, apply = make_rx_chain(RxChainConfig(input_format='ci16'), 'cpu')\n"
         "xi = torch.randint(-900, 900, (4100, 2), dtype=torch.int16)\n"
         "out, st = apply(init(), xi)\n"
         "assert out.shape == (1025,)\n"
+        "from solid_dsp_tpu_torch.models.channelizer import ("
+        "PolyphaseChannelizer, PolyphaseSynthesizer, OversampledChannelizer)\n"
+        "from solid_dsp_tpu_torch.models.channel_bank import ChannelBank\n"
+        "from solid_dsp_tpu_torch.models.monitor import SpectrumMonitor\n"
+        "import solid_dsp_tpu_torch.interop\n"
+        "xc = torch.randn(2048, dtype=torch.complex64)\n"
+        "for be in ('xla', 'fused', 'pallas'):\n"
+        "    Y = PolyphaseChannelizer(16, backend=be, device='cpu')"
+        ".execute_block(xc)\n"
+        "    assert Y.shape == (128, 16)\n"
+        "PolyphaseSynthesizer(16, device='cpu').execute_block(Y)\n"
+        "OversampledChannelizer(16, device='cpu').execute_block(xc)\n"
+        "bank = ChannelBank(16, backend='fused', agc_bandwidth=0.05, "
+        "squelch_high_db=-20.0, device='cpu')\n"
+        "assert bank.execute_block(xc).shape == (128, 16)\n"
+        "SpectrumMonitor(16, backend='fused', device='cpu').execute_block(xc)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'solid_dsp_tpu' or m.startswith('solid_dsp_tpu.')]\n"
         "print('BAD', bad)\n")
@@ -172,7 +190,7 @@ def test_unported_settings_raise_not_implemented(override):
     """Each setting outside config 4's ported branches names its ROADMAP
     item."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-        make_rx_chain(RxChainConfig(**{**CONFIG4, **override}))
+        make_rx_chain(RxChainConfig(**{**CONFIG4, **override}), "cpu")
 
 
 def test_rx_chain_stream_raises_not_implemented():
@@ -185,7 +203,7 @@ def test_rx_chain_stream_raises_not_implemented():
                                       dict(nco_mode="lut")])
 def test_invalid_settings_raise_value_error(override):
     with pytest.raises(ValueError):
-        make_rx_chain(RxChainConfig(**{**CONFIG4, **override}))
+        make_rx_chain(RxChainConfig(**{**CONFIG4, **override}), "cpu")
 
 
 @pytest.mark.parametrize("fmt,shape", [("planar", (2, 1002)),
@@ -193,7 +211,7 @@ def test_invalid_settings_raise_value_error(override):
                                        ("planar", (2, 0))])
 def test_block_length_not_multiple_of_decimation_raises(fmt, shape):
     init, apply = make_rx_chain(RxChainConfig(**{**CONFIG4,
-                                                 "input_format": fmt}))
+                                                 "input_format": fmt}), "cpu")
     x = torch.zeros(shape, dtype={"planar": torch.float32,
                                   "cf32": torch.complex64,
                                   "ci16": torch.int16}[fmt])
@@ -203,6 +221,19 @@ def test_block_length_not_multiple_of_decimation_raises(fmt, shape):
 
 def test_engine_cuda_on_cpu_chain_raises():
     init, apply = make_rx_chain(RxChainConfig(**{**CONFIG4,
-                                                 "ddc_engine": "cuda"}))
+                                                 "ddc_engine": "cuda"}), "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         apply(init(), torch.zeros((2, 4096)))
+
+
+def test_entry_points_default_to_the_card():
+    """``device=None`` resolves to CUDA (checked without allocating), and
+    an entry point given no device runs on the card or, on a machine
+    without one, raises PyTorch's own error instead of taking the CPU."""
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert RxChain(RxChainConfig(**CONFIG4)).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make_rx_chain(RxChainConfig(**CONFIG4))
