@@ -15,7 +15,15 @@ solid_dsp_tpu_torch/csrc/:
   samples): PolyphaseChannelizer through the fused channelizer kernel (K4,
   channelizer.cu) and the front-end kernel (K5, channelizer.cu),
   ChannelBank through K4 and the IIR bank kernel (K6, iir_bank.cu), and
-  SpectrumMonitor through K4.
+  SpectrumMonitor through K4;
+* config 2 of BASELINE.json, windowed 4096-point FFT spectral analysis
+  (bench_all.py:457-502: F = 4096 frames of N = 4096 points, 2^24
+  samples): windowed_fft, windowed_fft_planar and spectrogram of
+  solid_dsp_tpu_torch.ops.fft through the windowed FFT kernel (K7,
+  windowed_fft.cu), on config 2's chirp;
+* the Farrow grid resampler (bench_all.py:572-582: ratio 48000/44100,
+  blocks of 2^22): make_farrow_kernel_resampler through its kernel (K8,
+  farrow.cu).
 
 Phases, one line each:
 
@@ -46,12 +54,30 @@ Phases, one line each:
      counted; SpectrumMonitor(256, fused) events vs the plain run;
  16. throughput in Msamples/s of input over 20 blocks with CUDA events
      (fused x3, fused fast, "xla", ChannelBank), host enqueue time, and the
-     device's busy time from torch.profiler with the idle share it leaves.
+     device's busy time from torch.profiler with the idle share it leaves;
+ 17. K7 vs its plain version on the card, F = 4096 x N = 4096, Hamming and
+     Blackman-Harris, x3 and fast, planar and complex layouts, timed beside
+     torch.fft.fft on the windowed frames (the library call), and vs numpy
+     float64 on the CPU at F = 64;
+ 18. the config-2 path, launches counted: windowed_fft (auto) vs "xla" on
+     complex64 frames; windowed_fft_planar and spectrogram(frame=4096) of a
+     2^24-sample chirp, each frame's peak bin within 1 of the chirp's
+     frequency; welch_psd of a tone;
+ 19. config-2 throughput, Msamples/s and GFLOP/s (5 N log2 N a frame) over
+     20 calls with CUDA events (planar x3 and fast, complex auto, "xla",
+     the plain version), host enqueue, device busy time and idle share;
+ 20. K8 over 3 blocks of 2^22 (ratio 48000/44100) with the state carried,
+     launches counted, vs the torch-ops engine (n_valid, t0, tail equal),
+     and vs an independent float64 numpy reference at 2^16;
+ 21. Farrow throughput, Msamples/s of input over 20 blocks, K8 vs the
+     torch-ops engine.
 
-Then the kernels' JSON line (each kernel's launches on the main paths, its
-time, its plain version's, the library call's where one PyTorch call
-computes the same function, and its bound: the larger of its bytes over
-3.35 TB/s and its operations over the peak of their type), the nvidia-smi
+Then the kernels' JSON line (each kernel's launches on the main paths; its
+time, by CUDA events over back-to-back launches, for K7 and K8 over a CUDA
+graph of them so that the host's launch rate is not counted; its plain
+version's time, the library call's where one PyTorch call computes the
+same function, and its bound: the larger of its bytes over 3.35 TB/s and
+its operations over the peak of their type), the nvidia-smi
 line and, last, {"ok": true, "device": {...}}.  Any failed phase exits
 non-zero.  Needs one CUDA GPU; imports neither jax nor solid_dsp_tpu.
 """
@@ -96,6 +122,16 @@ FRONTEND_ATOL = 2e-5      # x max|Y| (tests/test_pallas.py:42)
 IIR_ATOL = 3e-5           # tests/test_pallas.py:152
 FAST_MIN_SNR_DB = 45.0    # tests/test_models.py:582
 PEAK_DB_ATOL = 0.05       # event peaks, kernel vs plain (fast mode)
+# config 2: bench_all.py:457-502 (F = 4096 frames of N = 4096 points)
+N2 = 4096
+F2 = 4096
+F2_F64 = 64
+CHIRP_NOISE = 0.01
+# the Farrow grid resampler: bench_all.py:572-582
+FARROW_RATIO = 48000 / 44100
+L8 = 1 << 22
+L8_F64 = 1 << 16
+FARROW_ATOL = 1e-5        # tests/test_resample.py:348
 # H100 SXM peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -175,17 +211,80 @@ def best_aligned_ser(tx: np.ndarray, got: np.ndarray, max_lag: int = 20,
 
 
 def cuda_ms(fn, n: int) -> float:
-    """Mean ms of fn() over n calls, CUDA events, after 3 warm-up calls."""
-    for _ in range(3):
+    """Mean ms of fn() over n calls, CUDA events, after 2 warm-up calls."""
+    return timed(fn, n)[0]
+
+
+def timed(fn, n: int):
+    """(device ms a call from CUDA events, host ms a call to enqueue) over
+    n calls after 2 warm-up calls."""
+    for _ in range(2):
         fn()
+    torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     e0.record()
     for _ in range(n):
         fn()
     e1.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / n
+    return e0.elapsed_time(e1) / n, host_ms
+
+
+def graph_ms(fn, n: int) -> float:
+    """Device ms of one fn() call: n calls captured in a CUDA graph,
+    replayed 5 times between CUDA events, so that no host launch cost is
+    counted (a kernel faster than its wrapper's enqueue reads its own
+    time)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(5):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (5 * n)
+
+
+def profiled_busy(fn, n: int = 10):
+    """(device ms a call, its three largest kernels as text) from
+    torch.profiler: the kernels' rows only (an op's row repeats the time of
+    the kernels it launched).  The device tracer misses the first records
+    after it starts (7, 9 or 0 of 10 kernels seen), so n calls run in a
+    warm-up step and n in the recorded one; a kernel's time a call is still
+    its mean record times its records a call, rounded, in case one drops.
+    The step's own row (ProfilerStep*) spans the step, not a kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = sorted(((e.self_device_time_total / 1e3 / e.count
+                    * max(1, round(e.count / n)), e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count
+                   and not e.key.startswith("ProfilerStep")),
+                  reverse=True)
+    top = ", ".join(f"{k[:40]} {t:.4f} ({c} records in {n} calls)"
+                    for t, k, c in rows[:3])
+    return sum(t for t, _, _ in rows), top
 
 
 def cuda_ms_once(fn) -> float:
@@ -471,40 +570,17 @@ def config5(dev, smi) -> list:
 
     # 16. throughput (turns plain, kernel, kernel, plain), host enqueue,
     # device busy time
+    def cycle(obj):
+        """fn() running obj over the blocks in turn."""
+        i = iter(range(1 << 30))
+        return lambda: obj.execute_block(blocks[next(i) % N_CHAIN])
+
     def rate(obj, n_blocks):
-        for b in blocks[:2]:                                 # warm-up
-            obj.execute_block(b)
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        e0.record()
-        for i in range(n_blocks):
-            obj.execute_block(blocks[i % N_CHAIN])
-        e1.record()
-        host_ms = (time.perf_counter() - t0) * 1e3 / n_blocks
-        torch.cuda.synchronize()
-        return n_blocks * L5 / (e0.elapsed_time(e1) * 1e3), host_ms
+        dev_ms, host_ms = timed(cycle(obj), n_blocks)
+        return L5 / (dev_ms * 1e3), host_ms
 
     def busy_ms(obj, n_blocks=10):
-        """(device ms a block, its three largest kernels as text): the
-        kernels' rows of the profile only (an op's row repeats the time of
-        the kernels it launched)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        for b in blocks[:2]:
-            obj.execute_block(b)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(n_blocks):
-                obj.execute_block(blocks[i % N_CHAIN])
-            torch.cuda.synchronize()
-        rows = sorted(((e.self_device_time_total / 1e3 / n_blocks, e.key)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA), reverse=True)
-        top = ", ".join(f"{k[:40]} {t:.4f}" for t, k in rows[:3])
-        return sum(t for t, _ in rows), top
+        return profiled_busy(cycle(obj), n_blocks)
 
     for label, make in (
             ("fused x3", lambda eng: PolyphaseChannelizer(
@@ -546,6 +622,251 @@ def config5(dev, smi) -> list:
                      "solid_dsp_tpu/ops/pallas_kernels.py:239",
                      launches["iir_bank"], e13[0], e13[1], e13[2], e13[3]),
     ]
+
+
+def chirp(n: int, rng, noise: float = CHIRP_NOISE) -> np.ndarray:
+    """Config 2's chirp e^{j pi 0.4 k^2 / n} (tests/test_snr_configs.py),
+    the phase reduced exactly in integers, plus complex noise: complex64."""
+    k = np.arange(n, dtype=np.int64)
+    x = np.exp(2j * np.pi * ((k * k) % (5 * n)) / (5 * n))
+    return (x + noise * (rng.standard_normal(n)
+                         + 1j * rng.standard_normal(n))).astype(np.complex64)
+
+
+def chirp_bins_ok(power: np.ndarray, n: int):
+    """(ok, worst): the peak bin of each N2-point frame of the chirp within
+    1 bin (circularly) of the instantaneous frequency 0.4 k / n at the
+    frame's centre."""
+    F = power.shape[0]
+    kc = np.arange(F) * N2 + (N2 - 1) / 2.0
+    want = 0.4 * kc / n * N2
+    got = np.argmax(power, axis=1)
+    d = np.abs((got - want + N2 / 2) % N2 - N2 / 2)
+    return bool(np.all(d <= 1.0)), float(d.max())
+
+
+def config2(dev, smi) -> list:
+    """Phases 17-19: config 2 (windowed 4096-point FFT spectral analysis)
+    at full size.  Returns the kernels' entry of K7."""
+    from solid_dsp_tpu_torch.design.windows import get_window
+    from solid_dsp_tpu_torch.ops import cuda_fft
+    from solid_dsp_tpu_torch.ops import fft as fft_ops
+
+    rng = np.random.default_rng(SEED + 2)
+    x = cnoise(rng, (F2, N2))
+    xc = torch.from_numpy(x).to(dev)
+    x2 = torch.stack([xc.real, xc.imag]).contiguous()
+    flops = 5.0 * N2 * np.log2(N2) * F2           # bench_all.py:461
+    bnd = bound_ms(16.0 * F2 * N2 + 4 * N2 + 8 * N2, flops, FP32_FLOPS)
+
+    # 17. K7 vs its plain version, both layouts, x3 and fast, two windows
+    err = None
+    for window in ("hamming", "blackman_harris"):
+        w = get_window(window, N2)
+        for mode in ("x3", "fast"):
+            apply_k = cuda_fft.make_fused_windowed_fft(N2, F2, w, 8, mode)
+            apply_p = cuda_fft.make_fused_windowed_fft(N2, F2, w, 8, mode,
+                                                       engine="torch")
+            yk = apply_k(x2)
+            yp = apply_p(x2)
+            yc = cuda_fft.fused_windowed_fft(xc, w, 8, mode)
+            torch.cuda.synchronize()
+            same = (torch.equal(yc.real, yk[:, :N2])
+                    and torch.equal(yc.imag, yk[:, N2:]))
+            snr = snr_db(yk.cpu().numpy(), yp.cpu().numpy())
+            e = float((yk - yp).abs().max())
+            err = e if err is None else err          # Hamming x3's
+            print(f"[17 windowed fft kernel vs plain, {window} {mode}, "
+                  f"F=4096 N=4096] {snr:.1f} dB (gate {MIN_SNR_DB}), max "
+                  f"|err| {e:.3g}, complex layout equal {same}", flush=True)
+            if not (snr >= MIN_SNR_DB and same and yk.shape == (F2, 2 * N2)
+                    and bool(torch.isfinite(yk).all())):
+                fail(f"phase 17: the windowed FFT kernel disagrees ({window}"
+                     f", {mode})")
+    w = get_window("hamming", N2)
+    wt, tw = cuda_fft._tables(np.asarray(w, np.float32).tobytes(), -1, dev)
+    k_planar = graph_ms(lambda: cuda_fft.windowed_fft_cuda(x2, wt, tw), 20)
+    k_complex = graph_ms(lambda: cuda_fft.windowed_fft_cuda(
+        xc, wt, tw, planar=False), 20)
+    k_eager = cuda_ms(lambda: cuda_fft.windowed_fft_cuda(x2, wt, tw), 20)
+    p_ms = cuda_ms(lambda: cuda_fft.windowed_fft_plain(x2, wt), 20)
+    xw = xc * wt                           # the library call's input
+    yl = torch.fft.fft(xw)
+    snr_lib = snr_db(yl.cpu().numpy(), torch.complex(
+        *cuda_fft.windowed_fft_plain(x2, wt).split(N2, dim=1)).cpu().numpy())
+    l_ms = cuda_ms(lambda: torch.fft.fft(xw), 20)
+    print(f"[17 windowed fft timing, F=4096 N=4096] kernel (CUDA graph of 20"
+          f" launches) planar {k_planar:.4f} ms, complex {k_complex:.4f} ms, "
+          f"planar launched eagerly {k_eager:.4f} ms; plain {p_ms:.4f} ms, "
+          f"library "
+          f"torch.fft.fft on windowed complex64 frames (cuFFT) {l_ms:.4f} ms "
+          f"({snr_lib:.1f} dB vs plain), bound {bnd[0]:.4f} ms ({bnd[1]}) | "
+          f"{smi}", flush=True)
+    x64 = x[:F2_F64]
+    got = cuda_fft.windowed_fft_frames(xc[:F2_F64].contiguous(), w,
+                                       planar=False).cpu().numpy()
+    snr64 = snr_db(got, np.fft.fft(x64.astype(np.complex128) * w))
+    print(f"[17 windowed fft kernel vs numpy float64 (CPU), x3, F=64] "
+          f"{snr64:.1f} dB (gate {MIN_SNR_DB})", flush=True)
+    if not snr64 >= MIN_SNR_DB:
+        fail("phase 17: the windowed FFT kernel disagrees with float64")
+
+    # 18. the config-2 path through the entry points, launches counted
+    n = F2 * N2
+    s = chirp(n, rng)
+    sc = torch.from_numpy(s).to(dev)
+    s2 = torch.stack([sc.real, sc.imag]).reshape(2, F2, N2).contiguous()
+    k7 = cuda_fft.windowed_fft_cuda
+    k7.launches = 0
+    ya = fft_ops.windowed_fft(xc, "hamming")
+    yp2 = fft_ops.windowed_fft_planar(s2, "hamming")
+    sg = fft_ops.spectrogram(sc, frame=N2)
+    torch.cuda.synchronize()
+    launches = k7.launches
+    yx = fft_ops.windowed_fft(xc, "hamming", backend="xla")
+    snr_auto = snr_db(ya.cpu().numpy(), yx.cpu().numpy())
+    p_planar = (yp2[:, :N2] ** 2 + yp2[:, N2:] ** 2).cpu().numpy()
+    ok_p, worst_p = chirp_bins_ok(p_planar, n)
+    ok_s, worst_s = chirp_bins_ok((sg.abs() ** 2).cpu().numpy(), n)
+    k7.launches = 0
+    tone_f = 0.1234
+    tn = np.exp(2j * np.pi * tone_f * np.arange(1 << 22)).astype(np.complex64)
+    psd = fft_ops.welch_psd(torch.from_numpy(tn).to(dev), frame=N2)
+    torch.cuda.synchronize()
+    welch_launches = k7.launches
+    peak = int(torch.argmax(psd))
+    print(f"[18 config-2 path, 2^24 samples] windowed_fft auto vs xla "
+          f"{snr_auto:.1f} dB (gate {MIN_SNR_DB}); chirp peak bins within 1 of"
+          f" its frequency: planar {ok_p} (worst {worst_p:.2f}), spectrogram "
+          f"{ok_s} (worst {worst_s:.2f}); K7 launches {launches} (auto, "
+          f"planar, spectrogram); welch_psd tone peak bin {peak} want "
+          f"{round(tone_f * N2)}, K7 launches {welch_launches} (Welch frames "
+          f"take torch.fft, as in the JAX package)", flush=True)
+    if not (snr_auto >= MIN_SNR_DB and ok_p and ok_s and launches == 3
+            and peak == round(tone_f * N2) and welch_launches == 0
+            and sg.shape == (F2, N2)):
+        fail("phase 18: the config-2 path is wrong")
+
+    # 19. throughput: device time, host enqueue, profiler busy time
+    for label, fn in (
+            ("planar x3", lambda: fft_ops.windowed_fft_planar(x2, "hamming")),
+            ("planar fast", lambda: fft_ops.windowed_fft_planar(
+                x2, "hamming", mode="fast")),
+            ("complex auto", lambda: fft_ops.windowed_fft(xc, "hamming")),
+            ("xla", lambda: fft_ops.windowed_fft(xc, "hamming",
+                                                 backend="xla")),
+            ("plain", lambda: cuda_fft.windowed_fft_frames(
+                x2, w, engine="torch"))):
+        dev_ms, host_ms = timed(fn, N_TIMED)
+        busy, top = profiled_busy(fn)
+        print(f"[19 throughput {label}, F=4096 N=4096] {n / dev_ms / 1e3:.1f}"
+              f" Msamples/s, {flops / dev_ms / 1e6:.1f} GFLOP/s ({dev_ms:.4f} "
+              f"ms a call; host enqueue {host_ms:.4f} ms, device busy "
+              f"{busy:.4f} ms, idle {max(0.0, 1 - busy / dev_ms):.0%}; "
+              f"largest kernels, ms a call: {top}) | {smi}", flush=True)
+
+    return [kernel_entry("windowed_fft", "windowed_fft.cu",
+                         "solid_dsp_tpu/ops/pallas_fft.py:165", launches, err,
+                         k_planar, p_ms, bnd, l_ms)]
+
+
+def farrow_ref64(plan, tail: np.ndarray, t0: int, x: np.ndarray):
+    """Independent float64 reference of one grid block: positions from the
+    exact integer formula t_k = t0 + k R, the cubic Lagrange basis and the
+    4-point stencil of [tail, x] in float64 (numpy)."""
+    k = np.arange(plan.n_pad, dtype=np.int64)
+    t = t0 + k * plan.R
+    base = np.clip(t >> 20, 0, plan.L - 1)
+    m = (t & ((1 << 20) - 1)) / float(1 << 20)
+    c = np.stack([-m * (m - 1) * (m - 2) / 6, (m + 1) * (m - 1) * (m - 2) / 2,
+                  -(m + 1) * m * (m - 2) / 2, (m + 1) * m * (m - 1) / 6], 1)
+    ext = np.concatenate([tail, x]).astype(np.complex128)
+    y = sum(c[:, i] * ext[base + i] for i in range(4))
+    n_valid = plan.q0 + int(t0 < plan.r0)
+    y[n_valid:] = 0
+    return y, n_valid
+
+
+def farrow_phases(dev, smi) -> list:
+    """Phases 20-21: the Farrow grid resampler (ratio 48000/44100, blocks of
+    2^22).  Returns the kernels' entry of K8."""
+    from solid_dsp_tpu_torch.ops import cuda_resample, farrow, gridresample
+
+    rng = np.random.default_rng(SEED + 8)
+    blocks = [torch.from_numpy(cnoise(rng, L8)).to(dev) for _ in range(3)]
+    init_k, apply_k, plan = cuda_resample.make_farrow_kernel_resampler(
+        FARROW_RATIO, L8, device=dev)
+    init_p, apply_p, _ = farrow.make_farrow_resampler(FARROW_RATIO, L8,
+                                                      device=dev)
+
+    # 20. K8 (the main path, counted) vs the torch-ops engine, 3 blocks
+    k8 = cuda_resample.farrow_grid_cuda
+    k8.launches = 0
+    st_k, outs_k = init_k(), []
+    for b in blocks:
+        y, nv, st_k = apply_k(st_k, b)
+        outs_k.append((y, nv))
+    torch.cuda.synchronize()
+    launches = k8.launches
+    st_p, err, same = init_p(), 0.0, True
+    for (yk, nk), b in zip(outs_k, blocks):
+        yp, npl, st_p = apply_p(st_p, b)
+        same = same and int(nk) == int(npl)
+        err = max(err, float((yk - yp).abs().max()))
+    same = (same and int(st_k[1]) == int(st_p[1])
+            and torch.equal(st_k[0], st_p[0]))
+    tail0 = torch.zeros(3, dtype=torch.complex64, device=dev)
+    t00 = torch.zeros((), dtype=torch.int32, device=dev)
+    k_ms = graph_ms(lambda: k8(plan, tail0, t00, blocks[0]), 20)
+    k_eager = cuda_ms(lambda: k8(plan, tail0, t00, blocks[0]), 20)
+    p_ms = cuda_ms(lambda: farrow.farrow_grid_plain(plan, tail0, t00,
+                                                    blocks[0]), 20)
+    bnd = bound_ms(8.0 * (L8 + plan.n_pad + 6) + 12, 30.0 * plan.n_pad,
+                   FP32_FLOPS)
+    print(f"[20 farrow kernel vs plain, ratio 48000/44100, L=2^22, 3 blocks] "
+          f"max |err| {err:.3g} (gate {FARROW_ATOL}), n_valid/t0/tail equal "
+          f"{same}, launches {launches}; kernel {k_ms:.4f} ms (CUDA graph "
+          f"of 20 launches; launched eagerly {k_eager:.4f} ms, the host's "
+          f"rate), plain {p_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), library none: no "
+          f"one PyTorch call interpolates on a Farrow grid | {smi}",
+          flush=True)
+    if not (err <= FARROW_ATOL and same and launches == 3
+            and all(bool(torch.isfinite(y).all()) for y, _ in outs_k)):
+        fail("phase 20: the Farrow kernel disagrees with its plain version")
+    plan64 = gridresample.plan_ratio(FARROW_RATIO, L8_F64)
+    xs = cnoise(rng, L8_F64)
+    tail = cnoise(rng, 3)
+    t0 = plan64.R // 3
+    y, nv, _ = k8(plan64, torch.from_numpy(tail).to(dev),
+                  torch.tensor(t0, dtype=torch.int32, device=dev),
+                  torch.from_numpy(xs).to(dev))
+    y64, nv64 = farrow_ref64(plan64, tail, t0, xs)
+    snr20 = snr_db(y.cpu().numpy(), y64)
+    print(f"[20 farrow kernel vs numpy float64 (CPU), L=2^16] {snr20:.1f} dB "
+          f"(gate {MIN_SNR_DB}), n_valid {int(nv)} want {nv64}", flush=True)
+    if not (snr20 >= MIN_SNR_DB and int(nv) == nv64):
+        fail("phase 20: the Farrow kernel disagrees with float64")
+
+    # 21. throughput over 20 blocks (turns plain, kernel, kernel, plain)
+    def rate(init, apply):
+        st, i = [init()], iter(range(1 << 30))
+
+        def step():
+            st[0] = apply(st[0], blocks[next(i) % 3])[2]
+        dev_ms, host_ms = timed(step, N_TIMED)
+        return L8 / dev_ms / 1e3, host_ms
+
+    p1 = rate(init_p, apply_p)
+    r1 = rate(init_k, apply_k)
+    r2 = rate(init_k, apply_k)
+    p2 = rate(init_p, apply_p)
+    print(f"[21 throughput farrow, 2^22-sample blocks] kernel {r1[0]:.1f} / "
+          f"{r2[0]:.1f} Msamples/s of input (host enqueue {r1[1]:.4f} / "
+          f"{r2[1]:.4f} ms a block), torch-ops engine {p1[0]:.1f} / "
+          f"{p2[0]:.1f} | {smi}", flush=True)
+    return [kernel_entry("farrow_grid", "farrow.cu",
+                         "solid_dsp_tpu/ops/pallas_resample.py:114", launches,
+                         err, k_ms, p_ms, bnd)]
 
 
 def main() -> None:
@@ -879,6 +1200,8 @@ def main() -> None:
             bound_ms(4 * (2 * L + 2 * D + 2 * n + 2 * (L // M)),
                      8 * n * (L // M), FP32_FLOPS), lms))
     kernels += config5(dev, smi)
+    kernels += config2(dev, smi)
+    kernels += farrow_phases(dev, smi)
     if not all(k["launches"] > 0 for k in kernels):
         fail("a kernel of the main paths was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

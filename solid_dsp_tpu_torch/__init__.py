@@ -13,11 +13,16 @@ config 5, the polyphase channelizer (``models.channelizer``: the
 commutator form, the fused kernel and the front-end kernel
 ``ops.cuda_chan``; the synthesis and 2x-oversampled banks),
 ``models.channel_bank.ChannelBank`` with the IIR bank kernel
-(``ops.cuda_iir``) and ``models.monitor.SpectrumMonitor``.  Entry points
+(``ops.cuda_iir``) and ``models.monitor.SpectrumMonitor``; config 2, the
+FFT engine (``ops.fft``, ``ops.matfft``) with the windowed 4096-point FFT
+kernel (``ops.cuda_fft``) and spectral analysis (``analysis``); the Farrow
+grid resampler (``ops.gridresample``, ``ops.farrow``) with its kernel
+(``ops.cuda_resample``).  Entry points
 run on the CUDA card unless the caller passes ``device="cpu"``
 (``device.py``).
 """
 
 __version__ = "0.1.0"
 
-from . import design, device, interop, models, ops, streaming  # noqa: F401
+from . import (analysis, design, device, interop, models, ops,  # noqa: F401
+               streaming)

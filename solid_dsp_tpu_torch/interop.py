@@ -25,9 +25,16 @@ State crosses between the two packages as numpy:
   ``.state`` setters (``PolyphaseChannelizer``, ``PolyphaseSynthesizer``,
   ``OversampledChannelizer``, ``ChannelBank``, which holds
   ``ChainState(iir=..., agc=...)``); the JAX objects keep them in
-  ``_tail``, ``_state``, ``_iir_state`` and ``_agc_state``.
+  ``_tail``, ``_state``, ``_iir_state`` and ``_agc_state``;
+* the Farrow grid resampler's state ``(tail (3,) complex, t0 int32)``
+  (``ops/farrow.py::make_farrow_resampler``,
+  ``ops/cuda_resample.py::make_farrow_kernel_resampler``), as a tuple with
+  the same two functions.
 
-Every ``device`` defaults to the card.
+The windowed FFT (K7) carries no state; its windows and tables, the FFT
+plans and the grid plans are rebuilt from the same arguments on both sides,
+and the tests hold the tables equal.  Every ``device`` defaults to the
+card.
 """
 
 from __future__ import annotations

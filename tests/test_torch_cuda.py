@@ -13,7 +13,10 @@ x3 gate; QPSK 60 dB, BASELINE.json's bound); stats rtol 1e-5 with atol 1e-6
 (FP32 sums in another order); phase word and tail exact.  Channelizer (K4)
 x3 >= 90 dB and fast >= 90 dB against the plain version in the same mode
 (>= 45 dB against x3, the JAX gate); front end (K5) atol 2e-5 max|Y|; IIR
-bank (K6) atol 3e-5 (tests/test_pallas.py's gates).
+bank (K6) atol 3e-5 (tests/test_pallas.py's gates).  Windowed FFT (K7)
+>= 90 dB against its plain version and float64 numpy; Farrow (K8) within
+1e-5 of its plain version with n_valid, t0 and the tail equal
+(tests/test_resample.py's gate).
 """
 
 import numpy as np
@@ -25,7 +28,10 @@ from solid_dsp_tpu_torch.models.channel_bank import (ChannelBank,
 from solid_dsp_tpu_torch.models.channelizer import (PolyphaseChannelizer,
                                                     channelizer_taps)
 from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig
-from solid_dsp_tpu_torch.ops import cuda_chan, cuda_ddc, cuda_iir, nco
+from solid_dsp_tpu_torch.design.windows import get_window
+from solid_dsp_tpu_torch.ops import (cuda_chan, cuda_ddc, cuda_fft, cuda_iir,
+                                     cuda_resample, farrow, nco)
+from solid_dsp_tpu_torch.ops import fft as fft_ops
 from torch_parity import (L_SMALL, make_blocks, make_qpsk_blocks,
                           require_cuda, run_torch, snr_db)
 
@@ -307,3 +313,80 @@ def test_channel_bank_on_card_matches_cpu(squelch):
             assert torch.equal(bk.last_gate.cpu(), bp.last_gate)
     after = _chan_counts()
     assert (after[0] - before[0], after[2] - before[2]) == (3, 3)
+
+
+def _fft_counts():
+    return (cuda_fft.windowed_fft_cuda.launches,
+            cuda_resample.farrow_grid_cuda.launches)
+
+
+@pytest.mark.parametrize("F", [1, 8, 64, 4096])
+@pytest.mark.parametrize("window", ["hamming", "blackman_harris"])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_windowed_fft_kernel_matches_plain_on_card(F, window, sign):
+    """K7 vs its plain version on the card, both layouts, TF32 off:
+    >= 90 dB; the two layouts give the same spectra; one launch each."""
+    dev = require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w = get_window(window, 4096)
+    x = torch.from_numpy(_cnoise(F + 1, F, 4096)).to(dev)
+    x2 = torch.stack([x.real, x.imag]).contiguous()
+    before = _fft_counts()
+    yc = cuda_fft.windowed_fft_frames(x, w, sign, planar=False)
+    yp = cuda_fft.windowed_fft_frames(x2, w, sign, planar=True)
+    ref = cuda_fft.windowed_fft_frames(x2, w, sign, planar=True,
+                                       engine="torch")
+    torch.cuda.synchronize()
+    assert _fft_counts() == (before[0] + 2, before[1])
+    assert yp.shape == (F, 8192) and yc.shape == (F, 4096)
+    assert snr_db(yp.cpu().numpy(), ref.cpu().numpy()) >= 90.0
+    assert torch.equal(yp[:, :4096], yc.real) and torch.equal(yp[:, 4096:],
+                                                              yc.imag)
+
+
+def test_windowed_fft_kernel_matches_float64():
+    """K7 vs numpy's float64 FFT of the windowed frames: >= 90 dB."""
+    dev = require_cuda()
+    w = get_window("blackman_harris", 4096)
+    x = _cnoise(3, 64, 4096)
+    got = cuda_fft.windowed_fft_frames(torch.from_numpy(x).to(dev), w,
+                                       planar=False).cpu().numpy()
+    assert snr_db(got, np.fft.fft(x.astype(np.complex128) * w)) >= 90.0
+
+
+def test_windowed_fft_auto_routes_cuda_frames_through_kernel():
+    """windowed_fft(auto) on fusable CUDA frames launches K7 once; a
+    1000-point frame takes torch.fft; 'xla' never launches."""
+    dev = require_cuda()
+    x = torch.from_numpy(_cnoise(4, 16, 4096)).to(dev)
+    before = _fft_counts()[0]
+    a = fft_ops.windowed_fft(x, "hamming")
+    assert _fft_counts()[0] == before + 1
+    b = fft_ops.windowed_fft(x, "hamming", backend="xla")
+    fft_ops.windowed_fft(x[:, :1000], "hamming")
+    assert _fft_counts()[0] == before + 1
+    assert snr_db(a.cpu().numpy(), b.cpu().numpy()) >= 90.0
+
+
+@pytest.mark.parametrize("ratio,L", [(48000 / 44100, 8192), (1 / 16, 1000),
+                                     (32.0, 4096), (1.0, 3), (0.73, 1 << 16)])
+def test_farrow_kernel_matches_plain_on_card(ratio, L):
+    """K8 vs its plain version over 3 blocks with the state carried:
+    n_valid and t0 equal, outputs within 1e-5, tails equal; one launch a
+    block."""
+    dev = require_cuda()
+    x = torch.from_numpy(_cnoise(L, 3 * L)).to(dev)
+    init_k, apply_k, plan = cuda_resample.make_farrow_kernel_resampler(
+        ratio, L, device=dev)
+    init_p, apply_p, _ = farrow.make_farrow_resampler(ratio, L, device=dev)
+    sk, sp = init_k(), init_p()
+    before = _fft_counts()
+    for b in range(3):
+        blk = x[b * L:(b + 1) * L]
+        yk, nk, sk = apply_k(sk, blk)
+        yp, npl, sp = apply_p(sp, blk)
+        assert int(nk) == int(npl) and int(sk[1]) == int(sp[1])
+        assert torch.equal(sk[0], sp[0])
+        np.testing.assert_allclose(yk.cpu().numpy(), yp.cpu().numpy(),
+                                   rtol=0, atol=1e-5)
+    assert _fft_counts() == (before[0], before[1] + 3)

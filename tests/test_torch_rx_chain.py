@@ -133,8 +133,10 @@ def test_rx_chain_module_keeps_ci16_int16():
 def test_port_never_imports_jax():
     """Importing the port and running FM, QPSK and ci16 chain blocks and
     config 5's channelizers (all backends), synthesis and oversampled banks,
-    ChannelBank and SpectrumMonitor loads no jax module and no module of
-    the JAX package (fresh interpreter: this one has jax)."""
+    ChannelBank and SpectrumMonitor, config 2's FFT engine (every backend,
+    the windowed FFT's routes, matfft, spectrogram, Welch), analysis/ and
+    the Farrow resamplers loads no jax module and no module of the JAX
+    package (fresh interpreter: this one has jax)."""
     code = (
         "import sys, numpy as np, torch\n"
         "from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig, "
@@ -167,6 +169,26 @@ def test_port_never_imports_jax():
         "squelch_high_db=-20.0, device='cpu')\n"
         "assert bank.execute_block(xc).shape == (128, 16)\n"
         "SpectrumMonitor(16, backend='fused', device='cpu').execute_block(xc)\n"
+        "import solid_dsp_tpu_torch.analysis as an\n"
+        "from solid_dsp_tpu_torch.ops import (cuda_fft, cuda_resample, fft, "
+        "farrow, gridresample, matfft)\n"
+        "xf = torch.randn(8, 4096, dtype=torch.complex64)\n"
+        "for be in ('auto', 'fused', 'xla'):\n"
+        "    assert fft.windowed_fft(xf, 'hamming', backend=be).shape == "
+        "(8, 4096)\n"
+        "assert fft.windowed_fft_planar(torch.randn(2, 8, 4096)).shape == "
+        "(8, 8192)\n"
+        "for be in ('plan', 'matmul', 'bluestein', 'xla'):\n"
+        "    fft.fft(xc[:97], backend=be)\n"
+        "matfft.ifft_mx(xc[:300])\n"
+        "fft.spectrogram(xc, 256); fft.welch_psd(xc, 256)\n"
+        "an.stft_denoise(xc, 256, 64); an.goertzel_bank(xc, (0.1,), 256)\n"
+        "an.fir_group_delay(np.ones(5), 0.1)\n"
+        "for mk in (farrow.make_farrow_resampler, "
+        "cuda_resample.make_farrow_kernel_resampler):\n"
+        "    init, apply, plan = mk(48000 / 44100, 2048, device='cpu')\n"
+        "    y, nv, st = apply(init(), xc)\n"
+        "farrow.FarrowResampler(1.5, device='cpu').execute_block(xc)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'solid_dsp_tpu' or m.startswith('solid_dsp_tpu.')]\n"
         "print('BAD', bad)\n")
