@@ -23,7 +23,13 @@ solid_dsp_tpu_torch/csrc/:
   windowed_fft.cu), on config 2's chirp;
 * the Farrow grid resampler (bench_all.py:572-582: ratio 48000/44100,
   blocks of 2^22): make_farrow_kernel_resampler through its kernel (K8,
-  farrow.cu).
+  farrow.cu);
+* parallel/, config 5's channels sharded over time and config 4 at scale,
+  on an NCCL group of one rank (one card): the fused halo-exchange front
+  end make_fused_channelizer_frontend through its kernel (K9,
+  halo_frontend.cu), K9 as four shards on one card exchanging halos
+  through each other's regions, make_sharded_channelizer ("xla", "fused"
+  through K4) and make_sharded_rx_chain (planar FM through K1).
 
 Phases, one line each:
 
@@ -70,7 +76,23 @@ Phases, one line each:
      launches counted, vs the torch-ops engine (n_valid, t0, tail equal),
      and vs an independent float64 numpy reference at 2^16;
  21. Farrow throughput, Msamples/s of input over 20 blocks, K8 vs the
-     torch-ops engine.
+     torch-ops engine;
+ 22. K9 at world size 1 (NCCL), M = 256, K = 8, 4 blocks of 2^22 with the
+     tail carried, launches counted: against its plain version and K5 on
+     the same blocks (2e-5 max|Y|), a tone in its channel, the new tail
+     rows bit-equal;
+ 23. K9 as four shards on one card, on four streams launched 0 -> 3 and
+     3 -> 0, 3 blocks of 4 x 2^22: the shards' z against K5 on the whole
+     2^24 block (2e-5 max|Y|); a hang fails the phase after 60 s;
+ 24. the entry points at world size 1 against the single-card chains,
+     launches counted: make_sharded_channelizer "xla" and "fused" (x3) at
+     config 5 against PolyphaseChannelizer, make_sharded_rx_chain planar
+     FM at config 4 (2^24 samples) against make_rx_chain; bit-equal, or
+     >= 115 dB where a reduction is reordered;
+ 25. K9's time over a CUDA graph of 20 launches beside K5's, its plain
+     version, the grouped conv1d and its bound; the four-shard form's ms a
+     block; the sharded entry points' Msamples/s against the unsharded
+     ones (turns unsharded, sharded, sharded, unsharded).
 
 Then the kernels' JSON line (each kernel's launches on the main paths; its
 time, by CUDA events over back-to-back launches, for K7 and K8 over a CUDA
@@ -85,6 +107,7 @@ non-zero.  Needs one CUDA GPU; imports neither jax nor solid_dsp_tpu.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -132,6 +155,10 @@ FARROW_RATIO = 48000 / 44100
 L8 = 1 << 22
 L8_F64 = 1 << 16
 FARROW_ATOL = 1e-5        # tests/test_resample.py:348
+# parallel/: the sharded entry points against the single-card chains where
+# a reduction is reordered (tests/test_parallel.py's fused-channelizer gate)
+SHARDED_MIN_SNR_DB = 115.0
+PHASE_LIMIT_S = 60.0      # a K9 phase still running after this has hung
 # H100 SXM peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -869,6 +896,334 @@ def farrow_phases(dev, smi) -> list:
                          err, k_ms, p_ms, bnd)]
 
 
+def await_streams(streams, what: str, limit: float = PHASE_LIMIT_S):
+    """Wait until every stream's work so far is done; a phase whose kernels
+    are still running after ``limit`` seconds has hung: fail at once (the
+    process's exit takes the card's context with it)."""
+    events = []
+    for s in streams:
+        e = torch.cuda.Event()
+        e.record(s)
+        events.append(e)
+    t0 = time.monotonic()
+    while not all(e.query() for e in events):
+        if time.monotonic() - t0 > limit:
+            print(f"FAIL: {what} still running after {limit:.0f} s: a hang",
+                  file=sys.stderr, flush=True)
+            os._exit(1)
+        time.sleep(0.005)
+
+
+def ring_blocks(cuda_halo, ring, streams, order, blocks, tail, h_il,
+                epoch: int, keep: bool = True):
+    """K9 as len(ring) shards on one card: each block's slabs launched on
+    the shards' own streams in ``order``, block b as epoch ``epoch + b``,
+    the tail rows carried.  Returns [per block: [per shard: z]], or
+    nothing with ``keep=False`` (each z freed at once, so that the
+    allocator reuses its memory instead of growing)."""
+    n = len(ring)
+    L = blocks[0].shape[0] // n
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    out = []
+    for b, x in enumerate(blocks):
+        zs = [None] * n
+        for i in order:
+            with torch.cuda.stream(streams[i]):
+                zs[i] = cuda_halo.halo_frontend_cuda(
+                    x[i * L:(i + 1) * L], tail, h_il, M5, K5, ring[i],
+                    epoch + b)
+        tail = x[-K5 * M5:].reshape(K5, M5)
+        if keep:
+            out.append(zs)
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    return out
+
+
+def parallel_phases(dev, smi) -> list:
+    """Phases 22-25: parallel/ on an NCCL group of one rank, and K9 as four
+    shards on one card.  Returns the kernels' entry of K9."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from solid_dsp_tpu_torch import parallel
+    from solid_dsp_tpu_torch.models.channelizer import (PolyphaseChannelizer,
+                                                        channelizer_taps)
+    from solid_dsp_tpu_torch.models.rx_chain import (RxChainConfig,
+                                                     make_rx_chain)
+    from solid_dsp_tpu_torch.ops import cuda_chan, cuda_ddc, cuda_halo
+    from solid_dsp_tpu_torch.parallel.pallas_halo import (
+        halo_frontend_torch, make_fused_channelizer_frontend)
+
+    counters = {"halo_frontend": cuda_halo.halo_frontend_cuda,
+                "channelizer": cuda_chan.chan_fused_cuda,
+                "pfb_frontend": cuda_chan.pfb_frontend_cuda,
+                "ddc_fm": cuda_ddc.ddc_fm_cuda}
+
+    def main_path(run):
+        """run() with every count at 0 just before it; its counts after."""
+        for c in counters.values():
+            c.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}
+
+    rng = np.random.default_rng(SEED + 9)
+    h_il = torch.from_numpy(cuda_chan.pfb_frontend_taps(
+        channelizer_taps(M5, K5), M5)).to(dev)
+    U = L5 // M5
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.init_distributed(dev, f"{tmp}/store", 0, 1)
+        try:
+            mesh = parallel.make_mesh(1, 1)            # NCCL, on the card
+            blk, tail0, link, zk, zp, launches = phase22(
+                dev, mesh, rng, h_il, main_path,
+                make_fused_channelizer_frontend, cuda_chan,
+                halo_frontend_torch)
+            four_ms = phase23(dev, rng, h_il, cuda_halo, cuda_chan)
+            rates = phase24(dev, mesh, rng, main_path, parallel,
+                            PolyphaseChannelizer, RxChainConfig,
+                            make_rx_chain)
+            # 25. times beside the card's name and power limit; one rank
+            # is shard 0 and the last, so its launches never wait
+            k_ms = graph_ms(lambda: cuda_halo.halo_frontend_cuda(
+                blk, tail0, h_il, M5, K5, link, 1), 20)
+            k5_ms = graph_ms(lambda: cuda_chan.pfb_frontend_cuda(
+                blk, h_il, tail0, M5, K5), 20)
+            p_ms = cuda_ms(lambda: halo_frontend_torch(
+                tail0, blk, h_il, M5, K5, mesh), 20)
+        finally:
+            dist.destroy_process_group()
+    xp_t = torch.cat([torch.view_as_real(tail0).reshape(K5, 2 * M5),
+                      torch.view_as_real(blk).reshape(U, 2 * M5)]).T[None]
+    xp_t = xp_t.contiguous()
+    w = h_il.flip(0).T[:, None, :].contiguous()
+    zl = torch.nn.functional.conv1d(xp_t, w, groups=2 * M5)[0].T
+    snr_lib = snr_db(zl.cpu().numpy(),
+                     torch.view_as_real(zp).reshape(U, 2 * M5).cpu().numpy())
+    l_ms = cuda_ms(lambda: torch.nn.functional.conv1d(xp_t, w,
+                                                      groups=2 * M5), 20)
+    # one rank is shard 0 and the last: no halo moves, K5's bytes
+    bnd = bound_ms(8 * L5 + 8 * K5 * M5 + 8 * (K5 + 1) * M5 + 8 * U * M5,
+                   4 * (K5 + 1) * U * M5, FP32_FLOPS)
+    err = float((zk - zp).abs().max())
+    print(f"[25 K9 timing, M=256 K=8 L=2^22] kernel (CUDA graph of 20 "
+          f"launches) {k_ms:.4f} ms, K5 the same way {k5_ms:.4f} ms; plain "
+          f"{p_ms:.4f} ms; library grouped conv1d on [halo | x] {l_ms:.4f} "
+          f"ms ({snr_lib:.1f} dB vs plain), the halo's NCCL send/recv not "
+          f"measured (one card); bound {bnd[0]:.4f} ms ({bnd[1]}); four "
+          f"shards on one card {four_ms:.4f} ms a block of 4 x 2^22 | "
+          f"{smi}", flush=True)
+    for label, (u1, s1, s2, u2) in rates.items():
+        print(f"[25 throughput {label}] sharded at world size 1 {s1:.1f} / "
+              f"{s2:.1f} Msamples/s, unsharded {u1:.1f} / {u2:.1f} | {smi}",
+              flush=True)
+    return [kernel_entry("halo_frontend", "halo_frontend.cu",
+                         "solid_dsp_tpu/parallel/pallas_halo.py:111",
+                         launches, err, k_ms, p_ms, bnd, l_ms)]
+
+
+def phase22(dev, mesh, rng, h_il, main_path, make_frontend, cuda_chan,
+            halo_frontend_torch):
+    """22. K9 at world size 1 (an NCCL group of one rank): 4 blocks of 2^22
+    with the tail carried, against its plain version, K5 on the same
+    blocks and a tone in its channel; the tail rows bit-equal."""
+    blocks = [torch.from_numpy(cnoise(rng, L5)).to(dev)
+              for _ in range(N_CHAIN)]
+    tail0 = torch.from_numpy(cnoise(rng, (K5, M5))).to(dev)
+    k9 = make_frontend(mesh, M5, K5)
+    plain = make_frontend(mesh, M5, K5, engine="torch")
+
+    def run(fn):
+        t, zs, tails = tail0, [], []
+        for x in blocks:
+            z, t = fn(t, x)
+            zs.append(z)
+            tails.append(t)
+        return torch.cat(zs), tails
+
+    (zk, tk), counts = main_path(lambda: run(k9))
+    zp, tp = run(plain)
+    z5, t5 = run(lambda t, x: cuda_chan.pfb_frontend(x, h_il, t, M5, K5))
+    torch.cuda.synchronize()
+    Yk, Yp, Y5 = (torch.fft.fft(z, dim=-1) for z in (zk, zp, z5))
+    lim = FRONTEND_ATOL * float(Yp.abs().max())
+    err_p = float((Yk - Yp).abs().max())
+    err_5 = float((Yk - Y5).abs().max())
+    tails = all(torch.equal(a, b) and torch.equal(a, c) and torch.equal(
+        a, x[-K5 * M5:].reshape(K5, M5)) for a, b, c, x in zip(tk, tp, t5,
+                                                                blocks))
+    c = 201
+    zt, _ = k9(torch.zeros_like(tail0), torch.from_numpy(tone(c, L5)).to(dev))
+    ok_tone, ratio = tone_ok(torch.fft.fft(zt, dim=-1), c)
+    print(f"[22 K9 at world size 1 (NCCL), M=256 K=8, {N_CHAIN} x 2^22] "
+          f"channels vs plain max |err| {err_p:.3g}, vs K5 {err_5:.3g} (gate "
+          f"{lim:.3g}), bit-equal to K5 {torch.equal(zk, z5)}, tails "
+          f"bit-equal {tails}, launches {counts['halo_frontend']}, tone in "
+          f"channel {c} {ratio:.0f}x the others", flush=True)
+    if not (err_p <= lim and err_5 <= lim and tails and ok_tone
+            and counts["halo_frontend"] == N_CHAIN
+            and bool(torch.isfinite(zk).all())
+            and zk.shape == (N_CHAIN * L5 // M5, M5)):
+        fail("phase 22: K9 at world size 1 is wrong")
+    return blocks[0], tail0, k9.link, zk[:L5 // M5], zp[:L5 // M5], \
+        counts["halo_frontend"]
+
+
+def phase23(dev, rng, h_il, cuda_halo, cuda_chan) -> float:
+    """23. K9 as four shards on one card, each on its own stream, launched
+    0 -> 3 and 3 -> 0, 3 blocks of 4 x 2^22: the concatenated z against K5
+    on the whole 2^24 block, the tail rows bit-equal.  A hang fails the
+    phase after PHASE_LIMIT_S.  Returns the four-shard form's ms a block."""
+    n_blocks = 3
+    full = [torch.from_numpy(cnoise(rng, 4 * L5)).to(dev)
+            for _ in range(n_blocks)]
+    tail0 = torch.from_numpy(cnoise(rng, (K5, M5))).to(dev)
+    t, refs = tail0, []
+    for x in full:
+        z, t = cuda_chan.pfb_frontend(x, h_il, t, M5, K5)
+        refs.append(z)
+    del t
+    torch.cuda.synchronize()
+    for order in ((0, 1, 2, 3), (3, 2, 1, 0)):
+        ring = cuda_halo.local_ring(4, M5, K5, dev)
+        streams = [torch.cuda.Stream(dev) for _ in ring]
+        outs = ring_blocks(cuda_halo, ring, streams, order, full, tail0,
+                           h_il, 1)
+        await_streams(streams, f"phase 23, order {order}")
+        torch.cuda.synchronize()
+        got = [torch.cat(zs) for zs in outs]
+        lim = FRONTEND_ATOL * max(float(torch.fft.fft(r, dim=-1).abs().max())
+                                  for r in refs)
+        err = max(float((torch.fft.fft(g, dim=-1)
+                         - torch.fft.fft(r, dim=-1)).abs().max())
+                  for g, r in zip(got, refs))
+        same = all(torch.equal(g, r) for g, r in zip(got, refs))
+        print(f"[23 K9 as four shards on one card, order {order}, "
+              f"{n_blocks} x 4 x 2^22] channels vs K5 on 2^24 max |err| "
+              f"{err:.3g} (gate {lim:.3g}), bit-equal {same}", flush=True)
+        if not (err <= lim and bool(all(torch.isfinite(g).all() for g in got))
+                and all(g.shape == (4 * L5 // M5, M5) for g in got)):
+            fail(f"phase 23: K9's four shards disagree (order {order})")
+    # the four-shard form's time a block: N_TIMED blocks, order 0 -> 3
+    ring = cuda_halo.local_ring(4, M5, K5, dev)
+    streams = [torch.cuda.Stream(dev) for _ in ring]
+    ring_blocks(cuda_halo, ring, streams, range(4), full, tail0, h_il, 1,
+                keep=False)
+    await_streams(streams, "phase 23 warm-up")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ring_blocks(cuda_halo, ring, streams, range(4),
+                [full[i % n_blocks] for i in range(N_TIMED)], tail0, h_il,
+                1 + n_blocks, keep=False)
+    e1.record()
+    await_streams([torch.cuda.current_stream()], "phase 23 timing")
+    return e0.elapsed_time(e1) / N_TIMED
+
+
+def phase24(dev, mesh, rng, main_path, parallel, PolyphaseChannelizer,
+            RxChainConfig, make_rx_chain) -> dict:
+    """24. The entry points at world size 1 against the single-card chains:
+    make_sharded_channelizer ("xla", "fused" x3) at config 5 and
+    make_sharded_rx_chain planar FM at config 4, 3 blocks each with the
+    state carried, launches counted.  Returns their throughput turns."""
+    n_blocks = 3
+    blocks5 = [torch.from_numpy(cnoise(rng, L5)).to(dev)
+               for _ in range(n_blocks)]
+    rates = {}
+    for frontend in ("xla", "fused"):
+        init, apply = parallel.make_sharded_channelizer(
+            M5, K5, mesh, frontend=frontend, precision="x3")
+
+        def sharded(blocks, state=None):
+            t = init() if state is None else state
+            ys = []
+            for x in blocks:
+                y, t = apply(t, x)
+                ys.append(y)
+            return torch.cat(ys), t
+
+        single = PolyphaseChannelizer(M5, K5, backend=frontend,
+                                      precision="x3", device=dev)
+        (ys, ts), counts = main_path(lambda: sharded(blocks5))
+        y1 = torch.cat([single.execute_block(x) for x in blocks5])
+        same = torch.equal(ys, y1)
+        snr = snr_db(ys.cpu().numpy(), y1.cpu().numpy())
+        tails = torch.equal(ts, single.state)
+        want = n_blocks if frontend == "fused" else 0
+        print(f"[24 make_sharded_channelizer {frontend} at world size 1, "
+              f"{n_blocks} x 2^22] vs PolyphaseChannelizer({frontend}): "
+              f"bit-equal {same}, {snr:.1f} dB (gate {SHARDED_MIN_SNR_DB}), "
+              f"tails equal {tails}, launches channelizer "
+              f"{counts['channelizer']} (want {want})", flush=True)
+        if not ((same or snr >= SHARDED_MIN_SNR_DB) and tails
+                and counts["channelizer"] == want
+                and ys.shape == (n_blocks * L5 // M5, M5)):
+            fail(f"phase 24: the sharded {frontend} channelizer disagrees")
+
+        state, nxt = [None], iter(range(1 << 30))
+
+        def step_s():
+            state[0] = sharded([blocks5[next(nxt) % n_blocks]], state[0])[1]
+
+        def step_1():
+            single.execute_block(blocks5[next(nxt) % n_blocks])
+
+        turns = [timed(f, N_TIMED)[0] for f in (step_1, step_s, step_s,
+                                                step_1)]
+        rates[f"channelizer {frontend}, 2^22-sample blocks"] = tuple(
+            L5 / (ms * 1e3) for ms in turns)
+
+    cfg = RxChainConfig(carrier_freq=0.2, decimation=4, fir_taps=64,
+                        agc_mode="block", demod="fm", nco_mode="exact",
+                        input_format="planar", fused_ddc="on",
+                        fir_precision="x3")
+    blocks4 = [torch.from_numpy(make_block(rng, b, L_FULL)).to(dev)
+               for b in range(n_blocks)]
+    init_s, apply_s = parallel.make_sharded_rx_chain(cfg, mesh)
+    init_1, apply_1 = make_rx_chain(cfg, dev)
+
+    def chain(init, apply):
+        st, outs = init(), []
+        for x in blocks4:
+            out, st = apply(st, x)
+            outs.append(out)
+        return torch.cat(outs), st
+
+    (out_s, st_s), counts = main_path(lambda: chain(init_s, apply_s))
+    out_1, st_1 = chain(init_1, apply_1)
+    same = torch.equal(out_s, out_1)
+    snr = snr_db(out_s.cpu().numpy(), out_1.cpu().numpy())
+    state_ok = (int(st_s["nco_theta"]) == int(st_1["nco_theta"])
+                and torch.equal(st_s["fir_tail"], st_1["fir_tail"])
+                and torch.equal(st_s["agc"]["gain"], st_1["agc"]["gain"]))
+    print(f"[24 make_sharded_rx_chain planar FM at world size 1, {n_blocks} "
+          f"x 2^24] vs make_rx_chain: bit-equal {same}, {snr:.1f} dB (gate "
+          f"{SHARDED_MIN_SNR_DB}), state equal {state_ok}, launches ddc_fm "
+          f"{counts['ddc_fm']}", flush=True)
+    if not ((same or snr >= SHARDED_MIN_SNR_DB) and state_ok
+            and counts["ddc_fm"] == n_blocks
+            and out_s.shape == (n_blocks * L_FULL // 4,)):
+        fail("phase 24: the sharded FM chain disagrees")
+
+    def rx_step(init, apply):
+        st, i = [init()], iter(range(1 << 30))
+
+        def step():
+            st[0] = apply(st[0], blocks4[next(i) % n_blocks])[1]
+        return step
+
+    turns = [timed(rx_step(*c), N_TIMED)[0]
+             for c in ((init_1, apply_1), (init_s, apply_s),
+                       (init_s, apply_s), (init_1, apply_1))]
+    rates["planar FM chain, 2^24-sample blocks"] = tuple(
+        L_FULL / (ms * 1e3) for ms in turns)
+    return rates
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -1202,6 +1557,7 @@ def main() -> None:
     kernels += config5(dev, smi)
     kernels += config2(dev, smi)
     kernels += farrow_phases(dev, smi)
+    kernels += parallel_phases(dev, smi)
     if not all(k["launches"] > 0 for k in kernels):
         fail("a kernel of the main paths was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,12 +17,14 @@ commutator form, the fused kernel and the front-end kernel
 FFT engine (``ops.fft``, ``ops.matfft``) with the windowed 4096-point FFT
 kernel (``ops.cuda_fft``) and spectral analysis (``analysis``); the Farrow
 grid resampler (``ops.gridresample``, ``ops.farrow``) with its kernel
-(``ops.cuda_resample``).  Entry points
-run on the CUDA card unless the caller passes ``device="cpu"``
-(``device.py``).
+(``ops.cuda_resample``); ``parallel``, the sharded FIR, receive chain and
+channelizer on ``torch.distributed``, with the time-sharded channelizer
+front end whose halo exchange runs inside its kernel (``ops.cuda_halo``).
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"`` (``device.py``).
 """
 
 __version__ = "0.1.0"
 
 from . import (analysis, design, device, interop, models, ops,  # noqa: F401
-               streaming)
+               parallel, streaming)

@@ -35,6 +35,21 @@ The windowed FFT (K7) carries no state; its windows and tables, the FFT
 plans and the grid plans are rebuilt from the same arguments on both sides,
 and the tests hold the tables equal.  Every ``device`` defaults to the
 card.
+
+The sharded chains (``parallel/``) keep one copy of their state on each
+rank where the JAX package keeps one global array:
+
+* the sharded receive chain's ``ChainState``: its per-channel leaves
+  (``fir_tail`` (C, n-1), the AGC carry and ``fm_prev``, (C,)) are split
+  over the mesh's ``channel`` axis and the rest replicated;
+  :func:`sharded_state_from_numpy` cuts this rank's part out of the JAX
+  chain's global state, and :func:`sharded_state_to_numpy` gathers the
+  parts back (collective over ``channel``).  The planar single stream's
+  state has no channel dimension and is the same on every rank;
+* the sharded channelizers' tails and K9's tail rows are replicated: the
+  "xla" tail (K*M - 1,), the fused tail rows (2, 8, M) float32 and K9's
+  (K, M) complex64 rows move with :func:`tensors_from_numpy` and
+  :func:`tensors_to_numpy` on each rank, as the single-card tails do.
 """
 
 from __future__ import annotations
@@ -45,11 +60,16 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .parallel.halo import axis_gather
+from .parallel.mesh import local_block, mesh_device
 from .streaming.state import from_numpy as state_from_numpy
 from .streaming.state import to_numpy as state_to_numpy
 
 __all__ = ["state_from_numpy", "state_to_numpy", "tensors_from_numpy",
-           "tensors_to_numpy"]
+           "tensors_to_numpy", "sharded_state_from_numpy",
+           "sharded_state_to_numpy"]
+
+_REPLICATED = ("nco_theta", "fir_phase")
 
 
 def tensors_from_numpy(tree, device=None):
@@ -72,3 +92,40 @@ def tensors_to_numpy(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(tensors_to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy().copy()
+
+
+def _per_channel(tree: Mapping) -> bool:
+    """A multi-stream chain state: its FIR tail has a channel dimension."""
+    return np.ndim(tree["fir_tail"]) == 2
+
+
+def sharded_state_from_numpy(tree: Mapping, mesh):
+    """The JAX sharded chain's global state (numpy leaves) -> this rank's
+    ChainState on the mesh's device: per-channel leaves cut to this rank's
+    streams along ``channel``, the rest whole."""
+    split = _per_channel(tree)
+
+    def cut(key, v):
+        if isinstance(v, Mapping):
+            return {k: cut(k, a) for k, a in v.items()}
+        a = np.asarray(v)
+        return (local_block(a, mesh, ("channel",))
+                if split and key not in _REPLICATED else a)
+
+    return state_from_numpy({k: cut(k, v) for k, v in tree.items()},
+                            mesh_device(mesh))
+
+
+def sharded_state_to_numpy(state: Mapping, mesh) -> dict:
+    """This rank's ChainState -> the global state as the JAX sharded chain
+    holds it (numpy leaves, phase words ``uint32``): per-channel leaves
+    gathered over ``channel``.  Every rank of the mesh calls it."""
+    split = state["fir_tail"].dim() == 2
+
+    def join(key, v):
+        if isinstance(v, Mapping):
+            return {k: join(k, a) for k, a in v.items()}
+        return (axis_gather(v, mesh, "channel", dim=0)
+                if split and key not in _REPLICATED else v)
+
+    return state_to_numpy({k: join(k, v) for k, v in state.items()})

@@ -62,9 +62,9 @@ def _f(v: float, rdtype: torch.dtype) -> float:
 def qpsk_carrier_block(x: torch.Tensor):
     """Block carrier recovery via the 4th-power spectral line.
 
-    Returns (y, f_hat, phi_hat): derotated samples plus the frequency
-    (rad/sample) and phase estimates.  The phase keeps QPSK's pi/2
-    ambiguity.
+    x (..., n): each row its own block.  Returns (y, f_hat, phi_hat):
+    derotated samples plus the frequency (rad/sample) and phase estimates
+    of each row.  The phase keeps QPSK's pi/2 ambiguity.
     """
     n = int(x.shape[-1])
     rdtype = x.real.dtype
@@ -72,9 +72,11 @@ def qpsk_carrier_block(x: torch.Tensor):
     x4 = x2 * x2
     mag = torch.abs(torch.fft.fft(x4, dim=-1))
     k = torch.argmax(mag, dim=-1)
-    a = mag[(k - 1) % n]
-    b = mag[k]
-    c = mag[(k + 1) % n]
+
+    def at(idx):
+        return torch.gather(mag, -1, (idx % n)[..., None])[..., 0]
+
+    a, b, c = at(k - 1), at(k), at(k + 1)
     denom = a - 2 * b + c
     delta = torch.where(denom.abs() > _f(1e-12, rdtype),
                         _f(0.5, rdtype) * (a - c) / denom,
@@ -83,11 +85,11 @@ def qpsk_carrier_block(x: torch.Tensor):
     f4 = _f(2.0 * np.pi, rdtype) * torch.where(kf > n / 2, kf - n, kf) / n
     f_hat = f4 / 4
     t = torch.arange(n, device=x.device).to(rdtype)
-    ph4 = f4 * t
+    ph4 = f4[..., None] * t
     z = x4 * torch.complex(torch.cos(ph4), -torch.sin(ph4))
     phi4 = torch.angle(torch.sum(z, dim=-1))
     phi_hat = phi4 / 4 + _f(np.pi / 4.0, rdtype)
-    ph = f_hat * t + phi_hat
+    ph = f_hat[..., None] * t + phi_hat[..., None]
     y = x * torch.complex(torch.cos(ph), -torch.sin(ph))
     return y, f_hat, phi_hat
 

@@ -301,7 +301,7 @@ def fm_first_sample(z0re, z0im, w0, prev_re, prev_im, kf):
 
 
 def ddc_fm_fused(body, tail2, theta0, x2, prev_re, prev_im, gain,
-                 engine: str = "auto"):
+                 engine: str = "auto", with_seams: bool = False):
     """One block of the fused DDC + FM demodulator.
 
     Args:
@@ -318,6 +318,11 @@ def ddc_fm_fused(body, tail2, theta0, x2, prev_re, prev_im, gain,
     out (L/M,) audio equal to rotate -> AGC -> fm_demodulate to float
     rounding, ee_mean = mean |z|^2 for the AGC update.  Other block lengths
     take the body and :func:`ddc_fm_epilogue` (``models/rx_chain.py``).
+
+    ``with_seams=True`` appends (z0re, z0im, w0), the raw first body output
+    and its rotation word, as the JAX function does: a caller that learns
+    ``prev`` only later (the time-sharded chain receives it from its left
+    neighbour) passes any prev and sets out[0] with :func:`fm_first_sample`.
     """
     M = body.M
     L = int(x2.shape[-1])
@@ -336,5 +341,6 @@ def ddc_fm_fused(body, tail2, theta0, x2, prev_re, prev_im, gain,
     ee_mean = stats[0] / T
     new_prev_re, new_prev_im = _last_rotated(stats[1], stats[2], w0,
                                              body.dw, T, gain)
-    return (audio, new_prev_re, new_prev_im, ee_mean, _new_tail(tail2, x2),
-            theta_end)
+    out = (audio, new_prev_re, new_prev_im, ee_mean, _new_tail(tail2, x2),
+           theta_end)
+    return out + (stats[3], stats[4], w0) if with_seams else out

@@ -390,3 +390,198 @@ def test_farrow_kernel_matches_plain_on_card(ratio, L):
         np.testing.assert_allclose(yk.cpu().numpy(), yp.cpu().numpy(),
                                    rtol=0, atol=1e-5)
     assert _fft_counts() == (before[0], before[1] + 3)
+
+
+# ------------------------------------------------- parallel/ and K9 on a card
+
+M9, K9 = 64, 8
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A (1, 1) mesh on an NCCL group of this one process, on the card."""
+    require_cuda()
+    import torch.distributed as dist
+
+    from solid_dsp_tpu_torch import parallel
+    parallel.init_distributed(
+        None, str(tmp_path_factory.mktemp("nccl") / "store"), 0, 1)
+    try:
+        yield parallel.make_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _k9_inputs(seed, L, n_blocks):
+    rng = np.random.default_rng(seed)
+    x = [_cnoise(seed + b, L) for b in range(n_blocks)]
+    tail = (rng.standard_normal((K9, M9))
+            + 1j * rng.standard_normal((K9, M9))).astype(np.complex64)
+    return x, tail
+
+
+def _h_il(dev, M=M9, K=K9):
+    return torch.from_numpy(cuda_chan.pfb_frontend_taps(
+        channelizer_taps(M, K), M)).to(dev)
+
+
+@pytest.mark.parametrize("L", [M9 * 9, M9 * 1000, M9 * 4096])
+def test_k9_world_one_matches_plain_and_k5(nccl_mesh, L):
+    """make_fused_channelizer_frontend at world size 1, 3 blocks with the
+    tail carried: one K9 launch a block, z bit-equal to K5 on the same
+    blocks and within 2e-5 max|Y| of the plain version, tails bit-equal."""
+    from solid_dsp_tpu_torch.ops import cuda_halo
+    from solid_dsp_tpu_torch.parallel.pallas_halo import (
+        make_fused_channelizer_frontend)
+    dev = require_cuda()
+    xs, tail = _k9_inputs(21, L, 3)
+    k9 = make_fused_channelizer_frontend(nccl_mesh, M9, K9)
+    plain = make_fused_channelizer_frontend(nccl_mesh, M9, K9,
+                                            engine="torch")
+    h = _h_il(dev)
+    tk = tp = t5 = torch.from_numpy(tail).to(dev)
+    before = cuda_halo.halo_frontend_cuda.launches
+    for x in xs:
+        x = torch.from_numpy(x).to(dev)
+        zk, tk = k9(tk, x)
+        zp, tp = plain(tp, x)
+        z5, t5 = cuda_chan.pfb_frontend(x, h, t5, M9, K9)
+        assert torch.equal(zk, z5)
+        lim = 2e-5 * float(torch.fft.fft(zp, dim=-1).abs().max())
+        assert float((torch.fft.fft(zk, dim=-1)
+                      - torch.fft.fft(zp, dim=-1)).abs().max()) <= lim
+        assert torch.equal(tk, tp) and torch.equal(tk, t5)
+    assert cuda_halo.halo_frontend_cuda.launches == before + 3
+
+
+@pytest.mark.parametrize("order", [(0, 1, 2, 3), (3, 2, 1, 0)])
+def test_k9_four_shards_on_one_card(order):
+    """Four shards on four streams of one card, launched in both orders,
+    3 blocks: the shards' z concatenated equals K5 on the whole block bit
+    for bit.  A hang fails after 60 s instead of blocking."""
+    import time
+
+    from solid_dsp_tpu_torch.ops import cuda_halo
+    dev = require_cuda()
+    L = M9 * 512
+    xs, tail = _k9_inputs(22, 4 * L, 3)
+    h = _h_il(dev)
+    ring = cuda_halo.local_ring(4, M9, K9, dev)
+    streams = [torch.cuda.Stream(dev) for _ in ring]
+    full = [torch.from_numpy(x).to(dev) for x in xs]
+    t = torch.from_numpy(tail).to(dev)
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for b, x in enumerate(full):
+        zs = [None] * 4
+        for i in order:
+            with torch.cuda.stream(streams[i]):
+                zs[i] = cuda_halo.halo_frontend_cuda(
+                    x[i * L:(i + 1) * L], t, h, M9, K9, ring[i], b + 1)
+        outs.append(zs)
+        t = x[-K9 * M9:].reshape(K9, M9)
+    events = []
+    for s in streams:
+        e = torch.cuda.Event()
+        e.record(s)
+        events.append(e)
+    deadline = time.monotonic() + 60.0
+    while not all(e.query() for e in events):
+        assert time.monotonic() < deadline, "K9's shards hang"
+        time.sleep(0.01)
+    t5 = torch.from_numpy(tail).to(dev)
+    for x, zs in zip(full, outs):
+        z5, t5 = cuda_chan.pfb_frontend(x, h, t5, M9, K9)
+        assert torch.equal(torch.cat(zs), z5)
+
+
+def test_k9_across_processes_through_ipc(tmp_path):
+    """Two processes on one card, halos through CUDA IPC handles exchanged
+    over a gloo group: 3 blocks, the two slabs' z equal K5 on the whole
+    block."""
+    import torch_dist
+    dev = require_cuda()
+    L = M9 * 256
+    xs, tail = _k9_inputs(23, 2 * L, 3)
+    res = torch_dist.run_ranks(tmp_path, 2, [(
+        "ipc", (1, 2), "k9_ipc", dict(M=M9, K=K9, blocks=xs, tail=tail))])
+    h = _h_il(dev)
+    t5 = torch.from_numpy(tail).to(dev)
+    for b, x in enumerate(xs):
+        z5, t5 = cuda_chan.pfb_frontend(torch.from_numpy(x).to(dev), h, t5,
+                                        M9, K9)
+        got = np.concatenate([r["ipc"][b] for r in res])
+        np.testing.assert_array_equal(got, z5.cpu().numpy())
+
+
+def test_k9_rejects_cpu_and_mismatched_blocks():
+    from solid_dsp_tpu_torch.ops import cuda_halo
+    dev = require_cuda()
+    link, = cuda_halo.local_ring(1, M9, K9, dev)
+    x = torch.zeros(M9 * 16, dtype=torch.complex64)
+    t = torch.zeros((K9, M9), dtype=torch.complex64)
+    h = _h_il("cpu")
+    with pytest.raises(ValueError, match="card"):
+        cuda_halo.halo_frontend_cuda(x, t, h, M9, K9, link, 1)
+    with pytest.raises(ValueError, match="link built"):
+        cuda_halo.halo_frontend_cuda(x[:32 * 16], t[:, :32], h[:, :64], 32,
+                                     K9, link, 1)
+    with pytest.raises(ValueError, match="exceed"):
+        cuda_halo.halo_frontend_cuda(x[:M9 * K9].to(dev), t.to(dev),
+                                     h.to(dev), M9, K9, link, 1)
+
+
+@pytest.mark.parametrize("frontend", ["xla", "fused"])
+def test_sharded_channelizer_world_one_matches_single_card(nccl_mesh,
+                                                           frontend):
+    """make_sharded_channelizer at world size 1 vs PolyphaseChannelizer on
+    the card, 3 blocks: fused (K4 with the same halo) bit-equal, "xla" (a
+    DFT product in place of the FFT) >= 115 dB; tails equal."""
+    from solid_dsp_tpu_torch import parallel
+    dev = require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M = 256
+    init, apply = parallel.make_sharded_channelizer(
+        M, 8, nccl_mesh, frontend=frontend, precision="x3")
+    single = PolyphaseChannelizer(M, 8, backend=frontend, precision="x3",
+                                  device=dev)
+    t = init()
+    before = cuda_chan.chan_fused_cuda.launches
+    for b in range(3):
+        x = torch.from_numpy(_cnoise(30 + b, M * 64)).to(dev)
+        y, t = apply(t, x)
+        y1 = single.execute_block(x)
+        if frontend == "fused":
+            assert torch.equal(y, y1)
+        else:
+            assert snr_db(y.cpu().numpy(), y1.cpu().numpy()) >= 115.0
+        assert torch.equal(t, single.state)
+    # K4 launches once a block in each of the two fused channelizers
+    assert cuda_chan.chan_fused_cuda.launches == before + (
+        6 if frontend == "fused" else 0)
+
+
+def test_sharded_planar_fm_world_one_matches_single_card(nccl_mesh):
+    """make_sharded_rx_chain planar FM at world size 1 vs make_rx_chain on
+    the card, 3 blocks: the audio and the state bit-equal, one K1 launch a
+    block."""
+    from solid_dsp_tpu_torch import parallel
+    from solid_dsp_tpu_torch.models.rx_chain import make_rx_chain
+    dev = require_cuda()
+    cfg = RxChainConfig(input_format="planar", fused_ddc="on",
+                        fir_precision="x3")
+    init_s, apply_s = parallel.make_sharded_rx_chain(cfg, nccl_mesh)
+    init_1, apply_1 = make_rx_chain(cfg, dev)
+    st_s, st_1 = init_s(), init_1()
+    before = cuda_ddc.ddc_fm_cuda.launches
+    for xb in make_blocks(3, seed=24):
+        x = torch.from_numpy(xb).to(dev)
+        out_s, st_s = apply_s(st_s, x)
+        out_1, st_1 = apply_1(st_1, x)
+        assert torch.equal(out_s, out_1)
+    assert cuda_ddc.ddc_fm_cuda.launches == before + 6
+    assert int(st_s["nco_theta"]) == int(st_1["nco_theta"])
+    for k in ("fir_tail", "fm_prev"):
+        assert torch.equal(st_s[k], st_1[k])
+    assert torch.equal(st_s["agc"]["gain"], st_1["agc"]["gain"])

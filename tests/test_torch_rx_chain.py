@@ -134,8 +134,10 @@ def test_port_never_imports_jax():
     """Importing the port and running FM, QPSK and ci16 chain blocks and
     config 5's channelizers (all backends), synthesis and oversampled banks,
     ChannelBank and SpectrumMonitor, config 2's FFT engine (every backend,
-    the windowed FFT's routes, matfft, spectrogram, Welch), analysis/ and
-    the Farrow resamplers loads no jax module and no module of the JAX
+    the windowed FFT's routes, matfft, spectrogram, Welch), analysis/, the
+    Farrow resamplers and parallel/ on a one-rank gloo group (the K9 front
+    end, both sharded channelizers, the sharded chain and its state
+    interop, the sharded FIR) loads no jax module and no module of the JAX
     package (fresh interpreter: this one has jax)."""
     code = (
         "import sys, numpy as np, torch\n"
@@ -189,6 +191,24 @@ def test_port_never_imports_jax():
         "    init, apply, plan = mk(48000 / 44100, 2048, device='cpu')\n"
         "    y, nv, st = apply(init(), xc)\n"
         "farrow.FarrowResampler(1.5, device='cpu').execute_block(xc)\n"
+        "import tempfile, torch.distributed as dist\n"
+        "from solid_dsp_tpu_torch import parallel\n"
+        "from solid_dsp_tpu_torch.ops import cuda_halo\n"
+        "parallel.init_distributed('cpu', tempfile.mkdtemp() + '/store', 0, 1)\n"
+        "mesh = parallel.make_mesh(1, 1, device='cpu')\n"
+        "k9 = parallel.pallas_halo.make_fused_channelizer_frontend(mesh, 16, 8)\n"
+        "z, t = k9(torch.zeros((8, 16), dtype=torch.complex64), xc)\n"
+        "for fe in ('xla', 'fused'):\n"
+        "    init, apply = parallel.make_sharded_channelizer(16, 8, mesh, "
+        "frontend=fe)\n"
+        "    Y, t = apply(init(), xc)\n"
+        "init, apply = parallel.make_sharded_rx_chain(RxChainConfig("
+        "input_format='planar'), mesh)\n"
+        "out, st = apply(init(), x)\n"
+        "solid_dsp_tpu_torch.interop.sharded_state_to_numpy(st, mesh)\n"
+        "parallel.sharded_fir(np.ones(5), mesh)(torch.zeros(2, 4), "
+        "torch.ones(2, 64))\n"
+        "dist.destroy_process_group()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'solid_dsp_tpu' or m.startswith('solid_dsp_tpu.')]\n"
         "print('BAD', bad)\n")
