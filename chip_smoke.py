@@ -48,14 +48,15 @@ Phases, one line each:
      blocks each with the state carried, launches counted: QPSK symbols
      and carrier offset, the AM envelope's tone, the FM tone read back;
  10. throughput of the QPSK and AM chains with CUDA events over 20 blocks;
- 11. K4 vs its plain version on the card, x3 and fast, and x3 vs the plain
+ 11. K4 vs its plain version on the card, x3 and fast, planar and complex
+     layouts (bit-equal), timed over a CUDA graph, and x3 vs the plain
      version in float64 on the CPU at 2^18;
  12. K5 vs its plain version, beside one grouped conv1d (the library call);
  13. K6 vs its plain version at T = 2^14, C = 256, shared and per-channel
      sections, two blocks with the state carried;
- 14. PolyphaseChannelizer(256, 8) over 4 blocks, fused (K4, x3) then pallas
-     (K5), against the "xla" formulation and the plain versions, launches
-     counted; a +c/M tone lands in channel c;
+ 14. PolyphaseChannelizer(256, 8) over 4 blocks, fused (K4's complex
+     layout, x3) then pallas (K5), against the "xla" formulation and the
+     plain versions, launches counted; a +c/M tone lands in channel c;
  15. ChannelBank(256, fused, AGC) over 4 blocks, kernels vs plain, launches
      counted; SpectrumMonitor(256, fused) events vs the plain run;
  16. throughput in Msamples/s of input over 20 blocks with CUDA events
@@ -63,8 +64,8 @@ Phases, one line each:
      device's busy time from torch.profiler with the idle share it leaves;
  17. K7 vs its plain version on the card, F = 4096 x N = 4096, Hamming and
      Blackman-Harris, x3 and fast, planar and complex layouts, timed beside
-     torch.fft.fft on the windowed frames (the library call), and vs numpy
-     float64 on the CPU at F = 64;
+     torch.fft.fft on the windowed frames (the library call, over a CUDA
+     graph like the kernel), and vs numpy float64 on the CPU at F = 64;
  18. the config-2 path, launches counted: windowed_fft (auto) vs "xla" on
      complex64 frames; windowed_fft_planar and spectrogram(frame=4096) of a
      2^24-sample chirp, each frame's peak bin within 1 of the chirp's
@@ -92,11 +93,17 @@ Phases, one line each:
  25. K9's time over a CUDA graph of 20 launches beside K5's, its plain
      version, the grouped conv1d and its bound; the four-shard form's ms a
      block; the sharded entry points' Msamples/s against the unsharded
-     ones (turns unsharded, sharded, sharded, unsharded).
+     ones (turns unsharded, sharded, sharded, unsharded);
+ 26. with the caller's torch.set_float32_matmul_precision("high") and
+     cuDNN's TF32 at PyTorch's default: the x3 gates of configs 4 and 5
+     (kernels against plain versions, plain versions against float64)
+     and conv1d_mxu >= 100 dB against float64, the caller's flags the same
+     afterwards.  The script leaves every TF32 flag at PyTorch's default:
+     the port pins full float32 for its own products.
 
 Then the kernels' JSON line (each kernel's launches on the main paths; its
-time, by CUDA events over back-to-back launches, for K7 and K8 over a CUDA
-graph of them so that the host's launch rate is not counted; its plain
+time, by CUDA events over back-to-back launches, for K4 and K7-K9 over a
+CUDA graph of them so that the host's launch rate is not counted; its plain
 version's time, the library call's where one PyTorch call computes the
 same function, and its bound: the larger of its bytes over 3.35 TB/s and
 its operations over the peak of their type), the nvidia-smi
@@ -158,6 +165,8 @@ FARROW_ATOL = 1e-5        # tests/test_resample.py:348
 # parallel/: the sharded entry points against the single-card chains where
 # a reduction is reordered (tests/test_parallel.py's fused-channelizer gate)
 SHARDED_MIN_SNR_DB = 115.0
+# full float32 against float64 (TF32 keeps ~3 digits, some 60 dB)
+CONV_MIN_SNR_DB = 100.0
 PHASE_LIMIT_S = 60.0      # a K9 phase still running after this has hung
 # H100 SXM peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -383,12 +392,15 @@ def config5(dev, smi) -> list:
 
     def main_path(run):
         """Run one main path with every count at 0 just before it; add its
-        counts of the config-5 kernels; return run()'s result and them."""
+        counts of the config-5 kernels; return run()'s result and them
+        ("complex": K4's launches on its complex layout)."""
         for c in counters.values():
             c.launches = 0
+        cuda_chan.chan_fused_cuda.complex_launches = 0
         out = run()
         torch.cuda.synchronize()
         counts = {k: c.launches for k, c in counters.items()}
+        counts["complex"] = cuda_chan.chan_fused_cuda.complex_launches
         for k in launches:
             launches[k] += counts[k]
         return out, counts
@@ -397,25 +409,32 @@ def config5(dev, smi) -> list:
     U = L5 // M5
     taps = channelizer_taps(M5, K5)
 
-    # 11. K4 vs plain on the card, x3 and fast; x3 vs float64 on the CPU
+    # 11. K4 vs plain on the card, x3 and fast, planar and complex layouts;
+    # x3 vs float64 on the CPU
     x = cnoise(rng, L5)
-    xf = torch.from_numpy(np.stack([x.real, x.imag])).to(dev).reshape(2, U, M5)
+    xc5 = torch.from_numpy(x).to(dev).reshape(U, M5)
+    xf = torch.stack([xc5.real, xc5.imag]).contiguous()
     tail = torch.from_numpy(rng.standard_normal((2, 8, M5)).astype(
         np.float32)).to(dev)
     chan = {}
     for mode in ("x3", "fast"):
         body = cuda_chan.make_chan_body(taps, M5, mode, dev)
         yk = cuda_chan.chan_fused_cuda(body, xf, tail)
+        yc = cuda_chan.chan_fused_cuda(body, xc5, tail)
         yp = cuda_chan.chan_fused_torch(body, xf, tail)
         torch.cuda.synchronize()
-        chan[mode] = (body, yk, yp)
+        same = (torch.equal(yc.real, yk[:, :M5])
+                and torch.equal(yc.imag, yk[:, M5:]))
+        chan[mode] = (body, yk, yp, same)
     yx3 = chan["x3"][2].cpu().numpy()
     stats11 = {}
-    for mode, (body, yk, yp) in chan.items():
+    for mode, (body, yk, yp, same) in chan.items():
         yk, yp = yk.cpu().numpy(), yp.cpu().numpy()
         snr_same = snr_db(yk, yp)
         snr_x3 = snr_db(yk, yx3)
-        kms = cuda_ms(lambda: cuda_chan.chan_fused_cuda(body, xf, tail), 20)
+        kms = graph_ms(lambda: cuda_chan.chan_fused_cuda(body, xf, tail), 20)
+        kms_c = graph_ms(lambda: cuda_chan.chan_fused_cuda(body, xc5, tail),
+                         20)
         pms = cuda_ms(lambda: cuda_chan.chan_fused_torch(body, xf, tail), 20)
         flops = 8 * U * M5 * M5 + 4 * (K5 + 1) * U * M5
         nbytes = 4 * (2 * L5 + 16 * M5 + (K5 + 1) * M5 + 2 * M5 * M5
@@ -423,14 +442,18 @@ def config5(dev, smi) -> list:
         # x3 is f32-grade: three bf16 tensor-core passes at the least
         bnd = bound_ms(nbytes, flops * (3 if mode == "x3" else 1),
                        BF16_FLOPS)
-        stats11[mode] = (float(np.max(np.abs(yk - yp))), kms, pms, bnd)
+        # the main paths (PolyphaseChannelizer, ChannelBank, the monitor,
+        # the sharded channelizer) run the complex layout
+        stats11[mode] = (float(np.max(np.abs(yk - yp))), kms_c, pms, bnd)
         gate = MIN_SNR_DB if mode == "x3" else FAST_MIN_SNR_DB
         print(f"[11 channelizer kernel vs plain, {mode}, M=256 K=8 L=2^22] "
               f"{snr_same:.1f} dB vs plain {mode}, {snr_x3:.1f} dB vs plain "
-              f"x3 (gate {gate}), max |err| {stats11[mode][0]:.3g}; kernel "
-              f"{kms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
-              f"({bnd[1]}) | {smi}", flush=True)
-        if not (snr_x3 >= gate and snr_same >= MIN_SNR_DB
+              f"x3 (gate {gate}), max |err| {stats11[mode][0]:.3g}, complex "
+              f"layout bit-equal {same}; kernel (CUDA graph of 20 launches) "
+              f"planar {kms:.4f} ms, complex {kms_c:.4f} ms, plain "
+              f"{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) | {smi}",
+              flush=True)
+        if not (snr_x3 >= gate and snr_same >= MIN_SNR_DB and same
                 and np.all(np.isfinite(yk)) and yk.shape == (U, 2 * M5)):
             fail(f"phase 11: the channelizer kernel disagrees ({mode})")
     U64 = L5_F64 // M5
@@ -542,10 +565,12 @@ def config5(dev, smi) -> list:
         print(f"[14 PolyphaseChannelizer {backend} x3, {N_CHAIN} x 2^22] "
               f"{snr_ref:.1f} dB vs xla, {snr_plain:.1f} dB vs plain (gate "
               f"{MIN_SNR_DB}), tails equal {tails}, launches {key} "
-              f"{counts[key]}, tone in channel {c} {ratio:.0f}x the others",
-              flush=True)
+              f"{counts[key]} ({counts['complex']} on K4's complex layout), "
+              f"tone in channel {c} {ratio:.0f}x the others", flush=True)
+        want_complex = N_CHAIN if backend == "fused" else 0
         if not (snr_ref >= MIN_SNR_DB and snr_plain >= MIN_SNR_DB and tails
                 and counts[key] == N_CHAIN and ok_tone
+                and counts["complex"] == want_complex
                 and y_k.shape == (N_CHAIN * U, M5)):
             fail(f"phase 14: PolyphaseChannelizer({backend}) is wrong")
 
@@ -561,9 +586,10 @@ def config5(dev, smi) -> list:
                       ).abs().max() / bp.state["agc"]["gain"].abs().max())
     print(f"[15 ChannelBank fused + AGC, {N_CHAIN} x 2^22] {snr15:.1f} dB vs "
           f"plain (gate {MIN_SNR_DB}), gain rel err {gain_err:.3g}, launches "
-          f"channelizer {counts['channelizer']} iir_bank "
-          f"{counts['iir_bank']}", flush=True)
+          f"channelizer {counts['channelizer']} ({counts['complex']} complex) "
+          f"iir_bank {counts['iir_bank']}", flush=True)
     if not (snr15 >= MIN_SNR_DB and counts["channelizer"] == N_CHAIN
+            and counts["complex"] == N_CHAIN
             and counts["iir_bank"] == N_CHAIN
             and bool(torch.isfinite(y_k).all())):
         fail("phase 15: ChannelBank through the kernels is wrong")
@@ -590,9 +616,10 @@ def config5(dev, smi) -> list:
                     for a, b in zip(mon_k.events, mon_p.events)))
     print(f"[15 SpectrumMonitor fused, {N_MON} x 2^22] events {mon_k.events}"
           f", plain run's {mon_p.events}, same {same}, launches channelizer "
-          f"{counts['channelizer']}", flush=True)
+          f"{counts['channelizer']} ({counts['complex']} complex)", flush=True)
     if not (same and sorted(e["channel"] for e in mon_k.events) == [40, 200]
-            and counts["channelizer"] == N_MON):
+            and counts["channelizer"] == N_MON
+            and counts["complex"] == N_MON):
         fail("phase 15: SpectrumMonitor's events are wrong")
 
     # 16. throughput (turns plain, kernel, kernel, plain), host enqueue,
@@ -721,14 +748,13 @@ def config2(dev, smi) -> list:
     yl = torch.fft.fft(xw)
     snr_lib = snr_db(yl.cpu().numpy(), torch.complex(
         *cuda_fft.windowed_fft_plain(x2, wt).split(N2, dim=1)).cpu().numpy())
-    l_ms = cuda_ms(lambda: torch.fft.fft(xw), 20)
+    l_ms = graph_ms(lambda: torch.fft.fft(xw), 20)
     print(f"[17 windowed fft timing, F=4096 N=4096] kernel (CUDA graph of 20"
           f" launches) planar {k_planar:.4f} ms, complex {k_complex:.4f} ms, "
           f"planar launched eagerly {k_eager:.4f} ms; plain {p_ms:.4f} ms, "
-          f"library "
-          f"torch.fft.fft on windowed complex64 frames (cuFFT) {l_ms:.4f} ms "
-          f"({snr_lib:.1f} dB vs plain), bound {bnd[0]:.4f} ms ({bnd[1]}) | "
-          f"{smi}", flush=True)
+          f"library torch.fft.fft on windowed complex64 frames (cuFFT, the "
+          f"same CUDA graph timing) {l_ms:.4f} ms ({snr_lib:.1f} dB vs "
+          f"plain), bound {bnd[0]:.4f} ms ({bnd[1]}) | {smi}", flush=True)
     x64 = x[:F2_F64]
     got = cuda_fft.windowed_fft_frames(xc[:F2_F64].contiguous(), w,
                                        planar=False).cpu().numpy()
@@ -1224,6 +1250,100 @@ def phase24(dev, mesh, rng, main_path, parallel, PolyphaseChannelizer,
     return rates
 
 
+def precision_phase(dev, smi):
+    """26. A caller's torch.set_float32_matmul_precision("high") (cuBLAS in
+    TF32) with cuDNN at PyTorch's default (TF32 on): the x3 gates of config
+    4 (K1 and the DDC body kernel against their plain versions, the body's
+    plain version against float64) and config 5 (K4 x3 against its plain
+    version, the plain version and the planar channelizer against
+    float64) still hold, since the port pins full float32 for its own
+    products; conv1d_mxu >= 100 dB against float64; the caller's settings
+    are the same afterwards."""
+    from solid_dsp_tpu_torch.models.channelizer import (
+        channelizer_apply_planar, channelizer_dft_bank, channelizer_taps)
+    from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig
+    from solid_dsp_tpu_torch.ops import cuda_chan, cuda_ddc
+    from solid_dsp_tpu_torch.ops.fir import conv1d_mxu
+    from solid_dsp_tpu_torch.ops.nco import constrain
+
+    rng = np.random.default_rng(SEED + 26)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        snrs = {}
+        cfg = RxChainConfig(carrier_freq=0.2, decimation=4, fir_taps=64,
+                            fir_precision="x3")
+        taps, dtheta = cfg.design_taps(), constrain(cfg.carrier_freq)
+        x4 = make_block(rng, 0, L_F64)
+        tail4 = (0.1 * rng.standard_normal((2, 60))).astype(np.float32)
+        xd, td = torch.from_numpy(x4).to(dev), torch.from_numpy(tail4).to(dev)
+        body = cuda_ddc.make_ddc_body(taps, dtheta, 4, dev)
+        body64 = cuda_ddc.make_ddc_body(taps, dtheta, 4, "cpu", torch.float64)
+        z64 = cuda_ddc.ddc_body_torch(body64, torch.from_numpy(x4).double(),
+                                      torch.from_numpy(tail4).double())
+        zp = cuda_ddc.ddc_body_torch(body, xd, td)
+        snrs["config 4 body kernel vs plain"] = snr_db(
+            cuda_ddc.ddc_body_cuda(body, xd, td).cpu().numpy(),
+            zp.cpu().numpy())
+        snrs["config 4 body plain vs float64"] = snr_db(zp.cpu().numpy(),
+                                                        z64.numpy())
+        fm = cuda_ddc.make_ddc_fm(taps, dtheta, 4, cfg.fm_kf, dev)
+        snrs["config 4 FM kernel vs plain"] = snr_db(
+            cuda_ddc.ddc_fm_cuda(fm, xd, td)[0].cpu().numpy(),
+            cuda_ddc.ddc_fm_torch(fm, xd, td)[0].cpu().numpy())
+        U = L5_F64 // M5
+        xc = cnoise(rng, L5_F64)
+        xf = np.stack([xc.real, xc.imag]).reshape(2, U, M5)
+        tail5 = rng.standard_normal((2, 8, M5)).astype(np.float32)
+        ctaps = channelizer_taps(M5, K5)
+        b5 = cuda_chan.make_chan_body(ctaps, M5, "x3", dev)
+        b64 = cuda_chan.make_chan_body(ctaps, M5, "x3", "cpu", torch.float64)
+        xt, tt = torch.from_numpy(xf).to(dev), torch.from_numpy(tail5).to(dev)
+        y5 = cuda_chan.chan_fused_torch(b5, xt, tt)
+        y64 = cuda_chan.chan_fused_torch(b64, torch.from_numpy(xf).double(),
+                                         torch.from_numpy(tail5).double())
+        snrs["config 5 K4 x3 vs plain"] = snr_db(
+            cuda_chan.chan_fused_cuda(b5, xt, tt).cpu().numpy(),
+            y5.cpu().numpy())
+        snrs["config 5 K4 plain vs float64"] = snr_db(y5.cpu().numpy(),
+                                                      y64.numpy())
+        bank = channelizer_dft_bank(M5, K5)
+        x2 = np.stack([xc.real, xc.imag]).astype(np.float32)
+        t2 = np.zeros((2, K5 * M5 - 1), np.float32)
+        yq, _ = channelizer_apply_planar(ctaps, bank, torch.from_numpy(t2).to(
+            dev), torch.from_numpy(x2).to(dev), M5, precision="x3")
+        yq64, _ = channelizer_apply_planar(ctaps, bank, torch.from_numpy(
+            t2).double(), torch.from_numpy(x2).double(), M5, precision="x3")
+        snrs["config 5 planar channelizer x3 vs float64"] = snr_db(
+            yq.cpu().numpy(), yq64.numpy())
+        xs = cnoise(rng, L_F64)
+        hs = (rng.standard_normal(64) + 1j * rng.standard_normal(64)
+              ).astype(np.complex64)
+        yc = conv1d_mxu(torch.from_numpy(xs).to(dev), torch.from_numpy(hs).to(
+            dev))
+        yc64 = conv1d_mxu(torch.from_numpy(xs).to(torch.complex128),
+                          torch.from_numpy(hs).to(torch.complex128))
+        conv = snr_db(yc.cpu().numpy(), yc64.numpy())
+        after = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32,
+                 torch.get_float32_matmul_precision())
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    text = ", ".join(f"{k} {v:.1f} dB" for k, v in snrs.items())
+    print(f"[26 x3 gates under the caller's float32 matmul precision 'high' "
+          f"(cuBLAS TF32 {flags[0]}, cuDNN TF32 {flags[1]})] {text} (gate "
+          f"{MIN_SNR_DB}); conv1d_mxu complex64 vs float64 {conv:.1f} dB "
+          f"(gate {CONV_MIN_SNR_DB}); caller's flags after "
+          f"{after}", flush=True)
+    if not (flags == (True, True) and after == (True, True, "high")
+            and all(v >= MIN_SNR_DB for v in snrs.values())
+            and conv >= CONV_MIN_SNR_DB):
+        fail("phase 26: an x3 product lost precision under the caller's "
+             "TF32 settings")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -1233,8 +1353,6 @@ def main() -> None:
     from solid_dsp_tpu_torch.ops import ddc as ddc_ops
     from solid_dsp_tpu_torch.ops.nco import constrain
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # TF32 would fail 90 dB
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE, 0)
 
     # 1. device
@@ -1558,6 +1676,7 @@ def main() -> None:
     kernels += config2(dev, smi)
     kernels += farrow_phases(dev, smi)
     kernels += parallel_phases(dev, smi)
+    precision_phase(dev, smi)
     if not all(k["launches"] > 0 for k in kernels):
         fail("a kernel of the main paths was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..design.windows import get_window
+from ..device import fp32_exact
 
 __all__ = ["frame_signal", "stft", "istft", "spectrogram", "welch_psd",
            "csd", "coherence", "cepstrum", "analytic_signal", "envelope",
@@ -114,8 +115,9 @@ def goertzel_bank(x: torch.Tensor, freqs, frame_len: int = 256
     probes = np.exp(-2j * np.pi * n * freqs[None, :]) * (2.0 / frame_len)
     frames = frame_signal(x, frame_len, frame_len)
     cdt = torch.promote_types(frames.dtype, torch.complex64)
-    return torch.matmul(frames.to(cdt),
-                        torch.from_numpy(probes).to(frames.device, cdt))
+    with fp32_exact():
+        return torch.matmul(frames.to(cdt),
+                            torch.from_numpy(probes).to(frames.device, cdt))
 
 
 def csd(x: torch.Tensor, y: torch.Tensor, nfft: int = 1024, hop: int = 512,

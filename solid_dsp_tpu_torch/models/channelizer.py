@@ -16,7 +16,8 @@ by M.  Three formulations, as in the JAX package:
   package's);
 * :func:`channelizer_apply_planar`, planar planes with the DFT as one
   matmul;
-* the fused kernel K4 (:func:`make_fused_channelizer`, ``backend="fused"``)
+* the fused kernel K4 (:func:`make_fused_channelizer` on planes,
+  :func:`fused_channelizer_complex` on complex samples, ``backend="fused"``)
   and the front-end kernel K5 with ``torch.fft.fft``
   (``backend="pallas"``), both in ``ops/cuda_chan.py``.
 
@@ -32,13 +33,14 @@ import torch
 from torch import nn
 
 from ..design import firdes
-from ..device import bind_device, resolve_device
+from ..device import bind_device, fp32_exact, resolve_device
 from ..ops import cuda_chan
 from ..ops.cuda_chan import CHAN_HALO
 
 __all__ = ["channelizer_taps", "channelizer_init", "channelizer_apply",
            "channelizer_dft_bank", "channelizer_apply_planar",
            "fused_channelizer_init", "make_fused_channelizer",
+           "fused_channelizer_complex",
            "PolyphaseChannelizer", "channelizer_synthesize",
            "synthesis_init", "PolyphaseSynthesizer",
            "os_channelizer_init", "os_channelizer_apply",
@@ -121,10 +123,10 @@ def channelizer_apply_planar(taps, bank, tail2, x2, num_channels: int,
 
     taps: concrete prototype (numpy); bank (2, M, 2M) from
     :func:`channelizer_dft_bank`; tail2 (2, K*M - 1); x2 (2, L) float.
-    ``precision``: "x3" and "highest" run the matmul in full float32 (set
-    ``torch.backends.cuda.matmul.allow_tf32 = False`` on the card, the
-    default); "default" rounds both operands to bf16 and accumulates in
-    float32.  Returns (Y2 (T, 2M) [Re | Im], new_tail2).
+    ``precision``: "x3" and "highest" run the matmul in full float32 (under
+    ``device.fp32_exact``: TF32 off whatever the caller set); "default"
+    rounds both operands to bf16 and accumulates in float32.  Returns
+    (Y2 (T, 2M) [Re | Im], new_tail2).
     """
     if precision not in ("x3", "highest", "default"):
         raise ValueError(f"unknown precision {precision!r}")
@@ -147,7 +149,8 @@ def channelizer_apply_planar(taps, bank, tail2, x2, num_channels: int,
     if precision == "default":
         z2 = z2.to(torch.bfloat16).to(rdtype)
         B = B.to(torch.bfloat16).to(rdtype)
-    Y2 = torch.matmul(z2[0], B[0]) + torch.matmul(z2[1], B[1])
+    with fp32_exact():
+        Y2 = torch.matmul(z2[0], B[0]) + torch.matmul(z2[1], B[1])
     return Y2, x_ext[..., -(K * M - 1):]
 
 
@@ -168,7 +171,8 @@ def make_fused_channelizer(taps, num_channels: int, n_frames: int,
     n_frames: the frame count U = L // M of every block, a multiple of the
     TPU tile TF (the JAX package's block rule, kept so that the two
     packages take the same blocks; the kernel's own tiles are fixed).
-    mode: "fast" (bf16 branch products and bank, FP32 sums) | "x3" (FP32).
+    mode: "fast" (bf16 branch products and bank, FP32 sums) | "x3" (three
+    bf16 products, ~FP32).
 
     Returns apply(tail_rows, x2) -> (Y2 (U, 2M) [Re | Im], new_tail_rows)
     for x2 (2, L) float32 planes and tail_rows (2, CHAN_HALO, M).
@@ -187,6 +191,26 @@ def make_fused_channelizer(taps, num_channels: int, n_frames: int,
         return Y2, xf[:, U - CHAN_HALO:, :].contiguous()
 
     return apply
+
+
+def fused_channelizer_complex(body, tail_rows, x, engine: str = "auto"):
+    """One block of the fused channelizer on complex samples, through K4's
+    complex layout (no plane split or merge around the kernel): x (L,)
+    complex64, L a multiple of 8*M, and the (2, 8, M) tail rows -> (Y
+    (L // M, M) complex64, new tail rows), bit-equal to the planar route
+    of :func:`make_fused_channelizer`."""
+    M = body.M
+    L = int(x.shape[-1])
+    if L % M:
+        raise ValueError("block length must be a multiple of the channel count")
+    U = L // M
+    if U % CHAN_HALO:
+        raise ValueError(f"fused backend needs block length a multiple of "
+                         f"{CHAN_HALO * M} samples")
+    rows = x.reshape(U, M).contiguous()
+    Y = body(rows, tail_rows, engine)
+    last = rows[U - CHAN_HALO:]
+    return Y, torch.stack([last.real, last.imag]).contiguous()
 
 
 def _check_engine(engine: str):
@@ -223,9 +247,10 @@ class PolyphaseChannelizer(_Stateful):
 
     * ``"xla"`` (default): :func:`channelizer_apply`, the commutator form
       in torch ops with ``torch.fft.fft``;
-    * ``"fused"``: the fused kernel K4 (branch filter and DFT in one pass;
-      ``ops/cuda_chan.py``); ``precision`` "x3" (~f32, FP32 on Hopper) or
-      "fast" (bf16 branch products and bank).  The block length must be a
+    * ``"fused"``: the fused kernel K4 (branch filter and DFT in one pass,
+      on the complex samples as they come; ``ops/cuda_chan.py``);
+      ``precision`` "x3" (~f32: three bf16 tensor-core products) or "fast"
+      (bf16 branch products and bank).  The block length must be a
       multiple of 8*M, as in the JAX package;
     * ``"pallas"``: the front-end kernel K5 and ``torch.fft.fft``.
 
@@ -267,7 +292,8 @@ class PolyphaseChannelizer(_Stateful):
                 raise ValueError(
                     f"fused backend supports taps_per_branch <= {CHAN_HALO}")
             self._tail = fused_channelizer_init(self.M, self.device)
-            self._fused_fns: dict = {}
+            self._body = cuda_chan.make_chan_body(self._taps_np, self.M,
+                                                  precision, self.device)
         else:
             self._tail = channelizer_init(self.M, self.K, dtype,
                                           device=self.device)
@@ -280,23 +306,6 @@ class PolyphaseChannelizer(_Stateful):
     def state(self, value):
         self._set_state("_tail", value)
 
-    def _fused_fn(self, U: int):
-        """The fused apply for a frame count U, cached."""
-        fn = self._fused_fns.get(U)
-        if fn is None:
-            if U % CHAN_HALO:
-                raise ValueError(
-                    f"fused backend needs block length a multiple of "
-                    f"{CHAN_HALO * self.M} samples")
-            TF = next(t for t in (512, 256, 128, 64, 32, 16, 8)
-                      if U % t == 0)
-            fn = make_fused_channelizer(self._taps_np, self.M, U, TF=TF,
-                                        mode=self.precision,
-                                        device=self.device,
-                                        engine=self.engine)
-            self._fused_fns[U] = fn
-        return fn
-
     def execute_block(self, x) -> torch.Tensor:
         """x (L,) complex, L a multiple of M -> Y (L // M, M) complex."""
         if self.backend == "pallas":
@@ -307,13 +316,9 @@ class PolyphaseChannelizer(_Stateful):
             return Y
         if self.backend == "fused":
             x = torch.as_tensor(x, dtype=torch.complex64, device=self.device)
-            if x.shape[-1] % self.M:
-                raise ValueError(
-                    "block length must be a multiple of the channel count")
-            fn = self._fused_fn(int(x.shape[-1]) // self.M)
-            x2 = torch.stack([x.real, x.imag])             # (2, L) float32
-            Y2, self._tail = fn(self._tail, x2)
-            return torch.complex(Y2[:, : self.M], Y2[:, self.M:])
+            Y, self._tail = fused_channelizer_complex(self._body, self._tail,
+                                                      x, self.engine)
+            return Y
         x = torch.as_tensor(x, dtype=self._tail.dtype, device=self.device)
         Y, self._tail = channelizer_apply(self.taps, self._tail, x, self.M)
         return Y

@@ -5,11 +5,12 @@ interface (``extern "C"`` launchers that take device pointers, sizes and a
 stream, and return the launch's ``cudaError_t``); none includes a PyTorch
 header.  :func:`build` compiles every source at once, one ``nvcc`` process
 each, into a shared library under ``solid_dsp_tpu_torch/_build/`` named by
-a hash of its source and flags, so that a built library is reused and a
-changed source is rebuilt.  The wrappers (``ops/cuda_ddc.py``,
-``ops/cuda_chan.py``, ``ops/cuda_iir.py``, ``ops/cuda_fft.py``,
-``ops/cuda_resample.py``, ``ops/cuda_halo.py``) pass ``tensor.data_ptr()`` and
-the current stream and raise on a non-zero return.
+a hash of its source, the shared headers (``csrc/*.cuh``) and the flags,
+so that a built library is reused and a changed source is rebuilt.  The
+wrappers (``ops/cuda_ddc.py``, ``ops/cuda_chan.py``, ``ops/cuda_iir.py``,
+``ops/cuda_fft.py``, ``ops/cuda_resample.py``, ``ops/cuda_halo.py``) pass
+``tensor.data_ptr()`` and the current stream and raise on a non-zero
+return.
 
 Needs ``nvcc`` (``$CUDA_HOME/bin`` or on the ``PATH``); nothing is built
 when a module is imported.
@@ -53,7 +54,8 @@ def _nvcc() -> str:
 
 def _target(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 

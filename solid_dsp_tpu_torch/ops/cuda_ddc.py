@@ -49,6 +49,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..device import fp32_exact
 from .cuda_build import check_launch, launcher, stream_of
 from .ddc import _fold_banks, ddc_body_torch, ddc_taps
 from .fir import _banks_np
@@ -169,8 +170,10 @@ def _check_block(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
                          f"got {tuple(tail.shape)}")
 
 
+@fp32_exact()
 def ddc_fm_torch(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
-    """Plain PyTorch version of the body: returns (audio (T,), stats (5,))."""
+    """Plain PyTorch version of the body: returns (audio (T,), stats (5,));
+    its matmuls in full float32 (``device.fp32_exact``)."""
     _check_block(body, x2, tail)
     P, M, n = body.P, body.M, body.n
     hop = P * M

@@ -10,9 +10,10 @@ bin order, ``sign`` -1 forward or +1 inverse).  Two layouts:
 * complex, for ``ops/fft.py::windowed_fft``: x (F, N) complex64 ->
   (F, N) complex64, with no split or merge pass around the kernel.
 
-:func:`windowed_fft_cuda` launches ``csrc/windowed_fft.cu`` (three radix-16
-Stockham passes a frame in shared memory; the source has the design) and
-counts ``windowed_fft_cuda.launches``.  :func:`windowed_fft_plain` is its
+:func:`windowed_fft_cuda` launches ``csrc/windowed_fft.cu`` (persistent
+blocks, frames brought in and written out by TMA bulk copies, three
+radix-16 Stockham passes a frame in shared memory; the source has the
+design) and counts ``windowed_fft_cuda.launches``.  :func:`windowed_fft_plain` is its
 plain version: the TPU kernel's four-step (window, stage-A bank product over
 n1, twiddle, stage-C bank product over n2, reorder to k1 + 32 k2) in torch
 ops, with banks and twiddles built in float64 and cast to the input's type.
@@ -32,7 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import fp32_exact, resolve_device
 from .cuda_build import check_launch, launcher, stream_of, use_kernel
 
 __all__ = ["N_FFT", "N1", "N2", "MODES", "twiddle_table_np",
@@ -89,11 +90,12 @@ def _check(x: torch.Tensor, w: torch.Tensor, planar: bool) -> int:
     return F
 
 
+@fp32_exact()
 def windowed_fft_plain(x: torch.Tensor, w: torch.Tensor, sign: int = -1,
                        planar: bool = True) -> torch.Tensor:
     """Plain version of K7: the four-step N = 32 x 128 of the TPU kernel in
     torch ops, in the input's real type (float32, or float64 for a
-    reference).  ``planar``: x (2, F, N) real -> (F, 2N); else x (F, N)
+    reference), its products with TF32 off (``device.fp32_exact``).  ``planar``: x (2, F, N) real -> (F, 2N); else x (F, N)
     complex -> (F, N) complex."""
     F = _check(x, w, planar)
     if planar:
@@ -131,8 +133,9 @@ def windowed_fft_cuda(x: torch.Tensor, w: torch.Tensor, tw: torch.Tensor,
     """Launch K7 (``csrc/windowed_fft.cu``): planar x (2, F, N) f32 ->
     (F, 2N) f32, or complex64 x (F, N) -> (F, N) complex64.  ``w`` (N,)
     f32 window, ``tw`` (N, 2) f32 :func:`twiddle_table_np` of the same
-    ``sign``; contiguous, on one card; raises on anything else.  Adds one
-    to ``windowed_fft_cuda.launches``."""
+    ``sign``; contiguous, on one card, x 16-byte aligned (the kernel's bulk
+    copies need it); raises on anything else.  Adds one to
+    ``windowed_fft_cuda.launches``."""
     F = _check(x, w, planar)
     if sign not in (-1, 1):
         raise ValueError("sign must be -1 or +1")
@@ -149,6 +152,10 @@ def windowed_fft_cuda(x: torch.Tensor, w: torch.Tensor, tw: torch.Tensor,
         raise ValueError(f"the twiddle table must be ({N_FFT}, 2)")
     if not (x.is_contiguous() and w.is_contiguous() and tw.is_contiguous()):
         raise ValueError("windowed_fft_cuda needs contiguous tensors")
+    if x.data_ptr() % 16:
+        raise ValueError("windowed_fft_cuda needs 16-byte-aligned frames "
+                         "(TMA bulk copies); windowed_fft_frames copies "
+                         "misaligned ones")
     shape = (F, 2 * N_FFT) if planar else (F, N_FFT)
     y = torch.empty(shape, dtype=want, device=x.device)
     fn = launcher("windowed_fft.cu", "windowed_fft_launch", _ARGS)
@@ -181,7 +188,10 @@ def windowed_fft_frames(x: torch.Tensor, window=None, sign: int = -1,
           else np.ascontiguousarray(np.asarray(window, np.float32)).tobytes())
     w, tw = _tables(wb, int(sign), x.device)
     if use_kernel(engine, x):
-        return windowed_fft_cuda(x.contiguous(), w, tw, sign, planar)
+        x = x.contiguous()
+        if x.data_ptr() % 16:       # a view at an odd offset: an aligned copy
+            x = x.clone()
+        return windowed_fft_cuda(x, w, tw, sign, planar)
     return windowed_fft_plain(x, w, sign, planar)
 
 

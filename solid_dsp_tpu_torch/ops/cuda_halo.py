@@ -20,7 +20,10 @@ right neighbour's:
   different streams;
 * :func:`group_link` builds this rank's link in a process group: the
   regions' CUDA IPC handles go round the group once, each rank opens its
-  right neighbour's, and one barrier ends the setup.
+  right neighbour's, and one barrier ends the setup.  IPC handles open only
+  on the node that made them, so :func:`check_one_host` first compares the
+  ranks' hostnames and raises if the group crosses hosts (a transport
+  between hosts is not written yet).
 
 Each launch passes the block's epoch (1, 2, ... a stream); the kernel
 publishes and waits on it, so no host synchronisation is needed between
@@ -30,6 +33,7 @@ blocks.
 from __future__ import annotations
 
 import ctypes
+import socket
 import weakref
 from dataclasses import dataclass, field
 
@@ -39,7 +43,8 @@ import torch.distributed as dist
 from .cuda_build import check_launch, launcher, stream_of
 
 __all__ = ["HEADER_BYTES", "region_bytes", "HaloRegion", "HaloLink",
-           "local_ring", "group_link", "halo_frontend_cuda"]
+           "local_ring", "check_one_host", "group_link",
+           "halo_frontend_cuda"]
 
 HEADER_BYTES = 256      # kHeaderBytes in csrc/halo_frontend.cu
 MAX_TAPS = 8            # kMaxTaps
@@ -146,10 +151,31 @@ def local_ring(n: int, num_channels: int, taps_per_branch: int,
             for i in range(n)]
 
 
+def check_one_host(group, index: int, n: int):
+    """Gather the hostnames of the n ranks of ``group`` (collective) and
+    raise ValueError if two neighbours along it run on different hosts:
+    K9's CUDA IPC handles open only on the node that made them.  Every rank
+    raises (each sees all the names), so none waits on the others."""
+    hosts = [None] * n
+    dist.all_gather_object(hosts, socket.gethostname(), group=group)
+    pairs = [(i, i + 1) for i in range(n - 1) if hosts[i] != hosts[i + 1]]
+    if pairs:
+        mine = [p for p in pairs if p[0] == index]
+        i, j = (mine or pairs)[0]
+        raise ValueError(
+            f"K9's in-kernel halo exchange needs the whole time axis on one "
+            f"node: rank {i} of the group runs on host {hosts[i]!r} and its "
+            f"right neighbour, rank {j}, on {hosts[j]!r} (CUDA IPC handles "
+            f"do not cross hosts)")
+
+
 def group_link(group, index: int, n: int, num_channels: int,
                taps_per_branch: int, device: torch.device) -> HaloLink:
     """This rank's link along a process group of n ranks (this one at
-    ``index``), each on its own card: every rank calls it once, at setup."""
+    ``index``), each on its own card: every rank calls it once, at setup.
+    Raises ValueError (:func:`check_one_host`) before any region is
+    allocated if the group crosses hosts."""
+    check_one_host(group, index, n)
     region = HaloRegion(num_channels, taps_per_branch, device)
     handles = [None] * n
     dist.all_gather_object(handles, region.ipc_handle(), group=group)

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import fp32_exact
 from .fir import _bank_rem_np, _banks_np
 from .nco import (TWO_PI, U32, U32_MASK, nco_complex_exponential,
                   phase_to_rad)
@@ -97,6 +98,7 @@ def _frame_banks(body, P: int):
     return body_bank, head_bank
 
 
+@fp32_exact()
 def ddc_body_torch(body, x2: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the unrotated DDC body (K2 and K3).
 
@@ -107,8 +109,8 @@ def ddc_body_torch(body, x2: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
     outputs, whose windows straddle the tail, as one small matmul; whole
     frames of P outputs as banded-Toeplitz matmuls on the free frame view
     plus the next frame's head; the straggler outputs past the last frame.
-    Every product is a float32 (or float64) matmul: on the card TF32 must
-    be off for f32 accuracy.
+    Every product is a float32 (or float64) matmul, run with TF32 off
+    (``device.fp32_exact``) whatever the caller set.
     """
     n, M = body.n, body.M
     n1 = n - 1

@@ -42,7 +42,7 @@ import torch
 
 from ..design import resources
 from ..design.windows import get_window
-from ..device import resolve_device
+from ..device import fp32_exact, resolve_device
 from .cuda_fft import N_FFT, windowed_fft_frames
 
 __all__ = ["FFTDirection", "FFTMethod", "BACKENDS", "estimate_method",
@@ -164,7 +164,8 @@ class FFTPlan:
         x = x[..., : self.nfft]
         m = self.method
         if m == FFTMethod.DFT:
-            return torch.matmul(x, _const(self._W, x).T)
+            with fp32_exact():
+                return torch.matmul(x, _const(self._W, x).T)
         if m == FFTMethod.MIXEDRADIX:
             p, q = self.p, self.q
             A = x.reshape(*x.shape[:-1], p, q)           # A[j, i] = x[q j + i]

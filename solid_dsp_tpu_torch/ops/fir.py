@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import fp32_exact, resolve_device
 
 __all__ = ["fir_init", "conv1d_mxu"]
 
@@ -33,10 +33,10 @@ def conv1d_mxu(x: torch.Tensor, taps: torch.Tensor, stride: int = 1,
 
     Complex data or taps run as a 2-channel real convolution, out_re =
     xr*kr - xi*ki and out_im = xr*ki + xi*kr, as in JAX.  ``precision``:
-    None or "highest" computes in the working float type (on the card with
-    cuDNN's TF32 off, ``torch.backends.cudnn.allow_tf32 = False``);
-    "default" rounds both operands to bf16 first, the single-pass bf16 the
-    JAX package names so.
+    None or "highest" computes in the working float type: the convolution
+    runs under :func:`~solid_dsp_tpu_torch.device.fp32_exact`, so cuDNN's
+    TF32 stays off whatever the caller set; "default" rounds both operands
+    to bf16 first, the single-pass bf16 the JAX package names so.
     """
     if precision not in (None, "highest", "default"):
         raise ValueError(f"unknown precision {precision!r}")
@@ -61,8 +61,9 @@ def conv1d_mxu(x: torch.Tensor, taps: torch.Tensor, stride: int = 1,
     if precision == "default":
         xb = xb.to(torch.bfloat16).to(xb.dtype)
         w = w.to(torch.bfloat16).to(w.dtype)
-    y = torch.nn.functional.conv1d(xb.contiguous(), w.contiguous(),
-                                   stride=stride)             # (B, C_out, T)
+    with fp32_exact():
+        y = torch.nn.functional.conv1d(xb.contiguous(), w.contiguous(),
+                                       stride=stride)         # (B, C_out, T)
     if cplx:
         y = torch.complex(y[:, :O], y[:, O:])
     y = y.transpose(1, 2).reshape(*lead, T, O)

@@ -17,10 +17,9 @@ convolution's transforms done the same way.  The products are plain
 
 Precision (``ops/fir.py::_resolve_precision`` of the JAX package):
 ``None``, ``"highest"`` and ``"x3"`` are full FP32 (float64 for float64
-planes) -- on the card that holds with ``torch.backends.cuda.matmul.
-allow_tf32`` False, PyTorch's default, which this module never changes;
-``"default"`` rounds both operands to bf16 and accumulates in the planes'
-type (one bf16 pass, ~45 dB).
+planes): :func:`dft_mx_planar` runs under ``device.fp32_exact``, so cuBLAS
+keeps TF32 off whatever the caller set; ``"default"`` rounds both operands
+to bf16 and accumulates in the planes' type (one bf16 pass, ~45 dB).
 """
 
 from __future__ import annotations
@@ -29,6 +28,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from ..device import fp32_exact
 
 __all__ = ["DIRECT_MAX", "dft_mx_planar", "fft_mx", "ifft_mx"]
 
@@ -139,6 +140,7 @@ def _core(pr, pi, n: int, sign: int, prec: str):
     return dr, di
 
 
+@fp32_exact()
 def dft_mx_planar(pr: torch.Tensor, pi: torch.Tensor, sign: int = -1,
                   precision=None):
     """Unnormalized DFT over the last axis of the real planes (pr, pi):

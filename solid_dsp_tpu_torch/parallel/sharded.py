@@ -32,11 +32,12 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..device import fp32_exact
 from ..models import qpsk as qpsk_mod
-from ..models.channelizer import channelizer_taps, make_fused_channelizer
+from ..models.channelizer import channelizer_taps, fused_channelizer_complex
 from ..models.rx_chain import RxChainConfig, _check_config
 from ..ops import agc as agc_ops
-from ..ops import cuda_ddc
+from ..ops import cuda_chan, cuda_ddc
 from ..ops import ddc as ddc_ops
 from ..ops import nco as nco_ops
 from ..ops.cuda_chan import CHAN_HALO
@@ -324,9 +325,9 @@ def make_sharded_channelizer(num_channels: int, taps_per_branch: int = 8,
     (each rank extracts its M / n_channel with a partial inverse-DFT
     product), so no rank holds all M channels.
 
-    ``frontend="fused"``: the fused channelizer K4
-    (``models/channelizer.py::make_fused_channelizer``, ``precision`` "x3"
-    or "fast") on each time shard, with the CHAN_HALO = 8 frame rows it
+    ``frontend="fused"``: the fused channelizer K4 on complex samples
+    (``models/channelizer.py::fused_channelizer_complex``, ``precision``
+    "x3" or "fast") on each time shard, with the CHAN_HALO = 8 frame rows it
     needs from the left neighbour in place of the carried tail rows.  It
     computes all M channels locally: the ``channel`` axis must have size 1.
 
@@ -386,7 +387,9 @@ def make_sharded_channelizer(num_channels: int, taps_per_branch: int = 8,
         for j in range(1, K_loc):
             z_part = z_part + G_loc[j] * P[r0 + j: r0 + j + T_loc]
         z2 = axis_sum(z_part, mesh, "channel")
-        return z2 @ W_loc, from_last_shard(x[-halo_len:], mesh)
+        with fp32_exact():
+            Y = z2 @ W_loc
+        return Y, from_last_shard(x[-halo_len:], mesh)
 
     return init, apply
 
@@ -395,10 +398,11 @@ def _make_sharded_channelizer_fused(M: int, K: int, mesh: DeviceMesh,
                                     attenuation: float, dtype,
                                     precision: str, device: torch.device):
     """Time-sharded fused channelizer (``sharded.py:686-744``): each rank
-    takes its slab as frame rows (2, U_loc, M), receives the previous
-    CHAN_HALO rows from its left neighbour (the fused kernel's tail-rows
-    contract) and runs K4 on its frames.  Same kernel, same halo values:
-    equal to the single-card fused channelizer to float rounding."""
+    takes its slab as frame rows (U_loc, M) complex64, receives the
+    previous CHAN_HALO rows from its left neighbour as (2, 8, M) planes
+    (the fused kernel's tail-rows contract) and runs K4 on its frames.
+    Same kernel, same halo values: bit-equal to the single-card fused
+    channelizer at world size 1."""
     if axis_info(mesh, "channel")[2] != 1:
         raise ValueError("fused frontend computes the full output DFT "
                          "locally: channel mesh axis must have size 1 "
@@ -406,8 +410,8 @@ def _make_sharded_channelizer_fused(M: int, K: int, mesh: DeviceMesh,
     if K > CHAN_HALO:
         raise ValueError(f"fused frontend supports taps_per_branch <= "
                          f"{CHAN_HALO}")
-    taps = channelizer_taps(M, K, attenuation)
-    fns: dict = {}
+    body = cuda_chan.make_chan_body(channelizer_taps(M, K, attenuation), M,
+                                    precision, device)
 
     def init():
         return torch.zeros((2, CHAN_HALO, M), dtype=torch.float32,
@@ -418,19 +422,13 @@ def _make_sharded_channelizer_fused(M: int, K: int, mesh: DeviceMesh,
         if L_loc % (CHAN_HALO * M):
             raise ValueError(f"per-shard length must be a multiple of "
                              f"{CHAN_HALO * M}")
-        U_loc = L_loc // M
-        fn = fns.get(U_loc)
-        if fn is None:
-            TF = next(t for t in (512, 256, 128, 64, 32, 16, 8)
-                      if U_loc % t == 0)
-            fn = fns[U_loc] = make_fused_channelizer(
-                taps, M, U_loc, TF=TF, mode=precision, device=device)
         _, t_idx, _ = axis_info(mesh, "time")
-        x2 = torch.stack([x.real, x.imag]).to(torch.float32)
-        rows = x2.reshape(2, U_loc, M)[:, U_loc - CHAN_HALO:, :]
+        xc = x.to(torch.complex64)
+        last = xc[L_loc - CHAN_HALO * M:].reshape(CHAN_HALO, M)
+        rows = torch.stack([last.real, last.imag]).contiguous()
         halo = left_halo(rows, mesh)
-        Y2, _ = fn(tail if t_idx == 0 else halo, x2)
-        Y = torch.complex(Y2[:, :M], Y2[:, M:]).to(dtype)
-        return Y, from_last_shard(rows, mesh)
+        Y, _ = fused_channelizer_complex(body, tail if t_idx == 0 else halo,
+                                         xc)
+        return Y.to(dtype), from_last_shard(rows, mesh)
 
     return init, apply

@@ -382,3 +382,95 @@ def test_synthesis_and_oversampled_state_move_both_ways():
     got = osc.execute_block(x[3 * M:]).numpy()
     want = np.asarray(josc.execute_block(jnp.asarray(x[3 * M:])))
     assert snr_db(got, want) >= 90.0
+
+
+def _unpack_bank_tiles(tiles: np.ndarray, num_channels: int) -> tuple:
+    """The inverse of ``cuda_chan.chan_bank_tiles``: the split banks (M, 2M)
+    a plane and part, in ``chan_split_np``'s order."""
+    M = int(num_channels)
+    n_tiles, n_chunks, hl, _ = tiles.shape
+    t = tiles.reshape(n_tiles, n_chunks, hl, cuda_chan.TILE_DEPTH // 8,
+                      cuda_chan.TILE_COLS // 8, 8, 8)
+    B = t.transpose(2, 0, 4, 5, 1, 3, 6).reshape(
+        hl, n_tiles * cuda_chan.TILE_COLS, n_chunks * cuda_chan.TILE_DEPTH)
+    plane, q, _ = cuda_chan._chunk_lanes(M)
+    out = []
+    for p in (0, 1):
+        cols = np.array([np.flatnonzero((plane == p) & (q == j))[0]
+                         for j in range(M)])
+        for h in range(hl):
+            sub = B[h][:2 * M][:, cols]         # (2M, M): rows n, cols q
+            out.append(np.concatenate([sub[0::2].T, sub[1::2].T], axis=1))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("M", [8, 12, 16, 48, 256])
+@pytest.mark.parametrize("mode", ["x3", "fast"])
+def test_fused_bf16_banks_equal_jax_split(M, mode):
+    """The bf16 banks K4 multiplies by equal JAX's host split bit for bit
+    (``make_pallas_channelizer``: x3 hi = bf16(a), lo = bf16(a - hi); fast
+    bf16(a)), both as ``chan_split_np`` gives them and as the kernel reads
+    them from ``make_chan_body``'s packed tiles."""
+    import ml_dtypes
+
+    bf16 = ml_dtypes.bfloat16
+    want = []
+    for a in jpk._chan_banks_np(M):
+        if mode == "x3":
+            hi = np.asarray(a, bf16)
+            lo = np.asarray(a - np.asarray(hi, np.float32), bf16)
+            want += [hi, lo]
+        else:
+            want.append(np.asarray(jnp.asarray(a, jnp.bfloat16)))
+    want = [w.view(np.uint16) for w in want]
+    got = cuda_chan.chan_split_np(M, mode)
+    body = cuda_chan.make_chan_body(ch.channelizer_taps(M, 8), M, mode, CPU)
+    unpacked = _unpack_bank_tiles(
+        body.tiles.numpy().view(np.uint16), M)
+    assert len(got) == len(unpacked) == len(want)
+    for g, u, w in zip(got, unpacked, want):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(u, w)
+
+
+@pytest.mark.parametrize("M,U", [(16, 64), (12, 40), (64, 48)])
+@pytest.mark.parametrize("mode,gate", [("x3", 90.0), ("fast", 45.0)])
+def test_fused_complex_layout_equals_planar_and_matches_jax(M, U, mode, gate):
+    """K4's plain version on complex64 frame rows (U, M) equals its planar
+    route bit for bit, and both match JAX's interpret-mode kernel on the
+    same rows and tail rows at the JAX gates (x3 >= 90 dB, fast >= 45)."""
+    x = _noise(M + U, U * M).reshape(U, M)
+    tail = np.random.default_rng(U).standard_normal((2, 8, M)).astype(
+        np.float32)
+    xf = np.stack([x.real, x.imag])
+    taps = ch.channelizer_taps(M, 8)
+    body = cuda_chan.make_chan_body(taps, M, mode, CPU)
+    yc = cuda_chan.chan_fused_torch(body, _t(x), _t(tail))
+    y2 = cuda_chan.chan_fused_torch(body, _t(xf), _t(tail))
+    assert yc.dtype == torch.complex64 and yc.shape == (U, M)
+    assert torch.equal(yc.real, y2[:, :M]) and torch.equal(yc.imag, y2[:, M:])
+    run = jpk.make_pallas_channelizer(taps, M, U // 8, TF=8, mode=mode,
+                                      interpret=True)
+    jy = np.asarray(run(jnp.asarray(xf), jnp.asarray(tail)))
+    assert snr_db(y2.numpy(), jy) >= gate
+
+
+@pytest.mark.parametrize("precision", ["x3", "fast"])
+def test_fused_class_complex_route_equals_planar_route(precision):
+    """PolyphaseChannelizer(fused) (K4's complex layout) over two blocks
+    with the tail rows carried equals make_fused_channelizer (the planar
+    JAX contract) bit for bit, outputs and tail rows."""
+    M, K = 16, 8
+    L = M * 64
+    x = _noise(11, 2 * L)
+    cls = ch.PolyphaseChannelizer(M, K, backend="fused", precision=precision,
+                                  device=CPU)
+    apply = ch.make_fused_channelizer(ch.channelizer_taps(M, K), M, L // M,
+                                      TF=16, mode=precision, device=CPU)
+    tail = ch.fused_channelizer_init(M, CPU)
+    for blk in (x[:L], x[L:]):
+        Y = cls.execute_block(blk)
+        Y2, tail = apply(tail, _t(np.stack([blk.real, blk.imag])))
+        assert torch.equal(Y.real, Y2[:, :M]) and torch.equal(Y.imag,
+                                                              Y2[:, M:])
+        assert torch.equal(cls.state, tail)

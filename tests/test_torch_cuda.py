@@ -12,11 +12,14 @@ test_torch_channel_bank.py.  Tolerances: audio and z >= 90 dB (the chain's
 x3 gate; QPSK 60 dB, BASELINE.json's bound); stats rtol 1e-5 with atol 1e-6
 (FP32 sums in another order); phase word and tail exact.  Channelizer (K4)
 x3 >= 90 dB and fast >= 90 dB against the plain version in the same mode
-(>= 45 dB against x3, the JAX gate); front end (K5) atol 2e-5 max|Y|; IIR
+(>= 45 dB against x3, the JAX gate), x3 >= 90 dB against float64, the
+complex layout bit-equal to the planar one; front end (K5) atol 2e-5 max|Y|; IIR
 bank (K6) atol 3e-5 (tests/test_pallas.py's gates).  Windowed FFT (K7)
 >= 90 dB against its plain version and float64 numpy; Farrow (K8) within
 1e-5 of its plain version with n_valid, t0 and the tail equal
-(tests/test_resample.py's gate).
+(tests/test_resample.py's gate).  conv1d_mxu and sharded_fir >= 100 dB
+against float64 at PyTorch's default TF32 flags (the port pins full
+float32; TF32 keeps some 60 dB).
 """
 
 import numpy as np
@@ -188,31 +191,44 @@ def _cnoise(seed, *shape):
             ).astype(np.complex64)
 
 
-@pytest.mark.parametrize("M,U", [(16, 64), (64, 200), (48, 72),
-                                 (256, 16384)])
+@pytest.mark.parametrize("M,U", [(8, 40), (12, 21), (16, 64), (48, 72),
+                                 (64, 200), (256, 16384), (256, 1000),
+                                 (1024, 300), (13, 50)])
 @pytest.mark.parametrize("mode", ["x3", "fast"])
 def test_chan_fused_kernel_matches_plain_on_card(M, U, mode):
-    """K4 vs its plain version on the card, same mode, TF32 off: >= 90 dB;
-    fast against the x3 plain version >= 45 dB; one launch."""
+    """K4 vs its plain version on the card, same mode, at the flags'
+    defaults (the plain version pins full float32): >= 90 dB; x3 >= 90 dB
+    against the plain version in float64 on the CPU, fast >= 45 dB against
+    the x3 plain version; the complex layout bit-equal to the planar one;
+    one launch each.  M = 13 takes the kernel's path for rows that are not
+    16-byte aligned (plain loads, direct stores)."""
     dev = require_cuda()
-    torch.backends.cuda.matmul.allow_tf32 = False
     body = cuda_chan.make_chan_body(channelizer_taps(M, 8), M, mode, dev)
     rng = np.random.default_rng(M + U)
     xf = torch.from_numpy(rng.standard_normal((2, U, M)).astype(np.float32)
                           ).to(dev)
+    xc = torch.complex(xf[0], xf[1]).contiguous()
     tail = torch.from_numpy(rng.standard_normal((2, 8, M)).astype(np.float32)
                             ).to(dev)
     before = _chan_counts()
+    cplx_before = cuda_chan.chan_fused_cuda.complex_launches
     got = body(xf, tail)
+    gotc = body(xc, tail)
     want = cuda_chan.chan_fused_torch(body, xf, tail)
     torch.cuda.synchronize()
-    assert _chan_counts() == (before[0] + 1, before[1], before[2])
+    assert _chan_counts() == (before[0] + 2, before[1], before[2])
+    assert cuda_chan.chan_fused_cuda.complex_launches == cplx_before + 1
     assert got.shape == (U, 2 * M) and bool(torch.isfinite(got).all())
+    assert gotc.shape == (U, M) and gotc.dtype == torch.complex64
+    assert torch.equal(gotc.real, got[:, :M])
+    assert torch.equal(gotc.imag, got[:, M:])
     assert snr_db(got.cpu().numpy(), want.cpu().numpy()) >= 90.0
-    if mode == "fast":
-        x3 = cuda_chan.make_chan_body(channelizer_taps(M, 8), M, "x3", dev)
-        ref = cuda_chan.chan_fused_torch(x3, xf, tail)
-        assert snr_db(got.cpu().numpy(), ref.cpu().numpy()) >= 45.0
+    ref = cuda_chan.chan_fused_torch(
+        cuda_chan.make_chan_body(channelizer_taps(M, 8), M, "x3", "cpu",
+                                 torch.float64),
+        xf.cpu().double(), tail.cpu().double())
+    assert snr_db(got.cpu().numpy(), ref.numpy()) >= (
+        90.0 if mode == "x3" else 45.0)
 
 
 @pytest.mark.parametrize("M,K,U", [(16, 8, 300), (64, 4, 300), (8, 7, 300),
@@ -320,14 +336,16 @@ def _fft_counts():
             cuda_resample.farrow_grid_cuda.launches)
 
 
-@pytest.mark.parametrize("F", [1, 8, 64, 4096])
+@pytest.mark.parametrize("F", [1, 7, 8, 64, 131, 133, 4096, 4101])
 @pytest.mark.parametrize("window", ["hamming", "blackman_harris"])
 @pytest.mark.parametrize("sign", [-1, 1])
 def test_windowed_fft_kernel_matches_plain_on_card(F, window, sign):
-    """K7 vs its plain version on the card, both layouts, TF32 off:
-    >= 90 dB; the two layouts give the same spectra; one launch each."""
+    """K7 vs its plain version on the card, both layouts, at the flags'
+    defaults: >= 90 dB, and >= 90 dB against numpy's float64 transform of
+    the windowed frames; the two layouts give the same spectra; one launch
+    each.  F covers the persistent blocks' edges (fewer frames than blocks,
+    one more than a round)."""
     dev = require_cuda()
-    torch.backends.cuda.matmul.allow_tf32 = False
     w = get_window(window, 4096)
     x = torch.from_numpy(_cnoise(F + 1, F, 4096)).to(dev)
     x2 = torch.stack([x.real, x.imag]).contiguous()
@@ -342,6 +360,26 @@ def test_windowed_fft_kernel_matches_plain_on_card(F, window, sign):
     assert snr_db(yp.cpu().numpy(), ref.cpu().numpy()) >= 90.0
     assert torch.equal(yp[:, :4096], yc.real) and torch.equal(yp[:, 4096:],
                                                               yc.imag)
+    xw = x.cpu().numpy().astype(np.complex128) * w
+    want = np.fft.fft(xw) if sign < 0 else np.fft.ifft(xw) * 4096
+    assert snr_db(yc.cpu().numpy(), want) >= 90.0
+
+
+def test_windowed_fft_kernel_rejects_misaligned_frames():
+    """The kernel's bulk copies need 16-byte-aligned frames: a view 8 bytes
+    off raises in windowed_fft_cuda; windowed_fft_frames copies it to an
+    aligned tensor and gives the same spectra as the aligned frames."""
+    dev = require_cuda()
+    w = get_window("hamming", 4096)
+    base = torch.from_numpy(_cnoise(5, 3 * 4096 + 1)).to(dev)
+    x = base[1:].reshape(3, 4096)
+    assert x.data_ptr() % 16 == 8
+    wt, tw = cuda_fft._tables(np.asarray(w, np.float32).tobytes(), -1, dev)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_fft.windowed_fft_cuda(x, wt, tw, planar=False)
+    got = cuda_fft.windowed_fft_frames(x, w, planar=False)
+    want = cuda_fft.windowed_fft_frames(x.clone(), w, planar=False)
+    assert torch.equal(got, want)
 
 
 def test_windowed_fft_kernel_matches_float64():
@@ -585,3 +623,50 @@ def test_sharded_planar_fm_world_one_matches_single_card(nccl_mesh):
     for k in ("fir_tail", "fm_prev"):
         assert torch.equal(st_s[k], st_1[k])
     assert torch.equal(st_s["agc"]["gain"], st_1["agc"]["gain"])
+
+
+def _default_flags():
+    """PyTorch's defaults: cuBLAS full float32, cuDNN TF32 on."""
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+@pytest.mark.parametrize("cplx", [True, False])
+def test_conv1d_mxu_full_float32_at_default_flags(cplx):
+    """conv1d_mxu on the card at PyTorch's default flags (cuDNN in TF32,
+    which keeps some 60 dB): >= 100 dB against float64 on the CPU."""
+    from solid_dsp_tpu_torch.ops.fir import conv1d_mxu
+    dev = require_cuda()
+    _default_flags()
+    rng = np.random.default_rng(40)
+    x, h = rng.standard_normal(1 << 16), rng.standard_normal(64)
+    if cplx:
+        x = x + 1j * rng.standard_normal(1 << 16)
+        h = h + 1j * rng.standard_normal(64)
+    x, h = (torch.from_numpy(a.astype(np.complex64 if cplx else np.float32))
+            for a in (x, h))
+    got = conv1d_mxu(x.to(dev), h.to(dev))
+    wide = torch.complex128 if cplx else torch.float64
+    want = conv1d_mxu(x.to(wide), h.to(wide))
+    assert torch.backends.cudnn.allow_tf32
+    assert snr_db(got.cpu().numpy(), want.numpy()) >= 100.0
+
+
+def test_sharded_fir_full_float32_at_default_flags(nccl_mesh):
+    """sharded_fir at world size 1 on the card at PyTorch's default flags:
+    >= 100 dB against the same FIR in float64 on the CPU."""
+    from solid_dsp_tpu_torch import parallel
+    from solid_dsp_tpu_torch.ops.fir import conv1d_mxu
+    dev = require_cuda()
+    _default_flags()
+    rng = np.random.default_rng(41)
+    taps = (rng.standard_normal(33) + 1j * rng.standard_normal(33)
+            ).astype(np.complex64)
+    x = _cnoise(42, 4, 1 << 14)
+    apply = parallel.sharded_fir(taps, nccl_mesh)
+    tail = torch.zeros((4, 32), dtype=torch.complex64, device=dev)
+    y, _ = apply(tail, torch.from_numpy(x).to(dev))
+    x64 = np.concatenate([np.zeros((4, 32)), x], axis=1)
+    want = conv1d_mxu(torch.from_numpy(x64), torch.from_numpy(
+        taps.astype(np.complex128)))
+    assert snr_db(y.cpu().numpy(), want.numpy()) >= 100.0

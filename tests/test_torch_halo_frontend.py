@@ -53,6 +53,8 @@ def ranks(request, tmp_path_factory):
     cases = [(k, mesh, "k9_frontend", dict(M=M, K=K, blocks=b, tail=t))
              for k, (b, t) in inputs.items()]
     cases.append(("errors", mesh, "k9_errors", dict(M=M, K=K)))
+    cases += [(f"hosts_{fake}", mesh, "k9_hosts", dict(M=M, K=K, fake=fake))
+              for fake in (True, False)]
     res = torch_dist.run_ranks(tmp_path_factory.mktemp(f"k9_{n_dev}"),
                                n_dev, cases)
     return n_dev, inputs, res
@@ -141,3 +143,31 @@ def test_halo_frontend_rejects_bad_blocks(ranks, case, message):
     _, _, res = ranks
     for r in res:
         assert r["errors"][case] == message
+
+
+def test_group_link_raises_across_hosts_before_allocating(ranks):
+    """Ranks on different hosts (hostname patched in each rank): every rank
+    raises the host error from the check and from group_link, and no
+    region is allocated."""
+    n_dev, _, res = ranks
+    for r, got in enumerate(res):
+        got = got["hosts_True"]
+        assert got["allocated"] == 0
+        for key in ("check", "link"):
+            assert got[key].startswith("ValueError: K9's in-kernel halo "
+                                       "exchange needs the whole time axis "
+                                       "on one node")
+        i = r if r < n_dev - 1 else 0     # its own pair, else the first
+        assert f"'host-{i}'" in got["check"]
+        assert f"'host-{i + 1}'" in got["check"]
+
+
+def test_group_link_same_host_passes_the_check(ranks):
+    """Ranks on one host: the check passes and group_link goes on to
+    allocate its region."""
+    _, _, res = ranks
+    for got in res:
+        got = got["hosts_False"]
+        assert got["check"] == "no error"
+        assert got["link"] == "NotImplementedError: region allocated"
+        assert got["allocated"] == 1

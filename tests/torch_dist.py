@@ -16,7 +16,9 @@ module-scoped fixture and keep each case its own test.
 from __future__ import annotations
 
 import pickle
+import socket
 import time
+from unittest import mock
 from pathlib import Path
 
 import numpy as np
@@ -155,6 +157,27 @@ def k9_errors(mesh, M, K):
                 tail, torch.zeros(M * K, dtype=torch.complex64)))}
 
 
+def k9_hosts(mesh, M, K, fake):
+    """group_link's host check on the time axis, ``fake`` giving every
+    rank its own hostname: the error it raises (or "no error") and whether
+    it got as far as allocating a region (a stand-in that records the
+    call; no region exists on a CPU rank)."""
+    group, i, n = axis_info(mesh, "time")
+    allocated = []
+
+    def region(*args):
+        allocated.append(args)
+        raise NotImplementedError("region allocated")
+
+    name = f"host-{dist.get_rank()}" if fake else socket.gethostname()
+    with mock.patch.object(socket, "gethostname", return_value=name), \
+            mock.patch.object(cuda_halo, "HaloRegion", region):
+        check = _error(lambda: cuda_halo.check_one_host(group, i, n))
+        link = _error(lambda: cuda_halo.group_link(
+            group, i, n, M, K, torch.device("cpu")))
+    return {"check": check, "link": link, "allocated": len(allocated)}
+
+
 def channelizer(mesh, M, K, frontend, blocks, dtype, precision="x3"):
     """make_sharded_channelizer over the global blocks, tail carried:
     this rank's Y blocks and the tails."""
@@ -240,5 +263,5 @@ def k9_ipc(mesh, M, K, blocks, tail):
 
 
 CASES = {f.__name__: f for f in (halo_primitives, k9_frontend, k9_errors,
-                                 channelizer, rx_chain, rx_chain_unfused,
+                                 k9_hosts, channelizer, rx_chain, rx_chain_unfused,
                                  fir, state_round_trip, k9_ipc)}
