@@ -41,19 +41,25 @@ Phases, one line each:
   5. FM chain (kernel) vs chain (plain version) over 4 blocks with the state
      carried, launches counted; the audio of the tone must be its frequency;
   6. throughput of both FM chains with CUDA events over 20 blocks;
-  7. body kernel vs its plain version on the card: L = 2^24 (K2's route),
-     2^24 + 52 (K3's route) and 32 (a block shorter than the filter);
-  8. body kernel vs the plain version in float64 on the CPU, L = 2^20;
+  7. body kernel (TF32 x3 on the tensor cores) vs its plain version on the
+     card: L = 2^24 (K2's route), 2^24 + 52 (K3's route) and 32 (a block
+     shorter than the filter), timed over a CUDA graph beside its bound,
+     its plain version and one strided conv1d (the library call);
+  8. body kernel vs the plain version in float64 on the CPU, L = 2^20, at
+     the chain's "highest" contract (>= 100 dB);
   9. QPSK, AM and unaligned-FM chains (kernel vs plain version) over 4
      blocks each with the state carried, launches counted: QPSK symbols
      and carrier offset, the AM envelope's tone, the FM tone read back;
- 10. throughput of the QPSK and AM chains with CUDA events over 20 blocks;
+ 10. throughput of the QPSK and AM chains with CUDA events over 20 blocks,
+     with the host's enqueue time and the profiler's device time a block;
  11. K4 vs its plain version on the card, x3 and fast, planar and complex
      layouts (bit-equal), timed over a CUDA graph, and x3 vs the plain
      version in float64 on the CPU at 2^18;
  12. K5 vs its plain version, beside one grouped conv1d (the library call);
- 13. K6 vs its plain version at T = 2^14, C = 256, shared and per-channel
-     sections, two blocks with the state carried;
+ 13. K6 (the chunked recurrence) vs its plain version at T = 2^14,
+     C = 256, shared, per-channel and narrow (cutoff 0.005) sections, two
+     blocks with the state carried, timed over a CUDA graph beside its
+     bound and its plain version;
  14. PolyphaseChannelizer(256, 8) over 4 blocks, fused (K4's complex
      layout, x3) then pallas (K5), against the "xla" formulation and the
      plain versions, launches counted; a +c/M tone lands in channel c;
@@ -102,8 +108,8 @@ Phases, one line each:
      the port pins full float32 for its own products.
 
 Then the kernels' JSON line (each kernel's launches on the main paths; its
-time, by CUDA events over back-to-back launches, for K4 and K7-K9 over a
-CUDA graph of them so that the host's launch rate is not counted; its plain
+time, by CUDA events over back-to-back launches, for K2-K4 and K6-K9 over
+a CUDA graph of them so that the host's launch rate is not counted; its plain
 version's time, the library call's where one PyTorch call computes the
 same function, and its bound: the larger of its bytes over 3.35 TB/s and
 its operations over the peak of their type), the nvidia-smi
@@ -150,6 +156,10 @@ N_MON = 16                # SpectrumMonitor blocks
 N_PLAIN_BANK = 2          # blocks a timed turn of the plain ChannelBank
 FRONTEND_ATOL = 2e-5      # x max|Y| (tests/test_pallas.py:42)
 IIR_ATOL = 3e-5           # tests/test_pallas.py:152
+# a narrow cascade (poles near the unit circle): its state reaches ~270,
+# where one float32 ulp is 3e-5 and the plain version is itself 2e-3 from
+# float64, so its state is held at IIR_ATOL x max|state|
+NARROW_CUTOFF = 0.005
 FAST_MIN_SNR_DB = 45.0    # tests/test_models.py:582
 PEAK_DB_ATOL = 0.05       # event peaks, kernel vs plain (fast mode)
 # config 2: bench_all.py:457-502 (F = 4096 frames of N = 4096 points)
@@ -167,6 +177,9 @@ FARROW_ATOL = 1e-5        # tests/test_resample.py:348
 SHARDED_MIN_SNR_DB = 115.0
 # full float32 against float64 (TF32 keeps ~3 digits, some 60 dB)
 CONV_MIN_SNR_DB = 100.0
+# the chain's fir_precision="highest" contract (tests/test_rx_chain_fused.py)
+# for the body kernel's TF32 x3 product against float64
+HIGHEST_MIN_SNR_DB = 100.0
 PHASE_LIMIT_S = 60.0      # a K9 phase still running after this has hung
 # H100 SXM peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -504,38 +517,47 @@ def config5(dev, smi) -> list:
     if not (err12 <= lim12 and np.all(np.isfinite(Yk))):
         fail("phase 12: the front-end kernel disagrees")
 
-    # 13. K6 vs plain, T = 2^14, C = 256, two blocks with the state carried
+    # 13. K6 vs plain, T = 2^14, C = 256, two blocks with the state carried;
+    # the narrow cascade's state held relative to its size (IIR_ATOL note)
     xi = torch.from_numpy(cnoise(rng, (2 * T_IIR, M5))).to(dev)
     stats13 = {}
     for label, sos in (
             ("shared", design_channel_sos()),
             ("per-channel", np.stack([design_channel_sos(0.1 + 0.3 * c / M5)
-                                      for c in range(M5)], axis=-1))):
-        sos_l = cuda_iir.iir_bank_lanes(sos, M5, dev)
+                                      for c in range(M5)], axis=-1)),
+            ("narrow", design_channel_sos(NARROW_CUTOFF))):
+        bank = cuda_iir.IirBank(sos, M5, dev)
         st_k = st_p = cuda_iir.iir_bank_init(sos.shape[0], M5, dev)
         outs_k, outs_p = [], []
         for blk in (xi[:T_IIR], xi[T_IIR:]):
-            y, st_k = cuda_iir.iir_bank_cuda(sos_l, st_k, blk)
+            y, st_k = cuda_iir.iir_bank_cuda(bank.lanes, st_k, blk, bank.tables)
             outs_k.append(y)
-            y, st_p = cuda_iir.iir_bank_torch(sos_l, st_p, blk)
+            y, st_p = cuda_iir.iir_bank_torch(bank.lanes, st_p, blk)
             outs_p.append(y)
         yk = torch.cat(outs_k).cpu().numpy()
         yp = torch.cat(outs_p).cpu().numpy()
-        err13 = max(float(np.max(np.abs(yk - yp))),
-                    float((st_k - st_p).abs().max()))
+        err_y = float(np.max(np.abs(yk - yp)))
+        err_st = float((st_k - st_p).abs().max())
+        st_scale = (max(1.0, float(st_p.abs().max())) if label == "narrow"
+                    else 1.0)
         blk = xi[:T_IIR]
         st0 = cuda_iir.iir_bank_init(sos.shape[0], M5, dev)
-        k13 = cuda_ms(lambda: cuda_iir.iir_bank_cuda(sos_l, st0, blk), 20)
-        p13 = cuda_ms_once(lambda: cuda_iir.iir_bank_torch(sos_l, st0, blk))
+        k13 = graph_ms(lambda: cuda_iir.iir_bank_cuda(bank.lanes, st0, blk,
+                                                      bank.tables), 20)
+        p13 = cuda_ms_once(lambda: cuda_iir.iir_bank_torch(bank.lanes, st0,
+                                                           blk))
         S = sos.shape[0]
         b13 = bound_ms(16 * T_IIR * M5 + 32 * S * M5 + 40 * S * M5,
                        9 * S * 2 * M5 * T_IIR, FP32_FLOPS)
-        stats13[label] = (err13, k13, p13, b13)
+        stats13[label] = (max(err_y, err_st), k13, p13, b13)
         print(f"[13 iir bank kernel vs plain, {label}, T=2^14 C=256 S={S}, "
-              f"2 blocks] max |err| {err13:.3g} (gate {IIR_ATOL}); kernel "
-              f"{k13:.4f} ms, plain {p13:.1f} ms (once), bound "
-              f"{b13[0]:.4f} ms ({b13[1]}) | {smi}", flush=True)
-        if not (err13 <= IIR_ATOL and np.all(np.isfinite(yk))):
+              f"2 blocks] max |err| y {err_y:.3g}, state {err_st:.3g} (gate "
+              f"{IIR_ATOL}, state x {st_scale:.3g}); kernel (CUDA graph of 20 "
+              f"calls, chunks of {cuda_iir.IIR_CHUNK} rows) {k13:.4f} ms, "
+              f"plain {p13:.1f} ms (once), bound {b13[0]:.4f} ms ({b13[1]}) "
+              f"| {smi}", flush=True)
+        if not (err_y <= IIR_ATOL and err_st <= IIR_ATOL * st_scale
+                and np.all(np.isfinite(yk))):
             fail(f"phase 13: the IIR bank kernel disagrees ({label})")
 
     # 14. PolyphaseChannelizer over 4 blocks: fused (K4) and pallas (K5)
@@ -1486,6 +1508,7 @@ def main() -> None:
 
     # 7. body kernel vs plain version, f32 on the card: K2, K3, short
     dbody = cuda_ddc.make_ddc_body(taps, dtheta, M, dev)
+    n7, D7 = cfg.fir_taps, cfg.fir_taps - M
     body_stats = {}
     for route, L, kernel in (
             ("ddc_body", L_FULL, cuda_ddc.ddc_body_cuda),
@@ -1504,9 +1527,9 @@ def main() -> None:
             np.sum(zp.astype(np.float64) ** 2))
         err_e = abs(ek - ep) / ep
         max_abs7 = float(np.max(np.abs(zk - zp)))
-        timed = ""
+        timing = ""
         if route != "short":
-            k7 = cuda_ms(lambda: kernel(dbody, x, tail), 20)
+            k7 = graph_ms(lambda: kernel(dbody, x, tail), 20)
             p7 = cuda_ms(lambda: cuda_ddc.ddc_body_torch(dbody, x, tail), 20)
             # the library call: one strided conv1d over the tail and the
             # block as 2 in-channels, the folded complex taps as a
@@ -1517,15 +1540,19 @@ def main() -> None:
                              torch.stack([h[1], h[0]])])
             zl = torch.nn.functional.conv1d(x_ext, w, stride=M)[0]
             snr_lib = snr_db(zl.cpu().numpy(), zp)
-            l7 = cuda_ms(lambda: torch.nn.functional.conv1d(x_ext, w,
-                                                            stride=M), 20)
-            body_stats[route] = (max_abs7, k7, p7, l7, L)
-            timed = (f"; kernel {k7:.4f} ms, plain {p7:.4f} ms, library "
-                     f"conv1d {l7:.4f} ms ({snr_lib:.1f} dB vs plain)")
+            l7 = graph_ms(lambda: torch.nn.functional.conv1d(x_ext, w,
+                                                             stride=M), 20)
+            b7 = bound_ms(4 * (2 * L + 2 * D7 + 2 * n7 + 2 * (L // M)),
+                          8 * n7 * (L // M), FP32_FLOPS)
+            body_stats[route] = (max_abs7, k7, p7, l7, L, b7)
+            timing = (f"; kernel (TF32 x3 wgmma, CUDA graph of 20 launches) "
+                     f"{k7:.4f} ms, bound {b7[0]:.4f} ms ({b7[1]}), plain "
+                     f"{p7:.4f} ms, library strided conv1d (CUDA graph) "
+                     f"{l7:.4f} ms ({snr_lib:.1f} dB vs plain)")
         print(f"[7 body kernel vs plain f32, {route}, L={L}] z {snr7:.1f} dB "
               f"(gate {MIN_SNR_DB}), max |err| {max_abs7:.3g}, energy rel "
               f"err {err_e:.3g} (gate {ENERGY_RTOL}), one launch {once}"
-              f"{timed} | {smi}", flush=True)
+              f"{timing} | {smi}", flush=True)
         if not (snr7 >= MIN_SNR_DB and err_e <= ENERGY_RTOL and once
                 and zk.shape == (2, L // M) and np.all(np.isfinite(zk))):
             fail(f"phase 7: the body kernel disagrees on {route}")
@@ -1539,8 +1566,8 @@ def main() -> None:
                                   torch.from_numpy(tail1).double())
     snr8 = snr_db(zk1.cpu().numpy(), z64.numpy())
     print(f"[8 body kernel vs plain f64 (CPU), L=2^20] z {snr8:.1f} dB "
-          f"(gate {MIN_SNR_DB})", flush=True)
-    if not snr8 >= MIN_SNR_DB:
+          f"(gate {HIGHEST_MIN_SNR_DB})", flush=True)
+    if not snr8 >= HIGHEST_MIN_SNR_DB:
         fail("phase 8: the body kernel disagrees with the float64 plain "
              "version")
 
@@ -1642,7 +1669,17 @@ def main() -> None:
             and f_k.shape == (N_CHAIN * L_UNALIGNED // M,)):
         fail("phase 9: the unaligned FM chain through the kernel is wrong")
 
-    # 10. throughput of the QPSK and AM chains (plain, kernel, kernel, plain)
+    # 10. throughput of the QPSK and AM chains (plain, kernel, kernel, plain),
+    # the host's enqueue time and the device's busy time a block
+    def chain_step(init, apply, blks):
+        """fn() applying the chain to the blocks in turn, state carried."""
+        box = {"st": init(), "i": 0}
+
+        def fn():
+            _, box["st"] = apply(box["st"], blks[box["i"] % N_CHAIN])
+            box["i"] += 1
+        return fn
+
     rates = {}
     for label, blks, kern, plain in (("qpsk", qblocks, q_kernel, q_plain),
                                      ("am", ablocks, a_kernel, a_plain)):
@@ -1650,6 +1687,13 @@ def main() -> None:
         k1 = run_chain(*kern, blks)
         k2 = run_chain(*kern, blks)
         rates[label] = (k1, k2, p1, run_chain(*plain, blks))
+        _, host_ms = timed(chain_step(*kern, blks), N_TIMED)
+        busy, top = profiled_busy(chain_step(*kern, blks))
+        wall = L_FULL / (0.5 * (k1 + k2) * 1e3)          # ms a block
+        print(f"[10 {label} chain with kernel, 2^24-sample blocks] host "
+              f"enqueue {host_ms:.4f} ms a block, device busy {busy:.4f} ms a "
+              f"block, wall {wall:.4f} ms, idle {max(0.0, 1 - busy / wall):.0%}"
+              f"; largest kernels, ms a block: {top}", flush=True)
     print(f"[10 throughput, {N_TIMED} x 2^24] qpsk chain with kernel "
           f"{rates['qpsk'][0]:.1f} / {rates['qpsk'][1]:.1f} Msamples/s, plain "
           f"{rates['qpsk'][2]:.1f} / {rates['qpsk'][3]:.1f}; am chain with "
@@ -1666,12 +1710,10 @@ def main() -> None:
         bound_ms(4 * (2 * L_FULL + 2 * D + 2 * n + T + 5), 8 * n * T,
                  FP32_FLOPS))]
     for route, line in (("ddc_body", 359), ("ddc_body_unaligned", 135)):
-        err, kms, pms, lms, L = body_stats[route]
+        err, kms, pms, lms, L, bnd = body_stats[route]
         kernels.append(kernel_entry(
             route, "ddc_body.cu", f"solid_dsp_tpu/ops/pallas_ddc.py:{line}",
-            launches_main[route], err, kms, pms,
-            bound_ms(4 * (2 * L + 2 * D + 2 * n + 2 * (L // M)),
-                     8 * n * (L // M), FP32_FLOPS), lms))
+            launches_main[route], err, kms, pms, bnd, lms))
     kernels += config5(dev, smi)
     kernels += config2(dev, smi)
     kernels += farrow_phases(dev, smi)

@@ -199,20 +199,6 @@ __device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map
       : "memory");
 }
 
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-// wgmma shared-memory descriptor, no swizzle: start, LBO (between core
-// matrices along K) and SBO (between 8-row groups), all in 16-byte units.
-__device__ __forceinline__ unsigned long long gmma_desc(unsigned addr,
-                                                        unsigned lbo,
-                                                        unsigned sbo) {
-  return (unsigned long long)((addr & 0x3FFFF) >> 4) |
-         ((unsigned long long)(lbo >> 4) << 16) |
-         ((unsigned long long)(sbo >> 4) << 32);
-}
-
 // d (64 x 256 f32 of this warpgroup) += A (64 x 16 bf16) . B (16 x 256).
 __device__ __forceinline__ void wgmma_256(float (&d)[128],
                                           unsigned long long da,

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) PTX helpers shared by the port's kernels: mbarriers and
-// TMA bulk copies (cp.async.bulk) between device and shared memory.  A
-// bulk copy needs 16-byte-aligned addresses and a size that is a multiple
-// of 16; its completion is counted on an mbarrier in bytes (loads) or by
-// bulk groups (stores).
+// Hopper (sm_90a) PTX helpers shared by the port's kernels: mbarriers, TMA
+// bulk copies (cp.async.bulk) between device and shared memory, named
+// barriers and the wgmma shared-memory descriptor and ordering.  A bulk copy
+// needs 16-byte-aligned addresses and a size that is a multiple of 16; its
+// completion is counted on an mbarrier in bytes (loads) or by bulk groups
+// (stores).
 
 #pragma once
 
@@ -53,6 +54,40 @@ __device__ __forceinline__ void bulk_store(void* dst, unsigned src,
 
 __device__ __forceinline__ void mbar_arrive(unsigned bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptor, no swizzle: start, LBO (between core
+// matrices along K) and SBO (between 8-row groups), all in 16-byte units.
+__device__ __forceinline__ unsigned long long gmma_desc(unsigned addr,
+                                                        unsigned lbo,
+                                                        unsigned sbo) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) |
+         ((unsigned long long)(lbo >> 4) << 16) |
+         ((unsigned long long)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of a wgmma operand register
+// (an accumulator, or an A fragment read from registers) across a wgmma wait
+// or fence, and keeps the register's value in place until that point.
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void fence_operand(unsigned& r) {
+  asm volatile("" : "+r"(r)::"memory");
 }
 
 }  // namespace

@@ -4,7 +4,8 @@ Port of ``solid_dsp_tpu/models/channel_bank.py`` (:29-129), the production
 shape of BASELINE.json's config 5: the polyphase channelizer splits one
 wideband stream into M critically-sampled channels, an IIR biquad cascade
 (shared or per channel) runs over all M channels at once through the K6 kernel
-(``ops/cuda_iir.py``), then an optional per-channel energy squelch
+(``ops/cuda_iir.py``; its lane coefficients and chunk tables are built when
+the bank is made and again when ``sos`` is set, never once a block), then an optional per-channel energy squelch
 (``models/detect.py``) and an optional per-channel block AGC.  ``.state``
 carries the cascade state and the per-channel AGC as
 ``ChainState(iir=..., agc=...)``; the channelizer's tail is
@@ -19,7 +20,7 @@ from torch import nn
 
 from ..device import bind_device
 from ..ops import agc as agc_ops
-from ..ops.cuda_iir import iir_bank_apply, iir_bank_init
+from ..ops.cuda_iir import IirBank, iir_bank_init
 from ..streaming.state import ChainState
 from . import detect
 from .channelizer import PolyphaseChannelizer
@@ -72,9 +73,7 @@ class ChannelBank(nn.Module):
         self.channelizer = PolyphaseChannelizer(
             self.M, taps_per_branch, attenuation, dtype=torch.complex64,
             backend=backend, device=self.device, engine=engine)
-        self.sos = np.asarray(sos if sos is not None else design_channel_sos(),
-                              dtype=np.float32)
-        self._sos = torch.as_tensor(self.sos, device=self.device)
+        self.sos = sos if sos is not None else design_channel_sos()
         self.agc_bandwidth = float(agc_bandwidth)
         if squelch_low_db is not None and squelch_high_db is None:
             raise ValueError("squelch_low_db given without squelch_high_db")
@@ -87,6 +86,21 @@ class ChannelBank(nn.Module):
                                      if squelch_high_db is not None else None))
         self.squelch_window = int(squelch_window)
         self.reset()
+
+    @property
+    def sos(self) -> np.ndarray:
+        """The cascade's coefficients, (S, 5) or (S, 5, M) float32."""
+        return self._iir.sos
+
+    @sos.setter
+    def sos(self, value):
+        """New coefficients: rebuilds the lane coefficients and the chunk
+        tables; a new number of sections restarts the cascade state."""
+        old = getattr(self, "_iir", None)
+        self._iir = IirBank(value, self.M, self.device)
+        if old is not None and old.nsections != self._iir.nsections:
+            self._iir_state = iir_bank_init(self._iir.nsections, self.M,
+                                            self.device)
 
     @property
     def state(self) -> ChainState:
@@ -113,9 +127,8 @@ class ChannelBank(nn.Module):
     def execute_block(self, x) -> torch.Tensor:
         """x (L,) wideband complex64, L % M == 0 -> (T, M) channel outputs."""
         Y = self.channelizer.execute_block(x)               # (T, M)
-        Y, self._iir_state = iir_bank_apply(
-            self._sos, self._iir_state, Y.to(torch.complex64).contiguous(),
-            self.engine)
+        Y, self._iir_state = self._iir(
+            self._iir_state, Y.to(torch.complex64).contiguous(), self.engine)
         if self.squelch_high_db is not None:
             e_db, self._det_tail = detect.sliding_energy_db(
                 Y.T, self._det_tail, self.squelch_window)

@@ -11,7 +11,9 @@ Ports of the three TPU kernels of ``solid_dsp_tpu/ops/pallas_ddc.py``:
   two routes by :func:`ddc_body_cuda` and :func:`ddc_body_unaligned_cuda`.
   For the block x (2, L), L any multiple of M, and the carried tail
   x[-D .. -1] (D = n - M) it computes z[t] = sum_i h_bp[i] x[tM - D + i],
-  (2, T) f32; its plain version is ``ops/ddc.py::ddc_body_torch``.
+  (2, T) f32, as a banded-Toeplitz frame product on the tensor cores in
+  TF32 x3 (the frame width and bank layout: :func:`body_tc_geometry`,
+  :func:`body_tc_bank`); its plain version is ``ops/ddc.py::ddc_body_torch``.
 
 For a planar block x (2, L) and the carried tail x[-D .. -1] K1 computes,
 for every decimated output t = 0 .. T-1 (T = L / M),
@@ -57,14 +59,16 @@ from .nco import TWO_PI, U32, U32_MASK
 
 __all__ = ["DdcFmBody", "make_ddc_fm", "fm_supported", "ddc_fm_cuda",
            "ddc_fm_torch", "DdcBody", "make_ddc_body", "ddc_body_cuda",
-           "ddc_body_unaligned_cuda", "launch_geometry", "DEFAULT_P"]
+           "ddc_body_unaligned_cuda", "launch_geometry", "body_tc_geometry",
+           "body_tc_bank", "tf32_round", "DEFAULT_P"]
 
 DEFAULT_P = 64          # outputs per frame: the block length quantum is P*M
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _DDC_FM_ARGS = (_P,) * 6 + (_LL, _I, _I, _I, _F, _F, _F, _I, _P)
-_DDC_BODY_ARGS = (_P,) * 4 + (_LL, _I, _I, _I, _I, _P)
-_OUTPUTS_PER_THREAD = 4          # kOutputsPerThread in csrc/ddc_*.cu
+_DDC_BODY_ARGS = (_P,) * 4 + (_LL,) + (_I,) * 9 + (_P,)
+_OUTPUTS_PER_THREAD = 4          # kOutputsPerThread in csrc/ddc_fm.cu
 _SMEM_LIMIT = 227 * 1024         # shared memory one block may use on sm_90
+_TC_FRAMES = 64                  # kFrames in csrc/ddc_body.cu: wgmma's rows
 
 
 def fm_supported(n_taps: int, M: int, P: int = DEFAULT_P) -> bool:
@@ -201,10 +205,10 @@ def ddc_fm_torch(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
 
 
 def launch_geometry(n: int, M: int):
-    """(threads, outputs per block, shared-memory bytes) of one kernel
-    launch: the largest block of threads whose staged input span fits the
-    shared memory of one block (the formula of ddc_fm_smem_bytes in
-    csrc/ddc_fm.cu, which also bounds csrc/ddc_body.cu's smaller tile)."""
+    """(threads, outputs per block, shared-memory bytes) of one K1 launch:
+    the largest block of threads whose staged input span fits the shared
+    memory of one block (the formula of ddc_fm_smem_bytes in
+    csrc/ddc_fm.cu)."""
     for threads in (256, 128, 64, 32):
         tbo = threads * _OUTPUTS_PER_THREAD
         U = tbo + -(-n // M)
@@ -259,7 +263,9 @@ class DdcBody:
     dtheta: int              # NCO phase increment (u32 word)
     dw: int                  # M * dtheta mod 2^32: the rotation per output
     taps: torch.Tensor       # (2, n) [re; im] of h_bp
-    # the plain version's folded banks on the device, built at first use
+    h_bp: np.ndarray = field(repr=False)   # (n,) complex128: the kernel's bank
+    # the plain version's folded banks and the kernel's packed TF32 bank on
+    # the device, built at first use
     banks: dict = field(default_factory=dict, repr=False)
 
     def __call__(self, x2: torch.Tensor, tail: torch.Tensor,
@@ -293,7 +299,88 @@ def make_ddc_body(taps: np.ndarray, dtheta, M: int, device,
     return DdcBody(
         n=n, M=M, P=DEFAULT_P, dtheta=d, dw=(M * d) & U32_MASK,
         taps=torch.tensor(np.stack([h_bp.real, h_bp.imag]).astype(bank_dt),
-                          dtype=dtype, device=device))
+                          dtype=dtype, device=device), h_bp=h_bp)
+
+
+def body_tc_geometry(n: int, M: int):
+    """(P, hpad, KP, wgs, stages, smem) of the tensor-core body kernel for n
+    taps
+    and decimation M: frames of P outputs (hop = P*M samples), each read
+    through the window of KP samples that starts hpad before the frame
+    (hpad = D = n - M rounded up to 4, KP = hpad + hop rounded up to 32);
+    wgs warpgroups a block, ``stages`` span buffers a warpgroup and smem
+    bytes of shared memory (the bank, the stages, the barriers).  P is the
+    smallest power of two >= 4 with hop >= 64, halved while the bank and
+    stages do not fit one block's shared memory (two warpgroups of two
+    stages, else one of two, else one of one); raises ValueError when even
+    P = 4 does not fit."""
+    D = n - M
+    hpad = -(-D // 4) * 4
+    P = 4
+    while P * M < 64 and P < 64:
+        P *= 2
+    while P >= 4:
+        hop = P * M
+        KP = -(-(hpad + hop) // 32) * 32
+        SP = -(-((_TC_FRAMES - 1) * hop + KP + 4) // 4) * 4
+        bank = 2 * (KP // 4) * 32 * 2 * P
+        for wgs, stages in ((2, 2), (1, 2), (1, 1)):
+            smem = (bank + wgs * stages * 2 * SP * 4
+                    + (1 + stages * wgs) * 8)
+            if smem <= _SMEM_LIMIT:
+                return P, hpad, KP, wgs, stages, smem
+        P //= 2
+    raise ValueError(f"the DDC body kernel's bank and spans do not fit "
+                     f"shared memory at {n} taps and decimation {M}")
+
+
+def tf32_round(a: np.ndarray) -> np.ndarray:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero): what ``cvt.rna.tf32.f32`` gives, as float32."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def body_tc_bank(h_bp: np.ndarray, n: int, M: int, P: int, hpad: int,
+                 KP: int) -> np.ndarray:
+    """The tensor-core kernel's bank, float32 (2 * KP / 4 k-steps of 8 x 2P):
+    the hi k-steps of both planes, then the lo ones.  Bank B (2, KP, 2P) in
+    float64: plane 0 multiplies the real samples, plane 1 the imaginary
+    ones, columns [re | im] of the P outputs; output p of a frame reads
+    window rows hpad - D + p M + i for tap i.  hi = tf32(B), lo = tf32(B -
+    hi).  K-step 2j + e of a plane holds window samples 16 j + 4 kk + 2 e +
+    kc at (core column kc, K index kk), each step stored as wgmma's K-major
+    core matrices [kc][column group][8 columns][4 K] (csrc/ddc_body.cu)."""
+    h = np.asarray(h_bp, np.complex128)
+    D, N = n - M, 2 * P
+    B = np.zeros((2, KP, N))
+    for p in range(P):
+        k0 = hpad - D + p * M
+        B[0, k0:k0 + n, p] = h.real
+        B[0, k0:k0 + n, P + p] = h.imag
+        B[1, k0:k0 + n, p] = -h.imag
+        B[1, k0:k0 + n, P + p] = h.real
+    ks = np.arange(KP // 8)
+    k_idx = (16 * (ks // 2)[:, None, None] + 4 * np.arange(4)[None, None, :]
+             + 2 * (ks % 2)[:, None, None] + np.arange(2)[None, :, None])
+    packed = B[:, k_idx, :].reshape(2, KP // 8, 2, 4, N // 8, 8)
+    packed = packed.transpose(0, 1, 2, 4, 5, 3)   # [plane][step][kc][grp][col][kk]
+    hi = tf32_round(packed.astype(np.float32))
+    lo = tf32_round((packed - hi).astype(np.float32))
+    return np.concatenate([hi.reshape(-1), lo.reshape(-1)])
+
+
+def _tc_bank(body: DdcBody, P: int, hpad: int, KP: int) -> torch.Tensor:
+    """The packed bank on the body's device, built at first use from the
+    float64 taps."""
+    key = ("tf32", P, hpad, KP)
+    bank = body.banks.get(key)
+    if bank is None:
+        bank = torch.from_numpy(body_tc_bank(body.h_bp, body.n, body.M, P,
+                                             hpad, KP)).to(body.taps.device)
+        body.banks[key] = bank
+    return bank
 
 
 def _launch_body(body: DdcBody, x2: torch.Tensor, tail: torch.Tensor,
@@ -310,14 +397,15 @@ def _launch_body(body: DdcBody, x2: torch.Tensor, tail: torch.Tensor,
                          f"got {tuple(tail.shape)}")
     if tail.dtype != torch.float32 or tail.device != x2.device:
         raise TypeError(f"{name} needs a float32 tail on the block's card")
-    threads, _, _ = launch_geometry(body.n, body.M)
+    P, hpad, KP, wgs, stages, smem = body_tc_geometry(body.n, body.M)
+    bank = _tc_bank(body, P, hpad, KP)
     tail = tail.contiguous()
     z = torch.empty((2, x2.shape[-1] // body.M), dtype=torch.float32,
                     device=x2.device)
     fn = launcher("ddc_body.cu", "ddc_body_launch", _DDC_BODY_ARGS)
-    check_launch(fn(x2.data_ptr(), tail.data_ptr(), body.taps.data_ptr(),
-                    z.data_ptr(), x2.shape[-1], body.n, body.M, threads,
-                    x2.device.index, stream_of(x2)), name)
+    check_launch(fn(x2.data_ptr(), tail.data_ptr(), bank.data_ptr(),
+                    z.data_ptr(), x2.shape[-1], body.n, body.M, P, hpad, KP,
+                    wgs, stages, smem, x2.device.index, stream_of(x2)), name)
     return z
 
 

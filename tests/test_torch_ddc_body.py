@@ -253,3 +253,131 @@ def test_epilogues_match_jax(seed, theta0):
     wam = jddc.ddc_am_epilogue(jnp.asarray(z2[0]), jnp.asarray(z2[1]),
                                jnp.float32(g))
     np.testing.assert_allclose(am.numpy(), np.asarray(wam), rtol=1e-6)
+
+
+# The tensor-core body kernel's host side (csrc/ddc_body.cu runs only on
+# the card): its geometry and its packed TF32 hi/lo banks, unpacked here and
+# applied as the kernel's frame product in float64.
+
+TC_GEOMETRIES = [(64, 4, L_SMALL), (64, 4, L_SMALL + 52), (64, 4, 32),
+                 (48, 8, 512 * 9 + 8), (33, 2, 128 * 77), (64, 32, 2048 * 3)]
+
+
+def _unpack_tc_bank(packed, P, KP):
+    """The packed bank -> (hi, lo), each (2, KP, 2P) in window order."""
+    N, steps = 2 * P, KP // 8
+    ks = np.arange(steps)
+    k_idx = (16 * (ks // 2)[:, None, None] + 4 * np.arange(4)[None, None, :]
+             + 2 * (ks % 2)[:, None, None] + np.arange(2)[None, :, None])
+    out = []
+    for half in packed.reshape(2, 2, steps, 2, N // 8, 8, 4):
+        B = np.zeros((2, KP, N))
+        # [plane][step][kc][grp][col][kk] -> [plane][step][kc][kk][col]
+        v = half.transpose(0, 1, 2, 5, 3, 4).reshape(2, steps, 2, 4, N)
+        B[:, k_idx, :] = v
+        out.append(B)
+    return out
+
+
+def _tc_frames(x2, tail2, n, M, P, hpad, KP, lhs):
+    """z (2, T) of the frame product: frame f reads the window of KP
+    samples from f*hop - hpad (the tail before the block, zeros before the
+    tail and past the block); ``lhs(window)`` gives the planes' (F, KP)
+    operands and bank pairs to sum."""
+    L = x2.shape[1]
+    T, hop, D = L // M, P * M, n - M
+    F = -(-T // P)
+    ext = np.zeros((2, hpad + F * hop + KP))
+    ext[:, hpad - D:hpad] = tail2
+    ext[:, hpad:hpad + L] = x2
+    win = np.stack([ext[:, f * hop:f * hop + KP] for f in range(F)], axis=1)
+    y = lhs(win)                                            # (F, 2P)
+    return np.stack([y[:, :P].reshape(-1)[:T], y[:, P:].reshape(-1)[:T]])
+
+
+@pytest.mark.parametrize("n,M,L", TC_GEOMETRIES)
+def test_tc_bank_frame_product_matches_plain_float64(n, M, L):
+    """The packed hi + lo banks, applied in float64 to the exact samples,
+    give the plain version's float64 z at >= 120 dB (the banks keep about
+    21 mantissa bits of the float64 taps)."""
+    P, hpad, KP, _, _, _ = cuda_ddc.body_tc_geometry(n, M)
+    body = _body(n, M, torch.float64)
+    hi, lo = _unpack_tc_bank(cuda_ddc.body_tc_bank(body.h_bp, n, M, P, hpad,
+                                                   KP), P, KP)
+    x2, tail2 = _inputs(21, L, n - M)
+    B = hi + lo
+    got = _tc_frames(x2.astype(np.float64), tail2.astype(np.float64), n, M,
+                     P, hpad, KP, lambda w: w[0] @ B[0] + w[1] @ B[1])
+    want = ddc.ddc_body_torch(body, torch.from_numpy(x2).double(),
+                              torch.from_numpy(tail2).double()).numpy()
+    assert got.shape == want.shape == (2, L // M)
+    assert snr_db(got, want) >= 120.0
+
+
+@pytest.mark.parametrize("n,M,L", TC_GEOMETRIES)
+def test_tc_x3_product_matches_plain_float64(n, M, L):
+    """The kernel's TF32 x3 product (samples split into tf32 hi and the
+    rest, read as TF32; hi.hi + lo.hi + hi.lo) in float64 arithmetic:
+    >= 100 dB against the
+    plain version in float64, the "highest" contract of the chain
+    (tests/test_rx_chain_fused.py)."""
+    P, hpad, KP, _, _, _ = cuda_ddc.body_tc_geometry(n, M)
+    body = _body(n, M, torch.float64)
+    hi, lo = _unpack_tc_bank(cuda_ddc.body_tc_bank(body.h_bp, n, M, P, hpad,
+                                                   KP), P, KP)
+    x2, tail2 = _inputs(22, L, n - M)
+
+    def x3(w):
+        w = w.astype(np.float32)
+        wh = cuda_ddc.tf32_round(w).astype(np.float64)
+        # lo = w - hi in float32, read by the tensor cores as TF32: its low
+        # 13 bits ignored
+        lo_bits = (w - wh).astype(np.float32).view(np.uint32)
+        wl = (lo_bits & np.uint32(0xFFFFE000)).view(np.float32).astype(
+            np.float64)
+        return sum(a[p] @ b[p] for p in range(2)
+                   for a, b in ((wh, hi), (wl, hi), (wh, lo)))
+
+    got = _tc_frames(x2, tail2, n, M, P, hpad, KP, x3)
+    want = ddc.ddc_body_torch(body, torch.from_numpy(x2).double(),
+                              torch.from_numpy(tail2).double()).numpy()
+    assert snr_db(got, want) >= 100.0
+
+
+@pytest.mark.parametrize("n,M", [(64, 4), (48, 8), (33, 2), (64, 32)])
+def test_tc_bank_hi_lo_reproduce_float64_taps(n, M):
+    """hi + lo of every bank entry is the float64 tap to TF32 x3's rounding
+    (2^-21 of the largest tap); hi is a TF32 value and lo's magnitude at
+    most 2^-11 of hi's; the bank's nonzero entries are the taps, each
+    output column holding all n of them once a plane."""
+    P, hpad, KP, _, _, _ = cuda_ddc.body_tc_geometry(n, M)
+    body = _body(n, M, torch.float64)
+    packed = cuda_ddc.body_tc_bank(body.h_bp, n, M, P, hpad, KP)
+    hi, lo = _unpack_tc_bank(packed, P, KP)
+    assert np.array_equal(packed[:packed.size // 2],
+                          cuda_ddc.tf32_round(packed[:packed.size // 2]))
+    h = body.h_bp
+    for plane, col_taps in ((0, (h.real, h.imag)), (1, (-h.imag, h.real))):
+        for half, taps in zip((slice(0, P), slice(P, 2 * P)), col_taps):
+            exact = hi[plane][:, half] + lo[plane][:, half]
+            nz = np.abs(exact).sum(axis=0) > 0
+            for p in range(P):
+                k0 = hpad - (n - M) + p * M
+                np.testing.assert_allclose(exact[k0:k0 + n, p], taps, rtol=0,
+                                           atol=2.0 ** -21 * np.abs(h).max())
+                assert not exact[:k0, p].any() and not exact[k0 + n:, p].any()
+            assert nz.all()
+    assert np.all(np.abs(lo) <= 2.0 ** -11 * np.abs(hi) + 1e-300)
+
+
+def test_tc_geometry_fits_and_raises():
+    """The main geometry takes frames of 16 outputs on two warpgroups of two
+    stages within one block's shared memory; a decimation whose spans
+    cannot fit raises instead of taking another path."""
+    P, hpad, KP, wgs, stages, smem = cuda_ddc.body_tc_geometry(64, 4)
+    assert (P, hpad, KP, wgs, stages) == (16, 60, 128, 2, 2)
+    assert smem <= 227 * 1024
+    for n, M in ((48, 8), (33, 2), (64, 32), (64, 1), (512, 4)):
+        assert cuda_ddc.body_tc_geometry(n, M)[-1] <= 227 * 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_ddc.body_tc_geometry(200, 128)
