@@ -36,7 +36,10 @@ Phases, one line each:
   1. device: GPU name and power limit, torch and CUDA versions;
   2. build: every kernel from the repository's sources (one nvcc each, all
      at once), with ptxas's registers and spills;
-  3. FM kernel vs its plain PyTorch version on the card, L = 2^24 (f32);
+  3. FM kernel (TF32 x3 on the tensor cores, the discriminator and stats in
+     its epilogue) vs its plain PyTorch version on the card, L = 2^24
+     (f32), two launches on the block bit-equal, timed over a CUDA graph
+     beside its bound, its back-to-back time and its plain version;
   4. FM kernel vs the plain version in float64 on the CPU, L = 2^20;
   5. FM chain (kernel) vs chain (plain version) over 4 blocks with the state
      carried, launches counted; the audio of the tone must be its frequency;
@@ -51,7 +54,9 @@ Phases, one line each:
      blocks each with the state carried, launches counted: QPSK symbols
      and carrier offset, the AM envelope's tone, the FM tone read back;
  10. throughput of the QPSK and AM chains with CUDA events over 20 blocks,
-     with the host's enqueue time and the profiler's device time a block;
+     and for them and the FM chain (K1) the host's enqueue time, the
+     profiler's device time a block, the idle share and the largest
+     kernels;
  11. K4 vs its plain version on the card, x3 and fast, planar and complex
      layouts (bit-equal), timed over a CUDA graph, and x3 vs the plain
      version in float64 on the CPU at 2^18;
@@ -108,8 +113,8 @@ Phases, one line each:
      the port pins full float32 for its own products.
 
 Then the kernels' JSON line (each kernel's launches on the main paths; its
-time, by CUDA events over back-to-back launches, for K2-K4 and K6-K9 over
-a CUDA graph of them so that the host's launch rate is not counted; its plain
+time, by CUDA events over a CUDA graph of 20 launches so that the host's
+launch rate is not counted (K5 over back-to-back launches); its plain
 version's time, the library call's where one PyTorch call computes the
 same function, and its bound: the larger of its bytes over 3.35 TB/s and
 its operations over the peak of their type), the nvidia-smi
@@ -1413,23 +1418,36 @@ def main() -> None:
         (0.1 * rng.standard_normal((2, cfg.fir_taps - M))).astype(np.float32)
     ).to(dev)
     ak, sk = cuda_ddc.ddc_fm_cuda(body, x, tail)
+    ak2, sk2 = cuda_ddc.ddc_fm_cuda(body, x, tail)
     ap, sp = cuda_ddc.ddc_fm_torch(body, x, tail)
     torch.cuda.synchronize()
+    same3 = torch.equal(ak, ak2) and torch.equal(sk, sk2)
     ak, sk = ak.cpu().numpy(), sk.cpu().numpy()
     ap, sp = ap.cpu().numpy(), sp.cpu().numpy()
     snr3 = snr_db(ak, ap)
     err_e = abs(float(sk[0]) - float(sp[0])) / abs(float(sp[0]))
     err_z = float(np.max(np.abs(sk[1:] - sp[1:])))
     max_abs = float(np.max(np.abs(ak - ap)))
-    k_ms = cuda_ms(lambda: cuda_ddc.ddc_fm_cuda(body, x, tail), 20)
+    k_ms = graph_ms(lambda: cuda_ddc.ddc_fm_cuda(body, x, tail), 20)
+    k_b2b = cuda_ms(lambda: cuda_ddc.ddc_fm_cuda(body, x, tail), 20)
     p_ms = cuda_ms(lambda: cuda_ddc.ddc_fm_torch(body, x, tail), 20)
+    # bound: each input read once, each output written once; the FIR's 8
+    # FLOPs a complex tap a decimated output in FP32 (x3)
+    n, D, T = cfg.fir_taps, cfg.fir_taps - M, L_FULL // M
+    b3 = bound_ms(4 * (2 * L_FULL + 2 * D + 2 * n + T + 5), 8 * n * T,
+                  FP32_FLOPS)
+    route3 = cuda_ddc.fm_geometry(n, M)
     print(f"[3 kernel vs plain f32, L=2^24] audio {snr3:.1f} dB (gate "
           f"{MIN_SNR_DB}), max |err| {max_abs:.3g}, energy rel err "
           f"{err_e:.3g} (gate {ENERGY_RTOL}), z0/zlast err {err_z:.3g} "
-          f"(gate {EDGE_ATOL}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms | "
-          f"{smi}", flush=True)
+          f"(gate {EDGE_ATOL}), two launches bit-equal {same3}; route "
+          f"{route3}; kernel (CUDA graph of 20 launches) {k_ms:.4f} ms, "
+          f"bound {b3[0]:.4f} ms ({b3[1]}), back-to-back launches (the "
+          f"earlier figure) {k_b2b:.4f} ms, plain {p_ms:.4f} ms | {smi}",
+          flush=True)
     if not (snr3 >= MIN_SNR_DB and err_e <= ENERGY_RTOL and err_z <= EDGE_ATOL
-            and np.all(np.isfinite(ak)) and ak.shape == (L_FULL // M,)):
+            and same3 and np.all(np.isfinite(ak))
+            and ak.shape == (L_FULL // M,)):
         fail("phase 3: kernel disagrees with the plain version")
 
     # 4. kernel vs the plain version in float64 on the CPU
@@ -1669,8 +1687,9 @@ def main() -> None:
             and f_k.shape == (N_CHAIN * L_UNALIGNED // M,)):
         fail("phase 9: the unaligned FM chain through the kernel is wrong")
 
-    # 10. throughput of the QPSK and AM chains (plain, kernel, kernel, plain),
-    # the host's enqueue time and the device's busy time a block
+    # 10. throughput of the QPSK and AM chains (plain, kernel, kernel, plain);
+    # for them and the FM chain of phase 6 the host's enqueue time and the
+    # device's busy time a block
     def chain_step(init, apply, blks):
         """fn() applying the chain to the blocks in turn, state carried."""
         box = {"st": init(), "i": 0}
@@ -1680,13 +1699,17 @@ def main() -> None:
             box["i"] += 1
         return fn
 
-    rates = {}
+    rates = {"fm": (k1, k2, p1, p2)}           # phase 6's turns
     for label, blks, kern, plain in (("qpsk", qblocks, q_kernel, q_plain),
-                                     ("am", ablocks, a_kernel, a_plain)):
-        p1 = run_chain(*plain, blks)
-        k1 = run_chain(*kern, blks)
-        k2 = run_chain(*kern, blks)
-        rates[label] = (k1, k2, p1, run_chain(*plain, blks))
+                                     ("am", ablocks, a_kernel, a_plain),
+                                     ("fm", blocks, (init_k, apply_k),
+                                      (init_p, apply_p))):
+        if label not in rates:
+            p1 = run_chain(*plain, blks)
+            k1 = run_chain(*kern, blks)
+            k2 = run_chain(*kern, blks)
+            rates[label] = (k1, k2, p1, run_chain(*plain, blks))
+        k1, k2 = rates[label][:2]
         _, host_ms = timed(chain_step(*kern, blks), N_TIMED)
         busy, top = profiled_busy(chain_step(*kern, blks))
         wall = L_FULL / (0.5 * (k1 + k2) * 1e3)          # ms a block
@@ -1700,15 +1723,9 @@ def main() -> None:
           f"kernel {rates['am'][0]:.1f} / {rates['am'][1]:.1f}, plain "
           f"{rates['am'][2]:.1f} / {rates['am'][3]:.1f} | {smi}", flush=True)
 
-    # bounds: each input read once, each output written once; the FIR's
-    # 8 FLOPs a complex tap a decimated output in FP32 (x3)
-    n, D = cfg.fir_taps, cfg.fir_taps - M
-    T = L_FULL // M
     kernels = [kernel_entry(
         "ddc_fm", "ddc_fm.cu", "solid_dsp_tpu/ops/pallas_ddc.py:590",
-        launches_main["ddc_fm"], max_abs, k_ms, p_ms,
-        bound_ms(4 * (2 * L_FULL + 2 * D + 2 * n + T + 5), 8 * n * T,
-                 FP32_FLOPS))]
+        launches_main["ddc_fm"], max_abs, k_ms, p_ms, b3)]
     for route, line in (("ddc_body", 359), ("ddc_body_unaligned", 135)):
         err, kms, pms, lms, L, bnd = body_stats[route]
         kernels.append(kernel_entry(

@@ -27,9 +27,13 @@ so audio[0] is left for the caller to overwrite (``ops/ddc.py``).
 
 Two implementations of K1's function:
 
-* :func:`ddc_fm_cuda` launches ``csrc/ddc_fm.cu`` (direct-form FIR in FP32
-  FMA with the input staged in shared memory, discriminator and energy in
-  the same pass).
+* :func:`ddc_fm_cuda` launches ``csrc/ddc_fm.cu`` on one of two routes
+  chosen from (n, M) alone (:func:`fm_geometry`): the body's tensor-core
+  product (``csrc/ddc_tc.cuh``, TF32 x3 ``wgmma``) with the discriminator,
+  energy and edges in its epilogue, wherever its bank and spans fit one
+  block's shared memory (counted by ``ddc_fm_cuda.launches``); else the
+  direct-form FIR in FP32 FMA (counted by ``ddc_fm_cuda.direct_launches``).
+  Both write the five stats themselves, the energy summed in a fixed order.
 * :func:`ddc_fm_torch` is the plain PyTorch version: matmuls of the frame
   view (2, F, 64*M) against folded banded-Toeplitz banks, then the
   discriminator in torch ops.  CPU tensors take it under ``engine="auto"``;
@@ -60,15 +64,18 @@ from .nco import TWO_PI, U32, U32_MASK
 __all__ = ["DdcFmBody", "make_ddc_fm", "fm_supported", "ddc_fm_cuda",
            "ddc_fm_torch", "DdcBody", "make_ddc_body", "ddc_body_cuda",
            "ddc_body_unaligned_cuda", "launch_geometry", "body_tc_geometry",
-           "body_tc_bank", "tf32_round", "DEFAULT_P"]
+           "fm_tc_geometry", "fm_geometry", "fm_columns", "body_tc_bank",
+           "tf32_round", "DEFAULT_P"]
 
 DEFAULT_P = 64          # outputs per frame: the block length quantum is P*M
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_DDC_FM_ARGS = (_P,) * 6 + (_LL, _I, _I, _I, _F, _F, _F, _I, _P)
+_DDC_FM_ARGS = (_P,) * 8 + (_LL,) + (_I,) * 10 + (_F,) * 3 + (_I, _P)
+_DDC_FM_DIRECT_ARGS = (_P,) * 7 + (_LL,) + (_I,) * 4 + (_F,) * 3 + (_I, _P)
 _DDC_BODY_ARGS = (_P,) * 4 + (_LL,) + (_I,) * 9 + (_P,)
 _OUTPUTS_PER_THREAD = 4          # kOutputsPerThread in csrc/ddc_fm.cu
 _SMEM_LIMIT = 227 * 1024         # shared memory one block may use on sm_90
-_TC_FRAMES = 64                  # kFrames in csrc/ddc_body.cu: wgmma's rows
+_TC_FRAMES = 64                  # kFrames in csrc/ddc_tc.cuh: wgmma's rows
+_FM_EXTRA = 64                   # kFmExtra in csrc/ddc_fm.cu: the stats' words
 
 
 def fm_supported(n_taps: int, M: int, P: int = DEFAULT_P) -> bool:
@@ -121,6 +128,10 @@ class DdcFmBody:
     bank: torch.Tensor       # (2, P*M, 2P) body bank
     prev_bank: torch.Tensor  # (2, n-M, 2P) previous-frame bank
     seam_bank: torch.Tensor  # (2, n, 2)
+    h_bp: np.ndarray = field(repr=False)   # (n,) complex128: the kernel's bank
+    # the kernel's packed TF32 bank and its stats ticket on the device,
+    # built at first use
+    banks: dict = field(default_factory=dict, repr=False)
 
     def __call__(self, x2: torch.Tensor, tail: torch.Tensor,
                  engine: str = "auto"):
@@ -161,7 +172,7 @@ def make_ddc_fm(taps: np.ndarray, dtheta, M: int, kf: float, device,
         cd=float(np.cos(drad)), sd=float(-np.sin(drad)),
         scale=1.0 / (2.0 * np.pi * float(kf)),
         taps=dev(np.stack([h_bp.real, h_bp.imag]).astype(bank_dt)),
-        bank=dev(body), prev_bank=dev(prev), seam_bank=dev(seam))
+        bank=dev(body), prev_bank=dev(prev), seam_bank=dev(seam), h_bp=h_bp)
 
 
 def _check_block(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
@@ -205,25 +216,57 @@ def ddc_fm_torch(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
 
 
 def launch_geometry(n: int, M: int):
-    """(threads, outputs per block, shared-memory bytes) of one K1 launch:
-    the largest block of threads whose staged input span fits the shared
-    memory of one block (the formula of ddc_fm_smem_bytes in
-    csrc/ddc_fm.cu)."""
+    """(threads, outputs per block, shared-memory bytes) of one launch of
+    K1's direct route: the largest block of threads whose staged input span
+    fits the shared memory of one block (the formula of
+    ddc_fm_direct_smem_bytes in csrc/ddc_fm.cu)."""
     for threads in (256, 128, 64, 32):
         tbo = threads * _OUTPUTS_PER_THREAD
         U = tbo + -(-n // M)
-        smem = 4 * (2 * M * U + 2 * n + 2 * (tbo + 1) + threads // 32)
+        smem = 4 * (2 * M * U + 2 * n + 2 * (tbo + 1) + threads // 32 + 1)
         if smem <= _SMEM_LIMIT:
             return threads, tbo, smem
     raise ValueError(f"decimation {M} with {n} taps does not fit the "
                      "kernel's shared-memory tile")
 
 
+@functools.lru_cache(maxsize=None)
+def fm_geometry(n: int, M: int):
+    """K1's route for n taps and decimation M, from (n, M) alone:
+    ``("tc", fm_tc_geometry(n, M))`` where the tensor-core kernel's bank and
+    spans fit one block's shared memory, else ``("direct",
+    launch_geometry(n, M))``; raises ValueError where neither fits."""
+    try:
+        return "tc", fm_tc_geometry(n, M)
+    except ValueError:
+        return "direct", launch_geometry(n, M)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _fm_ticket(body: DdcFmBody, device: torch.device) -> torch.Tensor:
+    """The stats' ticket on ``device``: one word, zero before the first
+    launch, left zero by every launch.  Launches of one body on one card
+    share it, so they run one at a time (one stream, as the chain does)."""
+    key = ("ticket", device.index)
+    ticket = body.banks.get(key)
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        body.banks[key] = ticket
+    return ticket
+
+
 def ddc_fm_cuda(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
-    """Launch the Hopper kernel: returns (audio (T,), stats (5,)).
+    """Launch the Hopper kernel: returns (audio (T,), stats (5,)), both
+    written by the kernel.
 
     Takes f32 CUDA tensors only (x2 contiguous) and raises on anything
-    else.  Adds one to ``ddc_fm_cuda.launches`` per launch.
+    else.  The route comes from (n, M) alone (:func:`fm_geometry`); adds one
+    to ``ddc_fm_cuda.launches`` per launch of the tensor-core route and to
+    ``ddc_fm_cuda.direct_launches`` per launch of the direct route.
     """
     _check_block(body, x2, tail)
     if not (x2.is_cuda and tail.is_cuda and body.taps.is_cuda):
@@ -235,22 +278,53 @@ def ddc_fm_cuda(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
         raise ValueError("ddc_fm_cuda needs a contiguous (2, L) block")
     if tail.dtype != torch.float32 or tail.device != x2.device:
         raise TypeError("ddc_fm_cuda needs a float32 tail on the block's card")
-    threads, tbo, _ = launch_geometry(body.n, body.M)
-    T = x2.shape[-1] // body.M
+    route, geo = fm_geometry(body.n, body.M)
+    out = _launch_fm(body, x2, tail, route, geo)
+    if route == "tc":
+        ddc_fm_cuda.launches += 1
+    else:
+        ddc_fm_cuda.direct_launches += 1
+    return out
+
+
+def _launch_fm(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor,
+               route: str, geo):
+    """One launch of K1 on ``route`` with its geometry ``geo``
+    (:func:`fm_geometry`); the block already checked."""
+    L = x2.shape[-1]
+    T = L // body.M
+    dev = x2.device
     tail = tail.contiguous()
-    audio = torch.empty(T, dtype=torch.float32, device=x2.device)
-    energy = torch.empty(-(-T // tbo), dtype=torch.float32, device=x2.device)
-    edges = torch.empty(4, dtype=torch.float32, device=x2.device)
-    fn = launcher("ddc_fm.cu", "ddc_fm_launch", _DDC_FM_ARGS)
-    check_launch(fn(x2.data_ptr(), tail.data_ptr(), body.taps.data_ptr(),
-                    audio.data_ptr(), energy.data_ptr(), edges.data_ptr(),
-                    x2.shape[-1], body.n, body.M, threads, body.cd, body.sd,
-                    body.scale, x2.device.index, stream_of(x2)), "ddc_fm_cuda")
-    ddc_fm_cuda.launches += 1
-    return audio, torch.cat([energy.sum().reshape(1), edges])
+    ticket = _fm_ticket(body, dev)
+    audio = torch.empty(T, dtype=torch.float32, device=dev)
+    if route == "tc":
+        P, hpad, KP, pre, wgs, stages, smem = geo
+        bank = _tc_bank(body, P, hpad, KP, fm=True)
+        blocks = _sm_count(dev.index)
+        # [stats (5) | one partial energy a block]
+        scratch = torch.empty(5 + blocks, dtype=torch.float32, device=dev)
+        fn = launcher("ddc_fm.cu", "ddc_fm_launch", _DDC_FM_ARGS)
+        check_launch(fn(x2.data_ptr(), tail.data_ptr(), bank.data_ptr(),
+                        body.taps.data_ptr(), audio.data_ptr(),
+                        scratch.data_ptr(), scratch.data_ptr() + 20,
+                        ticket.data_ptr(), L, body.n, body.M, P, hpad, KP,
+                        pre, wgs, stages, smem, blocks, body.cd, body.sd,
+                        body.scale, dev.index, stream_of(x2)), "ddc_fm_cuda")
+    else:
+        threads, tbo, _ = geo
+        blocks = -(-T // tbo)
+        scratch = torch.empty(5 + blocks, dtype=torch.float32, device=dev)
+        fn = launcher("ddc_fm.cu", "ddc_fm_direct_launch", _DDC_FM_DIRECT_ARGS)
+        check_launch(fn(x2.data_ptr(), tail.data_ptr(), body.taps.data_ptr(),
+                        audio.data_ptr(), scratch.data_ptr(),
+                        scratch.data_ptr() + 20, ticket.data_ptr(), L, body.n,
+                        body.M, threads, blocks, body.cd, body.sd, body.scale,
+                        dev.index, stream_of(x2)), "ddc_fm_cuda")
+    return audio, scratch[:5]
 
 
 ddc_fm_cuda.launches = 0
+ddc_fm_cuda.direct_launches = 0
 
 
 @dataclass(frozen=True, eq=False)
@@ -302,6 +376,40 @@ def make_ddc_body(taps: np.ndarray, dtheta, M: int, device,
                           dtype=dtype, device=device), h_bp=h_bp)
 
 
+def _tc_geometry(n: int, M: int, pre: int = 0, extra: int = 0, P=None,
+                 wgs=None):
+    """(P, hpad, KP, wgs, stages, smem) of the tensor-core product
+    (csrc/ddc_tc.cuh) with spans starting ``pre`` samples early and
+    ``extra`` bytes of shared memory for the epilogue; P and wgs are chosen
+    unless given."""
+    D = n - M
+    hpad = -(-D // 4) * 4
+    if P is None:
+        P = 4
+        while P * M < 64 and P < 64:
+            P *= 2
+        widths = []
+        while P >= 4:
+            widths.append(P)
+            P //= 2
+    else:
+        widths = [P]
+    for P in widths:
+        hop = P * M
+        KP = -(-(hpad + hop) // 32) * 32
+        SP = -(-(pre + (_TC_FRAMES - 1) * hop + KP + 4) // 4) * 4
+        bank = 2 * (KP // 4) * 32 * 2 * P
+        for w, stages in ((2, 2), (1, 2), (1, 1)):
+            if wgs is not None and w != wgs:
+                continue
+            smem = (bank + w * stages * 2 * SP * 4 + (1 + stages * w) * 8
+                    + extra)
+            if smem <= _SMEM_LIMIT:
+                return P, hpad, KP, w, stages, smem
+    raise ValueError(f"the DDC tensor-core kernel's bank and spans do not "
+                     f"fit shared memory at {n} taps and decimation {M}")
+
+
 def body_tc_geometry(n: int, M: int):
     """(P, hpad, KP, wgs, stages, smem) of the tensor-core body kernel for n
     taps
@@ -314,24 +422,22 @@ def body_tc_geometry(n: int, M: int):
     stages do not fit one block's shared memory (two warpgroups of two
     stages, else one of two, else one of one); raises ValueError when even
     P = 4 does not fit."""
-    D = n - M
-    hpad = -(-D // 4) * 4
-    P = 4
-    while P * M < 64 and P < 64:
-        P *= 2
-    while P >= 4:
-        hop = P * M
-        KP = -(-(hpad + hop) // 32) * 32
-        SP = -(-((_TC_FRAMES - 1) * hop + KP + 4) // 4) * 4
-        bank = 2 * (KP // 4) * 32 * 2 * P
-        for wgs, stages in ((2, 2), (1, 2), (1, 1)):
-            smem = (bank + wgs * stages * 2 * SP * 4
-                    + (1 + stages * wgs) * 8)
-            if smem <= _SMEM_LIMIT:
-                return P, hpad, KP, wgs, stages, smem
-        P //= 2
-    raise ValueError(f"the DDC body kernel's bank and spans do not fit "
-                     f"shared memory at {n} taps and decimation {M}")
+    return _tc_geometry(n, M)
+
+
+@functools.lru_cache(maxsize=None)
+def fm_tc_geometry(n: int, M: int, P=None, wgs=None):
+    """(P, hpad, KP, pre, wgs, stages, smem) of K1's tensor-core route: the
+    body's geometry (:func:`body_tc_geometry`) with spans starting ``pre``
+    samples early (n - hpad rounded up to 4: every warp reads the window of
+    the output before its rows there) and the stats' shared words.  ``P``
+    and ``wgs`` pin the frame width and warpgroups a block (the sweep of
+    torch_kernel_sweep.py); raises ValueError where it does not fit."""
+    hpad = -(-(n - M) // 4) * 4
+    pre = -(-max(n - hpad, 0) // 4) * 4
+    P, hpad, KP, wgs, stages, smem = _tc_geometry(n, M, pre, _FM_EXTRA, P,
+                                                  wgs)
+    return P, hpad, KP, pre, wgs, stages, smem
 
 
 def tf32_round(a: np.ndarray) -> np.ndarray:
@@ -342,14 +448,24 @@ def tf32_round(a: np.ndarray) -> np.ndarray:
         np.float32)
 
 
+def fm_columns(P: int) -> np.ndarray:
+    """K1's column order: column 8 j + 2 c + e of its bank holds column
+    e P + c P/4 + j of the body's [re | im] order (part e of output
+    c P/4 + j), so the thread of accumulator column pair c holds P/4
+    consecutive complex outputs of each of its rows (csrc/ddc_fm.cu)."""
+    Q = P // 4
+    return np.array([e * P + c * Q + j for j in range(Q) for c in range(4)
+                     for e in range(2)])
+
+
 def body_tc_bank(h_bp: np.ndarray, n: int, M: int, P: int, hpad: int,
-                 KP: int) -> np.ndarray:
+                 KP: int, fm: bool = False) -> np.ndarray:
     """The tensor-core kernel's bank, float32 (2 * KP / 4 k-steps of 8 x 2P):
     the hi k-steps of both planes, then the lo ones.  Bank B (2, KP, 2P) in
     float64: plane 0 multiplies the real samples, plane 1 the imaginary
-    ones, columns [re | im] of the P outputs; output p of a frame reads
-    window rows hpad - D + p M + i for tap i.  hi = tf32(B), lo = tf32(B -
-    hi).  K-step 2j + e of a plane holds window samples 16 j + 4 kk + 2 e +
+    ones, columns [re | im] of the P outputs (``fm``: in K1's order,
+    :func:`fm_columns`); output p of a frame reads window rows
+    hpad - D + p M + i for tap i.  hi = tf32(B), lo = tf32(B - hi).  K-step 2j + e of a plane holds window samples 16 j + 4 kk + 2 e +
     kc at (core column kc, K index kk), each step stored as wgmma's K-major
     core matrices [kc][column group][8 columns][4 K] (csrc/ddc_body.cu)."""
     h = np.asarray(h_bp, np.complex128)
@@ -361,6 +477,8 @@ def body_tc_bank(h_bp: np.ndarray, n: int, M: int, P: int, hpad: int,
         B[0, k0:k0 + n, P + p] = h.imag
         B[1, k0:k0 + n, p] = -h.imag
         B[1, k0:k0 + n, P + p] = h.real
+    if fm:
+        B = B[:, :, fm_columns(P)]
     ks = np.arange(KP // 8)
     k_idx = (16 * (ks // 2)[:, None, None] + 4 * np.arange(4)[None, None, :]
              + 2 * (ks % 2)[:, None, None] + np.arange(2)[None, :, None])
@@ -371,14 +489,17 @@ def body_tc_bank(h_bp: np.ndarray, n: int, M: int, P: int, hpad: int,
     return np.concatenate([hi.reshape(-1), lo.reshape(-1)])
 
 
-def _tc_bank(body: DdcBody, P: int, hpad: int, KP: int) -> torch.Tensor:
-    """The packed bank on the body's device, built at first use from the
-    float64 taps."""
-    key = ("tf32", P, hpad, KP)
+def _tc_bank(body, P: int, hpad: int, KP: int,
+             fm: bool = False) -> torch.Tensor:
+    """The packed bank of a :class:`DdcBody` or (``fm``) a
+    :class:`DdcFmBody` on its device, built at first use from the float64
+    taps."""
+    key = ("tf32", P, hpad, KP, fm)
     bank = body.banks.get(key)
     if bank is None:
         bank = torch.from_numpy(body_tc_bank(body.h_bp, body.n, body.M, P,
-                                             hpad, KP)).to(body.taps.device)
+                                             hpad, KP, fm)).to(
+                                                 body.taps.device)
         body.banks[key] = bank
     return bank
 

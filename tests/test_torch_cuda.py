@@ -58,25 +58,117 @@ def _inputs(seed, L, D):
     return torch.from_numpy(x2), torch.from_numpy(tail)
 
 
-@pytest.mark.parametrize("n,M,L", [(64, 4, L_SMALL), (64, 4, 256 * 5),
-                                   (48, 8, 512 * 9), (33, 2, 128 * 77),
-                                   (64, 32, 2048 * 3)])
+K1_GEOMETRIES = [(64, 4, L_SMALL), (64, 4, 256 * 5), (48, 8, 512 * 9),
+                 (33, 2, 128 * 77), (64, 32, 2048 * 3)]
+
+
+@pytest.mark.parametrize("n,M,L", K1_GEOMETRIES)
 def test_cuda_kernel_matches_plain_on_card(n, M, L):
     """Kernel vs plain version on the card, f32 with TF32 off: all of the
-    audio >= 90 dB, stats as in the module docstring, one launch counted."""
+    audio >= 90 dB, stats as in the module docstring, one launch counted
+    on the tensor-core route."""
     dev = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     body = _body(dev, n=n, M=M)
     x2, tail = (t.to(dev) for t in _inputs(7, L, n - M))
     before = cuda_ddc.ddc_fm_cuda.launches
+    direct = cuda_ddc.ddc_fm_cuda.direct_launches
     a, s = cuda_ddc.ddc_fm_cuda(body, x2, tail)
     b, t = cuda_ddc.ddc_fm_torch(body, x2, tail)
     torch.cuda.synchronize()
     assert cuda_ddc.ddc_fm_cuda.launches == before + 1
+    assert cuda_ddc.ddc_fm_cuda.direct_launches == direct
     assert a.shape == (L // M,) and bool(torch.isfinite(a).all())
     assert snr_db(a.cpu().numpy(), b.cpu().numpy()) >= 90.0
     np.testing.assert_allclose(s.cpu().numpy(), t.cpu().numpy(), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("n,M,L", K1_GEOMETRIES)
+def test_cuda_kernel_matches_float64_at_each_geometry(n, M, L):
+    """The tensor-core route vs the plain version in float64 on the CPU:
+    audio >= 90 dB, the energy within 1e-5 and z[0], z[T-1] within 1e-4."""
+    dev = require_cuda()
+    x2, tail = _inputs(10, L, n - M)
+    a, s = cuda_ddc.ddc_fm_cuda(_body(dev, n=n, M=M), x2.to(dev), tail.to(dev))
+    b, t = cuda_ddc.ddc_fm_torch(_body("cpu", n=n, M=M, dtype=torch.float64),
+                                 x2.double(), tail.double())
+    assert snr_db(a.cpu().numpy(), b.numpy()) >= 90.0
+    got, want = s.cpu().double().numpy(), t.numpy()
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1:], want[1:], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,M,L", [(200, 128, 8192 * 8), (129, 128, 256 * 128)])
+def test_cuda_kernel_large_decimation_takes_direct_route(n, M, L):
+    """Where the tensor-core spans do not fit, the route chosen from (n, M)
+    is the direct-form kernel, counted on its own counter: against the
+    plain version >= 90 dB, stats as above."""
+    dev = require_cuda()
+    assert cuda_ddc.fm_geometry(n, M)[0] == "direct"
+    body = _body(dev, n=n, M=M)
+    x2, tail = (t.to(dev) for t in _inputs(11, L, n - M))
+    before = (cuda_ddc.ddc_fm_cuda.launches,
+              cuda_ddc.ddc_fm_cuda.direct_launches)
+    a, s = cuda_ddc.ddc_fm_cuda(body, x2, tail)
+    b, t = cuda_ddc.ddc_fm_torch(body, x2, tail)
+    torch.cuda.synchronize()
+    assert (cuda_ddc.ddc_fm_cuda.launches,
+            cuda_ddc.ddc_fm_cuda.direct_launches) == (before[0], before[1] + 1)
+    assert snr_db(a.cpu().numpy(), b.cpu().numpy()) >= 90.0
+    np.testing.assert_allclose(s.cpu().numpy(), t.cpu().numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_cuda_kernel_every_direct_form_geometry_runs():
+    """Every (n, M) the direct-form kernel accepts runs through a kernel of
+    its route, >= 90 dB against the plain version."""
+    dev = require_cuda()
+    for n, M in ((2, 1), (65, 64), (96, 3), (97, 96), (300, 112), (40, 5),
+                 (1024, 16), (64, 12)):
+        assert cuda_ddc.fm_supported(n, M)
+        cuda_ddc.launch_geometry(n, M)
+        L = 64 * M * 7
+        x2, tail = (t.to(dev) for t in _inputs(12, L, n - M))
+        body = _body(dev, n=n, M=M)
+        a, _ = cuda_ddc.ddc_fm_cuda(body, x2, tail)
+        b, _ = cuda_ddc.ddc_fm_torch(body, x2, tail)
+        assert snr_db(a.cpu().numpy(), b.cpu().numpy()) >= 90.0, (n, M)
+
+
+def test_cuda_kernel_runs_are_bit_equal_also_in_a_graph():
+    """The stats are summed in a fixed order: two launches on one block
+    give equal audio and stats, and so do replays of a CUDA graph of two
+    launches (the ticket is left zero by every launch)."""
+    dev = require_cuda()
+    body = _body(dev)
+    x2, tail = (t.to(dev) for t in _inputs(13, L_SMALL, 60))
+    a1, s1 = cuda_ddc.ddc_fm_cuda(body, x2, tail)
+    a2, s2 = cuda_ddc.ddc_fm_cuda(body, x2, tail)
+    torch.cuda.synchronize()
+    assert torch.equal(a1, a2) and torch.equal(s1, s2)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [cuda_ddc.ddc_fm_cuda(body, x2, tail) for _ in range(2)]
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        for a, s in outs:
+            assert torch.equal(a, a1) and torch.equal(s, s1)
+
+
+def test_chain_on_card_never_takes_the_plain_k1(monkeypatch):
+    """The FM chain on a CUDA block goes through the kernel: the plain
+    version is never called unless engine="torch" asks for it."""
+    dev = require_cuda()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA block reached ddc_fm_torch")
+
+    monkeypatch.setattr(cuda_ddc, "ddc_fm_torch", refuse)
+    before = cuda_ddc.ddc_fm_cuda.launches
+    run_torch(make_blocks(2, seed=15), device=dev)
+    assert cuda_ddc.ddc_fm_cuda.launches == before + 2
 
 
 def test_cuda_kernel_matches_plain_float64():

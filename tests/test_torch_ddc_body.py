@@ -23,7 +23,7 @@ from solid_dsp_tpu.ops import ddc as jddc
 from solid_dsp_tpu.ops import nco as jnco
 from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig
 from solid_dsp_tpu_torch.ops import agc, cuda_ddc, ddc, nco
-from torch_parity import L_SMALL, snr_db
+from torch_parity import L_SMALL, snr_db, tc_frames, unpack_tc_bank
 
 M = 4
 FC = 0.2
@@ -256,43 +256,12 @@ def test_epilogues_match_jax(seed, theta0):
 
 
 # The tensor-core body kernel's host side (csrc/ddc_body.cu runs only on
-# the card): its geometry and its packed TF32 hi/lo banks, unpacked here and
-# applied as the kernel's frame product in float64.
+# the card): its geometry and its packed TF32 hi/lo banks, unpacked
+# (torch_parity.unpack_tc_bank) and applied as the kernel's frame product
+# in float64 (torch_parity.tc_frames).
 
 TC_GEOMETRIES = [(64, 4, L_SMALL), (64, 4, L_SMALL + 52), (64, 4, 32),
                  (48, 8, 512 * 9 + 8), (33, 2, 128 * 77), (64, 32, 2048 * 3)]
-
-
-def _unpack_tc_bank(packed, P, KP):
-    """The packed bank -> (hi, lo), each (2, KP, 2P) in window order."""
-    N, steps = 2 * P, KP // 8
-    ks = np.arange(steps)
-    k_idx = (16 * (ks // 2)[:, None, None] + 4 * np.arange(4)[None, None, :]
-             + 2 * (ks % 2)[:, None, None] + np.arange(2)[None, :, None])
-    out = []
-    for half in packed.reshape(2, 2, steps, 2, N // 8, 8, 4):
-        B = np.zeros((2, KP, N))
-        # [plane][step][kc][grp][col][kk] -> [plane][step][kc][kk][col]
-        v = half.transpose(0, 1, 2, 5, 3, 4).reshape(2, steps, 2, 4, N)
-        B[:, k_idx, :] = v
-        out.append(B)
-    return out
-
-
-def _tc_frames(x2, tail2, n, M, P, hpad, KP, lhs):
-    """z (2, T) of the frame product: frame f reads the window of KP
-    samples from f*hop - hpad (the tail before the block, zeros before the
-    tail and past the block); ``lhs(window)`` gives the planes' (F, KP)
-    operands and bank pairs to sum."""
-    L = x2.shape[1]
-    T, hop, D = L // M, P * M, n - M
-    F = -(-T // P)
-    ext = np.zeros((2, hpad + F * hop + KP))
-    ext[:, hpad - D:hpad] = tail2
-    ext[:, hpad:hpad + L] = x2
-    win = np.stack([ext[:, f * hop:f * hop + KP] for f in range(F)], axis=1)
-    y = lhs(win)                                            # (F, 2P)
-    return np.stack([y[:, :P].reshape(-1)[:T], y[:, P:].reshape(-1)[:T]])
 
 
 @pytest.mark.parametrize("n,M,L", TC_GEOMETRIES)
@@ -302,11 +271,11 @@ def test_tc_bank_frame_product_matches_plain_float64(n, M, L):
     21 mantissa bits of the float64 taps)."""
     P, hpad, KP, _, _, _ = cuda_ddc.body_tc_geometry(n, M)
     body = _body(n, M, torch.float64)
-    hi, lo = _unpack_tc_bank(cuda_ddc.body_tc_bank(body.h_bp, n, M, P, hpad,
+    hi, lo = unpack_tc_bank(cuda_ddc.body_tc_bank(body.h_bp, n, M, P, hpad,
                                                    KP), P, KP)
     x2, tail2 = _inputs(21, L, n - M)
     B = hi + lo
-    got = _tc_frames(x2.astype(np.float64), tail2.astype(np.float64), n, M,
+    got = tc_frames(x2.astype(np.float64), tail2.astype(np.float64), n, M,
                      P, hpad, KP, lambda w: w[0] @ B[0] + w[1] @ B[1])
     want = ddc.ddc_body_torch(body, torch.from_numpy(x2).double(),
                               torch.from_numpy(tail2).double()).numpy()
@@ -323,7 +292,7 @@ def test_tc_x3_product_matches_plain_float64(n, M, L):
     (tests/test_rx_chain_fused.py)."""
     P, hpad, KP, _, _, _ = cuda_ddc.body_tc_geometry(n, M)
     body = _body(n, M, torch.float64)
-    hi, lo = _unpack_tc_bank(cuda_ddc.body_tc_bank(body.h_bp, n, M, P, hpad,
+    hi, lo = unpack_tc_bank(cuda_ddc.body_tc_bank(body.h_bp, n, M, P, hpad,
                                                    KP), P, KP)
     x2, tail2 = _inputs(22, L, n - M)
 
@@ -338,7 +307,7 @@ def test_tc_x3_product_matches_plain_float64(n, M, L):
         return sum(a[p] @ b[p] for p in range(2)
                    for a, b in ((wh, hi), (wl, hi), (wh, lo)))
 
-    got = _tc_frames(x2, tail2, n, M, P, hpad, KP, x3)
+    got = tc_frames(x2, tail2, n, M, P, hpad, KP, x3)
     want = ddc.ddc_body_torch(body, torch.from_numpy(x2).double(),
                               torch.from_numpy(tail2).double()).numpy()
     assert snr_db(got, want) >= 100.0
@@ -353,7 +322,7 @@ def test_tc_bank_hi_lo_reproduce_float64_taps(n, M):
     P, hpad, KP, _, _, _ = cuda_ddc.body_tc_geometry(n, M)
     body = _body(n, M, torch.float64)
     packed = cuda_ddc.body_tc_bank(body.h_bp, n, M, P, hpad, KP)
-    hi, lo = _unpack_tc_bank(packed, P, KP)
+    hi, lo = unpack_tc_bank(packed, P, KP)
     assert np.array_equal(packed[:packed.size // 2],
                           cuda_ddc.tf32_round(packed[:packed.size // 2]))
     h = body.h_bp

@@ -111,3 +111,39 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc; run on the card")
     return torch.device("cuda", 0)
+
+
+# The tensor-core DDC kernels' host side (csrc/ddc_tc.cuh runs only on the
+# card): their packed TF32 hi/lo banks unpacked, and the frame product.
+
+def unpack_tc_bank(packed, P, KP):
+    """The packed bank (ops/cuda_ddc.py::body_tc_bank) -> (hi, lo), each
+    (2, KP, 2P) float64 in window order, columns in the bank's order."""
+    N, steps = 2 * P, KP // 8
+    ks = np.arange(steps)
+    k_idx = (16 * (ks // 2)[:, None, None] + 4 * np.arange(4)[None, None, :]
+             + 2 * (ks % 2)[:, None, None] + np.arange(2)[None, :, None])
+    out = []
+    for half in packed.reshape(2, 2, steps, 2, N // 8, 8, 4):
+        B = np.zeros((2, KP, N))
+        # [plane][step][kc][grp][col][kk] -> [plane][step][kc][kk][col]
+        v = half.transpose(0, 1, 2, 5, 3, 4).reshape(2, steps, 2, 4, N)
+        B[:, k_idx, :] = v
+        out.append(B)
+    return out
+
+
+def tc_frames(x2, tail2, n, M, P, hpad, KP, lhs):
+    """z (2, T) of the frame product: frame f reads the window of KP
+    samples from f*hop - hpad (the tail before the block, zeros before the
+    tail and past the block); ``lhs(window)`` gives the planes' (F, KP)
+    operands and bank pairs to sum."""
+    L = x2.shape[1]
+    T, hop, D = L // M, P * M, n - M
+    F = -(-T // P)
+    ext = np.zeros((2, hpad + F * hop + KP))
+    ext[:, hpad - D:hpad] = tail2
+    ext[:, hpad:hpad + L] = x2
+    win = np.stack([ext[:, f * hop:f * hop + KP] for f in range(F)], axis=1)
+    y = lhs(win)                                            # (F, 2P)
+    return np.stack([y[:, :P].reshape(-1)[:T], y[:, P:].reshape(-1)[:T]])
