@@ -24,6 +24,11 @@ solid_dsp_tpu_torch/csrc/:
 * the Farrow grid resampler (bench_all.py:572-582: ratio 48000/44100,
   blocks of 2^22): make_farrow_kernel_resampler through its kernel (K8,
   farrow.cu);
+* configs 1 and 3 of BASELINE.json (ops/fir.py: FIRFilter on a 1M-sample
+  tone, RationalResampler 3/2 and 1/8), the exact-AGC and reference-parity
+  receive chains (the LUT NCO, fir_decim_apply, the exact AGC through the
+  sequential-scan kernel S1 and the parallel Newton AGC) and the QPSK
+  Costas loop through S2 (seq_scan.cu);
 * parallel/, config 5's channels sharded over time and config 4 at scale,
   on an NCCL group of one rank (one card): the fused halo-exchange front
   end make_fused_channelizer_frontend through its kernel (K9,
@@ -110,7 +115,51 @@ Phases, one line each:
      (kernels against plain versions, plain versions against float64)
      and conv1d_mxu >= 100 dB against float64, the caller's flags the same
      afterwards.  The script leaves every TF32 flag at PyTorch's default:
-     the port pins full float32 for its own products.
+     the port pins full float32 for its own products;
+ 27. config 1 (BASELINE.json: a 64-tap complex FIR lowpass on a 1M-sample
+     tone): FIRFilter(firdes_kaiser(64, 0.1, 60), complex64) on 2^20
+     samples as 4 blocks of 2^18 with the tail carried, by "matmul",
+     "fft", "auto" and "measure", each >= 60 dB against numpy's float64
+     convolve, "fft" vs "matmul" in complex128 >= 100 dB; Msamples/s; the
+     methods "auto" and "measure" took; and the unfused chain's FIR route,
+     conv1d against the banded-Toeplitz matmul at stride 4 over 2^24
+     samples with config 4's 64 taps and with 4, one on each side of
+     ops/fir.py's tap threshold, both timed;
+ 28. config 3 (BASELINE.json: the polyphase rational resampler, 3/2 and
+     1/8): RationalResampler on 3 blocks of 2^22 with the phase and tail
+     carried, complex128 >= 100 dB against the zero-stuff + convolve +
+     select model in float64, float32 taps on complex64 >= 60 dB against
+     complex128; Msamples/s;
+ 29. S1 (the exact AGC scan, seq_scan.cu) vs its plain version in float32
+     on the card at T = 2^14 (max|dy| <= 1e-5 max|y|, gain rtol 1e-5, mode
+     and timer equal) and in float64 vs the plain version on the CPU (atol
+     1e-11) with a squelch walk (loud -> quiet, threshold -30, timeout
+     20); S1's FSM entry vs its plain version on card tensors over an rssi
+     walk across the threshold that visits every state (float32 at 2^16,
+     float64 at 4096; modes, final mode and timer equal);
+     agc_apply_parallel vs S1 at T = 2^22 (its Newton iterations and
+     host syncs printed), an all-zero block through its fall-back to S1,
+     bit-equal, counted at S1's launch; S2 (the Costas loop) through
+     qpsk_demodulate(recovery="pll") on 2^16 QPSK symbols with a carrier
+     offset, symbols equal to the plain version, SER < 1e-3; S1 vs its
+     plain version at T = 2^16 (the error the kernels line reports); the
+     three entries' times at T = 2^16 and their plain versions';
+ 30. the exact-AGC and parity chains, 4 blocks each with the state
+     carried, launches and host syncs counted: (a) config 4 fused (K2)
+     with agc_mode="parallel", FM at 2^24; (b) the parity chain
+     (nco_mode="lut", unfused, agc_mode="parallel"), FM and QPSK at 2^24;
+     (c) (a) and (b) with agc_mode="exact" (S1) at 2^18 a block, and with
+     the parallel AGC on the same blocks: parallel vs exact within phase
+     29's tolerances, the FM tone read back, QPSK SER < 1e-3; (d) the
+     AGC class, float32, squelch on (threshold -30, timeout 20), on 4
+     bursty blocks of 2^16: method "parallel" (Newton, then S1's FSM
+     entry) against method "scan" (S1) within phase 29's tolerances, final
+     mode and timer equal;
+ 31. throughput of (a), (b), (c) and (d) in Msamples/s of input over 20
+     blocks (5 for the exact AGC), host enqueue, device busy and idle
+     share.
+     Phase 24 also runs make_sharded_rx_chain's unfused staging
+     (local_unfused) at world size 1 against make_rx_chain.
 
 Then the kernels' JSON line (each kernel's launches on the main paths; its
 time, by CUDA events over a CUDA graph of 20 launches so that the host's
@@ -186,6 +235,29 @@ CONV_MIN_SNR_DB = 100.0
 # for the body kernel's TF32 x3 product against float64
 HIGHEST_MIN_SNR_DB = 100.0
 PHASE_LIMIT_S = 60.0      # a K9 phase still running after this has hung
+# config 1 (BASELINE.json: 64-tap complex FIR lowpass on a 1M-sample tone)
+L_CFG1 = 1 << 20
+N_CFG1 = 4                # blocks of 2^18, the tail carried
+CFG1_MIN_SNR_DB = 60.0    # tests/test_snr_configs.py:39-51
+METHODS_MIN_SNR_DB = 100.0
+# config 3 (BASELINE.json: polyphase rational resampler, 3/2 and 1/8)
+L_CFG3 = 1 << 22
+N_CFG3 = 3
+CFG3_MIN_SNR_DB = 100.0   # tests/test_snr_configs.py:190-208
+CFG3_C64_MIN_SNR_DB = 60.0
+# the sequential scans (S1, S2) and the exact-AGC / parity chains
+T_S1 = 1 << 14            # S1 against its plain version on the card
+T_S1_F64 = 4096
+T_PAR = 1 << 22           # agc_apply_parallel against S1
+T_SCAN = 1 << 16          # the timed shape: one 2^18 block decimated by 4
+S1_RTOL = 1e-5            # x max|y|, and the gain
+S1_F64_ATOL = 1e-11       # tests/test_nco_agc.py:214-226 (_cmp_parallel)
+SQ_THRESHOLD = -30.0      # the squelch walks (dB) and their timeout
+SQ_TIMEOUT = 20
+AGC_BW = 0.01             # the chain's agc_bandwidth
+PLL_BW = 0.02
+L_EXACT = 1 << 18         # the exact-AGC chains' blocks (the TPU row's size)
+N_EXACT_TIMED = 5
 # H100 SXM peaks (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -368,6 +440,36 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain, bound,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": library}
+
+
+def rssi_walk(rng, T: int) -> np.ndarray:
+    """An rssi track (dB) that crosses SQ_THRESHOLD in runs of 1-59
+    samples, 2-15 dB to either side: long runs below it time the squelch
+    out (SQ_TIMEOUT), short ones return to SIGNALHI."""
+    out, i, above = np.empty(T), 0, True
+    while i < T:
+        n = int(rng.integers(1, 60))
+        side = 1.0 if above else -1.0
+        out[i:i + n] = SQ_THRESHOLD + side * rng.uniform(2.0, 15.0, n)[:T - i]
+        i, above = i + n, not above
+    return out
+
+
+def burst_blocks(rng, nb: int, T: int) -> list:
+    """nb blocks of T complex64 samples, bursts of 2000-8000 samples at
+    amplitude 1 and 0.01 in turn (the AGC's rssi crosses SQ_THRESHOLD
+    both ways), random phase, 10 % amplitude noise."""
+    out = []
+    for b in range(nb):
+        amp, i, loud = np.empty(T), 0, b % 2 == 0
+        while i < T:
+            n = int(rng.integers(2000, 8000))
+            amp[i:i + n] = 1.0 if loud else 0.01
+            i, loud = i + n, not loud
+        x = (amp * np.exp(1j * rng.uniform(0.0, 2 * np.pi, T))
+             * (1.0 + 0.1 * rng.standard_normal(T)))
+        out.append(x.astype(np.complex64))
+    return out
 
 
 def cnoise(rng, shape, scale=1.0) -> np.ndarray:
@@ -1180,9 +1282,10 @@ def phase23(dev, rng, h_il, cuda_halo, cuda_chan) -> float:
 def phase24(dev, mesh, rng, main_path, parallel, PolyphaseChannelizer,
             RxChainConfig, make_rx_chain) -> dict:
     """24. The entry points at world size 1 against the single-card chains:
-    make_sharded_channelizer ("xla", "fused" x3) at config 5 and
-    make_sharded_rx_chain planar FM at config 4, 3 blocks each with the
-    state carried, launches counted.  Returns their throughput turns."""
+    make_sharded_channelizer ("xla", "fused" x3) at config 5,
+    make_sharded_rx_chain planar FM at config 4 and its unfused LUT-parity
+    staging on one cf32 stream, 3 blocks each with the state carried,
+    launches counted.  Returns their throughput turns."""
     n_blocks = 3
     blocks5 = [torch.from_numpy(cnoise(rng, L5)).to(dev)
                for _ in range(n_blocks)]
@@ -1261,6 +1364,34 @@ def phase24(dev, mesh, rng, main_path, parallel, PolyphaseChannelizer,
             and counts["ddc_fm"] == n_blocks
             and out_s.shape == (n_blocks * L_FULL // 4,)):
         fail("phase 24: the sharded FM chain disagrees")
+
+    # the unfused parity staging (local_unfused): one cf32 stream as (1, L)
+    ucfg = replace(cfg, nco_mode="lut", fused_ddc="auto", input_format="cf32",
+                   fir_precision="highest")
+    xs_u = [torch.complex(b[0], b[1]) for b in blocks4]
+    init_su, apply_su = parallel.make_sharded_rx_chain(ucfg, mesh)
+    init_1u, apply_1u = make_rx_chain(ucfg, dev)
+    st_su, st_1u, outs_su, outs_1u = init_su(1), init_1u(), [], []
+    for xb in xs_u:
+        out, st_su = apply_su(st_su, xb[None])
+        outs_su.append(out[0])
+        out, st_1u = apply_1u(st_1u, xb)
+        outs_1u.append(out)
+    out_su, out_1u = torch.cat(outs_su), torch.cat(outs_1u)
+    same_u = torch.equal(out_su, out_1u)
+    snr_u = snr_db(out_su.cpu().numpy(), out_1u.cpu().numpy())
+    state_u = (int(st_su["nco_theta"]) == int(st_1u["nco_theta"])
+               and torch.equal(st_su["fir_tail"][0], st_1u["fir_tail"])
+               and torch.allclose(st_su["agc"]["gain"][0],
+                                  st_1u["agc"]["gain"], rtol=1e-6))
+    print(f"[24 make_sharded_rx_chain unfused (LUT parity, local_unfused) at "
+          f"world size 1, {n_blocks} x 2^24] vs make_rx_chain: bit-equal "
+          f"{same_u}, {snr_u:.1f} dB (gate {SHARDED_MIN_SNR_DB}), state "
+          f"equal {state_u}", flush=True)
+    if not ((same_u or snr_u >= SHARDED_MIN_SNR_DB) and state_u
+            and out_su.shape == (n_blocks * L_FULL // 4,)):
+        fail("phase 24: the sharded unfused chain disagrees")
+    del xs_u, outs_su, outs_1u
 
     def rx_step(init, apply):
         st, i = [init()], iter(range(1 << 30))
@@ -1369,6 +1500,483 @@ def precision_phase(dev, smi):
             and conv >= CONV_MIN_SNR_DB):
         fail("phase 26: an x3 product lost precision under the caller's "
              "TF32 settings")
+
+
+def zero_stuff_model(x: np.ndarray, coefs: np.ndarray, P: int, Q: int):
+    """Config 3's independent model in float64: interpolate by P with each
+    branch's coefficients time-reversed, as the reference's bank applies
+    them (out[n P + f] = sum_k eff[f + (L-1-k) P] x[n-k]), then keep every
+    Q-th output (tests/test_snr_configs.py:160-176)."""
+    c = np.asarray(coefs, np.complex128)
+    sub_len = -(-len(c) // P)
+    eff = np.zeros(sub_len * P, np.complex128)
+    eff[:len(c)] = c
+    up = np.empty(len(x) * P, np.complex128)
+    for f in range(P):
+        up[f::P] = np.convolve(x, eff[f::P][::-1])[:len(x)]
+    return up[::Q]
+
+
+def filter_phases(dev, smi):
+    """Phases 27-28: config 1 (FIRFilter on a 2^20-sample tone) and config
+    3 (RationalResampler 3/2 and 1/8 on 3 blocks of 2^22)."""
+    from solid_dsp_tpu_torch.design import firdes
+    from solid_dsp_tpu_torch.ops import fir as fir_ops
+
+    rng = np.random.default_rng(SEED + 27)
+    # 27. config 1, every method, four blocks with the tail carried
+    n, blk = L_CFG1, L_CFG1 // N_CFG1
+    k = np.arange(n)
+    x = 0.5 * np.exp(2j * np.pi * 0.03 * k) + 0.01 * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    taps = firdes.firdes_kaiser(64, 0.1, 60.0)
+    ref = np.convolve(x, taps[::-1])[:n]
+    xs = {torch.complex64: torch.from_numpy(x.astype(np.complex64)).to(dev),
+          torch.complex128: torch.from_numpy(x).to(dev)}
+    fir_ops._METHOD_CACHE.clear()
+    out, snrs = {}, {}
+    for method in ("matmul", "fft", "auto", "measure"):
+        for dt, xt in xs.items():
+            f = fir_ops.FIRFilter(taps, dtype=dt, method=method, device=dev)
+            y = torch.cat([f.execute_block(xt[b * blk:(b + 1) * blk])
+                           for b in range(N_CFG1)])
+            out[method, dt] = y.cpu().numpy()
+        snrs[method] = snr_db(out[method, torch.complex64], ref)
+    m_snr = snr_db(out["fft", torch.complex128],
+                   out["matmul", torch.complex128])
+    measured = fir_ops._METHOD_CACHE.get((64, blk, "torch.complex64",
+                                          torch.device(dev).type))
+    auto = fir_ops._pick_method("auto", 64, blk, dev)
+    rates = {}
+    for method in ("matmul", "fft"):
+        f = fir_ops.FIRFilter(taps, dtype=torch.complex64, method=method,
+                              device=dev)
+        xb = xs[torch.complex64][:blk]
+        rates[method] = blk / (timed(lambda: f.execute_block(xb),
+                                     N_TIMED)[0] * 1e3)
+    print(f"[27 config 1: FIRFilter(kaiser 64, complex64), {N_CFG1} x 2^18 "
+          f"with the tail carried] vs numpy float64: "
+          + ", ".join(f"{m} {v:.1f} dB" for m, v in snrs.items())
+          + f" (gate {CFG1_MIN_SNR_DB}); fft vs matmul in complex128 "
+          f"{m_snr:.1f} dB (gate {METHODS_MIN_SNR_DB}); auto takes {auto}, "
+          f"measure took {measured}; matmul {rates['matmul']:.1f}, fft "
+          f"{rates['fft']:.1f} Msamples/s | {smi}", flush=True)
+    if not (min(snrs.values()) >= CFG1_MIN_SNR_DB
+            and m_snr >= METHODS_MIN_SNR_DB and measured in ("matmul", "fft")
+            and all(o.shape == (n,) for o in out.values())):
+        fail("phase 27: config 1 disagrees with its float64 reference")
+    # the FIR route of the unfused chain: conv1d (cuDNN) against the
+    # banded-Toeplitz matmul at stride 4 over 2^24 samples, with config 4's
+    # 64 taps and with 4 taps, one on each side of
+    # ops/fir.py::CARD_TOEPLITZ_MIN_TAPS (torch_kernel_sweep.py fir-route
+    # measures the rest)
+    xc = torch.from_numpy(cnoise(rng, L_FULL + 63, 0.1)).to(dev)
+    for nt in (64, 4):
+        tc = firdes.firdes_kaiser(nt, 0.1, 60.0)
+        tc = (tc / np.sum(tc)).astype(np.complex64)
+        xn = xc[: L_FULL + nt - 1]
+        tct = torch.from_numpy(tc).to(dev)
+        a = fir_ops.conv1d_mxu(xn, tct, stride=4)
+        b = fir_ops.fir_toeplitz(xn, tc, stride=4)
+        route_snr = snr_db(b.cpu().numpy(), a.cpu().numpy())
+        conv_ms = graph_ms(lambda: fir_ops.conv1d_mxu(xn, tct, stride=4), 10)
+        toep_ms = graph_ms(lambda: fir_ops.fir_toeplitz(xn, tc, stride=4), 10)
+        takes = "toeplitz" if fir_ops._use_toeplitz(xn, nt) else "conv1d"
+        print(f"[27 fir_decim_apply's route, {nt} taps, stride 4, 2^24] "
+              f"conv1d {conv_ms:.4f} ms, banded-Toeplitz matmul "
+              f"{toep_ms:.4f} ms (CUDA graph of 10 calls), {route_snr:.1f} "
+              f"dB apart; the card takes {takes} | {smi}", flush=True)
+        if route_snr < METHODS_MIN_SNR_DB:
+            fail("phase 27: conv1d and the Toeplitz matmul disagree")
+        del a, b
+    del xc, xn
+
+    # 28. config 3, both ratios, three blocks with the phase and tail
+    for P, Q in ((3, 2), (1, 8)):
+        taps3 = firdes.firdes_kaiser(48 * P, 0.4 / max(P, Q), 60.0)
+        x3 = rng.standard_normal(N_CFG3 * L_CFG3) + 1j * rng.standard_normal(
+            N_CFG3 * L_CFG3)
+        want = zero_stuff_model(x3, taps3, P, Q)
+        r128 = fir_ops.RationalResampler(taps3, P, Q, dtype=torch.complex128,
+                                         device=dev)
+        r64 = fir_ops.RationalResampler(taps3.astype(np.float32), P, Q,
+                                        dtype=torch.complex64, device=dev)
+        b128 = [torch.from_numpy(x3[b * L_CFG3:(b + 1) * L_CFG3]).to(dev)
+                for b in range(N_CFG3)]
+        b64 = [t.to(torch.complex64) for t in b128]
+        y128 = torch.cat([r128.execute_block(t) for t in b128])
+        y64 = torch.cat([r64.execute_block(t) for t in b64])
+        s128 = snr_db(y128.cpu().numpy(), want)
+        s64 = snr_db(y64.cpu().numpy(), y128.cpu().numpy())
+        turn = iter(range(1 << 30))
+        rate = L_CFG3 / (timed(lambda: r64.execute_block(
+            b64[next(turn) % N_CFG3]), N_TIMED)[0] * 1e3)
+        rate128 = L_CFG3 / (timed(lambda: r128.execute_block(
+            b128[next(turn) % N_CFG3]), N_TIMED)[0] * 1e3)
+        print(f"[28 config 3: RationalResampler({P}, {Q}), {N_CFG3} x 2^22 "
+              f"with the phase and tail carried] complex128 vs the zero-stuff "
+              f"model {s128:.1f} dB (gate {CFG3_MIN_SNR_DB}), complex64 vs "
+              f"complex128 {s64:.1f} dB (gate {CFG3_C64_MIN_SNR_DB}), "
+              f"{len(want)} outputs; complex64 {rate:.1f}, complex128 "
+              f"{rate128:.1f} Msamples/s of input | {smi}", flush=True)
+        if not (s128 >= CFG3_MIN_SNR_DB and s64 >= CFG3_C64_MIN_SNR_DB
+                and y128.shape == y64.shape == want.shape
+                and y64.dtype == torch.complex64):
+            fail(f"phase 28: the {P}/{Q} resampler disagrees with its model")
+
+
+def scan_phases(dev, smi) -> list:
+    """Phases 29-31: S1 and S2 against their plain versions, the
+    exact-AGC and parity chains (launches and host syncs counted), their
+    throughput.  Returns the kernels' entries of S1 and S2."""
+    from solid_dsp_tpu_torch.models import qpsk as qpsk_ops
+    from solid_dsp_tpu_torch.models.rx_chain import (RxChainConfig,
+                                                     make_rx_chain)
+    from solid_dsp_tpu_torch.ops import agc as agc_ops
+    from solid_dsp_tpu_torch.ops import cuda_ddc, cuda_scan
+    from solid_dsp_tpu_torch.ops.nco import constrain
+
+    rng = np.random.default_rng(SEED + 29)
+    S = agc_ops.SquelchMode
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    # 29. S1 in float32 on the card against its plain version
+    x = torch.from_numpy(cnoise(rng, T_S1, 0.1)).to(dev)
+    st = agc_ops.agc_init(torch.float32, dev)
+    yk, sk = agc_ops.agc_apply(st, x, AGC_BW, 1.0, -1e30, 100)
+    yp, sp = agc_ops.agc_scan_plain(st, x, AGC_BW, 1.0, -1e30, 100)
+    e1 = rel(yk, yp)
+    g1 = abs(float(sk["gain"]) / float(sp["gain"]) - 1.0)
+    ok1 = (e1 <= S1_RTOL and g1 <= S1_RTOL
+           and int(sk["mode"]) == int(sp["mode"])
+           and int(sk["timer"]) == int(sp["timer"]))
+    # float64 on the card against the plain version on the CPU, a random
+    # block and the squelch walk (loud -> quiet, threshold -30, timeout 20)
+    loud = np.exp(1j * rng.standard_normal(50))
+    quiet = 1e-8 * np.exp(1j * rng.standard_normal(300))
+    e64, modes = [], []
+    for xs, mode0, alpha, thr, to in (
+            (cnoise(rng, T_S1_F64, 0.3).astype(np.complex128), S.DISABLED,
+             0.05, -1e30, 100),
+            (np.concatenate([loud, quiet]), S.ENABLED, 0.1, -30.0, 20)):
+        st64 = agc_ops.agc_init(torch.float64, "cpu")
+        st64["mode"] = torch.tensor(mode0, dtype=torch.int32)
+        yc, sc = agc_ops.agc_scan_plain(st64, torch.from_numpy(xs), alpha,
+                                        1.0, thr, to)
+        yg, sg = agc_ops.agc_apply({k: v.to(dev) for k, v in st64.items()},
+                                   torch.from_numpy(xs).to(dev), alpha, 1.0,
+                                   thr, to)
+        e64.append(float(np.abs(yg.cpu().numpy() - yc.numpy()).max()))
+        modes.append((int(sg["mode"]), int(sc["mode"]), int(sg["timer"]),
+                       int(sc["timer"])))
+    ok64 = max(e64) <= S1_F64_ATOL and all(a == b and c == d
+                                           for a, b, c, d in modes)
+    print(f"[29 S1 vs plain] float32 on the card, T=2^14: max|dy| "
+          f"{e1:.3g} x max|y| (gate {S1_RTOL}), gain rel err {g1:.3g}, "
+          f"bit-equal {torch.equal(yk, yp)}; float64 vs the plain version on "
+          f"the CPU: max|dy| {max(e64):.3g} (gate {S1_F64_ATOL}), the squelch "
+          f"walk's mode/timer (card, cpu) {modes[1]}", flush=True)
+    if not (ok1 and ok64 and modes[1][0] == S.ENABLED):
+        fail("phase 29: S1 disagrees with its plain version")
+
+    # S1's FSM entry against its plain version on card tensors, over an
+    # rssi walk across the threshold (-30 dB, timeout 20) that visits every
+    # state: float32 at T = 2^16 (the shape phase 30's squelch path gives
+    # it, the plain version timed there), float64 at 4096
+    walk = rssi_walk(rng, T_SCAN)
+    fsm = {}
+    for dt, T in ((torch.float32, T_SCAN), (torch.float64, T_S1_F64)):
+        r = torch.from_numpy(walk[:T]).to(device=dev, dtype=dt)
+        m0 = torch.tensor(S.ENABLED, dtype=torch.int32, device=dev)
+        t0 = torch.zeros((), dtype=torch.int32, device=dev)
+        got = cuda_scan.squelch_fsm_cuda(r, m0, t0, SQ_THRESHOLD, SQ_TIMEOUT)
+        box = {}
+
+        def fsm_plain():
+            box["m"] = agc_ops.squelch_fsm_plain(r, m0, t0, SQ_THRESHOLD,
+                                                 SQ_TIMEOUT)
+        plain_ms = cuda_ms_once(fsm_plain)
+        want = box["m"]
+        fsm[dt] = (int((got[0] - want[0]).abs().max()),
+                   all(torch.equal(a, b) for a, b in zip(got, want)),
+                   sorted(int(v) for v in torch.unique(got[0]).cpu()),
+                   plain_ms, r, m0, t0)
+    fsm_err, _, visited, fsm_plain_ms, r32, m0, t0 = fsm[torch.float32]
+    print(f"[29 S1's FSM entry vs plain, rssi walk across -30 dB, timeout "
+          f"20] float32 T=2^16: modes and final mode/timer equal "
+          f"{fsm[torch.float32][1]} (max |dmode| {fsm_err}), states visited "
+          f"{visited}; float64 T={T_S1_F64}: equal {fsm[torch.float64][1]}",
+          flush=True)
+    if not (fsm[torch.float32][1] and fsm[torch.float64][1]
+            and visited == list(range(1, 7))):
+        fail("phase 29: S1's FSM entry disagrees with its plain version")
+
+    # agc_apply_parallel against S1 at T = 2^22; an all-zero block falls
+    # back to S1, bit-equal to it (float32 alpha, as the fall-back has it)
+    xp = torch.from_numpy(cnoise(rng, T_PAR, 0.1)).to(dev)
+    fb0 = agc_ops.agc_apply_parallel.fallbacks
+    ypar, spar = agc_ops.agc_apply_parallel(st, xp, AGC_BW, 1.0, -1e30, 100)
+    iters, syncs = (agc_ops.agc_apply_parallel.newton_iters,
+                    agc_ops.agc_apply_parallel.syncs)
+    yex, sex = agc_ops.agc_apply(st, xp, AGC_BW, 1.0, -1e30, 100)
+    ep = rel(ypar, yex)
+    gp = abs(float(spar["gain"]) / float(sex["gain"]) - 1.0)
+    no_fb = agc_ops.agc_apply_parallel.fallbacks == fb0
+    z = torch.zeros(T_PAR, dtype=torch.complex64, device=dev)
+    fl0 = cuda_scan.agc_scan_cuda.fallback_launches
+    yz, sz = agc_ops.agc_apply_parallel(st, z, AGC_BW, 1.0, -1e30, 100)
+    yz1, sz1 = agc_ops.agc_apply(st, z, np.float32(AGC_BW), 1.0, -1e30, 100)
+    zero_ok = (torch.equal(yz, yz1) and torch.equal(sz["gain"], sz1["gain"])
+               and torch.equal(sz["energy"], sz1["energy"])
+               and cuda_scan.agc_scan_cuda.fallback_launches == fl0 + 1)
+    print(f"[29 agc_apply_parallel vs S1, float32, T=2^22] max|dy| {ep:.3g} "
+          f"x max|y| (gate {S1_RTOL}), gain rel err {gp:.3g}, Newton "
+          f"iterations {iters}, host syncs {syncs}, no fall-back {no_fb}; "
+          f"all-zero block: fall-back to S1 bit-equal {zero_ok} (gain "
+          f"{float(sz['gain']):g})", flush=True)
+    if not (ep <= S1_RTOL and gp <= S1_RTOL and no_fb and zero_ok):
+        fail("phase 29: agc_apply_parallel disagrees with S1")
+
+    # S2: 2^16 QPSK symbols with a carrier offset through
+    # qpsk_demodulate(recovery="pll"), the entry point a user calls
+    sym = rng.integers(0, 4, T_SCAN)
+    xq = GRAY[sym] * np.exp(1j * (0.003 * np.arange(T_SCAN) + 0.4))
+    xq = torch.from_numpy((xq + 0.05 * (rng.standard_normal(T_SCAN) + 1j
+                                        * rng.standard_normal(T_SCAN))
+                           ).astype(np.complex64)).to(dev)
+    cuda_scan.costas_pll_cuda.launches = 0
+    sk2, yk2 = qpsk_ops.qpsk_demodulate(xq, recovery="pll",
+                                        bandwidth=PLL_BW)
+    torch.cuda.synchronize()
+    s2_launches = cuda_scan.costas_pll_cuda.launches
+    zr = torch.zeros((), dtype=torch.float32, device=dev)
+    box = {}
+
+    def s2_plain():
+        box["y"] = qpsk_ops.costas_pll_plain(xq, PLL_BW,
+                                             float(np.sqrt(PLL_BW)), zr, zr)
+    s2_plain_ms = cuda_ms_once(s2_plain)
+    yp2 = box["y"][0]
+    s2_err = float((yk2 - yp2).abs().max())
+    s2_eq = torch.equal(sk2, qpsk_ops.qpsk_slice(yp2))
+    lock = T_SCAN // 16                    # past the loop's pull-in
+    ser2 = qpsk_ops.symbol_error_rate(sym[lock:], sk2.cpu().numpy()[lock:])
+    print(f"[29 S2 vs plain, 2^16 QPSK symbols, 0.003 rad/symbol offset] "
+          f"symbols equal {s2_eq}, max|dy| {s2_err:.3g}, SER {ser2:.3g} "
+          f"(gate {MAX_SER}), launches {s2_launches}", flush=True)
+    if not (s2_eq and ser2 < MAX_SER and s2_launches == 1):
+        fail("phase 29: S2 disagrees with its plain version")
+
+    # S1 at T = 2^16 (a 2^18 block decimated by 4, phase 30(c)'s shape)
+    # against its plain version, which is timed once there; the kernels'
+    # times: a CUDA graph of 5 launches
+    xs1 = torch.from_numpy(cnoise(rng, T_SCAN, 0.1)).to(dev)
+    box = {}
+
+    def s1_plain():
+        box["y"] = agc_ops.agc_scan_plain(st, xs1, AGC_BW, 1.0, -1e30, 100)
+    s1_plain_ms = cuda_ms_once(s1_plain)
+    yp16, sp16 = box["y"]
+    yk16, sk16 = agc_ops.agc_apply(st, xs1, AGC_BW, 1.0, -1e30, 100)
+    s1_err = float((yk16 - yp16).abs().max())
+    e16 = rel(yk16, yp16)
+    g16 = abs(float(sk16["gain"]) / float(sp16["gain"]) - 1.0)
+    ok16 = (e16 <= S1_RTOL and g16 <= S1_RTOL
+            and int(sk16["mode"]) == int(sp16["mode"])
+            and int(sk16["timer"]) == int(sp16["timer"]))
+    s1_ms = graph_ms(lambda: agc_ops.agc_apply(st, xs1, AGC_BW, 1.0, -1e30,
+                                               100), 5)
+    s2_ms = graph_ms(lambda: qpsk_ops.qpsk_carrier_pll(xq, PLL_BW), 5)
+    fsm_ms = graph_ms(lambda: cuda_scan.squelch_fsm_cuda(
+        r32, m0, t0, SQ_THRESHOLD, SQ_TIMEOUT), 5)
+    # bytes: each sample read and written once (8 + 8; the FSM 4 + 4), the
+    # carry
+    b1 = bound_ms(16 * T_SCAN + 20, 12 * T_SCAN, FP32_FLOPS)
+    b2 = bound_ms(16 * T_SCAN + 8, 40 * T_SCAN, FP32_FLOPS)
+    b3 = bound_ms(8 * T_SCAN + 16, T_SCAN, FP32_FLOPS)
+    print(f"[29 S1 vs plain, float32 on the card, T=2^16] max|dy| {e16:.3g} "
+          f"x max|y| (gate {S1_RTOL}), max |dy| {s1_err:.3g}, gain rel err "
+          f"{g16:.3g}, bit-equal {torch.equal(yk16, yp16)}", flush=True)
+    print(f"[29 scan times, T=2^16] S1 {s1_ms:.4f} ms ({s1_ms * 1e3 / T_SCAN:.4f} "
+          f"us a sample), plain {s1_plain_ms:.1f} ms; S2 {s2_ms:.4f} ms "
+          f"({s2_ms * 1e3 / T_SCAN:.4f} us a sample), plain "
+          f"{s2_plain_ms:.1f} ms; S1's FSM entry {fsm_ms:.4f} ms "
+          f"({fsm_ms * 1e3 / T_SCAN:.4f} us a sample), plain "
+          f"{fsm_plain_ms:.1f} ms; bounds {b1[0]:.5f} / {b2[0]:.5f} / "
+          f"{b3[0]:.5f} ms ({b1[1]}): all latency-bound, one dependent step "
+          f"a sample | {smi}", flush=True)
+    if not ok16:
+        fail("phase 29: S1 disagrees with its plain version at T = 2^16")
+
+    # 30. the exact-AGC and parity chains, 4 blocks each, state carried
+    base = RxChainConfig(carrier_freq=0.2, decimation=4, fir_taps=64,
+                         agc_mode="parallel", demod="fm", nco_mode="exact",
+                         input_format="planar", fused_ddc="on",
+                         fir_precision="x3")
+    parity = replace(base, nco_mode="lut", fused_ddc="auto")
+    qsym = qpsk_symbols(N_CHAIN, L_FULL)
+    blocks = {L: [torch.from_numpy(make_block(rng, b, L)).to(dev)
+                  for b in range(N_CHAIN)] for L in (L_FULL, L_EXACT)}
+    qblocks = [torch.from_numpy(make_qpsk_block(rng, qsym, b, L_FULL)).to(dev)
+               for b in range(N_CHAIN)]
+    paths = {
+        "a fused K2/K3, parallel AGC, FM": (base, L_FULL),
+        "b parity (LUT, unfused), parallel AGC, FM": (parity, L_FULL),
+        "b parity (LUT, unfused), parallel AGC, QPSK":
+            (replace(parity, demod="qpsk"), L_FULL),
+        "c fused K2/K3, exact AGC (S1), FM":
+            (replace(base, agc_mode="exact"), L_EXACT),
+        "c parity (LUT, unfused), exact AGC (S1), FM":
+            (replace(parity, agc_mode="exact"), L_EXACT),
+        "c fused K2/K3, parallel AGC, FM": (base, L_EXACT),
+        "c parity (LUT, unfused), parallel AGC, FM": (parity, L_EXACT),
+    }
+    sq_blocks = [torch.from_numpy(b).to(dev)
+                 for b in burst_blocks(rng, N_CHAIN, T_SCAN)]
+    counters = (cuda_scan.agc_scan_cuda, cuda_ddc.ddc_body_cuda,
+                cuda_ddc.ddc_body_unaligned_cuda, cuda_scan.squelch_fsm_cuda)
+    for c in counters:
+        c.launches = 0
+    fb0 = agc_ops.agc_apply_parallel.fallbacks
+    runs = {}
+    for label, (ccfg, L) in paths.items():
+        init, apply = make_rx_chain(ccfg, dev)
+        st, outs, syncs, iters = init(), [], 0, 0
+        blks = qblocks if ccfg.demod == "qpsk" else blocks[L]
+        for xb in blks:
+            out, st = apply(st, xb)
+            outs.append(out)
+            if ccfg.agc_mode == "parallel":
+                syncs += agc_ops.agc_apply_parallel.syncs
+                iters += agc_ops.agc_apply_parallel.newton_iters
+        torch.cuda.synchronize()
+        runs[label] = (torch.cat(outs), st, (init, apply), blks, L,
+                       syncs / N_CHAIN, iters / N_CHAIN)
+    # (d) the AGC class with the squelch on, float32, 2^16-sample bursts
+    # (loud / 40 dB down): the parallel method runs S1's FSM entry after
+    # each Newton solve; the "scan" method (S1) on the same blocks
+    sq = {}
+    for method in ("parallel", "scan"):
+        a = agc_ops.AGC(torch.float32, method=method, device=dev)
+        a.squelch_enable()
+        a.squelch_set_threshold(SQ_THRESHOLD)
+        a.squelch_set_timeout(SQ_TIMEOUT)
+        ys, syncs, iters = [], 0, 0
+        for xb in sq_blocks:
+            ys.append(a.execute_block(xb))
+            if method == "parallel":
+                syncs += agc_ops.agc_apply_parallel.syncs
+                iters += agc_ops.agc_apply_parallel.newton_iters
+        torch.cuda.synchronize()
+        sq[method] = (torch.cat(ys), a.state, syncs / N_CHAIN,
+                      iters / N_CHAIN)
+    s1_launches, k2, k3, fsm_launches = (c.launches for c in counters)
+    fallbacks = agc_ops.agc_apply_parallel.fallbacks - fb0
+    tone = 4 * 0.001 / base.fm_kf
+    dtheta = int(constrain(0.2))
+    ok30 = fallbacks == 0 and s1_launches == 3 * N_CHAIN and k3 == 0 \
+        and k2 == 3 * N_CHAIN and fsm_launches == N_CHAIN
+    for label, (out, st, _, blks, L, syncs, iters) in runs.items():
+        o = out.cpu().numpy()
+        theta_ok = int(st["nco_theta"]) == (N_CHAIN * L * dtheta) & 0xFFFFFFFF
+        if "QPSK" in label:
+            T = L // 4
+            sers = [best_aligned_ser(
+                qsym[b * T // 8:(b + 1) * T // 8],
+                (o[b * T:(b + 1) * T][11::8].real < 0).astype(int)
+                + 2 * (o[b * T:(b + 1) * T][11::8].imag < 0))
+                for b in range(N_CHAIN)]
+            check, good = f"SER per block {sers}", max(sers) < MAX_SER
+        else:
+            got = float(np.median(o[1000:]))
+            check = f"tone {got:.6f} want {tone:.6f}"
+            good = abs(got - tone) <= TONE_ATOL
+        ok30 = ok30 and good and theta_ok and bool(np.all(np.isfinite(o)))
+        print(f"[30 {label}, {N_CHAIN} x {L}] {check}, nco_theta ok "
+              f"{theta_ok}, host syncs {syncs:g} a block (Newton iterations "
+              f"{iters:g})", flush=True)
+    for kind in ("fused K2/K3", "parity (LUT, unfused)"):
+        ex = runs[f"c {kind}, exact AGC (S1), FM"]
+        pa = runs[f"c {kind}, parallel AGC, FM"]
+        e30 = rel(pa[0], ex[0])
+        g30 = abs(float(pa[1]["agc"]["gain"]) / float(ex[1]["agc"]["gain"])
+                  - 1.0)
+        same_mode = int(pa[1]["agc"]["mode"]) == int(ex[1]["agc"]["mode"])
+        print(f"[30 {kind}: parallel vs exact AGC on the same {N_CHAIN} x "
+              f"2^18 blocks] max|dout| {e30:.3g} x max|out| (gate "
+              f"{S1_RTOL}), gain rel err {g30:.3g}, mode equal {same_mode}",
+              flush=True)
+        ok30 = ok30 and e30 <= S1_RTOL and g30 <= S1_RTOL and same_mode
+    (yd, sd, syncs, iters), (ye, se, _, _) = sq["parallel"], sq["scan"]
+    e30 = rel(yd, ye)
+    g30 = abs(float(sd["gain"]) / float(se["gain"]) - 1.0)
+    same = (int(sd["mode"]), int(sd["timer"])) == (int(se["mode"]),
+                                                   int(se["timer"]))
+    print(f"[30 d AGC(parallel), squelch on (-30 dB, timeout 20), float32, "
+          f"{N_CHAIN} x 2^16 bursts, vs AGC(scan)] max|dy| {e30:.3g} x "
+          f"max|y| (gate {S1_RTOL}), gain rel err {g30:.3g}, final mode and "
+          f"timer equal {same} (mode {int(sd['mode'])}), host syncs "
+          f"{syncs:g} a block (Newton iterations {iters:g})", flush=True)
+    ok30 = (ok30 and e30 <= S1_RTOL and g30 <= S1_RTOL and same
+            and bool(torch.isfinite(yd).all()))
+    print(f"[30 launches on these paths] S1 {s1_launches} (want "
+          f"{3 * N_CHAIN}), K2 {k2} (want {3 * N_CHAIN}), K3 {k3}, S1's FSM "
+          f"entry {fsm_launches} (want {N_CHAIN}), parallel fall-backs "
+          f"{fallbacks}", flush=True)
+    if not ok30:
+        fail("phase 30: an exact-AGC or parity chain is wrong")
+
+    # 31. throughput: Msamples/s of input over 20 blocks (5 for the exact
+    # AGC); host enqueue, the profiler's device time and the idle share
+    for label in list(paths)[:5]:
+        _, _, (init, apply), blks, L, _, _ = runs[label]
+        n = N_EXACT_TIMED if "exact" in label else N_TIMED
+        box = {"st": init(), "i": 0}
+
+        def step():
+            _, box["st"] = apply(box["st"], blks[box["i"] % N_CHAIN])
+            box["i"] += 1
+        wall, host = timed(step, n)
+        busy, top = profiled_busy(step, 3)
+        print(f"[31 {label}, 2^{L.bit_length() - 1}-sample blocks] "
+              f"{L / (wall * 1e3):.1f} Msamples/s (wall {wall:.4f} ms a "
+              f"block over {n}), host {host:.4f} ms a block, device busy "
+              f"{busy:.4f} ms, idle {max(0.0, 1 - busy / wall):.0%}; largest "
+              f"kernels: {top} | {smi}", flush=True)
+    a = agc_ops.AGC(torch.float32, method="parallel", device=dev)
+    a.squelch_enable()
+    a.squelch_set_threshold(SQ_THRESHOLD)
+    a.squelch_set_timeout(SQ_TIMEOUT)
+    turn = iter(range(1 << 30))
+
+    def step_d():
+        a.execute_block(sq_blocks[next(turn) % N_CHAIN])
+    wall, host = timed(step_d, N_TIMED)
+    busy, top = profiled_busy(step_d, 3)
+    print(f"[31 d AGC(parallel), squelch on, float32, 2^16-sample blocks] "
+          f"{T_SCAN / (wall * 1e3):.1f} Msamples/s (wall {wall:.4f} ms a "
+          f"block over {N_TIMED}), host {host:.4f} ms a block, device busy "
+          f"{busy:.4f} ms, idle {max(0.0, 1 - busy / wall):.0%}; largest "
+          f"kernels: {top} | {smi}", flush=True)
+
+    entries = []
+    for name, launches, err, ms, plain, bnd in (
+            ("agc_scan", s1_launches, s1_err, s1_ms,
+             s1_plain_ms, b1),
+            ("squelch_fsm", fsm_launches, fsm_err, fsm_ms, fsm_plain_ms, b3),
+            ("costas_pll", s2_launches, s2_err, s2_ms, s2_plain_ms, b2)):
+        entries.append(kernel_entry(
+            name, "seq_scan.cu",
+            {"agc_scan": "solid_dsp_tpu/ops/agc.py:108 (a lax.scan, no TPU "
+                         "kernel)",
+             "squelch_fsm": "solid_dsp_tpu/ops/agc.py:343 (a lax.scan, no "
+                            "TPU kernel)",
+             "costas_pll": "solid_dsp_tpu/models/qpsk.py:101 (a lax.scan, "
+                           "no TPU kernel)"}[name],
+            launches, err, ms, plain, bnd))
+    return entries
 
 
 def main() -> None:
@@ -1736,6 +2344,8 @@ def main() -> None:
     kernels += farrow_phases(dev, smi)
     kernels += parallel_phases(dev, smi)
     precision_phase(dev, smi)
+    filter_phases(dev, smi)
+    kernels += scan_phases(dev, smi)
     if not all(k["launches"] > 0 for k in kernels):
         fail("a kernel of the main paths was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

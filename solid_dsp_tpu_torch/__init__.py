@@ -19,8 +19,13 @@ kernel (``ops.cuda_fft``) and spectral analysis (``analysis``); the Farrow
 grid resampler (``ops.gridresample``, ``ops.farrow``) with its kernel
 (``ops.cuda_resample``); ``parallel``, the sharded FIR, receive chain and
 channelizer on ``torch.distributed``, with the time-sharded channelizer
-front end whose halo exchange runs inside its kernel (``ops.cuda_halo``).
-Entry points run on the CUDA card unless the caller passes
+front end whose halo exchange runs inside its kernel (``ops.cuda_halo``);
+configs 1 and 3 and the FIR layer (``ops.fir``, ``ops.dotprod``); the
+exact-AGC and reference-parity chains (the LUT NCO, the exact and
+parallel AGC, impairment correction, every branch of ``make_rx_chain``
+and the sharded unfused staging), with the two sequential scans, the
+exact AGC (S1) and the QPSK Costas loop (S2), as kernels
+(``ops.cuda_scan``).  Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``device.py``).
 """
 

@@ -1,12 +1,15 @@
-"""Kaiser windowed-sinc low-pass and root-raised-cosine design (host,
-float64).
+"""Kaiser windowed-sinc low-pass, notch and root-raised-cosine design, and
+the tap-vector metrics (host, float64).
 
 Port of ``solid_dsp_tpu/design/firdes.py::kaiser_beta``, ``_check_as``,
-``firdes_kaiser`` (reference ``src/filter/firdes/mod.rs``) and
+``firdes_kaiser``, ``firdes_notch`` (:175), the metrics
+``filter_autocorrelation``, ``filter_crosscorrelation``, ``filter_isi`` and
+``filter_energy`` (:216-271) (reference ``src/filter/firdes/mod.rs``) and
 ``firdes_rrcos`` (:291).  The Kaiser taps feed the receive chain's
-decimating filter (``models/rx_chain.py``) and the channelizer's prototype
-(``models/channelizer.py``); the root-raised cosine is the 2x-oversampled
-bank's reconstruction prototype.
+decimating filter (``models/rx_chain.py``), the FIR filters of
+``ops/fir.py`` and the channelizer's prototype (``models/channelizer.py``);
+the metrics are ``FIRFilter``'s Firdes-trait methods; the root-raised
+cosine is the 2x-oversampled bank's reconstruction prototype.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import numpy as np
 from .specialfn import sinc
 from .windows import kaiser as kaiser_window
 
-__all__ = ["kaiser_beta", "firdes_kaiser", "firdes_rrcos"]
+__all__ = ["kaiser_beta", "firdes_kaiser", "firdes_notch", "firdes_rrcos",
+           "filter_autocorrelation", "filter_crosscorrelation",
+           "filter_isi", "filter_energy"]
 
 
 def _check_as(stop_band_attenuation: float):
@@ -51,6 +56,90 @@ def firdes_kaiser(
     t = i - (filter_length - 1) / 2.0 + fractional_sample_offset
     h1 = sinc(2.0 * cutoff_frequency * t)
     return np.asarray(h1) * kaiser_window(filter_length, beta)
+
+
+def firdes_notch(semi_length: int, notch_frequency: float,
+                 stop_band_attenuation: float) -> np.ndarray:
+    """Kaiser-windowed notch (band-stop) of 2 * semi_length + 1 taps."""
+    if not (1 <= semi_length <= 1000):
+        raise ValueError("invalid filter semi length [1, 1000]")
+    if not (0.0 <= notch_frequency <= 0.5):
+        raise ValueError("invalid bandwidth [0, 0.5]")
+    _check_as(stop_band_attenuation)
+    beta = kaiser_beta(stop_band_attenuation)
+    h_len = 2 * semi_length + 1
+    i = np.arange(h_len, dtype=np.float64)
+    tone = -np.cos(2.0 * np.pi * notch_frequency * (i - semi_length))
+    h = tone * kaiser_window(h_len, beta)
+    h = h / np.sum(h * tone)
+    h[semi_length] += 1.0
+    return h
+
+
+def filter_autocorrelation(h, lag: int) -> float:
+    """Autocorrelation of a tap vector at an integer lag."""
+    h = np.asarray(h, dtype=np.float64)
+    lag = abs(int(lag))
+    if lag >= h.size:
+        return 0.0
+    return float(np.dot(h[lag:], h[: h.size - lag]))
+
+
+def filter_crosscorrelation(h, g, lag: int) -> float:
+    """Cross-correlation of two tap vectors at an integer lag, the longer
+    filter first (swapped otherwise)."""
+    h = np.asarray(h, dtype=np.float64)
+    g = np.asarray(g, dtype=np.float64)
+    if h.size < g.size:
+        return filter_crosscorrelation(g, h, lag)
+    lag = int(lag)
+    if lag <= -g.size or lag >= h.size:
+        return 0.0
+    ig = -lag if lag < 0 else 0
+    ih = lag if lag > 0 else 0
+    if lag < 0:
+        n = g.size + lag
+    elif lag < h.size - g.size:
+        n = g.size
+    else:
+        n = h.size - lag
+    return float(np.dot(h[ih: ih + n], g[ig: ig + n]))
+
+
+def filter_isi(h, samples_per_symbol: int,
+               filter_delay: int) -> tuple[float, float]:
+    """Inter-symbol interference (rms, max); (0, 0) unless the filter has
+    2 * sps * delay + 1 taps."""
+    h = np.asarray(h, dtype=np.float64)
+    if 2 * samples_per_symbol * filter_delay + 1 != h.size:
+        return (0.0, 0.0)
+    rxx0 = filter_autocorrelation(h, 0)
+    isi_rms = 0.0
+    isi_max = 0.0
+    for i in range(1, 2 * filter_delay):
+        e = abs(filter_autocorrelation(h, i * samples_per_symbol) / rxx0)
+        isi_rms += e * e
+        if i == 1 or e > isi_max:
+            isi_max = e
+    return (float(np.sqrt(isi_rms / (2.0 * filter_delay))), float(isi_max))
+
+
+def filter_energy(h, cutoff_frequency: float, fft_size: int) -> float:
+    """Relative energy above ``cutoff_frequency``: the DTFT probed at
+    f = 0.5 i / fft_size with the positive-exponent tone e^{+j 2 pi f k},
+    one (fft_size, ntaps) product."""
+    h = np.asarray(h, dtype=np.float64)
+    if not (0.0 <= cutoff_frequency <= 0.5):
+        raise ValueError("invalid bandwidth [0, 0.5]")
+    if h.size == 0:
+        raise ValueError("invalid filter size [1, inf)")
+    if fft_size == 0:
+        raise ValueError("invalid fft size [1, inf)")
+    f = 0.5 * np.arange(fft_size, dtype=np.float64) / fft_size
+    k = np.arange(h.size, dtype=np.float64)
+    v = np.exp(2j * np.pi * np.outer(f, k)) @ h.astype(np.complex128)
+    e2 = (v * np.conj(v)).real
+    return float(np.sum(e2[f > cutoff_frequency])) / float(np.sum(e2))
 
 
 def firdes_rrcos(samples_per_symbol: int, delay_symbols: int,

@@ -15,10 +15,12 @@ cuBLAS.
 from __future__ import annotations
 
 import contextlib
+import functools
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "bind_device", "fp32_exact"]
+__all__ = ["resolve_device", "bind_device", "fp32_exact", "device_constant"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -32,6 +34,22 @@ def bind_device(device=None) -> torch.device:
     the current card), so that it compares equal to a tensor's device.
     Raises PyTorch's own error where the device does not exist."""
     return torch.empty(0, device=resolve_device(device)).device
+
+
+@functools.lru_cache(maxsize=64)
+def _constant(data: bytes, np_dtype: str, shape: tuple, device: str,
+              dtype) -> torch.Tensor:
+    a = np.frombuffer(data, dtype=np.dtype(np_dtype)).reshape(shape)
+    return torch.from_numpy(a.copy()).to(device=device, dtype=dtype)
+
+
+def device_constant(a, device, dtype=None) -> torch.Tensor:
+    """A host array (taps, a table) as a tensor on ``device``, copied once
+    per (contents, device, dtype): a block that reuses it makes no
+    host-to-device copy.  The tensor is shared; callers do not write to
+    it.  The last 64 are kept."""
+    a = np.ascontiguousarray(a)
+    return _constant(a.tobytes(), a.dtype.str, a.shape, str(device), dtype)
 
 
 def _read(getter):

@@ -13,8 +13,10 @@ __all__ = ["fm_demodulate"]
 
 
 def fm_demodulate(state: torch.Tensor, x: torch.Tensor, kf: float):
-    """y[n] = arg(x[n] conj(x[n-1])) / (2 pi kf), x[-1] the carried
-    ``state``; returns (y, new_state = x[-1])."""
-    prev = torch.cat([state.reshape(1), x[:-1]])
+    """y[n] = arg(x[n] conj(x[n-1])) / (2 pi kf) over the last axis, x[-1]
+    the carried ``state`` (one per leading index); returns
+    (y, new_state = x[..., -1])."""
+    prev = torch.cat([state.to(x.dtype)[..., None], x[..., :-1]], dim=-1)
     dt = np.float64 if x.dtype == torch.complex128 else np.float32
-    return torch.angle(x * prev.conj()) / float(dt(2.0 * np.pi * kf)), x[-1]
+    return (torch.angle(x * prev.conj()) / float(dt(2.0 * np.pi * kf)),
+            x[..., -1])

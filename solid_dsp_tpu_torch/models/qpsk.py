@@ -4,9 +4,10 @@ Port of ``solid_dsp_tpu/models/qpsk.py``: the Gray map, bit/symbol
 conversion, modulation, hard slicing, the block carrier recovery
 (``qpsk_carrier_block``: 4th power, one FFT to find the carrier line,
 parabolic refinement, linear phase fit, derotation), the block demodulator
-and the symbol error rate.  The decision-directed Costas loop
-``qpsk_carrier_pll`` is a sequential scan that the receive chain does not
-take; it is not ported yet (ROADMAP queue 1 item 7).
+and the symbol error rate, and the decision-directed Costas loop
+``qpsk_carrier_pll`` (``qpsk_demodulate(recovery="pll")``): a sequential
+scan, one launch of S2 (``ops/cuda_scan.py``, ``csrc/seq_scan.cu``) on a
+CUDA tensor and its plain version :func:`costas_pll_plain` on a CPU tensor.
 
 Every step of ``qpsk_carrier_block`` keeps the JAX package's dtypes: a
 complex64 block is raised to the 4th power as (x x)(x x), its spectrum and
@@ -20,9 +21,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import cuda_scan
+
 __all__ = ["GRAY_MAP", "bits_to_symbols", "symbols_to_bits",
            "qpsk_modulate_symbols", "qpsk_slice", "qpsk_carrier_block",
-           "qpsk_demodulate", "symbol_error_rate"]
+           "qpsk_carrier_pll", "costas_pll_plain", "qpsk_demodulate",
+           "symbol_error_rate"]
 
 # Gray-coded constellation: 2 bits -> unit-energy QPSK point
 GRAY_MAP = np.array([1 + 1j, -1 + 1j, 1 - 1j, -1 - 1j],
@@ -94,15 +98,66 @@ def qpsk_carrier_block(x: torch.Tensor):
     return y, f_hat, phi_hat
 
 
-def qpsk_demodulate(x: torch.Tensor, recovery: str = "block"):
-    """Carrier recovery ("block"; any other value but "pll" slices x as it
-    is) -> slice.  Returns (symbols, corrected)."""
+def costas_pll_plain(x: torch.Tensor, alpha: float, beta: float,
+                     theta0: torch.Tensor, dtheta0: torch.Tensor):
+    """S2's plain version: the Costas loop as a torch loop over time (the
+    last axis), vectorized over the leading axes, in S2's arithmetic:
+    y = x (cos theta - j sin theta), d the Gray point of y's quadrant,
+    e = arg(y conj d), dtheta += alpha e, theta = (theta + dtheta) + beta e.
+    Returns (y, theta_end, dtheta_end)."""
+    rdt = x.real.dtype
+    lead = x.shape[:-1]
+    h = torch.tensor(1.0 / np.sqrt(2.0), dtype=rdt, device=x.device)
+    th = theta0.to(device=x.device, dtype=rdt).expand(lead).clone()
+    dth = dtheta0.to(device=x.device, dtype=rdt).expand(lead).clone()
+    a, b = _f(alpha, rdt), _f(beta, rdt)
+    ys = []
+    for n in range(x.shape[-1]):
+        xr, xi = x[..., n].real, x[..., n].imag
+        c, s = torch.cos(th), torch.sin(th)
+        yr = xr * c + xi * s
+        yi = xi * c - xr * s
+        dr = torch.where(yr < 0, -h, h)
+        di = torch.where(yi < 0, -h, h)
+        e = torch.atan2(yi * dr - yr * di, yr * dr + yi * di)
+        dth = dth + a * e
+        th = th + dth + b * e
+        ys.append(torch.complex(yr, yi))
+    return torch.stack(ys, dim=-1), th, dth
+
+
+def qpsk_carrier_pll(x: torch.Tensor, bandwidth=0.01, theta0=0.0,
+                     dtheta0=0.0):
+    """Decision-directed Costas loop (exact streaming recovery) over x
+    (..., T), time last, each leading index its own loop: the phase
+    detector e = angle(y conj(decision(y))) and the reference NCO's
+    coupling, dtheta += e alpha, theta += dtheta + e beta, alpha = bw,
+    beta = sqrt(bw); theta is left unwrapped, as in the JAX package.
+    Returns (y, (theta_end, dtheta_end)).  S2 on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    alpha = float(bandwidth)
+    beta = float(np.sqrt(bandwidth))
+    rdt = x.real.dtype
+    th0, dth0 = (t.to(device=x.device, dtype=rdt)
+                 if isinstance(t, torch.Tensor)
+                 else torch.full((), float(t), dtype=rdt, device=x.device)
+                 for t in (theta0, dtheta0))
+    if x.is_cuda:
+        y, th, dth = cuda_scan.costas_pll_cuda(
+            x, alpha, beta, float(1.0 / np.sqrt(2.0)), th0, dth0)
+    else:
+        y, th, dth = costas_pll_plain(x, alpha, beta, th0, dth0)
+    return y, (th, dth)
+
+
+def qpsk_demodulate(x: torch.Tensor, recovery: str = "block", **kw):
+    """Carrier recovery ("block", or "pll" with ``qpsk_carrier_pll``'s
+    keywords; any other value slices x as it is) -> slice.  Returns
+    (symbols, corrected)."""
     if recovery == "block":
         y, _, _ = qpsk_carrier_block(x)
     elif recovery == "pll":
-        raise NotImplementedError(
-            "recovery='pll' is not ported to solid_dsp_tpu_torch yet: see "
-            "ROADMAP.md queue 1 item 7 (qpsk_carrier_pll)")
+        y, _ = qpsk_carrier_pll(x, **kw)
     else:
         y = x
     return qpsk_slice(y), y

@@ -1,25 +1,32 @@
 """RxChain — the composed receive chain.
 
 Port of ``solid_dsp_tpu/models/rx_chain.py``: NCO downconversion, decimating
-FIR, block AGC and demodulation (FM, QPSK, AM or none) as one block
-transform ``apply(state, x) -> (out, state)``.  The branches of config 4
-(``bench.py``, ``BASELINE.json``) are ported: the NCO mix folded into complex
-bandpass taps (``fused_ddc``), block-mode AGC, and
+FIR, AGC and demodulation (FM, QPSK, AM or none) as one block transform
+``apply(state, x) -> (out, state)``.  Every branch of the JAX chain:
 
-* the collapsed epilogue (``epilogue="auto"``, FM and AM): the
-  demodulator runs on the unrotated body output, because the rotation and
-  the positive gain cancel in a phase difference and scale an envelope.
-  FM blocks whose length is a multiple of 64*M run the fused DDC + FM
-  kernel (K1); other FM blocks and AM run the DDC body kernel (K2, or K3's
-  route for an unaligned block) and the epilogue in torch ops;
-* the rotated path (QPSK, ``demod="none"``, ``epilogue="rotate"``): the
-  body, the decimated-rate rotation, ``agc_apply_block_mode`` and the
-  demodulator.
+* the fused route (``fused_ddc="on"``, or "auto" with ``nco_mode="exact"``):
+  the NCO mix folded into complex bandpass taps, the DDC body kernel (K2,
+  K3's route for an unaligned block) and, with block AGC and FM or AM, the
+  collapsed epilogue (FM blocks that are multiples of 64*M run the fused
+  DDC + FM kernel, K1); otherwise the body, the decimated-rate rotation,
+  the AGC and the demodulator;
+* the unfused reference-parity route (``fused_ddc="off"``, or "auto" with
+  ``nco_mode="lut"``): ``ops/nco.py::mix_down_block`` (the reference's
+  1024-entry LUT or exact sin/cos), ``ops/fir.py::fir_decim_apply`` with the
+  reference's phase counter, the AGC and the demodulator;
+* the AGC in ``"block"`` mode, ``"exact"`` (the per-sample scan, S1 on the
+  card) or ``"parallel"`` (the Newton solve, falling back to S1);
+* the impairment stage (``impairment_bw > 0``: DC and IQ-imbalance
+  correction before the mix, its estimates in the ``impair`` state), and
+  ``debug_checks`` (a ``FloatingPointError`` naming the first of the five
+  stages with a non-finite value, each stage read on the host).
 
 Input is planar (2, L) float, complex (L,) (``cf32``) or raw interleaved
-int16 IQ (L, 2) (``ci16``, scaled by 1/32767 in float32); all three feed
-the same planar body.  Every other setting raises ``NotImplementedError``
-naming the ROADMAP item that will port it.
+int16 IQ (L, 2) (``ci16``, scaled by 1/32767).  The fused route's kernels
+take complex64, the "highest"/"x3" contract and M < fir_taps <= 64*M: its
+``fir_precision="default"``, ``dtype=complex128`` and other tap counts
+raise ``NotImplementedError`` naming their ROADMAP entry; the unfused route
+takes them all.
 """
 
 from __future__ import annotations
@@ -36,18 +43,19 @@ from ..device import bind_device, resolve_device
 from ..ops import agc as agc_ops
 from ..ops import cuda_ddc
 from ..ops import ddc as ddc_ops
+from ..ops import fir as fir_ops
 from ..ops import nco as nco_ops
 from ..streaming.state import ChainState
 from . import fm as fm_mod
+from . import impairments as imp_mod
 from . import qpsk as qpsk_mod
 
 __all__ = ["RxChainConfig", "rx_chain_init", "make_rx_chain",
            "make_rx_chain_stream", "RxChain"]
 
-_LATER = "ROADMAP.md queue 1 item 7 (the rest of the rx chain)"
-_CI16_SCALE = float(np.float32(1.0 / 32767.0))
-_IN_DTYPES = {"planar": torch.float32, "cf32": torch.complex64,
-              "ci16": torch.int16}
+_FUSED_LATER = ("ROADMAP.md queue 1 item 7b (the fused route's single-pass "
+                "bf16 body, float64 body and wide taps)")
+_STAGES = ("input", "nco", "fir", "agc", "demod")
 
 
 @dataclass
@@ -83,38 +91,48 @@ class RxChainConfig:
         return taps / np.sum(taps)  # unity DC gain
 
 
+def _fused(cfg: RxChainConfig) -> bool:
+    """The JAX chain's route rule: fused for "on", and for "auto" with the
+    exact NCO (LUT-quantized mixing cannot fold into taps)."""
+    return cfg.fused_ddc == "on" or (cfg.fused_ddc == "auto"
+                                     and cfg.nco_mode == "exact")
+
+
+def _rdtype(cfg: RxChainConfig) -> torch.dtype:
+    return torch.float64 if cfg.dtype == torch.complex128 else torch.float32
+
+
 def _check_config(cfg: RxChainConfig):
-    """ValueError for values the JAX package rejects, NotImplementedError
-    for settings whose branch is not ported yet."""
+    """ValueError for values the JAX package rejects; NotImplementedError
+    for the fused route's settings its kernels do not take."""
     for name, allowed in (("agc_mode", ("exact", "parallel", "block")),
                           ("input_format", ("cf32", "ci16", "planar")),
                           ("fir_precision", ("highest", "x3", "default")),
                           ("fused_ddc", ("auto", "on", "off")),
                           ("ddc_engine", ("auto", "cuda", "torch")),
-                          ("epilogue", ("auto", "rotate"))):
+                          ("epilogue", ("auto", "rotate")),
+                          ("nco_mode", ("exact", "lut")),
+                          ("dtype", (torch.complex64, torch.complex128))):
         if getattr(cfg, name) not in allowed:
             raise ValueError(f"unknown {name} {getattr(cfg, name)!r}")
     if cfg.fused_ddc == "on" and cfg.nco_mode != "exact":
         raise ValueError("fused_ddc requires nco_mode='exact' "
                          "(LUT-quantized mixing cannot fold into taps)")
+    if not _fused(cfg):
+        return
     unported = [
-        (f"agc_mode={cfg.agc_mode!r}", cfg.agc_mode != "block", _LATER),
-        ("fused_ddc='off'", cfg.fused_ddc == "off", _LATER),
-        (f"nco_mode={cfg.nco_mode!r}", cfg.nco_mode != "exact", _LATER),
-        (f"impairment_bw={cfg.impairment_bw!r}", cfg.impairment_bw > 0.0,
-         _LATER),
-        ("debug_checks=True", cfg.debug_checks, _LATER),
-        ("fir_precision='default'", cfg.fir_precision == "default", _LATER),
-        (f"dtype={cfg.dtype}", cfg.dtype != torch.complex64, _LATER),
+        ("fir_precision='default'", cfg.fir_precision == "default"),
+        (f"dtype={cfg.dtype}", cfg.dtype != torch.complex64),
         (f"fir_taps={cfg.fir_taps}, decimation={cfg.decimation}",
-         not cuda_ddc.fm_supported(cfg.fir_taps, cfg.decimation),
-         _LATER + "; the kernels take M < fir_taps <= 64*M"),
+         not cuda_ddc.fm_supported(cfg.fir_taps, cfg.decimation)),
     ]
-    for setting, hit, item in unported:
+    for setting, hit in unported:
         if hit:
             raise NotImplementedError(
-                f"{setting} is not ported to solid_dsp_tpu_torch yet: "
-                f"see {item}")
+                f"{setting} on the fused route (the DDC kernels take "
+                f"complex64, the highest/x3 contract and M < fir_taps <= "
+                f"64*M) is not ported to solid_dsp_tpu_torch yet: see "
+                f"{_FUSED_LATER}; fused_ddc='off' takes it")
 
 
 def rx_chain_init(cfg: RxChainConfig, device=None) -> ChainState:
@@ -122,14 +140,26 @@ def rx_chain_init(cfg: RxChainConfig, device=None) -> ChainState:
     package's keys and dtypes, with the phase word as int64."""
     _check_config(cfg)
     device = resolve_device(device)
-    return ChainState(
+    parts = dict(
         nco_theta=torch.zeros((), dtype=torch.int64, device=device),
         fir_tail=torch.zeros(max(cfg.fir_taps - 1, 0), dtype=cfg.dtype,
                              device=device),
         fir_phase=torch.zeros((), dtype=torch.int32, device=device),
-        agc=agc_ops.agc_init(torch.float32, device),
+        agc=agc_ops.agc_init(_rdtype(cfg), device),
         fm_prev=torch.ones((), dtype=cfg.dtype, device=device),
     )
+    if cfg.impairment_bw > 0.0:
+        parts["impair"] = {
+            "dc": torch.zeros((), dtype=cfg.dtype, device=device),
+            "k": torch.zeros((), dtype=cfg.dtype, device=device),
+            "primed": torch.zeros((), dtype=torch.bool, device=device),
+        }
+    return ChainState(**parts)
+
+
+def _ci16_scale(rdtype: torch.dtype) -> float:
+    return float((np.float64 if rdtype == torch.float64 else np.float32)(
+        1.0 / 32767.0))
 
 
 def _planar(cfg: RxChainConfig, x: torch.Tensor) -> torch.Tensor:
@@ -139,10 +169,34 @@ def _planar(cfg: RxChainConfig, x: torch.Tensor) -> torch.Tensor:
         # into the planar layout: one pass
         x2 = torch.empty((2, x.shape[0]), dtype=torch.float32,
                          device=x.device)
-        return torch.mul(x.T, _CI16_SCALE, out=x2)
+        return torch.mul(x.T, _ci16_scale(torch.float32), out=x2)
     if cfg.input_format == "cf32":
         return torch.stack([x.real, x.imag]).to(torch.float32)
     return x.to(torch.float32)
+
+
+def _complex_in(cfg: RxChainConfig, x: torch.Tensor) -> torch.Tensor:
+    """The block as complex samples, as the JAX chain makes them: planar
+    and ci16 become ``cfg.dtype`` (ci16 scaled in the real type), cf32 is
+    taken as it comes."""
+    rdt = _rdtype(cfg)
+    if cfg.input_format == "ci16":
+        xs = x.to(rdt) * _ci16_scale(rdt)
+        return torch.complex(xs[..., 0], xs[..., 1]).to(cfg.dtype)
+    if cfg.input_format == "planar":
+        return torch.complex(x[0].to(rdt), x[1].to(rdt)).to(cfg.dtype)
+    return x
+
+
+def _check_stages(stages):
+    """debug_checks: raise FloatingPointError naming the first of the
+    five stages whose tensors (one, or a tuple) hold a NaN or Inf.  The
+    flags are read on the host, one read a stage: debug mode only."""
+    for name, ts in zip(_STAGES, stages):
+        for t in ts if isinstance(ts, tuple) else (ts,):
+            if not bool(torch.isfinite(t).all()):
+                raise FloatingPointError(
+                    f"non-finite values detected at chain stage {name!r}")
 
 
 def make_rx_chain(cfg: RxChainConfig, device=None):
@@ -151,18 +205,46 @@ def make_rx_chain(cfg: RxChainConfig, device=None):
 
     ``apply(state, x)`` takes one block on ``device`` in the configured
     ``input_format``, its length L a multiple of the decimation M, and
-    returns (out (L / M,), new_state): float32 audio or envelope for FM and
-    AM, complex64 for QPSK (derotated symbols) and ``demod="none"``.
+    returns (out (L / M,), new_state): real audio or envelope for FM and
+    AM, complex for QPSK (derotated symbols) and ``demod="none"``.  With
+    ``debug_checks`` it raises ``FloatingPointError`` naming the first
+    stage (input, nco, fir, agc, demod) that produced a NaN or Inf.
     """
     _check_config(cfg)
     device = bind_device(device)                      # None -> "cuda:0"
     M = cfg.decimation
+    fused = _fused(cfg)
+    impair = cfg.impairment_bw > 0.0
     dtheta = nco_ops.constrain(cfg.carrier_freq)
     taps = cfg.design_taps()
-    body = cuda_ddc.make_ddc_body(taps, dtheta, M, device)
-    collapse = cfg.demod in ("fm", "am") and cfg.epilogue == "auto"
+    rdt = _rdtype(cfg)
+    taps_c = taps.astype(torch.empty(0, dtype=cfg.dtype).numpy().dtype)
+    lut = nco_ops.make_sine_lut(torch.empty(0, dtype=rdt).numpy().dtype)
+    collapse = (fused and cfg.agc_mode == "block"
+                and cfg.demod in ("fm", "am") and cfg.epilogue == "auto")
+    body = cuda_ddc.make_ddc_body(taps, dtheta, M, device) if fused else None
     fm_body = (cuda_ddc.make_ddc_fm(taps, dtheta, M, cfg.fm_kf, device)
                if collapse and cfg.demod == "fm" else None)
+    bw_c = torch.tensor(cfg.impairment_bw, dtype=cfg.dtype, device=device)
+
+    def agc_stage(agc_state, y):
+        if cfg.agc_mode == "exact":
+            return agc_ops.agc_apply(agc_state, y, cfg.agc_bandwidth, 1.0,
+                                     -1e30, 100)
+        if cfg.agc_mode == "parallel":
+            return agc_ops.agc_apply_parallel(agc_state, y,
+                                              cfg.agc_bandwidth, 1.0, -1e30,
+                                              100)
+        return agc_ops.agc_apply_block_mode(agc_state, y, cfg.agc_bandwidth)
+
+    def demod_stage(fm_prev, y):
+        if cfg.demod == "fm":
+            return fm_mod.fm_demodulate(fm_prev, y, cfg.fm_kf)
+        if cfg.demod == "qpsk":
+            return qpsk_mod.qpsk_carrier_block(y)[0], fm_prev
+        if cfg.demod == "am":
+            return torch.abs(y), fm_prev
+        return y, fm_prev
 
     def apply(state: ChainState, x: torch.Tensor):
         if x.device != device:
@@ -171,62 +253,115 @@ def make_rx_chain(cfg: RxChainConfig, device=None):
         if L % M or L == 0:
             raise ValueError(f"block length {L} must be a positive multiple "
                              f"of the decimation {M}")
-        x2 = _planar(cfg, x)
-        tail2 = torch.stack([state.fir_tail.real, state.fir_tail.imag])
-        gain = state.agc["gain"]
-        fm_prev = state.fm_prev
-        if fm_body is not None and L % (fm_body.P * M) == 0:
-            # the fused DDC + FM kernel: the decimated complex signal never
-            # reaches device memory
-            out, pr, pi, ee_mean, tail2n, theta_end = ddc_ops.ddc_fm_fused(
-                fm_body, tail2, state.nco_theta, x2, fm_prev.real,
-                fm_prev.imag, gain, engine=cfg.ddc_engine)
-            agc_state = agc_ops.block_gain_update(
-                state.agc, (gain * gain) * ee_mean, cfg.agc_bandwidth,
-                out.shape[-1])
-            fm_prev = torch.complex(pr, pi)
-        elif collapse:
-            z, tail2n, theta_end, w0, dw = ddc_ops.ddc_apply_planar_pieces(
-                body, tail2, state.nco_theta, x2, engine=cfg.ddc_engine)
-            agc_state = agc_ops.block_gain_update(
-                state.agc, (gain * gain) * ddc_ops.ddc_energy_pieces(z),
-                cfg.agc_bandwidth, z.shape[-1])
-            if cfg.demod == "fm":
-                out, pr, pi = ddc_ops.ddc_fm_epilogue(
-                    z[0], z[1], w0, dw, fm_prev.real, fm_prev.imag,
-                    cfg.fm_kf, gain)
-                fm_prev = torch.complex(pr, pi)
-            else:
-                out = ddc_ops.ddc_am_epilogue(z[0], z[1], gain)
+        parts = {}
+        planar_in = fused and not impair and cfg.input_format != "cf32"
+        if planar_in:
+            x2 = _planar(cfg, x)
         else:
-            out_re, out_im, tail2n, theta_end = ddc_ops.ddc_apply_planar(
-                body, tail2, state.nco_theta, x2, engine=cfg.ddc_engine)
-            y, agc_state = agc_ops.agc_apply_block_mode(
-                state.agc, torch.complex(out_re, out_im), cfg.agc_bandwidth)
-            if cfg.demod == "fm":
-                out, fm_prev = fm_mod.fm_demodulate(fm_prev, y, cfg.fm_kf)
-            elif cfg.demod == "qpsk":
-                out, _, _ = qpsk_mod.qpsk_carrier_block(y)
-            elif cfg.demod == "am":
-                out = torch.abs(y)
+            x = _complex_in(cfg, x)
+            if impair:
+                st_i = state["impair"]
+                x, dc, k = imp_mod.ema_correct(x, st_i["dc"], st_i["k"],
+                                               bw_c, st_i["primed"])
+                parts["impair"] = {"dc": dc, "k": k,
+                                   "primed": torch.ones_like(st_i["primed"])}
+            if fused:
+                x2 = torch.stack([x.real, x.imag]).to(torch.float32)
+        inp = x2 if planar_in else x      # debug_checks' input stage
+        fm_prev = state.fm_prev
+        if fused:
+            tail2 = torch.stack([state.fir_tail.real, state.fir_tail.imag]
+                                ).to(torch.float32)
+            gain = state.agc["gain"]
+            if fm_body is not None and L % (fm_body.P * M) == 0:
+                # the fused DDC + FM kernel: the decimated complex signal
+                # never reaches device memory
+                out, pr, pi, ee_mean, tail2n, theta_end = \
+                    ddc_ops.ddc_fm_fused(fm_body, tail2, state.nco_theta, x2,
+                                         fm_prev.real, fm_prev.imag, gain,
+                                         engine=cfg.ddc_engine)
+                agc_state = agc_ops.block_gain_update(
+                    state.agc, (gain * gain) * ee_mean, cfg.agc_bandwidth,
+                    out.shape[-1])
+                fm_prev = torch.complex(pr, pi)
+                # debug_checks' five stages; the mix is folded into the body
+                stages = (inp, inp, out, (out, agc_state["gain"]), out)
+            elif collapse:
+                z, tail2n, theta_end, w0, dw = \
+                    ddc_ops.ddc_apply_planar_pieces(
+                        body, tail2, state.nco_theta, x2,
+                        engine=cfg.ddc_engine)
+                agc_state = agc_ops.block_gain_update(
+                    state.agc, (gain * gain) * ddc_ops.ddc_energy_pieces(z),
+                    cfg.agc_bandwidth, z.shape[-1])
+                if cfg.demod == "fm":
+                    out, pr, pi = ddc_ops.ddc_fm_epilogue(
+                        z[0], z[1], w0, dw, fm_prev.real, fm_prev.imag,
+                        cfg.fm_kf, gain)
+                    fm_prev = torch.complex(pr, pi)
+                else:
+                    out = ddc_ops.ddc_am_epilogue(z[0], z[1], gain)
+                stages = (inp, inp, z, (z, agc_state["gain"]), out)
             else:
-                out = y
-        return out, ChainState(
-            nco_theta=theta_end,
-            fir_tail=torch.complex(tail2n[0], tail2n[1]).to(cfg.dtype),
-            fir_phase=state.fir_phase,
-            agc=agc_state,
-            fm_prev=fm_prev.to(cfg.dtype),
-        )
+                out_re, out_im, tail2n, theta_end = ddc_ops.ddc_apply_planar(
+                    body, tail2, state.nco_theta, x2, engine=cfg.ddc_engine)
+                y_fir = torch.complex(out_re, out_im)
+                y, agc_state = agc_stage(state.agc, y_fir)
+                out, fm_prev = demod_stage(fm_prev, y)
+                stages = (inp, inp, y_fir, y, out)
+            fir_tail = torch.complex(tail2n[0], tail2n[1]).to(cfg.dtype)
+            fir_phase = state.fir_phase      # stays 0: L % M == 0
+        else:
+            mixed, theta_end = nco_ops.mix_down_block(
+                x, state.nco_theta, dtheta, lut, cfg.nco_mode)
+            y_fir, fir_tail, fir_phase = fir_ops.fir_decim_apply(
+                taps_c, state.fir_tail, state.fir_phase, mixed, 1.0, M,
+                precision=cfg.fir_precision)
+            y, agc_state = agc_stage(state.agc, y_fir)
+            out, fm_prev = demod_stage(fm_prev, y)
+            stages = (inp, mixed, y_fir, y, out)
+        new_state = ChainState(
+            nco_theta=theta_end, fir_tail=fir_tail, fir_phase=fir_phase,
+            agc=agc_state, fm_prev=fm_prev.to(cfg.dtype), **parts)
+        if cfg.debug_checks:
+            _check_stages(stages)
+        return out, new_state
 
     return partial(rx_chain_init, cfg, device), apply
 
 
-def make_rx_chain_stream(cfg: RxChainConfig, block_size: int):
-    """The JAX package's many-blocks-per-dispatch stream: not ported yet."""
-    raise NotImplementedError(
-        "make_rx_chain_stream is not ported to solid_dsp_tpu_torch yet: see "
-        + _LATER)
+def make_rx_chain_stream(cfg: RxChainConfig, block_size: int, device=None):
+    """Long-stream loop: ``(init, apply_stream)`` where
+    ``apply_stream(state, x)`` cuts ``x`` (n_blocks * block_size samples in
+    the configured format) into blocks, runs the chain over them in a loop
+    into one preallocated output and returns (out, state).  ``debug_checks``
+    is refused, as in the JAX package."""
+    if cfg.debug_checks:
+        raise ValueError("debug_checks is incompatible with the stream scan")
+    init, apply = make_rx_chain(cfg, device)
+    block_size = int(block_size)
+
+    def apply_stream(state: ChainState, x: torch.Tensor):
+        n = int(x.shape[0] if cfg.input_format == "ci16" else x.shape[-1])
+        if n % block_size:
+            raise ValueError("stream length must be a multiple of block_size")
+        n_blocks = n // block_size
+        if cfg.input_format == "ci16":
+            xb = x.reshape(n_blocks, block_size, 2)
+        elif cfg.input_format == "planar":
+            xb = x.reshape(2, n_blocks, block_size).transpose(0, 1)
+        else:
+            xb = x.reshape(n_blocks, block_size)
+        out = None
+        for i in range(n_blocks):
+            y, state = apply(state, xb[i])
+            if out is None:
+                out = torch.empty((n_blocks, *y.shape), dtype=y.dtype,
+                                  device=y.device)
+            out[i] = y
+        return out.reshape(-1), state
+
+    return init, apply_stream
 
 
 class RxChain(nn.Module):
@@ -244,9 +379,10 @@ class RxChain(nn.Module):
     def execute_block(self, x) -> torch.Tensor:
         """Demodulate one block in the configured ``input_format``: numpy
         input is copied to the chain's device, and any block is first cast
-        to the format's dtype (float32 planes, complex64, or int16 kept as
-        int16)."""
-        want = _IN_DTYPES[self.cfg.input_format]
+        to the format's dtype (real planes or complex of the chain's type,
+        or int16 kept as int16)."""
+        want = {"planar": _rdtype(self.cfg), "cf32": self.cfg.dtype,
+                "ci16": torch.int16}[self.cfg.input_format]
         x = torch.as_tensor(x, device=self.device)
         if x.dtype != want:
             x = x.to(want)

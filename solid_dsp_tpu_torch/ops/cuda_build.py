@@ -8,7 +8,8 @@ each, into a shared library under ``solid_dsp_tpu_torch/_build/`` named by
 a hash of its source, the shared headers (``csrc/*.cuh``) and the flags,
 so that a built library is reused and a changed source is rebuilt.  The
 wrappers (``ops/cuda_ddc.py``, ``ops/cuda_chan.py``, ``ops/cuda_iir.py``,
-``ops/cuda_fft.py``, ``ops/cuda_resample.py``, ``ops/cuda_halo.py``) pass
+``ops/cuda_fft.py``, ``ops/cuda_resample.py``, ``ops/cuda_halo.py``,
+``ops/cuda_scan.py``) pass
 ``tensor.data_ptr()`` and the current stream and raise on a non-zero
 return.
 
@@ -35,7 +36,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("ddc_fm.cu", "ddc_body.cu", "channelizer.cu", "iir_bank.cu",
-           "windowed_fft.cu", "farrow.cu", "halo_frontend.cu")
+           "windowed_fft.cu", "farrow.cu", "halo_frontend.cu", "seq_scan.cu")
 ENGINES = ("auto", "cuda", "torch")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -35,10 +35,12 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..device import fp32_exact
 from ..models import qpsk as qpsk_mod
 from ..models.channelizer import channelizer_taps, fused_channelizer_complex
-from ..models.rx_chain import RxChainConfig, _check_config
+from ..models import fm as fm_mod
+from ..models.rx_chain import RxChainConfig, _check_config, _fused, _rdtype
 from ..ops import agc as agc_ops
 from ..ops import cuda_chan, cuda_ddc
 from ..ops import ddc as ddc_ops
+from ..ops import fir as fir_ops
 from ..ops import nco as nco_ops
 from ..ops.cuda_chan import CHAN_HALO
 from ..ops.fir import conv1d_mxu, fir_init
@@ -120,13 +122,21 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: DeviceMesh):
     shards > 0, the one-sample discriminator seam shipped right, and the
     AGC block energy averaged over ``time``.  QPSK gathers the decimated
     stream over ``time``, recovers the carrier on the whole block and keeps
-    its own slice.  The unfused LUT-NCO staging (``fused_ddc="off"``)
-    raises ``NotImplementedError``, as the single-card chain does.
+    its own slice.
+
+    The unfused reference-parity staging (``fused_ddc="off"``, or "auto"
+    with ``nco_mode="lut"``; complex (C, L) blocks only) mixes each shard
+    from its own closed-form phase, runs ``fir_decim_apply`` with the
+    MIXED stream's left halo in place of the carried tail on shards > 0,
+    the block AGC on the energy averaged over ``time``, and the
+    demodulator with FM's one-sample seam from the left neighbour.
     """
     if cfg.demod not in ("fm", "qpsk", "am", "none"):
         raise ValueError(f"unknown demod {cfg.demod!r}")
     _check_config(cfg)        # unported settings raise NotImplementedError
     planar = cfg.input_format == "planar"
+    if planar and not _fused(cfg):
+        raise ValueError("planar sharded input requires the fused DDC path")
     if planar and axis_info(mesh, "channel")[2] != 1:
         raise ValueError("planar mode is single-stream: channel axis must "
                          "have size 1")
@@ -140,9 +150,6 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: DeviceMesh):
     dtheta = int(nco_ops.constrain(cfg.carrier_freq))
     _, _, n_time = axis_info(mesh, "time")
     _, _, n_chan = axis_info(mesh, "channel")
-    body = cuda_ddc.make_ddc_body(taps, dtheta, M, device)
-    fm_body = (cuda_ddc.make_ddc_fm(taps, dtheta, M, cfg.fm_kf, device)
-               if cfg.demod == "fm" else None)
     engine = cfg.ddc_engine
     kf = cfg.fm_kf
 
@@ -158,9 +165,15 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: DeviceMesh):
             nco_theta=torch.zeros((), dtype=torch.int64, device=device),
             fir_tail=fir_init(len(taps), cfg.dtype, bs, device),
             fir_phase=torch.zeros((), dtype=torch.int32, device=device),
-            agc=agc_ops.agc_init(torch.float32, device, bs),
+            agc=agc_ops.agc_init(_rdtype(cfg), device, bs),
             fm_prev=torch.ones(bs, dtype=cfg.dtype, device=device),
         )
+
+    if not _fused(cfg):
+        return init, _sharded_unfused(cfg, mesh, taps, dtheta)
+    body = cuda_ddc.make_ddc_body(taps, dtheta, M, device)
+    fm_body = (cuda_ddc.make_ddc_fm(taps, dtheta, M, cfg.fm_kf, device)
+               if cfg.demod == "fm" else None)
 
     def front(tail2, theta0, x2, gain):
         """One stream's DDC front end, its FM seam left to the caller."""
@@ -304,6 +317,62 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: DeviceMesh):
         )
 
     return init, apply
+
+
+def _sharded_unfused(cfg: RxChainConfig, mesh: DeviceMesh, taps, dtheta):
+    """``local_unfused`` (``sharded.py:461-526``): the LUT-NCO parity
+    staging on one time shard of (C_loc, L_loc) complex streams."""
+    n1 = len(taps) - 1
+    M = int(cfg.decimation)
+    _, _, n_time = axis_info(mesh, "time")
+    taps_c = taps.astype(torch.empty(0, dtype=cfg.dtype).numpy().dtype)
+    lut = nco_ops.make_sine_lut(
+        torch.empty(0, dtype=_rdtype(cfg)).numpy().dtype)
+
+    def apply(state: ChainState, x: torch.Tensor):
+        L_loc = int(x.shape[-1])
+        if L_loc % M:
+            raise ValueError(
+                "per-shard block length must be a multiple of the decimation")
+        _, t_idx, _ = axis_info(mesh, "time")
+        # the phase is closed-form: each shard starts at its own offset
+        theta0 = (state.nco_theta
+                  + ((time_offset(mesh, L_loc) * dtheta) & U32_MASK)
+                  ) & U32_MASK
+        mixed, _ = nco_ops.mix_down_block(x, theta0, dtheta, lut,
+                                          cfg.nco_mode)
+        theta_end = (state.nco_theta
+                     + ((n_time * L_loc * dtheta) & U32_MASK)) & U32_MASK
+        # the decimating FIR with the neighbour's mixed halo in place of
+        # the carried tail; L_loc % M == 0, so every shard sees one phase
+        halo = left_halo(mixed[..., -n1:], mesh)
+        eff_tail = state.fir_tail if t_idx == 0 else halo
+        y, _, fir_phase = fir_ops.fir_decim_apply(
+            taps_c, eff_tail, state.fir_phase, mixed, 1.0, M,
+            precision=cfg.fir_precision)
+        new_fir_tail = from_last_shard(mixed[..., -n1:], mesh)
+        y, agc_state = _agc_block_sharded(state.agc, y, cfg.agc_bandwidth,
+                                          mesh)
+        new_fm_prev = state.fm_prev
+        if cfg.demod == "fm":
+            prev_halo = left_halo(y[..., -1], mesh)
+            fm_prev_l = state.fm_prev if t_idx == 0 else prev_halo
+            out, _ = fm_mod.fm_demodulate(fm_prev_l, y, cfg.fm_kf)
+            new_fm_prev = from_last_shard(y[..., -1], mesh)
+        elif cfg.demod == "qpsk":
+            T_loc = int(y.shape[-1])
+            out_full, _, _ = qpsk_mod.qpsk_carrier_block(
+                axis_gather(y, mesh, "time"))
+            out = out_full[..., t_idx * T_loc:(t_idx + 1) * T_loc]
+        elif cfg.demod == "am":
+            out = torch.abs(y)
+        else:
+            out = y
+        return out, ChainState(
+            nco_theta=theta_end, fir_tail=new_fir_tail, fir_phase=fir_phase,
+            agc=agc_state, fm_prev=new_fm_prev.to(cfg.dtype))
+
+    return apply
 
 
 # ---------------------------------------------------------------------------

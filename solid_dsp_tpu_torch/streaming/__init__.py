@@ -1,3 +1,4 @@
-"""Streaming state: the chain's carried state and its checkpoints."""
+"""Streaming: the chain's carried state and its checkpoints, and the
+overlap-save framing the filters share."""
 
-from . import state  # noqa: F401
+from . import framing, state  # noqa: F401

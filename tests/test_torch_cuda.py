@@ -21,7 +21,10 @@ its plain version in float64.  Windowed FFT (K7)
 1e-5 of its plain version with n_valid, t0 and the tail equal
 (tests/test_resample.py's gate).  conv1d_mxu and sharded_fir >= 100 dB
 against float64 at PyTorch's default TF32 flags (the port pins full
-float32; TF32 keeps some 60 dB).
+float32; TF32 keeps some 60 dB).  The sequential scans: S1 (the exact
+AGC) within 1e-5 of max|y| of its plain version in float32 and 1e-12 in
+float64, gain rtol alike, mode and timer equal; S2 (the Costas loop)
+symbols equal and y within 1e-4 (float32) or 1e-9 (float64).
 """
 
 import numpy as np
@@ -34,8 +37,11 @@ from solid_dsp_tpu_torch.models.channelizer import (PolyphaseChannelizer,
                                                     channelizer_taps)
 from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig
 from solid_dsp_tpu_torch.design.windows import get_window
+from solid_dsp_tpu_torch.models import qpsk as qpsk_ops
+from solid_dsp_tpu_torch.ops import agc as agc_ops
 from solid_dsp_tpu_torch.ops import (cuda_chan, cuda_ddc, cuda_fft, cuda_iir,
-                                     cuda_resample, farrow, nco)
+                                     cuda_resample, cuda_scan, farrow, nco)
+from solid_dsp_tpu_torch.ops import fir as fir_ops
 from solid_dsp_tpu_torch.ops import fft as fft_ops
 from torch_parity import (L_SMALL, make_blocks, make_qpsk_blocks,
                           require_cuda, run_torch, snr_db)
@@ -792,3 +798,225 @@ def test_sharded_fir_full_float32_at_default_flags(nccl_mesh):
     want = conv1d_mxu(torch.from_numpy(x64), torch.from_numpy(
         taps.astype(np.complex128)))
     assert snr_db(y.cpu().numpy(), want.numpy()) >= 100.0
+
+
+# --------------------------------------------- the sequential scans S1, S2
+
+def _agc_case(dev, dt, T, seed=3, amp=0.1):
+    rng = np.random.default_rng(seed)
+    x = amp * (rng.standard_normal(T) + 1j * rng.standard_normal(T))
+    rdt = torch.float32 if dt == torch.complex64 else torch.float64
+    return torch.from_numpy(x).to(dev, dt), agc_ops.agc_init(rdt, dev)
+
+
+@pytest.mark.parametrize("dt", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("T", [1, 17, 4096])
+def test_agc_scan_kernel_matches_plain_on_card(dt, T):
+    """S1 vs its plain version on the card in both types: y within 1e-5 of
+    max|y| (f32; 1e-12 f64), gain rtol 1e-5 (1e-12), mode and timer equal;
+    one launch counted; a batch of 3 carries as 3 sequences."""
+    dev = require_cuda()
+    x, st = _agc_case(dev, dt, T)
+    before = cuda_scan.agc_scan_cuda.launches
+    yk, sk = agc_ops.agc_apply(st, x, 0.01, 1.0, -1e30, 100)
+    yp, sp = agc_ops.agc_scan_plain(st, x, 0.01, 1.0, -1e30, 100)
+    torch.cuda.synchronize()
+    assert cuda_scan.agc_scan_cuda.launches == before + 1
+    tol = 1e-5 if dt == torch.complex64 else 1e-12
+    assert float((yk - yp).abs().max()) <= tol * float(yp.abs().max())
+    assert abs(float(sk["gain"]) / float(sp["gain"]) - 1.0) <= tol
+    assert int(sk["mode"]) == int(sp["mode"])
+    xb = torch.stack([x, 2 * x, 0.5 * x])
+    stb = agc_ops.agc_init(st["gain"].dtype, dev, (3,))
+    yb, sb = agc_ops.agc_apply(stb, xb, 0.01, 1.0, -1e30, 100)
+    for i in range(3):
+        yi, si = agc_ops.agc_apply(st, xb[i], 0.01, 1.0, -1e30, 100)
+        assert torch.equal(yb[i], yi) and torch.equal(sb["gain"][i],
+                                                      si["gain"])
+
+
+def test_agc_scan_kernel_walks_the_squelch_fsm():
+    """loud -> quiet with threshold -30 and timeout 20: S1 in float64
+    against the plain version on the CPU (atol 1e-11, JAX's _cmp_parallel
+    tolerance), modes and timer equal; the FSM entry against its plain
+    version, modes equal; a locked carry keeps its gain."""
+    dev = require_cuda()
+    rng = np.random.default_rng(10)
+    x = np.concatenate([np.exp(1j * rng.standard_normal(50)),
+                        1e-8 * np.exp(1j * rng.standard_normal(300))])
+    st = agc_ops.agc_init(torch.float64, "cpu")
+    st["mode"] = torch.tensor(agc_ops.SquelchMode.ENABLED, dtype=torch.int32)
+    yp, sp = agc_ops.agc_scan_plain(st, torch.from_numpy(x), 0.1, 1.0, -30.0,
+                                    20)
+    yk, sk = agc_ops.agc_apply({k: v.to(dev) for k, v in st.items()},
+                               torch.from_numpy(x).to(dev), 0.1, 1.0, -30.0,
+                               20)
+    np.testing.assert_allclose(yk.cpu().numpy(), yp.numpy(), atol=1e-11)
+    assert int(sk["mode"]) == int(sp["mode"]) == agc_ops.SquelchMode.ENABLED
+    assert int(sk["timer"]) == int(sp["timer"])
+    rssi = torch.from_numpy(np.concatenate([np.full(9, -10.0),
+                                            np.full(40, -40.0)])).to(dev)
+    m0 = torch.tensor(1, dtype=torch.int32, device=dev)
+    t0 = torch.tensor(0, dtype=torch.int32, device=dev)
+    mk = cuda_scan.squelch_fsm_cuda(rssi, m0, t0, -30.0, 20)
+    mp = agc_ops.squelch_fsm_plain(rssi, m0, t0, -30.0, 20)
+    assert all(torch.equal(a, b) for a, b in zip(mk, mp))
+    st["lock"] = torch.tensor(True)
+    st["gain"] = torch.tensor(3.0, dtype=torch.float64)
+    yl, sl = agc_ops.agc_apply({k: v.to(dev) for k, v in st.items()},
+                               torch.from_numpy(x).to(dev), 0.1, 1.0, -30.0,
+                               20)
+    assert float(sl["gain"]) == 3.0
+    assert torch.allclose(yl, 3.0 * torch.from_numpy(x).to(dev))
+
+
+def test_agc_scan_kernel_in_a_cuda_graph():
+    """S1 captured in a CUDA graph and replayed gives the eager result."""
+    dev = require_cuda()
+    x, st = _agc_case(dev, torch.complex64, 8192)
+    want, _ = agc_ops.agc_apply(st, x, 0.01, 1.0, -1e30, 100)
+    out = {}
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        agc_ops.agc_apply(st, x, 0.01, 1.0, -1e30, 100)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out["y"], out["st"] = agc_ops.agc_apply(st, x, 0.01, 1.0, -1e30, 100)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], want)
+
+
+def test_agc_parallel_fallback_goes_to_the_kernel():
+    """An all-zero block trips the gates: the fall-back is S1 (counted on
+    both counters), bit-equal to S1 called with the parallel path's
+    float32 alpha."""
+    dev = require_cuda()
+    st = agc_ops.agc_init(torch.float32, dev)
+    z = torch.zeros(1 << 14, dtype=torch.complex64, device=dev)
+    fb, fl, ln = (agc_ops.agc_apply_parallel.fallbacks,
+                  cuda_scan.agc_scan_cuda.fallback_launches,
+                  cuda_scan.agc_scan_cuda.launches)
+    y, s = agc_ops.agc_apply_parallel(st, z, 0.01, 1.0, -1e30, 100)
+    assert cuda_scan.agc_scan_cuda.launches == ln + 1
+    y2, s2 = agc_ops.agc_apply(st, z, np.float32(0.01), 1.0, -1e30, 100)
+    assert agc_ops.agc_apply_parallel.fallbacks == fb + 1
+    assert cuda_scan.agc_scan_cuda.fallback_launches == fl + 1
+    assert cuda_scan.agc_scan_cuda.launches == ln + 2
+    assert torch.equal(y, y2) and float(s["gain"]) == float(s2["gain"])
+    assert float(s["gain"]) == 1e6
+
+
+def test_fir_classes_on_card_copy_no_taps_to_the_host(monkeypatch):
+    """On the card the FIR classes' matmul route (64 taps: the Toeplitz
+    form) builds its banks from the host copy of the taps: no tensor is
+    copied back a block."""
+    from solid_dsp_tpu_torch.ops import fir as fir_ops
+
+    dev = require_cuda()
+    seen = []
+    host_taps = fir_ops._host_taps
+    monkeypatch.setattr(fir_ops, "_host_taps", lambda t: (
+        seen.append(type(t)), host_taps(t))[1])
+    taps = np.random.default_rng(3).standard_normal(64)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(4096)
+                         .astype(np.complex64)).to(dev)
+    for f in (fir_ops.FIRFilter(taps, method="matmul", device=dev),
+              fir_ops.DecimatingFIRFilter(taps, 1.0, 4, device=dev),
+              fir_ops.InterpolatingFIRFilter(taps, 2, device=dev)):
+        y = f.execute_block(x)
+        assert y.is_cuda and bool(torch.isfinite(y).all())
+    assert seen and torch.Tensor not in seen
+
+
+def test_agc_parallel_matches_exact_on_card():
+    """The Newton solve against S1 on a float32 block of 2^18: within 1e-5
+    of max|y|, gain rtol 1e-5, no fall-back."""
+    dev = require_cuda()
+    x, st = _agc_case(dev, torch.complex64, 1 << 18, seed=4)
+    fb = agc_ops.agc_apply_parallel.fallbacks
+    yp, sp = agc_ops.agc_apply_parallel(st, x, 0.01, 1.0, -1e30, 100)
+    ye, se = agc_ops.agc_apply(st, x, 0.01, 1.0, -1e30, 100)
+    assert agc_ops.agc_apply_parallel.fallbacks == fb
+    assert float((yp - ye).abs().max()) <= 1e-5 * float(ye.abs().max())
+    assert abs(float(sp["gain"]) / float(se["gain"]) - 1.0) <= 1e-5
+
+
+@pytest.mark.parametrize("dt", [torch.complex64, torch.complex128])
+def test_costas_pll_kernel_matches_plain_on_card(dt):
+    """S2 vs its plain version on the card: symbols equal, y within 1e-4
+    (f32; 1e-9 f64), theta within 1e-3; SER < 1e-3 once locked; one launch
+    counted."""
+    dev = require_cuda()
+    rng = np.random.default_rng(5)
+    T = 4096
+    sym = rng.integers(0, 4, T)
+    gray = np.array([1 + 1j, -1 + 1j, 1 - 1j, -1 - 1j]) / np.sqrt(2.0)
+    x = gray[sym] * np.exp(1j * (0.004 * np.arange(T) + 0.3)) + 0.02 * (
+        rng.standard_normal(T) + 1j * rng.standard_normal(T))
+    xt = torch.from_numpy(x).to(dev, dt)
+    before = cuda_scan.costas_pll_cuda.launches
+    yk, (thk, _) = qpsk_ops.qpsk_carrier_pll(xt, 0.02)
+    z = torch.zeros((), dtype=xt.real.dtype, device=dev)
+    yp, thp, _ = qpsk_ops.costas_pll_plain(xt, 0.02, float(np.sqrt(0.02)), z,
+                                           z)
+    torch.cuda.synchronize()
+    assert cuda_scan.costas_pll_cuda.launches == before + 1
+    tol = 1e-4 if dt == torch.complex64 else 1e-9
+    assert float((yk - yp).abs().max()) <= tol
+    assert abs(float(thk) - float(thp)) <= 10 * tol
+    assert torch.equal(qpsk_ops.qpsk_slice(yk), qpsk_ops.qpsk_slice(yp))
+    got = qpsk_ops.qpsk_slice(yk).cpu().numpy()
+    assert qpsk_ops.symbol_error_rate(sym[1024:], got[1024:]) < 1e-3
+
+
+def test_scan_kernels_reject_cpu_and_real_input():
+    require_cuda()
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_scan.agc_scan_cuda(agc_ops.agc_init(torch.float32, "cpu"),
+                                torch.zeros(8, dtype=torch.complex64), 0.9,
+                                0.1, -0.05, 1.0, -1e30, 100)
+    with pytest.raises(TypeError):
+        cuda_scan.costas_pll_cuda(torch.zeros(8, device="cuda"), 0.1, 0.3,
+                                  0.7, torch.zeros((), device="cuda"),
+                                  torch.zeros((), device="cuda"))
+
+
+def test_fir_measure_caches_per_device():
+    """fir_apply("measure") times both methods once per (ntaps, block,
+    dtype, device type): the card's winner is cached beside the CPU's."""
+    dev = require_cuda()
+    fir_ops._METHOD_CACHE.clear()
+    taps = torch.from_numpy(np.hanning(500)).to(torch.complex64)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(1 << 16)
+                         ).to(torch.complex64)
+    tail = torch.zeros(499, dtype=torch.complex64)
+    fir_ops.fir_apply(taps, tail, x, method="measure")
+    yk, _ = fir_ops.fir_apply(taps.to(dev), tail.to(dev), x.to(dev),
+                              method="auto")          # 500 taps: "measure"
+    keys = {k[3] for k in fir_ops._METHOD_CACHE}
+    assert keys == {"cpu", "cuda"}
+    yp, _ = fir_ops.fir_apply(taps, tail, x, method="fft")
+    assert snr_db(yk.cpu().numpy(), yp.numpy()) >= 90.0
+
+
+@pytest.mark.parametrize("override", [
+    dict(agc_mode="exact"), dict(agc_mode="parallel"),
+    dict(nco_mode="lut", fused_ddc="auto", agc_mode="parallel",
+         fir_precision="highest"),
+    dict(nco_mode="lut", fused_ddc="auto", agc_mode="exact", demod="qpsk",
+         fir_precision="highest")])
+def test_exact_and_parity_chains_on_card_match_cpu(override):
+    """The chains of phase 30 at 2^16 a block, three blocks: the card
+    (body kernel, the banded-Toeplitz FIR, S1) against the CPU's plain
+    versions, >= 90 dB (QPSK 60), phase word equal."""
+    dev = require_cuda()
+    blocks = (make_qpsk_blocks(3, 1 << 16)[0] if override.get("demod")
+              == "qpsk" else make_blocks(3, 1 << 16))
+    got, st = run_torch(blocks, device=dev, **override)
+    want, sw = run_torch(blocks, device="cpu", **override)
+    gate = 60.0 if override.get("demod") == "qpsk" else 90.0
+    assert snr_db(got, want) >= gate
+    assert int(st["nco_theta"]) == int(sw["nco_theta"])

@@ -154,7 +154,8 @@ def test_nco_fast_matches_jax(n, theta0):
     """Both branches of the factorized oscillator: V = 128 (n % 128 == 0)
     and the per-sample path."""
     d = nco.constrain(0.8)
-    got = nco.nco_complex_exponential(torch.tensor(theta0), d, n, "fast")
+    got = nco.nco_complex_exponential(torch.tensor(theta0), d, n,
+                                      mode="fast")
     want = np.asarray(jnco.nco_complex_exponential(
         jnp.uint32(theta0), d, n, mode="fast"))
     assert got.dtype == torch.complex64 and want.dtype == np.complex64
@@ -162,14 +163,23 @@ def test_nco_fast_matches_jax(n, theta0):
 
 
 def test_nco_exact_matches_jax():
+    """"exact" within 1e-12; "lut" (the reference's table, ported since the
+    LUT oscillator landed) bit-equal to the JAX package's CPU table read,
+    with the float64 default table and a float32 one."""
     d = nco.constrain(-1.3)
     got = nco.nco_complex_exponential(torch.tensor(3_000_000_000), d, 777,
-                                      "exact")
+                                      mode="exact")
     want = np.asarray(jnco.nco_complex_exponential(
         jnp.uint32(3_000_000_000), d, 777, mode="exact"))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nco.nco_complex_exponential(torch.tensor(0), d, 8, "lut")
+    for lut in (None, np.float32):
+        table = None if lut is None else nco.make_sine_lut(lut)
+        got = nco.nco_complex_exponential(torch.tensor(0), d, 8, table,
+                                          mode="lut")
+        want = np.asarray(jnco.nco_complex_exponential(
+            jnp.uint32(0), d, 8, table, mode="lut"))
+        assert got.dtype == torch.from_numpy(want).dtype
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("gain,energy", [(1.0, 1.0), (1.3, 0.02)])

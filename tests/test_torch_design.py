@@ -79,7 +79,8 @@ def test_mix_down_block_exact_matches_jax():
         np.complex64)
     d = nco.constrain(0.37)
     got, th = nco.mix_down_block(torch.from_numpy(x),
-                                 torch.tensor(4000000000, dtype=torch.int64), d)
+                                 torch.tensor(4000000000, dtype=torch.int64), d,
+                                 mode="exact")
     want, jth = jnco.mix_down_block(jnp.asarray(x), jnp.uint32(4000000000),
                                     jnp.uint32(d), mode="exact")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,

@@ -86,11 +86,15 @@ def _planar_blocks():
             for b in _tone_blocks(4 * 2048, 6, 0.2 / (2 * np.pi) + 0.001)]
 
 
-def _rx_cfg(demod, planar=False):
+def _rx_cfg(demod, planar=False, unfused=False):
     cfg = dict(agc_mode="block", demod=demod, nco_mode="exact",
                fused_ddc="auto", fir_precision="x3")
     if planar:
         cfg.update(fused_ddc="on", input_format="planar")
+    if unfused:
+        # the LUT-NCO parity staging; "highest", as JAX's CPU convolution
+        # refuses "x3"
+        cfg.update(nco_mode="lut", fir_precision="highest")
     return cfg
 
 
@@ -103,11 +107,12 @@ def _fir_blocks(mesh_shape):
 # ------------------------------------------------------------ the JAX side
 
 @functools.lru_cache(maxsize=None)
-def _jax_rx(demod, size, mesh_shape, planar=False):
+def _jax_rx(demod, size, mesh_shape, planar=False, unfused=False):
     """The JAX sharded chain over the blocks: (outputs, global states as
     plain dicts of numpy)."""
     mesh = parallel.make_mesh(*mesh_shape)
-    cfg = JaxRxChainConfig(dtype=jnp.complex64, **_rx_cfg(demod, planar))
+    cfg = JaxRxChainConfig(dtype=jnp.complex64,
+                           **_rx_cfg(demod, planar, unfused))
     init, apply = parallel.make_sharded_rx_chain(cfg, mesh)
     st = init() if planar else init(RX_C)
     blocks = _planar_blocks() if planar else _rx_blocks(demod, size)
@@ -190,7 +195,9 @@ def _cases(shape):
         ("chan", "channelizer", dict(M=16, K=8, frontend="xla",
                                      blocks=_tone_blocks(L_CHAN, 7, 3.0 / 16),
                                      dtype="complex128")),
-        ("unfused", "rx_chain_unfused", {}),
+        ("unfused", "rx_chain", dict(cfg=_rx_cfg("fm", unfused=True),
+                                     blocks=_rx_blocks("fm", "aligned"),
+                                     num_channels=RX_C)),
         ("fir", "fir", dict(taps=FIR_TAPS, blocks=_fir_blocks(shape))),
     ]
     if shape == (1, 4):
@@ -292,12 +299,23 @@ def test_sharded_fir_matches_jax(ranks):
 
 
 def test_local_unfused_raises(ranks):
-    """fused_ddc="off" (the unfused staging, which needs fir_decim_apply)
-    raises as the single-card chain does."""
-    _, res = ranks
-    for r in res:
-        assert r["unfused"].startswith("NotImplementedError: fused_ddc='off'")
-        assert "ROADMAP.md queue 1 item 7" in r["unfused"]
+    """local_unfused (fused_ddc="auto" with nco_mode="lut": the LUT mix,
+    fir_decim_apply with the mixed stream's halo, the block AGC on the
+    time-averaged energy, FM's seam), ported: C = 4 streams, two blocks
+    with the state carried, on both mesh shapes: >= 90 dB against JAX's
+    sharded chain; the phase word and fir_phase equal, the AGC as the
+    single-card tests hold it, fm_prev rtol 1e-4, and the FIR tail (the
+    MIXED stream, a complex product XLA's CPU takes with FMA) within 1e-6."""
+    shape, res = ranks
+    outs, states = _jax_rx("fm", "aligned", shape, unfused=True)
+    for b, (want, jst) in enumerate(zip(outs, states)):
+        got = _gather(res, shape, "unfused", "out", b, ("channel", "time"))
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert snr_db(got, want) >= 90.0
+        st = res[0]["unfused"]["state"][b]
+        np.testing.assert_allclose(st["fir_tail"], jst["fir_tail"], rtol=0,
+                                   atol=1e-6)
+        _check_state({**st, "fir_tail": jst["fir_tail"]}, jst, "fm")
 
 
 def test_sharded_fused_channelizer(r14):

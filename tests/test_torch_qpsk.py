@@ -5,7 +5,11 @@ recovery's frequency and phase estimates within 1e-6 and its derotated
 output >= 60 dB (BASELINE.json's QPSK bound: both sides take float32 FFTs
 with different roundings, and a difference in the estimate grows with t in
 the float32 derotation phase); the discriminator >= 90 dB (float32 angle of
-the same products).
+the same products).  The Costas loop (``qpsk_carrier_pll``, S2's plain
+version on the CPU): symbols equal, y within 1e-4 and theta within 1e-3 rad
+after 4096 steps (float32 sin/cos/atan2 of the two libraries differ in the
+last ulp; the loop's feedback keeps the difference small but not zero),
+1e-9 in complex128.
 """
 
 import jax.numpy as jnp
@@ -69,8 +73,37 @@ def test_demodulate_and_ser_match_jax():
     assert ser < 1e-3
     raw, y0 = qpsk.qpsk_demodulate(torch.from_numpy(x), recovery="none")
     assert torch.equal(y0, torch.from_numpy(x))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qpsk.qpsk_demodulate(torch.from_numpy(x), recovery="pll")
+    # recovery="pll", ported: the Costas loop on the first 4096 samples
+    got, y = qpsk.qpsk_demodulate(torch.from_numpy(x[:4096]), recovery="pll",
+                                  bandwidth=0.02)
+    want, wy = jqpsk.qpsk_demodulate(jnp.asarray(x[:4096]), recovery="pll",
+                                     bandwidth=0.02)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.complex64, 1e-4),
+                                        (np.complex128, 1e-9)])
+@pytest.mark.parametrize("f0,theta0,dtheta0", [(0.004, 0.0, 0.0),
+                                               (-0.02, 1.0, -0.01)])
+def test_carrier_pll_matches_jax(dtype, atol, f0, theta0, dtheta0):
+    """qpsk_carrier_pll over 4096 symbols with a carrier offset: y, theta
+    and dtheta against the JAX scan; decisions equal; locked (SER < 1e-3
+    past the first 1024)."""
+    sym, x = _qpsk_signal(9, 4096, f0, 0.3, noise=0.02)
+    x = x.astype(dtype)
+    y, (th, dth) = qpsk.qpsk_carrier_pll(torch.from_numpy(x), 0.02, theta0,
+                                         dtheta0)
+    wy, (wth, wdth) = jqpsk.qpsk_carrier_pll(jnp.asarray(x), 0.02, theta0,
+                                             dtheta0)
+    assert y.dtype == torch.from_numpy(x).dtype and th.dtype == y.real.dtype
+    np.testing.assert_allclose(y.numpy(), np.asarray(wy), rtol=0, atol=atol)
+    assert abs(float(th) - float(wth)) <= 10 * atol
+    assert abs(float(dth) - float(wdth)) <= atol
+    np.testing.assert_array_equal(qpsk.qpsk_slice(y).numpy(),
+                                  np.asarray(jqpsk.qpsk_slice(wy)))
+    assert qpsk.symbol_error_rate(sym[1024:],
+                                  qpsk.qpsk_slice(y).numpy()[1024:]) < 1e-3
 
 
 def test_fm_demodulate_matches_jax():

@@ -221,23 +221,35 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("override", [
-    dict(agc_mode="exact"), dict(agc_mode="parallel"),
-    dict(agc_mode="exact", demod="qpsk"), dict(fused_ddc="off"),
-    dict(fused_ddc="off", demod="am", input_format="ci16"),
-    dict(nco_mode="lut", fused_ddc="auto"), dict(impairment_bw=0.1),
-    dict(debug_checks=True), dict(fir_precision="default"),
-    dict(dtype=torch.complex128), dict(fir_taps=4), dict(fir_taps=300),
+    dict(fir_precision="default"), dict(dtype=torch.complex128),
+    dict(fir_taps=4), dict(fir_taps=300),
 ])
 def test_unported_settings_raise_not_implemented(override):
-    """Each setting outside config 4's ported branches names its ROADMAP
-    item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
+    """The fused route's settings its kernels do not take (single-pass
+    bf16, a float64 body, taps outside M < n <= 64*M) name their ROADMAP
+    entry; the unfused route takes them (tests/test_torch_rx_chain_parity.py
+    holds those against the JAX chain)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7b"):
         make_rx_chain(RxChainConfig(**{**CONFIG4, **override}), "cpu")
+    make_rx_chain(RxChainConfig(**{**CONFIG4, **override, "fused_ddc": "off",
+                                   "fir_precision": "highest"}), "cpu")
 
 
 def test_rx_chain_stream_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-        make_rx_chain_stream(RxChainConfig(**CONFIG4), 4096)
+    """The stream loop, ported: 3 blocks in one call equal 3 calls of the
+    block chain exactly, and debug_checks is refused as in the JAX
+    package."""
+    blocks = make_blocks(3, L=8192, seed=4)
+    init, apply_stream = make_rx_chain_stream(RxChainConfig(**CONFIG4), 8192,
+                                              "cpu")
+    got, st = apply_stream(init(), torch.from_numpy(np.concatenate(blocks,
+                                                                   axis=1)))
+    want, st_w = run_torch(blocks)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(st["nco_theta"]) == int(st_w["nco_theta"])
+    with pytest.raises(ValueError, match="debug_checks"):
+        make_rx_chain_stream(RxChainConfig(**{**CONFIG4,
+                                              "debug_checks": True}), 4096)
 
 
 @pytest.mark.parametrize("override", [dict(agc_mode="fast"),

@@ -209,11 +209,6 @@ def rx_chain(mesh, cfg, blocks, num_channels=None):
     return {"out": outs, "state": states}
 
 
-def rx_chain_unfused(mesh):
-    return _error(lambda: make_sharded_rx_chain(
-        RxChainConfig(fused_ddc="off"), mesh))
-
-
 def fir(mesh, taps, blocks):
     """sharded_fir over the global (C, L) blocks with the tail carried."""
     apply = sharded_fir(taps, mesh)
@@ -263,5 +258,5 @@ def k9_ipc(mesh, M, K, blocks, tail):
 
 
 CASES = {f.__name__: f for f in (halo_primitives, k9_frontend, k9_errors,
-                                 k9_hosts, channelizer, rx_chain, rx_chain_unfused,
+                                 k9_hosts, channelizer, rx_chain,
                                  fir, state_round_trip, k9_ipc)}

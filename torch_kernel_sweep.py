@@ -1,6 +1,7 @@
-"""Design sweeps of two of the port's kernels on one NVIDIA GPU.
+"""Design sweeps of the port's kernels and routes on one NVIDIA GPU.
 
-    python3 torch_kernel_sweep.py
+    python3 torch_kernel_sweep.py            # K6, the DDC body, K1
+    python3 torch_kernel_sweep.py fir-route  # the FIR's two card routes
 
 * K6 (csrc/iir_bank.cu) at T = 2^14, C = 256, S = 2 (ChannelBank's block):
   the chunk length Lc in {16, 32, 64, 128}, each timed over a CUDA graph of
@@ -18,6 +19,20 @@
   reciprocal) in place of atan2f, and two that give wrong audio to show
   what a part costs: the seams' dots left out, the discriminator left out.
 
+* ``fir-route``: the sliding correlation of ``ops/fir.py`` by its two
+  routes on the card, ``conv1d_mxu`` (cuDNN) and ``fir_toeplitz`` (the
+  banded-Toeplitz matmul), each timed over a CUDA graph of 10 calls, at
+  the shapes the port gives them: the unfused chain's decimating FIR
+  (4 to 300 complex64 taps at strides 2, 4 and 8 over 2^24 samples),
+  config 1's FIRFilter (64 taps, stride 1, blocks of 2^18 and 2^22),
+  short filters at stride 1, a 384-tap filter at stride 1 and a
+  3-branch polyphase bank.  Then config 1's block (``fir_apply``, 64
+  complex64 taps, 2^18 samples, the tail carried) by "matmul" with the
+  taps given as numpy (the classes' host copy) and as a card tensor
+  (copied to the host for the Toeplitz banks each block), and by "fft",
+  in turns of 20 blocks (numpy, tensor, fft, fft, tensor, numpy): ms a
+  block by CUDA events and the host's enqueue time.
+
 Prints one line a case with the card's name and power limit.  Needs one
 CUDA GPU; imports neither jax nor solid_dsp_tpu.
 """
@@ -32,7 +47,68 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import graph_ms, snr_db
+from chip_smoke import graph_ms, snr_db, timed
+
+
+FIR_ROUTE_SHAPES = (          # (taps, stride, outputs a sample, samples)
+    (64, 4, 1, 1 << 24), (4, 4, 1, 1 << 24), (300, 4, 1, 1 << 24),
+    (64, 2, 1, 1 << 24), (64, 8, 1, 1 << 24), (64, 1, 1, 1 << 18),
+    (64, 1, 1, 1 << 22), (384, 1, 1, 1 << 22), (48, 1, 3, 1 << 22),
+    (8, 4, 1, 1 << 24), (12, 4, 1, 1 << 24), (16, 4, 1, 1 << 24),
+    (24, 4, 1, 1 << 24), (32, 4, 1, 1 << 24), (4, 1, 1, 1 << 22),
+    (8, 1, 1, 1 << 22), (16, 1, 1, 1 << 22), (8, 8, 1, 1 << 24),
+    (16, 8, 1, 1 << 24), (32, 8, 1, 1 << 24), (16, 2, 1, 1 << 24))
+
+
+def fir_route_sweep(dev, smi) -> None:
+    """conv1d_mxu against fir_toeplitz at FIR_ROUTE_SHAPES, complex64 data
+    and taps (the chains' and the classes' types)."""
+    from solid_dsp_tpu_torch.ops import fir as fir_ops
+
+    rng = np.random.default_rng(27)
+    for n, stride, O, L in FIR_ROUTE_SHAPES:
+        tn = (rng.standard_normal((n, O)) / n).astype(np.complex64)
+        tn = tn[:, 0] if O == 1 else tn
+        tt = torch.from_numpy(tn).to(dev)
+        x = torch.from_numpy((rng.standard_normal(L + n - 1) + 1j
+                              * rng.standard_normal(L + n - 1)
+                              ).astype(np.complex64)).to(dev)
+        a = fir_ops.conv1d_mxu(x, tt, stride=stride)
+        b = fir_ops.fir_toeplitz(x, tn, stride=stride)
+        conv = graph_ms(lambda: fir_ops.conv1d_mxu(x, tt, stride=stride), 10)
+        toep = graph_ms(lambda: fir_ops.fir_toeplitz(x, tn, stride=stride),
+                        10)
+        print(f"[fir route n={n} stride={stride} O={O} L=2^"
+              f"{L.bit_length() - 1}] conv1d {conv:.4f} ms, toeplitz "
+              f"{toep:.4f} ms (CUDA graph of 10 calls), toeplitz/conv1d "
+              f"{toep / conv:.3f}, {snr_db(b.cpu().numpy(), a.cpu().numpy()):.1f}"
+              f" dB apart | {smi}", flush=True)
+        del x, a, b
+
+    taps = torch.from_numpy(rng.standard_normal(64).astype(np.complex64)
+                            / 8).to(dev)
+    host = taps.cpu().numpy()
+    x = torch.from_numpy((rng.standard_normal(1 << 18) + 1j
+                          * rng.standard_normal(1 << 18)
+                          ).astype(np.complex64)).to(dev)
+    cases = {"matmul, numpy taps": (host, "matmul"),
+             "matmul, tensor taps": (taps, "matmul"),
+             "fft": (taps, "fft")}
+    got = {k: [] for k in cases}
+    for label in (*cases, *reversed(cases)):
+        t, method = cases[label]
+        box = {"tail": torch.zeros(63, dtype=torch.complex64, device=dev)}
+
+        def step():
+            _, box["tail"] = fir_ops.fir_apply(t, box["tail"], x, 1.0,
+                                               method)
+        got[label].append(timed(step, 20))
+    for label, runs in got.items():
+        print(f"[config 1 block, 64 taps, 2^18, {label}] "
+              + ", ".join(f"{w:.4f} ms a block (host {h:.4f})"
+                          for w, h in runs)
+              + f"; {(1 << 18) / (min(w for w, _ in runs) * 1e3):.1f} "
+              f"Msamples/s at best | {smi}", flush=True)
 
 
 def main() -> None:
@@ -50,6 +126,9 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] == ["fir-route"]:
+        fir_route_sweep(dev, smi)
+        return
     cuda_build.build()
 
     M5, T = 256, 1 << 14
