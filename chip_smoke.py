@@ -29,6 +29,13 @@ solid_dsp_tpu_torch/csrc/:
   receive chains (the LUT NCO, fir_decim_apply, the exact AGC through the
   sequential-scan kernel S1 and the parallel Newton AGC) and the QPSK
   Costas loop through S2 (seq_scan.cu);
+* the IIR layer and the rate changers (ops/iir.py, ops/zerophase.py,
+  ops/cic.py, ops/halfband.py, ops/resample.py, ops/autocorr.py), the FM
+  broadcast-stereo back end and the DDC (models/fm.py, models/ddc.py): the
+  IIR filters' w-recurrence through the sequential-scan kernel S3
+  (seq_scan.cu), at the TPU sweep's sizes (bench_all.py's CIC, halfband
+  and arbitrary-resampler rows, 2^22 samples) and a 192 kHz stereo
+  multiplex of 2^22 samples;
 * parallel/, config 5's channels sharded over time and config 4 at scale,
   on an NCCL group of one rank (one card): the fused halo-exchange front
   end make_fused_channelizer_frontend through its kernel (K9,
@@ -160,6 +167,34 @@ Phases, one line each:
      share.
      Phase 24 also runs make_sharded_rx_chain's unfused staging
      (local_unfused) at world size 1 against make_rx_chain.
+ 32. S3 (the IIR w-recurrence, seq_scan.cu) bit-equal to its plain
+     version on the card at T = 2^12 (two blocks, the history carried),
+     k = 1, 2, 8, in float32, float64, complex64 and complex128, on 1 and
+     256 lanes; the risky pole of tests/test_iir.py:210-223 (radius
+     0.9999, 2^20 samples) through IIRFilter(float32, "auto" -> "scan"),
+     >= 80 dB against S3 in float64, itself >= 200 dB against scipy's
+     lfilter; pll_active_lag(0.02) as a float32 SECOND_ORDER filter (S3)
+     within 1e-5 of its CPU run; the 8th-order elliptic cascade on complex64
+     2^22-sample blocks by "scan" and "parallel", and S3 over (2^16, 256)
+     lanes and one lane at 2^22: ms, Msamples/s, host enqueue, device busy
+     and idle share;
+ 33. CICDecimator(8, 4), HalfbandDecimator(8), MultistageDecimator(16),
+     HalfbandInterpolator(8), CICInterpolator(8, 4) and
+     ArbitraryResampler at 0.37 (2^22) and 2.5 (2^21), on the grid
+     (block_len) and host-anchored, two complex64 blocks each against
+     their own complex128 run within the tolerance of the matching JAX
+     test (named beside each gate), and their throughput; flush() in
+     block_len mode (the reference's fault F1, repaired in the port);
+ 34. the stereo chain at fs = 192 kHz, 2^22 samples (fm_stereo_mpx ->
+     fm_stereo_decode, without and with the 75 us de-emphasis; the
+     separation, pilot and tone-power gates of tests/test_models.py:426-
+     471), the CLI's audio tail (ArbitraryResampler(48000/192000) with
+     flush, then the one-pole de-emphasis by iir_apply), DDC(0.7, 8, 4, 2,
+     48000/44100) on two complex64 2^22-sample blocks against its
+     complex128 run, filtfilt_sos (8th-order elliptic, float64, "scan")
+     at 2^20 against scipy's sosfiltfilt, AutoCorrelator(64, 16) at 2^22
+     against its complex128 run; each timed (Msamples/s, host enqueue,
+     device busy, idle share).
 
 Then the kernels' JSON line (each kernel's launches on the main paths; its
 time, by CUDA events over a CUDA graph of 20 launches so that the host's
@@ -259,6 +294,33 @@ PLL_BW = 0.02
 L_EXACT = 1 << 18         # the exact-AGC chains' blocks (the TPU row's size)
 N_EXACT_TIMED = 5
 # H100 SXM peaks (NVIDIA's data sheet)
+T_S3 = 1 << 12            # S3 against its plain version, two blocks
+S3_LANES = 256
+T_RISKY = 1 << 20         # tests/test_iir.py:210-223's block
+RISKY_MIN_SNR_DB = 80.0
+LFILTER_MIN_SNR_DB = 200.0  # S3 in float64 against scipy's lfilter
+T_PLL = 1 << 12
+PLL_RTOL = 1e-5           # x max|y|: the b taps' conv summed in another order
+L_IIR = 1 << 22           # the elliptic cascade's timed block
+T_S3_LANES = 1 << 16      # S3's per-lane rate: (2^16, 256)
+L_RS = 1 << 22            # bench_all.py:550-568 and 819-836's blocks
+L_RS_UP = 1 << 21
+FIR_C64_RTOL = 1e-5       # x max|y|: complex64 against complex128
+GRID_ATOL = 2e-4          # tests/test_resample.py:307-336
+LEGACY_MIN_SNR_DB = 50.0  # tests/test_resample.py:171-174 (complex64)
+FS_STEREO = 192000.0      # tests/test_models.py:426-471
+L_STEREO = 1 << 22
+SEPARATION_MIN_DB = 40.0
+TONE_POW_ATOL = 0.01
+PILOT_ATOL = 0.005
+L_FILTFILT = 1 << 20
+FILTFILT_PAD = 16384      # above the cascade's transient pad (8262)
+FILTFILT_ATOL = 1e-12     # tests/test_zerophase.py:22-42: interior
+FILTFILT_EDGE_ATOL = 1e-5
+DDC_MIN_SNR_DB = 50.0     # complex64 against complex128 (Farrow's float32
+DDC_F_ATOL = 1e-4         # positions); tests/test_ddc.py:41-55's tone
+AC_W, AC_D = 64, 16       # the autocorrelator's window and delay
+
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
@@ -1979,6 +2041,418 @@ def scan_phases(dev, smi) -> list:
     return entries
 
 
+def one_pole_gain(f: float, tau: float, fs: float) -> float:
+    """|H| of the one-pole de-emphasis a / (1 - (1 - a) e^{-j 2 pi f / fs}),
+    a = 1 - e^{-1 / (tau fs)}, at f Hz."""
+    a = 1.0 - np.exp(-1.0 / (tau * fs))
+    return float(abs(a / (1.0 - (1.0 - a) * np.exp(-2j * np.pi * f / fs))))
+
+
+def tone_power(x: np.ndarray, f: float, fs: float, edge: int) -> float:
+    """|mean(x e^{-j 2 pi f n / fs})|^2 past ``edge`` samples at each end:
+    (A / 2)^2 for a real tone of amplitude A."""
+    n = np.arange(len(x))[edge:len(x) - edge]
+    return float(np.abs(np.mean(x[edge:len(x) - edge]
+                                * np.exp(-2j * np.pi * f / fs * n))) ** 2)
+
+
+def rate_line(label, fn, n, L, smi) -> str:
+    """One throughput line: Msamples/s of input by CUDA events over n calls,
+    host enqueue, the profiler's device busy time and the idle share.  The
+    profiler records ~100 ms of calls (1 to 10): it drops the first
+    records after it starts, so a single short call can show none."""
+    wall, host = timed(fn, n)
+    busy, top = profiled_busy(fn, max(1, min(10, int(100.0 / wall))))
+    return (f"[{label}] {L / (wall * 1e3):.1f} Msamples/s (wall {wall:.4f} "
+            f"ms a block over {n}), host {host:.4f} ms a block, device busy "
+            f"{busy:.4f} ms, idle {max(0.0, 1 - busy / wall):.0%}; largest "
+            f"kernels: {top} | {smi}")
+
+
+def iir_phases(dev, smi) -> list:
+    """Phases 32-34: S3 against its plain version, the IIR layer, the
+    decimators and resamplers, the FM stereo back end and the DDC.  Returns
+    S3's kernels entry."""
+    import scipy.signal as sps
+
+    from solid_dsp_tpu_torch.design import iirdes
+    from solid_dsp_tpu_torch.models import ddc as ddc_models
+    from solid_dsp_tpu_torch.models import fm as fm_models
+    from solid_dsp_tpu_torch.ops import autocorr, cic, cuda_scan, halfband
+    from solid_dsp_tpu_torch.ops import iir as iir_ops
+    from solid_dsp_tpu_torch.ops import resample, zerophase
+
+    rng = np.random.default_rng(SEED + 32)
+    s3 = cuda_scan.iir_scan_cuda
+    C64, C128 = torch.complex64, torch.complex128
+
+    def on(a, dt=None):
+        return torch.from_numpy(np.asarray(a)).to(dev, dt)
+
+    # 32 (i). S3 against iir_scan_torch on the card: T = 2^12 as two blocks
+    # with the history carried, k = 1, 2, 8, every type, 1 and 256 lanes
+    results = []
+    for dt in (torch.float32, torch.float64, C64, C128):
+        for k in (1, 2, 8):
+            for lanes in ((), (S3_LANES,)):
+                # stable: poles at radius 0.9 (real ones for a real type)
+                z = np.exp(2j * np.pi * rng.random(k))
+                a = np.poly(0.9 * (z if dt.is_complex else z.real))[1:]
+                x = rng.standard_normal((T_S3, *lanes))
+                h0 = rng.standard_normal((*lanes, k))
+                if dt.is_complex:
+                    x = x + 1j * rng.standard_normal(x.shape)
+                a, x, h0 = on(a, dt), on(x, dt), on(h0, dt)
+                h = T_S3 // 2
+                w1, g1 = s3(a, h0, x[:h])
+                w2, g2 = s3(a, g1, x[h:])
+                p1, q1 = iir_ops.iir_scan_torch(a, h0, x[:h])
+                p2, q2 = iir_ops.iir_scan_torch(a, q1, x[h:])
+                wk, wp = torch.cat([w1, w2]), torch.cat([p1, p2])
+                results.append((str(dt).replace("torch.", ""), k,
+                                lanes[0] if lanes else 1,
+                                torch.equal(wk, wp) and torch.equal(g2, q2),
+                                float((wk - wp).abs().max())))
+    bit_equal = all(r[3] for r in results)
+    print(f"[32 S3 vs plain, T=2^12 as two blocks with the history carried, "
+          f"k=1/2/8, float32/float64/complex64/complex128, 1 and "
+          f"{S3_LANES} lanes] bit-equal in all {len(results)} cases "
+          f"{bit_equal}; max |dw| {max(r[4] for r in results):.3g}; not "
+          f"bit-equal: {[r[:3] for r in results if not r[3]]}", flush=True)
+    if not bit_equal:
+        fail("phase 32: S3 disagrees with its plain version")
+
+    # 32 (ii). The risky pole (tests/test_iir.py:210-223): radius 0.9999,
+    # b = [0.01, 0, 0], float32 IIRFilter under "auto" -> "scan" (S3);
+    # truth S3 in float64, cross-checked against scipy's lfilter
+    a_r = np.array([1.0, -2 * 0.9999 * np.cos(0.3), 0.9999 ** 2])
+    b_r = np.array([0.01, 0.0, 0.0])
+    xr = rng.standard_normal(T_RISKY)
+    truth, _ = iir_ops.iir_apply(on(b_r), on(a_r[1:]),
+                                 torch.zeros(2, dtype=torch.float64,
+                                             device=dev), on(xr), "scan")
+    truth = truth.cpu().numpy()
+    snr_lf = snr_db(truth, sps.lfilter(b_r, a_r, xr))
+    s3.launches = 0
+    fr = iir_ops.IIRFilter(list(b_r), list(a_r), dtype=torch.float32,
+                           device=dev)
+    yr = fr.execute_block(on(xr, torch.float32))
+    torch.cuda.synchronize()
+    risky_launches = s3.launches
+    snr_r = snr_db(yr.cpu().numpy(), truth)
+    # pll_active_lag(0.02, 1/sqrt(2), 1000) as a float32 SECOND_ORDER
+    # filter (a pole at |z| = 1): S3 on the card against the same filter on
+    # the CPU (the plain version), two blocks
+    num, den = iirdes.pll_active_lag(0.02, 1.0 / np.sqrt(2.0), 1000.0)
+    xp = rng.standard_normal(T_PLL).astype(np.float32)
+    fk = iir_ops.IIRFilter(num, den, iir_ops.IIRFilterType.SECOND_ORDER,
+                           torch.float32, device=dev)
+    fc = iir_ops.IIRFilter(num, den, iir_ops.IIRFilterType.SECOND_ORDER,
+                           torch.float32, device="cpu")
+    s3.launches = 0
+    yk = torch.cat([fk.execute_block(on(b)) for b in np.split(xp, 2)])
+    torch.cuda.synchronize()
+    pll_launches = s3.launches
+    yc = torch.cat([fc.execute_block(torch.from_numpy(b))
+                    for b in np.split(xp, 2)])
+    pll_err = float((yk.cpu() - yc).abs().max()) / float(yc.abs().max())
+    pll_methods = [sec.method for sec in fk.second_order_filters()]
+    print(f"[32 risky pole r=0.9999, T=2^20, IIRFilter float32 auto] method "
+          f"{fr.method}, S3 launches {risky_launches}, {snr_r:.1f} dB against "
+          f"float64 S3 (gate {RISKY_MIN_SNR_DB}); float64 S3 against scipy "
+          f"lfilter {snr_lf:.1f} dB (gate {LFILTER_MIN_SNR_DB}); "
+          f"pll_active_lag(0.02) float32 SECOND_ORDER: methods {pll_methods}, "
+          f"S3 launches {pll_launches}, max|dy| {pll_err:.3g} x max|y| of the "
+          f"CPU run (gate {PLL_RTOL})", flush=True)
+    if not (fr.method == "scan" and risky_launches == 1
+            and snr_r >= RISKY_MIN_SNR_DB and snr_lf >= LFILTER_MIN_SNR_DB
+            and pll_methods == ["scan"] and pll_launches == 2
+            and pll_err <= PLL_RTOL):
+        fail("phase 32: the risky-pole or PLL filter is wrong")
+    s3_main = risky_launches + pll_launches
+
+    # 32 (iii). The elliptic cascade (8th order, 4 sections) on complex64
+    # 2^22-sample blocks by "scan" (S3, one launch a section) and by
+    # "parallel" (the doubling scan in torch ops); S3 over (2^16, 256)
+    ff, fb = iirdes.sos_to_iir_coeffs(iirdes.iirdes_sos("elliptic", 8, 0.05))
+    xe = on(cnoise(rng, L_IIR))
+    outs = {}
+    for m in ("scan", "parallel"):
+        f = iir_ops.IIRFilter(ff, fb, iir_ops.IIRFilterType.SECOND_ORDER,
+                              C64, method=m, device=dev)
+        outs[m] = f.execute_block(xe).cpu().numpy()
+        print(rate_line(f"32 elliptic-8 IIRFilter(SECOND_ORDER, complex64) "
+                        f"method {m}, 2^22-sample blocks",
+                        lambda f=f: f.execute_block(xe), 2, L_IIR, smi),
+              flush=True)
+    print(f"[32 elliptic-8, scan against parallel on the first block] "
+          f"{snr_db(outs['parallel'], outs['scan']):.1f} dB (pole radius "
+          f"{max(iir_ops.max_pole_radius(r[3:]) for r in iirdes.iirdes_sos('elliptic', 8, 0.05)):.5f}, "
+          f"beyond PARALLEL_SAFE_RADIUS_32BIT)", flush=True)
+    a2 = on(iirdes.iirdes_sos("elliptic", 8, 0.05)[0, 4:], C64)
+    xl = on(cnoise(rng, (T_S3_LANES, S3_LANES)))
+    hl = torch.zeros((S3_LANES, 2), dtype=C64, device=dev)
+    s3_ms = graph_ms(lambda: s3(a2, hl, xl), 5)
+    s3_one = cuda_ms(lambda: s3(a2, hl[0], xe), 2)
+    box = {}
+
+    def s3_plain():
+        box["w"] = iir_ops.iir_scan_torch(a2, hl, xl)
+    s3_plain_ms = cuda_ms_once(s3_plain)
+    wk, _ = s3(a2, hl, xl)
+    s3_err = float((wk - box["w"][0]).abs().max())
+    n_s3 = T_S3_LANES * S3_LANES
+    # bytes: each sample read and written once (8 + 8), the history in and
+    # out, the coefficients; operations: a complex multiply-add a tap
+    b_s3 = bound_ms(16 * n_s3 + 2 * 16 * S3_LANES + 16, 8 * 2 * n_s3,
+                    FP32_FLOPS)
+    print(f"[32 S3 times, complex64, k=2] ({T_S3_LANES}, {S3_LANES}) lanes: "
+          f"{s3_ms:.4f} ms (CUDA graph of 5), {s3_ms * 1e3 / T_S3_LANES:.4f} "
+          f"us a step of all lanes, {s3_ms * 1e3 / n_s3:.6f} us a sample, "
+          f"bound {b_s3[0]:.5f} ms ({b_s3[1]}), plain {s3_plain_ms:.1f} ms, "
+          f"max|dw| {s3_err:.3g}; one lane at 2^22: {s3_one:.3f} ms, "
+          f"{s3_one * 1e3 / L_IIR:.4f} us a sample | {smi}", flush=True)
+
+    # 33. Decimators and resamplers at the TPU sweep's sizes, complex64
+    # against their own complex128 run on the card, two blocks each
+    paths = (
+        ("CICDecimator(8, 4)", lambda dt: cic.CICDecimator(
+            8, 4, dtype=dt, device=dev), L_RS, "fir", "tests/test_cic.py:32-52"),
+        ("HalfbandDecimator(8)", lambda dt: halfband.HalfbandDecimator(
+            8, dtype=dt, device=dev), L_RS, "fir",
+         "tests/test_halfband.py:136-158"),
+        ("MultistageDecimator(16)", lambda dt: halfband.MultistageDecimator(
+            16, dtype=dt, device=dev), L_RS, "fir",
+         "tests/test_halfband.py:168-216"),
+        ("HalfbandInterpolator(8)", lambda dt: resample.HalfbandInterpolator(
+            8, dtype=dt, device=dev), L_RS_UP, "fir",
+         "tests/test_resample.py:33-58"),
+        ("CICInterpolator(8, 4)", lambda dt: cic.CICInterpolator(
+            8, 4, dtype=dt, device=dev), L_RS_UP, "fir",
+         "tests/test_cic.py:55-79"),
+        ("ArbitraryResampler(0.37, block_len=2^22)",
+         lambda dt: resample.ArbitraryResampler(0.37, dtype=dt,
+                                                block_len=L_RS, device=dev),
+         L_RS, "grid", "tests/test_resample.py:307-336"),
+        ("ArbitraryResampler(2.5, block_len=2^21)",
+         lambda dt: resample.ArbitraryResampler(2.5, dtype=dt,
+                                                block_len=L_RS_UP,
+                                                device=dev),
+         L_RS_UP, "grid", "tests/test_resample.py:307-336"),
+        ("ArbitraryResampler(0.37), host-anchored",
+         lambda dt: resample.ArbitraryResampler(0.37, dtype=dt, device=dev),
+         L_RS, "legacy", "tests/test_resample.py:171-174"),
+        ("ArbitraryResampler(2.5), host-anchored",
+         lambda dt: resample.ArbitraryResampler(2.5, dtype=dt, device=dev),
+         L_RS_UP, "legacy", "tests/test_resample.py:171-174"),
+    )
+    ok33 = True
+    for label, make, L, kind, test in paths:
+        x2 = cnoise(rng, 2 * L)
+        r64, r128 = make(C64), make(C128)
+        y64 = torch.cat([r64.execute_block(on(b)) for b in np.split(x2, 2)])
+        y128 = torch.cat([r128.execute_block(on(b, C128))
+                          for b in np.split(x2, 2)])
+        y64, y128 = y64.cpu().numpy(), y128.cpu().numpy()
+        if kind == "fir":
+            err = float(np.abs(y64 - y128).max() / np.abs(y128).max())
+            good, gate = err <= FIR_C64_RTOL, (f"max|dy| {err:.3g} x max|y| "
+                                               f"(gate {FIR_C64_RTOL})")
+        elif kind == "grid":
+            err = float(np.abs(y64 - y128).max())
+            good, gate = err <= GRID_ATOL, (f"max|dy| {err:.3g} (gate "
+                                            f"{GRID_ATOL})")
+        else:
+            err = snr_db(y64, y128)
+            good, gate = err >= LEGACY_MIN_SNR_DB, (f"{err:.1f} dB (gate "
+                                                    f"{LEGACY_MIN_SNR_DB})")
+        good = good and y64.shape == y128.shape and bool(
+            np.all(np.isfinite(y64)))
+        ok33 = ok33 and good
+        xb = on(x2[:L])
+        print(f"[33 {label}, 2 x {L} complex64 vs its complex128 run] {gate}"
+              f", {test}; outputs {y64.shape[-1]}", flush=True)
+        print(rate_line(f"33 {label}", lambda r=r64: r.execute_block(xb), 3,
+                        L, smi), flush=True)
+    # F1: flush() in block_len mode drains the tail with whole zero blocks
+    xt = (np.exp(2j * np.pi * 0.003 * np.arange(2 * L_RS))
+          ).astype(np.complex64)
+    rf = resample.ArbitraryResampler(0.37, block_len=L_RS, device=dev)
+    yf = torch.cat([rf.execute_block(on(b)) for b in np.split(xt, 2)])
+    tail = rf.flush().cpu().numpy()
+    total = yf.shape[-1] + len(tail)
+    f1_ok = (rf._grid is not None and total >= round(2 * L_RS * 0.37)
+             and np.abs(tail[:max(1, len(tail) // 4)]).max() > 0.1
+             and len(resample.ArbitraryResampler(1.0, block_len=L_RS,
+                                                 device=dev).flush()) == 0)
+    print(f"[33 F1 ArbitraryResampler(0.37, block_len=2^22).flush()] "
+          f"{len(tail)} samples drained, {total} outputs for "
+          f"{2 * L_RS} inputs (want >= {round(2 * L_RS * 0.37)}), the tail's "
+          f"first quarter peaks at {np.abs(tail[:len(tail) // 4]).max():.3f} "
+          f"(gate 0.1, tests/test_resample.py:186-202), identity flush "
+          f"empty: {f1_ok}", flush=True)
+    if not (ok33 and f1_ok):
+        fail("phase 33: a decimator or resampler is wrong")
+
+    # 34 (a). The stereo chain at fs = 192 kHz, 2^22 samples: L 1 kHz, R
+    # 2.5 kHz through the multiplex and the decoder, without and with the
+    # 75 us de-emphasis
+    k = np.arange(L_STEREO)
+    lt = on(np.sin(2 * np.pi * 1000 / FS_STEREO * k), torch.float32)
+    rt = on(np.sin(2 * np.pi * 2500 / FS_STEREO * k), torch.float32)
+    mpx = fm_models.fm_stereo_mpx(lt, rt, FS_STEREO)
+    ok34 = True
+    dec = {}
+    for tau in (0.0, 75e-6):
+        l_o, r_o, pilot = fm_models.fm_stereo_decode(mpx, FS_STEREO,
+                                                     deemphasis_tau=tau)
+        dec[tau] = l_o
+        l_o = l_o.cpu().numpy().astype(np.float64)
+        r_o = r_o.cpu().numpy().astype(np.float64)
+        g1 = one_pole_gain(1000, tau, FS_STEREO) if tau else 1.0
+        g2 = one_pole_gain(2500, tau, FS_STEREO) if tau else 1.0
+        p_l, p_r = (tone_power(l_o, 1000, FS_STEREO, 2000),
+                    tone_power(r_o, 2500, FS_STEREO, 2000))
+        sep_l = 10 * np.log10(p_l / tone_power(l_o, 2500, FS_STEREO, 2000))
+        sep_r = 10 * np.log10(p_r / tone_power(r_o, 1000, FS_STEREO, 2000))
+        good = (abs(float(pilot) - 0.1) < PILOT_ATOL
+                and abs(p_l - 0.25 * g1 ** 2) < TONE_POW_ATOL
+                and abs(p_r - 0.25 * g2 ** 2) < TONE_POW_ATOL
+                and min(sep_l, sep_r) > SEPARATION_MIN_DB)
+        ok34 = ok34 and good
+        print(f"[34 stereo decode, fs 192 kHz, 2^22, de-emphasis "
+              f"{tau * 1e6:g} us] pilot {float(pilot):.5f} (0.1 +- "
+              f"{PILOT_ATOL}), tone powers L {p_l:.5f} R {p_r:.5f} (want "
+              f"{0.25 * g1 ** 2:.5f} / {0.25 * g2 ** 2:.5f} +- "
+              f"{TONE_POW_ATOL}), separation {sep_l:.1f} / {sep_r:.1f} dB "
+              f"(gate {SEPARATION_MIN_DB}; tests/test_models.py:426-471)",
+              flush=True)
+    print(rate_line("34 fm_stereo_decode(deemphasis 75 us), 2^22 MPX samples",
+                    lambda: fm_models.fm_stereo_decode(
+                        mpx, FS_STEREO, deemphasis_tau=75e-6), 3, L_STEREO,
+                    smi), flush=True)
+
+    # 34 (b). The CLI's audio tail on the decoded left rail: resample to
+    # 48 kHz (execute_block + flush), then the one-pole de-emphasis at the
+    # audio rate through iir_apply
+    def audio_tail():
+        r = resample.ArbitraryResampler(48000 / FS_STEREO, dtype=C64,
+                                        device=dev)
+        a = torch.cat([r.execute_block(dec[75e-6].to(C64)), r.flush()])
+        alpha = float(np.exp(-1.0 / (75e-6 * 48000)))
+        return iir_ops.iir_apply(
+            torch.tensor([1.0 - alpha], dtype=C64, device=dev),
+            torch.tensor([-alpha], dtype=C64, device=dev),
+            iir_ops.iir_init(1, device=dev), a)[0]
+    au = audio_tail().cpu().numpy()
+    want_p = 0.25 * (one_pole_gain(1000, 75e-6, FS_STEREO)
+                     * one_pole_gain(1000, 75e-6, 48000)) ** 2
+    p_au = tone_power(au.real, 1000, 48000, 1000)
+    good = (len(au) >= round(L_STEREO / 4) and bool(np.all(np.isfinite(au)))
+            and abs(p_au - want_p) < TONE_POW_ATOL)
+    ok34 = ok34 and good
+    print(f"[34 the CLI's audio tail: ArbitraryResampler(48000/192000) + "
+          f"flush, one-pole de-emphasis by iir_apply] {len(au)} samples (want "
+          f">= {round(L_STEREO / 4)}), the 1 kHz tone's power {p_au:.5f} "
+          f"(want {want_p:.5f} +- {TONE_POW_ATOL})", flush=True)
+    print(rate_line("34 the CLI's audio tail, 2^22 samples at 192 kHz",
+                    audio_tail, 3, L_STEREO, smi), flush=True)
+
+    # 34 (c). DDC(0.7, 8, 4, 2, 48000/44100) on two complex64 2^22-sample
+    # blocks of a tone 0.0015 cycles/sample above the carrier, against its
+    # complex128 run (tests/test_ddc.py:41-55)
+    fc_ddc, delta = 0.7, 0.0015
+    kk = np.arange(2 * L_RS)
+    xd = np.exp(1j * (fc_ddc * kk + 2 * np.pi * delta * kk))
+    ddcs = {dt: ddc_models.DDC(fc_ddc, cic_rate=8, cic_stages=4, fir_decim=2,
+                               ratio=48000 / 44100, dtype=dt, device=dev)
+            for dt in (C64, C128)}
+    yd = {dt: torch.cat([d.execute_block(on(b, dt))
+                         for b in np.split(xd, 2)]).cpu().numpy()
+          for dt, d in ddcs.items()}
+    snr_d = snr_db(yd[C64], yd[C128])
+    steady = yd[C64][len(yd[C64]) // 2:]
+    f_meas = float(np.mean(np.diff(np.unwrap(np.angle(steady))))
+                   / (2 * np.pi))
+    f_want = delta * ddcs[C64].decimation
+    good = (snr_d >= DDC_MIN_SNR_DB and abs(f_meas - f_want) < DDC_F_ATOL
+            and bool(np.all(np.isfinite(yd[C64]))))
+    ok34 = ok34 and good
+    print(f"[34 DDC(0.7, 8, 4, 2, 48000/44100), 2 x 2^22 complex64] "
+          f"{len(yd[C64])} outputs, {snr_d:.1f} dB against complex128 (gate "
+          f"{DDC_MIN_SNR_DB}), tone {f_meas:.7f} want {f_want:.7f} (gate "
+          f"{DDC_F_ATOL})", flush=True)
+    xd0 = on(xd[:L_RS], C64)
+    print(rate_line("34 DDC complex64, 2^22-sample blocks",
+                    lambda: ddcs[C64].execute_block(xd0), 3, L_RS, smi),
+          flush=True)
+
+    # 34 (d). filtfilt_sos, the elliptic cascade (4 sections) at 2^20 in
+    # float64 by "scan" (S3, twice a section) against scipy's sosfiltfilt
+    sos = iirdes.iirdes_sos("elliptic", 8, 0.05)
+    xs = rng.standard_normal(L_FILTFILT)
+    pad = FILTFILT_PAD
+    s3.launches = 0
+    yff = zerophase.filtfilt_sos(sos[:, :3], sos[:, 3:], on(xs), pad=pad,
+                                 method="scan")
+    torch.cuda.synchronize()
+    ff_launches = s3.launches
+    s3_main += ff_launches
+    yff = yff.cpu().numpy()
+    ref = sps.sosfiltfilt(sos, xs, padtype="odd", padlen=pad)
+    e_in = float(np.abs(yff - ref)[2 * pad:-2 * pad].max())
+    e_all = float(np.abs(yff - ref).max())
+    good = (ff_launches == 2 * len(sos) and e_in <= FILTFILT_ATOL
+            and e_all <= FILTFILT_EDGE_ATOL)
+    ok34 = ok34 and good
+    print(f"[34 filtfilt_sos elliptic-8, float64, 2^20, method scan] S3 "
+          f"launches {ff_launches} (want {2 * len(sos)}), interior max|dy| "
+          f"{e_in:.3g} (gate {FILTFILT_ATOL}), whole {e_all:.3g} (gate "
+          f"{FILTFILT_EDGE_ATOL}) against scipy sosfiltfilt "
+          f"(tests/test_zerophase.py:22-42)", flush=True)
+    sb, sa = on(sos[:, :3], torch.float32), on(sos[:, 3:], torch.float32)
+    xs32 = on(xs, torch.float32)
+    for m in ("scan", "parallel"):
+        print(rate_line(f"34 filtfilt_sos elliptic-8, float32, 2^20, method "
+                        f"{m}", lambda m=m: zerophase.filtfilt_sos(
+                            sb, sa, xs32, pad=pad, method=m), 2, L_FILTFILT,
+                        smi), flush=True)
+
+    # 34 (e). AutoCorrelator(64, 16) on two 2^22-sample blocks, complex64
+    # against its complex128 run (tests/test_autocorr.py: 1e-10 at
+    # complex128)
+    xa = cnoise(rng, 2 * L_RS)
+    acs = {dt: autocorr.AutoCorrelator(AC_W, AC_D, dtype=dt, device=dev)
+           for dt in (C64, C128)}
+    ya = {dt: torch.cat([a.execute_block(on(b, dt))
+                         for b in np.split(xa, 2)]).cpu().numpy()
+          for dt, a in acs.items()}
+    e_ac = float(np.abs(ya[C64] - ya[C128]).max() / np.abs(ya[C128]).max())
+    e_en = abs(acs[C64].get_energy() / acs[C128].get_energy() - 1.0)
+    good = e_ac <= FIR_C64_RTOL and e_en <= FIR_C64_RTOL
+    ok34 = ok34 and good
+    print(f"[34 AutoCorrelator({AC_W}, {AC_D}), 2 x 2^22 complex64 vs "
+          f"complex128] max|dy| {e_ac:.3g} x max|y|, energy rel err "
+          f"{e_en:.3g} (gate {FIR_C64_RTOL})", flush=True)
+    xa0 = on(xa[:L_RS])
+    print(rate_line(f"34 AutoCorrelator({AC_W}, {AC_D}), complex64, "
+                    f"2^22-sample blocks",
+                    lambda: acs[C64].execute_block(xa0), 3, L_RS, smi),
+          flush=True)
+    print(f"[34 S3 launches on the paths of phases 32-34] {s3_main} (risky "
+          f"pole 1, PLL 2, filtfilt_sos {ff_launches})", flush=True)
+    if not ok34:
+        fail("phase 34: the FM back end, the DDC, filtfilt or the "
+             "autocorrelator is wrong")
+
+    entry = kernel_entry(
+        "iir_scan", "seq_scan.cu",
+        "solid_dsp_tpu/ops/iir.py:117 _w_recurrence_scan (a lax.scan, no TPU "
+        "kernel)", s3_main, s3_err, s3_ms, s3_plain_ms, b_s3)
+    entry["us_a_sample"] = s3_ms * 1e3 / n_s3
+    return [entry]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -2346,6 +2820,7 @@ def main() -> None:
     precision_phase(dev, smi)
     filter_phases(dev, smi)
     kernels += scan_phases(dev, smi)
+    kernels += iir_phases(dev, smi)
     if not all(k["launches"] > 0 for k in kernels):
         fail("a kernel of the main paths was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,7 +25,12 @@ exact-AGC and reference-parity chains (the LUT NCO, the exact and
 parallel AGC, impairment correction, every branch of ``make_rx_chain``
 and the sharded unfused staging), with the two sequential scans, the
 exact AGC (S1) and the QPSK Costas loop (S2), as kernels
-(``ops.cuda_scan``).  Entry points run on the CUDA card unless the caller passes
+(``ops.cuda_scan``); the IIR layer (``design.iirdes``, ``design.polymath``,
+``ops.iir`` with zero-phase filtering, ``ops.zerophase``), the rate
+changers (``ops.cic``, ``ops.halfband``, ``ops.resample``), the
+autocorrelator (``ops.autocorr``), the FM broadcast-stereo back end
+(``models.fm``) and the digital down-converter (``models.ddc``), with the
+IIR filters' w-recurrence as a third sequential-scan kernel (S3).  Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``device.py``).
 """
 

@@ -5,7 +5,11 @@ Port of ``solid_dsp_tpu/design/firdes.py::kaiser_beta``, ``_check_as``,
 ``firdes_kaiser``, ``firdes_notch`` (:175), the metrics
 ``filter_autocorrelation``, ``filter_crosscorrelation``, ``filter_isi`` and
 ``filter_energy`` (:216-271) (reference ``src/filter/firdes/mod.rs``) and
-``firdes_rrcos`` (:291).  The Kaiser taps feed the receive chain's
+``firdes_rrcos`` (:291), and the length estimates
+``estimate_required_filter_length`` with its Kaiser and Herrmann variants,
+``estimate_required_filter_stop_band_attenuation`` and
+``estimate_required_filter_transition`` (:48-142), which size the halfband
+and resampler stages.  The Kaiser taps feed the receive chain's
 decimating filter (``models/rx_chain.py``), the FIR filters of
 ``ops/fir.py`` and the channelizer's prototype (``models/channelizer.py``);
 the metrics are ``FIRFilter``'s Firdes-trait methods; the root-raised
@@ -19,7 +23,12 @@ import numpy as np
 from .specialfn import sinc
 from .windows import kaiser as kaiser_window
 
-__all__ = ["kaiser_beta", "firdes_kaiser", "firdes_notch", "firdes_rrcos",
+__all__ = ["EstimationMethod", "estimate_required_filter_length",
+           "estimate_required_filter_length_kaiser",
+           "estimate_required_filter_length_herrmann",
+           "estimate_required_filter_stop_band_attenuation",
+           "estimate_required_filter_transition", "kaiser_beta",
+           "firdes_kaiser", "firdes_notch", "firdes_rrcos",
            "filter_autocorrelation", "filter_crosscorrelation",
            "filter_isi", "filter_energy"]
 
@@ -27,6 +36,102 @@ __all__ = ["kaiser_beta", "firdes_kaiser", "firdes_notch", "firdes_rrcos",
 def _check_as(stop_band_attenuation: float):
     if stop_band_attenuation <= 0.0:
         raise ValueError("invalid stop band attenuation (0, inf)")
+
+
+class EstimationMethod:
+    KAISER = "kaiser"
+    HERRMANN = "herrmann"
+
+
+def _check_tb(transition_bandwidth: float):
+    if not (0.0 <= transition_bandwidth <= 0.5):
+        raise ValueError("invalid transition bandwidth [0, 0.5]")
+
+
+def estimate_required_filter_length_kaiser(
+    transition_bandwidth: float, stop_band_attenuation: float
+) -> float:
+    """Kaiser length estimate.  Parity: ref firdes/mod.rs:199-210."""
+    _check_tb(transition_bandwidth)
+    _check_as(stop_band_attenuation)
+    return (stop_band_attenuation - 7.95) / (14.26 * transition_bandwidth)
+
+
+def estimate_required_filter_length_herrmann(
+    transition_bandwidth: float, stop_band_attenuation: float
+) -> float:
+    """Herrmann length estimate.  Parity: ref firdes/mod.rs:213-240."""
+    _check_tb(transition_bandwidth)
+    _check_as(stop_band_attenuation)
+    if stop_band_attenuation > 105.0:
+        return estimate_required_filter_length_kaiser(
+            transition_bandwidth, stop_band_attenuation
+        )
+    a = stop_band_attenuation + 7.4
+    d1 = 10.0 ** (-a / 20.0)
+    d2 = 10.0 ** (-a / 20.0)
+    t1 = np.log10(d1)
+    t2 = np.log10(d2)
+    d_inf = (0.005309 * t1 * t1 + 0.07114 * t1 - 0.4761) * t2 - (
+        0.002660 * t1 * t1 + 0.59410 * t1 + 0.4278
+    )
+    f = 11.012 + 0.51244 * (t1 - t2)
+    return (
+        d_inf - f * transition_bandwidth * transition_bandwidth
+    ) / transition_bandwidth + 1.0
+
+
+def _estimate(method: str, tb: float, att: float) -> float:
+    if method == EstimationMethod.KAISER:
+        return estimate_required_filter_length_kaiser(tb, att)
+    return estimate_required_filter_length_herrmann(tb, att)
+
+
+def estimate_required_filter_length(
+    transition_bandwidth: float,
+    stop_band_attenuation: float,
+    method: str = EstimationMethod.KAISER,
+) -> int:
+    """Required filter length (truncated to int).  Parity: ref firdes/mod.rs:71-95."""
+    _check_tb(transition_bandwidth)
+    _check_as(stop_band_attenuation)
+    return int(_estimate(method, transition_bandwidth, stop_band_attenuation))
+
+
+def estimate_required_filter_stop_band_attenuation(
+    transition_bandwidth: float,
+    filter_length: int,
+    method: str = EstimationMethod.KAISER,
+) -> float:
+    """Bisection (20 steps in [0.01, 200] dB).  Parity: ref firdes/mod.rs:117-146."""
+    as0, as1 = 0.01, 200.0
+    as_hat = 0.0
+    for _ in range(20):
+        as_hat = 0.5 * (as1 + as0)
+        n_hat = _estimate(method, transition_bandwidth, as_hat)
+        if n_hat < filter_length:
+            as0 = as_hat
+        else:
+            as1 = as_hat
+    return as_hat
+
+
+def estimate_required_filter_transition(
+    stop_band_attenuation: float,
+    filter_length: int,
+    method: str = EstimationMethod.KAISER,
+) -> float:
+    """Bisection (20 steps in [0.001, 0.499]).  Parity: ref firdes/mod.rs:168-196."""
+    df0, df1 = 0.001, 0.499
+    df_hat = 0.0
+    for _ in range(20):
+        df_hat = 0.5 * (df1 + df0)
+        n_hat = _estimate(method, df_hat, stop_band_attenuation)
+        if n_hat < filter_length:
+            df1 = df_hat
+        else:
+            df0 = df_hat
+    return df_hat
 
 
 def kaiser_beta(stop_band_attenuation: float) -> float:

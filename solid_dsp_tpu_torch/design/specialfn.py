@@ -5,14 +5,15 @@ window reaches: ``sinc``, and ``besseli`` at order 0 with the ``lngamma``
 behind it.  They reproduce the reference's fixed-length series (reference
 ``src/math/mod.rs``); the filter design golden values depend on those exact
 formulas, so the arithmetic is the JAX package's, in the same order.  Other
-orders of I_nu are not ported.
+orders of I_nu are not ported.  ``csqrt`` (the complex square root of a
+real number) serves Bairstow's root pairs in ``design/polymath.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["sinc", "besseli", "lngamma"]
+__all__ = ["sinc", "besseli", "lngamma", "csqrt"]
 
 _BESSEL_ITERATIONS = 64
 
@@ -71,3 +72,30 @@ def besseli(z):
             y += np.exp(2.0 * k * lz - lngamma(k + 1.0) - lngamma(k + 1.0))
         out[hi] = np.exp(np.log(y))
     return float(out[0]) if scalar else out
+
+
+def csqrt(a: float) -> complex:
+    """Complex square root of a *real* number.
+
+    Parity: ref math/mod.rs:191-224 (csqrtf-style branch structure with b=0).
+    """
+    a = float(a)
+    b = 0.0
+    if a == 0.0:
+        return complex(a, b)
+    if np.isnan(a):
+        return complex(a, np.nan)
+    if np.isinf(a):
+        if a < 0.0:
+            return complex(0.0, np.copysign(a, b))
+        return complex(a, np.copysign(0.0, b))
+    if a >= 0.0:
+        t = np.sqrt((a + np.hypot(a, b)) * 0.5)
+        return complex(t, b / (2.0 * t))
+    # Note: the reference (math/mod.rs:220) computes sqrt((a - hypot)/2) here,
+    # which is sqrt of a negative number -> NaN for every a < 0.  That NaN
+    # would poison Bairstow's complex-conjugate root pairs, so we use the
+    # correct musl-csqrt branch sqrt((-a + hypot)/2); all reference doctest
+    # values are unaffected (they only exercise real roots).
+    t = np.sqrt((-a + np.hypot(a, b)) * 0.5)
+    return complex(abs(b) / (2.0 * t), np.copysign(t, b))

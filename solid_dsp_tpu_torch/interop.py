@@ -31,6 +31,26 @@ State crosses between the two packages as numpy:
   ``ops/cuda_resample.py::make_farrow_kernel_resampler``), as a tuple with
   the same two functions.
 
+* the filters and resamplers of ``ops/iir.py``, ``ops/cic.py``,
+  ``ops/halfband.py``, ``ops/resample.py``, ``ops/autocorr.py`` and
+  ``models/ddc.py``: each class's ``state`` property reads and sets its
+  carry as a mapping whose keys are the JAX object's attribute names
+  without the underscore: the IIR w-state (``state``: (k,) for one
+  recurrence, (S, 2) for a cascade, the sections' ``_state`` stacked, and
+  ``index`` for the decimating filter); the CIC, halfband and FIR tails
+  and phases (``tail``, ``phase``; ``stages`` and ``final`` for
+  ``MultistageDecimator``); ``PfbArbitraryResampler``'s ``tail`` and
+  position ``t_next``; ``ArbitraryResampler``'s ``stages``, ``rem`` and,
+  with ``block_len``, ``grid`` (``make_arb_resampler``'s state, ``hb``
+  tails and the ``pfb`` (tail, t0) pair); ``AutoCorrelator``'s ``x_tail``,
+  ``e_tail`` and ``energy``; ``DDC``'s phase word ``theta`` (int64 in
+  the port, ``uint32`` in JAX; the setter takes either) with its ``cic``,
+  ``fir_tail``, ``fir_phase`` and ``farrow`` carries.  Such a mapping of
+  the JAX object's values (numpy arrays and Python scalars) moves with
+  :func:`tensors_from_numpy` into the setter, and the getter's back with
+  :func:`tensors_to_numpy`, so a stream started in one package continues
+  in the other.
+
 The windowed FFT (K7) carries no state; its windows and tables, the FFT
 plans and the grid plans are rebuilt from the same arguments on both sides,
 and the tests hold the tables equal.  Every ``device`` defaults to the

@@ -1,22 +1,27 @@
-"""The sequential scans on Hopper (S1, S2): wrappers of ``csrc/seq_scan.cu``.
+"""The sequential scans on Hopper (S1, S2, S3): wrappers of
+``csrc/seq_scan.cu``.
 
 S1 is the exact per-sample AGC (``ops/agc.py::_agc_scan``, JAX
 ``ops/agc.py:108-149``) with a second entry point that runs the squelch FSM
 alone over a given rssi track; S2 is the decision-directed QPSK Costas loop
-(``models/qpsk.py::qpsk_carrier_pll``, JAX ``models/qpsk.py:101-126``).
-Neither replaces a TPU kernel: in the JAX package both are ``lax.scan``s,
-and a per-sample recurrence in eager torch ops would cost ~15-20 launches a
-sample.  One thread walks one sequence (a leading index) in time order; the
-source has the design.
+(``models/qpsk.py::qpsk_carrier_pll``, JAX ``models/qpsk.py:101-126``); S3
+is the IIR filters' direct-form-II w-recurrence (``ops/iir.py``'s
+``"scan"`` method, JAX ``ops/iir.py:117-126``).  None replaces a TPU
+kernel: in the JAX package each is a ``lax.scan``, and a per-sample
+recurrence in eager torch ops would cost ~15-20 launches a sample.  One
+thread walks one sequence in time order: a leading index for S1 and S2, a
+lane (a trailing index; time runs along axis 0) for S3.  The source has the
+design.
 
 Each wrapper takes CUDA tensors only, checks types and shapes, launches the
 kernel on the current stream, raises if the launch fails
 (``cuda_build.check_launch``) and adds one to its ``launches`` count.  The
-plain versions are ``ops/agc.py::agc_scan_plain`` and ``squelch_fsm_plain``
-and ``models/qpsk.py::costas_pll_plain``; the dispatchers there take them
-for CPU tensors only.  ``agc_scan_cuda.fallback_launches`` counts the S1
-launches made with ``fallback=True``, as ``agc_apply_parallel``'s
-fall-back makes them (they count on ``launches`` too).
+plain versions are ``ops/agc.py::agc_scan_plain`` and
+``squelch_fsm_plain``, ``models/qpsk.py::costas_pll_plain`` and
+``ops/iir.py::iir_scan_torch``; the dispatchers there take them for CPU
+tensors only.  ``agc_scan_cuda.fallback_launches`` counts the S1 launches
+made with ``fallback=True``, as ``agc_apply_parallel``'s fall-back makes
+them (they count on ``launches`` too).
 """
 
 from __future__ import annotations
@@ -27,13 +32,17 @@ import torch
 
 from .cuda_build import check_launch, launcher, stream_of
 
-__all__ = ["agc_scan_cuda", "squelch_fsm_cuda", "costas_pll_cuda"]
+__all__ = ["agc_scan_cuda", "squelch_fsm_cuda", "costas_pll_cuda",
+           "iir_scan_cuda"]
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 _AGC_ARGS = (_P,) * 7 + (_I, _LL) + (_D,) * 5 + (_I, _I, _P)
 _FSM_ARGS = (_P,) * 4 + (_I, _LL, _D, _I, _I, _P)
 _PLL_ARGS = (_P,) * 4 + (_I, _LL) + (_D,) * 3 + (_I, _P)
+_S3_ARGS = (_P,) * 4 + (_I, _LL, _I, _I, _P)
+_S3_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+              torch.complex64: "c64", torch.complex128: "c128"}
 _SUFFIX = {torch.complex64: "f32", torch.complex128: "f64",
            torch.float32: "f32", torch.float64: "f64"}
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
@@ -147,3 +156,44 @@ def costas_pll_cuda(x: torch.Tensor, alpha: float, beta: float, h: float,
 
 
 costas_pll_cuda.launches = 0
+
+
+def iir_scan_cuda(a_tail: torch.Tensor, w_state: torch.Tensor,
+                  x: torch.Tensor):
+    """S3 over x (T, *lanes) on one card, float32, float64, complex64 or
+    complex128: w[n] = x[n] - sum_i a_tail[i] w[n-1-i] for each lane, the
+    history ``w_state`` (*lanes, k) = [w[-1], ..., w[-k]] carried in.
+    ``a_tail`` (k,), k >= 1, is rounded to x's dtype.  Returns (w (T,
+    *lanes), new w_state (*lanes, k)), in x's dtype.  An empty block
+    launches nothing."""
+    if not x.is_cuda:
+        raise ValueError("iir_scan_cuda needs CUDA tensors; CPU tensors take "
+                         "the plain version")
+    if x.dtype not in _S3_SUFFIX:
+        raise TypeError(f"iir_scan_cuda takes {tuple(_S3_SUFFIX)}, got "
+                        f"{x.dtype}")
+    if x.dim() == 0:
+        raise ValueError("iir_scan_cuda needs a time axis (axis 0)")
+    k = int(a_tail.shape[-1])
+    if a_tail.dim() != 1 or k < 1:
+        raise ValueError("iir_scan_cuda takes a_tail of shape (k,), k >= 1")
+    lanes = tuple(x.shape[1:])
+    T = int(x.shape[0])
+    B = max(1, int(torch.Size(lanes).numel()))
+    state = (w_state.to(device=x.device, dtype=x.dtype)
+             .expand(*lanes, k).reshape(B, k)
+             .clone(memory_format=torch.contiguous_format))
+    if T == 0:
+        return x.clone(), state.reshape(*lanes, k)
+    xc = x.contiguous()
+    w = torch.empty_like(xc)
+    a = a_tail.to(device=x.device, dtype=x.dtype).contiguous()
+    fn = launcher("seq_scan.cu", f"iir_scan_{_S3_SUFFIX[x.dtype]}", _S3_ARGS)
+    check_launch(fn(xc.data_ptr(), w.data_ptr(), state.data_ptr(),
+                    a.data_ptr(), B, T, k, x.device.index, stream_of(x)),
+                 "iir_scan_cuda")
+    iir_scan_cuda.launches += 1
+    return w, state.reshape(*lanes, k)
+
+
+iir_scan_cuda.launches = 0

@@ -24,7 +24,12 @@ against float64 at PyTorch's default TF32 flags (the port pins full
 float32; TF32 keeps some 60 dB).  The sequential scans: S1 (the exact
 AGC) within 1e-5 of max|y| of its plain version in float32 and 1e-12 in
 float64, gain rtol alike, mode and timer equal; S2 (the Costas loop)
-symbols equal and y within 1e-4 (float32) or 1e-9 (float64).
+symbols equal and y within 1e-4 (float32) or 1e-9 (float64); S3 (the
+IIR w-recurrence) bit-equal to its plain version in every type, and the
+IIR classes and zero-phase filters on the card within 1e-5 of max (float32
+"scan" is S3, bit-equal to the CPU's plain version only up to the b taps'
+convolution, which cuDNN sums in another order) or 1e-12 (float64) of the
+CPU's.
 """
 
 import numpy as np
@@ -40,7 +45,8 @@ from solid_dsp_tpu_torch.design.windows import get_window
 from solid_dsp_tpu_torch.models import qpsk as qpsk_ops
 from solid_dsp_tpu_torch.ops import agc as agc_ops
 from solid_dsp_tpu_torch.ops import (cuda_chan, cuda_ddc, cuda_fft, cuda_iir,
-                                     cuda_resample, cuda_scan, farrow, nco)
+                                     cuda_resample, cuda_scan, farrow, iir,
+                                     nco, zerophase)
 from solid_dsp_tpu_torch.ops import fir as fir_ops
 from solid_dsp_tpu_torch.ops import fft as fft_ops
 from torch_parity import (L_SMALL, make_blocks, make_qpsk_blocks,
@@ -1020,3 +1026,123 @@ def test_exact_and_parity_chains_on_card_match_cpu(override):
     gate = 60.0 if override.get("demod") == "qpsk" else 90.0
     assert snr_db(got, want) >= gate
     assert int(st["nco_theta"]) == int(sw["nco_theta"])
+
+
+S3_TYPES = [torch.float32, torch.float64, torch.complex64, torch.complex128]
+
+
+def _s3_case(dev, dt, k, lanes, T, seed):
+    """A stable order-k recurrence (poles at radius 0.9: real ones for a
+    real type), its input and a random history."""
+    rng = np.random.default_rng(seed)
+    if dt.is_complex:
+        a = np.poly(0.9 * np.exp(2j * np.pi * rng.random(k)))[1:]
+    else:
+        a = np.poly(0.9 * np.cos(2 * np.pi * rng.random(k)))[1:]
+    x = rng.standard_normal((T, *lanes))
+    if dt.is_complex:
+        x = x + 1j * rng.standard_normal((T, *lanes))
+    return (torch.from_numpy(a).to(dev, dt), torch.from_numpy(x).to(dev, dt),
+            torch.from_numpy(rng.standard_normal((*lanes, k))).to(dev, dt))
+
+
+@pytest.mark.parametrize("dt", S3_TYPES)
+@pytest.mark.parametrize("k", [1, 2, 8, 11])
+@pytest.mark.parametrize("lanes", [(), (256,), (3, 5)])
+def test_iir_scan_kernel_bit_equal_to_plain(dt, k, lanes):
+    """S3 vs iir_scan_torch on the card: two blocks with the history
+    carried, w and the history bit-equal; one launch a block."""
+    dev = require_cuda()
+    a, x, h0 = _s3_case(dev, dt, k, lanes, 700, seed=k)
+    before = cuda_scan.iir_scan_cuda.launches
+    w1, h1 = cuda_scan.iir_scan_cuda(a, h0, x[:301])
+    w2, h2 = cuda_scan.iir_scan_cuda(a, h1, x[301:])
+    assert cuda_scan.iir_scan_cuda.launches == before + 2
+    p1, q1 = iir.iir_scan_torch(a, h0, x[:301])
+    p2, q2 = iir.iir_scan_torch(a, q1, x[301:])
+    assert torch.equal(torch.cat([w1, w2]), torch.cat([p1, p2]))
+    assert torch.equal(h2, q2) and h2.shape == (*lanes, k)
+
+
+@pytest.mark.parametrize("T", [1, 3, 9, 16, 33, 64, 65])
+def test_iir_scan_kernel_short_blocks(T):
+    """Blocks shorter than the order, than a chunk and a chunk or two with
+    a ragged end (the generic kernel's history from the carried state; the
+    chunks of 32 and, in complex128, 16 samples loaded ahead)."""
+    dev = require_cuda()
+    for dt in (torch.float64, torch.complex128):
+        for k in (2, 12):
+            a, x, h0 = _s3_case(dev, dt, k, (4,), T, seed=T)
+            w, h = cuda_scan.iir_scan_cuda(a, h0, x)
+            p, q = iir.iir_scan_torch(a, h0, x)
+            assert torch.equal(w, p) and torch.equal(h, q)
+
+
+def test_iir_scan_kernel_rejects_bad_input():
+    dev = require_cuda()
+    with pytest.raises(TypeError):
+        cuda_scan.iir_scan_cuda(torch.ones(2, device=dev),
+                                torch.zeros(2, device=dev),
+                                torch.ones(8, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        cuda_scan.iir_scan_cuda(torch.ones(0, device=dev),
+                                torch.zeros(0, device=dev),
+                                torch.ones(8, device=dev))
+
+
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-5),
+                                    (torch.complex64, 1e-5),
+                                    (torch.float64, 1e-12)])
+def test_iir_filter_scan_on_card_launches_s3(dt, tol):
+    """IIRFilter(SECOND_ORDER, method "scan", and "auto", which resolves to
+    the scan for the sections with poles beyond radius 0.99) on the card:
+    one S3 launch a scan section a block, within tol of max of the CPU's
+    run."""
+    from solid_dsp_tpu_torch.design import iirdes
+
+    dev = require_cuda()
+    ff, fb = iirdes.sos_to_iir_coeffs(iirdes.iirdes_sos("elliptic", 8, 0.05))
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(5000)
+    if dt.is_complex:
+        x = x + 1j * rng.standard_normal(5000)
+    for method in ("scan", "auto"):
+        f = iir.IIRFilter(ff, fb, "second_order", dt, method=method,
+                          device=dev)
+        g = iir.IIRFilter(ff, fb, "second_order", dt, method=method,
+                          device="cpu")
+        if method == "auto" and dt == torch.float64:
+            assert all(s.method == "parallel"
+                       for s in f.second_order_filters())
+            continue
+        scans = sum(s.method == "scan" for s in f.second_order_filters())
+        assert scans == (4 if method == "scan" else 2)   # radii > 0.99: 2
+        before = cuda_scan.iir_scan_cuda.launches
+        y = torch.cat([f.execute_block(torch.from_numpy(b).to(dev, dt))
+                       for b in np.split(x, [1999])])
+        want = torch.cat([g.execute_block(torch.from_numpy(b).to(dt))
+                          for b in np.split(x, [1999])])
+        assert cuda_scan.iir_scan_cuda.launches == before + 2 * scans
+        assert float((y.cpu() - want).abs().max()) <= tol * float(
+            want.abs().max())
+
+
+def test_iir_parallel_and_filtfilt_on_card():
+    """The parallel route (torch ops) launches no S3; filtfilt_sos by
+    "scan" launches S3 twice a section; both match the CPU in float64."""
+    from solid_dsp_tpu_torch.design import iirdes
+
+    dev = require_cuda()
+    sos = iirdes.iirdes_sos("butterworth", 6, 0.1)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(3000))
+    before = cuda_scan.iir_scan_cuda.launches
+    yp = zerophase.filtfilt_sos(sos[:, :3], sos[:, 3:], x.to(dev),
+                                method="parallel")
+    assert cuda_scan.iir_scan_cuda.launches == before
+    ys = zerophase.filtfilt_sos(sos[:, :3], sos[:, 3:], x.to(dev),
+                                method="scan")
+    assert cuda_scan.iir_scan_cuda.launches == before + 2 * 3
+    want = zerophase.filtfilt_sos(sos[:, :3], sos[:, 3:], x, method="scan")
+    for y in (yp, ys):
+        assert float((y.cpu() - want).abs().max()) <= 1e-12 * float(
+            want.abs().max())

@@ -135,9 +135,12 @@ def test_port_never_imports_jax():
     config 5's channelizers (all backends), synthesis and oversampled banks,
     ChannelBank and SpectrumMonitor, config 2's FFT engine (every backend,
     the windowed FFT's routes, matfft, spectrogram, Welch), analysis/, the
-    Farrow resamplers and parallel/ on a one-rank gloo group (the K9 front
+    Farrow resamplers, parallel/ on a one-rank gloo group (the K9 front
     end, both sharded channelizers, the sharded chain and its state
-    interop, the sharded FIR) loads no jax module and no module of the JAX
+    interop, the sharded FIR), the IIR design and filters (both methods),
+    zero-phase filtering, the autocorrelator, CIC, halfband and arbitrary
+    resamplers (both paths, with flush), the FM stereo back end and the DDC
+    loads no jax module and no module of the JAX
     package (fresh interpreter: this one has jax)."""
     code = (
         "import sys, numpy as np, torch\n"
@@ -209,6 +212,31 @@ def test_port_never_imports_jax():
         "parallel.sharded_fir(np.ones(5), mesh)(torch.zeros(2, 4), "
         "torch.ones(2, 64))\n"
         "dist.destroy_process_group()\n"
+        "from solid_dsp_tpu_torch.design import iirdes, polymath\n"
+        "from solid_dsp_tpu_torch.ops import (autocorr, cic, halfband, iir, "
+        "resample, zerophase)\n"
+        "from solid_dsp_tpu_torch.models import channel, ddc, fm\n"
+        "sos = iirdes.iirdes_sos('elliptic', 4, 0.1)\n"
+        "polymath.find_roots([1.0, 2.0, 3.0])\n"
+        "for m in ('scan', 'parallel'):\n"
+        "    f = iir.IIRFilter(*iirdes.sos_to_iir_coeffs(sos), "
+        "'second_order', torch.complex64, method=m, device='cpu')\n"
+        "    f.execute_block(xc)\n"
+        "zerophase.filtfilt_sos(sos[:, :3], sos[:, 3:], np.ones(512), "
+        "method='scan')\n"
+        "autocorr.AutoCorrelator(8, 3, device='cpu').execute_block(xc)\n"
+        "cic.CICDecimator(8, 4, device='cpu').execute_block(xc)\n"
+        "cic.CICInterpolator(4, device='cpu').execute_block(xc)\n"
+        "halfband.MultistageDecimator(16, device='cpu').execute_block(xc)\n"
+        "resample.HalfbandInterpolator(device='cpu').execute_block(xc)\n"
+        "for bl in (None, 2048):\n"
+        "    r = resample.ArbitraryResampler(0.37, block_len=bl, "
+        "device='cpu')\n"
+        "    r.execute_block(xc); r.flush()\n"
+        "L2, R2, p2 = fm.fm_stereo_decode(fm.fm_stereo_mpx(torch.ones(4096), "
+        "torch.zeros(4096), 192000.0), 192000.0, deemphasis_tau=75e-6)\n"
+        "ddc.DDC(0.5, ratio=48000 / 44100, device='cpu').execute_block(xc)\n"
+        "channel.host_wrapped_phase(16, 0.1)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'solid_dsp_tpu' or m.startswith('solid_dsp_tpu.')]\n"
         "print('BAD', bad)\n")

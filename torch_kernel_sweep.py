@@ -2,6 +2,7 @@
 
     python3 torch_kernel_sweep.py            # K6, the DDC body, K1
     python3 torch_kernel_sweep.py fir-route  # the FIR's two card routes
+    python3 torch_kernel_sweep.py s3         # S3's prefetch depth
 
 * K6 (csrc/iir_bank.cu) at T = 2^14, C = 256, S = 2 (ChannelBank's block):
   the chunk length Lc in {16, 32, 64, 128}, each timed over a CUDA graph of
@@ -32,6 +33,13 @@
   (copied to the host for the Toeplitz banks each block), and by "fft",
   in turns of 20 blocks (numpy, tensor, fft, fft, tensor, numpy): ms a
   block by CUDA events and the host's enqueue time.
+
+* ``s3``: S3, the IIR w-recurrence (csrc/seq_scan.cu), with its samples
+  loaded ahead in chunks (``S3_CHUNK``, half of it for complex128) of 8,
+  16, 32 (as built) and 64, variants built from the source by text
+  substitution, in float32, complex64 and complex128 with k = 2: one lane
+  at 2^22 samples and 256 lanes at 2^16, each timed by CUDA events over 3
+  launches and held bit-equal to the kernel as built.
 
 Prints one line a case with the card's name and power limit.  Needs one
 CUDA GPU; imports neither jax nor solid_dsp_tpu.
@@ -111,6 +119,63 @@ def fir_route_sweep(dev, smi) -> None:
               f"Msamples/s at best | {smi}", flush=True)
 
 
+S3_CHUNKS = (8, 16, 32, 64)
+
+
+def s3_sweep(dev, smi) -> None:
+    """S3's prefetch depth: the chunk of samples each thread loads ahead."""
+    from solid_dsp_tpu_torch.ops import cuda_build, cuda_scan
+
+    out = cuda_build.BUILD_DIR / "s3_variants"
+    shutil.rmtree(out, ignore_errors=True)
+    source = (cuda_build.CSRC / "seq_scan.cu").read_text()
+    old = "constexpr int S3_CHUNK = 32;"
+    if old not in source:
+        sys.exit(f"{old!r} is not in seq_scan.cu")
+    jobs = []
+    for chunk in S3_CHUNKS:
+        d = out / f"c{chunk}"
+        d.mkdir(parents=True)
+        (d / "seq_scan.cu").write_text(
+            source.replace(old, f"constexpr int S3_CHUNK = {chunk};"))
+        jobs.append((chunk, d / "libs3.so", subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+             str(d / "libs3.so"), str(d / "seq_scan.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for chunk, lib, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            sys.exit(f"S3 chunk {chunk} did not build:\n{log[-4000:]}")
+        libs[chunk] = ctypes.CDLL(str(lib))
+    rng = np.random.default_rng(3)
+    for dt, name in ((torch.complex64, "c64"), (torch.float32, "f32"),
+                     (torch.complex128, "c128")):
+        a = torch.tensor([-1.9 * np.cos(0.3), 0.9025], dtype=dt, device=dev)
+        for T, B in ((1 << 22, 1), (1 << 16, 256)):
+            x = torch.from_numpy(rng.standard_normal((T, B))).to(dev, dt)
+            h = torch.zeros((B, 2), dtype=dt, device=dev)
+            want, _ = cuda_scan.iir_scan_cuda(a, h, x)
+            for chunk, lib in libs.items():
+                fn = getattr(lib, f"iir_scan_{name}")
+                fn.argtypes = list(cuda_scan._S3_ARGS)
+                fn.restype = ctypes.c_int
+                w = torch.empty_like(x)
+
+                def run():
+                    st = h.clone()
+                    cuda_build.check_launch(fn(
+                        x.data_ptr(), w.data_ptr(), st.data_ptr(),
+                        a.data_ptr(), B, T, 2, dev.index,
+                        cuda_build.stream_of(x)), "s3 variant")
+                ms, _ = timed(run, 3)
+                print(f"[S3 {name} k=2, T=2^{T.bit_length() - 1}, {B} "
+                      f"lane(s), S3_CHUNK {chunk}] {ms:.3f} ms, "
+                      f"{ms * 1e6 / T:.2f} ns a step, bit-equal to the "
+                      f"kernel as built {torch.equal(w, want)} | {smi}",
+                      flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this script runs only on a GPU")
@@ -128,6 +193,10 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     if sys.argv[1:] == ["fir-route"]:
         fir_route_sweep(dev, smi)
+        return
+    if sys.argv[1:] == ["s3"]:
+        cuda_build.build()
+        s3_sweep(dev, smi)
         return
     cuda_build.build()
 
