@@ -41,7 +41,9 @@ solid_dsp_tpu_torch/csrc/:
   end make_fused_channelizer_frontend through its kernel (K9,
   halo_frontend.cu), K9 as four shards on one card exchanging halos
   through each other's regions, make_sharded_channelizer ("xla", "fused"
-  through K4) and make_sharded_rx_chain (planar FM through K1).
+  through K4) and make_sharded_rx_chain (planar FM through K1);
+* the fused route at fir_precision="default" (K1-K3's single-pass bf16
+  "fast" mode), complex128 and 300 taps.
 
 Phases, one line each:
 
@@ -111,8 +113,9 @@ Phases, one line each:
  24. the entry points at world size 1 against the single-card chains,
      launches counted: make_sharded_channelizer "xla" and "fused" (x3) at
      config 5 against PolyphaseChannelizer, make_sharded_rx_chain planar
-     FM at config 4 (2^24 samples) against make_rx_chain; bit-equal, or
-     >= 115 dB where a reduction is reordered;
+     FM at config 4 (2^24 samples) against make_rx_chain, at x3 and at
+     fir_precision="default" (K1 fast); bit-equal, or >= 115 dB where a
+     reduction is reordered;
  25. K9's time over a CUDA graph of 20 launches beside K5's, its plain
      version, the grouped conv1d and its bound; the four-shard form's ms a
      block; the sharded entry points' Msamples/s against the unsharded
@@ -194,7 +197,27 @@ Phases, one line each:
      complex128 run, filtfilt_sos (8th-order elliptic, float64, "scan")
      at 2^20 against scipy's sosfiltfilt, AutoCorrelator(64, 16) at 2^22
      against its complex128 run; each timed (Msamples/s, host enqueue,
-     device busy, idle share).
+     device busy, idle share);
+ 35. K1-K3's "fast" mode (the TPU kernels' single bf16 pass, m64nNk16
+     bf16 wgmma with f32 sums): K1 fast at L = 2^24, the body kernel fast
+     at 2^24 (K2's route), 2^24 + 52 (K3's) and 32, each against its plain
+     fast version on the card (K2/K3 z >= 120 dB; K1 audio >= 90 dB,
+     energy rtol 1e-5, edges 1e-4), two launches on one block bit-equal,
+     >= 50 dB against the float64 plain version on the CPU at 2^20 (K1:
+     its energy within 1e-3 and its audio >= 30 dB, the discriminator on
+     this weak carrier offset giving 37.0 dB in the JAX package's K1 fast
+     as in the port), timed
+     over a CUDA graph beside its bound, its x3 time, its plain version
+     and (K2/K3) one strided conv1d on bf16 tensors;
+ 36. the config-4 chains at fir_precision="default", kernel vs plain over
+     4 blocks with the state carried, the fast launch counts (and no x3
+     launch): FM through K1 fast, FM at 2^24 + 52 through K3 fast, AM and
+     QPSK through K2 fast; the FM tone and the AM tone read back, QPSK
+     SER < 1e-3; throughput over 20 blocks in turns with the x3 chain (x3,
+     default, default, x3; then the plain bodies once), host enqueue,
+     device busy and idle share; the complex128 and
+     300-tap chains (the plain body: JAX's XLA route) on 4 blocks of 2^22
+     against their CPU runs (>= 100 dB), ms a block.
 
 Then the kernels' JSON line (each kernel's launches on the main paths; its
 time, by CUDA events over a CUDA graph of 20 launches so that the host's
@@ -319,6 +342,18 @@ FILTFILT_ATOL = 1e-12     # tests/test_zerophase.py:22-42: interior
 FILTFILT_EDGE_ATOL = 1e-5
 DDC_MIN_SNR_DB = 50.0     # complex64 against complex128 (Farrow's float32
 DDC_F_ATOL = 1e-4         # positions); tests/test_ddc.py:41-55's tone
+# K1-K3's "fast" mode (the single bf16 pass): against the plain version of
+# the same roundings (f32 sums in another order), and against float64 (the
+# TPU kernel's docstring: ~52 dB)
+BODY_FAST_MIN_SNR_DB = 120.0
+FAST_F64_MIN_SNR_DB = 50.0
+# K1 fast's audio against float64: the discriminator turns the body's ~60 dB
+# into 37.0 dB on this block's weak carrier offset, in the JAX package's own
+# K1 fast as in the port (tests/test_torch_ddc_fast.py)
+FM_FAST_F64_MIN_SNR_DB = 30.0
+FM_FAST_ENERGY_RTOL = 1e-3  # its sum |z|^2 against float64
+CPU_RUN_MIN_SNR_DB = 100.0  # a chain on the card against its CPU run
+L_CPU_RUN = 1 << 22       # the complex128 and 300-tap chains' blocks
 AC_W, AC_D = 64, 16       # the autocorrelator's window and delay
 
 HBM_BYTES_PER_S = 3.35e12
@@ -1427,6 +1462,28 @@ def phase24(dev, mesh, rng, main_path, parallel, PolyphaseChannelizer,
             and out_s.shape == (n_blocks * L_FULL // 4,)):
         fail("phase 24: the sharded FM chain disagrees")
 
+    # the same at fir_precision="default": K1's fast mode on every shard
+    from solid_dsp_tpu_torch.ops import cuda_ddc
+    dcfg = replace(cfg, fir_precision="default")
+    init_sd, apply_sd = parallel.make_sharded_rx_chain(dcfg, mesh)
+    cuda_ddc.ddc_fm_cuda.fast_launches = 0
+    out_sd, st_sd = chain(init_sd, apply_sd)
+    torch.cuda.synchronize()
+    fast = cuda_ddc.ddc_fm_cuda.fast_launches
+    out_1d, st_1d = chain(*make_rx_chain(dcfg, dev))
+    same_d = torch.equal(out_sd, out_1d)
+    snr_d = snr_db(out_sd.cpu().numpy(), out_1d.cpu().numpy())
+    state_d = (int(st_sd["nco_theta"]) == int(st_1d["nco_theta"])
+               and torch.equal(st_sd["fir_tail"], st_1d["fir_tail"])
+               and torch.equal(st_sd["agc"]["gain"], st_1d["agc"]["gain"]))
+    print(f"[24 make_sharded_rx_chain planar FM at default, world size 1, "
+          f"{n_blocks} x 2^24] vs make_rx_chain: bit-equal {same_d}, "
+          f"{snr_d:.1f} dB (gate {SHARDED_MIN_SNR_DB}), state equal "
+          f"{state_d}, K1 fast launches {fast}", flush=True)
+    if not ((same_d or snr_d >= SHARDED_MIN_SNR_DB) and state_d
+            and fast == n_blocks):
+        fail("phase 24: the sharded FM chain at default disagrees")
+
     # the unfused parity staging (local_unfused): one cf32 stream as (1, L)
     ucfg = replace(cfg, nco_mode="lut", fused_ddc="auto", input_format="cf32",
                    fir_precision="highest")
@@ -2453,6 +2510,309 @@ def iir_phases(dev, smi) -> list:
     return [entry]
 
 
+def fast_phases(dev, smi, x3_ms: dict) -> list:
+    """35-36: K1-K3's "fast" mode (fir_precision="default") against its
+    plain versions, then the config-4 chains at "default".  ``x3_ms``: the
+    x3 kernels' times of phases 3 and 7, printed beside.  Returns the
+    kernels' entries of the three fast modes."""
+    from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig, make_rx_chain
+    from solid_dsp_tpu_torch.ops import cuda_ddc
+    from solid_dsp_tpu_torch.ops.nco import constrain
+
+    cfg = RxChainConfig(carrier_freq=0.2, decimation=4, fir_taps=64,
+                        agc_mode="block", demod="fm", nco_mode="exact",
+                        input_format="planar", fused_ddc="on",
+                        fir_precision="default")
+    taps = cfg.design_taps()
+    dtheta = constrain(cfg.carrier_freq)
+    M, n = cfg.decimation, cfg.fir_taps
+    D = n - M
+    rng = np.random.default_rng(SEED + 35)
+    fm = cuda_ddc.make_ddc_fm(taps, dtheta, M, cfg.fm_kf, dev, mode="fast")
+    body = cuda_ddc.make_ddc_body(taps, dtheta, M, dev, mode="fast")
+    fm64 = cuda_ddc.make_ddc_fm(taps, dtheta, M, cfg.fm_kf, "cpu",
+                                torch.float64)
+    body64 = cuda_ddc.make_ddc_body(taps, dtheta, M, "cpu", torch.float64)
+    tail = torch.from_numpy(
+        (0.1 * rng.standard_normal((2, D))).astype(np.float32)).to(dev)
+    tail64 = tail.cpu().double()
+    x1 = make_block(rng, 0, L_F64)
+    x1_dev, x1_64 = torch.from_numpy(x1).to(dev), torch.from_numpy(x1).double()
+    stats = {}
+
+    # 35. K1 fast vs its plain version on the card, and vs float64
+    x = torch.from_numpy(make_block(rng, 0, L_FULL)).to(dev)
+    ak, sk = cuda_ddc.ddc_fm_cuda(fm, x, tail)
+    ak2, sk2 = cuda_ddc.ddc_fm_cuda(fm, x, tail)
+    ap, sp = cuda_ddc.ddc_fm_torch(fm, x, tail)
+    torch.cuda.synchronize()
+    same = torch.equal(ak, ak2) and torch.equal(sk, sk2)
+    ak, sk, ap, sp = (t.cpu().numpy() for t in (ak, sk, ap, sp))
+    snr = snr_db(ak, ap)
+    err_e = abs(float(sk[0]) - float(sp[0])) / abs(float(sp[0]))
+    err_z = float(np.max(np.abs(sk[1:] - sp[1:])))
+    max_abs = float(np.max(np.abs(ak - ap)))
+    a1, s1 = cuda_ddc.ddc_fm_cuda(fm, x1_dev, tail)
+    a64, s64 = cuda_ddc.ddc_fm_torch(fm64, x1_64, tail64)
+    snr64 = snr_db(a1.cpu().numpy(), a64.numpy())
+    err64 = abs(float(s1[0]) - float(s64[0])) / float(s64[0])
+    k_ms = graph_ms(lambda: cuda_ddc.ddc_fm_cuda(fm, x, tail), 20)
+    p_ms = cuda_ms(lambda: cuda_ddc.ddc_fm_torch(fm, x, tail), 20)
+    T = L_FULL // M
+    bnd = bound_ms(4 * (2 * L_FULL + 2 * D + 2 * n + T + 5), 8 * n * T,
+                   BF16_FLOPS)
+    stats["ddc_fm_fast"] = (max_abs, k_ms, p_ms, None, bnd)
+    print(f"[35 K1 fast vs plain fast f32, L=2^24] audio {snr:.1f} dB (gate "
+          f"{MIN_SNR_DB}), max |err| {max_abs:.3g}, energy rel err "
+          f"{err_e:.3g} (gate {ENERGY_RTOL}), z0/zlast err {err_z:.3g} (gate "
+          f"{EDGE_ATOL}), two launches bit-equal {same}; vs plain f64 (CPU) "
+          f"at 2^20 audio {snr64:.1f} dB (gate {FM_FAST_F64_MIN_SNR_DB}), "
+          f"energy rel err {err64:.3g} (gate {FM_FAST_ENERGY_RTOL}); route "
+          f"{cuda_ddc.fm_geometry(n, M, True)}; kernel (bf16 wgmma, CUDA "
+          f"graph of 20 launches) {k_ms:.4f} ms, x3 {x3_ms['ddc_fm']:.4f} "
+          f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}), plain {p_ms:.4f} ms | "
+          f"{smi}", flush=True)
+    if not (snr >= MIN_SNR_DB and err_e <= ENERGY_RTOL and err_z <= EDGE_ATOL
+            and same and snr64 >= FM_FAST_F64_MIN_SNR_DB
+            and err64 <= FM_FAST_ENERGY_RTOL
+            and np.all(np.isfinite(ak)) and ak.shape == (T,)):
+        fail("phase 35: K1 fast disagrees with its plain version")
+
+    # 35. K2 and K3 fast vs the plain version: aligned, unaligned, short
+    for route, L, kernel in (
+            ("ddc_body_fast", L_FULL, cuda_ddc.ddc_body_cuda),
+            ("ddc_body_unaligned_fast", L_UNALIGNED,
+             cuda_ddc.ddc_body_unaligned_cuda),
+            ("short", L_SHORT, cuda_ddc.ddc_body_unaligned_cuda)):
+        x = torch.from_numpy(make_block(rng, 0, L)).to(dev)
+        before = kernel.fast_launches
+        zk = kernel(body, x, tail)
+        zk2 = kernel(body, x, tail)
+        zp = cuda_ddc.ddc_body_torch(body, x, tail)
+        torch.cuda.synchronize()
+        twice = kernel.fast_launches == before + 2
+        same = torch.equal(zk, zk2)
+        zk, zp = zk.cpu().numpy(), zp.cpu().numpy()
+        snr = snr_db(zk, zp)
+        max_abs = float(np.max(np.abs(zk - zp)))
+        timing = ""
+        if route != "short":
+            k7 = graph_ms(lambda: kernel(body, x, tail), 20)
+            p7 = cuda_ms(lambda: cuda_ddc.ddc_body_torch(body, x, tail), 20)
+            # the library call: one strided conv1d on bf16 tensors, the
+            # tail and the block as 2 in-channels, the folded taps as a
+            # (2, 2, n) weight
+            x_ext = torch.cat([tail, x], dim=1)[None].to(torch.bfloat16)
+            h = body.taps
+            w = torch.stack([torch.stack([h[0], -h[1]]),
+                             torch.stack([h[1], h[0]])]).to(torch.bfloat16)
+            zl = torch.nn.functional.conv1d(x_ext, w, stride=M)[0]
+            snr_lib = snr_db(zl.float().cpu().numpy(), zp)
+            l7 = graph_ms(lambda: torch.nn.functional.conv1d(x_ext, w,
+                                                             stride=M), 20)
+            b7 = bound_ms(4 * (2 * L + 2 * D + 2 * n + 2 * (L // M)),
+                          8 * n * (L // M), BF16_FLOPS)
+            x3 = x3_ms[route[:-len("_fast")]]
+            stats[route] = (max_abs, k7, p7, l7, b7)
+            timing = (f"; kernel (bf16 wgmma, CUDA graph of 20 launches) "
+                      f"{k7:.4f} ms, x3 {x3:.4f} ms, bound {b7[0]:.4f} ms "
+                      f"({b7[1]}), plain {p7:.4f} ms, library strided conv1d "
+                      f"in bf16 (CUDA graph) {l7:.4f} ms ({snr_lib:.1f} dB vs "
+                      f"plain)")
+        print(f"[35 {route} vs plain fast f32, L={L}] z {snr:.1f} dB (gate "
+              f"{BODY_FAST_MIN_SNR_DB}), max |err| {max_abs:.3g}, two "
+              f"launches bit-equal {same}, counted fast {twice}{timing} | "
+              f"{smi}", flush=True)
+        if not (snr >= BODY_FAST_MIN_SNR_DB and same and twice
+                and zk.shape == (2, L // M) and np.all(np.isfinite(zk))):
+            fail(f"phase 35: the fast body kernel disagrees on {route}")
+    snr64 = snr_db(cuda_ddc.ddc_body_cuda(body, x1_dev, tail).cpu().numpy(),
+                   cuda_ddc.ddc_body_torch(body64, x1_64, tail64).numpy())
+    print(f"[35 body fast vs plain f64 (CPU), L=2^20] z {snr64:.1f} dB (gate "
+          f"{FAST_F64_MIN_SNR_DB})", flush=True)
+    if not snr64 >= FAST_F64_MIN_SNR_DB:
+        fail("phase 35: the fast body is not within its bf16 contract")
+
+    # 36. the config-4 chains at "default", kernel vs plain, state carried
+    fast_counters = {"ddc_fm_fast": cuda_ddc.ddc_fm_cuda,
+                     "ddc_body_fast": cuda_ddc.ddc_body_cuda,
+                     "ddc_body_unaligned_fast":
+                         cuda_ddc.ddc_body_unaligned_cuda}
+    launches = dict.fromkeys(fast_counters, 0)
+
+    def compare(ccfg, blks, want):
+        """Kernel chain vs plain chain over blks: (out_k, out_p, ok,
+        kernel chain, plain chain), the fast counts at 0 just before the
+        kernel chain's run and ``want`` {counter: launches} after it."""
+        chain_k = make_rx_chain(ccfg, dev)
+        chain_p = make_rx_chain(replace(ccfg, ddc_engine="torch"), dev)
+        for c in fast_counters.values():
+            c.fast_launches = 0
+            c.launches = 0
+        st_k, outs_k = chain_k[0](), []
+        for xb in blks:
+            out, st_k = chain_k[1](st_k, xb)
+            outs_k.append(out)
+        torch.cuda.synchronize()
+        counts = {k: c.fast_launches for k, c in fast_counters.items()}
+        x3_counts = sum(c.launches for c in fast_counters.values())
+        for k, v in counts.items():
+            launches[k] += v
+        st_p, outs_p = chain_p[0](), []
+        for xb in blks:
+            out, st_p = chain_p[1](st_p, xb)
+            outs_p.append(out)
+        out_k = torch.cat(outs_k).cpu().numpy()
+        out_p = torch.cat(outs_p).cpu().numpy()
+        theta_want = (N_CHAIN * int(blks[0].shape[-1]) * int(dtheta)
+                      ) & 0xFFFFFFFF
+        ok = (int(st_k["nco_theta"]) == int(st_p["nco_theta"]) == theta_want
+              and torch.equal(st_k["fir_tail"], st_p["fir_tail"])
+              and counts == {**dict.fromkeys(fast_counters, 0), **want}
+              and x3_counts == 0 and np.all(np.isfinite(out_k)))
+        return out_k, out_p, ok, counts, chain_k, chain_p
+
+    tone = 4 * 0.001 / cfg.fm_kf
+    fblocks = [torch.from_numpy(make_block(rng, b, L_FULL)).to(dev)
+               for b in range(N_CHAIN)]
+    f_k, f_p, fok, fc, fm_k, fm_p = compare(cfg, fblocks,
+                                            {"ddc_fm_fast": N_CHAIN})
+    snr_f = snr_db(f_k, f_p)
+    tone_f = float(np.median(f_k[1000:]))
+    print(f"[36 fm chain at default, kernel vs plain, {N_CHAIN} x 2^24] audio "
+          f"{snr_f:.1f} dB (gate {MIN_SNR_DB}), tone {tone_f:.6f} want "
+          f"{tone:.6f}, fast launches {fc}, state equal, no x3 launch {fok}",
+          flush=True)
+    if not (fok and snr_f >= MIN_SNR_DB and abs(tone_f - tone) <= TONE_ATOL):
+        fail("phase 36: the FM chain at default is wrong")
+
+    ublocks = [torch.from_numpy(make_block(rng, b, L_UNALIGNED)).to(dev)
+               for b in range(N_CHAIN)]
+    u_k, u_p, uok, uc, _, _ = compare(cfg, ublocks,
+                                      {"ddc_body_unaligned_fast": N_CHAIN})
+    snr_u = snr_db(u_k, u_p)
+    tone_u = float(np.median(u_k[1000:]))
+    print(f"[36 fm chain at default, kernel vs plain, {N_CHAIN} x (2^24 + 52)]"
+          f" audio {snr_u:.1f} dB (gate {MIN_SNR_DB}), tone {tone_u:.6f} want "
+          f"{tone:.6f}, fast launches {uc}, state equal, no x3 launch {uok}",
+          flush=True)
+    if not (uok and snr_u >= MIN_SNR_DB and abs(tone_u - tone) <= TONE_ATOL):
+        fail("phase 36: the unaligned FM chain at default is wrong")
+
+    ablocks = [torch.from_numpy(make_am_block(rng, b, L_FULL)).to(dev)
+               for b in range(N_CHAIN)]
+    a_k, a_p, aok, ac, am_k, am_p = compare(replace(cfg, demod="am"), ablocks,
+                                            {"ddc_body_fast": N_CHAIN})
+    snr_a = snr_db(a_k, a_p)
+    env = a_k[T:2 * T].astype(np.float64)
+    peak = int(np.argmax(np.abs(np.fft.rfft(env - env.mean()))[1:])) + 1
+    print(f"[36 am chain at default, kernel vs plain, {N_CHAIN} x 2^24] "
+          f"envelope {snr_a:.1f} dB (gate {MIN_SNR_DB}), tone at bin {peak} "
+          f"want {round(AM_TONE * M * T)}, fast launches {ac}, state equal, "
+          f"no x3 launch {aok}", flush=True)
+    if not (aok and snr_a >= MIN_SNR_DB and peak == round(AM_TONE * M * T)):
+        fail("phase 36: the AM chain at default is wrong")
+
+    sym = qpsk_symbols(N_CHAIN, L_FULL)
+    qblocks = [torch.from_numpy(make_qpsk_block(rng, sym, b, L_FULL)).to(dev)
+               for b in range(N_CHAIN)]
+    q_k, q_p, qok, qc, qp_k, qp_p = compare(replace(cfg, demod="qpsk"),
+                                            qblocks,
+                                            {"ddc_body_fast": N_CHAIN})
+    snr_q = snr_db(q_k, q_p)
+    sers = [best_aligned_ser(sym[b * T // 8:(b + 1) * T // 8],
+                             (q_k[b * T:(b + 1) * T][11::8].real < 0)
+                             .astype(int)
+                             + 2 * (q_k[b * T:(b + 1) * T][11::8].imag < 0))
+            for b in range(N_CHAIN)]
+    print(f"[36 qpsk chain at default, kernel vs plain, {N_CHAIN} x 2^24] out "
+          f"{snr_q:.1f} dB (gate {QPSK_MIN_SNR_DB}), SER per block "
+          f"{[round(v, 6) for v in sers]} (gate {MAX_SER}), fast launches "
+          f"{qc}, state equal, no x3 launch {qok}", flush=True)
+    if not (qok and snr_q >= QPSK_MIN_SNR_DB and max(sers) < MAX_SER):
+        fail("phase 36: the QPSK chain at default is wrong")
+
+    # 36. throughput over N_TIMED blocks, in turns with the same chain at
+    # x3 (x3, default, default, x3) and once with the plain bodies
+    def step(chain, blks):
+        box = {"st": chain[0](), "i": 0}
+
+        def fn():
+            _, box["st"] = chain[1](box["st"], blks[box["i"] % N_CHAIN])
+            box["i"] += 1
+        return fn
+
+    for label, blks, ccfg, ck, cp in (
+            ("fm", fblocks, cfg, fm_k, fm_p),
+            ("am", ablocks, replace(cfg, demod="am"), am_k, am_p),
+            ("qpsk", qblocks, replace(cfg, demod="qpsk"), qp_k, qp_p)):
+        cx = make_rx_chain(replace(ccfg, fir_precision="x3"), dev)
+        turns = [timed(step(c, blks), N_TIMED) for c in (cx, ck, ck, cx, cp)]
+        rate = [L_FULL / (ms * 1e3) for ms, _ in turns]
+        busy, top = profiled_busy(step(ck, blks))
+        wall = 0.5 * (turns[1][0] + turns[2][0])
+        print(f"[36 throughput {label} at default, {N_TIMED} x 2^24] chain "
+              f"with kernel {rate[1]:.1f} / {rate[2]:.1f} Msamples/s, at x3 "
+              f"in turns {rate[0]:.1f} / {rate[3]:.1f}, plain {rate[4]:.1f}; "
+              f"host enqueue {turns[1][1]:.4f} / {turns[2][1]:.4f} ms a "
+              f"block (x3 {turns[0][1]:.4f} / {turns[3][1]:.4f}), device "
+              f"busy {busy:.4f} ms a block, wall {wall:.4f} ms, idle "
+              f"{max(0.0, 1 - busy / wall):.0%}; largest kernels, ms a "
+              f"block: {top} | {smi}", flush=True)
+
+    # 36. complex128 (the float64 body) and 300 taps (no kernel's
+    # predicate: the plain body): the card's chain against its CPU run
+    for label, ccfg in (("complex128", replace(cfg, demod="fm",
+                                               dtype=torch.complex128)),
+                        ("300 taps", replace(cfg, fir_taps=300,
+                                             fir_precision="x3"))):
+        c128 = ccfg.dtype == torch.complex128
+        blks = [make_block(rng, b, L_CPU_RUN) for b in range(N_CHAIN)]
+        if c128:
+            blks = [b.astype(np.float64) for b in blks]
+        runs = {}
+        for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            init, apply = make_rx_chain(ccfg, where)
+            st, outs = init(), []
+            xs = [torch.from_numpy(b).to(where) for b in blks]
+            for c in fast_counters.values():
+                c.fast_launches = c.launches = 0
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for xb in xs:
+                out, st = apply(st, xb)
+                outs.append(out)
+            e1.record()
+            torch.cuda.synchronize()
+            if key == "card":
+                ms = e0.elapsed_time(e1) / N_CHAIN
+                none = all(c.fast_launches == c.launches == 0
+                           for c in fast_counters.values())
+            runs[key] = torch.cat(outs).cpu().numpy()
+        snr = snr_db(runs["card"], runs["cpu"])
+        print(f"[36 {label} fm chain, card vs its CPU run, {N_CHAIN} x 2^22] "
+              f"{snr:.1f} dB (gate {CPU_RUN_MIN_SNR_DB}), dtype "
+              f"{runs['card'].dtype}, no DDC kernel launched {none} (JAX's "
+              f"XLA route: the plain body on the card); {ms:.4f} ms a block "
+              f"(the first {N_CHAIN} blocks, CUDA events) | {smi}",
+              flush=True)
+        if not (snr >= CPU_RUN_MIN_SNR_DB and none
+                and np.all(np.isfinite(runs["card"]))):
+            fail(f"phase 36: the {label} chain disagrees with its CPU run")
+
+    entries = []
+    for name, line in (("ddc_fm_fast", 645), ("ddc_body_fast", 405),
+                       ("ddc_body_unaligned_fast", 177)):
+        err, kms, pms, lms, bnd = stats[name]
+        entries.append(kernel_entry(
+            name, "ddc_fm.cu" if name == "ddc_fm_fast" else "ddc_body.cu",
+            f"solid_dsp_tpu/ops/pallas_ddc.py:{line}", launches[name], err,
+            kms, pms, bnd, lms))
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -2806,9 +3166,9 @@ def main() -> None:
           f"{rates['am'][2]:.1f} / {rates['am'][3]:.1f} | {smi}", flush=True)
 
     kernels = [kernel_entry(
-        "ddc_fm", "ddc_fm.cu", "solid_dsp_tpu/ops/pallas_ddc.py:590",
+        "ddc_fm", "ddc_fm.cu", "solid_dsp_tpu/ops/pallas_ddc.py:645",
         launches_main["ddc_fm"], max_abs, k_ms, p_ms, b3)]
-    for route, line in (("ddc_body", 359), ("ddc_body_unaligned", 135)):
+    for route, line in (("ddc_body", 405), ("ddc_body_unaligned", 177)):
         err, kms, pms, lms, L, bnd = body_stats[route]
         kernels.append(kernel_entry(
             route, "ddc_body.cu", f"solid_dsp_tpu/ops/pallas_ddc.py:{line}",
@@ -2821,6 +3181,9 @@ def main() -> None:
     filter_phases(dev, smi)
     kernels += scan_phases(dev, smi)
     kernels += iir_phases(dev, smi)
+    kernels += fast_phases(dev, smi, {
+        "ddc_fm": k_ms, "ddc_body": body_stats["ddc_body"][1],
+        "ddc_body_unaligned": body_stats["ddc_body_unaligned"][1]})
     if not all(k["launches"] > 0 for k in kernels):
         fail("a kernel of the main paths was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

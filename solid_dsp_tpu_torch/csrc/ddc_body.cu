@@ -1,4 +1,5 @@
-// Unrotated DDC body for Hopper (sm_90a): K2 and K3 on TF32 tensor cores.
+// Unrotated DDC body for Hopper (sm_90a): K2 and K3 on the tensor cores, in
+// TF32 x3 or in the TPU kernels' single bf16 pass ("fast").
 //
 // Replaces two TPU kernels of solid_dsp_tpu/ops/pallas_ddc.py:
 //   * make_pallas_ddc_full (K2, kernel body _make_kernel_full): the body of
@@ -11,7 +12,8 @@
 //     the two routes apart).
 //
 // For the planar (2, L) f32 block x, the carried tail x[-D .. -1]
-// (D = n - M) and the complex NCO-folded bandpass taps h it computes, for
+// (D = n - M, none when n <= M) and the complex NCO-folded bandpass taps h
+// it computes, for
 // every decimated output t = 0 .. T-1 (T = L / M, any L that M divides),
 //
 //   z[t] = sum_i h[i] * x[t*M - D + i]
@@ -24,8 +26,10 @@
 // H100 SXM).  The earlier design (FP32 FMA fed from shared memory, two
 // shared loads for four FMAs) ran at 30 % of it, held by shared-memory
 // bandwidth.  Design: the banded-Toeplitz frame product on the tensor cores
-// in TF32 x3 of ddc_tc.cuh (shared with the fused DDC + FM kernel,
-// ddc_fm.cu), with an epilogue that stores the sums: the bank's columns are
+// of ddc_tc.cuh (shared with the fused DDC + FM kernel, ddc_fm.cu), in
+// either mode (fast: the pallas kernels' mode="fast", samples and bank in
+// bf16 with f32 sums, one wgmma a 16-sample k-step, the bank a quarter of
+// x3's shared memory), with an epilogue that stores the sums: the bank's columns are
 // [re | im] of the P outputs of a frame, and outputs past T are not stored,
 // so any L that M divides works, L shorter than the filter included.  P is
 // the smallest power of two >= 4 with hop = P*M >= 64, or less where the
@@ -53,8 +57,8 @@ struct StoreZ {
   static constexpr bool kPre = false;
   float* z;
 
-  __device__ __forceinline__ void from_span(const Geom&, const float*, const float*,
-                                         int, int) {}
+  __device__ __forceinline__ void from_span(const Geom&, long long, const float*,
+                                            const float*, int, int) {}
 
   __device__ __forceinline__ void tile(const Geom& g, long long tau,
                                        float (&acc)[P], int w, int lane) {
@@ -75,21 +79,21 @@ struct StoreZ {
   }
 };
 
-template <int P>
+template <int P, bool kFast>
 __global__ void __launch_bounds__(256, 1)
 ddc_body_tc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
                    const float* __restrict__ bank, float* __restrict__ z,
                    const Geom g, long long n_tiles, int wgs, int stages,
                    unsigned bank_bytes) {
   StoreZ<P> epi{z};
-  ddc_tc_run<P>(x, tail, bank, g, n_tiles, wgs, stages, bank_bytes, epi);
+  ddc_tc_run<P, kFast>(x, tail, bank, g, n_tiles, wgs, stages, bank_bytes, epi);
 }
 
 template <int P>
 int launch(const float* x, const float* tail, const float* bank, float* z,
            const Geom& g, int wgs, int stages, unsigned bank_bytes, size_t smem,
-           int device, cudaStream_t stream) {
-  auto kernel = ddc_body_tc_kernel<P>;
+           bool fast, int device, cudaStream_t stream) {
+  auto kernel = fast ? ddc_body_tc_kernel<P, true> : ddc_body_tc_kernel<P, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -105,9 +109,10 @@ int launch(const float* x, const float* tail, const float* bank, float* z,
 
 }  // namespace
 
-// x (2, L), tail (2, n - M), z (2, L / M) [re row; im row] f32; bank: the
-// packed hi and lo banks of ops/cuda_ddc.py::body_tc_bank for frames of P
-// outputs (2 * KP / 4 k-steps of 8 * 2P f32 each, 16-byte aligned), with
+// x (2, L), tail (2, max(n - M, 0)), z (2, L / M) [re row; im row] f32;
+// bank: the packed bank of ops/cuda_ddc.py::body_tc_bank for frames of P
+// outputs, 16-byte aligned (fast = 0: the hi and lo banks, 2 * KP / 4
+// k-steps of 8 * 2P f32; fast = 1: KP / 8 k-steps of 16 * 2P bf16), with
 // hpad and KP of ops/cuda_ddc.py::body_tc_geometry; wgs warpgroups a block,
 // stages span buffers a warpgroup and smem bytes of shared memory a block
 // (the same function).  x and z
@@ -116,9 +121,10 @@ int launch(const float* x, const float* tail, const float* bank, float* z,
 extern "C" int ddc_body_launch(const float* x, const float* tail,
                                const float* bank, float* z, long long L, int n,
                                int M, int P, int hpad, int KP, int wgs,
-                               int stages, int smem, int device,
+                               int stages, int smem, int fast, int device,
                                cudaStream_t stream) {
-  if (M <= 0 || n <= M || L <= 0 || L % M != 0 || hpad < n - M || hpad % 4 ||
+  if (M <= 0 || n < 1 || L <= 0 || L % M != 0 || hpad < n - M || hpad < 0 ||
+      hpad % 4 ||
       KP % 32 || KP < hpad + P * M || (wgs != 1 && wgs != 2) ||
       (stages != 1 && stages != 2) ||
       (reinterpret_cast<unsigned long long>(bank) & 15) ||
@@ -127,20 +133,20 @@ extern "C" int ddc_body_launch(const float* x, const float* tail,
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   const Geom g = make_geom(x, L, n, M, P, hpad, KP, 0);
-  const unsigned bank_bytes = tc_bank_bytes(P, KP);
-  if ((size_t)smem < tc_smem_bytes(g, P, wgs, stages, 0))
+  const unsigned bank_bytes = tc_bank_bytes(P, KP, fast != 0);
+  if ((size_t)smem < tc_smem_bytes(g, P, wgs, stages, 0, fast != 0))
     return (int)cudaErrorInvalidValue;
   switch (P) {
-    case 4: return launch<4>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, device,
-                                stream);
-    case 8: return launch<8>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, device,
-                                stream);
-    case 16: return launch<16>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, device,
-                                stream);
-    case 32: return launch<32>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, device,
-                                stream);
-    case 64: return launch<64>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, device,
-                                stream);
+    case 4: return launch<4>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, fast != 0,
+                                device, stream);
+    case 8: return launch<8>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, fast != 0,
+                                device, stream);
+    case 16: return launch<16>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, fast != 0,
+                                device, stream);
+    case 32: return launch<32>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, fast != 0,
+                                device, stream);
+    case 64: return launch<64>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, fast != 0,
+                                device, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -41,6 +41,15 @@
 //   * "direct" (M too large for the spans): one block stages its input span
 //     in shared memory as M polyphase rows and each thread computes R = 4
 //     outputs in FP32 FMA, thread 0 the seam z[t0 - 1] beside them.
+// Either route runs in TF32 x3 (the direct route: FP32 FMA) or "fast", the
+// TPU kernel's mode="fast": every sample and tap of the body rounded to bf16
+// (to nearest even; the bank from float32 taps, as the TPU kernel's),
+// products exact, f32 sums (the direct route rounds its operands before
+// each FMA, the same function).  As in the TPU kernel, the seam (the output
+// before a TPU tile of seam_period outputs, tile 0's included) stays an f32
+// dot over the unrounded samples; a warp seam inside a TPU tile rounds its
+// operands as the products do, so it equals the product's own output.  The
+// discriminator, the energy and the edge stats are f32 in both modes.
 // Both routes finish the stats in the kernel: each block writes its share
 // of sum |z|^2 to a partial, and the block that finishes last (an atomic
 // ticket it resets, so the kernel stays correct inside a CUDA graph) sums
@@ -120,7 +129,7 @@ __device__ __forceinline__ void store_run(float* __restrict__ audio, long long t
 }
 
 // The FM epilogue of the tensor-core route (see the note above).
-template <int P>
+template <int P, bool kFast>
 struct FmEpilogue {
   static constexpr bool kPre = true;
   const float* __restrict__ taps;  // (2, n) [re; im] f32
@@ -128,18 +137,29 @@ struct FmEpilogue {
   float* __restrict__ stats;
   int n;
   float cd, sd, scale;
+  long long seam_period;           // fast: outputs of a TPU tile
   float esum;                      // this thread's sum of |z|^2
   float sr, si;                    // the output before this warp's rows
 
   // z[t0 + 16 w P - 1] (t0 the tile's first output) by an FP32 dot over its
-  // window, which starts pre + hpad - n + 16 w hop samples into the span
-  __device__ __forceinline__ void from_span(const Geom& g, const float* re,
-                                         const float* im, int w, int lane) {
+  // window, which starts pre + hpad - n + 16 w hop samples into the span;
+  // fast: its operands rounded to bf16 unless it is a TPU tile's seam
+  __device__ __forceinline__ void from_span(const Geom& g, long long tau,
+                                            const float* re, const float* im,
+                                            int w, int lane) {
     const int o = g.pre + g.hpad - n + 16 * w * g.hop;
+    const bool round =
+        kFast && ((tau * kFrames + 16 * w) * P) % seam_period != 0;
     float zr = 0.f, zi = 0.f;
     for (int i = lane; i < n; i += 32) {
-      const float hr = __ldg(taps + i), hi = __ldg(taps + n + i);
-      const float a = re[o + i], b = im[o + i];
+      float hr = __ldg(taps + i), hi = __ldg(taps + n + i);
+      float a = re[o + i], b = im[o + i];
+      if (round) {
+        hr = bf16_round(hr);
+        hi = bf16_round(hi);
+        a = bf16_round(a);
+        b = bf16_round(b);
+      }
       zr = fmaf(hr, a, zr);
       zr = fmaf(-hi, b, zr);
       zi = fmaf(hr, b, zi);
@@ -213,19 +233,21 @@ struct FmEpilogue {
   }
 };
 
-template <int P>
+template <int P, bool kFast>
 __global__ void __launch_bounds__(256, 1)
 ddc_fm_tc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
                  const float* __restrict__ bank, const float* __restrict__ taps,
                  float* __restrict__ audio, float* __restrict__ stats,
                  float* __restrict__ partials, unsigned* ticket, const Geom g,
                  long long n_tiles, int wgs, int stages, unsigned bank_bytes,
-                 int n, float cd, float sd, float scale) {
+                 int n, float cd, float sd, float scale, long long seam_period) {
   extern __shared__ __align__(128) unsigned char smem[];
   // after the bars: the stats' words
-  float* red = reinterpret_cast<float*>(smem + tc_smem_bytes(g, P, wgs, stages, 0));
-  FmEpilogue<P> epi{taps, audio, stats, n, cd, sd, scale, 0.f, 0.f, 0.f};
-  ddc_tc_run<P>(x, tail, bank, g, n_tiles, wgs, stages, bank_bytes, epi);
+  float* red = reinterpret_cast<float*>(
+      smem + tc_smem_bytes(g, P, wgs, stages, 0, kFast));
+  FmEpilogue<P, kFast> epi{taps, audio, stats, n, cd, sd, scale, seam_period,
+                           0.f, 0.f, 0.f};
+  ddc_tc_run<P, kFast>(x, tail, bank, g, n_tiles, wgs, stages, bank_bytes, epi);
   finish_stats(epi.esum, red, partials, ticket, stats);
 }
 
@@ -234,8 +256,9 @@ int launch_tc(const float* x, const float* tail, const float* bank,
               const float* taps, float* audio, float* stats, float* partials,
               unsigned* ticket, const Geom& g, int wgs, int stages,
               unsigned bank_bytes, size_t smem, int max_blocks, int n, float cd,
-              float sd, float scale, int device, cudaStream_t stream) {
-  auto kernel = ddc_fm_tc_kernel<P>;
+              float sd, float scale, bool fast, long long seam_period,
+              int device, cudaStream_t stream) {
+  auto kernel = fast ? ddc_fm_tc_kernel<P, true> : ddc_fm_tc_kernel<P, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -246,11 +269,31 @@ int launch_tc(const float* x, const float* tail, const float* bank,
   if (blocks > max_blocks) blocks = max_blocks;
   kernel<<<(unsigned)blocks, 128 * wgs, smem, stream>>>(
       x, tail, bank, taps, audio, stats, partials, ticket, g, n_tiles, wgs,
-      stages, bank_bytes, n, cd, sd, scale);
+      stages, bank_bytes, n, cd, sd, scale, seam_period);
   return (int)cudaGetLastError();
 }
 
-// The large-M route: direct-form FIR in FP32 FMA from polyphase rows.
+// z of the n-sample window from sample s0 in FP32 FMA over the unrounded
+// samples, read from device memory (the tail before the block, zeros before
+// the tail): the direct route's TPU-tile seams in fast mode.
+__device__ void seam_dot(const float* __restrict__ x, const float* __restrict__ tail,
+                         const float* __restrict__ taps, long long L, int D,
+                         int n, long long s0, float& zr, float& zi) {
+  zr = 0.f;
+  zi = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const float a = span_value(x, tail, s0 + i, L, D);
+    const float b = span_value(x + L, tail + D, s0 + i, L, D);
+    const float hr = taps[i], hi = taps[n + i];
+    zr = fmaf(hr, a, zr);
+    zr = fmaf(-hi, b, zr);
+    zi = fmaf(hr, b, zi);
+    zi = fmaf(hi, a, zi);
+  }
+}
+
+// The large-M route: direct-form FIR in FP32 FMA from polyphase rows (fast:
+// the staged samples and taps rounded to bf16 first).
 __global__ void ddc_fm_direct_kernel(const float* __restrict__ x,
                                      const float* __restrict__ tail,
                                      const float* __restrict__ taps,
@@ -259,7 +302,8 @@ __global__ void ddc_fm_direct_kernel(const float* __restrict__ x,
                                      float* __restrict__ partials,
                                      unsigned* ticket, long long L, long long T,
                                      int n, int M, int U, float cd, float sd,
-                                     float scale) {
+                                     float scale, int fast,
+                                     long long seam_period) {
   constexpr int R = kOutputsPerThread;
   extern __shared__ float dsmem[];
   const int nthr = blockDim.x;
@@ -278,8 +322,8 @@ __global__ void ddc_fm_direct_kernel(const float* __restrict__ x,
   const long long b0 = (t0 - 1) * M - D;  // first sample of z[t0 - 1]
 
   for (int i = tid; i < n; i += nthr) {
-    h_r[i] = taps[i];
-    h_i[i] = taps[n + i];
+    h_r[i] = fast ? bf16_round(taps[i]) : taps[i];
+    h_i[i] = fast ? bf16_round(taps[n + i]) : taps[n + i];
   }
   for (int k = tid; k < M * U; k += nthr) {
     const long long s = b0 + k;
@@ -295,8 +339,8 @@ __global__ void ddc_fm_direct_kernel(const float* __restrict__ x,
     }
     const int u = k / M;
     const int r = k - u * M;
-    xs_r[r * U + u] = vr;
-    xs_i[r * U + u] = vi;
+    xs_r[r * U + u] = fast ? bf16_round(vr) : vr;
+    xs_i[r * U + u] = fast ? bf16_round(vi) : vi;
   }
   __syncthreads();
 
@@ -349,7 +393,9 @@ __global__ void ddc_fm_direct_kernel(const float* __restrict__ x,
     const long long t = t0 + j;
     if (t < T) {
       const float cr = z_r[j + 1], ci = z_i[j + 1];
-      const float pr = z_r[j], pi = z_i[j];
+      float pr = z_r[j], pi = z_i[j];
+      if (fast && t % seam_period == 0)      // a TPU tile's f32 seam
+        seam_dot(x, tail, taps, L, D, n, (t - 1) * M - D, pr, pi);
       const float ure = cr * pr + ci * pi;
       const float uim = ci * pr - cr * pi;
       const float dre = ure * cd - uim * sd;
@@ -381,25 +427,30 @@ static size_t ddc_fm_direct_smem_bytes(int n, int M, int threads) {
 }
 
 // The tensor-core route.  x (2, L), tail (2, n - M), taps (2, n) [re row;
-// im row] f32; bank: the packed hi and lo banks of
-// ops/cuda_ddc.py::body_tc_bank in the FM column order, for frames of P
+// im row] f32; bank: the packed bank of ops/cuda_ddc.py::body_tc_bank in the
+// FM column order (fast = 0: the tf32 hi and lo banks; fast = 1: bf16), for
+// frames of P
 // outputs read through windows of KP samples from hpad before the frame,
 // spans starting pre samples earlier, wgs warpgroups a block, stages span
 // buffers a warpgroup and smem bytes of shared memory a block
 // (ops/cuda_ddc.py::fm_geometry).  audio (L / M,) 16-byte aligned, stats
 // (5,), partials (max_blocks,), ticket: one word, 0 before the first launch
-// (each launch leaves it 0).  All on card `device`; launches on `stream`,
-// does not synchronise, returns the launch's cudaError_t.
+// (each launch leaves it 0); fast mode: seam_period, the outputs of a TPU
+// tile (a multiple of 16 P), whose seams stay f32.  All on card `device`;
+// launches on `stream`, does not synchronise, returns the launch's
+// cudaError_t.
 extern "C" int ddc_fm_launch(const float* x, const float* tail, const float* bank,
                              const float* taps, float* audio, float* stats,
                              float* partials, unsigned* ticket, long long L,
                              int n, int M, int P, int hpad, int KP, int pre,
                              int wgs, int stages, int smem, int max_blocks,
-                             float cd, float sd, float scale, int device,
+                             float cd, float sd, float scale, int fast,
+                             long long seam_period, int device,
                              cudaStream_t stream) {
   if (M <= 0 || n <= M || L <= 0 || L % M != 0 || hpad < n - M || hpad % 4 ||
       KP % 32 || KP < hpad + P * M || pre < n - hpad || pre < 0 || pre % 4 ||
       (wgs != 1 && wgs != 2) || (stages != 1 && stages != 2) || max_blocks < 1 ||
+      (fast && (seam_period <= 0 || seam_period % (16 * P))) ||
       (reinterpret_cast<unsigned long long>(bank) & 15) ||
       (reinterpret_cast<unsigned long long>(audio) & 15) ||
       (reinterpret_cast<unsigned long long>(x) & 3))
@@ -407,41 +458,47 @@ extern "C" int ddc_fm_launch(const float* x, const float* tail, const float* ban
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   const Geom g = make_geom(x, L, n, M, P, hpad, KP, pre);
-  const unsigned bank_bytes = tc_bank_bytes(P, KP);
-  if ((size_t)smem < tc_smem_bytes(g, P, wgs, stages, kFmExtra))
+  const unsigned bank_bytes = tc_bank_bytes(P, KP, fast != 0);
+  if ((size_t)smem < tc_smem_bytes(g, P, wgs, stages, kFmExtra, fast != 0))
     return (int)cudaErrorInvalidValue;
   switch (P) {
     case 4: return launch_tc<4>(x, tail, bank, taps, audio, stats, partials, ticket,
                                 g, wgs, stages, bank_bytes, smem, max_blocks, n, cd,
-                                sd, scale, device, stream);
+                                sd, scale, fast != 0, seam_period, device,
+                                stream);
     case 8: return launch_tc<8>(x, tail, bank, taps, audio, stats, partials, ticket,
                                 g, wgs, stages, bank_bytes, smem, max_blocks, n, cd,
-                                sd, scale, device, stream);
+                                sd, scale, fast != 0, seam_period, device,
+                                stream);
     case 16: return launch_tc<16>(x, tail, bank, taps, audio, stats, partials, ticket,
                                   g, wgs, stages, bank_bytes, smem, max_blocks, n, cd,
-                                  sd, scale, device, stream);
+                                  sd, scale, fast != 0, seam_period, device,
+                                stream);
     case 32: return launch_tc<32>(x, tail, bank, taps, audio, stats, partials, ticket,
                                   g, wgs, stages, bank_bytes, smem, max_blocks, n, cd,
-                                  sd, scale, device, stream);
+                                  sd, scale, fast != 0, seam_period, device,
+                                stream);
     case 64: return launch_tc<64>(x, tail, bank, taps, audio, stats, partials, ticket,
                                   g, wgs, stages, bank_bytes, smem, max_blocks, n, cd,
-                                  sd, scale, device, stream);
+                                  sd, scale, fast != 0, seam_period, device,
+                                stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The direct route: x, tail, taps as above; threads a block from
-// ops/cuda_ddc.py::launch_geometry; partials (max_blocks,) with max_blocks
-// >= the blocks, ceil(T / (4 threads)).  Launches on `stream`, does not
-// synchronise, returns the launch's cudaError_t.
+// The direct route: x, tail, taps, fast and seam_period as above; threads a
+// block from ops/cuda_ddc.py::launch_geometry; partials (max_blocks,) with
+// max_blocks >= the blocks, ceil(T / (4 threads)).  Launches on `stream`,
+// does not synchronise, returns the launch's cudaError_t.
 extern "C" int ddc_fm_direct_launch(const float* x, const float* tail,
                                     const float* taps, float* audio, float* stats,
                                     float* partials, unsigned* ticket, long long L,
                                     int n, int M, int threads, int max_blocks,
-                                    float cd, float sd, float scale, int device,
+                                    float cd, float sd, float scale, int fast,
+                                    long long seam_period, int device,
                                     cudaStream_t stream) {
   if (M <= 0 || n <= M || L % M != 0 || L / M <= 0 || threads < 32 ||
-      threads > 1024 || threads % 32 != 0)
+      threads > 1024 || threads % 32 != 0 || (fast && seam_period <= 0))
     return (int)cudaErrorInvalidValue;
   const long long T = L / M;
   const int tbo = threads * kOutputsPerThread;
@@ -457,6 +514,7 @@ extern "C" int ddc_fm_direct_launch(const float* x, const float* tail,
     if (err != cudaSuccess) return (int)err;
   }
   ddc_fm_direct_kernel<<<(unsigned)blocks, threads, smem, stream>>>(
-      x, tail, taps, audio, stats, partials, ticket, L, T, n, M, U, cd, sd, scale);
+      x, tail, taps, audio, stats, partials, ticket, L, T, n, M, U, cd, sd, scale,
+      fast, seam_period);
   return (int)cudaGetLastError();
 }

@@ -13,20 +13,28 @@
 //     the window x[f*hop - hpad .. f*hop - hpad + KP), hpad = D rounded up
 //     to 4, KP = hpad + hop rounded up to 32, so z[f, :] = window . B with
 //     the banded bank B (KP x 2P per plane) and the planes summed along K;
-//   * TF32 x3 (hi = tf32(a), lo = a - hi read as TF32; hi.hi + lo.hi +
-//     hi.lo with f32 sums keeps ~21 mantissa bits), the samples' split by
-//     integer arithmetic (cvt.rna.tf32 runs on the quarter-rate unit);
-//   * wgmma m64nNk8 (N = 2P), A = 64 frames x 8 window samples from
-//     registers, two fragment sets held across waits (a set is rebuilt only
-//     after the wait that covers its group: reusing registers still read by
-//     products in flight gave NaN), B = the bank from shared memory, split
-//     into hi and lo on the host from float64 taps, packed in wgmma's
-//     K-major core-matrix layout (ops/cuda_ddc.py::body_tc_bank) and brought
-//     in once a block by one TMA bulk copy;
+//   * two modes, fixed at compile time (kFast): TF32 x3 (hi = tf32(a),
+//     lo = a - hi read as TF32; hi.hi + lo.hi + hi.lo with f32 sums keeps
+//     ~21 mantissa bits), the samples' split by integer arithmetic
+//     (cvt.rna.tf32 runs on the quarter-rate unit); or "fast", the TPU
+//     kernels' single bf16 pass: samples and bank rounded to bf16 (round to
+//     nearest even, cvt.rn.bf16x2.f32), products exact, f32 sums, one
+//     m64nNk16 product a 16-sample k-step where x3 issues three m64nNk8
+//     products an 8-sample k-step (1/6 of the tensor-core issue);
+//   * wgmma m64nNk8 tf32 (x3) or m64nNk16 bf16 (fast), N = 2P, A = 64
+//     frames x 8 or 16 window samples from registers, two fragment sets
+//     held across waits (a set is rebuilt only after the wait that covers
+//     its group: reusing registers still read by products in flight gave
+//     NaN), B = the bank from shared memory, built on the host from float64
+//     taps (x3: split into tf32 hi and lo; fast: rounded to float32, then to
+//     bf16, as the TPU kernel's bank), packed in wgmma's K-major
+//     core-matrix layout (ops/cuda_ddc.py::body_tc_bank) and brought in
+//     once a block by one TMA bulk copy;
 //   * the window samples of K are permuted (host bank and kernel alike) so
-//     that each thread reads its A fragments of two k-steps as one 16-byte
-//     shared load, odd rows taking the two halves of 32 samples in the other
-//     order (no bank conflicts when hop is a multiple of 32 words);
+//     that each thread reads its A fragments of a 32-sample group (four
+//     tf32 k-steps or two bf16 ones) as two 16-byte shared loads a row, odd
+//     rows taking the two halves of 32 samples in the other order (no bank
+//     conflicts when hop is a multiple of 32 words);
 //   * persistent blocks of one or two warpgroups; each warpgroup owns tiles
 //     of 64 frames (its 64 x 2P sums in registers) and a ring of one or two
 //     stages, each the tile's span of both planes brought by one TMA bulk
@@ -40,6 +48,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
@@ -103,11 +112,78 @@ __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const unsigned (
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+// d (64 x N f32 of this warpgroup) += A (64 x 16 bf16, registers) . B (16 x
+// N bf16, shared memory descriptor b, K-major): wgmma m64nNk16, N = 2P.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const unsigned (&a)[4],
+                                           unsigned long long b);
+template <>
+__device__ __forceinline__ void wgmma_bf16<8>(float (&d)[4], const unsigned (&a)[4],
+                                              unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8], const unsigned (&a)[4],
+                                              unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], const unsigned (&a)[4],
+                                              unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], const unsigned (&a)[4],
+                                              unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], const unsigned (&a)[4],
+                                              unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 // a rounded to TF32 (10 mantissa bits, ties away from zero): the result of
 // cvt.rna.tf32.f32 for finite a, by integer operations at full rate (the
 // conversion runs on the quarter-rate unit and held the kernel).
 __device__ __forceinline__ unsigned tf32_rna(float a) {
   return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
+}
+
+// (lo, hi) rounded to bf16 (to nearest even) as one register: lo in the low
+// half, the element of the smaller K index (cvt.rn.bf16x2.f32)
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// a rounded to bf16 (to nearest even) and back to float32
+__device__ __forceinline__ float bf16_round(float a) {
+  return __bfloat162float(__float2bfloat16_rn(a));
 }
 
 __device__ __forceinline__ float4 load4(const float* p, bool vec) {
@@ -138,7 +214,7 @@ inline Geom make_geom(const float* x, long long L, int n, int M, int P,
   Geom g;
   g.L = L;
   g.T = L / M;
-  g.D = n - M;
+  g.D = n > M ? n - M : 0;         // n <= M: no output reads before its frame
   g.hpad = hpad;
   g.hop = P * M;
   g.KP = KP;
@@ -151,16 +227,19 @@ inline Geom make_geom(const float* x, long long L, int n, int M, int P,
   return g;
 }
 
-// Bytes of the packed hi and lo banks: 2 * KP / 4 k-steps of 8 x 2P f32.
-__host__ __device__ inline unsigned tc_bank_bytes(int P, int KP) {
-  return (unsigned)(2 * (KP / 4) * 32 * 2 * P);
+// Bytes of the packed bank: x3, the hi and lo banks, 2 * KP / 4 k-steps of
+// 8 x 2P f32; fast, KP / 8 k-steps of 16 x 2P bf16.  Either way a k-step is
+// 32 * 2P bytes.
+__host__ __device__ inline unsigned tc_bank_bytes(int P, int KP, bool fast) {
+  return (unsigned)((fast ? KP / 8 : 2 * (KP / 4)) * 32 * 2 * P);
 }
 
 // Shared memory of one block: the bank, the stages, the barriers and
 // `extra` bytes for the epilogue (ops/cuda_ddc.py computes the same).
 __host__ __device__ inline size_t tc_smem_bytes(const Geom& g, int P, int wgs,
-                                                int stages, int extra) {
-  return tc_bank_bytes(P, g.KP) + (size_t)wgs * stages * 2 * g.SP * 4 +
+                                                int stages, int extra,
+                                                bool fast) {
+  return tc_bank_bytes(P, g.KP, fast) + (size_t)wgs * stages * 2 * g.SP * 4 +
          (1 + stages * wgs) * 8 + extra;
 }
 
@@ -182,9 +261,20 @@ int sm_count(int device) {
   return n > 0 ? n : 1;
 }
 
+// A thread's A fragments of one 32-sample group: x3, [hi, lo][tf32 k-step]
+// [register]; fast, [bf16 k-step][register].
+template <bool kFast>
+struct Frags {
+  unsigned v[2][4][4];
+};
+template <>
+struct Frags<true> {
+  unsigned v[2][4];
+};
+
 // The persistent loop of one block: every tile of this block's warpgroups
 // is computed into acc and handed to the epilogue.  Epi provides
-//   from_span(g, re, im, w, lane): called by every warp once all the tile's
+//   from_span(g, tau, re, im, w, lane): called by every warp once all the tile's
 //     products are issued, while the last run, with the tile's span of each
 //     plane in shared memory (re[0], im[0] the span's first sample); the
 //     span is released after (work here before the last products were
@@ -197,7 +287,7 @@ int sm_count(int device) {
 //     time).
 // The shared memory holds the bank, then the stages, then the barriers;
 // `extra` bytes after them are the epilogue's.
-template <int P, class Epi>
+template <int P, bool kFast, class Epi>
 __device__ __forceinline__ void ddc_tc_run(const float* __restrict__ x,
                                            const float* __restrict__ tail,
                                            const float* __restrict__ bank,
@@ -263,7 +353,7 @@ __device__ __forceinline__ void ddc_tc_run(const float* __restrict__ x,
   const int sw = (g.hop & 31) == 0 ? (r & 1) : 0;  // odd rows: halves swapped
   const int groups = g.KP / 32;                     // 4 k-steps each, a plane
   const unsigned ks_bytes = 32u * N;                // one k-step of the bank
-  const unsigned n_steps = (unsigned)g.KP / 4;      // both planes
+  const unsigned n_steps = (unsigned)g.KP / 4;      // x3's hi steps, both planes
   for (long long i = 0; first + i * stride < n_tiles; ++i) {
     const long long tau = first + i * stride;
     const int st = (int)(i % stages);
@@ -285,10 +375,12 @@ __device__ __forceinline__ void ddc_tc_run(const float* __restrict__ x,
     float acc[P];
 #pragma unroll
     for (int j = 0; j < P; ++j) acc[j] = 0.f;
-    // A fragments of group q (4 k-steps of one plane), hi and lo, split
-    // from the span: samples 32m .. 32m+15 (k-steps 4m, 4m+1) and
-    // 32m+16 .. 32m+31 (4m+2, 4m+3) of rows r and r + 8
-    auto build = [&](int q, unsigned (&a)[2][4][4]) {
+    // A fragments of group q (32 samples of one plane) from the span:
+    // samples 32m .. 32m+15 and 32m+16 .. 32m+31 of rows r and r + 8.  x3:
+    // tf32 k-steps 4m, 4m+1 and 4m+2, 4m+3, hi and lo; fast: bf16 k-steps
+    // 2m and 2m+1, thread c holding samples 4c .. 4c+3 of each as K indices
+    // 2c, 2c+1 (register 0, row r; 1, row r+8) and 2c+8, 2c+9 (2 and 3)
+    auto build = [&](int q, Frags<kFast>& f) {
       const int p = q / groups, m = q - p * groups;
       const float* row =
           stage_plane(st, p) + g.off[p] + pre + (16 * w + r) * g.hop + 4 * c;
@@ -298,48 +390,76 @@ __device__ __forceinline__ void ddc_tc_run(const float* __restrict__ x,
       const float4 v1 = load4(row + 8 * g.hop + jb, vec);
       const float4 ra = sw ? u1 : u0, rb = sw ? u0 : u1;
       const float4 sa = sw ? v1 : v0, sb = sw ? v0 : v1;
-      const float vals[4][4] = {{ra.x, sa.x, ra.y, sa.y}, {ra.z, sa.z, ra.w, sa.w},
-                                {rb.x, sb.x, rb.y, sb.y}, {rb.z, sb.z, rb.w, sb.w}};
+      if constexpr (kFast) {
+        f.v[0][0] = bf16x2(ra.x, ra.y);
+        f.v[0][1] = bf16x2(sa.x, sa.y);
+        f.v[0][2] = bf16x2(ra.z, ra.w);
+        f.v[0][3] = bf16x2(sa.z, sa.w);
+        f.v[1][0] = bf16x2(rb.x, rb.y);
+        f.v[1][1] = bf16x2(sb.x, sb.y);
+        f.v[1][2] = bf16x2(rb.z, rb.w);
+        f.v[1][3] = bf16x2(sb.z, sb.w);
+      } else {
+        const float vals[4][4] = {{ra.x, sa.x, ra.y, sa.y}, {ra.z, sa.z, ra.w, sa.w},
+                                  {rb.x, sb.x, rb.y, sb.y}, {rb.z, sb.z, rb.w, sb.w}};
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
+        for (int k = 0; k < 4; ++k)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          a[0][k][e] = tf32_rna(vals[k][e]);
-          // lo = a - hi exactly; the tensor cores read its TF32 part (the
-          // low 13 bits ignored), an error of 2^-21 |a| at most
-          a[1][k][e] = __float_as_uint(vals[k][e] - __uint_as_float(a[0][k][e]));
-        }
+          for (int e = 0; e < 4; ++e) {
+            f.v[0][k][e] = tf32_rna(vals[k][e]);
+            // lo = a - hi exactly; the tensor cores read its TF32 part (the
+            // low 13 bits ignored), an error of 2^-21 |a| at most
+            f.v[1][k][e] =
+                __float_as_uint(vals[k][e] - __uint_as_float(f.v[0][k][e]));
+          }
+      }
     };
-    // group q's 12 products: hi.hi, lo.hi, hi.lo for each k-step
-    auto mma = [&](int q, unsigned (&a)[2][4][4]) {
+    // group q's products: x3, hi.hi, lo.hi, hi.lo for each of 4 k-steps;
+    // fast, one product for each of 2 k-steps
+    auto mma = [&](int q, Frags<kFast>& f) {
 #pragma unroll
       for (int j = 0; j < P; ++j) fence_operand(acc[j]);
       wgmma_fence();
+      if constexpr (kFast) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const unsigned step = (unsigned)q * 4 + k;
-        const unsigned long long bh =
-            gmma_desc(sbase + step * ks_bytes, 16 * N, 128);
-        const unsigned long long bl =
-            gmma_desc(sbase + (n_steps + step) * ks_bytes, 16 * N, 128);
-        wgmma_tf32<N>(acc, a[0][k], bh);
-        wgmma_tf32<N>(acc, a[1][k], bh);
-        wgmma_tf32<N>(acc, a[0][k], bl);
+        for (int k = 0; k < 2; ++k) {
+          const unsigned step = (unsigned)q * 2 + k;
+          wgmma_bf16<N>(acc, f.v[k], gmma_desc(sbase + step * ks_bytes, 16 * N, 128));
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const unsigned step = (unsigned)q * 4 + k;
+          const unsigned long long bh =
+              gmma_desc(sbase + step * ks_bytes, 16 * N, 128);
+          const unsigned long long bl =
+              gmma_desc(sbase + (n_steps + step) * ks_bytes, 16 * N, 128);
+          wgmma_tf32<N>(acc, f.v[0][k], bh);
+          wgmma_tf32<N>(acc, f.v[1][k], bh);
+          wgmma_tf32<N>(acc, f.v[0][k], bl);
+        }
       }
       wgmma_commit();
     };
     // keeps a fragment set's registers untouched until its products are done
-    auto hold = [&](unsigned (&a)[2][4][4]) {
+    auto hold = [&](Frags<kFast>& f) {
+      if constexpr (kFast) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+        for (int k = 0; k < 2; ++k)
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
+          for (int e = 0; e < 4; ++e) fence_operand(f.v[k][e]);
+      } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) fence_operand(a[h][k][e]);
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) fence_operand(f.v[h][k][e]);
+      }
     };
     // two fragment sets: group q is built while group q - 1's products run;
     // a set is rebuilt only after the wait that covers its last group
-    unsigned fa[2][4][4], fb[2][4][4];
+    Frags<kFast> fa, fb;
     const int nq = 2 * groups;
     build(0, fa);
     mma(0, fa);
@@ -355,8 +475,8 @@ __device__ __forceinline__ void ddc_tc_run(const float* __restrict__ x,
         hold(fb);
       }
     }
-    epi.from_span(g, stage_plane(st, 0) + g.off[0], stage_plane(st, 1) + g.off[1],
-               w, lane);
+    epi.from_span(g, tau, stage_plane(st, 0) + g.off[0],
+                  stage_plane(st, 1) + g.off[1], w, lane);
     // every fragment is in registers: the stage is free for the tile after
     // next while the last products run and the epilogue works
     named_sync(1 + wg, 128);

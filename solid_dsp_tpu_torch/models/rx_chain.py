@@ -9,7 +9,12 @@ FIR, AGC and demodulation (FM, QPSK, AM or none) as one block transform
   K3's route for an unaligned block) and, with block AGC and FM or AM, the
   collapsed epilogue (FM blocks that are multiples of 64*M run the fused
   DDC + FM kernel, K1); otherwise the body, the decimated-rate rotation,
-  the AGC and the demodulator;
+  the AGC and the demodulator.  The kernels run in the TPU kernels' mode
+  of ``fir_precision``: "x3" for "highest" and "x3", the single bf16 pass
+  ("fast") for "default".  Where the JAX package keeps to XLA (complex128,
+  whose body stays off its kernels; tap counts no kernel's predicate
+  takes, such as n > 64*M + 1) the port runs the plain body's torch ops,
+  the counterpart of that XLA route, on every device;
 * the unfused reference-parity route (``fused_ddc="off"``, or "auto" with
   ``nco_mode="lut"``): ``ops/nco.py::mix_down_block`` (the reference's
   1024-entry LUT or exact sin/cos), ``ops/fir.py::fir_decim_apply`` with the
@@ -22,11 +27,7 @@ FIR, AGC and demodulation (FM, QPSK, AM or none) as one block transform
   stages with a non-finite value, each stage read on the host).
 
 Input is planar (2, L) float, complex (L,) (``cf32``) or raw interleaved
-int16 IQ (L, 2) (``ci16``, scaled by 1/32767).  The fused route's kernels
-take complex64, the "highest"/"x3" contract and M < fir_taps <= 64*M: its
-``fir_precision="default"``, ``dtype=complex128`` and other tap counts
-raise ``NotImplementedError`` naming their ROADMAP entry; the unfused route
-takes them all.
+int16 IQ (L, 2) (``ci16``, scaled by 1/32767).
 """
 
 from __future__ import annotations
@@ -53,8 +54,6 @@ from . import qpsk as qpsk_mod
 __all__ = ["RxChainConfig", "rx_chain_init", "make_rx_chain",
            "make_rx_chain_stream", "RxChain"]
 
-_FUSED_LATER = ("ROADMAP.md queue 1 item 7b (the fused route's single-pass "
-                "bf16 body, float64 body and wide taps)")
 _STAGES = ("input", "nco", "fir", "agc", "demod")
 
 
@@ -77,8 +76,8 @@ class RxChainConfig:
     input_format: str = "cf32"         # "cf32" | "ci16" | "planar"
     fused_ddc: str = "auto"            # "auto" | "on" | "off"
     impairment_bw: float = 0.0
-    # "highest" and "x3" both run the body in FP32 FMA on Hopper: x3's
-    # contract is ~f32 accuracy, which plain FP32 meets.
+    # the DDC kernels' mode: "highest" and "x3" run TF32 x3 (~f32
+    # accuracy), "default" the TPU kernels' single bf16 pass
     fir_precision: str = "highest"     # "highest" | "x3" | "default"
     # "auto": the CUDA kernels for CUDA tensors, the plain versions for CPU
     # tensors; "cuda" forces the kernels; "torch" the plain versions.
@@ -102,9 +101,29 @@ def _rdtype(cfg: RxChainConfig) -> torch.dtype:
     return torch.float64 if cfg.dtype == torch.complex128 else torch.float32
 
 
+def _body_mode(cfg: RxChainConfig) -> str:
+    """The DDC kernels' mode for ``fir_precision``, as the JAX package
+    picks it (``mode = "x3" if precision != "default" else "fast"``); a
+    complex128 chain's float64 body computes in float64."""
+    if cfg.fir_precision == "default" and cfg.dtype == torch.complex64:
+        return "fast"
+    return "x3"
+
+
+def _ddc_bodies(cfg: RxChainConfig, taps, dtheta, device):
+    """The fused route's DDC bodies in the chain's mode and real type:
+    (body, K1's body or None where the JAX package does not take K1: a
+    float64 chain, or taps pallas_fm_supported refuses)."""
+    rdt, mode, M = _rdtype(cfg), _body_mode(cfg), cfg.decimation
+    body = cuda_ddc.make_ddc_body(taps, dtheta, M, device, rdt, mode)
+    fm = (cuda_ddc.make_ddc_fm(taps, dtheta, M, cfg.fm_kf, device, mode=mode)
+          if rdt == torch.float32 and cuda_ddc.fm_supported(len(taps), M)
+          else None)
+    return body, fm
+
+
 def _check_config(cfg: RxChainConfig):
-    """ValueError for values the JAX package rejects; NotImplementedError
-    for the fused route's settings its kernels do not take."""
+    """ValueError for values the JAX package rejects."""
     for name, allowed in (("agc_mode", ("exact", "parallel", "block")),
                           ("input_format", ("cf32", "ci16", "planar")),
                           ("fir_precision", ("highest", "x3", "default")),
@@ -118,21 +137,6 @@ def _check_config(cfg: RxChainConfig):
     if cfg.fused_ddc == "on" and cfg.nco_mode != "exact":
         raise ValueError("fused_ddc requires nco_mode='exact' "
                          "(LUT-quantized mixing cannot fold into taps)")
-    if not _fused(cfg):
-        return
-    unported = [
-        ("fir_precision='default'", cfg.fir_precision == "default"),
-        (f"dtype={cfg.dtype}", cfg.dtype != torch.complex64),
-        (f"fir_taps={cfg.fir_taps}, decimation={cfg.decimation}",
-         not cuda_ddc.fm_supported(cfg.fir_taps, cfg.decimation)),
-    ]
-    for setting, hit in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{setting} on the fused route (the DDC kernels take "
-                f"complex64, the highest/x3 contract and M < fir_taps <= "
-                f"64*M) is not ported to solid_dsp_tpu_torch yet: see "
-                f"{_FUSED_LATER}; fused_ddc='off' takes it")
 
 
 def rx_chain_init(cfg: RxChainConfig, device=None) -> ChainState:
@@ -163,16 +167,16 @@ def _ci16_scale(rdtype: torch.dtype) -> float:
 
 
 def _planar(cfg: RxChainConfig, x: torch.Tensor) -> torch.Tensor:
-    """The block as contiguous (2, L) float32 planes."""
+    """The block as contiguous (2, L) planes of the chain's real type."""
+    rdt = _rdtype(cfg)
     if cfg.input_format == "ci16":
-        # (L, 2) int16 -> float32 times float32(1/32767), written straight
-        # into the planar layout: one pass
-        x2 = torch.empty((2, x.shape[0]), dtype=torch.float32,
-                         device=x.device)
-        return torch.mul(x.T, _ci16_scale(torch.float32), out=x2)
+        # (L, 2) int16 -> real times (1/32767 in the real type), written
+        # straight into the planar layout: one pass
+        x2 = torch.empty((2, x.shape[0]), dtype=rdt, device=x.device)
+        return torch.mul(x.T, _ci16_scale(rdt), out=x2)
     if cfg.input_format == "cf32":
-        return torch.stack([x.real, x.imag]).to(torch.float32)
-    return x.to(torch.float32)
+        return torch.stack([x.real, x.imag]).to(rdt)
+    return x.to(rdt)
 
 
 def _complex_in(cfg: RxChainConfig, x: torch.Tensor) -> torch.Tensor:
@@ -222,9 +226,10 @@ def make_rx_chain(cfg: RxChainConfig, device=None):
     lut = nco_ops.make_sine_lut(torch.empty(0, dtype=rdt).numpy().dtype)
     collapse = (fused and cfg.agc_mode == "block"
                 and cfg.demod in ("fm", "am") and cfg.epilogue == "auto")
-    body = cuda_ddc.make_ddc_body(taps, dtheta, M, device) if fused else None
-    fm_body = (cuda_ddc.make_ddc_fm(taps, dtheta, M, cfg.fm_kf, device)
-               if collapse and cfg.demod == "fm" else None)
+    body, fm_body = (_ddc_bodies(cfg, taps, dtheta, device) if fused
+                     else (None, None))
+    if not (collapse and cfg.demod == "fm"):
+        fm_body = None
     bw_c = torch.tensor(cfg.impairment_bw, dtype=cfg.dtype, device=device)
 
     def agc_stage(agc_state, y):
@@ -266,12 +271,12 @@ def make_rx_chain(cfg: RxChainConfig, device=None):
                 parts["impair"] = {"dc": dc, "k": k,
                                    "primed": torch.ones_like(st_i["primed"])}
             if fused:
-                x2 = torch.stack([x.real, x.imag]).to(torch.float32)
+                x2 = torch.stack([x.real, x.imag]).to(rdt)
         inp = x2 if planar_in else x      # debug_checks' input stage
         fm_prev = state.fm_prev
         if fused:
             tail2 = torch.stack([state.fir_tail.real, state.fir_tail.imag]
-                                ).to(torch.float32)
+                                ).to(rdt)
             gain = state.agc["gain"]
             if fm_body is not None and L % (fm_body.P * M) == 0:
                 # the fused DDC + FM kernel: the decimated complex signal

@@ -10,10 +10,22 @@ Ports of the three TPU kernels of ``solid_dsp_tpu/ops/pallas_ddc.py``:
   :class:`DdcBody`, ``csrc/ddc_body.cu``, one kernel counted apart on the
   two routes by :func:`ddc_body_cuda` and :func:`ddc_body_unaligned_cuda`.
   For the block x (2, L), L any multiple of M, and the carried tail
-  x[-D .. -1] (D = n - M) it computes z[t] = sum_i h_bp[i] x[tM - D + i],
-  (2, T) f32, as a banded-Toeplitz frame product on the tensor cores in
-  TF32 x3 (the frame width and bank layout: :func:`body_tc_geometry`,
-  :func:`body_tc_bank`); its plain version is ``ops/ddc.py::ddc_body_torch``.
+  x[-D .. -1] (D = n - M, none for n <= M) it computes
+  z[t] = sum_i h_bp[i] x[tM - D + i], (2, T) f32, as a banded-Toeplitz
+  frame product on the tensor cores (the frame width and bank layout:
+  :func:`body_tc_geometry`, :func:`body_tc_bank`); its plain version is
+  ``ops/ddc.py::ddc_body_torch``.
+
+Each body has a ``mode``, the TPU kernels' two: ``"x3"`` (TF32 x3, ~f32
+accuracy, for ``fir_precision`` "highest"/"x3") or ``"fast"`` (their
+single bf16 pass, for "default": samples and bank rounded to bf16 to
+nearest even, the bank from its float32 values as the TPU kernel builds
+it, products exact, f32 sums, ~52 dB against float64).  A float64 body
+computes in float64 (the JAX package keeps float64 off its kernels).  The
+kernels are the TPU kernels' counterparts where the JAX package's
+predicates take them (:func:`full_supported`, :func:`body_supported`,
+:func:`fm_supported`); elsewhere the JAX package runs XLA, and the port
+its plain version on every device.
 
 For a planar block x (2, L) and the carried tail x[-D .. -1] K1 computes,
 for every decimated output t = 0 .. T-1 (T = L / M),
@@ -29,15 +41,19 @@ Two implementations of K1's function:
 
 * :func:`ddc_fm_cuda` launches ``csrc/ddc_fm.cu`` on one of two routes
   chosen from (n, M) alone (:func:`fm_geometry`): the body's tensor-core
-  product (``csrc/ddc_tc.cuh``, TF32 x3 ``wgmma``) with the discriminator,
-  energy and edges in its epilogue, wherever its bank and spans fit one
-  block's shared memory (counted by ``ddc_fm_cuda.launches``); else the
-  direct-form FIR in FP32 FMA (counted by ``ddc_fm_cuda.direct_launches``).
-  Both write the five stats themselves, the energy summed in a fixed order.
+  product (``csrc/ddc_tc.cuh``, ``wgmma`` in the body's mode) with the
+  discriminator, energy and edges in its epilogue, wherever its bank and
+  spans fit one block's shared memory (counted by ``ddc_fm_cuda.launches``
+  in x3, ``.fast_launches`` in fast mode); else the direct-form FIR in FP32
+  FMA (``.direct_launches``, ``.direct_fast_launches``).  Both write the
+  five stats themselves, the energy summed in a fixed order.  In fast mode
+  the output before each TPU tile (:func:`fm_seam_frames`) stays an f32
+  dot of the unrounded samples, as the TPU kernel's seam.
 * :func:`ddc_fm_torch` is the plain PyTorch version: matmuls of the frame
-  view (2, F, 64*M) against folded banded-Toeplitz banks, then the
-  discriminator in torch ops.  CPU tensors take it under ``engine="auto"``;
-  on the card it is the reference and the timing baseline.
+  view (2, F, 64*M) against folded banded-Toeplitz banks (operands rounded
+  to bf16 in fast mode), then the discriminator in torch ops.  CPU tensors
+  take it under ``engine="auto"``; on the card it is the reference and the
+  timing baseline.
 
 Both kernels are built from the repository's sources by ``nvcc`` at the
 first launch, into ``solid_dsp_tpu_torch/_build/``, and called through
@@ -57,31 +73,66 @@ import torch
 
 from ..device import fp32_exact
 from .cuda_build import check_launch, launcher, stream_of
-from .ddc import _fold_banks, ddc_body_torch, ddc_taps
+from .ddc import _bf16, _fold_banks, ddc_body_torch, ddc_taps
 from .fir import _banks_np
 from .nco import TWO_PI, U32, U32_MASK
 
-__all__ = ["DdcFmBody", "make_ddc_fm", "fm_supported", "ddc_fm_cuda",
+__all__ = ["DdcFmBody", "make_ddc_fm", "fm_supported", "full_supported",
+           "body_supported", "fm_seam_frames", "ddc_fm_cuda",
            "ddc_fm_torch", "DdcBody", "make_ddc_body", "ddc_body_cuda",
            "ddc_body_unaligned_cuda", "launch_geometry", "body_tc_geometry",
            "fm_tc_geometry", "fm_geometry", "fm_columns", "body_tc_bank",
-           "tf32_round", "DEFAULT_P"]
+           "tf32_round", "bf16_round", "DEFAULT_P", "MODES"]
 
 DEFAULT_P = 64          # outputs per frame: the block length quantum is P*M
+MODES = ("x3", "fast")  # the TPU kernels' modes (pallas_ddc.py mode=)
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_DDC_FM_ARGS = (_P,) * 8 + (_LL,) + (_I,) * 10 + (_F,) * 3 + (_I, _P)
-_DDC_FM_DIRECT_ARGS = (_P,) * 7 + (_LL,) + (_I,) * 4 + (_F,) * 3 + (_I, _P)
-_DDC_BODY_ARGS = (_P,) * 4 + (_LL,) + (_I,) * 9 + (_P,)
+_DDC_FM_ARGS = ((_P,) * 8 + (_LL,) + (_I,) * 10 + (_F,) * 3
+                + (_I, _LL, _I, _P))
+_DDC_FM_DIRECT_ARGS = ((_P,) * 7 + (_LL,) + (_I,) * 4 + (_F,) * 3
+                       + (_I, _LL, _I, _P))
+_DDC_BODY_ARGS = (_P,) * 4 + (_LL,) + (_I,) * 10 + (_P,)
 _OUTPUTS_PER_THREAD = 4          # kOutputsPerThread in csrc/ddc_fm.cu
 _SMEM_LIMIT = 227 * 1024         # shared memory one block may use on sm_90
 _TC_FRAMES = 64                  # kFrames in csrc/ddc_tc.cuh: wgmma's rows
 _FM_EXTRA = 64                   # kFmExtra in csrc/ddc_fm.cu: the stats' words
 
 
+def full_supported(n_taps: int, M: int, P: int = DEFAULT_P) -> bool:
+    """K2's geometry, the JAX package's ``pallas_full_supported``: the
+    backward reach D = n - M fits one frame of P*M samples, 0 < D."""
+    return 0 < n_taps - M <= P * M
+
+
+def body_supported(n_taps: int, M: int, P: int = DEFAULT_P) -> bool:
+    """K3's geometry, the JAX package's ``pallas_body_supported``: the
+    frame's head reaches at most one frame ahead, 0 < n - 1 <= P*M."""
+    return 0 < n_taps - 1 <= P * M
+
+
 def fm_supported(n_taps: int, M: int, P: int = DEFAULT_P) -> bool:
-    """K1's geometry: the backward reach D = n - M and the tap window both
-    fit one frame of P*M samples."""
-    return 0 < n_taps - M <= P * M and n_taps <= P * M
+    """K1's geometry, the JAX package's ``pallas_fm_supported``: the
+    backward reach D = n - M and the tap window both fit one frame of P*M
+    samples."""
+    return full_supported(n_taps, M, P) and n_taps <= P * M
+
+
+def fm_seam_frames(F: int) -> int:
+    """Frames of P outputs a TPU tile of K1 holds for a block of F frames
+    (the JAX package's tile choice in ``ops/ddc.py::ddc_fm_fused``): in
+    fast mode the output before each such tile is the tile's f32 seam."""
+    for cand in (1024, 512, 256):
+        if F // cand >= 4:
+            return cand
+    return 128
+
+
+def _check_mode(mode: str, dtype: torch.dtype):
+    if mode not in MODES:
+        raise ValueError(f"unknown DDC body mode {mode!r}")
+    if mode == "fast" and dtype != torch.float32:
+        raise ValueError("the fast mode rounds float32 operands to bf16; a "
+                         "float64 body computes in float64")
 
 
 @functools.lru_cache(maxsize=16)
@@ -129,8 +180,9 @@ class DdcFmBody:
     prev_bank: torch.Tensor  # (2, n-M, 2P) previous-frame bank
     seam_bank: torch.Tensor  # (2, n, 2)
     h_bp: np.ndarray = field(repr=False)   # (n,) complex128: the kernel's bank
-    # the kernel's packed TF32 bank and its stats ticket on the device,
-    # built at first use
+    mode: str = "x3"         # "x3" | "fast" (MODES)
+    # the kernel's packed bank, its stats ticket on the device and the
+    # plain version's bf16 banks, built at first use
     banks: dict = field(default_factory=dict, repr=False)
 
     def __call__(self, x2: torch.Tensor, tail: torch.Tensor,
@@ -147,10 +199,12 @@ class DdcFmBody:
 
 
 def make_ddc_fm(taps: np.ndarray, dtheta, M: int, kf: float, device,
-                dtype: torch.dtype = torch.float32) -> DdcFmBody:
+                dtype: torch.dtype = torch.float32,
+                mode: str = "x3") -> DdcFmBody:
     """Design-time constants for real prototype taps, NCO word dtheta,
-    decimation M and FM index kf (numpy on the host, then one copy to
-    ``device``)."""
+    decimation M, FM index kf and ``mode`` (numpy on the host, then one
+    copy to ``device``)."""
+    _check_mode(mode, dtype)
     taps = np.asarray(taps)
     n = len(taps)
     if not fm_supported(n, M):
@@ -172,7 +226,8 @@ def make_ddc_fm(taps: np.ndarray, dtheta, M: int, kf: float, device,
         cd=float(np.cos(drad)), sd=float(-np.sin(drad)),
         scale=1.0 / (2.0 * np.pi * float(kf)),
         taps=dev(np.stack([h_bp.real, h_bp.imag]).astype(bank_dt)),
-        bank=dev(body), prev_bank=dev(prev), seam_bank=dev(seam), h_bp=h_bp)
+        bank=dev(body), prev_bank=dev(prev), seam_bank=dev(seam), h_bp=h_bp,
+        mode=mode)
 
 
 def _check_block(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
@@ -188,25 +243,50 @@ def _check_block(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
 @fp32_exact()
 def ddc_fm_torch(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
     """Plain PyTorch version of the body: returns (audio (T,), stats (5,));
-    its matmuls in full float32 (``device.fp32_exact``)."""
+    its matmuls in full float32 (``device.fp32_exact``).  Fast mode rounds
+    the frames, the previous frames' rows, the tail and the banks to bf16
+    first; the seams, the output before each TPU tile of
+    :func:`fm_seam_frames` frames, stay f32 dots of the unrounded samples,
+    as in the TPU kernel."""
     _check_block(body, x2, tail)
     P, M, n = body.P, body.M, body.n
     hop = P * M
     D = n - M
-    xf = x2.reshape(2, -1, hop)                                  # (2, F, hop)
-    prev = torch.cat([tail[:, None, :], xf[:, :-1, hop - D:]], dim=1)
-    y = (torch.matmul(xf[0], body.bank[0]) + torch.matmul(xf[1], body.bank[1])
-         + torch.matmul(prev[0], body.prev_bank[0])
-         + torch.matmul(prev[1], body.prev_bank[1]))             # (F, 2P)
+    fast = body.mode == "fast"
+    if fast:
+        banks = body.banks.get("bf16_plain")
+        if banks is None:
+            banks = body.banks["bf16_plain"] = (_bf16(body.bank),
+                                                _bf16(body.prev_bank))
+        bank, prev_bank = banks
+        xq, tq = _bf16(x2), _bf16(tail)
+    else:
+        bank, prev_bank, xq, tq = body.bank, body.prev_bank, x2, tail
+    xf = xq.reshape(2, -1, hop)                                  # (2, F, hop)
+    F = xf.shape[1]
+    prev = torch.cat([tq[:, None, :], xf[:, :-1, hop - D:]], dim=1)
+    y = (torch.matmul(xf[0], bank[0]) + torch.matmul(xf[1], bank[1])
+         + torch.matmul(prev[0], prev_bank[0])
+         + torch.matmul(prev[1], prev_bank[1]))                  # (F, 2P)
     zr = y[:, :P].reshape(-1)
     zi = y[:, P:].reshape(-1)
     # z[-1] from the n-sample window [0]*M + tail: the M samples before the
-    # tail are read as 0, as K1 reads them (the glue overwrites audio[0])
-    win = torch.cat([tail.new_zeros((2, M)), tail], dim=1)
+    # tail are read as 0, as K1 reads them (the glue overwrites audio[0]);
+    # fast mode: then the last output of each frame before a TPU tile
+    win = torch.cat([tail.new_zeros((2, M)), tail], dim=1)[:, None, :]
+    if fast:
+        TF = fm_seam_frames(F)
+        fs = torch.tensor(range(TF, F, TF), dtype=torch.int64,
+                          device=x2.device)
+        win = torch.cat([win, x2.reshape(2, F, hop)[:, fs - 1, hop - n:]],
+                        dim=1)
     seam = (torch.matmul(win[0], body.seam_bank[0])
-            + torch.matmul(win[1], body.seam_bank[1]))           # (2,)
-    pr = torch.cat([seam[:1], zr[:-1]])
-    pi = torch.cat([seam[1:], zi[:-1]])
+            + torch.matmul(win[1], body.seam_bank[1]))           # (S, 2)
+    pr = torch.cat([seam[:1, 0], zr[:-1]])
+    pi = torch.cat([seam[:1, 1], zi[:-1]])
+    if fast:
+        pr[fs * P] = seam[1:, 0]
+        pi[fs * P] = seam[1:, 1]
     ure = zr * pr + zi * pi
     uim = zi * pr - zr * pi
     audio = torch.atan2(uim * body.cd + ure * body.sd,
@@ -231,13 +311,14 @@ def launch_geometry(n: int, M: int):
 
 
 @functools.lru_cache(maxsize=None)
-def fm_geometry(n: int, M: int):
-    """K1's route for n taps and decimation M, from (n, M) alone:
-    ``("tc", fm_tc_geometry(n, M))`` where the tensor-core kernel's bank and
-    spans fit one block's shared memory, else ``("direct",
-    launch_geometry(n, M))``; raises ValueError where neither fits."""
+def fm_geometry(n: int, M: int, fast: bool = False):
+    """K1's route for n taps and decimation M in a mode (``fast``), from
+    (n, M) alone: ``("tc", fm_tc_geometry(n, M, fast=fast))`` where the
+    tensor-core kernel's bank and spans fit one block's shared memory, else
+    ``("direct", launch_geometry(n, M))``; raises ValueError where neither
+    fits."""
     try:
-        return "tc", fm_tc_geometry(n, M)
+        return "tc", fm_tc_geometry(n, M, fast=fast)
     except ValueError:
         return "direct", launch_geometry(n, M)
 
@@ -265,8 +346,9 @@ def ddc_fm_cuda(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
 
     Takes f32 CUDA tensors only (x2 contiguous) and raises on anything
     else.  The route comes from (n, M) alone (:func:`fm_geometry`); adds one
-    to ``ddc_fm_cuda.launches`` per launch of the tensor-core route and to
-    ``ddc_fm_cuda.direct_launches`` per launch of the direct route.
+    per launch to ``ddc_fm_cuda.launches`` (tensor-core route, x3),
+    ``.fast_launches`` (tensor-core route, fast), ``.direct_launches``
+    (direct route, x3) or ``.direct_fast_launches`` (direct route, fast).
     """
     _check_block(body, x2, tail)
     if not (x2.is_cuda and tail.is_cuda and body.taps.is_cuda):
@@ -278,12 +360,13 @@ def ddc_fm_cuda(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
         raise ValueError("ddc_fm_cuda needs a contiguous (2, L) block")
     if tail.dtype != torch.float32 or tail.device != x2.device:
         raise TypeError("ddc_fm_cuda needs a float32 tail on the block's card")
-    route, geo = fm_geometry(body.n, body.M)
+    fast = body.mode == "fast"
+    route, geo = fm_geometry(body.n, body.M, fast)
     out = _launch_fm(body, x2, tail, route, geo)
-    if route == "tc":
-        ddc_fm_cuda.launches += 1
-    else:
-        ddc_fm_cuda.direct_launches += 1
+    counter = {("tc", False): "launches", ("tc", True): "fast_launches",
+               ("direct", False): "direct_launches",
+               ("direct", True): "direct_fast_launches"}[route, fast]
+    setattr(ddc_fm_cuda, counter, getattr(ddc_fm_cuda, counter) + 1)
     return out
 
 
@@ -297,6 +380,8 @@ def _launch_fm(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor,
     tail = tail.contiguous()
     ticket = _fm_ticket(body, dev)
     audio = torch.empty(T, dtype=torch.float32, device=dev)
+    fast = int(body.mode == "fast")
+    seam_period = fm_seam_frames(L // (body.P * body.M)) * body.P
     if route == "tc":
         P, hpad, KP, pre, wgs, stages, smem = geo
         bank = _tc_bank(body, P, hpad, KP, fm=True)
@@ -309,7 +394,8 @@ def _launch_fm(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor,
                         scratch.data_ptr(), scratch.data_ptr() + 20,
                         ticket.data_ptr(), L, body.n, body.M, P, hpad, KP,
                         pre, wgs, stages, smem, blocks, body.cd, body.sd,
-                        body.scale, dev.index, stream_of(x2)), "ddc_fm_cuda")
+                        body.scale, fast, seam_period, dev.index,
+                        stream_of(x2)), "ddc_fm_cuda")
     else:
         threads, tbo, _ = geo
         blocks = -(-T // tbo)
@@ -319,12 +405,15 @@ def _launch_fm(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor,
                         audio.data_ptr(), scratch.data_ptr(),
                         scratch.data_ptr() + 20, ticket.data_ptr(), L, body.n,
                         body.M, threads, blocks, body.cd, body.sd, body.scale,
-                        dev.index, stream_of(x2)), "ddc_fm_cuda")
+                        fast, seam_period, dev.index, stream_of(x2)),
+                     "ddc_fm_cuda")
     return audio, scratch[:5]
 
 
 ddc_fm_cuda.launches = 0
+ddc_fm_cuda.fast_launches = 0
 ddc_fm_cuda.direct_launches = 0
+ddc_fm_cuda.direct_fast_launches = 0
 
 
 @dataclass(frozen=True, eq=False)
@@ -338,52 +427,74 @@ class DdcBody:
     dw: int                  # M * dtheta mod 2^32: the rotation per output
     taps: torch.Tensor       # (2, n) [re; im] of h_bp
     h_bp: np.ndarray = field(repr=False)   # (n,) complex128: the kernel's bank
-    # the plain version's folded banks and the kernel's packed TF32 bank on
-    # the device, built at first use
+    mode: str = "x3"         # "x3" | "fast" (MODES)
+    # the plain version's folded banks and the kernel's packed bank on the
+    # device, built at first use
     banks: dict = field(default_factory=dict, repr=False)
+
+    def route(self, L: int):
+        """The kernel the JAX package's routing gives a block of L samples:
+        K2's route (:func:`ddc_body_cuda`) for L a multiple of P*M where
+        :func:`full_supported` holds, else K3's
+        (:func:`ddc_body_unaligned_cuda`) where :func:`body_supported`
+        holds; None where the JAX package runs XLA (neither holds, or a
+        float64 body), whose counterpart is the plain version."""
+        if self.taps.dtype != torch.float32:
+            return None
+        if L % (self.P * self.M) == 0 and full_supported(self.n, self.M):
+            return ddc_body_cuda
+        if body_supported(self.n, self.M):
+            return ddc_body_unaligned_cuda
+        return None
 
     def __call__(self, x2: torch.Tensor, tail: torch.Tensor,
                  engine: str = "auto") -> torch.Tensor:
-        """z (2, L / M) of x2 (2, L) and tail (2, n-M): ``"auto"`` launches
-        the kernel for CUDA tensors (on K2's route when L is a multiple of
-        P*M, on K3's otherwise) and takes the plain version for CPU
-        tensors; ``"cuda"`` always launches; ``"torch"`` always takes the
-        plain version."""
-        if engine == "torch" or (engine == "auto" and not x2.is_cuda):
+        """z (2, L / M) of x2 (2, L) and tail (2, max(n-M, 0)): ``"auto"``
+        launches the kernel :meth:`route` gives for CUDA tensors and takes
+        the plain version for CPU tensors and where the JAX package runs
+        XLA; ``"cuda"`` always launches (and raises where no kernel takes
+        the block); ``"torch"`` always takes the plain version."""
+        if engine not in ("auto", "cuda", "torch"):
+            raise ValueError(f"unknown ddc_engine {engine!r}")
+        kernel = self.route(int(x2.shape[-1]))
+        if engine == "torch" or (engine == "auto"
+                                 and (not x2.is_cuda or kernel is None)):
             return ddc_body_torch(self, x2, tail)
-        if engine in ("auto", "cuda"):
-            if x2.shape[-1] % (self.P * self.M) == 0:
-                return ddc_body_cuda(self, x2, tail)
-            return ddc_body_unaligned_cuda(self, x2, tail)
-        raise ValueError(f"unknown ddc_engine {engine!r}")
+        if kernel is None:
+            raise ValueError(
+                f"no DDC body kernel takes {self.n} taps at decimation "
+                f"{self.M} in {self.taps.dtype} (the JAX package runs XLA "
+                f"there): ddc_engine 'auto' or 'torch' takes the plain body")
+        return kernel(self, x2, tail)
 
 
 def make_ddc_body(taps: np.ndarray, dtheta, M: int, device,
-                  dtype: torch.dtype = torch.float32) -> DdcBody:
-    """Design-time constants for real prototype taps, NCO word dtheta and
-    decimation M (numpy on the host, then one copy to ``device``)."""
+                  dtype: torch.dtype = torch.float32,
+                  mode: str = "x3") -> DdcBody:
+    """Design-time constants for real prototype taps, NCO word dtheta,
+    decimation M and ``mode`` (numpy on the host, then one copy to
+    ``device``); any tap count, n <= M included."""
+    _check_mode(mode, dtype)
     taps = np.asarray(taps)
     n = len(taps)
-    if n <= M:
-        raise ValueError(f"the DDC body needs more taps than the decimation "
-                         f"(n={n}, M={M})")
+    if n < 1:
+        raise ValueError("the DDC body needs at least one tap")
     d = int(np.uint32(dtheta))
     h_bp = ddc_taps(taps, np.uint32(d))
     bank_dt = np.float64 if dtype == torch.float64 else np.float32
     return DdcBody(
         n=n, M=M, P=DEFAULT_P, dtheta=d, dw=(M * d) & U32_MASK,
         taps=torch.tensor(np.stack([h_bp.real, h_bp.imag]).astype(bank_dt),
-                          dtype=dtype, device=device), h_bp=h_bp)
+                          dtype=dtype, device=device), h_bp=h_bp, mode=mode)
 
 
 def _tc_geometry(n: int, M: int, pre: int = 0, extra: int = 0, P=None,
-                 wgs=None):
+                 wgs=None, fast: bool = False):
     """(P, hpad, KP, wgs, stages, smem) of the tensor-core product
-    (csrc/ddc_tc.cuh) with spans starting ``pre`` samples early and
-    ``extra`` bytes of shared memory for the epilogue; P and wgs are chosen
-    unless given."""
-    D = n - M
-    hpad = -(-D // 4) * 4
+    (csrc/ddc_tc.cuh) in x3 or (``fast``) bf16 with spans starting ``pre``
+    samples early and ``extra`` bytes of shared memory for the epilogue; P
+    and wgs are chosen unless given."""
+    hpad = -(-max(n - M, 0) // 4) * 4
     if P is None:
         P = 4
         while P * M < 64 and P < 64:
@@ -398,7 +509,7 @@ def _tc_geometry(n: int, M: int, pre: int = 0, extra: int = 0, P=None,
         hop = P * M
         KP = -(-(hpad + hop) // 32) * 32
         SP = -(-(pre + (_TC_FRAMES - 1) * hop + KP + 4) // 4) * 4
-        bank = 2 * (KP // 4) * 32 * 2 * P
+        bank = (KP // 8 if fast else 2 * (KP // 4)) * 32 * 2 * P
         for w, stages in ((2, 2), (1, 2), (1, 1)):
             if wgs is not None and w != wgs:
                 continue
@@ -410,23 +521,24 @@ def _tc_geometry(n: int, M: int, pre: int = 0, extra: int = 0, P=None,
                      f"fit shared memory at {n} taps and decimation {M}")
 
 
-def body_tc_geometry(n: int, M: int):
+def body_tc_geometry(n: int, M: int, fast: bool = False):
     """(P, hpad, KP, wgs, stages, smem) of the tensor-core body kernel for n
-    taps
-    and decimation M: frames of P outputs (hop = P*M samples), each read
+    taps, decimation M and its mode (``fast``: the bf16 bank, a quarter of
+    x3's shared memory): frames of P outputs (hop = P*M samples), each read
     through the window of KP samples that starts hpad before the frame
-    (hpad = D = n - M rounded up to 4, KP = hpad + hop rounded up to 32);
+    (hpad = D = n - M rounded up to 4, 0 for n <= M; KP = hpad + hop
+    rounded up to 32);
     wgs warpgroups a block, ``stages`` span buffers a warpgroup and smem
     bytes of shared memory (the bank, the stages, the barriers).  P is the
     smallest power of two >= 4 with hop >= 64, halved while the bank and
     stages do not fit one block's shared memory (two warpgroups of two
     stages, else one of two, else one of one); raises ValueError when even
     P = 4 does not fit."""
-    return _tc_geometry(n, M)
+    return _tc_geometry(n, M, fast=fast)
 
 
 @functools.lru_cache(maxsize=None)
-def fm_tc_geometry(n: int, M: int, P=None, wgs=None):
+def fm_tc_geometry(n: int, M: int, P=None, wgs=None, fast: bool = False):
     """(P, hpad, KP, pre, wgs, stages, smem) of K1's tensor-core route: the
     body's geometry (:func:`body_tc_geometry`) with spans starting ``pre``
     samples early (n - hpad rounded up to 4: every warp reads the window of
@@ -436,8 +548,18 @@ def fm_tc_geometry(n: int, M: int, P=None, wgs=None):
     hpad = -(-(n - M) // 4) * 4
     pre = -(-max(n - hpad, 0) // 4) * 4
     P, hpad, KP, wgs, stages, smem = _tc_geometry(n, M, pre, _FM_EXTRA, P,
-                                                  wgs)
+                                                  wgs, fast)
     return P, hpad, KP, pre, wgs, stages, smem
+
+
+def bf16_round(a: np.ndarray) -> np.ndarray:
+    """float32 -> the nearest bf16 value (8 mantissa bits, ties to even),
+    as float32: what ``cvt.rn.bf16.f32`` and ``astype(bfloat16)`` give for
+    finite values."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    bits = (bits + np.uint32(0x7FFF) + ((bits >> np.uint32(16))
+                                        & np.uint32(1)))
+    return (bits & np.uint32(0xFFFF0000)).view(np.float32)
 
 
 def tf32_round(a: np.ndarray) -> np.ndarray:
@@ -459,15 +581,26 @@ def fm_columns(P: int) -> np.ndarray:
 
 
 def body_tc_bank(h_bp: np.ndarray, n: int, M: int, P: int, hpad: int,
-                 KP: int, fm: bool = False) -> np.ndarray:
-    """The tensor-core kernel's bank, float32 (2 * KP / 4 k-steps of 8 x 2P):
-    the hi k-steps of both planes, then the lo ones.  Bank B (2, KP, 2P) in
-    float64: plane 0 multiplies the real samples, plane 1 the imaginary
+                 KP: int, fm: bool = False, fast: bool = False) -> np.ndarray:
+    """The tensor-core kernel's bank as float32 values.  Bank B (2, KP, 2P)
+    in float64: plane 0 multiplies the real samples, plane 1 the imaginary
     ones, columns [re | im] of the P outputs (``fm``: in K1's order,
     :func:`fm_columns`); output p of a frame reads window rows
-    hpad - D + p M + i for tap i.  hi = tf32(B), lo = tf32(B - hi).  K-step 2j + e of a plane holds window samples 16 j + 4 kk + 2 e +
-    kc at (core column kc, K index kk), each step stored as wgmma's K-major
-    core matrices [kc][column group][8 columns][4 K] (csrc/ddc_body.cu)."""
+    hpad - D + p M + i for tap i (D = n - M; n <= M: rows M - n + p M + i).
+
+    x3: 2 * KP / 4 k-steps of 8 x 2P, the hi k-steps of both planes, then
+    the lo ones, hi = tf32(B), lo = tf32(B - hi).  K-step 2j + e of a plane
+    holds window samples 16 j + 4 kk + 2 e + kc at (core column kc, K index
+    kk), each step stored as wgmma's K-major core matrices [kc][column
+    group][8 columns][4 K] (csrc/ddc_tc.cuh).
+
+    fast: KP / 8 k-steps of 16 x 2P, bf16(float32(B)) (the TPU kernel's
+    bank: float64 -> float32 -> bf16), exact in float32 and sent to the card
+    as bf16.  K-step j of a plane holds window samples
+    16 j + 4 (kk // 2) + 2 kc + kk % 2 at (core column kc, K index kk), so
+    thread c's bf16 A fragment (K indices 2c, 2c+1, 2c+8, 2c+9) is its four
+    consecutive samples 4c .. 4c+3; each step is stored as wgmma's K-major
+    core matrices [kc][column group][8 columns][8 K]."""
     h = np.asarray(h_bp, np.complex128)
     D, N = n - M, 2 * P
     B = np.zeros((2, KP, N))
@@ -479,6 +612,14 @@ def body_tc_bank(h_bp: np.ndarray, n: int, M: int, P: int, hpad: int,
         B[1, k0:k0 + n, P + p] = h.real
     if fm:
         B = B[:, :, fm_columns(P)]
+    if fast:
+        kk = np.arange(8)
+        k_idx = (16 * np.arange(KP // 16)[:, None, None]
+                 + 4 * (kk // 2)[None, None, :]
+                 + 2 * np.arange(2)[None, :, None] + (kk % 2)[None, None, :])
+        packed = B[:, k_idx, :].reshape(2, KP // 16, 2, 8, N // 8, 8)
+        packed = packed.transpose(0, 1, 2, 4, 5, 3)   # [plane][step][kc][grp][col][kk]
+        return bf16_round(packed.astype(np.float32)).reshape(-1)
     ks = np.arange(KP // 8)
     k_idx = (16 * (ks // 2)[:, None, None] + 4 * np.arange(4)[None, None, :]
              + 2 * (ks % 2)[:, None, None] + np.arange(2)[None, :, None])
@@ -492,14 +633,17 @@ def body_tc_bank(h_bp: np.ndarray, n: int, M: int, P: int, hpad: int,
 def _tc_bank(body, P: int, hpad: int, KP: int,
              fm: bool = False) -> torch.Tensor:
     """The packed bank of a :class:`DdcBody` or (``fm``) a
-    :class:`DdcFmBody` on its device, built at first use from the float64
-    taps."""
-    key = ("tf32", P, hpad, KP, fm)
+    :class:`DdcFmBody` in its mode on its device (float32 tf32 hi/lo, or
+    bf16), built at first use from the float64 taps."""
+    fast = body.mode == "fast"
+    key = ("bf16" if fast else "tf32", P, hpad, KP, fm)
     bank = body.banks.get(key)
     if bank is None:
         bank = torch.from_numpy(body_tc_bank(body.h_bp, body.n, body.M, P,
-                                             hpad, KP, fm)).to(
-                                                 body.taps.device)
+                                             hpad, KP, fm, fast))
+        if fast:
+            bank = bank.to(torch.bfloat16)       # exact: bf16 values
+        bank = bank.to(body.taps.device)
         body.banks[key] = bank
     return bank
 
@@ -513,12 +657,13 @@ def _launch_body(body: DdcBody, x2: torch.Tensor, tail: torch.Tensor,
         raise TypeError(f"{name} computes in float32")
     if not x2.is_contiguous():
         raise ValueError(f"{name} needs a contiguous (2, L) block")
-    if tuple(tail.shape) != (2, body.n - body.M):
-        raise ValueError(f"tail must be (2, {body.n - body.M}), "
-                         f"got {tuple(tail.shape)}")
+    D = max(body.n - body.M, 0)
+    if tuple(tail.shape) != (2, D):
+        raise ValueError(f"tail must be (2, {D}), got {tuple(tail.shape)}")
     if tail.dtype != torch.float32 or tail.device != x2.device:
         raise TypeError(f"{name} needs a float32 tail on the block's card")
-    P, hpad, KP, wgs, stages, smem = body_tc_geometry(body.n, body.M)
+    fast = body.mode == "fast"
+    P, hpad, KP, wgs, stages, smem = body_tc_geometry(body.n, body.M, fast)
     bank = _tc_bank(body, P, hpad, KP)
     tail = tail.contiguous()
     z = torch.empty((2, x2.shape[-1] // body.M), dtype=torch.float32,
@@ -526,42 +671,59 @@ def _launch_body(body: DdcBody, x2: torch.Tensor, tail: torch.Tensor,
     fn = launcher("ddc_body.cu", "ddc_body_launch", _DDC_BODY_ARGS)
     check_launch(fn(x2.data_ptr(), tail.data_ptr(), bank.data_ptr(),
                     z.data_ptr(), x2.shape[-1], body.n, body.M, P, hpad, KP,
-                    wgs, stages, smem, x2.device.index, stream_of(x2)), name)
+                    wgs, stages, smem, int(fast), x2.device.index,
+                    stream_of(x2)), name)
     return z
 
 
-def _check_route(body: DdcBody, x2: torch.Tensor, aligned: bool, name: str):
+def _check_route(body: DdcBody, x2: torch.Tensor, fn, name: str):
     L = int(x2.shape[-1])
-    hop = body.P * body.M
     if x2.dim() != 2 or x2.shape[0] != 2 or L == 0 or L % body.M:
         raise ValueError(f"x2 must be (2, L) with L a positive multiple of "
                          f"{body.M}, got {tuple(x2.shape)}")
-    if (L % hop == 0) != aligned:
-        raise ValueError(f"{name} takes blocks whose length is "
-                         f"{'' if aligned else 'not '}a multiple of {hop}; "
-                         f"got L = {L}")
+    if body.route(L) is not fn:
+        hop = body.P * body.M
+        raise ValueError(
+            f"{name} does not take a block of {L} samples at {body.n} taps "
+            f"and decimation {body.M} (DdcBody.route): K2's route takes "
+            f"lengths that are a multiple of {hop} where 0 < n - M <= {hop}, "
+            f"K3's the others where 0 < n - 1 <= {hop}")
+
+
+def _count(fn, body: DdcBody):
+    """One launch more on ``fn.launches`` (x3) or ``fn.fast_launches``."""
+    if body.mode == "fast":
+        fn.fast_launches += 1
+    else:
+        fn.launches += 1
 
 
 def ddc_body_cuda(body: DdcBody, x2: torch.Tensor,
                   tail: torch.Tensor) -> torch.Tensor:
     """K2's route: launch ``csrc/ddc_body.cu`` on a block whose length is a
-    multiple of P*M; returns z (2, L / M).  Takes f32 CUDA tensors only and
-    raises on anything else.  Adds one to ``ddc_body_cuda.launches``."""
-    _check_route(body, x2, True, "ddc_body_cuda")
+    multiple of P*M, where :func:`full_supported` holds; returns z
+    (2, L / M).  Takes f32 CUDA tensors only and raises on anything else.
+    Adds one to ``ddc_body_cuda.launches`` (x3) or ``.fast_launches``."""
+    _check_route(body, x2, ddc_body_cuda, "ddc_body_cuda")
     z = _launch_body(body, x2, tail, "ddc_body_cuda")
-    ddc_body_cuda.launches += 1
+    _count(ddc_body_cuda, body)
     return z
 
 
 def ddc_body_unaligned_cuda(body: DdcBody, x2: torch.Tensor,
                             tail: torch.Tensor) -> torch.Tensor:
-    """K3's route: the same kernel on a block whose length is a multiple of
-    M but not of P*M.  Adds one to ``ddc_body_unaligned_cuda.launches``."""
-    _check_route(body, x2, False, "ddc_body_unaligned_cuda")
+    """K3's route: the same kernel on a block K2's route does not take (a
+    length that is a multiple of M but not of P*M, or n <= M), where
+    :func:`body_supported` holds.  Adds one to
+    ``ddc_body_unaligned_cuda.launches`` (x3) or ``.fast_launches``."""
+    _check_route(body, x2, ddc_body_unaligned_cuda,
+                 "ddc_body_unaligned_cuda")
     z = _launch_body(body, x2, tail, "ddc_body_unaligned_cuda")
-    ddc_body_unaligned_cuda.launches += 1
+    _count(ddc_body_unaligned_cuda, body)
     return z
 
 
 ddc_body_cuda.launches = 0
+ddc_body_cuda.fast_launches = 0
 ddc_body_unaligned_cuda.launches = 0
+ddc_body_unaligned_cuda.fast_launches = 0

@@ -63,6 +63,12 @@ def _fold_banks(Hr: np.ndarray, Hi: np.ndarray, bank_dt) -> np.ndarray:
     return H
 
 
+def _bf16(a: torch.Tensor) -> torch.Tensor:
+    """a rounded to bf16 (to nearest even) and back to its dtype: the
+    operands of the TPU kernels' single-pass bf16 ("fast") products."""
+    return a.to(torch.bfloat16).to(a.dtype)
+
+
 def _plane_dot(lhs: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
     """lhs (2, ..., W) x folded bank (2, W, 2K) -> (..., 2K), contracting
     the plane dim and W together."""
@@ -71,7 +77,11 @@ def _plane_dot(lhs: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
 
 def _bank(body, key, build):
     """The body's folded bank ``key`` on its device and in its dtype, built
-    on the host by ``build(taps_re, taps_im, bank_dt)`` at first use."""
+    on the host by ``build(taps_re, taps_im, bank_dt)`` at first use; in
+    the body's fast mode rounded to bf16 (from its float32 values, as the
+    TPU kernel's bank)."""
+    fast = body.mode == "fast"
+    key = key + (fast,)
     bank = body.banks.get(key)
     if bank is None:
         dt = body.taps.dtype
@@ -79,6 +89,8 @@ def _bank(body, key, build):
         h = body.taps.cpu().numpy().astype(bank_dt)
         bank = torch.tensor(build(h[0][:, None], h[1][:, None], bank_dt),
                             dtype=dt, device=body.taps.device)
+        if fast:
+            bank = _bf16(bank)
         body.banks[key] = bank
     return bank
 
@@ -100,27 +112,35 @@ def _frame_banks(body, P: int):
 
 @fp32_exact()
 def ddc_body_torch(body, x2: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the unrotated DDC body (K2 and K3).
+    """Plain PyTorch version of the unrotated DDC body (K2 and K3), and the
+    counterpart of the JAX module's XLA body where no kernel takes the
+    taps or the dtype (float64; n > 64*M + 1).
 
-    ``body`` holds the taps ``(2, n)`` [re; im] of h_bp, n and M
+    ``body`` holds the taps ``(2, n)`` [re; im] of h_bp, n, M and the mode
     (``ops/cuda_ddc.py::DdcBody``); x2 is the (2, L) block, L any multiple
-    of M, and tail the carried x[-D .. -1], (2, D).  Returns z (2, L / M).
-    The pieces of the JAX module's XLA path, in its order: the first
-    outputs, whose windows straddle the tail, as one small matmul; whole
-    frames of P outputs as banded-Toeplitz matmuls on the free frame view
-    plus the next frame's head; the straggler outputs past the last frame.
-    Every product is a float32 (or float64) matmul, run with TF32 off
-    (``device.fp32_exact``) whatever the caller set.
+    of M, and tail the carried x[-D .. -1], (2, D), D = max(n - M, 0).
+    Returns z (2, L / M).  The pieces of the JAX module's XLA path, in its
+    order: the first outputs, whose windows straddle the tail, as one
+    small matmul (none for n <= M); whole frames of P outputs as
+    banded-Toeplitz matmuls on the free frame view plus the next frame's
+    head; the straggler outputs past the last frame.  Every product is a
+    float32 (or float64) matmul, run with TF32 off (``device.fp32_exact``)
+    whatever the caller set; the fast mode rounds the samples, the tail
+    and the banks to bf16 first (the TPU's single-pass bf16, in the
+    kernels and in the XLA pieces alike).
     """
     n, M = body.n, body.M
     n1 = n - 1
     first = M - 1                # decimator phase 0
     L = int(x2.shape[-1])
+    D = max(n - M, 0)
     if x2.dim() != 2 or x2.shape[0] != 2 or L % M or L == 0:
         raise ValueError(f"x2 must be (2, L) with L a positive multiple of "
                          f"{M}, got {tuple(x2.shape)}")
-    if tuple(tail.shape) != (2, n - M):
-        raise ValueError(f"tail must be (2, {n - M}), got {tuple(tail.shape)}")
+    if tuple(tail.shape) != (2, D):
+        raise ValueError(f"tail must be (2, {D}), got {tuple(tail.shape)}")
+    if body.mode == "fast":
+        x2, tail = _bf16(x2), _bf16(tail)
     T = L // M
     pieces = []
     # head outputs whose windows straddle the carried tail
@@ -139,8 +159,10 @@ def ddc_body_torch(body, x2: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
     if Fb > 0:
         body_bank, head_bank = _frame_banks(body, P)
         frames = x2[:, start : start + Fb * hop].reshape(2, Fb, hop)
-        heads = x2[:, start + hop :].unfold(1, n1, hop)[:, :Fb]
-        y = _plane_dot(frames, body_bank) + _plane_dot(heads, head_bank)
+        y = _plane_dot(frames, body_bank)
+        if n1 > 0:
+            heads = x2[:, start + hop :].unfold(1, n1, hop)[:, :Fb]
+            y = y + _plane_dot(heads, head_bank)
         pieces.append(y.reshape(Fb, 2, P).transpose(0, 1).reshape(2, Fb * P))
     # straggler outputs past the last whole frame
     Trem = Tb - Fb * P

@@ -79,6 +79,10 @@ def conv1d_mxu(x: torch.Tensor, taps: torch.Tensor, stride: int = 1,
     if cplx:
         cd = torch.promote_types(torch.promote_types(x.dtype, taps2.dtype),
                                  torch.complex64)
+    if T <= 0:                   # no valid output: empty, as in JAX
+        return x.new_zeros((*lead, 0) if vec else (*lead, 0, O),
+                           dtype=cd if cplx else x.dtype)
+    if cplx:
         xb = torch.view_as_real(x.reshape(-1, L).to(cd)).transpose(1, 2)
         k = taps2.to(cd)
         kr, ki = k.real.T, k.imag.T                           # (O, n)
@@ -287,7 +291,10 @@ def _correlate(x: torch.Tensor, taps, stride: int = 1, precision=None):
     The Toeplitz route builds its banks from host taps: the port's callers
     pass numpy taps (the classes keep a host copy), since a tensor there
     costs a copy to the host and a wait for the card each call."""
-    if _use_toeplitz(x, int(taps.shape[0])):
+    n = int(taps.shape[0])
+    # fir_toeplitz refuses a block with no valid output, as JAX's does;
+    # the route returns it empty, as conv1d_mxu does (P3)
+    if _use_toeplitz(x, n) and x.shape[-1] >= n:
         return fir_toeplitz(x, taps, stride=stride, precision=precision)
     return conv1d_mxu(x, _taps_on(taps, x), stride=stride,
                       precision=_resolve_precision(precision))
@@ -308,6 +315,11 @@ def _fir_block_fft(taps: torch.Tensor, x_ext: torch.Tensor) -> torch.Tensor:
     n = taps.shape[-1]
     ext = x_ext.shape[-1]
     L = ext - (n - 1)
+    if L <= 0:
+        # F6: the JAX package's overlap-save raises on an empty block
+        # (solid_dsp_tpu/ops/fir.py::_fir_block_fft); the port returns the
+        # empty output, as the other routes do
+        return conv1d_mxu(x_ext, taps)
     nfft = _fir_tile_nfft(int(n), int(ext))
     S = nfft - (n - 1)
     F = -(-L // S)
@@ -433,7 +445,7 @@ def fir_decim_apply(taps, tail, phase, x, scale, decimation: int,
     x_ext = extend_with_tail(tail, x)
     n = int(taps.shape[-1])
     T = L // M
-    width = (T - 1) * M + n
+    width = max((T - 1) * M + n, 0)
     if isinstance(phase, torch.Tensor) and phase.device.type != "cpu":
         ph = phase.to(torch.int64)
         x_sub = _phase_window(x_ext, (M - 1 - ph) % M, width)

@@ -159,6 +159,11 @@ def _w_recurrence_parallel(a_tail, w_state, x):
     s[:, 0] and the new state s[-1] (companion form)."""
     k = int(a_tail.shape[-1])
     T = int(x.shape[0])
+    if T == 0:
+        # F6: the JAX package indexes s[-1] of an empty scan and raises
+        # (solid_dsp_tpu/ops/iir.py::_w_recurrence_parallel); the port
+        # returns the empty block and keeps the state, as "scan" does
+        return x.clone(), w_state.to(x.dtype).expand(*x.shape[1:], k).clone()
     A = torch.zeros((k, k), dtype=x.dtype, device=x.device)
     A[0, :] = -a_tail.to(x.dtype)
     if k > 1:

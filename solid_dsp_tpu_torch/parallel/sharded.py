@@ -36,9 +36,10 @@ from ..device import fp32_exact
 from ..models import qpsk as qpsk_mod
 from ..models.channelizer import channelizer_taps, fused_channelizer_complex
 from ..models import fm as fm_mod
-from ..models.rx_chain import RxChainConfig, _check_config, _fused, _rdtype
+from ..models.rx_chain import (RxChainConfig, _check_config, _ddc_bodies,
+                                _fused, _rdtype)
 from ..ops import agc as agc_ops
-from ..ops import cuda_chan, cuda_ddc
+from ..ops import cuda_chan
 from ..ops import ddc as ddc_ops
 from ..ops import fir as fir_ops
 from ..ops import nco as nco_ops
@@ -116,8 +117,10 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: DeviceMesh):
       size 1) ``x`` is this rank's (2, L_loc) planes and ``out`` (L_loc /
       M,).
 
-    The per-shard front end is the single-card fused DDC (K1 on blocks of
-    64*M samples for FM, K2/K3 through the DDC body otherwise); the sharded
+    The per-shard front end is the single-card fused DDC, built by the
+    same factories in the same mode and real type (K1 on blocks of 64*M
+    samples for FM where its predicate holds, K2/K3 through the DDC body
+    otherwise, the plain body where the JAX package runs XLA); the sharded
     additions are the raw-input left halo in place of the carried tail on
     shards > 0, the one-sample discriminator seam shipped right, and the
     AGC block energy averaged over ``time``.  QPSK gathers the decimated
@@ -133,7 +136,7 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: DeviceMesh):
     """
     if cfg.demod not in ("fm", "qpsk", "am", "none"):
         raise ValueError(f"unknown demod {cfg.demod!r}")
-    _check_config(cfg)        # unported settings raise NotImplementedError
+    _check_config(cfg)        # ValueError where the JAX package refuses
     planar = cfg.input_format == "planar"
     if planar and not _fused(cfg):
         raise ValueError("planar sharded input requires the fused DDC path")
@@ -171,14 +174,15 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: DeviceMesh):
 
     if not _fused(cfg):
         return init, _sharded_unfused(cfg, mesh, taps, dtheta)
-    body = cuda_ddc.make_ddc_body(taps, dtheta, M, device)
-    fm_body = (cuda_ddc.make_ddc_fm(taps, dtheta, M, cfg.fm_kf, device)
-               if cfg.demod == "fm" else None)
+    rdt = _rdtype(cfg)
+    body, fm_body = _ddc_bodies(cfg, taps, dtheta, device)
+    if cfg.demod != "fm":
+        fm_body = None
 
     def front(tail2, theta0, x2, gain):
         """One stream's DDC front end, its FM seam left to the caller."""
         if fm_body is not None and x2.shape[-1] % (fm_body.P * M) == 0:
-            one = torch.ones((), dtype=torch.float32, device=x2.device)
+            one = torch.ones((), dtype=rdt, device=x2.device)
             return "kernel", ddc_ops.ddc_fm_fused(
                 fm_body, tail2, theta0, x2, one, one * 0, gain, engine,
                 with_seams=True)
@@ -186,7 +190,7 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: DeviceMesh):
             body, tail2, theta0, x2, engine)
 
     def planes(xc):
-        return torch.stack([xc.real, xc.imag]).to(torch.float32)
+        return torch.stack([xc.real, xc.imag]).to(rdt)
 
     def apply(state: ChainState, x: torch.Tensor):
         L_loc = int(x.shape[-1])
@@ -202,18 +206,18 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: DeviceMesh):
                      + ((n_time * L_loc * dtheta) & U32_MASK)) & U32_MASK
         # one stream (planar) or C_loc streams, each as (2, L) planes
         if planar:
-            x2s = [x.to(torch.float32).contiguous()]
+            x2s = [x.to(rdt).contiguous()]
             halo2 = left_halo(x2s[0][:, -n1:], mesh)
             tails = [planes(state.fir_tail) if t_idx == 0 else halo2]
             gains = state.agc["gain"][None]
             prev = state.fm_prev[None]
         else:
             halo = left_halo(x[..., -n1:], mesh)
-            x2b = torch.stack([x.real, x.imag], dim=1).to(torch.float32)
+            x2b = torch.stack([x.real, x.imag], dim=1).to(rdt)
             x2s = list(x2b)
             src = state.fir_tail if t_idx == 0 else halo
             tails = list(torch.stack([src.real, src.imag], dim=1)
-                         .to(torch.float32))
+                         .to(rdt))
             gains = state.agc["gain"]
             prev = state.fm_prev
         fronts = [front(tails[c], theta0, x2s[c], gains[c])
@@ -246,8 +250,8 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: DeviceMesh):
                 seams = torch.stack(seams)                  # (C, 2)
                 prev_in = left_halo(seams, mesh)
                 if t_idx == 0:
-                    pr = prev.real.to(torch.float32)
-                    pi = prev.imag.to(torch.float32)
+                    pr = prev.real.to(rdt)
+                    pi = prev.imag.to(rdt)
                 else:
                     pr, pi = prev_in[:, 0], prev_in[:, 1]
                 for c, (kind, p) in enumerate(fronts):
@@ -278,8 +282,8 @@ def make_sharded_rx_chain(cfg: RxChainConfig, mesh: DeviceMesh):
             for _, (z, _, _, w0, dw) in fronts:
                 rot = nco_ops.nco_complex_exponential(w0, dw, T_loc,
                                                       mode="fast")
-                cr = rot.real.to(torch.float32)
-                sr = rot.imag.to(torch.float32)
+                cr = rot.real.to(rdt)
+                sr = rot.imag.to(rdt)
                 ys.append(torch.complex(z[0] * cr + z[1] * sr,
                                         z[1] * cr - z[0] * sr))
             y = torch.stack(ys).to(cfg.dtype)

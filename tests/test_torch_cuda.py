@@ -16,7 +16,10 @@ x3 >= 90 dB and fast >= 90 dB against the plain version in the same mode
 complex layout bit-equal to the planar one; front end (K5) atol 2e-5 max|Y|; IIR
 bank (K6) atol 3e-5 (tests/test_pallas.py's gates; the narrow cascade's
 state relative to its size).  The DDC body (K2/K3) also >= 100 dB against
-its plain version in float64.  Windowed FFT (K7)
+its plain version in float64.  K1-K3's fast mode (one bf16 pass): K2/K3
+z >= 120 dB and K1 audio >= 90 dB against the plain fast versions (the
+same roundings, f32 sums in another order), >= 50 dB against float64
+(the TPU kernel's ~52 dB).  Windowed FFT (K7)
 >= 90 dB against its plain version and float64 numpy; Farrow (K8) within
 1e-5 of its plain version with n_valid, t0 and the tail equal
 (tests/test_resample.py's gate).  conv1d_mxu and sharded_fir >= 100 dB
@@ -291,6 +294,139 @@ def test_body_chains_on_card_match_cpu_plain_chain(demod, L):
     assert _counts() == (before[0], before[1] + 4 * aligned,
                          before[2] + 4 * (not aligned))
     assert snr_db(got, want) >= (60.0 if demod == "qpsk" else 90.0)
+    assert int(st["nco_theta"]) == int(st_cpu["nco_theta"])
+    assert torch.equal(st["fir_tail"].cpu(), st_cpu["fir_tail"])
+
+
+def _fast_counts():
+    return (cuda_ddc.ddc_fm_cuda.fast_launches,
+            cuda_ddc.ddc_body_cuda.fast_launches,
+            cuda_ddc.ddc_body_unaligned_cuda.fast_launches)
+
+
+def _fast(device, n=64, M=4, fm=False):
+    taps = RxChainConfig(fir_taps=n).design_taps()
+    if fm:
+        return cuda_ddc.make_ddc_fm(taps, nco.constrain(0.2), M, 0.1, device,
+                                    mode="fast")
+    return cuda_ddc.make_ddc_body(taps, nco.constrain(0.2), M, device,
+                                  mode="fast")
+
+
+@pytest.mark.parametrize("n,M,L", [(64, 4, L_SMALL), (64, 4, L_SMALL + 52),
+                                   (64, 4, 32), (48, 8, 512 * 9 + 8),
+                                   (33, 2, 128 * 77 + 2), (64, 32, 2048 * 3),
+                                   (4, 4, 4096), (3, 4, 4096 + 8)])
+def test_body_fast_kernel_matches_plain_on_card(n, M, L):
+    """K2/K3's fast mode (one bf16 wgmma a 16-sample k-step, f32 sums) vs
+    its plain fast version on the card: z >= 120 dB (the same roundings,
+    f32 sums in another order), >= 50 dB against float64, two launches
+    bit-equal, counted on its route's fast counter only (n <= M: K3's
+    route)."""
+    dev = require_cuda()
+    body = _fast(dev, n, M)
+    x2, tail = (t.to(dev) for t in _inputs(19, L, max(n - M, 0)))
+    before, x3 = _fast_counts(), _counts()
+    z = body(x2, tail)
+    z2 = body(x2, tail)
+    ref = cuda_ddc.ddc_body_torch(body, x2, tail)
+    torch.cuda.synchronize()
+    k2 = L % (64 * M) == 0 and n > M
+    assert _fast_counts() == (before[0], before[1] + 2 * k2,
+                              before[2] + 2 * (not k2))
+    assert _counts() == x3 and torch.equal(z, z2)
+    assert z.shape == (2, L // M) and bool(torch.isfinite(z).all())
+    assert snr_db(z.cpu().numpy(), ref.cpu().numpy()) >= 120.0
+    taps = RxChainConfig(fir_taps=n).design_taps()
+    body64 = cuda_ddc.make_ddc_body(taps, nco.constrain(0.2), M, "cpu",
+                                    torch.float64)
+    ref64 = cuda_ddc.ddc_body_torch(body64, x2.cpu().double(),
+                                    tail.cpu().double())
+    assert snr_db(z.cpu().numpy(), ref64.numpy()) >= 50.0
+
+
+@pytest.mark.parametrize("n,M,L", K1_GEOMETRIES + [(64, 4, 256 * 4096)])
+def test_fm_fast_kernel_matches_plain_on_card(n, M, L):
+    """K1's fast mode vs its plain fast version on the card: audio >= 90
+    dB, stats rtol 1e-5 (atol 1e-6), two launches bit-equal, counted on
+    ``fast_launches``; at L = 256 * 4096 the block holds four TPU tiles of
+    1024 frames, whose seams stay f32 on both sides."""
+    dev = require_cuda()
+    body = _fast(dev, n, M, fm=True)
+    x2, tail = (t.to(dev) for t in _inputs(21, L, n - M))
+    before, x3 = _fast_counts(), _counts()
+    a, s = cuda_ddc.ddc_fm_cuda(body, x2, tail)
+    a2, s2 = cuda_ddc.ddc_fm_cuda(body, x2, tail)
+    b, t = cuda_ddc.ddc_fm_torch(body, x2, tail)
+    torch.cuda.synchronize()
+    assert _fast_counts() == (before[0] + 2, before[1], before[2])
+    assert _counts() == x3
+    assert torch.equal(a, a2) and torch.equal(s, s2)
+    assert a.shape == (L // M,) and bool(torch.isfinite(a).all())
+    assert snr_db(a.cpu().numpy(), b.cpu().numpy()) >= 90.0
+    np.testing.assert_allclose(s.cpu().numpy(), t.cpu().numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("n,M,L", [(200, 128, 8192 * 8 * 64),
+                                   (129, 128, 256 * 128)])
+def test_fm_fast_direct_route_matches_plain_on_card(n, M, L):
+    """K1's direct route in fast mode (samples and taps rounded to bf16
+    before each FMA, the TPU tiles' seams f32): >= 90 dB against the plain
+    fast version, counted on ``direct_fast_launches``."""
+    dev = require_cuda()
+    assert cuda_ddc.fm_geometry(n, M, True)[0] == "direct"
+    body = _fast(dev, n, M, fm=True)
+    x2, tail = (t.to(dev) for t in _inputs(23, L, n - M))
+    before = cuda_ddc.ddc_fm_cuda.direct_fast_launches
+    a, s = cuda_ddc.ddc_fm_cuda(body, x2, tail)
+    b, t = cuda_ddc.ddc_fm_torch(body, x2, tail)
+    torch.cuda.synchronize()
+    assert cuda_ddc.ddc_fm_cuda.direct_fast_launches == before + 1
+    assert snr_db(a.cpu().numpy(), b.cpu().numpy()) >= 90.0
+    np.testing.assert_allclose(s.cpu().numpy(), t.cpu().numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("override", [
+    dict(fir_precision="default"),
+    dict(fir_precision="default", demod="am"),
+    dict(fir_precision="default", demod="qpsk"),
+    dict(fir_precision="default", L=L_SMALL + 52),
+    dict(fir_precision="default", fir_taps=4),
+    dict(fir_taps=300, demod="am"),
+    dict(dtype=torch.complex128, fir_precision="default")])
+def test_default_chains_on_card_match_cpu(override):
+    """make_rx_chain at fir_precision="default", n <= M, 300 taps and
+    complex128 on the card vs device="cpu" over 4 blocks: >= 90 dB (QPSK
+    60; complex128 and 300 taps, the plain body on both, >= 100 dB),
+    nco_theta and fir_tail equal; the fast kernels of the JAX package's
+    routing launched once a block, and no kernel where it runs XLA."""
+    dev = require_cuda()
+    o = dict(override)
+    L = o.pop("L", L_SMALL)
+    demod = o.get("demod", "fm")
+    blocks = (make_qpsk_blocks(4, L=L, seed=25)[0] if demod == "qpsk"
+              else make_blocks(4, L=L, seed=25))
+    if o.get("dtype") == torch.complex128:
+        blocks = [b.astype(np.float64) for b in blocks]
+    want, st_cpu = run_torch(blocks, **o)
+    before, x3 = _fast_counts(), _counts()
+    got, st = run_torch(blocks, device=dev, **o)
+    torch.cuda.synchronize()
+    fast = tuple(a - b for a, b in zip(_fast_counts(), before))
+    if o.get("fir_precision") != "default" or "dtype" in o:
+        assert fast == (0, 0, 0)
+    elif demod == "fm" and L % 256 == 0 and "fir_taps" not in o:
+        assert fast == (4, 0, 0)
+    elif L % 256 == 0 and "fir_taps" not in o:
+        assert fast == (0, 4, 0)
+    else:
+        assert fast == (0, 0, 4)
+    assert _counts() == x3          # no x3 launch on any of these routes
+    gate = (60.0 if demod == "qpsk" else
+            100.0 if "dtype" in o or o.get("fir_taps") == 300 else 90.0)
+    assert snr_db(got, want) >= gate
     assert int(st["nco_theta"]) == int(st_cpu["nco_theta"])
     assert torch.equal(st["fir_tail"].cpu(), st_cpu["fir_tail"])
 

@@ -248,21 +248,6 @@ def test_port_never_imports_jax():
     assert "BAD []" in r.stdout, r.stdout
 
 
-@pytest.mark.parametrize("override", [
-    dict(fir_precision="default"), dict(dtype=torch.complex128),
-    dict(fir_taps=4), dict(fir_taps=300),
-])
-def test_unported_settings_raise_not_implemented(override):
-    """The fused route's settings its kernels do not take (single-pass
-    bf16, a float64 body, taps outside M < n <= 64*M) name their ROADMAP
-    entry; the unfused route takes them (tests/test_torch_rx_chain_parity.py
-    holds those against the JAX chain)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7b"):
-        make_rx_chain(RxChainConfig(**{**CONFIG4, **override}), "cpu")
-    make_rx_chain(RxChainConfig(**{**CONFIG4, **override, "fused_ddc": "off",
-                                   "fir_precision": "highest"}), "cpu")
-
-
 def test_rx_chain_stream_raises_not_implemented():
     """The stream loop, ported: 3 blocks in one call equal 3 calls of the
     block chain exactly, and debug_checks is refused as in the JAX

@@ -133,13 +133,31 @@ def unpack_tc_bank(packed, P, KP):
     return out
 
 
+def unpack_tc_bank_bf16(packed, P, KP):
+    """The packed fast-mode bank (ops/cuda_ddc.py::body_tc_bank(fast=True))
+    -> B (2, KP, 2P) float64 in window order, columns in the bank's order:
+    k-step j's core column kc, K index kk holds window sample
+    16 j + 4 (kk // 2) + 2 kc + kk % 2."""
+    N, steps = 2 * P, KP // 16
+    kk = np.arange(8)
+    k_idx = (16 * np.arange(steps)[:, None, None]
+             + 4 * (kk // 2)[None, None, :] + 2 * np.arange(2)[None, :, None]
+             + (kk % 2)[None, None, :])
+    v = np.asarray(packed, np.float64).reshape(2, steps, 2, N // 8, 8, 8)
+    # [plane][step][kc][grp][col][kk] -> [plane][step][kc][kk][col]
+    v = v.transpose(0, 1, 2, 5, 3, 4).reshape(2, steps, 2, 8, N)
+    B = np.zeros((2, KP, N))
+    B[:, k_idx, :] = v
+    return B
+
+
 def tc_frames(x2, tail2, n, M, P, hpad, KP, lhs):
     """z (2, T) of the frame product: frame f reads the window of KP
     samples from f*hop - hpad (the tail before the block, zeros before the
     tail and past the block); ``lhs(window)`` gives the planes' (F, KP)
     operands and bank pairs to sum."""
     L = x2.shape[1]
-    T, hop, D = L // M, P * M, n - M
+    T, hop, D = L // M, P * M, max(n - M, 0)
     F = -(-T // P)
     ext = np.zeros((2, hpad + F * hop + KP))
     ext[:, hpad - D:hpad] = tail2

@@ -8,10 +8,12 @@
   the chunk length Lc in {16, 32, 64, 128}, each timed over a CUDA graph of
   20 calls, with the profiler's time of each of its three kernels and the
   largest error against the plain version (shared and narrow cascades).
-* The DDC body (csrc/ddc_body.cu) at n = 64, M = 4, L = 2^24 (config 4):
-  the frame width P in {8, 16} (32 and more do not fit one block's shared
-  memory), one or two warpgroups a block, each timed over a CUDA graph of
-  20 launches, with its SNR against the plain version.
+* The DDC body (csrc/ddc_body.cu) at n = 64, M = 4, L = 2^24 (config 4),
+  in both modes (x3 and the bf16 bank's "fast"): the frame width P in
+  {8, 16} (32 and more do not fit one block's shared memory), two
+  warpgroups of two stages, one of two, two of one, each timed over a
+  CUDA graph of 20 launches, with its SNR against the plain version of
+  its mode.
 * K1, the fused DDC + FM kernel (csrc/ddc_fm.cu, tensor-core route) at
   n = 64, M = 4, L = 2^24: the frame width P in {8, 16, 32} (32 does not
   fit) and one or two warpgroups a block, the same way; then variants of
@@ -231,39 +233,43 @@ def main() -> None:
         cuda_iir.IIR_CHUNK = chunk
 
     n, M, L = 64, 4, 1 << 24
-    body = cuda_ddc.make_ddc_body(RxChainConfig(fir_taps=n).design_taps(),
-                                  constrain(0.2), M, dev)
     rng = np.random.default_rng(3)
     xs = 0.5 * np.exp(1j * 0.21 * np.arange(L)) + 0.1 * (
         rng.standard_normal(L) + 1j * rng.standard_normal(L))
     x2 = torch.from_numpy(np.stack([xs.real, xs.imag]).astype(np.float32)).to(dev)
     tail = torch.from_numpy((0.3 * rng.standard_normal((2, n - M))).astype(
         np.float32)).to(dev)
-    zp = cuda_ddc.ddc_body_torch(body, x2, tail).cpu().numpy()
     fn = cuda_build.launcher("ddc_body.cu", "ddc_body_launch",
                              cuda_ddc._DDC_BODY_ARGS)
     hpad = -(-(n - M) // 4) * 4
-    for P in (8, 16):
-        KP = -(-(hpad + P * M) // 32) * 32
-        SP = -(-(63 * P * M + KP + 4) // 4) * 4
-        bank_bytes = 2 * (KP // 4) * 32 * 2 * P
-        bank = torch.from_numpy(cuda_ddc.body_tc_bank(body.h_bp, n, M, P, hpad,
-                                                      KP)).to(dev)
-        z = torch.empty((2, L // M), device=dev)
-        for wgs in (2, 1):
-            smem = bank_bytes + wgs * 2 * 2 * SP * 4 + (1 + 2 * wgs) * 8
+    for mode in cuda_ddc.MODES:          # x3, then the bf16 bank's "fast"
+        body = cuda_ddc.make_ddc_body(RxChainConfig(fir_taps=n).design_taps(),
+                                      constrain(0.2), M, dev, mode=mode)
+        zp = cuda_ddc.ddc_body_torch(body, x2, tail).cpu().numpy()
+        fast = mode == "fast"
+        for P in (8, 16):
+            KP = -(-(hpad + P * M) // 32) * 32
+            SP = -(-(63 * P * M + KP + 4) // 4) * 4
+            bank_bytes = (KP // 8 if fast else 2 * (KP // 4)) * 32 * 2 * P
+            bank = cuda_ddc._tc_bank(body, P, hpad, KP)
+            z = torch.empty((2, L // M), device=dev)
+            for wgs, stages in ((2, 2), (1, 2), (2, 1)):
+                smem = (bank_bytes + wgs * stages * 2 * SP * 4
+                        + (1 + stages * wgs) * 8)
 
-            def run():
-                cuda_build.check_launch(fn(
-                    x2.data_ptr(), tail.data_ptr(), bank.data_ptr(),
-                    z.data_ptr(), L, n, M, P, hpad, KP, wgs, 2, smem, 0,
-                    torch.cuda.current_stream().cuda_stream), "ddc_body")
-            run()
-            torch.cuda.synchronize()
-            print(f"[body n=64 M=4 L=2^24, P={P}, {wgs} warpgroup(s) a block] "
-                  f"{graph_ms(run, 20):.4f} ms (CUDA graph of 20 launches), "
-                  f"{snr_db(z.cpu().numpy(), zp):.1f} dB vs plain | {smi}",
-                  flush=True)
+                def run():
+                    cuda_build.check_launch(fn(
+                        x2.data_ptr(), tail.data_ptr(), bank.data_ptr(),
+                        z.data_ptr(), L, n, M, P, hpad, KP, wgs, stages, smem,
+                        int(fast), 0, torch.cuda.current_stream().cuda_stream),
+                        "ddc_body")
+                run()
+                torch.cuda.synchronize()
+                print(f"[body {mode} n=64 M=4 L=2^24, P={P}, {wgs} "
+                      f"warpgroup(s) of {stages} stage(s) a block] "
+                      f"{graph_ms(run, 20):.4f} ms (CUDA graph of 20 "
+                      f"launches), {snr_db(z.cpu().numpy(), zp):.1f} dB vs "
+                      f"plain | {smi}", flush=True)
 
     k1_sweep(dev, smi, x2, tail)
 
@@ -381,8 +387,8 @@ def k1_sweep(dev, smi, x2, tail) -> None:
                 body.taps.data_ptr(), audio.data_ptr(), scratch.data_ptr(),
                 scratch.data_ptr() + 20, ticket.data_ptr(), L, n, M, P, hpad,
                 KP, pre, wgs, stages, smem, blocks, body.cd, body.sd,
-                body.scale, dev.index, torch.cuda.current_stream().cuda_stream),
-                "ddc_fm variant")
+                body.scale, 0, 0, dev.index,
+                torch.cuda.current_stream().cuda_stream), "ddc_fm variant")
         return run
 
     runs = {label: runner(fn) for label, fn in fns.items()}
