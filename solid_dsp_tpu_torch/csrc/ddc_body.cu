@@ -43,6 +43,19 @@
 // banded bank's zero column blocks are a quarter of the products at
 // n = 64, M = 4; skipping them by branching at run time to half-width
 // products was slower, so the skip has to be fixed at compile time.
+// Large decimations (M >~ 100 at 64 taps and more: the bank and the spans of
+// 64 frames no longer fit one block's shared memory) take the "direct"
+// route (ops/cuda_ddc.py::body_geometry): a warp an output at a time, lane
+// l summing taps l, l + 32, ... of the output's window in FP32 FMA (fast:
+// every sample and tap rounded to bf16 first, as K1's direct route rounds
+// them: products exact, f32 sums), the 32 partial sums added by a
+// butterfly of shuffles.  A warp's lanes read consecutive samples, straight
+// from device memory (the windows' overlap, n - M samples, comes from L2);
+// no shared memory, so the route takes every (n, M) the JAX package's
+// predicates give K2/K3.  A first design, K1's large-M route without its
+// epilogue (the block's span staged as M polyphase rows, 32 threads a
+// block at M ~ 128-200 to fit them), took 1.9-2.5 ms at 2^24 samples:
+// one warp an SM, each staged load's latency exposed (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -107,10 +120,75 @@ int launch(const float* x, const float* tail, const float* bank, float* z,
   return (int)cudaGetLastError();
 }
 
+constexpr int kDirectThreads = 256;   // threads a block, direct route
+
+// The direct route: z[t] for t = warp, warp + warps, ...; lane l sums taps
+// l, l + 32, ... of the window x[t M + M - n + i] (the carried tail before
+// the block), then the warp adds the lanes' sums.
+__global__ void __launch_bounds__(kDirectThreads)
+ddc_body_direct_kernel(const float* __restrict__ x, const float* __restrict__ tail,
+                       const float* __restrict__ taps, float* __restrict__ z,
+                       long long L, long long T, int n, int M, int fast) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  const int D = n > M ? n - M : 0;
+  for (long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       t < T; t += warps) {
+    const long long s0 = t * M + M - n;
+    float zr = 0.f, zi = 0.f;
+#pragma unroll 4
+    for (int i = lane; i < n; i += 32) {
+      float a = span_value(x, tail, s0 + i, L, D);
+      float b = span_value(x + L, tail + D, s0 + i, L, D);
+      float hr = __ldg(taps + i), hi = __ldg(taps + n + i);
+      if (fast) {
+        a = bf16_round(a);
+        b = bf16_round(b);
+        hr = bf16_round(hr);
+        hi = bf16_round(hi);
+      }
+      zr = fmaf(hr, a, zr);
+      zr = fmaf(-hi, b, zr);
+      zi = fmaf(hr, b, zi);
+      zi = fmaf(hi, a, zi);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      zr += __shfl_xor_sync(0xffffffffu, zr, off);
+      zi += __shfl_xor_sync(0xffffffffu, zi, off);
+    }
+    if (lane == 0) {
+      z[t] = zr;
+      z[T + t] = zi;
+    }
+  }
+}
+
 }  // namespace
 
-// x (2, L), tail (2, max(n - M, 0)), z (2, L / M) [re row; im row] f32;
-// bank: the packed bank of ops/cuda_ddc.py::body_tc_bank for frames of P
+// The direct route: x (2, L), tail (2, max(n - M, 0)), taps (2, n) [re row;
+// im row] f32, z (2, L / M); fast: operands rounded to bf16.  On card
+// `device`; launches on `stream`, does not synchronise, returns the
+// launch's cudaError_t.
+extern "C" int ddc_body_direct_launch(const float* x, const float* tail,
+                                      const float* taps, float* z, long long L,
+                                      int n, int M, int fast, int device,
+                                      cudaStream_t stream) {
+  if (M <= 0 || n < 1 || L <= 0 || L % M != 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const long long T = L / M;
+  const long long per_block = kDirectThreads / 32;
+  long long blocks = (T + per_block - 1) / per_block;
+  const long long most = 16LL * sm_count(device);   // 64 warps an SM
+  if (blocks > most) blocks = most;
+  ddc_body_direct_kernel<<<(unsigned)blocks, kDirectThreads, 0, stream>>>(
+      x, tail, taps, z, L, T, n, M, fast);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core route.  x (2, L), tail (2, max(n - M, 0)), z (2, L / M)
+// [re row; im row] f32; bank: the packed bank of ops/cuda_ddc.py::body_tc_bank for frames of P
 // outputs, 16-byte aligned (fast = 0: the hi and lo banks, 2 * KP / 4
 // k-steps of 8 * 2P f32; fast = 1: KP / 8 k-steps of 16 * 2P bf16), with
 // hpad and KP of ops/cuda_ddc.py::body_tc_geometry; wgs warpgroups a block,

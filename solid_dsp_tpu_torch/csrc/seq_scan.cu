@@ -1,29 +1,28 @@
-// The three sequential scans of the port, for Hopper (sm_90a): S1 (the exact
-// per-sample AGC with its squelch FSM), S2 (the decision-directed QPSK
-// Costas loop) and S3 (the direct-form-II w-recurrence of the IIR filters).
+// The two nonlinear sequential scans of the port, for Hopper (sm_90a): S1
+// (the exact per-sample AGC with its squelch FSM) and S2 (the
+// decision-directed QPSK Costas loop).  S3, the IIR filters' linear
+// w-recurrence, is time-parallel in iir_scan.cu.
 //
-// None replaces a TPU kernel: in the JAX package each is a lax.scan,
-// solid_dsp_tpu/ops/agc.py::_agc_scan (:108-149),
-// solid_dsp_tpu/models/qpsk.py::qpsk_carrier_pll (:101-126) and
-// solid_dsp_tpu/ops/iir.py::_w_recurrence_scan (:117-126).  PyTorch has no
+// Neither replaces a TPU kernel: in the JAX package each is a lax.scan,
+// solid_dsp_tpu/ops/agc.py::_agc_scan (:108-149) and
+// solid_dsp_tpu/models/qpsk.py::qpsk_carrier_pll (:101-126).  PyTorch has no
 // scan, and a per-sample recurrence in eager torch ops costs ~15-20 launches a
 // sample, so each recurrence is one kernel here.
 //
 // Bound: latency.  Each sample depends on the one before it through the gain
-// (S1: a logf and an expf on the chain), the phase (S2: sincos and atan2) or
-// the w history (S3: k multiply-adds), so one sequence runs at one dependent
+// (S1: a logf and an expf on the chain) or the phase (S2: sincos and atan2),
+// and neither recurrence is linear, so one sequence runs at one dependent
 // step per ~0.1 us (S1) or ~0.2 us (S2) on an H100 however many SMs it has;
 // the bytes (each sample read once and written once) would take 3.35 TB/s
 // far less time.  A multi-sequence or chunk-speculative design is later work.
 //
 // Design: one thread per independent sequence (a leading index of the
-// block; for S3 a lane, a trailing index, since time runs along axis 0
-// there), its state in registers, time walked in order.  Samples are loaded
-// a chunk at a time into registers (8 for S1 and S2, S3_CHUNK for S3), the
-// next chunk's loads started before the current chunk's steps, so a load's
-// latency is hidden behind a chunk of steps.
+// block), its state in registers, time walked in order.  Samples are loaded
+// a chunk of 8 at a time into registers, the next chunk's loads started
+// before the current chunk's steps, so a load's latency is hidden behind a
+// chunk of steps.
 // The arithmetic is the plain PyTorch version's (ops/agc.py::agc_scan_plain,
-// models/qpsk.py::costas_pll_plain, ops/iir.py::iir_scan_torch), in the same
+// models/qpsk.py::costas_pll_plain), in the same
 // order: products and sums with the _rn intrinsics so that nvcc fuses none
 // into an FMA the plain version does not have; no fast-math.  The lock and a
 // DISABLED squelch are fixed for a block (DISABLED maps to DISABLED, timer
@@ -37,8 +36,6 @@
 //                                  mode/timer in place
 //   costas_pll_f32 / _f64:         x (B, T) complex -> y (B, T), theta/dtheta
 //                                  (B,) in place
-//   iir_scan_{f32,f64,c64,c128}:   x (T, B) -> w (T, B), the history (B, k)
-//                                  in place, coefficients a (k,)
 
 #include <cuda_runtime.h>
 
@@ -46,11 +43,6 @@ namespace {
 
 constexpr int CHUNK = 8;
 constexpr int THREADS = 128;
-// S3's prefetch depth, samples loaded ahead by a thread (half of it for
-// 16-byte complex128 samples, to stay within the registers): its steps are
-// a few multiply-adds, so 8 samples hide far less than a load's latency
-// (torch_kernel_sweep.py s3 times 8, 16, 32 and 64).
-constexpr int S3_CHUNK = 32;
 
 enum Squelch : int {
   UNKNOWN = 0, ENABLED = 1, RISE = 2, SIGNALHI = 3, FALL = 4, SIGNALLO = 5,
@@ -101,34 +93,31 @@ __device__ __forceinline__ void squelch_step(int& mode, int& timer, R rssi,
   mode = m;
 }
 
-// Walk one sequence: step(x[t]) -> y[t] in time order, sample t at
-// xs[t * stride] (stride 1 for S1 and S2, the lane count for S3).  Full
-// chunks of DEPTH samples are loaded into registers a chunk ahead (the next
-// chunk's loads started before this chunk's steps, so their latency hides
-// behind DEPTH dependent steps); the ragged end takes one sample at a time.
-template <bool STRIDED = false, int DEPTH = CHUNK, typename In, typename Out,
-          typename Step>
+// Walk one sequence: step(x[t]) -> y[t] in time order.  Full chunks of
+// CHUNK samples are loaded into registers a chunk ahead (the next chunk's
+// loads started before this chunk's steps, so their latency hides behind
+// CHUNK dependent steps); the ragged end takes one sample at a time.
+template <typename In, typename Out, typename Step>
 __device__ __forceinline__ void walk(const In* __restrict__ xs,
                                      Out* __restrict__ ys, long long T,
-                                     Step step, long long stride = 1) {
-  const long long st = STRIDED ? stride : 1;
-  const long long full = T - T % DEPTH;
-  In buf[DEPTH], nxt[DEPTH];
+                                     Step step) {
+  const long long full = T - T % CHUNK;
+  In buf[CHUNK], nxt[CHUNK];
   if (full > 0) {
 #pragma unroll
-    for (int i = 0; i < DEPTH; ++i) buf[i] = xs[i * st];
+    for (int i = 0; i < CHUNK; ++i) buf[i] = xs[i];
   }
-  for (long long t0 = 0; t0 < full; t0 += DEPTH) {
-    if (t0 + DEPTH < full) {
+  for (long long t0 = 0; t0 < full; t0 += CHUNK) {
+    if (t0 + CHUNK < full) {
 #pragma unroll
-      for (int i = 0; i < DEPTH; ++i) nxt[i] = xs[(t0 + DEPTH + i) * st];
+      for (int i = 0; i < CHUNK; ++i) nxt[i] = xs[t0 + CHUNK + i];
     }
 #pragma unroll
-    for (int i = 0; i < DEPTH; ++i) ys[(t0 + i) * st] = step(buf[i]);
+    for (int i = 0; i < CHUNK; ++i) ys[t0 + i] = step(buf[i]);
 #pragma unroll
-    for (int i = 0; i < DEPTH; ++i) buf[i] = nxt[i];
+    for (int i = 0; i < CHUNK; ++i) buf[i] = nxt[i];
   }
-  for (long long t = full; t < T; ++t) ys[t * st] = step(xs[t * st]);
+  for (long long t = full; t < T; ++t) ys[t] = step(xs[t]);
 }
 
 // S1 on one sequence: out = x g; E = c1 E + |out|^2 c2; unlocked: g' = E >
@@ -246,100 +235,6 @@ costas_pll_kernel(const typename C2<R>::T* __restrict__ x,
   dtheta[b] = dth;
 }
 
-// S3's arithmetic on a real or complex value: p = a w (the complex product
-// as ar wr - ai wi, ar wi + ai wr), sums and the difference, each rounded on
-// its own, in the plain version's order (ops/iir.py::iir_scan_torch).
-template <typename R> struct Real {
-  using T = R;
-  static __device__ __forceinline__ T prod(T a, T w) { return mul(a, w); }
-  static __device__ __forceinline__ T plus(T a, T b) { return add(a, b); }
-  static __device__ __forceinline__ T minus(T a, T b) { return sub(a, b); }
-};
-template <typename R> struct Cplx {
-  using T = typename C2<R>::T;
-  static __device__ __forceinline__ T prod(T a, T w) {
-    T p;
-    p.x = sub(mul(a.x, w.x), mul(a.y, w.y));
-    p.y = add(mul(a.x, w.y), mul(a.y, w.x));
-    return p;
-  }
-  static __device__ __forceinline__ T plus(T a, T b) {
-    T p;
-    p.x = add(a.x, b.x);
-    p.y = add(a.y, b.y);
-    return p;
-  }
-  static __device__ __forceinline__ T minus(T a, T b) {
-    T p;
-    p.x = sub(a.x, b.x);
-    p.y = sub(a.y, b.y);
-    return p;
-  }
-};
-
-// S3 with the order K fixed at compile time: the coefficients and the
-// history [w[n-1], ..., w[n-K]] in registers.  w[n] = x[n] - (a[0] w[n-1] +
-// a[1] w[n-2] + ... + a[K-1] w[n-K]), the sum taken left to right.
-template <typename V, int K>
-__global__ void __launch_bounds__(THREADS)
-iir_scan_kernel(const typename V::T* __restrict__ x,
-                typename V::T* __restrict__ w,
-                typename V::T* __restrict__ state,
-                const typename V::T* __restrict__ a, int B, long long T) {
-  using E = typename V::T;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  E av[K], h[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    av[i] = a[i];
-    h[i] = state[(long long)b * K + i];
-  }
-  constexpr int depth = sizeof(E) > 8 ? S3_CHUNK / 2 : S3_CHUNK;
-  walk<true, depth>(x + b, w + b, T, [&](E xv) {
-    E acc = V::prod(av[0], h[0]);
-#pragma unroll
-    for (int i = 1; i < K; ++i) acc = V::plus(acc, V::prod(av[i], h[i]));
-    const E wn = V::minus(xv, acc);
-#pragma unroll
-    for (int i = K - 1; i > 0; --i) h[i] = h[i - 1];
-    h[0] = wn;
-    return wn;
-  }, B);
-#pragma unroll
-  for (int i = 0; i < K; ++i) state[(long long)b * K + i] = h[i];
-}
-
-// S3 for orders above 8: the same sum, the history read back from the
-// w just written (and from the carried state for the first K samples), the
-// coefficients from global memory.
-template <typename V>
-__global__ void __launch_bounds__(THREADS)
-iir_scan_any_kernel(const typename V::T* __restrict__ x,
-                    typename V::T* __restrict__ w,
-                    typename V::T* __restrict__ state,
-                    const typename V::T* __restrict__ a, int B, long long T,
-                    int K) {
-  using E = typename V::T;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  E* st = state + (long long)b * K;
-  // w[n - 1 - j]: the block's own output, or the carried state[j - n]
-  auto hist = [&](long long n, int j) -> E {
-    const long long m = n - 1 - j;
-    return m >= 0 ? w[m * B + b] : st[j - n];
-  };
-  for (long long n = 0; n < T; ++n) {
-    E acc = V::prod(a[0], hist(n, 0));
-    for (int i = 1; i < K; ++i) acc = V::plus(acc, V::prod(a[i], hist(n, i)));
-    w[n * B + b] = V::minus(x[n * B + b], acc);
-  }
-  // new state[i] = w[T - 1 - i], or old state[i - T] where T <= i: taken
-  // from the top down, so an old entry is read before it is overwritten
-  for (int i = K - 1; i >= 0; --i)
-    st[i] = i < T ? w[(T - 1 - i) * B + b] : st[i - T];
-}
-
 template <typename F, typename... A>
 int launch(F kernel, int B, int device, cudaStream_t stream, A... args) {
   if (B <= 0) return (int)cudaErrorInvalidValue;
@@ -347,29 +242,6 @@ int launch(F kernel, int B, int device, cudaStream_t stream, A... args) {
   if (dev_err != cudaSuccess) return (int)dev_err;
   kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0, stream>>>(args...);
   return (int)cudaGetLastError();
-}
-
-template <typename V>
-int iir_scan_launch(const void* x, void* w, void* state, const void* a, int B,
-                    long long T, int K, int device, cudaStream_t stream) {
-  using E = typename V::T;
-  const E* xs = static_cast<const E*>(x);
-  E* ws = static_cast<E*>(w);
-  E* ss = static_cast<E*>(state);
-  const E* as = static_cast<const E*>(a);
-  if (T <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  switch (K) {
-#define S3_CASE(k)                                                            \
-    case k:                                                                   \
-      return launch(iir_scan_kernel<V, k>, B, device, stream, xs, ws, ss, as, \
-                    B, T);
-    S3_CASE(1) S3_CASE(2) S3_CASE(3) S3_CASE(4)
-    S3_CASE(5) S3_CASE(6) S3_CASE(7) S3_CASE(8)
-#undef S3_CASE
-    default:
-      return launch(iir_scan_any_kernel<V>, B, device, stream, xs, ws, ss, as,
-                    B, T, K);
-  }
 }
 
 }  // namespace
@@ -414,15 +286,3 @@ FSM_ENTRY(squelch_fsm_f32, float)
 FSM_ENTRY(squelch_fsm_f64, double)
 PLL_ENTRY(costas_pll_f32, float)
 PLL_ENTRY(costas_pll_f64, double)
-
-#define S3_ENTRY(NAME, V)                                                     \
-  extern "C" int NAME(const void* x, void* w, void* state, const void* a,     \
-                      int B, long long T, int K, int device,                  \
-                      cudaStream_t stream) {                                  \
-    return iir_scan_launch<V>(x, w, state, a, B, T, K, device, stream);      \
-  }
-
-S3_ENTRY(iir_scan_f32, Real<float>)
-S3_ENTRY(iir_scan_f64, Real<double>)
-S3_ENTRY(iir_scan_c64, Cplx<float>)
-S3_ENTRY(iir_scan_c128, Cplx<double>)

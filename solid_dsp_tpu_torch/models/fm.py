@@ -9,8 +9,8 @@ pilot by a complex mix and a centred lowpass, regenerates the 38 kHz
 subcarrier by squaring the unit pilot phasor (no PLL: block-parallel),
 detects L-R synchronously, matrixes and optionally de-emphasizes; the
 one-pole de-emphasis runs as ``ops/iir.py::iir_apply`` (its parallel route,
-as in the JAX package).  Tensor functions: they run where their input
-lies.
+as in the JAX package; on the card that is S3, ``csrc/iir_scan.cu``).
+Tensor functions: they run where their input lies.
 """
 
 from __future__ import annotations
@@ -125,6 +125,7 @@ def deemphasis_apply(state, x, tau_samples: float):
     ``iir_apply`` (parallel route).  Returns (y, new_state)."""
     a = 1.0 - np.exp(-1.0 / float(tau_samples))
     x = torch.as_tensor(x)
-    b = torch.tensor([a], dtype=x.dtype, device=x.device)
-    a_tail = torch.tensor([-(1.0 - a)], dtype=x.dtype, device=x.device)
+    # host coefficients: on the card S3 takes its tables from host values
+    b = torch.tensor([a], dtype=x.dtype)
+    a_tail = torch.tensor([-(1.0 - a)], dtype=x.dtype)
     return iir_apply(b, a_tail, state, x)

@@ -36,7 +36,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("ddc_fm.cu", "ddc_body.cu", "channelizer.cu", "iir_bank.cu",
-           "windowed_fft.cu", "farrow.cu", "halo_frontend.cu", "seq_scan.cu")
+           "windowed_fft.cu", "farrow.cu", "halo_frontend.cu", "seq_scan.cu",
+           "iir_scan.cu")
 ENGINES = ("auto", "cuda", "torch")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

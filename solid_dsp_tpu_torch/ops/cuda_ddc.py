@@ -13,8 +13,10 @@ Ports of the three TPU kernels of ``solid_dsp_tpu/ops/pallas_ddc.py``:
   x[-D .. -1] (D = n - M, none for n <= M) it computes
   z[t] = sum_i h_bp[i] x[tM - D + i], (2, T) f32, as a banded-Toeplitz
   frame product on the tensor cores (the frame width and bank layout:
-  :func:`body_tc_geometry`, :func:`body_tc_bank`); its plain version is
-  ``ops/ddc.py::ddc_body_torch``.
+  :func:`body_tc_geometry`, :func:`body_tc_bank`), or where its bank and
+  spans do not fit shared memory (M >~ 100) as a direct-form FIR, a warp
+  an output (the route from (n, M) alone: :func:`body_geometry`); its
+  plain version is ``ops/ddc.py::ddc_body_torch``.
 
 Each body has a ``mode``, the TPU kernels' two: ``"x3"`` (TF32 x3, ~f32
 accuracy, for ``fir_precision`` "highest"/"x3") or ``"fast"`` (their
@@ -81,8 +83,8 @@ __all__ = ["DdcFmBody", "make_ddc_fm", "fm_supported", "full_supported",
            "body_supported", "fm_seam_frames", "ddc_fm_cuda",
            "ddc_fm_torch", "DdcBody", "make_ddc_body", "ddc_body_cuda",
            "ddc_body_unaligned_cuda", "launch_geometry", "body_tc_geometry",
-           "fm_tc_geometry", "fm_geometry", "fm_columns", "body_tc_bank",
-           "tf32_round", "bf16_round", "DEFAULT_P", "MODES"]
+           "body_geometry", "fm_tc_geometry", "fm_geometry", "fm_columns",
+           "body_tc_bank", "tf32_round", "bf16_round", "DEFAULT_P", "MODES"]
 
 DEFAULT_P = 64          # outputs per frame: the block length quantum is P*M
 MODES = ("x3", "fast")  # the TPU kernels' modes (pallas_ddc.py mode=)
@@ -92,6 +94,7 @@ _DDC_FM_ARGS = ((_P,) * 8 + (_LL,) + (_I,) * 10 + (_F,) * 3
 _DDC_FM_DIRECT_ARGS = ((_P,) * 7 + (_LL,) + (_I,) * 4 + (_F,) * 3
                        + (_I, _LL, _I, _P))
 _DDC_BODY_ARGS = (_P,) * 4 + (_LL,) + (_I,) * 10 + (_P,)
+_DDC_BODY_DIRECT_ARGS = (_P,) * 4 + (_LL,) + (_I,) * 4 + (_P,)
 _OUTPUTS_PER_THREAD = 4          # kOutputsPerThread in csrc/ddc_fm.cu
 _SMEM_LIMIT = 227 * 1024         # shared memory one block may use on sm_90
 _TC_FRAMES = 64                  # kFrames in csrc/ddc_tc.cuh: wgmma's rows
@@ -538,6 +541,20 @@ def body_tc_geometry(n: int, M: int, fast: bool = False):
 
 
 @functools.lru_cache(maxsize=None)
+def body_geometry(n: int, M: int, fast: bool = False):
+    """The body's route for n taps and decimation M in a mode (``fast``),
+    from (n, M) alone, as :func:`fm_geometry` picks K1's: ``("tc",
+    body_tc_geometry(n, M, fast))`` where the tensor-core kernel's bank and
+    spans fit one block's shared memory, else ``("direct", None)``, the
+    direct-form FIR of ``csrc/ddc_body.cu`` (a warp an output, FP32 FMA;
+    fast: bf16 operands), which takes every (n, M)."""
+    try:
+        return "tc", body_tc_geometry(n, M, fast=fast)
+    except ValueError:
+        return "direct", None
+
+
+@functools.lru_cache(maxsize=None)
 def fm_tc_geometry(n: int, M: int, P=None, wgs=None, fast: bool = False):
     """(P, hpad, KP, pre, wgs, stages, smem) of K1's tensor-core route: the
     body's geometry (:func:`body_tc_geometry`) with spans starting ``pre``
@@ -663,17 +680,25 @@ def _launch_body(body: DdcBody, x2: torch.Tensor, tail: torch.Tensor,
     if tail.dtype != torch.float32 or tail.device != x2.device:
         raise TypeError(f"{name} needs a float32 tail on the block's card")
     fast = body.mode == "fast"
-    P, hpad, KP, wgs, stages, smem = body_tc_geometry(body.n, body.M, fast)
-    bank = _tc_bank(body, P, hpad, KP)
+    route, geo = body_geometry(body.n, body.M, fast)
     tail = tail.contiguous()
     z = torch.empty((2, x2.shape[-1] // body.M), dtype=torch.float32,
                     device=x2.device)
-    fn = launcher("ddc_body.cu", "ddc_body_launch", _DDC_BODY_ARGS)
-    check_launch(fn(x2.data_ptr(), tail.data_ptr(), bank.data_ptr(),
-                    z.data_ptr(), x2.shape[-1], body.n, body.M, P, hpad, KP,
-                    wgs, stages, smem, int(fast), x2.device.index,
-                    stream_of(x2)), name)
-    return z
+    if route == "tc":
+        P, hpad, KP, wgs, stages, smem = geo
+        bank = _tc_bank(body, P, hpad, KP)
+        fn = launcher("ddc_body.cu", "ddc_body_launch", _DDC_BODY_ARGS)
+        check_launch(fn(x2.data_ptr(), tail.data_ptr(), bank.data_ptr(),
+                        z.data_ptr(), x2.shape[-1], body.n, body.M, P, hpad,
+                        KP, wgs, stages, smem, int(fast), x2.device.index,
+                        stream_of(x2)), name)
+    else:
+        fn = launcher("ddc_body.cu", "ddc_body_direct_launch",
+                      _DDC_BODY_DIRECT_ARGS)
+        check_launch(fn(x2.data_ptr(), tail.data_ptr(), body.taps.data_ptr(),
+                        z.data_ptr(), x2.shape[-1], body.n, body.M,
+                        int(fast), x2.device.index, stream_of(x2)), name)
+    return z, route
 
 
 def _check_route(body: DdcBody, x2: torch.Tensor, fn, name: str):
@@ -690,12 +715,13 @@ def _check_route(body: DdcBody, x2: torch.Tensor, fn, name: str):
             f"K3's the others where 0 < n - 1 <= {hop}")
 
 
-def _count(fn, body: DdcBody):
-    """One launch more on ``fn.launches`` (x3) or ``fn.fast_launches``."""
-    if body.mode == "fast":
-        fn.fast_launches += 1
-    else:
-        fn.launches += 1
+def _count(fn, body: DdcBody, route: str):
+    """One launch more on ``fn.launches`` (x3) or ``fn.fast_launches``, or
+    on the direct route ``fn.direct_launches`` or
+    ``fn.direct_fast_launches``."""
+    name = ("direct_" if route == "direct" else "") + (
+        "fast_launches" if body.mode == "fast" else "launches")
+    setattr(fn, name, getattr(fn, name) + 1)
 
 
 def ddc_body_cuda(body: DdcBody, x2: torch.Tensor,
@@ -703,10 +729,13 @@ def ddc_body_cuda(body: DdcBody, x2: torch.Tensor,
     """K2's route: launch ``csrc/ddc_body.cu`` on a block whose length is a
     multiple of P*M, where :func:`full_supported` holds; returns z
     (2, L / M).  Takes f32 CUDA tensors only and raises on anything else.
-    Adds one to ``ddc_body_cuda.launches`` (x3) or ``.fast_launches``."""
+    The kernel's route comes from (n, M) alone (:func:`body_geometry`).
+    Adds one to ``ddc_body_cuda.launches`` (x3) or ``.fast_launches`` on
+    the tensor-core route, ``.direct_launches`` or
+    ``.direct_fast_launches`` on the direct one."""
     _check_route(body, x2, ddc_body_cuda, "ddc_body_cuda")
-    z = _launch_body(body, x2, tail, "ddc_body_cuda")
-    _count(ddc_body_cuda, body)
+    z, route = _launch_body(body, x2, tail, "ddc_body_cuda")
+    _count(ddc_body_cuda, body, route)
     return z
 
 
@@ -715,15 +744,17 @@ def ddc_body_unaligned_cuda(body: DdcBody, x2: torch.Tensor,
     """K3's route: the same kernel on a block K2's route does not take (a
     length that is a multiple of M but not of P*M, or n <= M), where
     :func:`body_supported` holds.  Adds one to
-    ``ddc_body_unaligned_cuda.launches`` (x3) or ``.fast_launches``."""
+    ``ddc_body_unaligned_cuda.launches`` (x3) or ``.fast_launches``, or on
+    the direct route ``.direct_launches`` or ``.direct_fast_launches``."""
     _check_route(body, x2, ddc_body_unaligned_cuda,
                  "ddc_body_unaligned_cuda")
-    z = _launch_body(body, x2, tail, "ddc_body_unaligned_cuda")
-    _count(ddc_body_unaligned_cuda, body)
+    z, route = _launch_body(body, x2, tail, "ddc_body_unaligned_cuda")
+    _count(ddc_body_unaligned_cuda, body, route)
     return z
 
 
-ddc_body_cuda.launches = 0
-ddc_body_cuda.fast_launches = 0
-ddc_body_unaligned_cuda.launches = 0
-ddc_body_unaligned_cuda.fast_launches = 0
+ddc_body_cuda.launches = ddc_body_cuda.fast_launches = 0
+ddc_body_cuda.direct_launches = ddc_body_cuda.direct_fast_launches = 0
+ddc_body_unaligned_cuda.launches = ddc_body_unaligned_cuda.fast_launches = 0
+ddc_body_unaligned_cuda.direct_launches = 0
+ddc_body_unaligned_cuda.direct_fast_launches = 0

@@ -1,46 +1,59 @@
-"""The sequential scans on Hopper (S1, S2, S3): wrappers of
-``csrc/seq_scan.cu``.
+"""The scans on Hopper (S1, S2, S3): wrappers of ``csrc/seq_scan.cu`` and
+``csrc/iir_scan.cu``.
 
 S1 is the exact per-sample AGC (``ops/agc.py::_agc_scan``, JAX
 ``ops/agc.py:108-149``) with a second entry point that runs the squelch FSM
 alone over a given rssi track; S2 is the decision-directed QPSK Costas loop
-(``models/qpsk.py::qpsk_carrier_pll``, JAX ``models/qpsk.py:101-126``); S3
-is the IIR filters' direct-form-II w-recurrence (``ops/iir.py``'s
-``"scan"`` method, JAX ``ops/iir.py:117-126``).  None replaces a TPU
-kernel: in the JAX package each is a ``lax.scan``, and a per-sample
-recurrence in eager torch ops would cost ~15-20 launches a sample.  One
-thread walks one sequence in time order: a leading index for S1 and S2, a
-lane (a trailing index; time runs along axis 0) for S3.  The source has the
-design.
+(``models/qpsk.py::qpsk_carrier_pll``, JAX ``models/qpsk.py:101-126``).
+Both are nonlinear: one thread walks one sequence (a leading index) in
+time order.  S3 is the IIR filters' direct-form-II w-recurrence
+(``ops/iir.py``'s ``"scan"`` and ``"parallel"`` routes, JAX
+``ops/iir.py:117-153``), linear, so time-parallel: chunks of
+``linrec.chunk_rows`` rows run from a zero state, their ends joined through
+float64 powers of the companion matrix (``linrec.join_tables``), each chunk
+rerun from its true start; :func:`sos_cascade_cuda` runs a biquad cascade
+the same way in one pipeline.  The host's side of that evaluation (the
+one-step maps, the tables, the chunk rule, the coefficients' host values)
+lives in ``ops/linrec.py``, shared with the plain versions.  None replaces a TPU kernel: in the JAX
+package each is a ``lax.scan`` (or an associative scan), and a per-sample
+recurrence in eager torch ops would cost ~15-20 launches a sample.  The
+sources have the designs.
 
 Each wrapper takes CUDA tensors only, checks types and shapes, launches the
 kernel on the current stream, raises if the launch fails
 (``cuda_build.check_launch``) and adds one to its ``launches`` count.  The
 plain versions are ``ops/agc.py::agc_scan_plain`` and
-``squelch_fsm_plain``, ``models/qpsk.py::costas_pll_plain`` and
-``ops/iir.py::iir_scan_torch``; the dispatchers there take them for CPU
+``squelch_fsm_plain``, ``models/qpsk.py::costas_pll_plain``,
+``ops/iir.py::iir_chunked_torch`` and ``sos_cascade_chunked_torch``; the
+dispatchers there take the plain versions (for S3, the sequential walk
+``iir_scan_torch`` or the doubling scan of ``ops/linrec.py``) for CPU
 tensors only.  ``agc_scan_cuda.fallback_launches`` counts the S1 launches
 made with ``fallback=True``, as ``agc_apply_parallel``'s fall-back makes
-them (they count on ``launches`` too).
+them (they count on ``launches`` too); ``iir_scan_cuda.parallel_launches``
+the S3 launches of the ``"parallel"`` route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from .cuda_build import check_launch, launcher, stream_of
+from .linrec import S3_CHUNK, WIDE, cascade_matrix, chunk_rows, companion, \
+    host_values, join_tables, rounded
 
 __all__ = ["agc_scan_cuda", "squelch_fsm_cuda", "costas_pll_cuda",
-           "iir_scan_cuda"]
+           "iir_scan_cuda", "sos_cascade_cuda", "chunk_geometry",
+           "JOIN_THREADS"]
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 _AGC_ARGS = (_P,) * 7 + (_I, _LL) + (_D,) * 5 + (_I, _I, _P)
 _FSM_ARGS = (_P,) * 4 + (_I, _LL, _D, _I, _I, _P)
 _PLL_ARGS = (_P,) * 4 + (_I, _LL) + (_D,) * 3 + (_I, _P)
-_S3_ARGS = (_P,) * 4 + (_I, _LL, _I, _I, _P)
 _S3_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
               torch.complex64: "c64", torch.complex128: "c128"}
 _SUFFIX = {torch.complex64: "f32", torch.complex128: "f64",
@@ -158,14 +171,103 @@ def costas_pll_cuda(x: torch.Tensor, alpha: float, beta: float, h: float,
 costas_pll_cuda.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# S3 and the fused biquad cascade: the chunk-and-join kernel of
+# csrc/iir_scan.cu
+# ---------------------------------------------------------------------------
+
+JOIN_THREADS = 256       # threads a block of the join (pass 2), at most
+_PASS_THREADS = 128      # kThreads in csrc/iir_scan.cu
+_JOIN_SMEM = 200 * 1024  # the join's shared memory, at most
+_CHUNKED_ARGS = (_P,) * 8 + (_I, _LL) + (_I,) * 7 + (_I, _P)
+
+
+@functools.lru_cache(maxsize=64)
+def _tables(kind: str, coef_bytes: bytes, cplx: bool, shape: tuple,
+            dtype: torch.dtype, chunk: int, cb: int, D: int,
+            device: torch.device):
+    """(join tables, coefficients in ``dtype``) on ``device``, built once
+    per coefficient set and geometry."""
+    coef = np.frombuffer(coef_bytes, np.complex128 if cplx
+                         else np.float64).reshape(shape)
+    A = companion(coef) if kind == "s3" else cascade_matrix(coef)
+    return (torch.from_numpy(join_tables(A, chunk, cb, D)).to(device),
+            torch.from_numpy(coef.copy()).to(device, dtype))
+
+
+def _pow2_log(n: int) -> int:
+    """log2 of the smallest power of two >= n (n >= 1)."""
+    return max(0, int(n - 1).bit_length())
+
+
+def chunk_geometry(B: int, T: int, N: int, acc_bytes: int, cb_one: bool,
+                   chunk: int = S3_CHUNK, join_threads: int = JOIN_THREADS):
+    """(lb, cb, nc, ng, jl, tl, rl, D) of one launch (csrc/iir_scan.cu):
+    blocks of 2^lb lanes (B rounded up to a power of two, at most 32) x cb
+    chunks (128 / 2^lb, or 1 for S3 of order > 8), nc chunks of ``chunk``
+    rows in ng groups; the join's blocks of 2^jl threads (at most
+    ``join_threads``, fewer where its two N-vectors a thread in float64
+    exceed its shared memory), 2^tl runs a lane of 2^rl groups; D join
+    tables Phi^(cb 2^d)."""
+    lb = min(_pow2_log(B), 5)
+    cb = 1 if cb_one else _PASS_THREADS >> lb
+    nc = -(-T // chunk)
+    ng = -(-nc // cb)
+    nj = max(ng - 1, 1)
+    jl = _pow2_log(join_threads)
+    while jl > 0 and 2 * N * (1 << jl) * acc_bytes > _JOIN_SMEM:
+        jl -= 1
+    tl = min(jl, _pow2_log(nj))
+    rl = _pow2_log(-(-nj // (1 << tl)))
+    return lb, cb, nc, ng, jl, tl, rl, rl + tl + 1
+
+
+def _chunked_launch(entry: str, kind: str, x: torch.Tensor, coef: np.ndarray,
+                    cdt: torch.dtype, st_in: torch.Tensor, B: int, N: int,
+                    n_arg: int, cb_one: bool, chunk: int | None = None,
+                    join_threads: int = JOIN_THREADS):
+    """One call of the chunk-and-join kernel over x (T, B) of its working
+    type with the host coefficients ``coef`` (their values in ``cdt``) and
+    the state (N, B): (y, new state (N, B)).  ``chunk`` None takes
+    ``linrec.chunk_rows`` of the one-step map."""
+    T = int(x.shape[0])
+    acc = WIDE[x.dtype] if kind == "s3" else torch.float64
+    acc_bytes = torch.empty(0, dtype=acc).element_size()
+    if chunk is None:
+        chunk = chunk_rows(companion(coef) if kind == "s3"
+                           else cascade_matrix(coef), x.dtype)
+    lb, cb, nc, ng, jl, tl, rl, D = chunk_geometry(B, T, N, acc_bytes, cb_one,
+                                                    chunk, join_threads)
+    tabs, coef_dev = _tables(kind, np.ascontiguousarray(coef).tobytes(),
+                             np.iscomplexobj(coef), coef.shape, cdt, chunk,
+                             cb, D, x.device)
+    loc = torch.empty(nc * N * B, dtype=acc, device=x.device)
+    G = torch.empty(max(ng - 1, 1) * N * B, dtype=acc, device=x.device)
+    y = torch.empty_like(x)
+    st_out = torch.empty_like(st_in)
+    fn = launcher("iir_scan.cu", entry, _CHUNKED_ARGS)
+    check_launch(fn(x.data_ptr(), y.data_ptr(), coef_dev.data_ptr(),
+                    st_in.data_ptr(), st_out.data_ptr(), tabs.data_ptr(),
+                    loc.data_ptr(), G.data_ptr(), B, T, n_arg, chunk, lb, cb,
+                    jl, tl, rl, x.device.index, stream_of(x)), entry)
+    return y, st_out
+
+
 def iir_scan_cuda(a_tail: torch.Tensor, w_state: torch.Tensor,
-                  x: torch.Tensor):
+                  x: torch.Tensor, a_host=None, parallel: bool = False,
+                  chunk: int | None = None,
+                  join_threads: int = JOIN_THREADS):
     """S3 over x (T, *lanes) on one card, float32, float64, complex64 or
     complex128: w[n] = x[n] - sum_i a_tail[i] w[n-1-i] for each lane, the
     history ``w_state`` (*lanes, k) = [w[-1], ..., w[-k]] carried in.
-    ``a_tail`` (k,), k >= 1, is rounded to x's dtype.  Returns (w (T,
-    *lanes), new w_state (*lanes, k)), in x's dtype.  An empty block
-    launches nothing."""
+    ``a_tail`` (k,), k >= 1, is rounded to x's dtype; ``a_host``, where
+    given, holds its values (or is the tensor it was converted from; else
+    ``linrec.host_values`` reads ``a_tail`` once per tensor).  Returns (w (T, *lanes), new w_state (*lanes,
+    k)), in x's dtype.  Launches csrc/iir_scan.cu (chunks of ``chunk`` rows,
+    by default ``linrec.chunk_rows`` of the companion matrix; the join's
+    blocks of at most ``join_threads``) and adds one to
+    ``iir_scan_cuda.launches``, and to ``.parallel_launches`` for the
+    ``"parallel"`` route (``parallel``); an empty block launches nothing."""
     if not x.is_cuda:
         raise ValueError("iir_scan_cuda needs CUDA tensors; CPU tensors take "
                          "the plain version")
@@ -181,19 +283,75 @@ def iir_scan_cuda(a_tail: torch.Tensor, w_state: torch.Tensor,
     T = int(x.shape[0])
     B = max(1, int(torch.Size(lanes).numel()))
     state = (w_state.to(device=x.device, dtype=x.dtype)
-             .expand(*lanes, k).reshape(B, k)
-             .clone(memory_format=torch.contiguous_format))
+             .expand(*lanes, k).reshape(B, k))
     if T == 0:
-        return x.clone(), state.reshape(*lanes, k)
-    xc = x.contiguous()
-    w = torch.empty_like(xc)
-    a = a_tail.to(device=x.device, dtype=x.dtype).contiguous()
-    fn = launcher("seq_scan.cu", f"iir_scan_{_S3_SUFFIX[x.dtype]}", _S3_ARGS)
-    check_launch(fn(xc.data_ptr(), w.data_ptr(), state.data_ptr(),
-                    a.data_ptr(), B, T, k, x.device.index, stream_of(x)),
-                 "iir_scan_cuda")
+        return x.clone(), state.clone().reshape(*lanes, k)
+    a = rounded(host_values(a_tail if a_host is None else a_host), x.dtype)
+    w, st = _chunked_launch(
+        f"iir_chunked_{_S3_SUFFIX[x.dtype]}", "s3", x.contiguous(), a,
+        x.dtype, state.t().contiguous(), B, k, k, k > 8, chunk, join_threads)
     iir_scan_cuda.launches += 1
-    return w, state.reshape(*lanes, k)
+    if parallel:
+        iir_scan_cuda.parallel_launches += 1
+    return w, st.t().reshape(*lanes, k)
 
 
 iir_scan_cuda.launches = 0
+iir_scan_cuda.parallel_launches = 0
+
+
+def sos_cascade_cuda(sos_b, sos_a_tail, state: torch.Tensor,
+                     x: torch.Tensor, coef_host=None):
+    """A biquad cascade over x (T, *lanes) on one card in one pipeline of
+    launches (csrc/iir_scan.cu): sos_b (S, 3) and sos_a_tail (S, 2) real
+    a0-normalised coefficients, 1 <= S <= 8, rounded to x's real type;
+    state (S, *lanes, 2) (or (S, 2), broadcast) of per-section [w[n-1],
+    w[n-2]] in x's dtype (float32, float64, complex64 or complex128).
+    ``coef_host``: the (S, 5) [b0 b1 b2 a1 a2] values on the host where the
+    caller has them.  Each row runs K6's step (csrc/iir_bank.cu), so y
+    agrees with one :func:`iir_apply` a section to rounding, not bit for
+    bit.  Returns (y (T, *lanes), new state (S, *lanes, 2)); adds one to
+    ``sos_cascade_cuda.launches``."""
+    if not x.is_cuda:
+        raise ValueError("sos_cascade_cuda needs CUDA tensors")
+    if x.dtype not in _S3_SUFFIX:
+        raise TypeError(f"sos_cascade_cuda takes {tuple(_S3_SUFFIX)}, got "
+                        f"{x.dtype}")
+    S = int(sos_b.shape[0])
+    if not 1 <= S <= 8 or tuple(sos_b.shape) != (S, 3) or tuple(
+            sos_a_tail.shape) != (S, 2):
+        raise ValueError("sos_cascade_cuda takes 1 to 8 sections, sos_b "
+                         "(S, 3) and sos_a_tail (S, 2)")
+    if coef_host is None:
+        coef_host = np.concatenate([host_values(sos_b),
+                                    host_values(sos_a_tail)], axis=1)
+    if np.any(np.imag(coef_host)):
+        raise TypeError("sos_cascade_cuda takes real coefficients")
+    rdt = _REAL.get(x.dtype, x.dtype)
+    coef = rounded(np.real(coef_host), rdt)
+    lanes = tuple(x.shape[1:])
+    T = int(x.shape[0])
+    state = state.to(device=x.device, dtype=x.dtype)
+    st = state.reshape(S, *(1,) * (len(lanes) + 2 - state.dim()),
+                       *state.shape[1:]).expand(S, *lanes, 2)
+    if T == 0:
+        return x.clone(), st.clone()
+    # real lanes: a complex lane is two (re, im), the state rows
+    # [w1_0, w2_0, w1_1, ...] = (S, 2, lanes)
+    xr = torch.view_as_real(x) if x.is_complex() else x
+    B = max(1, int(torch.Size(xr.shape[1:]).numel()))
+    st_r = torch.view_as_real(st) if x.is_complex() else st
+    st_r = st_r.movedim(-1 if not x.is_complex() else -2, 1).reshape(2 * S, B)
+    y, st_o = _chunked_launch(
+        f"sos_chunked_{_S3_SUFFIX[rdt]}", "sos", xr.contiguous().reshape(T, B),
+        coef, rdt, st_r.contiguous(), B, 2 * S, S, False)
+    sos_cascade_cuda.launches += 1
+    st_o = st_o.reshape(S, 2, *xr.shape[1:]).movedim(1, -1 if not
+                                                     x.is_complex() else -2)
+    if x.is_complex():
+        return (torch.view_as_complex(y.reshape(xr.shape)),
+                torch.view_as_complex(st_o.contiguous()))
+    return y.reshape(x.shape), st_o
+
+
+sos_cascade_cuda.launches = 0

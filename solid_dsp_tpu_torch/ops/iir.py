@@ -11,15 +11,25 @@ interp.rs:29-190).  With a0-normalized coefficients a block is
 stores a[1:] as "numerator_coefs" and b as "denominator_coefs", and the
 analysis methods read those swapped stores, reproduced here).
 
-The w-recurrence runs one of two ways:
+The w-recurrence runs one of two ways, the JAX package's:
 
-* ``"scan"``: sequential in time, exact streaming semantics.  On a CUDA
-  tensor it is one launch of S3 (``ops/cuda_scan.py::iir_scan_cuda``,
-  ``csrc/seq_scan.cu``); on a CPU tensor its plain version
-  :func:`iir_scan_torch`, a torch loop over time vectorized over lanes;
+* ``"scan"``: sequential in time, exact streaming semantics; on a CPU
+  tensor its plain version :func:`iir_scan_torch`, a torch loop over time
+  vectorized over lanes;
 * ``"parallel"``: the companion-matrix affine recurrence in O(log T) depth
   (``ops/linrec.py::affine_scan``, full float32 under ``fp32_exact`` as
-  JAX's ``precision="highest"``), torch ops on any device.
+  JAX's ``precision="highest"``) on a CPU tensor.
+
+On a CUDA tensor both are S3, the time-parallel chunk-and-join kernel
+(``ops/cuda_scan.py::iir_scan_cuda``, ``csrc/iir_scan.cu``): chunks run from
+a zero state, their ends joined through float64 powers of the companion
+matrix, each chunk run again from its true start -- a two-level block-
+parallel evaluation of the same affine recurrence; :func:`iir_chunked_torch`
+is its plain version (the same association in torch ops), held against the
+kernel by the card tests.  :func:`sos_cascade_apply` runs a cascade of up to
+8 real biquads on the card as one pipeline of the same kernel
+(``cuda_scan.sos_cascade_cuda``; plain version
+:func:`sos_cascade_chunked_torch`).
 
 ``"auto"`` (:func:`resolve_iir_method`) takes the parallel route for 64-bit
 types and for 32-bit filters whose poles all lie within
@@ -37,13 +47,14 @@ import torch
 from ..analysis.freq_response import iir_frequency_response
 from ..analysis.group_delay import iir_group_delay
 from ..device import resolve_device
-from . import cuda_scan
+from . import cuda_scan, linrec
 from .fir import _ingest, conv1d_mxu
 from .linrec import affine_scan
 
-__all__ = ["iir_init", "iir_apply", "iir_scan_torch", "max_pole_radius",
-           "resolve_iir_method", "PARALLEL_SAFE_RADIUS_32BIT", "sos_init",
-           "sos_cascade_apply", "IIRFilterType", "IIRFilter",
+__all__ = ["iir_init", "iir_apply", "iir_scan_torch", "iir_chunked_torch",
+           "max_pole_radius", "resolve_iir_method",
+           "PARALLEL_SAFE_RADIUS_32BIT", "sos_init", "sos_cascade_apply",
+           "sos_cascade_chunked_torch", "IIRFilterType", "IIRFilter",
            "SecondOrderFilter", "DecimatingIIRFilter",
            "InterpolatingIIRFilter"]
 
@@ -145,18 +156,92 @@ def iir_scan_torch(a_tail: torch.Tensor, w_state: torch.Tensor,
     return w, h
 
 
-def _w_recurrence_scan(a_tail, w_state, x):
+def _join_chunks(A: np.ndarray, chunk: int, h0: torch.Tensor,
+                 ends: torch.Tensor) -> torch.Tensor:
+    """The chunks' true starts in float64 (complex128): S_0 = h0 and
+    S_{c+1} = Phi S_c + ends[c], Phi = A^chunk, by a doubling scan through
+    Phi^(2^d) (``linrec.join_tables``, the kernel's tables).  h0
+    (*lanes, N), ends (nc - 1, *lanes, N), both already wide; returns
+    (nc, *lanes, N)."""
+    n = ends.shape[0]
+    tabs = torch.from_numpy(linrec.join_tables(
+        A, chunk, 1, max(1, (n - 1).bit_length()))).to(ends.device)
+    v = ends.clone()
+    v[0] = v[0] + torch.einsum("ij,...j->...i", tabs[0], h0)
+    d, off = 0, 1
+    while off < n:
+        v = torch.cat([v[:off], v[off:] + torch.einsum(
+            "ij,...j->...i", tabs[1 + d], v[:-off])])
+        d, off = d + 1, 2 * off
+    return torch.cat([h0[None], v])
+
+
+def _chunked(walk, A: np.ndarray, chunk: int, h0: torch.Tensor,
+             x: torch.Tensor, wide: torch.dtype):
+    """The kernel's association of a linear recurrence over x (T, *lanes)
+    from the state h0 (*lanes, N): every chunk of ``chunk`` rows from a zero
+    state (``walk(h, rows) -> (out, h_end)``), the ends joined in ``wide``,
+    every chunk again from its start rounded to h0's type."""
+    T = int(x.shape[0])
+    nc = -(-T // chunk)
+    if nc <= 1:
+        return walk(h0, x)
+    lanes = tuple(x.shape[1:])
+    full = (nc - 1) * chunk
+    xs = x[:full].reshape(nc - 1, chunk, *lanes).movedim(0, 1)
+    _, ends = walk(torch.zeros((nc - 1, *h0.shape), dtype=h0.dtype,
+                               device=h0.device), xs)
+    starts = _join_chunks(A, chunk, h0.to(wide), ends.to(wide)).to(h0.dtype)
+    out, _ = walk(starts[:-1], xs)
+    tail, h_end = walk(starts[-1], x[full:])
+    return torch.cat([out.movedim(1, 0).reshape(full, *out.shape[2:]),
+                      tail]), h_end
+
+
+def iir_chunked_torch(a_tail: torch.Tensor, w_state: torch.Tensor,
+                      x: torch.Tensor, chunk: int | None = None):
+    """S3's plain version on the card's association: the blocks of
+    ``chunk`` rows (by default ``linrec.chunk_rows`` of the companion
+    matrix, as the kernel takes) run from a zero state by
+    :func:`iir_scan_torch`, their
+    end states joined in float64 (complex128) through powers of the
+    companion matrix of ``a_tail`` rounded to x's dtype, each block run
+    again from its start rounded once to x's dtype.  The same arguments and
+    results as :func:`iir_scan_torch`; it differs from it only by the
+    rounding of the chunk starts, and from the kernel only by the order of
+    the float64 join's sums."""
+    k = int(a_tail.shape[-1])
+    if a_tail.dim() != 1 or k < 1:
+        raise ValueError("iir_chunked_torch takes a_tail of shape (k,), "
+                         "k >= 1")
+    lanes = tuple(x.shape[1:])
+    a = a_tail.to(device=x.device, dtype=x.dtype)
+    h0 = w_state.to(device=x.device, dtype=x.dtype).expand(*lanes, k)
+    if x.shape[0] == 0:
+        return x.clone(), h0.clone()
+    A = linrec.companion(linrec.rounded(
+        linrec.host_values(a_tail), x.dtype))
+    return _chunked(lambda h, rows: iir_scan_torch(a, h, rows), A,
+                    chunk or linrec.chunk_rows(A, x.dtype), h0, x,
+                    linrec.WIDE[x.dtype])
+
+
+def _w_recurrence_scan(a_tail, w_state, x, a_host=None):
     """The sequential route: S3 on a CUDA tensor, its plain version on a
     CPU tensor."""
     if x.is_cuda:
-        return cuda_scan.iir_scan_cuda(a_tail, w_state, x)
+        return cuda_scan.iir_scan_cuda(a_tail, w_state, x, a_host)
     return iir_scan_torch(a_tail, w_state, x)
 
 
-def _w_recurrence_parallel(a_tail, w_state, x):
-    """s[n] = A s[n-1] + e0 x[n] with A the companion matrix of a_tail, by
-    ``affine_scan`` (s[-1] = w_state folded into the first element); w is
-    s[:, 0] and the new state s[-1] (companion form)."""
+def _w_recurrence_parallel(a_tail, w_state, x, a_host=None):
+    """s[n] = A s[n-1] + e0 x[n] with A the companion matrix of a_tail: on
+    a CUDA tensor S3 (a two-level block-parallel evaluation of it); on a
+    CPU tensor ``affine_scan`` (s[-1] = w_state folded into the first
+    element), w being s[:, 0] and the new state s[-1] (companion form)."""
+    if x.is_cuda:
+        return cuda_scan.iir_scan_cuda(a_tail, w_state, x, a_host,
+                                       parallel=True)
     k = int(a_tail.shape[-1])
     T = int(x.shape[0])
     if T == 0:
@@ -186,16 +271,19 @@ def iir_apply(b, a_tail, w_state, x, method: str = "parallel"):
     JAX package.  The recurrence runs in the type x, a_tail and w_state
     promote to; ``method`` "scan" (S3 on the card) or "parallel"."""
     x = torch.as_tensor(x)
-    a_tail = torch.as_tensor(a_tail, device=x.device)
+    a_tail = torch.as_tensor(a_tail)
+    a_host = a_tail     # S3 reads its values from the caller's tensor
+    a_tail = a_tail.to(x.device)
     b = torch.as_tensor(b, device=x.device)
     w_state = torch.as_tensor(w_state, device=x.device)
     cd = torch.promote_types(torch.promote_types(x.dtype, a_tail.dtype),
                              w_state.dtype)
     x, a_tail, w_state = x.to(cd), a_tail.to(cd), w_state.to(cd)
     if method == "scan":
-        w_seq, w_state_new = _w_recurrence_scan(a_tail, w_state, x)
+        w_seq, w_state_new = _w_recurrence_scan(a_tail, w_state, x, a_host)
     elif method == "parallel":
-        w_seq, w_state_new = _w_recurrence_parallel(a_tail, w_state, x)
+        w_seq, w_state_new = _w_recurrence_parallel(a_tail, w_state, x,
+                                                    a_host)
     else:
         raise ValueError(f"unknown IIR method {method!r}")
     # y[n] = sum_i b[i] w[n-i]: an FIR on the w sequence (time moved last)
@@ -217,17 +305,100 @@ def sos_init(nsections: int, dtype=torch.complex64, batch_shape: tuple = (),
 
 
 def sos_cascade_apply(sos_b, sos_a_tail, state, x, method: str = "parallel"):
-    """A cascade of biquads, one :func:`iir_apply` a section in order.
+    """A cascade of biquads: one :func:`iir_apply` a section in order on a
+    CPU tensor; on a CUDA tensor with real-valued coefficients and 1 to 8
+    sections the whole cascade in one pipeline of S3's launches
+    (``cuda_scan.sos_cascade_cuda``, "scan" and "parallel" alike; more
+    sections or complex coefficients: one S3 pipeline a section).
 
     sos_b: (S, 3) normalized numerators; sos_a_tail: (S, 2) normalized
-    a[1:]; state: (S, 2) per-section [w[n-1], w[n-2]].  Returns (y,
-    new_state (S, 2))."""
+    a[1:]; state: (S, 2) per-section [w[n-1], w[n-2]] (or (S, *lanes,
+    2)).  Returns (y, new_state (S, 2))."""
     y = torch.as_tensor(x)
+    if y.is_cuda and 1 <= int(sos_b.shape[0]) <= 8:
+        host = np.concatenate([linrec.host_values(sos_b),
+                               linrec.host_values(sos_a_tail)], axis=1)
+        if not np.any(np.imag(host)):
+            if method not in ("scan", "parallel"):
+                raise ValueError(f"unknown IIR method {method!r}")
+            sb, sa = torch.as_tensor(sos_b), torch.as_tensor(sos_a_tail)
+            st = torch.as_tensor(state, device=y.device)
+            cd = torch.promote_types(torch.promote_types(
+                torch.promote_types(y.dtype, sb.dtype), sa.dtype), st.dtype)
+            return cuda_scan.sos_cascade_cuda(sb, sa, st.to(cd), y.to(cd),
+                                              np.real(host))
     new_states = []
     for s in range(int(sos_b.shape[0])):
         y, st = iir_apply(sos_b[s], sos_a_tail[s], state[s], y, method)
         new_states.append(st)
     return y, torch.stack(new_states)
+
+
+def _cascade_walk(co: torch.Tensor, h: torch.Tensor, x: torch.Tensor):
+    """K6's cascade step (csrc/iir_scan.cu) over x (T, *lanes) real from the
+    state h (*lanes, 2S) [w1_0, w2_0, ...], each product and sum rounded on
+    its own: (y, new h)."""
+    S = co.shape[0]
+    w = list(h.unbind(-1))
+    ys = []
+    for t in range(x.shape[0]):
+        v = x[t]
+        for s in range(S):
+            b0, b1, b2, a1, a2 = co[s]
+            w1, w2 = w[2 * s], w[2 * s + 1]
+            fb = a1 * w1 + a2 * w2
+            ff = b1 * w1 + b2 * w2
+            w0 = v - fb
+            v = b0 * w0 + ff
+            w[2 * s], w[2 * s + 1] = w0, w1
+        ys.append(v)
+    y = torch.stack(ys) if ys else x.clone()
+    return y, torch.stack(w, dim=-1)
+
+
+def sos_cascade_chunked_torch(sos_b, sos_a_tail, state, x):
+    """The fused cascade's plain version, on the card kernel's association
+    (``cuda_scan.sos_cascade_cuda``): K6's step a row, chunks of
+    ``linrec.chunk_rows`` rows of the cascade's one-step map from a zero
+    state, their 2S-vector ends joined in float64 through
+    powers of the cascade's one-step map, each chunk again from its start
+    rounded to the working type.  Real coefficients; the same arguments and
+    results as :func:`sos_cascade_apply`, which it matches to rounding (its
+    b taps run inside the step, not as a convolution after it)."""
+    y = torch.as_tensor(x)
+    sb = torch.as_tensor(sos_b, device=y.device)
+    sa = torch.as_tensor(sos_a_tail, device=y.device)
+    st = torch.as_tensor(state, device=y.device)
+    cd = torch.promote_types(torch.promote_types(
+        torch.promote_types(y.dtype, sb.dtype), sa.dtype), st.dtype)
+    rdt = torch.empty(0, dtype=cd).real.dtype
+    S = int(sb.shape[0])
+    host = np.concatenate([linrec.host_values(sb),
+                           linrec.host_values(sa)], axis=1)
+    if np.any(np.imag(host)):
+        raise TypeError("the fused cascade takes real coefficients")
+    coef = linrec.rounded(np.real(host), rdt)
+    co = torch.from_numpy(coef).to(y.device, rdt)
+    y = y.to(cd)
+    lanes = tuple(y.shape[1:])
+    st = st.to(cd)
+    st = st.reshape(S, *(1,) * (len(lanes) + 2 - st.dim()),
+                    *st.shape[1:]).expand(S, *lanes, 2)
+    cplx = y.is_complex()
+    xr = torch.view_as_real(y) if cplx else y
+    # (S, *lanes, 2) -> (*real lanes, 2S) rows [w1_0, w2_0, w1_1, ...]
+    sr = torch.view_as_real(st) if cplx else st
+    sr = sr.movedim(-2 if cplx else -1, 1).reshape(2 * S, *xr.shape[1:])
+    A = linrec.cascade_matrix(coef)
+    out, h = _chunked(lambda h, rows: _cascade_walk(co, h, rows), A,
+                      linrec.chunk_rows(A, rdt),
+                      sr.movedim(0, -1), xr, torch.float64)
+    h = h.movedim(-1, 0).reshape(S, 2, *xr.shape[1:]).movedim(
+        1, -2 if cplx else -1)
+    if cplx:
+        return (torch.view_as_complex(out.contiguous()),
+                torch.view_as_complex(h.contiguous()))
+    return out, h
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +481,7 @@ class IIRFilter:
         self.method = method
         self.device = resolve_device(device)
         self._sections: list[SecondOrderFilter] = []
+        self._sos = None          # the sections' (b, a[1:]) stacked, on use
         if iirtype == IIRFilterType.NORMAL:
             if ff.size == 0:
                 raise ValueError("numerator length zero")
@@ -386,9 +558,25 @@ class IIRFilter:
             y, self._state = iir_apply(self._b, self._a_full, st, samples,
                                        self.method)
             return y
+        if samples.is_cuda:
+            return self._cascade_block(samples)
         y = samples
         for sec in self._sections:
             y = sec.execute_block(y)
+        return y
+
+    def _cascade_block(self, samples):
+        """The sections as one cascade (``sos_cascade_apply``: on the card
+        one pipeline of launches), their carries updated."""
+        secs = self._sections
+        if self._sos is None:
+            self._sos = (torch.stack([s._b for s in secs]),
+                         torch.stack([s._a_tail for s in secs]))
+        st = torch.stack([s._state for s in secs])
+        st = st.to(torch.promote_types(st.dtype, samples.dtype))
+        y, new = sos_cascade_apply(*self._sos, st, samples, secs[0].method)
+        for sec, ns in zip(secs, new):
+            sec._state = ns
         return y
 
     def execute(self, sample):

@@ -3,8 +3,10 @@
 Port of ``solid_dsp_tpu/ops/zerophase.py``.  The filter runs forward, the
 result is reversed, filtered again and reversed back: the magnitude response
 applies twice (|H|^2) and the phase cancels.  Both passes are the block
-filters of ``ops/fir.py`` and ``ops/iir.py`` (so an IIR pass with
-``method="scan"`` launches S3 once a section on the card); the edges are
+filters of ``ops/fir.py`` and ``ops/iir.py`` (on the card an IIR pass
+launches S3 once, an SOS pass the fused cascade once; IIR coefficients stay
+where the caller gave them, so those taken from the host reach the kernels'
+tables without a read-back from the card); the edges are
 padded by odd reflection about the end samples (scipy's ``padtype="odd"``),
 2 * ntaps for FIR and sized from the slowest pole for IIR, and the pad is
 trimmed off.  Functions of tensors: they run where ``x`` lies.
@@ -82,7 +84,7 @@ def filtfilt_iir(b, a, x, pad: int | None = None,
     (interior samples agree with scipy's filtfilt to machine precision)."""
     x = _as_tensor(x)
     b = _as_tensor(b, x.device)
-    a = _as_tensor(a, x.device)
+    a = _as_tensor(a)
     a_tail = a[..., 1:]
     if pad is None:
         pad = _transient_pad(6 * max(int(a_tail.shape[-1]), 1),
@@ -103,8 +105,8 @@ def filtfilt_sos(sos_b, sos_a, x, pad: int | None = None,
     ``ops.iir.sos_cascade_apply`` takes them).  The default pad is sized
     from the slowest section pole."""
     x = _as_tensor(x)
-    sos_b = _as_tensor(sos_b, x.device)
-    sos_a = _as_tensor(sos_a, x.device)
+    sos_b = _as_tensor(sos_b)
+    sos_a = _as_tensor(sos_a)
     if pad is None:
         r = max(max_pole_radius(row) for row in sos_a.cpu().numpy())
         pad = _transient_pad(18 * int(sos_b.shape[0]), r)

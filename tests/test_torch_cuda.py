@@ -47,9 +47,10 @@ from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig
 from solid_dsp_tpu_torch.design.windows import get_window
 from solid_dsp_tpu_torch.models import qpsk as qpsk_ops
 from solid_dsp_tpu_torch.ops import agc as agc_ops
+from solid_dsp_tpu_torch.ops import ddc as ddc_ops
 from solid_dsp_tpu_torch.ops import (cuda_chan, cuda_ddc, cuda_fft, cuda_iir,
                                      cuda_resample, cuda_scan, farrow, iir,
-                                     nco, zerophase)
+                                     linrec, nco, zerophase)
 from solid_dsp_tpu_torch.ops import fir as fir_ops
 from solid_dsp_tpu_torch.ops import fft as fft_ops
 from torch_parity import (L_SMALL, make_blocks, make_qpsk_blocks,
@@ -1165,16 +1166,19 @@ def test_exact_and_parity_chains_on_card_match_cpu(override):
 
 
 S3_TYPES = [torch.float32, torch.float64, torch.complex64, torch.complex128]
+S3_LC = linrec.S3_CHUNK
+WIDE = {torch.float32: torch.float64, torch.float64: torch.float64,
+        torch.complex64: torch.complex128, torch.complex128: torch.complex128}
 
 
-def _s3_case(dev, dt, k, lanes, T, seed):
-    """A stable order-k recurrence (poles at radius 0.9: real ones for a
+def _s3_case(dev, dt, k, lanes, T, seed, r=0.9):
+    """A stable order-k recurrence (poles at radius r: real ones for a
     real type), its input and a random history."""
     rng = np.random.default_rng(seed)
     if dt.is_complex:
-        a = np.poly(0.9 * np.exp(2j * np.pi * rng.random(k)))[1:]
+        a = np.poly(r * np.exp(2j * np.pi * rng.random(k)))[1:]
     else:
-        a = np.poly(0.9 * np.cos(2 * np.pi * rng.random(k)))[1:]
+        a = np.poly(r * np.cos(2 * np.pi * rng.random(k)))[1:]
     x = rng.standard_normal((T, *lanes))
     if dt.is_complex:
         x = x + 1j * rng.standard_normal((T, *lanes))
@@ -1182,36 +1186,244 @@ def _s3_case(dev, dt, k, lanes, T, seed):
             torch.from_numpy(rng.standard_normal((*lanes, k))).to(dev, dt))
 
 
+def _db(got, ref) -> float:
+    num = float((ref.abs() ** 2).sum())
+    den = float(((got.to(ref.dtype) - ref).abs() ** 2).sum())
+    return float("inf") if den == 0 else 10 * np.log10(num / den)
+
+
+def _s3_gate(dt, w, h, a, h0, x):
+    """S3's (w, new state) against the sequential walk (iir_scan_torch on
+    the CPU), as one vector (the state alone is too few samples for a ratio
+    of powers): 64-bit within 1e-10 max|w| of the walk; 32-bit >= 90 dB
+    against the float64 walk of the rounded filter, or within 3 dB of the
+    walk in the working type where that keeps less (a filter of large
+    gain)."""
+    wide = WIDE[dt]
+    a, h0, x = a.cpu(), h0.cpu(), x.cpu()
+
+    def cat(pair):
+        return torch.cat([t.reshape(-1).cpu() for t in pair])
+    truth = cat(iir.iir_scan_torch(a.to(wide), h0.to(wide), x.to(wide)))
+    got = cat((w, h))
+    if dt in (torch.float64, torch.complex128):
+        assert float((got - truth).abs().max()) <= 1e-10 * float(
+            truth.abs().max())
+        return
+    walk = cat(iir.iir_scan_torch(a, h0, x))
+    assert _db(got, truth) >= min(90.0, _db(walk, truth) - 3.0)
+
+
+def _s3_rows(a, dt):
+    """The kernel's rows a chunk for these coefficients (S3_CHUNK, or 16
+    for a 32-bit filter of large transient gain)."""
+    return linrec.chunk_rows(linrec.companion(
+        a.cpu().to(WIDE[dt]).numpy()), dt)
+
+
 @pytest.mark.parametrize("dt", S3_TYPES)
 @pytest.mark.parametrize("k", [1, 2, 8, 11])
 @pytest.mark.parametrize("lanes", [(), (256,), (3, 5)])
 def test_iir_scan_kernel_bit_equal_to_plain(dt, k, lanes):
-    """S3 vs iir_scan_torch on the card: two blocks with the history
-    carried, w and the history bit-equal; one launch a block."""
+    """S3 vs iir_scan_torch on the card, two blocks with the history
+    carried, one launch a block: bit-equal on blocks of one chunk (40 and
+    24 rows, or 16 and 16 where the filter takes chunks of 16: the walk
+    itself); on blocks of 301 and 399 rows the chunk starts are joined, not
+    walked, so there within _s3_gate of the walk."""
     dev = require_cuda()
     a, x, h0 = _s3_case(dev, dt, k, lanes, 700, seed=k)
-    before = cuda_scan.iir_scan_cuda.launches
-    w1, h1 = cuda_scan.iir_scan_cuda(a, h0, x[:301])
-    w2, h2 = cuda_scan.iir_scan_cuda(a, h1, x[301:])
-    assert cuda_scan.iir_scan_cuda.launches == before + 2
-    p1, q1 = iir.iir_scan_torch(a, h0, x[:301])
-    p2, q2 = iir.iir_scan_torch(a, q1, x[301:])
-    assert torch.equal(torch.cat([w1, w2]), torch.cat([p1, p2]))
-    assert torch.equal(h2, q2) and h2.shape == (*lanes, k)
+    lc = _s3_rows(a, dt)
+    for cut, end in ((min(40, lc), min(40, lc) + min(24, lc)), (301, 700)):
+        before = cuda_scan.iir_scan_cuda.launches
+        w1, h1 = cuda_scan.iir_scan_cuda(a, h0, x[:cut])
+        w2, h2 = cuda_scan.iir_scan_cuda(a, h1, x[cut:end])
+        assert cuda_scan.iir_scan_cuda.launches == before + 2
+        w = torch.cat([w1, w2])
+        assert h2.shape == (*lanes, k)
+        if end < 301:
+            p1, q1 = iir.iir_scan_torch(a, h0, x[:cut])
+            p2, q2 = iir.iir_scan_torch(a, q1, x[cut:end])
+            assert torch.equal(w, torch.cat([p1, p2]))
+            assert torch.equal(h2, q2)
+        else:
+            _s3_gate(dt, w, h2, a, h0, x[:end])
 
 
 @pytest.mark.parametrize("T", [1, 3, 9, 16, 33, 64, 65])
 def test_iir_scan_kernel_short_blocks(T):
-    """Blocks shorter than the order, than a chunk and a chunk or two with
-    a ragged end (the generic kernel's history from the carried state; the
-    chunks of 32 and, in complex128, 16 samples loaded ahead)."""
+    """Blocks shorter than the order, than a chunk (S3_CHUNK = 64 rows:
+    bit-equal to the walk) and a chunk with a ragged end (joined: within
+    1e-10 max|w|), at orders 2 (registers) and 12 (the generic path)."""
     dev = require_cuda()
     for dt in (torch.float64, torch.complex128):
         for k in (2, 12):
-            a, x, h0 = _s3_case(dev, dt, k, (4,), T, seed=T)
+            a, x, h0 = _s3_case(dev, dt, k, (4,), T, seed=T, r=0.5)
             w, h = cuda_scan.iir_scan_cuda(a, h0, x)
             p, q = iir.iir_scan_torch(a, h0, x)
-            assert torch.equal(w, p) and torch.equal(h, q)
+            if T <= S3_LC:
+                assert torch.equal(w, p) and torch.equal(h, q)
+            else:
+                _s3_gate(dt, w, h, a, h0, x)
+
+
+S3_SHAPES = [((), 1), ((), S3_LC - 1), ((), S3_LC + 1), ((), 5 * S3_LC + 3),
+             ((), 1 << 14), ((), 130 * S3_LC + 7), ((256,), S3_LC + 1),
+             ((256,), 5 * S3_LC + 3), ((256,), 1 << 12), ((3, 5), 3001)]
+
+
+@pytest.mark.parametrize("dt", S3_TYPES)
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 11])
+@pytest.mark.parametrize("lanes,T", S3_SHAPES)
+def test_iir_scan_kernel_matches_chunked_plain(dt, k, lanes, T):
+    """S3 against its plain version iir_chunked_torch (the same
+    association, on the CPU): 32-bit bit-equal or within 1e-6 max|w|,
+    64-bit within 1e-12 max|w|, times g / 16 for a filter whose transient
+    gain g (linrec.transient_gain) exceeds 16 (the float64 join's sums
+    in another order move a start by an ulp, which the chunk's walk
+    amplifies by up to g); poles at 0.99 (k <= 3), 0.9 (k = 8), 0.5 (k =
+    11, the generic path)."""
+    dev = require_cuda()
+    r = 0.99 if k <= 3 else 0.9 if k == 8 else 0.5
+    a, x, h0 = _s3_case(dev, dt, k, lanes, T, seed=T + k, r=r)
+    w, h = cuda_scan.iir_scan_cuda(a, h0, x)
+    p, q = iir.iir_chunked_torch(a.cpu(), h0.cpu(), x.cpu())
+    g = linrec.transient_gain(linrec.companion(
+        a.cpu().to(WIDE[dt]).numpy()))
+    tol = (1e-6 if dt in (torch.float32, torch.complex64) else 1e-12) * max(
+        1.0, g / 16)
+    for got, want in ((w, p), (h, q)):
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        assert float((got.cpu() - want).abs().max()) <= tol * float(
+            want.abs().max())
+
+
+@pytest.mark.parametrize("dt", S3_TYPES)
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+def test_iir_scan_kernel_matches_walk(dt, k):
+    """S3 against the sequential walk within _s3_gate on one lane of 2^14
+    rows, and two blocks carried against one."""
+    dev = require_cuda()
+    r = 0.99 if k <= 3 else 0.9
+    a, x, h0 = _s3_case(dev, dt, k, (), 1 << 14, seed=50 + k, r=r)
+    w, h = cuda_scan.iir_scan_cuda(a, h0, x)
+    _s3_gate(dt, w, h, a, h0, x)
+    w1, h1 = cuda_scan.iir_scan_cuda(a, h0, x[:5000])
+    w2, h2 = cuda_scan.iir_scan_cuda(a, h1, x[5000:])
+    _s3_gate(dt, torch.cat([w1, w2]), h2, a, h0, x)
+
+
+@pytest.mark.parametrize("method", ["scan", "parallel"])
+def test_risky_pole_on_card_both_routes(method):
+    """tests/test_iir.py:210-223's pole (radius 0.9999) in float32 through
+    iir_apply on the card: S3 on both routes, >= 80 dB against the float64
+    walk, no affine_scan (no cuBLAS gemm)."""
+    dev = require_cuda()
+    a = np.array([1.0, -2 * 0.9999 * np.cos(0.3), 0.9999 ** 2])
+    b = np.array([0.01, 0.0, 0.0])
+    x = np.random.default_rng(9).standard_normal(1 << 16)
+    before = (cuda_scan.iir_scan_cuda.launches,
+              cuda_scan.iir_scan_cuda.parallel_launches)
+    y, _ = iir.iir_apply(torch.from_numpy(b).float(),
+                         torch.from_numpy(a[1:]).float(),
+                         torch.zeros(2, device=dev),
+                         torch.from_numpy(x).float().to(dev), method)
+    assert (cuda_scan.iir_scan_cuda.launches - before[0],
+            cuda_scan.iir_scan_cuda.parallel_launches - before[1]) == (
+                1, int(method == "parallel"))
+    want, _ = iir.iir_apply(torch.from_numpy(b), torch.from_numpy(a[1:]),
+                            torch.zeros(2, dtype=torch.float64),
+                            torch.from_numpy(x), "scan")
+    assert _db(y.cpu(), want) >= 80.0
+
+
+def test_iir_routes_on_card_never_call_affine_scan(monkeypatch):
+    """On the card "scan", "parallel", the de-emphasis and the SOS cascade
+    launch S3 (or its cascade form) and never the doubling scan of torch
+    ops (its batched cuBLAS gemms)."""
+    from solid_dsp_tpu_torch.models import fm as fm_models
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("affine_scan on a card path")
+    monkeypatch.setattr(linrec, "affine_scan", refuse)
+    monkeypatch.setattr(iir, "affine_scan", refuse)
+    dev = require_cuda()
+    x = torch.randn(5000, device=dev)
+    s3, par = (cuda_scan.iir_scan_cuda.launches,
+               cuda_scan.iir_scan_cuda.parallel_launches)
+    for method in ("scan", "parallel"):
+        iir.iir_apply(torch.tensor([0.5]), torch.tensor([-0.5]),
+                      torch.zeros(1, device=dev), x, method)
+    fm_models.deemphasis_apply(fm_models.deemphasis_init(device=dev), x,
+                               75e-6 * 48000)
+    assert cuda_scan.iir_scan_cuda.launches == s3 + 3
+    assert cuda_scan.iir_scan_cuda.parallel_launches == par + 2
+    from solid_dsp_tpu_torch.design import iirdes
+    sos = iirdes.iirdes_sos("elliptic", 8, 0.05)
+    before = cuda_scan.sos_cascade_cuda.launches
+    for method in ("scan", "parallel"):
+        iir.sos_cascade_apply(torch.from_numpy(sos[:, :3]).float(),
+                              torch.from_numpy(sos[:, 4:]).float(),
+                              torch.zeros(4, 2, device=dev), x, method)
+    assert cuda_scan.sos_cascade_cuda.launches == before + 2
+
+
+def test_host_values_of_card_views_read_their_base_once():
+    """The views a caller makes anew at each call (``sos_a[..., 1:]``,
+    ``sos_a[s]``) take their host values from their base's, read once and
+    kept on the base until it changes in place."""
+    dev = require_cuda()
+    sos_a = torch.tensor([[1.0, -0.5, 0.25], [1.0, 0.1, -0.3]], device=dev)
+    want = sos_a.cpu().double().numpy()
+    for _ in range(2):
+        np.testing.assert_array_equal(linrec.host_values(sos_a[..., 1:]),
+                                      want[:, 1:])
+        np.testing.assert_array_equal(linrec.host_values(sos_a[1, 1:]),
+                                      want[1, 1:])
+    assert sos_a._host_values[0] == sos_a._version
+    sos_a[0, 1] = 0.75
+    assert linrec.host_values(sos_a[..., 1:])[0, 0] == 0.75
+
+
+@pytest.mark.parametrize("dt", S3_TYPES)
+@pytest.mark.parametrize("T,lanes", [(1, ()), (S3_LC + 1, ()),
+                                     (1 << 17, ()), (777, (3,))])
+def test_sos_cascade_kernel_matches_plain(dt, T, lanes):
+    """The fused cascade (elliptic-8, 4 sections) against
+    sos_cascade_chunked_torch on the CPU: 32-bit bit-equal or within 1e-6
+    max|y|, 64-bit 1e-12; and against the float64 per-section cascade of
+    the rounded coefficients: 64-bit 1e-10 max|y|, 32-bit >= 90 dB; one
+    launch."""
+    from solid_dsp_tpu_torch.design import iirdes
+
+    dev = require_cuda()
+    rng = np.random.default_rng(T)
+    sos = iirdes.iirdes_sos("elliptic", 8, 0.05)
+    rdt = torch.empty(0, dtype=dt).real.dtype
+    sb = torch.from_numpy(sos[:, :3]).to(rdt)
+    sa = torch.from_numpy(sos[:, 4:]).to(rdt)
+    x = rng.standard_normal((T, *lanes))
+    st = 0.1 * rng.standard_normal((4, *lanes, 2))
+    if dt.is_complex:
+        x = x + 1j * rng.standard_normal(x.shape)
+    x, st = torch.from_numpy(x).to(dt), torch.from_numpy(st).to(dt)
+    before = cuda_scan.sos_cascade_cuda.launches
+    y, s = iir.sos_cascade_apply(sb.to(dev), sa.to(dev), st.to(dev),
+                                 x.to(dev), "scan")
+    assert cuda_scan.sos_cascade_cuda.launches == before + 1
+    p, q = iir.sos_cascade_chunked_torch(sb, sa, st, x)
+    tol = 1e-6 if rdt == torch.float32 else 1e-12
+    for got, want in ((y, p), (s, q)):
+        assert got.shape == want.shape
+        assert float((got.cpu() - want).abs().max()) <= tol * float(
+            want.abs().max())
+    wide = WIDE[dt]
+    yw, _ = iir.sos_cascade_apply(sb.double(), sa.double(), st.to(wide),
+                                  x.to(wide), "scan")
+    if rdt == torch.float64:
+        assert float((y.cpu() - yw).abs().max()) <= 1e-10 * float(
+            yw.abs().max())
+    else:
+        assert _db(y.cpu(), yw) >= 90.0
 
 
 def test_iir_scan_kernel_rejects_bad_input():
@@ -1232,8 +1444,10 @@ def test_iir_scan_kernel_rejects_bad_input():
 def test_iir_filter_scan_on_card_launches_s3(dt, tol):
     """IIRFilter(SECOND_ORDER, method "scan", and "auto", which resolves to
     the scan for the sections with poles beyond radius 0.99) on the card:
-    one S3 launch a scan section a block, within tol of max of the CPU's
-    run."""
+    the whole cascade is one pipeline of S3's cascade form a block
+    (sos_cascade_cuda, whatever each section's method), within tol of max
+    of the CPU's run (one iir_apply a section: the b taps there are a
+    convolution after the recurrence, here inside its step)."""
     from solid_dsp_tpu_torch.design import iirdes
 
     dev = require_cuda()
@@ -1253,32 +1467,120 @@ def test_iir_filter_scan_on_card_launches_s3(dt, tol):
             continue
         scans = sum(s.method == "scan" for s in f.second_order_filters())
         assert scans == (4 if method == "scan" else 2)   # radii > 0.99: 2
-        before = cuda_scan.iir_scan_cuda.launches
+        before = (cuda_scan.iir_scan_cuda.launches,
+                  cuda_scan.sos_cascade_cuda.launches)
         y = torch.cat([f.execute_block(torch.from_numpy(b).to(dev, dt))
                        for b in np.split(x, [1999])])
         want = torch.cat([g.execute_block(torch.from_numpy(b).to(dt))
                           for b in np.split(x, [1999])])
-        assert cuda_scan.iir_scan_cuda.launches == before + 2 * scans
+        assert (cuda_scan.iir_scan_cuda.launches,
+                cuda_scan.sos_cascade_cuda.launches) == (before[0],
+                                                         before[1] + 2)
         assert float((y.cpu() - want).abs().max()) <= tol * float(
             want.abs().max())
+        sa, sb = f.state["state"].cpu(), g.state["state"]   # (S, 2)
+        assert float((sa - sb).abs().max()) <= tol * float(sb.abs().max())
 
 
 def test_iir_parallel_and_filtfilt_on_card():
-    """The parallel route (torch ops) launches no S3; filtfilt_sos by
-    "scan" launches S3 twice a section; both match the CPU in float64."""
+    """filtfilt_sos on the card by "parallel" and by "scan" alike: the
+    fused cascade (S3's cascade form) twice, no doubling scan in torch
+    ops; both match the CPU in float64."""
     from solid_dsp_tpu_torch.design import iirdes
 
     dev = require_cuda()
     sos = iirdes.iirdes_sos("butterworth", 6, 0.1)
     x = torch.from_numpy(np.random.default_rng(5).standard_normal(3000))
-    before = cuda_scan.iir_scan_cuda.launches
+    before = cuda_scan.sos_cascade_cuda.launches
     yp = zerophase.filtfilt_sos(sos[:, :3], sos[:, 3:], x.to(dev),
                                 method="parallel")
-    assert cuda_scan.iir_scan_cuda.launches == before
+    assert cuda_scan.sos_cascade_cuda.launches == before + 2
     ys = zerophase.filtfilt_sos(sos[:, :3], sos[:, 3:], x.to(dev),
                                 method="scan")
-    assert cuda_scan.iir_scan_cuda.launches == before + 2 * 3
+    assert cuda_scan.sos_cascade_cuda.launches == before + 4
     want = zerophase.filtfilt_sos(sos[:, :3], sos[:, 3:], x, method="scan")
     for y in (yp, ys):
         assert float((y.cpu() - want).abs().max()) <= 1e-12 * float(
             want.abs().max())
+
+
+# ------------------------------------------ P4: the body's direct route
+
+P4_POINTS = [(128, 200), (256, 128)]
+
+
+def _direct_counts():
+    return (cuda_ddc.ddc_body_cuda.direct_launches,
+            cuda_ddc.ddc_body_cuda.direct_fast_launches,
+            cuda_ddc.ddc_body_unaligned_cuda.direct_launches,
+            cuda_ddc.ddc_body_unaligned_cuda.direct_fast_launches)
+
+
+@pytest.mark.parametrize("n,M", P4_POINTS + [(129, 128), (300, 150),
+                                              (300, 256), (512, 256)])
+@pytest.mark.parametrize("mode", ["x3", "fast"])
+def test_body_direct_route_matches_plain_on_card(n, M, mode):
+    """The body's direct route at large decimations (the tensor-core
+    spans do not fit; at M = 256 neither do K1's direct route's): K2's
+    route on aligned blocks where n > M, K3's on
+    unaligned ones and blocks of 2 outputs, against ddc_body_torch on the
+    card in the same mode: >= 120 dB (float32 sums in another order; fast:
+    the same bf16 operands), one direct launch each."""
+    dev = require_cuda()
+    assert cuda_ddc.body_geometry(n, M, mode == "fast")[0] == "direct"
+    taps = RxChainConfig(fir_taps=n, decimation=M).design_taps()
+    body = cuda_ddc.make_ddc_body(taps, nco.constrain(0.2), M, dev,
+                                  mode=mode)
+    rng = np.random.default_rng(n + M)
+    for L in (4 * 64 * M, 4 * 64 * M + 3 * M, 2 * M):
+        x = torch.from_numpy(rng.standard_normal((2, L)).astype(
+            np.float32)).to(dev)
+        tail = torch.from_numpy(0.3 * rng.standard_normal(
+            (2, max(n - M, 0))).astype(np.float32)).to(dev)
+        kernel = body.route(L)
+        field = "direct_fast_launches" if mode == "fast" else \
+            "direct_launches"
+        before = getattr(kernel, field)
+        zk = kernel(body, x, tail)
+        torch.cuda.synchronize()
+        assert getattr(kernel, field) == before + 1
+        zp = ddc_ops.ddc_body_torch(body, x, tail)
+        assert zk.shape == (2, L // M)
+        assert snr_db(zk.cpu().numpy(), zp.cpu().numpy()) >= 120.0
+
+
+@pytest.mark.parametrize("n,M", P4_POINTS)
+@pytest.mark.parametrize("demod", ["fm", "am", "qpsk"])
+@pytest.mark.parametrize("precision", ["x3", "default"])
+def test_p4_chains_on_card_match_cpu(n, M, demod, precision):
+    """P4 repaired: make_rx_chain(fused_ddc="on") at 128 taps, M = 200 and
+    256 taps, M = 128 runs on the card in x3 and "default" (where it raised
+    ValueError), over 4 blocks against device="cpu" (the plain bodies): FM
+    and AM >= 90 dB, QPSK >= 60 dB with < 1e-3 of the quadrant decisions
+    differing; nco_theta and fir_tail equal; the body's direct route
+    launched where the body runs (FM at 256 taps, M = 128 takes K1's
+    direct route instead)."""
+    dev = require_cuda()
+    L = 4 * 64 * M
+    o = dict(fir_taps=n, decimation=M, demod=demod, fir_precision=precision)
+    blocks = (make_qpsk_blocks(4, L=L, seed=31)[0] if demod == "qpsk"
+              else make_blocks(4, L=L, seed=31))
+    want, st_cpu = run_torch(blocks, **o)
+    before = (_direct_counts(), cuda_ddc.ddc_fm_cuda.direct_launches
+              + cuda_ddc.ddc_fm_cuda.direct_fast_launches)
+    got, st = run_torch(blocks, device=dev, **o)
+    torch.cuda.synchronize()
+    body = sum(_direct_counts()) - sum(before[0])
+    fm = (cuda_ddc.ddc_fm_cuda.direct_launches
+          + cuda_ddc.ddc_fm_cuda.direct_fast_launches - before[1])
+    if demod == "fm" and n > M:
+        assert (body, fm) == (0, 4)
+    else:
+        assert (body, fm) == (4, 0)
+    assert np.all(np.isfinite(got)) and got.shape == want.shape
+    assert snr_db(got, want) >= (60.0 if demod == "qpsk" else 90.0)
+    if demod == "qpsk":
+        q = lambda v: (v.real < 0).astype(int) + 2 * (v.imag < 0)
+        assert np.mean(q(got) != q(want)) < 1e-3
+    assert int(st["nco_theta"]) == int(st_cpu["nco_theta"])
+    assert torch.equal(st["fir_tail"].cpu(), st_cpu["fir_tail"])

@@ -2,7 +2,8 @@
 
     python3 torch_kernel_sweep.py            # K6, the DDC body, K1
     python3 torch_kernel_sweep.py fir-route  # the FIR's two card routes
-    python3 torch_kernel_sweep.py s3         # S3's prefetch depth
+    python3 torch_kernel_sweep.py s3         # S3's chunk length and join
+    python3 torch_kernel_sweep.py latency    # S1 and S2's latency bounds
 
 * K6 (csrc/iir_bank.cu) at T = 2^14, C = 256, S = 2 (ChannelBank's block):
   the chunk length Lc in {16, 32, 64, 128}, each timed over a CUDA graph of
@@ -36,12 +37,26 @@
   in turns of 20 blocks (numpy, tensor, fft, fft, tensor, numpy): ms a
   block by CUDA events and the host's enqueue time.
 
-* ``s3``: S3, the IIR w-recurrence (csrc/seq_scan.cu), with its samples
-  loaded ahead in chunks (``S3_CHUNK``, half of it for complex128) of 8,
-  16, 32 (as built) and 64, variants built from the source by text
-  substitution, in float32, complex64 and complex128 with k = 2: one lane
-  at 2^22 samples and 256 lanes at 2^16, each timed by CUDA events over 3
-  launches and held bit-equal to the kernel as built.
+* ``s3``: S3, the IIR w-recurrence (csrc/iir_scan.cu, the chunk-and-join
+  kernel), k = 2: the chunk length Lc in {16, 32, 64, 128, 256} and the
+  join's threads a block in {64, 128, 256} (the join's form: how many
+  runs of groups a lane is cut into), at one lane of 2^22 samples
+  (complex64, float32, complex128) and 256 complex64 lanes of 2^16, each
+  timed over a CUDA graph of 5 calls with its largest difference from the
+  chunk length as built; then the profiler's time of each of its three
+  kernels at the chunk as built (``linrec.S3_CHUNK``).
+
+* ``latency``: the nonlinear scans' latency bounds.  One thread on the card
+  runs a dependent chain of 512 of each operation their steps use (FFMA,
+  FMUL, FADD, MUFU's EX2, LG2 and SIN, expf, logf, log10f, atan2f,
+  sincosf, DFMA, a compare and select) between two clock64 reads; each scan's
+  loop-carried chain (``LATENCY_CHAINS``, read from its step in
+  csrc/seq_scan.cu) summed over those latencies is one floor, the
+  instructions a step of its main loop in seq_scan.cu's SASS
+  (``cuobjdump -sass``, one warp issuing one a cycle) the other; the
+  larger over the SM clock is its bound, printed beside its time a sample
+  at T = 2^16.  The SASS is kept beside the built libraries
+  (``solid_dsp_tpu_torch/_build/seq_scan.sass``).
 
 Prints one line a case with the card's name and power limit.  Needs one
 CUDA GPU; imports neither jax nor solid_dsp_tpu.
@@ -50,6 +65,7 @@ CUDA GPU; imports neither jax nor solid_dsp_tpu.
 from __future__ import annotations
 
 import ctypes
+import re
 import shutil
 import subprocess
 import sys
@@ -121,61 +137,259 @@ def fir_route_sweep(dev, smi) -> None:
               f"Msamples/s at best | {smi}", flush=True)
 
 
-S3_CHUNKS = (8, 16, 32, 64)
+S3_CHUNKS = (16, 32, 64, 128, 256)
+S3_JOIN_THREADS = (64, 128, 256)
 
 
 def s3_sweep(dev, smi) -> None:
-    """S3's prefetch depth: the chunk of samples each thread loads ahead."""
-    from solid_dsp_tpu_torch.ops import cuda_build, cuda_scan
+    """S3's chunk length and the join's threads a block, at its two shapes,
+    then the time of each of its three kernels at the chunk as built."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    out = cuda_build.BUILD_DIR / "s3_variants"
-    shutil.rmtree(out, ignore_errors=True)
-    source = (cuda_build.CSRC / "seq_scan.cu").read_text()
-    old = "constexpr int S3_CHUNK = 32;"
-    if old not in source:
-        sys.exit(f"{old!r} is not in seq_scan.cu")
-    jobs = []
-    for chunk in S3_CHUNKS:
-        d = out / f"c{chunk}"
-        d.mkdir(parents=True)
-        (d / "seq_scan.cu").write_text(
-            source.replace(old, f"constexpr int S3_CHUNK = {chunk};"))
-        jobs.append((chunk, d / "libs3.so", subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-             str(d / "libs3.so"), str(d / "seq_scan.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for chunk, lib, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            sys.exit(f"S3 chunk {chunk} did not build:\n{log[-4000:]}")
-        libs[chunk] = ctypes.CDLL(str(lib))
+    from solid_dsp_tpu_torch.ops import cuda_scan, linrec
+
     rng = np.random.default_rng(3)
+    built = linrec.S3_CHUNK
     for dt, name in ((torch.complex64, "c64"), (torch.float32, "f32"),
                      (torch.complex128, "c128")):
         a = torch.tensor([-1.9 * np.cos(0.3), 0.9025], dtype=dt, device=dev)
         for T, B in ((1 << 22, 1), (1 << 16, 256)):
+            if name != "c64" and B > 1:
+                continue
             x = torch.from_numpy(rng.standard_normal((T, B))).to(dev, dt)
             h = torch.zeros((B, 2), dtype=dt, device=dev)
             want, _ = cuda_scan.iir_scan_cuda(a, h, x)
-            for chunk, lib in libs.items():
-                fn = getattr(lib, f"iir_scan_{name}")
-                fn.argtypes = list(cuda_scan._S3_ARGS)
-                fn.restype = ctypes.c_int
-                w = torch.empty_like(x)
+            for chunk in S3_CHUNKS:
+                for jt in S3_JOIN_THREADS:
+                    def run():
+                        return cuda_scan.iir_scan_cuda(a, h, x, chunk=chunk,
+                                                       join_threads=jt)
+                    w, _ = run()
+                    err = float((w - want).abs().max() / want.abs().max())
+                    ms = graph_ms(run, 5)
+                    print(f"[S3 {name} k=2, T=2^{T.bit_length() - 1}, {B} "
+                          f"lane(s), Lc {chunk}, join threads {jt}] "
+                          f"{ms:.4f} ms, {ms * 1e6 / (T * B):.4f} ns a "
+                          f"sample, max|dw| {err:.3g} x max|w| against Lc "
+                          f"{built} | {smi}", flush=True)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    cuda_scan.iir_scan_cuda(a, h, x)
+                torch.cuda.synchronize()
+            rows = [(e.self_device_time_total / 1e3 / e.count, e.key[:60])
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.count]
+            print(f"[S3 {name} k=2, T=2^{T.bit_length() - 1}, {B} lane(s), "
+                  f"Lc {built}, kernels (profiler, ms a call)] "
+                  + ", ".join(f"{k} {t:.4f}" for t, k in sorted(rows,
+                                                              reverse=True))
+                  + f" | {smi}", flush=True)
 
-                def run():
-                    st = h.clone()
-                    cuda_build.check_launch(fn(
-                        x.data_ptr(), w.data_ptr(), st.data_ptr(),
-                        a.data_ptr(), B, T, 2, dev.index,
-                        cuda_build.stream_of(x)), "s3 variant")
-                ms, _ = timed(run, 3)
-                print(f"[S3 {name} k=2, T=2^{T.bit_length() - 1}, {B} "
-                      f"lane(s), S3_CHUNK {chunk}] {ms:.3f} ms, "
-                      f"{ms * 1e6 / T:.2f} ns a step, bit-equal to the "
-                      f"kernel as built {torch.equal(w, want)} | {smi}",
-                      flush=True)
+
+# One thread runs a chain of 512 dependent operations of one kind between
+# two clock64 reads: cycles an operation (the loop's own counter and branch,
+# one every 16 operations, run beside the chain).
+LATENCY_PROBE = r"""
+#include <cuda_runtime.h>
+#define CHAIN(BODY)                                         \
+  _Pragma("unroll 1") for (int i = 0; i < 32; ++i) {        \
+    _Pragma("unroll") for (int j = 0; j < 16; ++j) { BODY } \
+  }
+__global__ void probe(int op, float a, double da, float* out, double* dout,
+                      long long* cyc) {
+  float v = a, s = 0.f, c = 0.f;
+  double d = da;
+  const long long t0 = clock64();
+  switch (op) {
+    case 0: CHAIN(v = __fmaf_rn(v, 0.999f, 1e-3f);) break;
+    case 1: CHAIN(v = __fmul_rn(v, 1.0001f);) break;
+    case 2: CHAIN(v = __fadd_rn(v, 1e-3f);) break;
+    case 3: CHAIN(asm volatile("ex2.approx.ftz.f32 %0, %0;" : "+f"(v));) break;
+    case 4: CHAIN(asm volatile("lg2.approx.ftz.f32 %0, %0;" : "+f"(v));) break;
+    case 5: CHAIN(asm volatile("sin.approx.ftz.f32 %0, %0;" : "+f"(v));) break;
+    case 6: CHAIN(v = expf(v) * 0.5f;) break;
+    case 7: CHAIN(v = logf(v) + 2.f;) break;
+    case 8: CHAIN(v = log10f(v) + 2.f;) break;
+    case 9: CHAIN(v = atan2f(v, 1.3f) + 0.5f;) break;
+    case 10: CHAIN(sincosf(v, &s, &c); v = s + c;) break;
+    case 11: CHAIN(d = __fma_rn(d, 0.999, 1e-3);) break;
+    case 12: CHAIN(v = v > 0.5f ? v * 0.75f : v + 0.1f;) break;
+  }
+  const long long t1 = clock64();
+  out[0] = v;
+  dout[0] = d;
+  cyc[0] = t1 - t0;
+}
+extern "C" int probe_launch(int op, float a, double da, float* out,
+                            double* dout, long long* cyc) {
+  probe<<<1, 1>>>(op, a, da, out, dout, cyc);
+  return (int)cudaGetLastError();
+}
+"""
+LATENCY_OPS = ("FFMA", "FMUL", "FADD", "MUFU.EX2", "MUFU.LG2", "MUFU.SIN",
+               "expf", "logf", "log10f", "atan2f", "sincosf", "DFMA",
+               "compare+select")
+
+
+def latency_probe(dev) -> dict:
+    """{operation: cycles an operation}, one thread on the card."""
+    from solid_dsp_tpu_torch.ops import cuda_build
+
+    d = cuda_build.BUILD_DIR / "latency_probe"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    (d / "probe.cu").write_text(LATENCY_PROBE)
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                    str(d / "libprobe.so"), str(d / "probe.cu")], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(d / "libprobe.so")).probe_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.c_double,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(1, device=dev)
+    dout = torch.empty(1, dtype=torch.float64, device=dev)
+    cyc = torch.empty(1, dtype=torch.int64, device=dev)
+    res = {}
+    for op, name in enumerate(LATENCY_OPS):
+        best = None
+        for _ in range(3):
+            cuda_build.check_launch(fn(op, 0.7, 0.7, out.data_ptr(),
+                                       dout.data_ptr(), cyc.data_ptr()),
+                                    "latency probe")
+            torch.cuda.synchronize()
+            c = int(cyc.item()) / 512.0
+            best = c if best is None else min(best, c)
+        res[name] = best
+    return res
+
+
+def sass_dump(source: str) -> str:
+    """cuobjdump -sass of a built library of ops/cuda_build.py."""
+    from solid_dsp_tpu_torch.ops import cuda_build
+
+    tool = shutil.which("cuobjdump") or str(
+        cuda_build.Path(cuda_build._nvcc()).parent / "cuobjdump")
+    return subprocess.run([tool, "-sass", str(cuda_build._target(source))],
+                          check=True, capture_output=True, text=True).stdout
+
+
+# The loop-carried chain of one step of each nonlinear scan (float32), read
+# from its step in csrc/seq_scan.cu: {operation of LATENCY_OPS: count}.  A
+# library function's probe chain carries one more FADD or FMUL (its
+# "+ 2.f", "* 0.5f", "s + c"), taken off; a select whose condition is
+# computed off the chain costs its FSEL, an FMUL's latency.
+#   S1 (agc_walk, unlocked, squelch disabled): ore = x g, ee = fma(ore, ore,
+#     oim^2), E = c1 E + ee c2, g = E > 1e-6 ? g exp(c3 ln E) : g, then
+#     the clamp: FMUL, FFMA, FMUL + FADD, logf, FMUL, expf, FMUL, 2 FSEL;
+#   S1's FSM entry (squelch_step): the mode's compare and the timer's
+#     (mode == FALL / SIGNALLO), then the timer's compare and the new mode's
+#     select: 4 dependent integer compares or selects, an FMUL's latency each;
+#   S2 (costas_pll_kernel): sincos(theta), y = x conj(e^{j theta}) (FMUL +
+#     FADD), the decision (compare and select on y), y conj(d) (FMUL +
+#     FADD), atan2, dtheta += alpha e (FMUL + FADD), theta = (theta +
+#     dtheta) + beta e (two FADDs, beta e off the chain).
+LATENCY_CHAINS = {
+    "S1": {"FMUL": 4 + 2, "FFMA": 1, "FADD": 1, "logf": 1, "expf": 1},
+    "S1's FSM": {"FMUL": 4},
+    "S2": {"sincosf": 1, "FMUL": 3, "FADD": 5, "compare+select": 1,
+           "atan2f": 1},
+}
+_CARRIED = {"logf": "FADD", "log10f": "FADD", "atan2f": "FADD",
+            "sincosf": "FADD", "expf": "FMUL"}
+
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)\s*(.*?);")
+
+
+def sass_step_instructions(sass: str, kernel: str, loads: int,
+                           mufu: int | None = None) -> float:
+    """Instructions a step of ``kernel``'s main loop in a cuobjdump -sass
+    listing: among the loops (a backward branch's range) of the function
+    whose name holds ``kernel`` that issue ``loads`` global loads (and,
+    given ``mufu``, that many MUFU operations), the largest, or with
+    ``mufu`` the one with the fewest branches; over the walk's 8 steps
+    (CHUNK, unrolled).  One warp issues at most one instruction a cycle,
+    so this is a second floor beside the chain's."""
+    loops = []
+    for part in sass.split("Function : ")[1:]:
+        if kernel not in part.splitlines()[0]:
+            continue
+        ins = [(int(a, 16), op, args)
+               for a, op, args in _SASS_INSN.findall(part)]
+        for addr, op, args in ins:
+            target = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+            if target and int(target.group(1), 16) < addr:
+                body = [i[1] for i in ins
+                        if int(target.group(1), 16) <= i[0] <= addr]
+                if (sum(o.startswith("LDG") for o in body) == loads and (
+                        mufu is None
+                        or sum(o.startswith("MUFU") for o in body) == mufu)):
+                    loops.append((body.count("BRA"), len(body)))
+    if not loops:
+        raise ValueError(f"no main loop of {kernel} in the SASS")
+    n = (min(loops)[1] if mufu is not None else max(b for _, b in loops))
+    return n / 8.0
+
+
+def latency_sweep(dev, smi) -> None:
+    """The nonlinear scans' latency bounds: the operations' latencies on
+    this card (latency_probe), summed over each scan's loop-carried chain
+    (LATENCY_CHAINS) and divided by the SM clock, beside each scan's time a
+    sample at T = 2^16 (CUDA graph of 5 launches, as chip_smoke.py phase 29
+    times them); seq_scan.cu's SASS is kept beside the built libraries."""
+    from solid_dsp_tpu_torch.models import qpsk as qpsk_ops
+    from solid_dsp_tpu_torch.ops import cuda_build
+    from solid_dsp_tpu_torch.ops import agc as agc_ops
+    from solid_dsp_tpu_torch.ops import cuda_scan
+
+    lat = latency_probe(dev)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"[latency, cycles an operation, one thread] "
+          + ", ".join(f"{k} {v:.1f}" for k, v in lat.items())
+          + f" | SM clock now, max: {clocks} | {smi}", flush=True)
+    sass = sass_dump("seq_scan.cu")
+    out = cuda_build.BUILD_DIR / "seq_scan.sass"
+    out.write_text(sass)
+    print(f"[latency] seq_scan.cu SASS: {len(sass.splitlines())} lines, "
+          f"kept in {out}", flush=True)
+    mhz = float(clocks.split(",")[-1].split()[0])
+    T = 1 << 16
+    rng = np.random.default_rng(29)
+    x = torch.from_numpy(0.1 * (rng.standard_normal(T) + 1j
+                                * rng.standard_normal(T))).to(dev,
+                                                              torch.complex64)
+    st = agc_ops.agc_init(device=dev)
+    r = torch.from_numpy(-30.0 + 10 * rng.standard_normal(T)).to(dev,
+                                                                 torch.float32)
+    m0 = torch.tensor(1, dtype=torch.int32, device=dev)      # ENABLED
+    t0 = torch.zeros((), dtype=torch.int32, device=dev)
+    runs = {"S1": lambda: agc_ops.agc_apply(st, x, 0.01, 1.0, -1e30, 100),
+            "S1's FSM": lambda: cuda_scan.squelch_fsm_cuda(r, m0, t0, -30.0,
+                                                           20),
+            "S2": lambda: qpsk_ops.qpsk_carrier_pll(x, 0.02)}
+    # the float32 kernels' main loops: S1's unlocked walk without the FSM
+    # (8 loads, 8 MUFU.EX2; the least branchy of its 8-load loops), the
+    # FSM's walk, S2's walk (a float2 sample is two loads)
+    issue = {"S1": sass_step_instructions(sass, "agc_scan_kernelIf", 8, 8),
+             "S1's FSM": sass_step_instructions(sass, "squelch_fsm_kernelIf",
+                                                8),
+             "S2": sass_step_instructions(sass, "costas_pll_kernelIf", 16)}
+    for name, chain in LATENCY_CHAINS.items():
+        cycles = sum(n * (lat[op] - (lat[_CARRIED[op]]
+                                     if op in _CARRIED else 0.0))
+                     for op, n in chain.items())
+        bound_ns = max(cycles, issue[name]) / mhz * 1e3
+        ns = graph_ms(runs[name], 5) * 1e6 / T
+        print(f"[latency bound {name}] chain {chain}: {cycles:.1f} cycles a "
+              f"step; its SASS main loop {issue[name]:.1f} instructions a "
+              f"step; bound {bound_ns:.1f} ns at {mhz:.0f} MHz (the larger); "
+              f"measured {ns:.1f} ns a sample (T = 2^16): {bound_ns / ns:.0%}"
+              f" of the bound | {smi}", flush=True)
 
 
 def main() -> None:
@@ -199,6 +413,10 @@ def main() -> None:
     if sys.argv[1:] == ["s3"]:
         cuda_build.build()
         s3_sweep(dev, smi)
+        return
+    if sys.argv[1:] == ["latency"]:
+        cuda_build.build()
+        latency_sweep(dev, smi)
         return
     cuda_build.build()
 
