@@ -46,8 +46,9 @@ solid_dsp_tpu_torch/csrc/:
 * the fused route at fir_precision="default" (K1-K3's single-pass bf16
   "fast" mode), complex128 and 300 taps;
 * the fused route at large decimations (128 taps at M = 200, 256 at
-  M = 128), where the body's tensor-core spans do not fit shared memory:
-  the body's direct-form route (ddc_body.cu) in both modes.
+  M = 128; FM also at 256 taps, M = 240 and 512 taps, M = 256), where the
+  tensor-core spans do not fit shared memory: the body's and K1's
+  direct-form routes (ddc_body.cu, ddc_fm.cu) in both modes.
 
 Phases, one line each:
 
@@ -157,7 +158,10 @@ Phases, one line each:
      qpsk_demodulate(recovery="pll") on 2^16 QPSK symbols with a carrier
      offset, symbols equal to the plain version, SER < 1e-3; S1 vs its
      plain version at T = 2^16 (the error the kernels line reports); the
-     three entries' times at T = 2^16 and their plain versions';
+     three entries' times at T = 2^16 and their plain versions'; S1's FSM
+     entry (the time-parallel chunk-and-join kernel) also on one lane of
+     2^22, bit-equal to its chunked plain version, timed beside its bytes
+     bound and the sequential kernel it replaced;
  30. the exact-AGC and parity chains, 4 blocks each with the state
      carried, launches and host syncs counted: (a) config 4 fused (K2)
      with agc_mode="parallel", FM at 2^24; (b) the parity chain
@@ -171,7 +175,7 @@ Phases, one line each:
      mode and timer equal;
  31. throughput of (a), (b), (c) and (d) in Msamples/s of input over 20
      blocks (5 for the exact AGC), host enqueue, device busy and idle
-     share.
+     share ((d) beside its device busy with the sequential FSM kernel).
      Phase 24 also runs make_sharded_rx_chain's unfused staging
      (local_unfused) at world size 1 against make_rx_chain.
  32. S3 (the IIR w-recurrence, the chunk-and-join kernel of iir_scan.cu)
@@ -236,7 +240,13 @@ Phases, one line each:
      conv1d; the fused FM, AM and QPSK chains there at x3 and "default",
      kernel vs plain body over 4 blocks of ~2^22 (>= 90 dB, QPSK >= 60 dB
      with < 1e-3 of its decisions differing), the direct launches counted
-     (FM at 256 taps takes K1's direct route).
+     (FM at 256 taps takes K1's direct route); the FM chains at 256 taps,
+     M = 240 and 512 taps, M = 256 (K1's direct route only) the same way;
+     K1's direct route (a warp a run of outputs, no shared memory) at 256
+     taps, M = 128, 200 and 240 and 512 taps, M = 256, x3 and fast, on
+     ~2^24 samples against its plain version (audio >= 90 dB, energy
+     rtol 1e-5, edges 1e-4), two launches bit-equal, timed beside its
+     bound, its plain version and the staged design it replaced.
 
 Then the kernels' JSON line (each kernel's launches on the main paths; its
 time, by CUDA events over a CUDA graph of 20 launches so that the host's
@@ -327,6 +337,12 @@ T_S1 = 1 << 14            # S1 against its plain version on the card
 T_S1_F64 = 4096
 T_PAR = 1 << 22           # agc_apply_parallel against S1
 T_SCAN = 1 << 16          # the timed shape: one 2^18 block decimated by 4
+T_FSM_LONG = 1 << 22      # S1's FSM entry on one lane at the Newton AGC's size
+# the sequential FSM entry it replaced: ms at T = 2^16 and the device busy
+# of phase 31 (d) a block (PERF.md section 5-6, NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside this run's
+SEQUENTIAL_FSM_MS = 4.7206
+SEQUENTIAL_D_BUSY_MS = 13.90
 S1_RTOL = 1e-5            # x max|y|, and the gain
 S1_F64_ATOL = 1e-11       # tests/test_nco_agc.py:214-226 (_cmp_parallel)
 SQ_THRESHOLD = -30.0      # the squelch walks (dB) and their timeout
@@ -339,6 +355,18 @@ N_EXACT_TIMED = 5
 T_S3 = 1 << 12            # S3 against its plain version, two blocks
 S3_LANES = 256
 P4_POINTS = ((128, 200), (256, 128))   # (taps, M): the body's direct route
+# (taps, M) of K1's direct route (K1 needs more taps than M): phase 37's FM
+# point, M = 200, and two points where the staged design (its input span in
+# shared memory as M polyphase rows) did not fit; the FM chains run at the
+# last two
+K1_DIRECT_POINTS = ((256, 128), (256, 200), (256, 240), (512, 256))
+K1_CHAIN_POINTS = ((256, 240), (512, 256))
+# the staged design's times in ms over a CUDA graph of 20 launches at
+# ~2^24 samples (torch_kernel_sweep.py k1-route on the checkout before it
+# was replaced, PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W); it
+# raised at the last two points
+STAGED_K1_MS = {(256, 128, "x3"): 2.0698, (256, 128, "fast"): 2.4434,
+                (256, 200, "x3"): 1.8955, (256, 200, "fast"): 2.2812}
 L_P4_CHAIN = 1 << 22      # the P4 chains' blocks, cut to a multiple of 64 M
 S3_RTOL = 1e-6            # x max|w|: S3 (32-bit) against iir_chunked_torch,
 S3_F64_RTOL = 1e-12       # 64-bit; x g / 16 for a transient gain g > 16
@@ -1954,6 +1982,21 @@ def scan_phases(dev, smi) -> list:
     s2_ms = graph_ms(lambda: qpsk_ops.qpsk_carrier_pll(xq, PLL_BW), 5)
     fsm_ms = graph_ms(lambda: cuda_scan.squelch_fsm_cuda(
         r32, m0, t0, SQ_THRESHOLD, SQ_TIMEOUT), 5)
+    # S1's FSM entry on one lane of 2^22 against its chunked plain version
+    # (the kernel's three passes in torch ops) on the card
+    r22 = torch.from_numpy(rssi_walk(np.random.default_rng(SEED + 129),
+                                     T_FSM_LONG)).to(dev, torch.float32)
+    got22 = cuda_scan.squelch_fsm_cuda(r22, m0, t0, SQ_THRESHOLD, SQ_TIMEOUT)
+    box = {}
+
+    def fsm_chunked():
+        box["m"] = agc_ops.squelch_fsm_chunked_torch(r22, m0, t0,
+                                                     SQ_THRESHOLD, SQ_TIMEOUT)
+    chunked_ms = cuda_ms_once(fsm_chunked)
+    eq22 = all(torch.equal(a, b) for a, b in zip(got22, box["m"]))
+    fsm22_ms = graph_ms(lambda: cuda_scan.squelch_fsm_cuda(
+        r22, m0, t0, SQ_THRESHOLD, SQ_TIMEOUT), 5)
+    b22 = bound_ms(8 * T_FSM_LONG + 16, T_FSM_LONG, FP32_FLOPS)
     # bytes: each sample read and written once (8 + 8; the FSM 4 + 4), the
     # carry
     b1 = bound_ms(16 * T_SCAN + 20, 12 * T_SCAN, FP32_FLOPS)
@@ -1965,13 +2008,22 @@ def scan_phases(dev, smi) -> list:
     print(f"[29 scan times, T=2^16] S1 {s1_ms:.4f} ms ({s1_ms * 1e3 / T_SCAN:.4f} "
           f"us a sample), plain {s1_plain_ms:.1f} ms; S2 {s2_ms:.4f} ms "
           f"({s2_ms * 1e3 / T_SCAN:.4f} us a sample), plain "
-          f"{s2_plain_ms:.1f} ms; S1's FSM entry {fsm_ms:.4f} ms "
-          f"({fsm_ms * 1e3 / T_SCAN:.4f} us a sample), plain "
-          f"{fsm_plain_ms:.1f} ms; bounds {b1[0]:.5f} / {b2[0]:.5f} / "
-          f"{b3[0]:.5f} ms ({b1[1]}): all latency-bound, one dependent step "
-          f"a sample | {smi}", flush=True)
+          f"{s2_plain_ms:.1f} ms; bytes bounds {b1[0]:.5f} / {b2[0]:.5f} "
+          f"ms, both latency-bound (one dependent step a sample) | {smi}",
+          flush=True)
+    print(f"[29 S1's FSM entry, chunk-and-join, three launches] T=2^16: "
+          f"{fsm_ms:.4f} ms ({fsm_ms * 1e6 / T_SCAN:.3f} ns a step), bound "
+          f"{b3[0]:.5f} ms ({b3[1]}), plain {fsm_plain_ms:.1f} ms, the "
+          f"sequential kernel {SEQUENTIAL_FSM_MS} ms; one lane of 2^22: "
+          f"{fsm22_ms:.4f} ms ({fsm22_ms * 1e6 / T_FSM_LONG:.3f} ns a "
+          f"step), bound {b22[0]:.5f} ms ({b22[1]}), its chunked plain "
+          f"version {chunked_ms:.1f} ms, bit-equal to it {eq22} | {smi}",
+          flush=True)
     if not ok16:
         fail("phase 29: S1 disagrees with its plain version at T = 2^16")
+    if not eq22:
+        fail("phase 29: S1's FSM entry disagrees with its chunked plain "
+             "version at 2^22")
 
     # 30. the exact-AGC and parity chains, 4 blocks each, state carried
     base = RxChainConfig(carrier_freq=0.2, decimation=4, fir_taps=64,
@@ -2121,8 +2173,9 @@ def scan_phases(dev, smi) -> list:
     print(f"[31 d AGC(parallel), squelch on, float32, 2^16-sample blocks] "
           f"{T_SCAN / (wall * 1e3):.1f} Msamples/s (wall {wall:.4f} ms a "
           f"block over {N_TIMED}), host {host:.4f} ms a block, device busy "
-          f"{busy:.4f} ms, idle {max(0.0, 1 - busy / wall):.0%}; largest "
-          f"kernels: {top} | {smi}", flush=True)
+          f"{busy:.4f} ms (with the sequential FSM kernel "
+          f"{SEQUENTIAL_D_BUSY_MS} ms), idle {max(0.0, 1 - busy / wall):.0%};"
+          f" largest kernels: {top} | {smi}", flush=True)
 
     entries = []
     for name, launches, err, ms, plain, bnd in (
@@ -2139,6 +2192,9 @@ def scan_phases(dev, smi) -> list:
              "costas_pll": "solid_dsp_tpu/models/qpsk.py:101 (a lax.scan, "
                            "no TPU kernel)"}[name],
             launches, err, ms, plain, bnd))
+    entries[1]["at_one_lane_2^22"] = {
+        "ms": fsm22_ms, "plain_ms": chunked_ms, "bound_ms": b22[0],
+        "max_abs_err": 0}
     return entries
 
 
@@ -2978,8 +3034,10 @@ def p4_phases(dev, smi) -> list:
     """37: P4 repaired, the DDC body's direct-form route at large
     decimations (128 taps at M = 200, 256 taps at M = 128), both modes:
     the kernel against its plain version on ~2^24-sample blocks, timed;
-    the fused FM, AM and QPSK chains there, kernel against plain body,
-    x3 and "default".  Returns the direct route's two entries."""
+    the fused FM, AM and QPSK chains there, and the FM chains at 256 taps,
+    M = 240 and 512, M = 256, kernel against plain body, x3 and "default";
+    K1's direct route at K1_DIRECT_POINTS against its plain version,
+    timed.  Returns the two direct routes' entries, each in both modes."""
     from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig, make_rx_chain
     from solid_dsp_tpu_torch.ops import cuda_ddc
     from solid_dsp_tpu_torch.ops import ddc as ddc_ops
@@ -3043,12 +3101,16 @@ def p4_phases(dev, smi) -> list:
     if not ok:
         fail("phase 37: the body's direct route disagrees")
 
-    # 37 (ii). the chains at P4's points, kernel against plain body
+    # 37 (ii). the chains at P4's points, kernel against plain body, and
+    # the FM chains where only K1's direct route takes the block
     launches = {"x3": 0, "fast": 0}
-    for n, M in P4_POINTS:
+    k1_launches = {"x3": 0, "fast": 0}
+    chain_points = [(n, M, ("fm", "am", "qpsk")) for n, M in P4_POINTS] + [
+        (n, M, ("fm",)) for n, M in K1_CHAIN_POINTS]
+    for n, M, demods in chain_points:
         L = L_P4_CHAIN // (64 * M) * 64 * M
         for precision in ("x3", "default"):
-            for demod in ("fm", "am", "qpsk"):
+            for demod in demods:
                 cfg = RxChainConfig(carrier_freq=0.2, decimation=M,
                                     fir_taps=n, agc_mode="block", demod=demod,
                                     nco_mode="exact", input_format="planar",
@@ -3082,6 +3144,7 @@ def p4_phases(dev, smi) -> list:
                     outs["torch"]
                 mode = "fast" if precision == "default" else "x3"
                 launches[mode] += bk
+                k1_launches[mode] += fk
                 want = (0, N_CHAIN) if demod == "fm" and n > M else (
                     N_CHAIN, 0)
                 snr = snr_db(yk, yp)
@@ -3107,6 +3170,61 @@ def p4_phases(dev, smi) -> list:
                       flush=True)
     if not ok:
         fail("phase 37: a chain at a large decimation is wrong")
+
+    # 37 (iii). K1's direct route against its plain version, timed
+    k1 = {}
+    kf = RxChainConfig().fm_kf
+    for n, M in K1_DIRECT_POINTS:
+        taps = RxChainConfig(fir_taps=n, decimation=M).design_taps()
+        L = (L_FULL // (64 * M)) * 64 * M
+        x = torch.from_numpy(make_block(rng, 0, L)).to(dev)
+        D = n - M
+        tail = torch.from_numpy((0.1 * rng.standard_normal((2, D))).astype(
+            np.float32)).to(dev)
+        T = L // M
+        for mode in ("x3", "fast"):
+            fast = mode == "fast"
+            body = cuda_ddc.make_ddc_fm(taps, constrain(0.2), M, kf, dev,
+                                        mode=mode)
+            route = cuda_ddc.fm_geometry(n, M, fast)
+            field = "direct_fast_launches" if fast else "direct_launches"
+            before = getattr(cuda_ddc.ddc_fm_cuda, field)
+            ak, sk = cuda_ddc.ddc_fm_cuda(body, x, tail)
+            ak2, sk2 = cuda_ddc.ddc_fm_cuda(body, x, tail)
+            ap, sp = cuda_ddc.ddc_fm_torch(body, x, tail)
+            torch.cuda.synchronize()
+            counted = getattr(cuda_ddc.ddc_fm_cuda, field) == before + 2
+            same = torch.equal(ak, ak2) and torch.equal(sk, sk2)
+            akn, apn = ak.cpu().numpy(), ap.cpu().numpy()
+            skn, spn = sk.cpu().numpy(), sp.cpu().numpy()
+            snr = snr_db(akn, apn)
+            err = float(np.max(np.abs(akn - apn)))
+            err_e = abs(float(skn[0]) - float(spn[0])) / abs(float(spn[0]))
+            err_z = float(np.max(np.abs(skn[1:] - spn[1:])))
+            k_ms = graph_ms(lambda: cuda_ddc.ddc_fm_cuda(body, x, tail), 20)
+            p_ms = cuda_ms(lambda: cuda_ddc.ddc_fm_torch(body, x, tail), 5)
+            # each input read once, the audio and stats written once; the
+            # FIR's 8 operations a complex tap an output
+            bnd = bound_ms(4 * (2 * L + 2 * D + 2 * n + T + 5), 8 * n * T,
+                           BF16_FLOPS if fast else FP32_FLOPS)
+            k1[(n, M, mode)] = (err, k_ms, p_ms, bnd)
+            staged = STAGED_K1_MS.get((n, M, mode))
+            good = (route[0] == "direct" and snr >= MIN_SNR_DB and counted
+                    and same and err_e <= ENERGY_RTOL and err_z <= EDGE_ATOL
+                    and bool(np.all(np.isfinite(akn))) and akn.shape == (T,))
+            ok = ok and good
+            print(f"[37 K1 direct route, {n} taps, M = {M}, {mode}, L={L}] "
+                  f"route {route}; audio {snr:.1f} dB against the plain "
+                  f"version (gate {MIN_SNR_DB}), max|err| {err:.3g}, energy "
+                  f"rel err {err_e:.3g} (gate {ENERGY_RTOL}), z0/zlast err "
+                  f"{err_z:.3g} (gate {EDGE_ATOL}), two launches bit-equal "
+                  f"{same}, counted {counted}; kernel (CUDA graph of 20) "
+                  f"{k_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), plain "
+                  f"{p_ms:.4f} ms, the staged design "
+                  f"{'raised' if staged is None else f'{staged:.4f} ms'} "
+                  f"| {smi}", flush=True)
+    if not ok:
+        fail("phase 37: K1's direct route disagrees")
     entries = []
     for mode, name in (("x3", "ddc_body_direct"),
                        ("fast", "ddc_body_direct_fast")):
@@ -3121,6 +3239,19 @@ def p4_phases(dev, smi) -> list:
         e["at_128_taps_M200"] = {"ms": o[1], "plain_ms": o[2],
                                  "library_ms": o[3], "bound_ms": o[4][0],
                                  "max_abs_err": o[0]}
+        entries.append(e)
+    for mode, name in (("x3", "ddc_fm_direct"), ("fast", "ddc_fm_direct_fast")):
+        err, k_ms, p_ms, bnd = k1[(256, 128, mode)]
+        e = kernel_entry(
+            name, "ddc_fm.cu",
+            "solid_dsp_tpu/ops/pallas_ddc.py:645 make_pallas_ddc_fm at large "
+            "decimations" + (" (mode=\"fast\")" if mode == "fast" else ""),
+            k1_launches[mode], err, k_ms, p_ms, bnd)
+        for n, M in K1_DIRECT_POINTS[1:]:
+            o = k1[(n, M, mode)]
+            e[f"at_{n}_taps_M{M}"] = {"ms": o[1], "plain_ms": o[2],
+                                      "bound_ms": o[3][0],
+                                      "max_abs_err": o[0]}
         entries.append(e)
     return entries
 

@@ -45,20 +45,21 @@
 // products was slower, so the skip has to be fixed at compile time.
 // Large decimations (M >~ 100 at 64 taps and more: the bank and the spans of
 // 64 frames no longer fit one block's shared memory) take the "direct"
-// route (ops/cuda_ddc.py::body_geometry): a warp an output at a time, lane
-// l summing taps l, l + 32, ... of the output's window in FP32 FMA (fast:
-// every sample and tap rounded to bf16 first, as K1's direct route rounds
-// them: products exact, f32 sums), the 32 partial sums added by a
-// butterfly of shuffles.  A warp's lanes read consecutive samples, straight
-// from device memory (the windows' overlap, n - M samples, comes from L2);
-// no shared memory, so the route takes every (n, M) the JAX package's
-// predicates give K2/K3.  A first design, K1's large-M route without its
-// epilogue (the block's span staged as M polyphase rows, 32 threads a
-// block at M ~ 128-200 to fit them), took 1.9-2.5 ms at 2^24 samples:
-// one warp an SM, each staged load's latency exposed (PERF.md).
+// route (ops/cuda_ddc.py::body_geometry): a warp an output at a time, the
+// warp dot of ddc_direct.cuh (lane l summing taps l, l + 32, ... of the
+// output's window in FP32 FMA, fast: every sample and tap rounded to bf16
+// first, products exact, f32 sums; the 32 partial sums added by a butterfly
+// of shuffles), which K1's direct route (ddc_fm.cu) shares.  A warp's lanes
+// read consecutive samples, straight from device memory (the windows'
+// overlap, n - M samples, comes from L2); no shared memory, so the route
+// takes every (n, M) the JAX package's predicates give K2/K3.  A first
+// design (the block's span staged as M polyphase rows, 32 threads a block
+// at M ~ 128-200 to fit them) took 1.9-2.5 ms at 2^24 samples: one warp an
+// SM, each staged load's latency exposed (PERF.md).
 
 #include <cuda_runtime.h>
 
+#include "ddc_direct.cuh"
 #include "ddc_tc.cuh"
 
 namespace {
@@ -122,9 +123,8 @@ int launch(const float* x, const float* tail, const float* bank, float* z,
 
 constexpr int kDirectThreads = 256;   // threads a block, direct route
 
-// The direct route: z[t] for t = warp, warp + warps, ...; lane l sums taps
-// l, l + 32, ... of the window x[t M + M - n + i] (the carried tail before
-// the block), then the warp adds the lanes' sums.
+// The direct route: z[t] for t = warp, warp + warps, ..., each the warp
+// dot of ddc_direct.cuh over the window x[t M + M - n + i].
 __global__ void __launch_bounds__(kDirectThreads)
 ddc_body_direct_kernel(const float* __restrict__ x, const float* __restrict__ tail,
                        const float* __restrict__ taps, float* __restrict__ z,
@@ -134,29 +134,8 @@ ddc_body_direct_kernel(const float* __restrict__ x, const float* __restrict__ ta
   const int D = n > M ? n - M : 0;
   for (long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
        t < T; t += warps) {
-    const long long s0 = t * M + M - n;
-    float zr = 0.f, zi = 0.f;
-#pragma unroll 4
-    for (int i = lane; i < n; i += 32) {
-      float a = span_value(x, tail, s0 + i, L, D);
-      float b = span_value(x + L, tail + D, s0 + i, L, D);
-      float hr = __ldg(taps + i), hi = __ldg(taps + n + i);
-      if (fast) {
-        a = bf16_round(a);
-        b = bf16_round(b);
-        hr = bf16_round(hr);
-        hi = bf16_round(hi);
-      }
-      zr = fmaf(hr, a, zr);
-      zr = fmaf(-hi, b, zr);
-      zi = fmaf(hr, b, zi);
-      zi = fmaf(hi, a, zi);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      zr += __shfl_xor_sync(0xffffffffu, zr, off);
-      zi += __shfl_xor_sync(0xffffffffu, zi, off);
-    }
+    float zr, zi;
+    warp_dot(x, tail, taps, L, D, n, t * M + M - n, lane, fast != 0, zr, zi);
     if (lane == 0) {
       z[t] = zr;
       z[T + t] = zi;

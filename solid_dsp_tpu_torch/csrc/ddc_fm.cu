@@ -17,8 +17,8 @@
 //
 // Bound: bytes (8 a sample in, 4 an output out: 0.045 ms at L = 2^24, M = 4
 // on an H100 SXM).  The first design (direct-form FIR in FP32 FMA fed from
-// shared memory, kept below as the large-M route) ran at 22 % of it, held
-// by shared-memory bandwidth like the body's first design.  Design, two
+// shared memory) ran at 22 % of it, held by shared-memory bandwidth like
+// the body's first design.  Design, two
 // routes chosen from (n, M) alone (ops/cuda_ddc.py::fm_geometry):
 //   * "tc", every geometry whose bank and spans fit one block's shared
 //     memory (M up to ~100): the body's tensor-core product of ddc_tc.cuh
@@ -38,9 +38,15 @@
 //     staged through shared memory.  The discriminator (atan2f, the
 //     rotation by (cd, sd)) runs on the sums; each thread stores its run of
 //     P/4 outputs with 16-byte stores.
-//   * "direct" (M too large for the spans): one block stages its input span
-//     in shared memory as M polyphase rows and each thread computes R = 4
-//     outputs in FP32 FMA, thread 0 the seam z[t0 - 1] beside them.
+//   * "direct" (M too large for the spans, and every (n, M) the JAX
+//     package's predicate gives K1): no shared memory; a warp walks a run
+//     of R consecutive outputs, each the warp dot of ddc_direct.cuh (the
+//     body's direct route, shared), after first computing the output
+//     before the run, so every discriminator finds z[t - 1] in registers
+//     (R + 1 dots for R outputs); lanes 0 .. R - 1 then run the R
+//     discriminators side by side.  A first design staged the block's
+//     input span in shared memory as M polyphase rows, which stopped
+//     fitting 227 KB at M ~218 even with 32 threads a block.
 // Either route runs in TF32 x3 (the direct route: FP32 FMA) or "fast", the
 // TPU kernel's mode="fast": every sample and tap of the body rounded to bf16
 // (to nearest even; the bank from float32 taps, as the TPU kernel's),
@@ -65,12 +71,12 @@
 
 #include <cuda_runtime.h>
 
+#include "ddc_direct.cuh"
 #include "ddc_tc.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kOutputsPerThread = 4;   // the direct route's R
 constexpr int kFmExtra = 64;           // shared bytes of the tc route's stats
 
 // The block's share of sum |z|^2 (e: this thread's) into
@@ -273,27 +279,14 @@ int launch_tc(const float* x, const float* tail, const float* bank,
   return (int)cudaGetLastError();
 }
 
-// z of the n-sample window from sample s0 in FP32 FMA over the unrounded
-// samples, read from device memory (the tail before the block, zeros before
-// the tail): the direct route's TPU-tile seams in fast mode.
-__device__ void seam_dot(const float* __restrict__ x, const float* __restrict__ tail,
-                         const float* __restrict__ taps, long long L, int D,
-                         int n, long long s0, float& zr, float& zi) {
-  zr = 0.f;
-  zi = 0.f;
-  for (int i = 0; i < n; ++i) {
-    const float a = span_value(x, tail, s0 + i, L, D);
-    const float b = span_value(x + L, tail + D, s0 + i, L, D);
-    const float hr = taps[i], hi = taps[n + i];
-    zr = fmaf(hr, a, zr);
-    zr = fmaf(-hi, b, zr);
-    zi = fmaf(hr, b, zi);
-    zi = fmaf(hi, a, zi);
-  }
-}
-
-// The large-M route: direct-form FIR in FP32 FMA from polyphase rows (fast:
-// the staged samples and taps rounded to bf16 first).
+// The large-M route: a warp a run of R consecutive outputs t0 .. t0 + R - 1
+// (see the note above).  The warp first computes z[t0 - 1] (in fast mode an
+// f32 dot over the unrounded samples where t0 starts a TPU tile: R divides
+// the tile, so no other output's predecessor is a seam), then each output
+// of the run by the warp dot of ddc_direct.cuh; lane j keeps output j and
+// its predecessor, and lanes 0 .. R - 1 run the discriminators side by
+// side and store the run's audio with one coalesced store.
+template <int R>
 __global__ void ddc_fm_direct_kernel(const float* __restrict__ x,
                                      const float* __restrict__ tail,
                                      const float* __restrict__ taps,
@@ -301,130 +294,73 @@ __global__ void ddc_fm_direct_kernel(const float* __restrict__ x,
                                      float* __restrict__ stats,
                                      float* __restrict__ partials,
                                      unsigned* ticket, long long L, long long T,
-                                     int n, int M, int U, float cd, float sd,
+                                     int n, int M, float cd, float sd,
                                      float scale, int fast,
                                      long long seam_period) {
-  constexpr int R = kOutputsPerThread;
-  extern __shared__ float dsmem[];
-  const int nthr = blockDim.x;
-  const int tbo = nthr * R;
-  float* xs_r = dsmem;              // [M][U] polyphase rows, real plane
-  float* xs_i = xs_r + M * U;       // [M][U] imaginary plane
-  float* h_r = xs_i + M * U;        // [n]
-  float* h_i = h_r + n;             // [n]
-  float* z_r = h_i + n;             // [tbo + 1]: z[t0 - 1 + j]
-  float* z_i = z_r + tbo + 1;
-  float* red = z_i + tbo + 1;       // [nthr / 32 + 1]
-
-  const int tid = threadIdx.x;
-  const long long t0 = (long long)blockIdx.x * tbo;
+  __shared__ float red[33];
+  const int lane = threadIdx.x & 31;
   const int D = n - M;
-  const long long b0 = (t0 - 1) * M - D;  // first sample of z[t0 - 1]
-
-  for (int i = tid; i < n; i += nthr) {
-    h_r[i] = fast ? bf16_round(taps[i]) : taps[i];
-    h_i[i] = fast ? bf16_round(taps[n + i]) : taps[n + i];
-  }
-  for (int k = tid; k < M * U; k += nthr) {
-    const long long s = b0 + k;
-    float vr = 0.f, vi = 0.f;
-    if (s >= 0) {
-      if (s < L) {
-        vr = x[s];
-        vi = x[L + s];
-      }
-    } else if (s >= -D) {
-      vr = tail[s + D];
-      vi = tail[D + s + D];
-    }
-    const int u = k / M;
-    const int r = k - u * M;
-    xs_r[r * U + u] = fast ? bf16_round(vr) : vr;
-    xs_i[r * U + u] = fast ? bf16_round(vi) : vi;
-  }
-  __syncthreads();
-
-  // Local output j reads xs[r][j + 1 + q] for tap i = q*M + r; the seam
-  // output j = -1 reads xs[r][q].
-  const int nq = (n + M - 1) / M;
-  float zr[R], zi[R];
-#pragma unroll
-  for (int k = 0; k < R; ++k) zr[k] = zi[k] = 0.f;
-  float sr = 0.f, si = 0.f;
-  for (int q = 0; q < nq; ++q) {
-    for (int r = 0; r < M; ++r) {
-      const int i = q * M + r;
-      if (i >= n) break;
-      const float hr = h_r[i], hi = h_i[i];
-      const float* ar = xs_r + r * U + q + 1 + tid;
-      const float* ai = xs_i + r * U + q + 1 + tid;
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const float a = ar[k * nthr], b = ai[k * nthr];
-        zr[k] = fmaf(hr, a, zr[k]);
-        zr[k] = fmaf(-hi, b, zr[k]);
-        zi[k] = fmaf(hr, b, zi[k]);
-        zi[k] = fmaf(hi, a, zi[k]);
-      }
-      if (tid == 0) {
-        const float a = xs_r[r * U + q], b = xs_i[r * U + q];
-        sr = fmaf(hr, a, sr);
-        sr = fmaf(-hi, b, sr);
-        si = fmaf(hr, b, si);
-        si = fmaf(hi, a, si);
-      }
-    }
-  }
-  if (tid == 0) {
-    z_r[0] = sr;
-    z_i[0] = si;
-  }
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    z_r[1 + tid + k * nthr] = zr[k];
-    z_i[1 + tid + k * nthr] = zi[k];
-  }
-  __syncthreads();
-
+  const long long runs = (T + R - 1) / R;
+  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
   float e = 0.f;
+  for (long long run = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       run < runs; run += warps) {
+    const long long t0 = run * R;
+    // lane j keeps z[t0 + j] in (cr, ci) and its predecessor in (qr, qi):
+    // z[t0 - 1] for lane 0, from the loop below for the others
+    float qr, qi, cr = 0.f, ci = 0.f;
+    warp_dot(x, tail, taps, L, D, n, (t0 - 1) * M - D, lane,
+             fast && t0 % seam_period != 0, qr, qi);
 #pragma unroll
-  for (int k = 0; k < R; ++k) {
-    const int j = tid + k * nthr;
-    const long long t = t0 + j;
-    if (t < T) {
-      const float cr = z_r[j + 1], ci = z_i[j + 1];
-      float pr = z_r[j], pi = z_i[j];
-      if (fast && t % seam_period == 0)      // a TPU tile's f32 seam
-        seam_dot(x, tail, taps, L, D, n, (t - 1) * M - D, pr, pi);
-      const float ure = cr * pr + ci * pi;
-      const float uim = ci * pr - cr * pi;
+    for (int k = 0; k < R; ++k) {
+      if (t0 + k < T) {
+        float zr, zi;
+        warp_dot(x, tail, taps, L, D, n, (t0 + k) * M - D, lane, fast != 0,
+                 zr, zi);
+        if (lane == k) {
+          cr = zr;
+          ci = zi;
+        }
+        if (lane == k + 1) {
+          qr = zr;
+          qi = zi;
+        }
+      }
+    }
+    const long long t = t0 + lane;
+    if (lane < R && t < T) {
+      const float ure = cr * qr + ci * qi;
+      const float uim = ci * qr - cr * qi;
       const float dre = ure * cd - uim * sd;
       const float dim = uim * cd + ure * sd;
       audio[t] = atan2f(dim, dre) * scale;
-      e += cr * cr + ci * ci;
-      if (t == T - 1) {
-        stats[1] = cr;
-        stats[2] = ci;
-      }
+      e = fmaf(cr, cr, fmaf(ci, ci, e));
       if (t == 0) {
         stats[3] = cr;
         stats[4] = ci;
+      }
+      if (t == T - 1) {
+        stats[1] = cr;
+        stats[2] = ci;
       }
     }
   }
   finish_stats(e, red, partials, ticket, stats);
 }
 
-}  // namespace
-
-// Shared-memory bytes of one block of the direct route; the wrapper sizes
-// its launch with the same formula (ops/cuda_ddc.py::launch_geometry).
-static size_t ddc_fm_direct_smem_bytes(int n, int M, int threads) {
-  const int tbo = threads * kOutputsPerThread;
-  const int U = tbo + (n + M - 1) / M;
-  return sizeof(float) * (2 * (size_t)M * U + 2 * (size_t)n +
-                          2 * (size_t)(tbo + 1) + threads / 32 + 1);
+template <int R>
+int launch_direct(const float* x, const float* tail, const float* taps,
+                  float* audio, float* stats, float* partials, unsigned* ticket,
+                  long long L, long long T, int n, int M, int warps, int blocks,
+                  float cd, float sd, float scale, int fast,
+                  long long seam_period, cudaStream_t stream) {
+  ddc_fm_direct_kernel<R><<<(unsigned)blocks, 32 * warps, 0, stream>>>(
+      x, tail, taps, audio, stats, partials, ticket, L, T, n, M, cd, sd, scale,
+      fast, seam_period);
+  return (int)cudaGetLastError();
 }
+
+}  // namespace
 
 // The tensor-core route.  x (2, L), tail (2, n - M), taps (2, n) [re row;
 // im row] f32; bank: the packed bank of ops/cuda_ddc.py::body_tc_bank in the
@@ -486,35 +422,37 @@ extern "C" int ddc_fm_launch(const float* x, const float* tail, const float* ban
   }
 }
 
-// The direct route: x, tail, taps, fast and seam_period as above; threads a
-// block from ops/cuda_ddc.py::launch_geometry; partials (max_blocks,) with
-// max_blocks >= the blocks, ceil(T / (4 threads)).  Launches on `stream`,
-// does not synchronise, returns the launch's cudaError_t.
+// The direct route: x, tail, taps, fast and seam_period as above; runs of R
+// outputs (4, 8, 16 or 32; R divides seam_period), warps a block and blocks
+// from ops/cuda_ddc.py::launch_geometry and _launch_fm; partials (blocks,).
+// Launches on `stream`, does not synchronise, returns the launch's
+// cudaError_t.
 extern "C" int ddc_fm_direct_launch(const float* x, const float* tail,
                                     const float* taps, float* audio, float* stats,
                                     float* partials, unsigned* ticket, long long L,
-                                    int n, int M, int threads, int max_blocks,
+                                    int n, int M, int R, int warps, int blocks,
                                     float cd, float sd, float scale, int fast,
                                     long long seam_period, int device,
                                     cudaStream_t stream) {
-  if (M <= 0 || n <= M || L % M != 0 || L / M <= 0 || threads < 32 ||
-      threads > 1024 || threads % 32 != 0 || (fast && seam_period <= 0))
+  if (M <= 0 || n <= M || L <= 0 || L % M != 0 || warps < 1 || warps > 32 ||
+      blocks < 1 || R < 1 || (fast && (seam_period <= 0 || seam_period % R)))
     return (int)cudaErrorInvalidValue;
-  const long long T = L / M;
-  const int tbo = threads * kOutputsPerThread;
-  const long long blocks = (T + tbo - 1) / tbo;
-  if (blocks > max_blocks) return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const int U = tbo + (n + M - 1) / M;
-  const size_t smem = ddc_fm_direct_smem_bytes(n, M, threads);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ddc_fm_direct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  const long long T = L / M;
+  switch (R) {
+    case 4: return launch_direct<4>(x, tail, taps, audio, stats, partials,
+                                    ticket, L, T, n, M, warps, blocks, cd, sd,
+                                    scale, fast, seam_period, stream);
+    case 8: return launch_direct<8>(x, tail, taps, audio, stats, partials,
+                                    ticket, L, T, n, M, warps, blocks, cd, sd,
+                                    scale, fast, seam_period, stream);
+    case 16: return launch_direct<16>(x, tail, taps, audio, stats, partials,
+                                      ticket, L, T, n, M, warps, blocks, cd, sd,
+                                      scale, fast, seam_period, stream);
+    case 32: return launch_direct<32>(x, tail, taps, audio, stats, partials,
+                                      ticket, L, T, n, M, warps, blocks, cd, sd,
+                                      scale, fast, seam_period, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
-  ddc_fm_direct_kernel<<<(unsigned)blocks, threads, smem, stream>>>(
-      x, tail, taps, audio, stats, partials, ticket, L, T, n, M, U, cd, sd, scale,
-      fast, seam_period);
-  return (int)cudaGetLastError();
 }

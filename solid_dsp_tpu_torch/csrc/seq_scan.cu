@@ -9,18 +9,22 @@
 // scan, and a per-sample recurrence in eager torch ops costs ~15-20 launches a
 // sample, so each recurrence is one kernel here.
 //
-// Bound: latency.  Each sample depends on the one before it through the gain
-// (S1: a logf and an expf on the chain) or the phase (S2: sincos and atan2),
-// and neither recurrence is linear, so one sequence runs at one dependent
-// step per ~0.1 us (S1) or ~0.2 us (S2) on an H100 however many SMs it has;
-// the bytes (each sample read once and written once) would take 3.35 TB/s
-// far less time.  A multi-sequence or chunk-speculative design is later work.
+// Bound: latency, for S1's main entry and S2.  Each sample depends on the
+// one before it through the gain (S1: a logf and an expf on the chain) or
+// the phase (S2: sincos and atan2), and neither recurrence is linear, so one
+// sequence runs at one dependent step per ~0.1 us (S1) or ~0.2 us (S2) on
+// an H100 however many SMs it has; the bytes (each sample read once and
+// written once) would take 3.35 TB/s far less time.  A multi-sequence design
+// is later work.  S1's FSM entry is different: the FSM's map over a run of
+// steps has a finite form, so it is exactly time-parallel and bound by its
+// bytes (4 in and 4 out a step): the chunk-and-join design of the fsm
+// namespace below.
 //
-// Design: one thread per independent sequence (a leading index of the
-// block), its state in registers, time walked in order.  Samples are loaded
-// a chunk of 8 at a time into registers, the next chunk's loads started
-// before the current chunk's steps, so a load's latency is hidden behind a
-// chunk of steps.
+// Design of S1 and S2: one thread per independent sequence (a leading index
+// of the block), its state in registers, time walked in order.  Samples are
+// loaded a chunk of 8 at a time into registers, the next chunk's loads
+// started before the current chunk's steps, so a load's latency is hidden
+// behind a chunk of steps.
 // The arithmetic is the plain PyTorch version's (ops/agc.py::agc_scan_plain,
 // models/qpsk.py::costas_pll_plain), in the same
 // order: products and sums with the _rn intrinsics so that nvcc fuses none
@@ -28,12 +32,14 @@
 // DISABLED squelch are fixed for a block (DISABLED maps to DISABLED, timer
 // untouched), so the kernel picks a loop without the FSM, or without the
 // gain update, where they cannot run: exact, and the FSM's code left in the
-// loop cost ~25 % of a step even untaken (PERF.md).
+// loop cost ~25 % of a step even untaken (PERF.md).  The FSM entry's modes
+// are bit-equal to ops/agc.py::squelch_fsm_plain (and its chunked mirror
+// squelch_fsm_chunked_torch): integers and one compare a step.
 //
 // Entry points (each returns the launch's cudaError_t):
 //   agc_scan_f32 / agc_scan_f64:   x (B, T) complex -> y (B, T), state in place
 //   squelch_fsm_f32 / _f64:        rssi (B, T) real -> modes (B, T) int32,
-//                                  mode/timer in place
+//                                  mode/timer in place (three launches)
 //   costas_pll_f32 / _f64:         x (B, T) complex -> y (B, T), theta/dtheta
 //                                  (B,) in place
 
@@ -186,23 +192,359 @@ agc_scan_kernel(const typename C2<R>::T* __restrict__ x,
   timer[b] = tm;
 }
 
+// ---------------------------------------------------------------------------
 // S1's second entry: the FSM alone over a given rssi track (the parallel
-// AGC's squelch pass, whose gains the Newton solve already has).
-template <typename R>
-__global__ void __launch_bounds__(THREADS)
-squelch_fsm_kernel(const R* __restrict__ rssi, int* __restrict__ modes,
-                   int* __restrict__ mode, int* __restrict__ timer, int B,
-                   long long T, R thr, int timeout) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int md = mode[b], tm = timer[b];
-  walk(rssi + (long long)b * T, modes + (long long)b * T, T, [&](R r) {
-    squelch_step(md, tm, r, thr, timeout);
-    return md;
-  });
-  mode[b] = md;
-  timer[b] = tm;
+// AGC's squelch pass, whose gains the Newton solve already has; the
+// lax.scan of solid_dsp_tpu/ops/agc.py:333-343), exactly time-parallel.  The FSM's state is (mode, timer).  The timer is read only
+// in SIGNALLO and written only in FALL (set to the timeout) and SIGNALLO
+// (counted down), and SIGNALLO is entered only from FALL, so the map a run
+// of steps makes from its entry state has a finite form, a Summary:
+//   * from ENABLED, RISE, SIGNALHI, FALL or TIMEOUT: an exit mode, and an
+//     exit timer that is the entry's ("keep": no FALL was passed) or a
+//     constant (tracks 0-4);
+//   * from SIGNALLO with timer t0, against the run's leading L steps at or
+//     below the threshold: t0 in [1, L - 1] times out inside that run and
+//     is ENABLED with timer 0 at its end, so it exits as the ENABLED entry
+//     with timer 0 does; t0 = L and t0 = L + 1 are walked as they are
+//     (tracks 6 and 7); every other t0, t0 <= 0 included, cannot reach 0
+//     before the first step above the threshold and exits by track 5: a
+//     mode and the timer t0 - (the steps it counted down), or a constant;
+//   * from UNKNOWN, DISABLED (or any other value): DISABLED, timer kept.
+// A track is (mode, keep, v): the timer is t0 - v where keep, else v.  The
+// summary of two runs in a row is computed from theirs (compose: each
+// track's entry through the first summary, then the second), and it has
+// the same form, so summaries join in any grouping and every result is
+// exact.  Three launches:
+//   1. each thread summarises a chunk of C steps (its bits from a warp
+//      ballot of rssi > thr, so the loads coalesce), and the block's
+//      chunks are scanned (Kogge-Stone in shared memory) into inclusive
+//      prefixes, kept with the block's total;
+//   2. a block a lane joins the lane's block totals: runs of blocks a
+//      thread (at most 128 threads, one warp a scheduler: the compositions
+//      are the cost), a Kogge-Stone scan over the runs, then each run walked
+//      from its entry state, writing each block's entry state;
+//   3. each chunk starts from its block's entry state through its prefix,
+//      is walked again over pass 1's bits (kept in device memory, 1/32 of
+//      the rssi's words) writing its modes into shared memory, and the
+//      block stores them coalesced; the lane's last chunk writes the final
+//      mode and timer.
+namespace fsm {
+
+constexpr int kTracks = 8;
+
+// The entry mode of track j: ENABLED, RISE, SIGNALHI, FALL, TIMEOUT, then
+// SIGNALLO three times (generic, t0 = L, t0 = L + 1).
+__device__ __forceinline__ constexpr int track_mode(int j) {
+  return j < 4 ? ENABLED + j : (j == 4 ? TIMEOUT : SIGNALLO);
 }
+
+struct Summary {
+  int n, L;          // steps of the run; its leading steps at or below thr
+  unsigned code;     // 4 bits a track: exit mode | keep << 3
+  int v[kTracks];
+};
+
+// The next mode without a timeout, 4 bits a mode: below or at the
+// threshold, and above it (UNKNOWN and DISABLED go to DISABLED).
+__device__ __forceinline__ int next_mode(int m, bool hi) {
+  return (int)(((hi ? 0x71333327u : 0x71554417u) >> (4 * m)) & 7u);
+}
+
+// One step of a track (or, keep = 0, of the FSM itself): FALL arms the
+// timer, SIGNALLO counts it down, then the transition (squelch_step).
+__device__ __forceinline__ void step(int& m, int& keep, int& v, bool hi,
+                                     int timeout) {
+  const bool fall = m == FALL, low = m == SIGNALLO;
+  v = fall ? timeout : (low ? (keep ? v + 1 : (int)((unsigned)v - 1u)) : v);
+  keep = fall ? 0 : keep;
+  m = low && !keep && v == 0 ? TIMEOUT : next_mode(m, hi);
+}
+
+// The track an entry takes: (m, keep, v) through the summary s (n >= 1).
+__device__ __forceinline__ void apply(const Summary& s, int& m, int& keep,
+                                      int& v) {
+  int j;
+  if (m == SIGNALLO) {
+    if (keep) {
+      j = 5;
+    } else if (v >= 1 && v <= s.L - 1) {   // timed out in the leading run
+      j = 0;
+      v = 0;
+    } else {
+      j = v == s.L ? 6 : (v == s.L + 1 ? 7 : 5);
+    }
+  } else if (m >= ENABLED && m <= FALL) {
+    j = m - ENABLED;
+  } else if (m == TIMEOUT) {
+    j = 4;
+  } else {
+    m = DISABLED;
+    return;
+  }
+  const unsigned c = (s.code >> (4 * j)) & 15u;
+  int sv = s.v[0];                 // s.v[j] by selects: no local memory
+#pragma unroll
+  for (int q = 1; q < kTracks; ++q) sv = j == q ? s.v[q] : sv;
+  m = (int)(c & 7u);
+  if (c & 8u) {
+    v = keep ? v + sv : (int)((unsigned)v - (unsigned)sv);
+  } else {
+    keep = 0;
+    v = sv;
+  }
+}
+
+__device__ __forceinline__ void pack(Summary& s, const int (&m)[kTracks],
+                                     const int (&keep)[kTracks],
+                                     const int (&v)[kTracks]) {
+  s.code = 0u;
+#pragma unroll
+  for (int j = 0; j < kTracks; ++j) {
+    s.code |= (unsigned)(m[j] | (keep[j] << 3)) << (4 * j);
+    s.v[j] = v[j];
+  }
+}
+
+// The summary of the n steps whose bits (1: rssi > thr) are bits[0 ..],
+// low bit first; n = 0 gives an empty summary.
+__device__ Summary summarize(const unsigned* bits, int n, int timeout) {
+  Summary s;
+  s.n = n;
+  int L = n;
+  for (int w = 0; w * 32 < n; ++w) {
+    if (bits[w] != 0u) {
+      L = min(n, 32 * w + __ffs(bits[w]) - 1);
+      break;
+    }
+  }
+  s.L = L;
+  int m[kTracks], keep[kTracks], v[kTracks];
+#pragma unroll
+  for (int j = 0; j < kTracks; ++j) {
+    m[j] = track_mode(j);
+    keep[j] = j < 6;
+    v[j] = j == 6 ? L : (j == 7 ? L + 1 : 0);
+  }
+  for (int t = 0; t < n; ++t) {
+    const bool hi = (bits[t >> 5] >> (t & 31)) & 1u;
+#pragma unroll
+    for (int j = 0; j < kTracks; ++j) step(m[j], keep[j], v[j], hi, timeout);
+  }
+  pack(s, m, keep, v);
+  return s;
+}
+
+constexpr int kLoadsInFlight = 16;   // words a warp loads before its ballots
+constexpr int kJoinThreads = 128;    // the join's threads a lane, at most
+
+// The summary of run a, then run b.  Tracks 0-5 enter a as a's own tracks
+// do, so they leave a as a's tracks; tracks 6 and 7 enter with the timers
+// L and L + 1 of the joined run and are taken through a.
+__device__ Summary compose(const Summary& a, const Summary& b) {
+  if (b.n == 0) return a;
+  if (a.n == 0) return b;
+  Summary c;
+  c.n = a.n + b.n;
+  c.L = a.L == a.n ? a.n + b.L : a.L;
+  int m[kTracks], keep[kTracks], v[kTracks];
+#pragma unroll
+  for (int j = 0; j < kTracks; ++j) {
+    if (j < 6) {
+      const unsigned code = a.code >> (4 * j);
+      m[j] = (int)(code & 7u);
+      keep[j] = (int)((code >> 3) & 1u);
+      v[j] = a.v[j];
+    } else {
+      m[j] = SIGNALLO;
+      keep[j] = 0;
+      v[j] = j == 6 ? c.L : c.L + 1;
+      apply(a, m[j], keep[j], v[j]);
+    }
+    apply(b, m[j], keep[j], v[j]);
+  }
+  pack(c, m, keep, v);
+  return c;
+}
+
+// bits[w] = the ballot of rssi[base + 32 w + lane] > thr (0 past T) for the
+// block's words: a warp loads kLoadsInFlight words at a time (their loads
+// in flight together), then ballots each.
+template <typename R>
+__device__ __forceinline__ void load_bits(const R* __restrict__ rs,
+                                          long long T, long long base,
+                                          int words, unsigned* bits, R thr) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int w0 = (threadIdx.x >> 5) * kLoadsInFlight; w0 < words;
+       w0 += warps * kLoadsInFlight) {
+    bool hi[kLoadsInFlight];
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const long long t = base + 32LL * (w0 + u) + lane;
+      hi[u] = w0 + u < words && t < T && rs[t] > thr;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const unsigned b = __ballot_sync(0xffffffffu, hi[u]);
+      if (lane == 0 && w0 + u < words) bits[w0 + u] = b;
+    }
+  }
+}
+
+// Pass 1: block k (lane k / nb, its block k % nb) of blockDim.x chunks of C
+// steps: incl[k][i] = chunks 0 .. i of the block composed, totals[k] all;
+// the block's bits kept in gbits[k] for pass 3.
+template <typename R>
+__global__ void summary_kernel(const R* __restrict__ rssi,
+                               Summary* __restrict__ incl,
+                               Summary* __restrict__ totals,
+                               unsigned* __restrict__ gbits, long long T,
+                               int C, long long nb, R thr, int timeout) {
+  extern __shared__ unsigned smem_bits[];
+  const int NT = blockDim.x, i = threadIdx.x, words = NT * C / 32;
+  Summary* sums = reinterpret_cast<Summary*>(smem_bits + words);
+  const long long k = blockIdx.x;
+  const long long base = (k % nb) * NT * C;
+  load_bits(rssi + (k / nb) * T, T, base, words, smem_bits, thr);
+  __syncthreads();
+  for (int w = i; w < words; w += NT) gbits[k * words + w] = smem_bits[w];
+  const long long c0 = base + (long long)i * C;
+  const int n = c0 < T ? (int)min((long long)C, T - c0) : 0;
+  Summary s = summarize(smem_bits + i * (C / 32), n, timeout);
+  sums[i] = s;
+  __syncthreads();
+  for (int d = 1; d < NT; d <<= 1) {
+    Summary left;
+    if (i >= d) left = sums[i - d];
+    __syncthreads();
+    if (i >= d) {
+      s = compose(left, s);
+      sums[i] = s;
+    }
+    __syncthreads();
+  }
+  incl[k * NT + i] = s;
+  if (i == NT - 1) totals[k] = s;
+}
+
+// Pass 2: block b joins lane b's nb block totals; thread j takes the run of
+// blocks [j r, j r + r).  starts[b][blk] = (mode, timer) entering the block.
+__global__ void join_kernel(const Summary* __restrict__ totals,
+                            int2* __restrict__ starts,
+                            const int* __restrict__ mode,
+                            const int* __restrict__ timer, long long nb,
+                            long long r) {
+  extern __shared__ Summary runs[];
+  const int J = blockDim.x, j = threadIdx.x;
+  const long long b = blockIdx.x;
+  const Summary* tot = totals + b * nb;
+  const long long k0 = j * r, k1 = min(k0 + r, nb);
+  Summary s;
+  s.n = 0;
+  for (long long q = k0; q < k1; ++q) s = compose(s, tot[q]);
+  runs[j] = s;
+  __syncthreads();
+  for (int d = 1; d < J; d <<= 1) {
+    Summary left;
+    if (j >= d) left = runs[j - d];
+    __syncthreads();
+    if (j >= d) {
+      s = compose(left, s);
+      runs[j] = s;
+    }
+    __syncthreads();
+  }
+  if (k0 >= nb) return;
+  int m = mode[b], keep = 0, v = timer[b];
+  if (j > 0) apply(runs[j - 1], m, keep, v);
+  for (long long q = k0; q < k1; ++q) {
+    starts[b * nb + q] = make_int2(m, v);
+    apply(tot[q], m, keep, v);
+  }
+}
+
+// Pass 3: each chunk walked from its entry state over pass 1's bits; the
+// modes staged in shared memory (a row of C + 1 words a chunk) and stored
+// coalesced; the lane's last chunk writes the final mode and timer.
+__global__ void output_kernel(const unsigned* __restrict__ gbits,
+                              const Summary* __restrict__ incl,
+                              const int2* __restrict__ starts,
+                              int* __restrict__ modes, int* __restrict__ mode,
+                              int* __restrict__ timer, long long T, int C,
+                              long long nb, int timeout) {
+  extern __shared__ unsigned smem_bits[];
+  const int NT = blockDim.x, i = threadIdx.x, words = NT * C / 32;
+  int* stage = reinterpret_cast<int*>(smem_bits + words);
+  const long long k = blockIdx.x, b = k / nb;
+  const long long base = (k % nb) * NT * C;
+  for (int w = i; w < words; w += NT) smem_bits[w] = gbits[k * words + w];
+  __syncthreads();
+  const long long c0 = base + (long long)i * C;
+  const int n = c0 < T ? (int)min((long long)C, T - c0) : 0;
+  if (n > 0) {
+    const int2 st = starts[k];
+    int m = st.x, keep = 0, v = st.y;
+    if (i > 0) apply(incl[k * NT + i - 1], m, keep, v);
+    if ((unsigned)m > (unsigned)DISABLED) m = UNKNOWN;  // maps as UNKNOWN
+    const unsigned* bits = smem_bits + i * (C / 32);
+    for (int t = 0; t < n; ++t) {
+      step(m, keep, v, (bits[t >> 5] >> (t & 31)) & 1u, timeout);
+      stage[i * (C + 1) + t] = m;
+    }
+    if (c0 + n == T) {
+      mode[b] = m;
+      timer[b] = v;
+    }
+  }
+  __syncthreads();
+  int* out = modes + b * T;
+  for (int q = i; q < NT * C; q += NT) {
+    const long long t = base + q;
+    if (t < T) out[t] = stage[(q / C) * (C + 1) + q % C];
+  }
+}
+
+// The three launches over rssi (B, T): chunks of C steps, NT chunks a block
+// (C and NT multiples of 32); scratch incl (B nb NT), totals (B nb), starts
+// (B nb), gbits (B nb NT C / 32 words), nb = ceil(T / (NT C)).
+template <typename R>
+int launch(const R* rssi, int* modes, int* mode, int* timer, int B,
+           long long T, R thr, int timeout, int C, int NT, Summary* incl,
+           Summary* totals, int2* starts, unsigned* gbits, int device,
+           cudaStream_t stream) {
+  if (B <= 0 || T <= 0 || C < 32 || C % 32 || NT < 32 || NT > 1024 ||
+      NT % 32)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const long long nb = (T + (long long)NT * C - 1) / ((long long)NT * C);
+  const long long grid = nb * B;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t bits = (size_t)NT * C / 32 * sizeof(unsigned);
+  const size_t smem1 = bits + NT * sizeof(Summary);
+  const size_t smem3 = bits + (size_t)NT * (C + 1) * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      summary_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(output_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem3);
+  if (err != cudaSuccess) return (int)err;
+  // the join: at most kJoinThreads threads (one warp a scheduler of the
+  // SM), each composing a run of r block totals before the scan over runs
+  int J = 32;
+  while (J < nb && J < kJoinThreads) J *= 2;
+  const long long r = (nb + J - 1) / J;
+  summary_kernel<R><<<(unsigned)grid, NT, smem1, stream>>>(
+      rssi, incl, totals, gbits, T, C, nb, thr, timeout);
+  join_kernel<<<(unsigned)B, J, J * sizeof(Summary), stream>>>(
+      totals, starts, mode, timer, nb, r);
+  output_kernel<<<(unsigned)grid, NT, smem3, stream>>>(
+      gbits, incl, starts, modes, mode, timer, T, C, nb, timeout);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fsm
 
 // S2: y = x e^{-j theta}; d = the Gray point of y's quadrant; e = arg(y conj d);
 // dtheta += alpha e; theta = (theta + dtheta) + beta e.  theta is not wrapped.
@@ -262,11 +604,15 @@ int launch(F kernel, int B, int device, cudaStream_t stream, A... args) {
 
 #define FSM_ENTRY(NAME, R)                                                    \
   extern "C" int NAME(const R* rssi, int* modes, int* mode, int* timer,       \
-                      int B, long long T, double thr, int timeout,            \
-                      int device, cudaStream_t stream) {                      \
-    if (T <= 0) return (int)cudaErrorInvalidValue;                            \
-    return launch(squelch_fsm_kernel<R>, B, device, stream, rssi, modes,      \
-                  mode, timer, B, T, (R)thr, timeout);                        \
+                      int B, long long T, double thr, int timeout, int chunk, \
+                      int threads, void* incl, void* totals, void* starts,    \
+                      void* bits, int device, cudaStream_t stream) {          \
+    return fsm::launch<R>(rssi, modes, mode, timer, B, T, (R)thr, timeout,   \
+                          chunk, threads,                                     \
+                          reinterpret_cast<fsm::Summary*>(incl),              \
+                          reinterpret_cast<fsm::Summary*>(totals),            \
+                          reinterpret_cast<int2*>(starts),                    \
+                          reinterpret_cast<unsigned*>(bits), device, stream); \
   }
 
 #define PLL_ENTRY(NAME, R)                                                    \

@@ -42,7 +42,8 @@ from . import cuda_scan
 from .linrec import associative_scan
 
 __all__ = ["SquelchMode", "agc_init", "agc_apply", "agc_apply_parallel",
-           "agc_scan_plain", "squelch_fsm_plain", "agc_scan_consts",
+           "agc_scan_plain", "squelch_fsm_plain", "squelch_fsm_chunked_torch",
+           "agc_scan_consts",
            "block_gain_update", "agc_apply_block_mode", "AGC"]
 
 
@@ -224,6 +225,151 @@ def squelch_fsm_plain(rssi: torch.Tensor, mode, timer, threshold, timeout):
         m, t = _squelch_update(m, t, rssi[..., n], threshold, timeout)
         modes.append(m)
     return torch.stack(modes, dim=-1), m, t
+
+
+# S1's FSM entry, chunked (the association of csrc/seq_scan.cu's fsm
+# namespace, whose note derives the form): a track is (mode, keep, v), its
+# timer the entry's minus v where keep, else v.  Tracks 0-4 enter ENABLED,
+# RISE, SIGNALHI, FALL, TIMEOUT; 5-7 SIGNALLO (any timer but the next two;
+# timer L; timer L + 1, L the run's leading steps at or below the threshold).
+_TRACK_MODE = (1, 2, 3, 4, 6, 5, 5, 5)
+_NEXT_LO = (7, 1, 4, 4, 5, 5, 1, 7)     # next mode per mode, rssi <= thr
+_NEXT_HI = (7, 2, 3, 3, 3, 3, 1, 7)     # and rssi > thr
+
+
+def _fsm_step(m, keep, v, hi, timeout: int, tables):
+    """One step of tracks (or, keep False, of the FSM itself): FALL arms the
+    timer, SIGNALLO counts it down, then the transition."""
+    S = SquelchMode
+    fall, low = m == S.FALL, m == S.SIGNALLO
+    v = torch.where(fall, timeout, torch.where(low & keep, v + 1,
+                                               torch.where(low, v - 1, v)))
+    keep = keep & ~fall
+    lo_tab, hi_tab = tables
+    nxt = torch.where(hi, hi_tab[m.long()], lo_tab[m.long()])
+    m = torch.where(low & ~keep & (v == 0), S.TIMEOUT, nxt)
+    return m, keep, v
+
+
+def _fsm_apply(summary, m, keep, v):
+    """States (m, keep, v) of shape (..., K) through summaries of shape
+    (...,) (their tracks (..., 8)), each run n >= 1 steps."""
+    S = SquelchMode
+    _, L, sm, sk, sv = summary
+    L = L[..., None]
+    low = m == S.SIGNALLO
+    timed = low & ~keep & (v >= 1) & (v <= L - 1)   # times out in L's run
+    j_low = torch.where(keep | ~((v == L) | (v == L + 1) | timed), 5,
+                        torch.where(timed, 0, torch.where(v == L, 6, 7)))
+    j = torch.where((m >= S.ENABLED) & (m <= S.FALL), m - 1,
+                    torch.where(m == S.TIMEOUT, 4, -1))
+    j = torch.where(low, j_low, j).long()
+    v = torch.where(timed, 0, v)
+    valid = j >= 0
+    jc = j.clamp(min=0)
+    cm = torch.gather(sm, -1, jc)
+    ck = torch.gather(sk, -1, jc)
+    cv = torch.gather(sv, -1, jc)
+    new_v = torch.where(ck, torch.where(keep, v + cv, v - cv), cv)
+    return (torch.where(valid, cm, S.DISABLED),
+            torch.where(valid, keep & ck, keep),
+            torch.where(valid, new_v, v))
+
+
+def _fsm_tracks(L):
+    """The tracks' entry states for runs whose leading low run is L."""
+    shape = (*L.shape, 8)
+    m = torch.tensor(_TRACK_MODE, dtype=torch.int32,
+                     device=L.device).expand(shape)
+    keep = torch.tensor([True] * 6 + [False] * 2,
+                        device=L.device).expand(shape)
+    v = torch.zeros(shape, dtype=torch.int32, device=L.device)
+    v = torch.cat([v[..., :6], L[..., None], L[..., None] + 1], dim=-1)
+    return m, keep, v
+
+
+def _fsm_compose(a, b):
+    """The summary of run a, then run b (both n >= 1): tracks 0-5 leave a
+    as a's own tracks, tracks 6 and 7 (timers L and L + 1 of the joined
+    run) are taken through a; then all through b."""
+    n = a[0] + b[0]
+    L = torch.where(a[1] == a[0], a[0] + b[1], a[1])
+    m, keep, v = _fsm_tracks(L)
+    m7, k7, v7 = _fsm_apply(a, m[..., 6:], keep[..., 6:], v[..., 6:])
+    m, keep, v = (torch.cat([x[..., :6], y], dim=-1) for x, y in
+                  ((a[2], m7), (a[3], k7), (a[4], v7)))
+    m, keep, v = _fsm_apply(b, m, keep, v)
+    return n, L, m, keep, v
+
+
+def squelch_fsm_chunked_torch(rssi: torch.Tensor, mode, timer, threshold,
+                              timeout, chunk: int = cuda_scan.FSM_CHUNK):
+    """S1's FSM entry by the kernel's three passes in torch ops: each chunk
+    of ``chunk`` steps summarised (its tracks walked), the summaries joined
+    by a doubling scan of compositions, each chunk walked again from its
+    entry state.  Returns (modes (..., T) int32, final mode, final timer),
+    equal to :func:`squelch_fsm_plain` (the FSM is integer arithmetic and
+    one compare a step; any grouping of the summaries gives the same)."""
+    lead = rssi.shape[:-1]
+    T = int(rssi.shape[-1])
+    dev = rssi.device
+    m0 = mode.to(dev).expand(lead).to(torch.int32).reshape(-1)
+    t0 = timer.to(dev).expand(lead).to(torch.int32).reshape(-1)
+    if T == 0:
+        return (torch.empty((*lead, 0), dtype=torch.int32, device=dev),
+                m0.reshape(lead), t0.reshape(lead))
+    B = m0.shape[0]
+    C = int(chunk)
+    nc = -(-T // C)
+    hi = torch.zeros((B, nc * C), dtype=torch.bool, device=dev)
+    hi[:, :T] = (rssi > threshold).reshape(B, T)
+    hi = hi.reshape(B, nc, C)
+    n = torch.clamp(T - C * torch.arange(nc, device=dev), max=C).to(
+        torch.int32).expand(B, nc)
+    tables = (torch.tensor(_NEXT_LO, dtype=torch.int32, device=dev),
+              torch.tensor(_NEXT_HI, dtype=torch.int32, device=dev))
+    # pass 1: each chunk's summary
+    L = torch.where(hi.any(-1), hi.to(torch.int32).argmax(-1).to(torch.int32),
+                    n)
+    m, keep, v = _fsm_tracks(L)
+    for s in range(C):
+        live = (s < n)[..., None]
+        step = _fsm_step(m, keep, v, hi[..., s, None], timeout, tables)
+        m, keep, v = (torch.where(live, a, b)
+                      for a, b in zip(step, (m, keep, v)))
+    summ = (n, L, m, keep, v)
+    # pass 2: inclusive prefixes of the chunks by doubling, then each
+    # chunk's entry state
+    d = 1
+    while d < nc:
+        left = tuple(f[:, :nc - d] for f in summ)
+        right = tuple(f[:, d:] for f in summ)
+        summ = tuple(torch.cat([f[:, :d], g], dim=1) for f, g in
+                     zip(summ, _fsm_compose(left, right)))
+        d *= 2
+    em = m0[:, None].expand(B, nc).clone()
+    ek = torch.zeros((B, nc), dtype=torch.bool, device=dev)
+    ev = t0[:, None].expand(B, nc).clone()
+    if nc > 1:
+        pm, pk, pv = _fsm_apply(tuple(f[:, :-1] for f in summ),
+                                em[:, 1:, None], ek[:, 1:, None],
+                                ev[:, 1:, None])
+        em[:, 1:], ek[:, 1:], ev[:, 1:] = pm[..., 0], pk[..., 0], pv[..., 0]
+    # pass 3: every chunk walked from its entry (a mode outside 0-7 steps
+    # as UNKNOWN does)
+    m = torch.where((em < 0) | (em > SquelchMode.DISABLED),
+                    SquelchMode.UNKNOWN, em)
+    keep, v = ek, ev
+    modes = torch.empty((B, nc, C), dtype=torch.int32, device=dev)
+    for s in range(C):
+        live = s < n
+        step = _fsm_step(m, keep, v, hi[..., s], timeout, tables)
+        m, keep, v = (torch.where(live, a, b)
+                      for a, b in zip(step, (m, keep, v)))
+        modes[..., s] = m
+    modes = modes.reshape(B, nc * C)[:, :T]
+    return (modes.reshape(*lead, T), m[:, -1].reshape(lead),
+            v[:, -1].reshape(lead))
 
 
 def _squelch_fsm(rssi, mode, timer, threshold, timeout):

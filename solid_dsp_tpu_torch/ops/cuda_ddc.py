@@ -46,8 +46,10 @@ Two implementations of K1's function:
   product (``csrc/ddc_tc.cuh``, ``wgmma`` in the body's mode) with the
   discriminator, energy and edges in its epilogue, wherever its bank and
   spans fit one block's shared memory (counted by ``ddc_fm_cuda.launches``
-  in x3, ``.fast_launches`` in fast mode); else the direct-form FIR in FP32
-  FMA (``.direct_launches``, ``.direct_fast_launches``).  Both write the
+  in x3, ``.fast_launches`` in fast mode); else the direct-form FIR, a warp
+  a run of outputs in FP32 FMA with the body's direct-route dot
+  (``csrc/ddc_direct.cuh``; ``.direct_launches``, ``.direct_fast_launches``),
+  which takes every (n, M) of :func:`fm_supported`.  Both write the
   five stats themselves, the energy summed in a fixed order.  In fast mode
   the output before each TPU tile (:func:`fm_seam_frames`) stays an f32
   dot of the unrounded samples, as the TPU kernel's seam.
@@ -91,11 +93,14 @@ MODES = ("x3", "fast")  # the TPU kernels' modes (pallas_ddc.py mode=)
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _DDC_FM_ARGS = ((_P,) * 8 + (_LL,) + (_I,) * 10 + (_F,) * 3
                 + (_I, _LL, _I, _P))
-_DDC_FM_DIRECT_ARGS = ((_P,) * 7 + (_LL,) + (_I,) * 4 + (_F,) * 3
+_DDC_FM_DIRECT_ARGS = ((_P,) * 7 + (_LL,) + (_I,) * 5 + (_F,) * 3
                        + (_I, _LL, _I, _P))
 _DDC_BODY_ARGS = (_P,) * 4 + (_LL,) + (_I,) * 10 + (_P,)
 _DDC_BODY_DIRECT_ARGS = (_P,) * 4 + (_LL,) + (_I,) * 4 + (_P,)
-_OUTPUTS_PER_THREAD = 4          # kOutputsPerThread in csrc/ddc_fm.cu
+# K1's direct route (csrc/ddc_fm.cu): outputs a warp's run (R) and warps a
+# block, from torch_kernel_sweep.py k1-direct
+FM_DIRECT_RUN = 8
+FM_DIRECT_WARPS = 4
 _SMEM_LIMIT = 227 * 1024         # shared memory one block may use on sm_90
 _TC_FRAMES = 64                  # kFrames in csrc/ddc_tc.cuh: wgmma's rows
 _FM_EXTRA = 64                   # kFmExtra in csrc/ddc_fm.cu: the stats' words
@@ -299,18 +304,15 @@ def ddc_fm_torch(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
 
 
 def launch_geometry(n: int, M: int):
-    """(threads, outputs per block, shared-memory bytes) of one launch of
-    K1's direct route: the largest block of threads whose staged input span
-    fits the shared memory of one block (the formula of
-    ddc_fm_direct_smem_bytes in csrc/ddc_fm.cu)."""
-    for threads in (256, 128, 64, 32):
-        tbo = threads * _OUTPUTS_PER_THREAD
-        U = tbo + -(-n // M)
-        smem = 4 * (2 * M * U + 2 * n + 2 * (tbo + 1) + threads // 32 + 1)
-        if smem <= _SMEM_LIMIT:
-            return threads, tbo, smem
-    raise ValueError(f"decimation {M} with {n} taps does not fit the "
-                     "kernel's shared-memory tile")
+    """(R, warps) of K1's direct route: a warp a run of R consecutive
+    outputs, ``warps`` warps a block (:data:`FM_DIRECT_RUN`,
+    :data:`FM_DIRECT_WARPS`).  The route stages nothing in shared memory,
+    so every (n, M) with n > M (K1's backward reach D = n - M > 0) takes
+    it; raises ValueError for n <= M, which K1 does not compute."""
+    if not 0 < M < n:
+        raise ValueError(f"K1 needs more taps than its decimation, got "
+                         f"{n} taps at decimation {M}")
+    return FM_DIRECT_RUN, FM_DIRECT_WARPS
 
 
 @functools.lru_cache(maxsize=None)
@@ -318,8 +320,8 @@ def fm_geometry(n: int, M: int, fast: bool = False):
     """K1's route for n taps and decimation M in a mode (``fast``), from
     (n, M) alone: ``("tc", fm_tc_geometry(n, M, fast=fast))`` where the
     tensor-core kernel's bank and spans fit one block's shared memory, else
-    ``("direct", launch_geometry(n, M))``; raises ValueError where neither
-    fits."""
+    ``("direct", launch_geometry(n, M))``, which takes every (n, M) that
+    :func:`fm_supported` accepts."""
     try:
         return "tc", fm_tc_geometry(n, M, fast=fast)
     except ValueError:
@@ -400,16 +402,18 @@ def _launch_fm(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor,
                         body.scale, fast, seam_period, dev.index,
                         stream_of(x2)), "ddc_fm_cuda")
     else:
-        threads, tbo, _ = geo
-        blocks = -(-T // tbo)
+        R, warps = geo
+        # warps walk the runs of R outputs; at most 64 warps an SM
+        blocks = min(-(-T // (R * warps)),
+                     _sm_count(dev.index) * max(1, 64 // warps))
         scratch = torch.empty(5 + blocks, dtype=torch.float32, device=dev)
         fn = launcher("ddc_fm.cu", "ddc_fm_direct_launch", _DDC_FM_DIRECT_ARGS)
         check_launch(fn(x2.data_ptr(), tail.data_ptr(), body.taps.data_ptr(),
                         audio.data_ptr(), scratch.data_ptr(),
                         scratch.data_ptr() + 20, ticket.data_ptr(), L, body.n,
-                        body.M, threads, blocks, body.cd, body.sd, body.scale,
-                        fast, seam_period, dev.index, stream_of(x2)),
-                     "ddc_fm_cuda")
+                        body.M, R, warps, blocks, body.cd, body.sd,
+                        body.scale, fast, seam_period, dev.index,
+                        stream_of(x2)), "ddc_fm_cuda")
     return audio, scratch[:5]
 
 

@@ -6,7 +6,9 @@ S1 is the exact per-sample AGC (``ops/agc.py::_agc_scan``, JAX
 alone over a given rssi track; S2 is the decision-directed QPSK Costas loop
 (``models/qpsk.py::qpsk_carrier_pll``, JAX ``models/qpsk.py:101-126``).
 Both are nonlinear: one thread walks one sequence (a leading index) in
-time order.  S3 is the IIR filters' direct-form-II w-recurrence
+time order.  The FSM entry (JAX ``ops/agc.py:333-343``) is exactly
+time-parallel: chunks summarised by their finite maps, the summaries
+joined, each chunk walked again from its entry (:func:`squelch_fsm_cuda`).  S3 is the IIR filters' direct-form-II w-recurrence
 (``ops/iir.py``'s ``"scan"`` and ``"parallel"`` routes, JAX
 ``ops/iir.py:117-153``), linear, so time-parallel: chunks of
 ``linrec.chunk_rows`` rows run from a zero state, their ends joined through
@@ -23,7 +25,8 @@ Each wrapper takes CUDA tensors only, checks types and shapes, launches the
 kernel on the current stream, raises if the launch fails
 (``cuda_build.check_launch``) and adds one to its ``launches`` count.  The
 plain versions are ``ops/agc.py::agc_scan_plain`` and
-``squelch_fsm_plain``, ``models/qpsk.py::costas_pll_plain``,
+``squelch_fsm_plain`` (and ``squelch_fsm_chunked_torch``, the FSM entry's
+three passes), ``models/qpsk.py::costas_pll_plain``,
 ``ops/iir.py::iir_chunked_torch`` and ``sos_cascade_chunked_torch``; the
 dispatchers there take the plain versions (for S3, the sequential walk
 ``iir_scan_torch`` or the doubling scan of ``ops/linrec.py``) for CPU
@@ -46,13 +49,23 @@ from .linrec import S3_CHUNK, WIDE, cascade_matrix, chunk_rows, companion, \
     host_values, join_tables, rounded
 
 __all__ = ["agc_scan_cuda", "squelch_fsm_cuda", "costas_pll_cuda",
+           "FSM_CHUNK", "FSM_THREADS", "FSM_SMALL", "fsm_geometry",
            "iir_scan_cuda", "sos_cascade_cuda", "chunk_geometry",
            "JOIN_THREADS"]
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
 _AGC_ARGS = (_P,) * 7 + (_I, _LL) + (_D,) * 5 + (_I, _I, _P)
-_FSM_ARGS = (_P,) * 4 + (_I, _LL, _D, _I, _I, _P)
+_FSM_ARGS = (_P,) * 4 + (_I, _LL, _D, _I, _I, _I) + (_P,) * 4 + (_I, _P)
+# S1's FSM entry: steps a chunk (a multiple of 32) and chunks a block, and
+# up to how many steps in all the smallest blocks are taken
+# (torch_kernel_sweep.py fsm); a chunk's summary is 11 int32
+# (fsm::Summary in csrc/seq_scan.cu)
+FSM_CHUNK = 64
+FSM_THREADS = 128
+FSM_SMALL = (32, 32, 1 << 17)
+_SUMMARY_INTS = 11
+_SMEM_LIMIT = 227 * 1024     # shared memory one block may use on sm_90
 _PLL_ARGS = (_P,) * 4 + (_I, _LL) + (_D,) * 3 + (_I, _P)
 _S3_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
               torch.complex64: "c64", torch.complex128: "c128"}
@@ -121,23 +134,62 @@ agc_scan_cuda.launches = 0
 agc_scan_cuda.fallback_launches = 0
 
 
+def fsm_geometry(B: int, T: int):
+    """(steps a chunk, chunks a block) of S1's FSM entry for B lanes of T
+    steps: (FSM_CHUNK, FSM_THREADS), or the smallest blocks (FSM_SMALL)
+    where B T is at most FSM_SMALL[2] steps, so that a short track still
+    spreads over many SMs."""
+    if B * T <= FSM_SMALL[2]:
+        return FSM_SMALL[:2]
+    return FSM_CHUNK, FSM_THREADS
+
+
 def squelch_fsm_cuda(rssi: torch.Tensor, mode: torch.Tensor,
-                     timer: torch.Tensor, thr: float, timeout: int):
+                     timer: torch.Tensor, thr: float, timeout: int,
+                     chunk: int | None = None, threads: int | None = None):
     """S1's FSM alone over rssi (..., T) float32 or float64 on one card:
-    (modes (..., T) int32, final mode, final timer)."""
+    (modes (..., T) int32, final mode, final timer).  Time-parallel in three
+    launches (csrc/seq_scan.cu's fsm namespace): chunks of ``chunk`` steps
+    (a multiple of 32) summarised ``threads`` to a block (both from
+    :func:`fsm_geometry` unless given), joined, walked again; the plain
+    version of the same passes is ``ops/agc.py::squelch_fsm_chunked_torch``."""
     _check(rssi, "squelch_fsm_cuda", complex_in=False)
     lead = tuple(rssi.shape[:-1])
     T = int(rssi.shape[-1])
     B = max(1, int(torch.Size(lead).numel()))
     rs = rssi.contiguous()
-    modes = torch.empty(rs.shape, dtype=torch.int32, device=rs.device)
-    m = _rows(mode, lead, torch.int32, rs.device)
-    t = _rows(timer, lead, torch.int32, rs.device)
+    dev = rs.device
+    modes = torch.empty(rs.shape, dtype=torch.int32, device=dev)
+    m = _rows(mode, lead, torch.int32, dev)
+    t = _rows(timer, lead, torch.int32, dev)
+    if chunk is None or threads is None:
+        chunk, threads = fsm_geometry(B, T)
+    if chunk % 32 or not 32 <= threads <= 1024 or threads % 32:
+        raise ValueError("squelch_fsm_cuda takes chunks of a multiple of 32 "
+                         "steps and 32 to 1024 chunks a block, a multiple of "
+                         "32")
+    # pass 3 stages a block's modes: its bits and NT rows of C + 1 words
+    if threads * chunk // 8 + threads * (chunk + 1) * 4 > _SMEM_LIMIT:
+        raise ValueError(f"{threads} chunks of {chunk} steps a block do not "
+                         "fit one block's shared memory")
+    nb = -(-T // (threads * chunk))
+    # scratch: the chunks' in-block prefixes and the blocks' totals (a
+    # summary each), the blocks' entry states, the steps' bits
+    incl = torch.empty(B * nb * threads * _SUMMARY_INTS, dtype=torch.int32,
+                       device=dev)
+    totals = torch.empty(B * nb * _SUMMARY_INTS, dtype=torch.int32,
+                         device=dev)
+    starts = torch.empty(B * nb * 2, dtype=torch.int32, device=dev)
+    bits = torch.empty(B * nb * threads * chunk // 32, dtype=torch.int32,
+                       device=dev)
     fn = launcher("seq_scan.cu", f"squelch_fsm_{_SUFFIX[rs.dtype]}",
                   _FSM_ARGS)
     check_launch(fn(rs.data_ptr(), modes.data_ptr(), m.data_ptr(),
-                    t.data_ptr(), B, T, float(thr), int(timeout),
-                    rs.device.index, stream_of(rs)), "squelch_fsm_cuda")
+                    t.data_ptr(), B, T, float(thr), int(timeout), int(chunk),
+                    int(threads), incl.data_ptr(), totals.data_ptr(),
+                    starts.data_ptr(), bits.data_ptr(), dev.index,
+                    stream_of(rs)),
+                 "squelch_fsm_cuda")
     squelch_fsm_cuda.launches += 1
     return modes, m.reshape(lead), t.reshape(lead)
 

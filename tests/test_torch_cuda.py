@@ -26,7 +26,9 @@ same roundings, f32 sums in another order), >= 50 dB against float64
 against float64 at PyTorch's default TF32 flags (the port pins full
 float32; TF32 keeps some 60 dB).  The sequential scans: S1 (the exact
 AGC) within 1e-5 of max|y| of its plain version in float32 and 1e-12 in
-float64, gain rtol alike, mode and timer equal; S2 (the Costas loop)
+float64, gain rtol alike, mode and timer equal; S1's FSM entry (the
+chunk-and-join kernel) bit-equal to the sequential walk and to its
+chunked plain version; S2 (the Costas loop)
 symbols equal and y within 1e-4 (float32) or 1e-9 (float64); S3 (the
 IIR w-recurrence) bit-equal to its plain version in every type, and the
 IIR classes and zero-phase filters on the card within 1e-5 of max (float32
@@ -1584,3 +1586,122 @@ def test_p4_chains_on_card_match_cpu(n, M, demod, precision):
         assert np.mean(q(got) != q(want)) < 1e-3
     assert int(st["nco_theta"]) == int(st_cpu["nco_theta"])
     assert torch.equal(st["fir_tail"].cpu(), st_cpu["fir_tail"])
+
+
+# ------------------------------- K1's direct route: the rest of P4
+
+K1_DIRECT_POINTS = [(256, 128), (256, 200), (256, 240), (512, 256)]
+
+
+@pytest.mark.parametrize("n,M", K1_DIRECT_POINTS)
+@pytest.mark.parametrize("mode", ["x3", "fast"])
+def test_k1_direct_route_matches_plain_on_card(n, M, mode):
+    """K1's direct route (a warp a run of outputs, no shared memory) at
+    large decimations, where the staged design raised included, against
+    ddc_fm_torch on the card in the same mode: audio >= 90 dB, stats rtol
+    1e-5 (atol 1e-6); two launches bit-equal; counted on the direct
+    counter of its mode.  Fast mode over 132 frames, so a TPU tile's f32
+    seam falls inside the block."""
+    dev = require_cuda()
+    fast = mode == "fast"
+    assert cuda_ddc.fm_geometry(n, M, fast)[0] == "direct"
+    taps = RxChainConfig(fir_taps=n, decimation=M).design_taps()
+    body = cuda_ddc.make_ddc_fm(taps, nco.constrain(0.2), M, 0.1, dev,
+                                mode=mode)
+    L = (132 if fast else 16) * cuda_ddc.DEFAULT_P * M
+    x2, tail = (t.to(dev) for t in _inputs(n + M, L, n - M))
+    field = "direct_fast_launches" if fast else "direct_launches"
+    before = getattr(cuda_ddc.ddc_fm_cuda, field)
+    a, s = cuda_ddc.ddc_fm_cuda(body, x2, tail)
+    a2, s2 = cuda_ddc.ddc_fm_cuda(body, x2, tail)
+    b, t = cuda_ddc.ddc_fm_torch(body, x2, tail)
+    torch.cuda.synchronize()
+    assert getattr(cuda_ddc.ddc_fm_cuda, field) == before + 2
+    assert torch.equal(a, a2) and torch.equal(s, s2)
+    assert a.shape == (L // M,) and bool(torch.isfinite(a).all())
+    assert snr_db(a.cpu().numpy(), b.cpu().numpy()) >= 90.0
+    np.testing.assert_allclose(s.cpu().numpy(), t.cpu().numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+# ------------------------- S1's FSM entry: the chunk-and-join kernel
+
+def _rssi_walk(rng, T):
+    """An rssi track (dB) crossing -30 in runs of 1-59 samples, 2-15 dB to
+    either side: long runs below it time a squelch of timeout 20 out."""
+    out, i, above = np.empty(T), 0, True
+    while i < T:
+        k = int(rng.integers(1, 60))
+        out[i:i + k] = -30.0 + (1.0 if above else -1.0) * rng.uniform(
+            2.0, 15.0, k)[:T - i]
+        i, above = i + k, not above
+    return out
+
+
+# (entry mode, entry timer) of mixed lanes: every mode, SIGNALLO near and
+# far from expiry, a mode outside 0-7
+FSM_ENTRIES = [(1, 0), (2, 5), (3, 0), (4, 7), (5, 1), (5, 3), (5, 0),
+               (5, -4), (5, 40), (6, 2), (0, 9), (7, 1), (11, 3)]
+
+
+def _fsm_case(seed, B, T, dtype):
+    rng = np.random.default_rng(seed)
+    rssi = torch.from_numpy(np.stack([_rssi_walk(rng, T) for _ in range(B)]
+                                     )).to(dtype)
+    ent = [FSM_ENTRIES[b % len(FSM_ENTRIES)] for b in range(B)]
+    m0 = torch.tensor([m for m, _ in ent], dtype=torch.int32)
+    t0 = torch.tensor([t for _, t in ent], dtype=torch.int32)
+    return rssi, m0, t0
+
+
+@pytest.mark.parametrize("B,T,dtype", [(1, 1 << 16, torch.float32),
+                                       (1, 4096, torch.float64),
+                                       (64, 4096, torch.float32)])
+def test_squelch_fsm_kernel_bit_equal_to_plain(B, T, dtype):
+    """The time-parallel FSM kernel against the sequential walk (on the
+    CPU): one lane of 2^16 float32, 4096 float64, 64 lanes in mixed entry
+    states; modes, final mode and final timer equal; one launch counted."""
+    dev = require_cuda()
+    rssi, m0, t0 = _fsm_case(B + T, B, T, dtype)
+    before = cuda_scan.squelch_fsm_cuda.launches
+    got = cuda_scan.squelch_fsm_cuda(rssi.to(dev), m0.to(dev), t0.to(dev),
+                                     -30.0, 20)
+    torch.cuda.synchronize()
+    assert cuda_scan.squelch_fsm_cuda.launches == before + 1
+    want = agc_ops.squelch_fsm_plain(rssi, m0, t0, -30.0, 20)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("chunk,threads", [(32, 32), (64, 128), (256, 64),
+                                           (32, 1024)])
+def test_squelch_fsm_kernel_geometries_match_chunked(chunk, threads):
+    """Chunk lengths and chunks a block of the sweep, at blocks of 1, 33,
+    5000 and 2^18 steps (one block a lane, several, runs of blocks in the
+    join) on 3 lanes: bit-equal to the chunked plain version on the CPU."""
+    dev = require_cuda()
+    for T in (1, 33, 5000, 1 << 18):
+        rssi, m0, t0 = _fsm_case(T, 3, T, torch.float32)
+        got = cuda_scan.squelch_fsm_cuda(rssi.to(dev), m0.to(dev),
+                                         t0.to(dev), -30.0, 20, chunk=chunk,
+                                         threads=threads)
+        want = agc_ops.squelch_fsm_chunked_torch(rssi, m0, t0, -30.0, 20)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), T
+
+
+def test_squelch_fsm_kernel_in_a_cuda_graph():
+    """The three launches captured in a CUDA graph and replayed give the
+    eager result."""
+    dev = require_cuda()
+    rssi, m0, t0 = (v.to(dev) for v in _fsm_case(3, 4, 1 << 15,
+                                                  torch.float32))
+    want = cuda_scan.squelch_fsm_cuda(rssi, m0, t0, -30.0, 20)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = cuda_scan.squelch_fsm_cuda(rssi, m0, t0, -30.0, 20)
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -27,7 +27,7 @@ from solid_dsp_tpu.ops import ddc as jddc
 from solid_dsp_tpu.ops import pallas_ddc as jpd
 from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig
 from solid_dsp_tpu_torch.ops import cuda_ddc, ddc, nco
-from torch_parity import snr_db
+from torch_parity import direct_dots_emulated, snr_db
 
 FC = 0.2
 P = cuda_ddc.DEFAULT_P
@@ -52,49 +52,11 @@ def _inputs(seed, L, D):
     return x2, (0.3 * rng.standard_normal((2, D))).astype(np.float32)
 
 
-def _bf16(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).to(torch.float32)
-
-
-def _fma(a, b, c):
-    """float32 fmaf: the exact product and sum in float64 (exact for
-    float32 operands), rounded once."""
-    return (a.double() * b.double() + c.double()).float()
-
-
 def _direct_emulated(body, x2: np.ndarray, tail: np.ndarray) -> np.ndarray:
-    """csrc/ddc_body.cu's direct route in torch: output t's window
-    x[t M + M - n + i] (the carried tail before the block, zeros past it);
-    lane l of its warp sums taps l, l + 32, ... with four FP32 FMAs a tap,
-    in order (fast: samples and taps rounded to bf16 first); then the
-    lanes' sums added by the butterfly of shuffles (xor 16, 8, 4, 2, 1),
-    lane 0's result kept."""
-    n, M = body.n, body.M
-    L = x2.shape[1]
-    T = L // M
-    D = max(n - M, 0)
-    ext = np.concatenate([np.zeros((2, n)), tail, x2], axis=1)
-    base = n + D                                   # ext index of sample 0
-    idx = (np.arange(T) * M + M - n)[:, None] + np.arange(n)[None, :]
-    win = torch.from_numpy(ext[:, base + idx]).float()      # (2, T, n)
-    h = body.taps.float()
-    if body.mode == "fast":
-        win, h = _bf16(win), _bf16(h)
-    lanes = torch.arange(32)
-    zr = torch.zeros((32, T))
-    zi = torch.zeros((32, T))
-    for j in range(-(-n // 32)):
-        i = j * 32 + lanes
-        live = (i < n)[:, None]
-        ic = i.clamp(max=n - 1)
-        a, b = win[0][:, ic].T, win[1][:, ic].T              # (32, T)
-        hr, hi = h[0, ic][:, None], h[1, ic][:, None]
-        zr = torch.where(live, _fma(-hi, b, _fma(hr, a, zr)), zr)
-        zi = torch.where(live, _fma(hi, a, _fma(hr, b, zi)), zi)
-    for off in (16, 8, 4, 2, 1):
-        zr = zr + zr[lanes ^ off]
-        zi = zi + zi[lanes ^ off]
-    return torch.stack([zr[0], zi[0]]).numpy()
+    """csrc/ddc_body.cu's direct route in torch: every output's warp dot
+    (torch_parity.direct_dots_emulated) in the body's mode."""
+    return direct_dots_emulated(body.taps, body.M, x2, tail,
+                                body.mode == "fast")
 
 
 def _tailrow(tail, hop):
@@ -151,10 +113,11 @@ def test_body_geometry_covers_jax_predicates(fast):
     """body_geometry gives a route wherever the JAX package's predicates
     take the block (n <= 512, M <= 256): the tensor-core one where its bank
     and spans fit one block's shared memory, else the direct one, which
-    needs none (so also above M ~217, where K1's direct route, staged in
-    shared memory, raises in launch_geometry)."""
+    needs none (so also above M ~217); where n > M K1's direct route, which
+    shares the body's warp dot and stages nothing either, takes the same
+    geometries (launch_geometry), the largest decimations included."""
     routes = {"tc": 0, "direct": 0}
-    past_k1 = 0
+    k1_large = 0
     for n, M in _grid():
         route, geo = cuda_ddc.body_geometry.__wrapped__(n, M, fast)
         routes[route] += 1
@@ -162,13 +125,13 @@ def test_body_geometry_covers_jax_predicates(fast):
             assert geo is None
             with pytest.raises(ValueError):
                 cuda_ddc.body_tc_geometry(n, M, fast)
-            try:
-                cuda_ddc.launch_geometry(n, M)
-            except ValueError:
-                past_k1 += 1
+            if n > M:
+                assert cuda_ddc.launch_geometry(n, M) == (
+                    cuda_ddc.FM_DIRECT_RUN, cuda_ddc.FM_DIRECT_WARPS)
+                k1_large += M >= 218
         else:
             assert geo == cuda_ddc.body_tc_geometry(n, M, fast)
-    assert routes["tc"] > 0 and routes["direct"] > 0 and past_k1 > 0
+    assert routes["tc"] > 0 and routes["direct"] > 0 and k1_large > 0
     for n, M in P4_POINTS + [(512, 256), (300, 256)]:
         assert cuda_ddc.body_geometry(n, M, fast)[0] == "direct"
 

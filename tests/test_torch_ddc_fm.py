@@ -131,19 +131,27 @@ def test_auto_engine_takes_plain_version_on_cpu():
     assert cuda_ddc.ddc_fm_cuda.launches == before
 
 
-@pytest.mark.parametrize("n,M,threads", [(64, 4, 256), (64, 32, 128),
-                                         (64, 2, 256), (513, 16, 256),
-                                         (128, 64, 64)])
-def test_launch_geometry_fits_shared_memory(n, M, threads):
-    """The largest thread block whose staged span fits 227 KB."""
-    got_threads, tbo, smem = cuda_ddc.launch_geometry(n, M)
-    assert got_threads == threads and tbo == 4 * threads
-    assert smem <= 227 * 1024
+@pytest.mark.parametrize("n,M", [(64, 4), (64, 32), (64, 2), (513, 16),
+                                 (128, 64)])
+def test_launch_geometry_fits_shared_memory(n, M):
+    """K1's direct route stages nothing in shared memory: runs of
+    FM_DIRECT_RUN outputs a warp, FM_DIRECT_WARPS warps a block, whatever
+    (n, M); the run divides every TPU tile, so fast mode's seams start
+    runs."""
+    R, warps = cuda_ddc.launch_geometry(n, M)
+    assert (R, warps) == (cuda_ddc.FM_DIRECT_RUN, cuda_ddc.FM_DIRECT_WARPS)
+    assert R in (4, 8, 16, 32) and 32 * warps <= 1024
+    assert (cuda_ddc.fm_seam_frames(4) * cuda_ddc.DEFAULT_P) % R == 0
 
 
 def test_launch_geometry_too_large_raises():
-    with pytest.raises(ValueError, match="shared-memory"):
-        cuda_ddc.launch_geometry(512, 256)
+    """(512, 256), past the staged design's shared memory (it raised
+    there), has a direct-route geometry; only n <= M, which K1 does not
+    compute, raises."""
+    assert cuda_ddc.launch_geometry(512, 256) == (cuda_ddc.FM_DIRECT_RUN,
+                                                  cuda_ddc.FM_DIRECT_WARPS)
+    with pytest.raises(ValueError, match="more taps"):
+        cuda_ddc.launch_geometry(128, 200)
 
 
 def test_plain_f64_matches_f32_body():

@@ -178,22 +178,23 @@ def test_fm_geometry_takes_the_tensor_cores(n, M, P, wgs, stages):
         assert got_P == cuda_ddc.body_tc_geometry(n, M)[0]
 
 
-@pytest.mark.parametrize("n,M,threads", [(200, 128, 32), (129, 128, 32),
-                                         (300, 112, 32)])
-def test_fm_geometry_large_m_takes_the_direct_route(n, M, threads):
+@pytest.mark.parametrize("n,M", [(200, 128), (129, 128), (300, 112)])
+def test_fm_geometry_large_m_takes_the_direct_route(n, M):
     """Where the spans do not fit one block's shared memory, K1 takes its
     direct-form route, chosen from (n, M) before any launch."""
     with pytest.raises(ValueError, match="shared memory"):
         cuda_ddc.fm_tc_geometry(n, M)
-    route, (got_threads, tbo, smem) = cuda_ddc.fm_geometry(n, M)
+    route, geo = cuda_ddc.fm_geometry(n, M)
     assert route == "direct"
-    assert got_threads == threads and tbo == 4 * threads
-    assert smem <= 227 * 1024
+    assert geo == cuda_ddc.launch_geometry(n, M) == (
+        cuda_ddc.FM_DIRECT_RUN, cuda_ddc.FM_DIRECT_WARPS)
 
 
 def test_fm_geometry_too_large_raises():
-    with pytest.raises(ValueError, match="shared-memory"):
-        cuda_ddc.fm_geometry(512, 256)
+    """(512, 256), where the staged direct route raised, takes the direct
+    route in both modes."""
+    for fast in (False, True):
+        assert cuda_ddc.fm_geometry(512, 256, fast)[0] == "direct"
 
 
 def test_fm_geometry_covers_every_direct_form_geometry():

@@ -106,6 +106,51 @@ def run_torch(blocks, state=None, device="cpu", **overrides):
     return np.concatenate(outs), st
 
 
+def _fma(a, b, c):
+    """float32 fmaf: the exact product and sum in float64 (exact for
+    float32 operands), rounded once."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def direct_dots_emulated(taps: torch.Tensor, M: int, x2: np.ndarray,
+                         tail: np.ndarray, fast: bool,
+                         ts=None) -> np.ndarray:
+    """The DDC bodies' direct-form warp dot (csrc/ddc_direct.cuh) in torch:
+    output t's window x[t M + M - n + i] (the carried tail before the block,
+    zeros before it; t = -1 allowed); lane l of its warp sums taps l, l +
+    32, ... with four FP32 FMAs a tap, in order (``fast``: samples and taps
+    rounded to bf16 first); then the lanes' sums added by the butterfly of
+    shuffles (xor 16, 8, 4, 2, 1), lane 0's result kept.  Returns (2,
+    len(ts)) for the outputs ``ts`` (all T = L / M of the block when None)."""
+    n = taps.shape[1]
+    L = x2.shape[1]
+    D = max(n - M, 0)
+    ts = np.arange(L // M) if ts is None else np.asarray(ts)
+    ext = np.concatenate([np.zeros((2, n)), tail, x2], axis=1)
+    base = n + D                                   # ext index of sample 0
+    idx = (ts * M + M - n)[:, None] + np.arange(n)[None, :]
+    win = torch.from_numpy(ext[:, base + idx]).float()      # (2, T, n)
+    h = taps.float()
+    if fast:
+        win = win.to(torch.bfloat16).float()
+        h = h.to(torch.bfloat16).float()
+    lanes = torch.arange(32)
+    zr = torch.zeros((32, len(ts)))
+    zi = torch.zeros((32, len(ts)))
+    for j in range(-(-n // 32)):
+        i = j * 32 + lanes
+        live = (i < n)[:, None]
+        ic = i.clamp(max=n - 1)
+        a, b = win[0][:, ic].T, win[1][:, ic].T              # (32, T)
+        hr, hi = h[0, ic][:, None], h[1, ic][:, None]
+        zr = torch.where(live, _fma(-hi, b, _fma(hr, a, zr)), zr)
+        zi = torch.where(live, _fma(hi, a, _fma(hr, b, zi)), zi)
+    for off in (16, 8, 4, 2, 1):
+        zr = zr + zr[lanes ^ off]
+        zi = zi + zi[lanes ^ off]
+    return torch.stack([zr[0], zi[0]]).numpy()
+
+
 def require_cuda() -> torch.device:
     """The card, or skip: decided when the test runs, never at import."""
     if not torch.cuda.is_available():

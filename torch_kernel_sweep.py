@@ -4,6 +4,9 @@
     python3 torch_kernel_sweep.py fir-route  # the FIR's two card routes
     python3 torch_kernel_sweep.py s3         # S3's chunk length and join
     python3 torch_kernel_sweep.py latency    # S1 and S2's latency bounds
+    python3 torch_kernel_sweep.py k1-direct  # K1's direct route: R, warps
+    python3 torch_kernel_sweep.py k1-route   # K1 as routed, both modes
+    python3 torch_kernel_sweep.py fsm        # S1's FSM entry: chunk, block
 
 * K6 (csrc/iir_bank.cu) at T = 2^14, C = 256, S = 2 (ChannelBank's block):
   the chunk length Lc in {16, 32, 64, 128}, each timed over a CUDA graph of
@@ -56,7 +59,31 @@
   (``cuobjdump -sass``, one warp issuing one a cycle) the other; the
   larger over the SM clock is its bound, printed beside its time a sample
   at T = 2^16.  The SASS is kept beside the built libraries
-  (``solid_dsp_tpu_torch/_build/seq_scan.sass``).
+  (``solid_dsp_tpu_torch/_build/seq_scan.sass``).  S1's FSM entry is
+  time-parallel (the chunk-and-join kernel): its row prints its bytes
+  bound (4 in and 4 out a step over 3.35 TB/s) beside its time instead.
+
+* ``k1-direct``: K1's direct route (csrc/ddc_fm.cu, a warp a run of R
+  outputs) at 256 taps and M = 128, 200, 240 and 512 taps, M = 256, ~2^24
+  samples, x3 and fast: R in {4, 8, 16, 32} and warps a block in {4, 8,
+  16}, each timed over a CUDA graph of 20 launches, its audio checked
+  bit-equal to the geometry as built (``cuda_ddc.FM_DIRECT_RUN``,
+  ``FM_DIRECT_WARPS``) and its SNR against the plain version.
+
+* ``k1-route``: K1 as ``ddc_fm_cuda`` routes it (``fm_geometry``) at
+  the same points and sizes, both modes, over a CUDA graph of 20 launches,
+  or "raises" where the route refuses the geometry.  It calls only what
+  every version of the port has, so a copy of this script and of
+  chip_smoke.py beside an older checkout (run from there) times that
+  checkout's K1 the same way.
+
+* ``fsm``: S1's FSM entry (csrc/seq_scan.cu, the chunk-and-join kernel):
+  the chunk length C in {32, 64, 128, 256} and chunks a block in {32, 64,
+  128, 256, 512}, at one lane of 2^16 and of 2^22 float32 and 64 lanes of
+  2^16, each timed over a CUDA graph of 5 calls and checked bit-equal to
+  the geometry as built (``cuda_scan.fsm_geometry``: ``FSM_CHUNK`` and
+  ``FSM_THREADS``, or ``FSM_SMALL`` for short tracks); then the profiler's
+  time of each of its three kernels as built.
 
 Prints one line a case with the card's name and power limit.  Needs one
 CUDA GPU; imports neither jax nor solid_dsp_tpu.
@@ -187,6 +214,132 @@ def s3_sweep(dev, smi) -> None:
                   + f" | {smi}", flush=True)
 
 
+K1_DIRECT_POINTS = ((256, 128), (256, 200), (256, 240), (512, 256))
+
+
+def k1_direct_sweep(dev, smi) -> None:
+    """K1's direct route: outputs a warp's run and warps a block at
+    K1_DIRECT_POINTS, ~2^24 samples, x3 and fast."""
+    from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig
+    from solid_dsp_tpu_torch.ops import cuda_ddc
+    from solid_dsp_tpu_torch.ops.nco import constrain
+
+    rng = np.random.default_rng(37)
+    built = (cuda_ddc.FM_DIRECT_RUN, cuda_ddc.FM_DIRECT_WARPS)
+    for n, M in K1_DIRECT_POINTS:
+        L = ((1 << 24) // (64 * M)) * 64 * M
+        xs = 0.5 * np.exp(1j * 0.21 * np.arange(L)) + 0.1 * (
+            rng.standard_normal(L) + 1j * rng.standard_normal(L))
+        x2 = torch.from_numpy(np.stack([xs.real, xs.imag]).astype(
+            np.float32)).to(dev)
+        tail = torch.from_numpy((0.3 * rng.standard_normal((2, n - M))).astype(
+            np.float32)).to(dev)
+        taps = RxChainConfig(fir_taps=n, decimation=M).design_taps()
+        for mode in cuda_ddc.MODES:
+            body = cuda_ddc.make_ddc_fm(taps, constrain(0.2), M, 0.1, dev,
+                                        mode=mode)
+            ap = cuda_ddc.ddc_fm_torch(body, x2, tail)[0].cpu().numpy()
+            ref = cuda_ddc._launch_fm(body, x2, tail, "direct", built)[0]
+            for R in (4, 8, 16, 32):
+                for warps in (4, 8, 16):
+                    geo = (R, warps)
+                    audio = cuda_ddc._launch_fm(body, x2, tail, "direct",
+                                                geo)[0]
+                    ms = graph_ms(lambda: cuda_ddc._launch_fm(
+                        body, x2, tail, "direct", geo), 20)
+                    print(f"[K1 direct {mode}, n={n} M={M} L={L}, R={R}, "
+                          f"{warps} warps a block] {ms:.4f} ms (CUDA graph "
+                          f"of 20 launches), audio bit-equal to R, warps = "
+                          f"{built}: {torch.equal(audio, ref)}, "
+                          f"{snr_db(audio.cpu().numpy(), ap):.1f} dB vs "
+                          f"plain | {smi}", flush=True)
+
+
+def k1_route_times(dev, smi) -> None:
+    """K1 as routed at K1_DIRECT_POINTS, ~2^24 samples, x3 and fast: ms
+    over a CUDA graph of 20 launches and the SNR against the plain
+    version, or "raises"."""
+    from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig
+    from solid_dsp_tpu_torch.ops import cuda_ddc
+    from solid_dsp_tpu_torch.ops.nco import constrain
+
+    rng = np.random.default_rng(37)
+    for n, M in K1_DIRECT_POINTS:
+        L = ((1 << 24) // (64 * M)) * 64 * M
+        xs = 0.5 * np.exp(1j * 0.21 * np.arange(L)) + 0.1 * (
+            rng.standard_normal(L) + 1j * rng.standard_normal(L))
+        x2 = torch.from_numpy(np.stack([xs.real, xs.imag]).astype(
+            np.float32)).to(dev)
+        tail = torch.from_numpy((0.3 * rng.standard_normal((2, n - M))).astype(
+            np.float32)).to(dev)
+        taps = RxChainConfig(fir_taps=n, decimation=M).design_taps()
+        for mode in cuda_ddc.MODES:
+            body = cuda_ddc.make_ddc_fm(taps, constrain(0.2), M, 0.1, dev,
+                                        mode=mode)
+            try:
+                route = cuda_ddc.fm_geometry(n, M, mode == "fast")
+                audio = cuda_ddc.ddc_fm_cuda(body, x2, tail)[0]
+            except ValueError as exc:
+                print(f"[K1 as routed, {mode}, n={n} M={M} L={L}] raises: "
+                      f"{exc} | {smi}", flush=True)
+                continue
+            ap = cuda_ddc.ddc_fm_torch(body, x2, tail)[0].cpu().numpy()
+            ms = graph_ms(lambda: cuda_ddc.ddc_fm_cuda(body, x2, tail), 20)
+            print(f"[K1 as routed, {mode}, n={n} M={M} L={L}] route {route}: "
+                  f"{ms:.4f} ms (CUDA graph of 20 launches), "
+                  f"{snr_db(audio.cpu().numpy(), ap):.1f} dB vs plain | "
+                  f"{smi}", flush=True)
+
+
+def fsm_sweep(dev, smi) -> None:
+    """S1's FSM entry: chunk length and chunks a block at one lane of 2^16
+    and 2^22 and 64 lanes of 2^16, then its three kernels' times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import rssi_walk
+    from solid_dsp_tpu_torch.ops import cuda_scan
+
+    rng = np.random.default_rng(29)
+    for B, T in ((1, 1 << 16), (1, 1 << 22), (64, 1 << 16)):
+        built = cuda_scan.fsm_geometry(B, T)
+        r = torch.from_numpy(np.stack([rssi_walk(rng, T) for _ in range(B)])
+                             ).to(dev, torch.float32)
+        m0 = torch.full((B,), 1, dtype=torch.int32, device=dev)   # ENABLED
+        t0 = torch.zeros((B,), dtype=torch.int32, device=dev)
+        want = cuda_scan.squelch_fsm_cuda(r, m0, t0, -30.0, 20)
+        for chunk in (32, 64, 128, 256):
+            for threads in (32, 64, 128, 256, 512):
+                def run():
+                    return cuda_scan.squelch_fsm_cuda(r, m0, t0, -30.0, 20,
+                                                      chunk, threads)
+                try:
+                    got = run()
+                except ValueError as exc:
+                    print(f"[S1's FSM, C={chunk}, {threads} chunks a block] "
+                          f"{exc}", flush=True)
+                    continue
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                ms = graph_ms(run, 5)
+                print(f"[S1's FSM, {B} lane(s) of 2^{T.bit_length() - 1}, "
+                      f"C={chunk}, {threads} chunks a block] {ms:.4f} ms "
+                      f"(CUDA graph of 5 calls), {ms * 1e6 / (B * T):.4f} ns "
+                      f"a step, bit-equal to C, chunks = {built}: {same} | "
+                      f"{smi}", flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                cuda_scan.squelch_fsm_cuda(r, m0, t0, -30.0, 20)
+            torch.cuda.synchronize()
+        rows = [(e.self_device_time_total / 1e3 / e.count, e.key[:60])
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count]
+        print(f"[S1's FSM, {B} lane(s) of 2^{T.bit_length() - 1}, C, chunks "
+              f"= {built} (as built), kernels (profiler, ms a call)] "
+              + ", ".join(f"{k} {t:.4f}" for t, k in sorted(rows,
+                                                          reverse=True))
+              + f" | {smi}", flush=True)
+
+
 # One thread runs a chain of 512 dependent operations of one kind between
 # two clock64 reads: cycles an operation (the loop's own counter and branch,
 # one every 16 operations, run beside the chain).
@@ -282,16 +435,12 @@ def sass_dump(source: str) -> str:
 #   S1 (agc_walk, unlocked, squelch disabled): ore = x g, ee = fma(ore, ore,
 #     oim^2), E = c1 E + ee c2, g = E > 1e-6 ? g exp(c3 ln E) : g, then
 #     the clamp: FMUL, FFMA, FMUL + FADD, logf, FMUL, expf, FMUL, 2 FSEL;
-#   S1's FSM entry (squelch_step): the mode's compare and the timer's
-#     (mode == FALL / SIGNALLO), then the timer's compare and the new mode's
-#     select: 4 dependent integer compares or selects, an FMUL's latency each;
 #   S2 (costas_pll_kernel): sincos(theta), y = x conj(e^{j theta}) (FMUL +
 #     FADD), the decision (compare and select on y), y conj(d) (FMUL +
 #     FADD), atan2, dtheta += alpha e (FMUL + FADD), theta = (theta +
 #     dtheta) + beta e (two FADDs, beta e off the chain).
 LATENCY_CHAINS = {
     "S1": {"FMUL": 4 + 2, "FFMA": 1, "FADD": 1, "logf": 1, "expf": 1},
-    "S1's FSM": {"FMUL": 4},
     "S2": {"sincosf": 1, "FMUL": 3, "FADD": 5, "compare+select": 1,
            "atan2f": 1},
 }
@@ -369,15 +518,11 @@ def latency_sweep(dev, smi) -> None:
     m0 = torch.tensor(1, dtype=torch.int32, device=dev)      # ENABLED
     t0 = torch.zeros((), dtype=torch.int32, device=dev)
     runs = {"S1": lambda: agc_ops.agc_apply(st, x, 0.01, 1.0, -1e30, 100),
-            "S1's FSM": lambda: cuda_scan.squelch_fsm_cuda(r, m0, t0, -30.0,
-                                                           20),
             "S2": lambda: qpsk_ops.qpsk_carrier_pll(x, 0.02)}
     # the float32 kernels' main loops: S1's unlocked walk without the FSM
-    # (8 loads, 8 MUFU.EX2; the least branchy of its 8-load loops), the
-    # FSM's walk, S2's walk (a float2 sample is two loads)
+    # (8 loads, 8 MUFU.EX2; the least branchy of its 8-load loops), S2's
+    # walk (a float2 sample is two loads)
     issue = {"S1": sass_step_instructions(sass, "agc_scan_kernelIf", 8, 8),
-             "S1's FSM": sass_step_instructions(sass, "squelch_fsm_kernelIf",
-                                                8),
              "S2": sass_step_instructions(sass, "costas_pll_kernelIf", 16)}
     for name, chain in LATENCY_CHAINS.items():
         cycles = sum(n * (lat[op] - (lat[_CARRIED[op]]
@@ -390,6 +535,15 @@ def latency_sweep(dev, smi) -> None:
               f"step; bound {bound_ns:.1f} ns at {mhz:.0f} MHz (the larger); "
               f"measured {ns:.1f} ns a sample (T = 2^16): {bound_ns / ns:.0%}"
               f" of the bound | {smi}", flush=True)
+    # S1's FSM entry is time-parallel: its bound is its bytes, the rssi
+    # read and the modes written once (4 + 4 a step) and the carry
+    ms = graph_ms(lambda: cuda_scan.squelch_fsm_cuda(r, m0, t0, -30.0, 20), 5)
+    bound = (8 * T + 16) / 3.35e12 * 1e3
+    print(f"[bytes bound S1's FSM] chunk-and-join kernel, three launches: "
+          f"bound {bound * 1e6 / T:.4f} ns a step ({bound:.5f} ms at T = "
+          f"2^16, bytes over 3.35 TB/s); measured {ms * 1e6 / T:.2f} ns a "
+          f"step ({ms:.4f} ms): {bound / ms:.1%} of the bound | {smi}",
+          flush=True)
 
 
 def main() -> None:
@@ -417,6 +571,18 @@ def main() -> None:
     if sys.argv[1:] == ["latency"]:
         cuda_build.build()
         latency_sweep(dev, smi)
+        return
+    if sys.argv[1:] == ["k1-direct"]:
+        cuda_build.build()
+        k1_direct_sweep(dev, smi)
+        return
+    if sys.argv[1:] == ["k1-route"]:
+        cuda_build.build()
+        k1_route_times(dev, smi)
+        return
+    if sys.argv[1:] == ["fsm"]:
+        cuda_build.build()
+        fsm_sweep(dev, smi)
         return
     cuda_build.build()
 
