@@ -48,7 +48,15 @@ solid_dsp_tpu_torch/csrc/:
 * the fused route at large decimations (128 taps at M = 200, 256 at
   M = 128; FM also at 256 taps, M = 240 and 512 taps, M = 256), where the
   tensor-core spans do not fit shared memory: the body's and K1's
-  direct-form routes (ddc_body.cu, ddc_fm.cu) in both modes.
+  direct-form routes (ddc_body.cu, ddc_fm.cu) in both modes;
+* the system as users start it: the port's own command line
+  (solid_dsp_tpu_torch.__main__.main, in this process) on a 2^26-sample
+  ci16 recording of broadcast stereo FM at 2.4 Msps (~28 s of an rtl_sdr
+  capture) that it writes first, the native runtime (StreamPump, a
+  UdpSource fed on localhost) and chain composition (streaming.compose):
+  rx through K1 and, for the recording's ragged end, K3; rx --demod am and
+  qpsk through K2; monitor --backend fused through K4; demo, --wav and
+  stage_iir through S3; stage_agc("exact") through S1.
 
 Phases, one line each:
 
@@ -246,9 +254,32 @@ Phases, one line each:
      taps, M = 128, 200 and 240 and 512 taps, M = 256, x3 and fast, on
      ~2^24 samples against its plain version (audio >= 90 dB, energy
      rtol 1e-5, edges 1e-4), two launches bit-equal, timed beside its
-     bound, its plain version and the staged design it replaced.
+     bound, its plain version and the staged design it replaced;
+ 38. the CLI, the runtime and composition (cli_phases), on recordings in a
+     temporary directory: StreamPump's read rate over the 2^26 + 3001-
+     sample ci16 recording; rx at --block 2^20 (the CLI's default) and
+     2^24 (config 4's), its output bit-equal to the same blocks through
+     RxChain on the card and >= 90 dB against the plain body, the stereo
+     multiplex read back (correlation > 0.8), K1 on every whole block and
+     K3 on the ragged end, each timed file to file (two turns) and split
+     a block under the profiler (pump wait, H2D copy, kernels, D2H copy,
+     write; the idle share); rx --demod am and qpsk on 2^24 samples (K2;
+     the AM tone, QPSK SER < 1e-3); rx --wav --stereo --rate 2400000 on
+     2^24 (separation > 12 dB on both rails; S3); monitor --channels 256
+     --backend fused --block 2^22 (K4; three bursts on their channels,
+     timed and split) and at --block 2^22 + 256, a multiple of the
+     channels but not of 8 x 256 (F2: the same events); demo (the golden
+     head; S3), spectrum --nfft 4096 and 1009, convert ci16 -> cf32 ->
+     ci16 (the same bytes), resample --rate 0.5 (length and tone); 2 s of
+     the recording as ci16 datagrams at 2.4 Msps from a sender process
+     into a UdpSource and RxChain on the card (nothing dropped or lost,
+     the multiplex read back); the config-4 stages composed over 4 x 2^24
+     samples against the fused RxChain (1e-5), and with
+     stage_agc("exact") and stage_iir (S1, S3) against
+     stage_agc("parallel").  Its launches are added to the kernels' line.
 
-Then the kernels' JSON line (each kernel's launches on the main paths; its
+A "[time]" line after each group of phases gives the script's elapsed
+time.  Then the kernels' JSON line (each kernel's launches on the main paths; its
 time, by CUDA events over a CUDA graph of 20 launches so that the host's
 launch rate is not counted (K5 over back-to-back launches); its plain
 version's time, the library call's where one PyTorch call computes the
@@ -260,6 +291,8 @@ non-zero.  Needs one CUDA GPU; imports neither jax nor solid_dsp_tpu.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -412,6 +445,25 @@ FM_FAST_ENERGY_RTOL = 1e-3  # its sum |z|^2 against float64
 CPU_RUN_MIN_SNR_DB = 100.0  # a chain on the card against its CPU run
 L_CPU_RUN = 1 << 22       # the complex128 and 300-tap chains' blocks
 AC_W, AC_D = 64, 16       # the autocorrelator's window and delay
+
+# phase 38: the CLI, the runtime and composition on recordings
+L_REC = 1 << 26           # ~28 s of a 2.4 Msps broadcast-FM capture, 256 MB
+REC_TAIL = 3001           # its ragged end: the last block, which the CLI
+#                           cuts to 3000 samples, takes K3
+FS_REC = 2.4e6            # the capture's sample rate (Hz)
+L_REC_SMALL = 1 << 24     # the am, qpsk, stereo, convert and resample inputs
+RX_BLOCKS = (1 << 20, 1 << 24)   # rx's default --block, and config 4's
+MON_BLOCK = 1 << 22       # monitor's --block at config 5's M = 256
+MON_CHANNELS = 256
+MON_BURSTS = ((64, 1, 4), (160, 5, 8), (200, 3, 6))   # (channel, on, off):
+#                           from the middle of block `on` to that of `off`
+BURST_AMP = 0.01
+REC_NOISE = 1e-3
+MSG_CORR_MIN = 0.8        # tests/test_cli.py:37-38
+CLI_SEPARATION_MIN_DB = 12.0   # tests/test_cli.py:221-227
+CLI_PEAK_DB_ATOL = 0.1    # F2: an event's peak at another cutting of blocks
+UDP_SECONDS = 2.0
+UDP_DATAGRAM = 1024       # ci16 samples a datagram
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -3256,6 +3308,626 @@ def p4_phases(dev, smi) -> list:
     return entries
 
 
+def fm_recording(dev, n: int):
+    """The phase-38 recording: a broadcast stereo multiplex (L 700 Hz, R
+    2100 Hz, fm_stereo_mpx at the demodulated rate FS_REC / 4, held for 4
+    samples), FM-modulated with kf 0.1 at 0.9 of full deviation onto the
+    carrier 0.2 rad/sample, at amplitude 0.5; the MON_BURSTS tones of
+    BURST_AMP at their channels' centres; complex noise of REC_NOISE.
+    Built on the card in float64.  Returns (the complex64 samples on the
+    host, the normalized multiplex at FS_REC / 4 on the host)."""
+    from solid_dsp_tpu_torch.models.fm import fm_modulate, fm_stereo_mpx
+    nd = -(-n // 4)
+    t = torch.arange(nd, device=dev, dtype=torch.float64) / (FS_REC / 4)
+    mpx = fm_stereo_mpx(torch.sin(2 * np.pi * 700.0 * t).float(),
+                        torch.sin(2 * np.pi * 2100.0 * t).float(),
+                        FS_REC / 4).double()
+    mpx = 0.9 * mpx / mpx.abs().max()
+    iq, _ = fm_modulate(mpx.repeat_interleave(4)[:n], 0.1)
+    k = torch.arange(n, device=dev, dtype=torch.float64)
+    iq = 0.5 * iq * torch.exp(1j * (0.2 * k))
+    for c, on, off in MON_BURSTS:
+        s0, s1 = int((on + 0.5) * MON_BLOCK), int((off + 0.5) * MON_BLOCK)
+        iq[s0:s1] += BURST_AMP * torch.exp(
+            2j * np.pi * (c / MON_CHANNELS) * k[s0:s1])
+    g = torch.Generator(device=dev).manual_seed(SEED + 38)
+    w = torch.randn((2, n), generator=g, device=dev, dtype=torch.float64)
+    iq += REC_NOISE * torch.complex(w[0], w[1])
+    return iq.to(torch.complex64).cpu().numpy(), mpx.cpu().numpy()
+
+
+def best_corr(y: np.ndarray, ref: np.ndarray, start: int = 1000,
+              n: int = 1 << 20, max_lag: int = 40) -> float:
+    """Largest correlation of y[start:start + n] with ref delayed by 0 to
+    max_lag samples (the decimating filter's group delay)."""
+    n = min(n, len(y) - start)
+    a = y[start:start + n].astype(np.float64)
+    return max(float(np.corrcoef(a, ref[start - d:start - d + n])[0, 1])
+               for d in range(max_lag))
+
+
+def cli_counters():
+    """{name: (wrapper, attribute)} of the kernels the CLI and compose
+    paths reach."""
+    from solid_dsp_tpu_torch.ops import cuda_chan, cuda_ddc, cuda_scan
+    return {"ddc_fm": (cuda_ddc.ddc_fm_cuda, "launches"),
+            "ddc_body": (cuda_ddc.ddc_body_cuda, "launches"),
+            "ddc_body_unaligned": (cuda_ddc.ddc_body_unaligned_cuda,
+                                   "launches"),
+            "channelizer": (cuda_chan.chan_fused_cuda, "launches"),
+            "agc_scan": (cuda_scan.agc_scan_cuda, "launches"),
+            "iir_scan": (cuda_scan.iir_scan_cuda, "launches"),
+            "sos_cascade": (cuda_scan.sos_cascade_cuda, "launches")}
+
+
+def reset_cli_counts():
+    for fn, attr in cli_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_cli_counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in cli_counters().items()}
+
+
+def run_cli(cli_main, argv) -> tuple:
+    """(exit code, its standard output, wall s) of the CLI's main(argv) in
+    this process; the wall ends with a synchronize."""
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def cli_profiled(cli_main, argv, warm_argv) -> dict:
+    """The CLI's main(argv) under torch.profiler (after warm_argv in the
+    warm-up step), the host's time in StreamPump.next_block ("pump") and in
+    write_iq ("write") summed by wrappers that only read the clock, and the
+    device's records split into host-to-device copies, device-to-host
+    copies and kernels (ms, summed over the run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from solid_dsp_tpu_torch import runtime
+    spans = {"pump": 0.0, "write": 0.0}
+    next_block, write_iq = runtime.StreamPump.next_block, runtime.write_iq
+
+    def timed_next(self):
+        t = time.perf_counter()
+        try:
+            return next_block(self)
+        finally:
+            spans["pump"] += time.perf_counter() - t
+
+    def timed_write(*a, **k):
+        t = time.perf_counter()
+        try:
+            return write_iq(*a, **k)
+        finally:
+            spans["write"] += time.perf_counter() - t
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        run_cli(cli_main, warm_argv)
+        prof.step()
+        runtime.StreamPump.next_block = timed_next
+        runtime.write_iq = timed_write
+        try:
+            rc, _, wall = run_cli(cli_main, argv)
+        finally:
+            runtime.StreamPump.next_block = next_block
+            runtime.write_iq = write_iq
+        prof.step()
+    if rc != 0:
+        fail(f"phase 38: {' '.join(argv[:1])} under the profiler returned "
+             f"{rc}")
+    dev_ms = {"h2d": 0.0, "d2h": 0.0, "kernels": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA or not e.count
+                or e.key.startswith("ProfilerStep")):
+            continue
+        ms = e.self_device_time_total / 1e3
+        if e.key.startswith("Memcpy HtoD"):
+            dev_ms["h2d"] += ms
+        elif e.key.startswith("Memcpy DtoH"):
+            dev_ms["d2h"] += ms
+        else:
+            dev_ms["kernels"] += ms
+            top.append((ms, e.key, e.count))
+    top = ", ".join(f"{k[:40]} {t:.3f} ms ({c})"
+                    for t, k, c in sorted(top, reverse=True)[:3])
+    return {"wall": wall, **spans, **dev_ms, "top": top}
+
+
+def split_line(label: str, n_samples: int, n_blocks: int, wall_s: float,
+               prof: dict, smi: str) -> str:
+    """The file-to-file rate and the split of a block."""
+    busy = prof["kernels"] + prof["h2d"] + prof["d2h"]
+    pw = prof["wall"] * 1e3
+    return (f"[38 {label}] {n_samples / wall_s / 1e6:.1f} Msamples/s file "
+            f"to file ({n_samples} samples in {wall_s:.3f} s, {n_blocks} "
+            f"blocks); a block (profiled run, {pw / n_blocks:.3f} ms): pump "
+            f"wait {prof['pump'] * 1e3 / n_blocks:.3f} ms, H2D copy "
+            f"{prof['h2d'] / n_blocks:.3f} ms, device busy (kernels) "
+            f"{prof['kernels'] / n_blocks:.3f} ms, D2H copy "
+            f"{prof['d2h'] / n_blocks:.3f} ms, write "
+            f"{prof['write'] * 1e3 / n_blocks:.3f} ms; device idle "
+            f"{max(0.0, 1 - prof['kernels'] / pw):.1%} (no kernel), "
+            f"{max(0.0, 1 - busy / pw):.1%} (no kernel and no copy); "
+            f"largest kernels: {prof['top']} | {smi}")
+
+
+def fm_band(c: int) -> bool:
+    """Whether channel c lies in the FM signal's band (the carrier's
+    channel +- 0.1 cycles/sample and a margin)."""
+    centre = 0.2 / (2 * np.pi) * MON_CHANNELS
+    off = (c - centre + MON_CHANNELS / 2) % MON_CHANNELS - MON_CHANNELS / 2
+    return abs(off) <= 0.1 * MON_CHANNELS + 8
+
+
+UDP_SENDER = """
+import socket, sys, time
+rec, n, port, dg, fs = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \\
+    int(sys.argv[4]), float(sys.argv[5])
+with open(rec, "rb") as f:
+    raw = f.read(4 * n)
+tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+late, t0 = 0.0, time.perf_counter()
+for i in range(n // dg):
+    due = t0 + i * dg / fs
+    now = time.perf_counter()
+    if now < due:
+        time.sleep(due - now)
+    else:
+        late = max(late, now - due)
+    tx.sendto(raw[4 * dg * i:4 * dg * (i + 1)], ("127.0.0.1", port))
+print(f"{time.perf_counter() - t0:.6f} {late:.6f}")
+"""
+
+
+def udp_phase(dev, rec: str, mpx: np.ndarray, smi: str):
+    """38 (vi): the recording's first UDP_SECONDS as ci16 datagrams paced at
+    FS_REC from a sender process (its own interpreter, so that this one's
+    work cannot hold it back into bursts) to a UdpSource on localhost, each
+    drained block through RxChain on the card (the remainder of 4
+    carried)."""
+    import socket
+
+    from solid_dsp_tpu_torch.models.rx_chain import RxChain
+    from solid_dsp_tpu_torch.runtime import UdpSource
+
+    n = int(UDP_SECONDS * FS_REC) // UDP_DATAGRAM * UDP_DATAGRAM
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    chain = RxChain(carrier_freq=0.2, decimation=4, fir_taps=64, demod="fm",
+                    nco_mode="exact", agc_mode="block", device=dev)
+    outs, got, carry, blocks = [], 0, np.zeros(0, np.complex64), 0
+    with UdpSource(port=port, fmt="ci16", bind_addr="127.0.0.1",
+                   ring_samples=1 << 22) as src:
+        t0 = time.perf_counter()
+        sender = subprocess.Popen(
+            [sys.executable, "-c", UDP_SENDER, rec, str(n), str(port),
+             str(UDP_DATAGRAM), str(FS_REC)], stdout=subprocess.PIPE,
+            text=True)
+        try:
+            idle_since = None
+            while got < n:
+                b = src.read(1 << 18)
+                if not len(b):
+                    now = time.perf_counter()
+                    if sender.poll() is not None:
+                        # the sender is done: whatever is still to come
+                        # is in the socket or the ring within a moment
+                        idle_since = idle_since or now
+                        if now - idle_since > 0.5:
+                            break
+                    elif now - t0 > UDP_SECONDS + 30.0:
+                        break
+                    time.sleep(0.002)
+                    continue
+                idle_since = None
+                got += len(b)
+                b = np.concatenate([carry, b])
+                take = len(b) // 4 * 4
+                carry = b[take:]
+                if take:
+                    outs.append(chain.execute_block(b[:take]).cpu().numpy())
+                    blocks += 1
+            wall = time.perf_counter() - t0
+            out, _ = sender.communicate(timeout=30)
+        finally:
+            if sender.poll() is None:
+                sender.kill()
+                sender.wait()
+        dropped = src.dropped
+    send_s, late = (float(v) for v in out.split()) if out.strip() else (
+        0.0, 0.0)
+    y = np.concatenate(outs) if outs else np.zeros(0, np.float32)
+    corr = best_corr(y, mpx, n=min(len(y) - 1100, 1 << 18)) if len(y) > 4096 \
+        else 0.0
+    ok = (dropped == 0 and got == n and sender.returncode == 0
+          and corr > MSG_CORR_MIN and np.all(np.isfinite(y)))
+    print(f"[38 vi UdpSource -> RxChain on the card] {got} of {n} samples "
+          f"({UDP_SECONDS} s of ci16 at {FS_REC / 1e6} Msps, datagrams of "
+          f"{UDP_DATAGRAM}) in {blocks} blocks, sender process {send_s:.3f} "
+          f"s (latest {late * 1e3:.2f} ms behind), dropped {dropped} (gate "
+          f"0), message correlation {corr:.4f} (gate {MSG_CORR_MIN}), "
+          f"{got / wall / 1e6:.2f} Msamples/s received | {smi}", flush=True)
+    if not ok:
+        fail("phase 38 (vi): the UDP stream into the chain lost samples or "
+             "the message")
+
+
+def cli_phases(dev, smi) -> dict:
+    """Phase 38: the port's own CLI (``solid_dsp_tpu_torch.__main__.main``,
+    in this process), its native runtime and chain composition on
+    recordings written to a temporary directory: rx at two block sizes
+    (against RxChain on the card bit for bit and against the plain body),
+    am, qpsk, --wav --stereo, monitor --backend fused (and F2's block),
+    demo, spectrum, convert, resample; StreamPump's read rate; a UdpSource
+    into RxChain; the config-4 stages composed, and with the exact AGC and
+    an IIR stage.  Returns the kernels' launches on these paths."""
+    import tempfile
+
+    from solid_dsp_tpu_torch.__main__ import main as cli_main
+    from solid_dsp_tpu_torch.models.rx_chain import RxChain, RxChainConfig
+    from solid_dsp_tpu_torch.runtime import StreamPump, read_iq, write_iq
+    from solid_dsp_tpu_torch.streaming.compose import (
+        compose, stage_agc, stage_fir_decim, stage_fm_demod, stage_iir,
+        stage_nco_mix_down)
+
+    counts = dict.fromkeys(cli_counters(), 0)
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        n_rec = L_REC + REC_TAIL
+        t = time.perf_counter()
+        x, mpx = fm_recording(dev, n_rec)
+        rec = os.path.join(tmp, "capture.ci16")
+        write_iq(rec, x, "ci16")
+        print(f"[38 recording] {n_rec} samples ci16 "
+              f"({os.path.getsize(rec) / 2**20:.1f} MiB) written in "
+              f"{time.perf_counter() - t:.2f} s", flush=True)
+        small = os.path.join(tmp, "small.ci16")
+        write_iq(small, x[:L_REC_SMALL], "ci16")
+        tiny = os.path.join(tmp, "tiny.ci16")          # warm-up runs
+        write_iq(tiny, x[:1 << 16], "ci16")
+        del x
+
+        # (vi, first) StreamPump alone, page cache warm
+        for _ in range(2):
+            t = time.perf_counter()
+            nread = 0
+            with StreamPump(rec, fmt="ci16", block=1 << 20) as pump:
+                for b in pump:
+                    nread += len(b)
+            pump_s = time.perf_counter() - t
+        print(f"[38 vi StreamPump, ci16 -> complex64, blocks of 2^20] "
+              f"{os.path.getsize(rec) / pump_s / 1e9:.2f} GB/s read, "
+              f"{nread / pump_s / 1e6:.1f} Msamples/s converted "
+              f"({nread} samples, page cache warm) | {smi}", flush=True)
+        if nread != n_rec:
+            fail("phase 38: StreamPump read the wrong number of samples")
+
+        # (ii) rx at the CLI's default block and at config 4's
+        rec_c = read_iq(rec, "ci16")
+        n_used = n_rec - n_rec % 4
+        for B in RX_BLOCKS:
+            out = os.path.join(tmp, f"rx_{B}.cf32")
+            argv = ["rx", rec, "--format", "ci16", "--block", str(B),
+                    "-o", out]
+            run_cli(cli_main, ["rx", tiny, "--format", "ci16", "-o",
+                               os.path.join(tmp, "warm.cf32")])
+            reset_cli_counts()
+            rc, _, wall = run_cli(cli_main, argv)
+            c = read_cli_counts()
+            add(c)
+            y = read_iq(out)
+            rc2, _, wall2 = run_cli(cli_main, argv)      # a second turn
+            n_blocks = -(-n_rec // B)
+            want_k1 = n_rec // B                      # whole blocks: K1
+            direct = {}
+            for engine in ("auto", "torch"):
+                chain = RxChain(carrier_freq=0.2, decimation=4, fir_taps=64,
+                                demod="fm", nco_mode="exact",
+                                agc_mode="block", device=dev,
+                                ddc_engine=engine)
+                outs = []
+                for i in range(0, n_rec, B):
+                    b = rec_c[i:i + B]
+                    b = b[:len(b) - len(b) % 4]
+                    outs.append(chain.execute_block(b).cpu().numpy())
+                direct[engine] = np.concatenate(outs)
+            equal = (y.shape == (n_used // 4,) and np.all(y.imag == 0)
+                     and np.array_equal(y.real, direct["auto"]))
+            snr = snr_db(y.real, direct["torch"])
+            corr = best_corr(y.real, mpx)
+            prof = cli_profiled(cli_main, argv,
+                                ["rx", tiny, "--format", "ci16", "-o",
+                                 os.path.join(tmp, "warm.cf32")])
+            print(f"[38 ii rx --block {B}] rc {rc}, {len(y)} outputs, "
+                  f"bit-equal to RxChain(device='cuda') on the same blocks "
+                  f"{equal}, {snr:.1f} dB against the plain body (gate "
+                  f"{MIN_SNR_DB}), message correlation {corr:.4f} (gate "
+                  f"{MSG_CORR_MIN}), launches K1 {c['ddc_fm']} (want "
+                  f"{want_k1}), K3 {c['ddc_body_unaligned']}, K2 "
+                  f"{c['ddc_body']}", flush=True)
+            print(split_line(f"rx --block {B}, ci16 -> FM -> cf32", n_used,
+                             n_blocks, wall, prof, smi)
+                  + f"; second turn {n_used / wall2 / 1e6:.1f} Msamples/s",
+                  flush=True)
+            if not (rc == rc2 == 0 and equal and snr >= MIN_SNR_DB
+                    and corr > MSG_CORR_MIN and c["ddc_fm"] == want_k1
+                    and c["ddc_body_unaligned"] == 1 and c["ddc_body"] == 0
+                    and np.all(np.isfinite(y.real))):
+                fail(f"phase 38 (ii): rx --block {B} is wrong")
+        del rec_c
+
+        # (ii) am and qpsk on 2^24 samples
+        rng = np.random.default_rng(SEED + 381)
+        am = make_am_block(rng, 0, L_REC_SMALL)
+        sym = qpsk_symbols(1, L_REC_SMALL)
+        qp = make_qpsk_block(rng, sym, 0, L_REC_SMALL)
+        for demod, planes in (("am", am), ("qpsk", qp)):
+            src = os.path.join(tmp, f"{demod}.ci16")
+            write_iq(src, (planes[0] + 1j * planes[1]).astype(np.complex64),
+                     "ci16")
+            out = os.path.join(tmp, f"{demod}.cf32")
+            reset_cli_counts()
+            rc, _, wall = run_cli(cli_main, ["rx", src, "--format", "ci16",
+                                             "--demod", demod, "-o", out])
+            c = read_cli_counts()
+            add(c)
+            y = read_iq(out)
+            T = L_REC_SMALL // 4
+            if demod == "am":
+                env = y.real[T // 2:].astype(np.float64)
+                peak = int(np.argmax(np.abs(np.fft.rfft(env - env.mean()))
+                                     [1:])) + 1
+                want = round(AM_TONE * 4 * len(env))
+                ok = abs(peak - want) <= 1
+                what = f"tone at bin {peak} want {want}"
+            else:
+                # per block of the CLI's 2^20 samples: each block has its
+                # own carrier estimate and pi/2 ambiguity (as phase 9)
+                Tb = (1 << 20) // 4
+                sers = []
+                for b in range(4):
+                    q = y[b * Tb:(b + 1) * Tb][11::8]
+                    sers.append(best_aligned_ser(
+                        sym[b * Tb // 8:(b + 1) * Tb // 8],
+                        (q.real < 0).astype(int) + 2 * (q.imag < 0)))
+                ok = max(sers) < MAX_SER
+                what = (f"SER of blocks 0-3 {[round(s, 6) for s in sers]} "
+                        f"(gate {MAX_SER})")
+            print(f"[38 ii rx --demod {demod}, 2^24 samples] rc {rc}, "
+                  f"{len(y)} outputs, {what}, launches K2 {c['ddc_body']}, "
+                  f"K1 {c['ddc_fm']}, {L_REC_SMALL / wall / 1e6:.1f} "
+                  f"Msamples/s file to file | {smi}", flush=True)
+            if not (rc == 0 and ok and c["ddc_body"] == L_REC_SMALL >> 20
+                    and c["ddc_fm"] == 0 and y.shape == (T,)):
+                fail(f"phase 38 (ii): rx --demod {demod} is wrong")
+
+        # (iii) rx --wav --stereo on 2^24 samples
+        wav = os.path.join(tmp, "stereo.wav")
+        reset_cli_counts()
+        rc, _, wall = run_cli(cli_main, ["rx", small, "--format", "ci16",
+                                         "--wav", wav, "--rate", str(FS_REC),
+                                         "--stereo"])
+        c = read_cli_counts()
+        add(c)
+        import wave
+        with wave.open(wav, "rb") as w:
+            chans, rate = w.getnchannels(), w.getframerate()
+            pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+        left, right = pcm[0::2].astype(float), pcm[1::2].astype(float)
+        edge = 4800
+        sep_l = 10 * np.log10(tone_power(left, 700.0, 48000.0, edge)
+                              / tone_power(left, 2100.0, 48000.0, edge))
+        sep_r = 10 * np.log10(tone_power(right, 2100.0, 48000.0, edge)
+                              / tone_power(right, 700.0, 48000.0, edge))
+        want_frames = round(L_REC_SMALL / FS_REC * 48000)
+        s3 = c["iir_scan"] + c["sos_cascade"]
+        print(f"[38 iii rx --wav --stereo --rate {FS_REC:.0f}, 2^24 samples]"
+              f" rc {rc}, {chans} channels at {rate} Hz, {len(left)} frames "
+              f"(~{want_frames}), separation L {sep_l:.1f} dB, R "
+              f"{sep_r:.1f} dB (gate {CLI_SEPARATION_MIN_DB}), S3 launches "
+              f"{s3}, {wall:.3f} s | {smi}", flush=True)
+        if not (rc == 0 and chans == 2 and rate == 48000
+                and abs(len(left) - want_frames) < 1500
+                and sep_l > CLI_SEPARATION_MIN_DB
+                and sep_r > CLI_SEPARATION_MIN_DB and s3 > 0):
+            fail("phase 38 (iii): the stereo WAV is wrong")
+
+        # (iv) monitor --backend fused, and F2's block
+        mon = {}
+        for B in (MON_BLOCK, MON_BLOCK + MON_CHANNELS):
+            argv = ["monitor", rec, "--format", "ci16", "--channels",
+                    str(MON_CHANNELS), "--backend", "fused", "--block",
+                    str(B)]
+            run_cli(cli_main, ["monitor", tiny, "--format", "ci16",
+                               "--channels", str(MON_CHANNELS), "--backend",
+                               "fused"])
+            reset_cli_counts()
+            rc, out, wall = run_cli(cli_main, argv)
+            c = read_cli_counts()
+            add(c)
+            rows = [json.loads(line) for line in out.strip().splitlines()]
+            events = [e for e in rows[:-1] if not fm_band(e["channel"])]
+            mon[B] = events
+            want = sorted((ch, on) for ch, on, _ in MON_BURSTS)
+            got = sorted((e["channel"], e["start_block"]) for e in events)
+            ends_ok = all(e["end_block"] > dict(
+                (ch, off) for ch, _, off in MON_BURSTS)[e["channel"]]
+                for e in events if e["channel"] in
+                {ch for ch, _, _ in MON_BURSTS})
+            n_fm = len(rows) - 1 - len(events)
+            print(f"[38 iv monitor --channels {MON_CHANNELS} --backend "
+                  f"fused --block {B}] rc {rc}, blocks "
+                  f"{rows[-1]['blocks']}, events off the FM band "
+                  f"{[(e['channel'], e['start_block'], e['end_block'], e['peak_rel_db']) for e in events]}"
+                  f" (want channels and starts {want}), {n_fm} events in "
+                  f"the FM band, K4 launches {c['channelizer']}", flush=True)
+            if not (rc == 0 and got == want and ends_ok
+                    and c["channelizer"] >= L_REC // B):
+                fail(f"phase 38 (iv): monitor --block {B} is wrong")
+            if B == MON_BLOCK:
+                prof = cli_profiled(cli_main, argv,
+                                    ["monitor", tiny, "--format", "ci16",
+                                     "--channels", str(MON_CHANNELS),
+                                     "--backend", "fused"])
+                print(split_line(f"monitor --backend fused --block {B}, "
+                                 f"256 channels", n_rec,
+                                 rows[-1]["blocks"], wall, prof, smi),
+                      flush=True)
+        same = [(e["channel"], e["start_block"], e["end_block"])
+                for e in mon[MON_BLOCK]] == [
+            (e["channel"], e["start_block"], e["end_block"])
+            for e in mon[MON_BLOCK + MON_CHANNELS]] and all(
+            abs(a["peak_rel_db"] - b["peak_rel_db"]) <= CLI_PEAK_DB_ATOL
+            for a, b in zip(mon[MON_BLOCK], mon[MON_BLOCK + MON_CHANNELS]))
+        print(f"[38 iv F2: --block {MON_BLOCK + MON_CHANNELS}, a multiple of "
+              f"{MON_CHANNELS} but not of 8 x {MON_CHANNELS}] runs, events "
+              f"equal to --block {MON_BLOCK}'s {same} (peaks within "
+              f"{CLI_PEAK_DB_ATOL} dB)", flush=True)
+        if not same:
+            fail("phase 38 (iv): F2's block changes the events")
+
+        # (v) the small commands
+        reset_cli_counts()
+        rc, out, wall = run_cli(cli_main, ["demo"])
+        c = read_cli_counts()
+        add(c)
+        s3 = c["iir_scan"] + c["sos_cascade"]
+        head = "0.058167695961" in out
+        print(f"[38 v demo] rc {rc}, golden head 0.058167695961 {head}, S3 "
+              f"launches {s3} | {out.splitlines()[1].strip()}", flush=True)
+        if not (rc == 0 and head and s3 > 0):
+            fail("phase 38 (v): demo is wrong")
+        tone_rec = os.path.join(tmp, "tone.cf32")
+        k = np.arange(L_REC_SMALL)
+        write_iq(tone_rec, (0.5 * np.exp(2j * np.pi * 0.1 * k)
+                            + REC_NOISE * cnoise(rng, L_REC_SMALL)
+                            ).astype(np.complex64))
+        for nfft, atol, margin in ((4096, 1e-3, 40.0), (1009, 1e-2, 30.0)):
+            rc, out, _ = run_cli(cli_main, ["spectrum", tone_rec, "--nfft",
+                                            str(nfft)])
+            r = json.loads(out)
+            ok = (rc == 0 and abs(r["peak_freq"] - 0.1) < atol
+                  and r["peak_db"] > r["noise_floor_db"] + margin)
+            print(f"[38 v spectrum --nfft {nfft}] {out.strip()} (gates "
+                  f"|peak - 0.1| < {atol}, {margin} dB over the floor) "
+                  f"{ok}", flush=True)
+            if not ok:
+                fail(f"phase 38 (v): spectrum --nfft {nfft} is wrong")
+        mid = os.path.join(tmp, "mid.cf32")
+        back = os.path.join(tmp, "back.ci16")
+        t = time.perf_counter()
+        rc1, _, _ = run_cli(cli_main, ["convert", small, mid, "--format",
+                                       "ci16", "--out-format", "cf32"])
+        rc2, _, _ = run_cli(cli_main, ["convert", mid, back, "--format",
+                                       "cf32", "--out-format", "ci16"])
+        conv_s = time.perf_counter() - t
+        with open(small, "rb") as f1, open(back, "rb") as f2:
+            same = f1.read() == f2.read()
+        print(f"[38 v convert ci16 -> cf32 -> ci16, 2^24 samples] bytes "
+              f"identical {same}, {2 * L_REC_SMALL / conv_s / 1e6:.1f} "
+              f"Msamples/s over both | {smi}", flush=True)
+        if not (rc1 == rc2 == 0 and same):
+            fail("phase 38 (v): convert does not round-trip")
+        rs_out = os.path.join(tmp, "half.cf32")
+        rc, _, wall = run_cli(cli_main, ["resample", tone_rec, rs_out,
+                                         "--rate", "0.5"])
+        y = read_iq(rs_out)
+        seg = y[1 << 16:(1 << 16) + 8192]
+        f_out = int(np.argmax(np.abs(np.fft.fft(seg)))) / 8192
+        ok = (rc == 0 and len(y) == round(L_REC_SMALL * 0.5)
+              and abs(f_out - 0.2) < 2e-3 and np.all(np.isfinite(y)))
+        print(f"[38 v resample --rate 0.5, 2^24 samples] rc {rc}, {len(y)} "
+              f"outputs (want {round(L_REC_SMALL * 0.5)}), tone at "
+              f"{f_out:.5f} want 0.2, {L_REC_SMALL / wall / 1e6:.1f} "
+              f"Msamples/s file to file | {smi}", flush=True)
+        if not ok:
+            fail("phase 38 (v): resample is wrong")
+
+        # (vi) a live UDP stream into the chain
+        reset_cli_counts()
+        udp_phase(dev, rec, mpx, smi)
+        add(read_cli_counts())
+
+        # (vii) compose: the config-4 stages over 4 blocks of 2^24
+        blocks = read_iq(rec, "ci16", count=4 * L_FULL).reshape(4, L_FULL)
+        cfg = RxChainConfig(carrier_freq=0.2, decimation=4, fir_taps=64,
+                            agc_mode="block", demod="fm", nco_mode="exact")
+        taps = np.asarray(cfg.design_taps(), np.complex64)
+        chain = RxChain(cfg, device=dev)
+        want = np.concatenate([chain.execute_block(b).cpu().numpy()
+                               for b in blocks])
+
+        def composed(agc_mode, iir):
+            stages = [stage_nco_mix_down(0.2, device=dev),
+                      stage_fir_decim(taps, 4, device=dev),
+                      stage_agc(cfg.agc_bandwidth, mode=agc_mode,
+                                device=dev),
+                      stage_fm_demod(cfg.fm_kf, device=dev)]
+            if iir:
+                stages.append(stage_iir([0.2, 0.3, 0.1], [1.0, -0.5],
+                                        dtype=torch.float32, method="scan",
+                                        device=dev))
+            init, apply = compose(*stages)
+            st, ys = init(), []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for b in blocks:
+                y, st = apply(st, torch.as_tensor(b, device=dev))
+                ys.append(y.cpu().numpy())
+            return np.concatenate(ys), time.perf_counter() - t
+
+        reset_cli_counts()
+        y_blk, s_blk = composed("block", False)
+        c_blk = read_cli_counts()
+        err = float(np.max(np.abs(y_blk - want)))
+        reset_cli_counts()
+        y_ex, s_ex = composed("exact", True)
+        c = read_cli_counts()
+        add(c)
+        y_par, _ = composed("parallel", True)
+        err_ex = float(np.max(np.abs(y_ex - y_par)))
+        print(f"[38 vii compose, config-4 stages, 4 x 2^24 of the recording] "
+              f"block AGC against the fused RxChain max |err| {err:.3g} (gate "
+              f"1e-05), {4 * L_FULL / s_blk / 1e6:.1f} Msamples/s, kernels "
+              f"{sum(c_blk.values())}; with stage_agc('exact') and stage_iir "
+              f"(scan): S1 launches {c['agc_scan']}, S3 launches "
+              f"{c['iir_scan']}, {4 * L_FULL / s_ex / 1e6:.1f} Msamples/s, "
+              f"against stage_agc('parallel') max |err| {err_ex:.3g} (gate "
+              f"{S1_RTOL} x max|y| = {S1_RTOL * np.abs(y_par).max():.3g}) "
+              f"| {smi}", flush=True)
+        if not (err <= 1e-5 and c["agc_scan"] >= 4 and c["iir_scan"] >= 4
+                and err_ex <= S1_RTOL * np.abs(y_par).max()
+                and np.all(np.isfinite(y_ex))):
+            fail("phase 38 (vii): the composed chain is wrong")
+
+    missing = [k for k in ("ddc_fm", "ddc_body", "ddc_body_unaligned",
+                           "channelizer", "agc_scan") if not counts[k]]
+    if not counts["iir_scan"] + counts["sos_cascade"]:
+        missing.append("S3")
+    print(f"[38 launches on the CLI, runtime and compose paths] {counts}, "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if missing:
+        fail(f"phase 38: {missing} never launched")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -3266,6 +3938,12 @@ def main() -> None:
     from solid_dsp_tpu_torch.ops.nco import constrain
 
     dev = torch.device(DEVICE, 0)
+    t_run = time.perf_counter()
+
+    def stamp(phases: str):
+        """The script's elapsed time after a group of phases."""
+        print(f"[time] phases {phases} done at "
+              f"{time.perf_counter() - t_run:.1f} s", flush=True)
 
     # 1. device
     smi = subprocess.run(
@@ -3616,18 +4294,31 @@ def main() -> None:
         kernels.append(kernel_entry(
             route, "ddc_body.cu", f"solid_dsp_tpu/ops/pallas_ddc.py:{line}",
             launches_main[route], err, kms, pms, bnd, lms))
+    stamp("1-10")
     kernels += config5(dev, smi)
+    stamp("11-16")
     kernels += config2(dev, smi)
     kernels += farrow_phases(dev, smi)
+    stamp("17-21")
     kernels += parallel_phases(dev, smi)
+    stamp("22-25")
     precision_phase(dev, smi)
     filter_phases(dev, smi)
+    stamp("26-28")
     kernels += scan_phases(dev, smi)
+    stamp("29-31")
     kernels += iir_phases(dev, smi)
+    stamp("32-34")
     kernels += fast_phases(dev, smi, {
         "ddc_fm": k_ms, "ddc_body": body_stats["ddc_body"][1],
         "ddc_body_unaligned": body_stats["ddc_body_unaligned"][1]})
+    stamp("35-36")
     kernels += p4_phases(dev, smi)
+    stamp("37")
+    cli_counts = cli_phases(dev, smi)
+    stamp("38")
+    for k in kernels:
+        k["launches"] += cli_counts.get(k["name"], 0)
     if not all(k["launches"] > 0 for k in kernels):
         fail("a kernel of the main paths was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

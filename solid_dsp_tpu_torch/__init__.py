@@ -30,11 +30,19 @@ exact AGC (S1) and the QPSK Costas loop (S2), as kernels
 changers (``ops.cic``, ``ops.halfband``, ``ops.resample``), the
 autocorrelator (``ops.autocorr``), the FM broadcast-stereo back end
 (``models.fm``) and the digital down-converter (``models.ddc``), with the
-IIR filters' w-recurrence as a third sequential-scan kernel (S3).  Entry points run on the CUDA card unless the caller passes
+IIR filters' w-recurrence as a third sequential-scan kernel (S3); the
+system as users start it: the command line (``__main__``: ``python -m
+solid_dsp_tpu_torch demo | rx | spectrum | convert | monitor |
+resample``), the native C++ runtime (``runtime``: the ring buffer, IQ
+files, the threaded ``StreamPump``, UDP, TCP and rtl_tcp sources, SigMF;
+built with g++ at first use, ``runtime.build``) and ``streaming``'s
+reference ring buffer and window (``streaming.ring``,
+``streaming.window``) and chain composition (``streaming.compose``).
+Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``device.py``).
 """
 
 __version__ = "0.1.0"
 
 from . import (analysis, design, device, interop, models, ops,  # noqa: F401
-               parallel, streaming)
+               parallel, runtime, streaming)

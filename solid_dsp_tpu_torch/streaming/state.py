@@ -7,10 +7,16 @@ block-to-block carry and the checkpoint format.
 
 Phase words are int64 tensors in [0, 2^32) here and numpy ``uint32`` at the
 numpy boundary (:func:`to_numpy`, :func:`from_numpy`, the checkpoint), as in
-the JAX package.  Checkpoints are the JAX package's ``.npz`` format, so each
-package reads the other's: ``__version__``, ``__treedef__`` (the uint8 bytes
-of the JAX treedef's repr, which :func:`treedef_repr` builds without JAX)
-and the leaves ``leaf_i`` in sorted-key order.
+the JAX package: an int64 leaf is a phase word wherever it sits (the
+chain's ``nco_theta``, or a composed chain's NCO stage under the stage's
+name), and no other state holds int64.  Checkpoints are the JAX package's
+``.npz`` format, so each package reads the other's: ``__version__``,
+``__treedef__`` (the uint8 bytes of the JAX treedef's repr, which
+:func:`treedef_repr` builds without JAX) and the leaves ``leaf_i`` in the
+JAX flattening order (sorted keys; tuples and lists in order; ``()`` and
+``None`` hold no leaf; a nested ChainState is a node of its own).
+:func:`atomic_savez` and :func:`treedef_bytes` are the JAX package's
+checkpoint writers' shared pieces.
 """
 
 from __future__ import annotations
@@ -23,47 +29,92 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["ChainState", "to_numpy", "from_numpy", "treedef_repr"]
+__all__ = ["ChainState", "to_numpy", "from_numpy", "treedef_repr",
+           "treedef_bytes", "atomic_savez"]
 
-_PHASE_KEYS = ("nco_theta",)     # u32 phase words: int64 tensors in the port
+
+def _flatten(tree, prefix: str = "") -> list:
+    """(path, leaf) pairs in the JAX flattening order; a path names the
+    keys and indices down to the leaf ("agc/gain", "t/0")."""
+    if isinstance(tree, Mapping):
+        return [p for k in sorted(tree) for p in _flatten(tree[k],
+                                                         f"{prefix}{k}/")]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, v in enumerate(tree)
+                for p in _flatten(v, f"{prefix}{i}/")]
+    return [] if tree is None else [(prefix[:-1], tree)]
 
 
-def _flatten(tree: Mapping, prefix: str = ""):
-    """(path, leaf) pairs in sorted-key order, nested mappings flattened."""
-    out = []
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, Mapping):
-            out += _flatten(v, f"{prefix}{k}/")
-        else:
-            out.append((f"{prefix}{k}", v))
-    return out
+def _leaves(tree) -> list:
+    """The leaves in the JAX flattening order."""
+    return [leaf for _, leaf in _flatten(tree)]
+
+
+def _map(fn, tree):
+    """``tree`` with ``fn`` applied to each leaf in the JAX flattening
+    order, its nodes kept (a ChainState stays a ChainState)."""
+    if isinstance(tree, Mapping):
+        out = {k: _map(fn, tree[k]) for k in sorted(tree)}
+        out = {k: out[k] for k in tree}
+        return ChainState(**out) if isinstance(tree, ChainState) else out
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
 
 
 def _node_repr(v) -> str:
+    if isinstance(v, ChainState):
+        keys = tuple(sorted(v))
+        children = ", ".join(_node_repr(v[k]) for k in keys)
+        return f"CustomNode(ChainState[{keys!r}], [{children}])"
     if isinstance(v, Mapping):
         return "{" + ", ".join(f"{k!r}: {_node_repr(v[k])}"
                                for k in sorted(v)) + "}"
-    return "*"
+    if isinstance(v, tuple):
+        inner = ", ".join(_node_repr(c) for c in v)
+        return f"({inner},)" if len(v) == 1 else f"({inner})"
+    if isinstance(v, list):
+        return "[" + ", ".join(_node_repr(c) for c in v) + "]"
+    return "None" if v is None else "*"
 
 
 def treedef_repr(state: Mapping) -> str:
-    """The repr of the JAX treedef of a ChainState with the same keys, as
-    the JAX package's checkpoints store it: the sorted component keys, then
-    each component as a leaf ``*`` or a dict of sorted keys."""
-    keys = tuple(sorted(state))
-    children = ", ".join(_node_repr(state[k]) for k in keys)
-    return f"PyTreeDef(CustomNode(ChainState[{keys!r}], [{children}]))"
+    """The repr of the JAX treedef of a ChainState with the same structure,
+    as the JAX package's checkpoints store it: the sorted component keys,
+    then each component as a leaf ``*``, a dict of sorted keys, a tuple or
+    list, ``None``, or a nested ChainState."""
+    return f"PyTreeDef({_node_repr(ChainState(**state))})"
 
 
-def _leaf_to_numpy(key: str, v) -> np.ndarray:
+def treedef_bytes(treedef) -> np.ndarray:
+    """A treedef's repr (a :func:`treedef_repr` string, or anything whose
+    ``str`` is one) as a uint8 array, as every checkpoint writer stores
+    it."""
+    return np.frombuffer(str(treedef).encode(), dtype=np.uint8)
+
+
+def atomic_savez(path: str, **data) -> str:
+    """``np.savez`` written to a dot-prefixed temporary name in the same
+    directory, then renamed: a crash mid-write leaves no ``*.npz`` that a
+    recovery glob would take.  Returns the final path (``.npz`` appended
+    if missing, as ``np.savez`` does)."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    tmp = os.path.join(os.path.dirname(path) or ".",
+                       ".tmp_" + os.path.basename(path))
+    np.savez(tmp, **data)
+    os.replace(tmp, path)
+    return path
+
+
+def _leaf_to_numpy(v) -> np.ndarray:
     a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-    return a.astype(np.uint32) if key in _PHASE_KEYS else a
+    return a.astype(np.uint32) if a.dtype == np.int64 else a
 
 
-def _leaf_from_numpy(key: str, a, device) -> torch.Tensor:
+def _leaf_from_numpy(a, device) -> torch.Tensor:
     a = np.asarray(a)
-    if key in _PHASE_KEYS:
+    if a.dtype == np.uint32:
         a = a.astype(np.int64)
     return torch.from_numpy(a.copy()).to(device)
 
@@ -95,25 +146,20 @@ class ChainState(Mapping):
         return ChainState(**{**self._d, **updates})
 
     def __repr__(self) -> str:
-        parts = ", ".join(f"{k}={tuple(getattr(v, 'shape', ()))}"
-                          for k, v in _flatten(self))
+        parts = ", ".join(
+            f"{k}={_map(lambda a: tuple(getattr(a, 'shape', ())), v)}"
+            for k, v in self._d.items())
         return f"ChainState({parts})"
 
     def save(self, path: str) -> str:
         """Write every leaf to an ``.npz`` checkpoint in the JAX package's
         format (versioned; written to a temporary name, then renamed).
         Returns the path written."""
-        if not path.endswith(".npz"):
-            path = path + ".npz"
-        leaves = _flatten(to_numpy(self))
-        tmp = os.path.join(os.path.dirname(path) or ".",
-                           ".tmp_" + os.path.basename(path))
-        np.savez(tmp, __version__=np.asarray(self.CHECKPOINT_VERSION),
-                 __treedef__=np.frombuffer(treedef_repr(self).encode(),
-                                           np.uint8),
-                 **{f"leaf_{i}": a for i, (_, a) in enumerate(leaves)})
-        os.replace(tmp, path)
-        return path
+        leaves = _leaves(to_numpy(self))
+        return atomic_savez(
+            path, __version__=np.asarray(self.CHECKPOINT_VERSION),
+            __treedef__=treedef_bytes(treedef_repr(self)),
+            **{f"leaf_{i}": a for i, a in enumerate(leaves)})
 
     @classmethod
     def load(cls, path: str, like: "ChainState") -> "ChainState":
@@ -121,7 +167,8 @@ class ChainState(Mapping):
         ``like``'s device, checking its treedef, leaf count, and each leaf's
         shape and dtype against ``like``."""
         want = _flatten(to_numpy(like))
-        device = next(v for _, v in _flatten(like)).device
+        tensors = _leaves(like)
+        device = tensors[0].device if tensors else torch.device("cpu")
         with np.load(path) as data:
             version = int(data["__version__"])
             if version > cls.CHECKPOINT_VERSION:
@@ -136,34 +183,29 @@ class ChainState(Mapping):
             if n_leaves != len(want):
                 raise ValueError(f"checkpoint has {n_leaves} leaves, "
                                  f"expected {len(want)}")
-            tree: dict = {}
+            leaves = []
             for i, (key, ref) in enumerate(want):
                 got = data[f"leaf_{i}"]
                 if got.shape != ref.shape or got.dtype != ref.dtype:
                     raise ValueError(
                         f"checkpoint leaf {key}: {got.dtype}{got.shape} != "
                         f"expected {ref.dtype}{ref.shape}")
-                *outer, last = key.split("/")
-                node = tree
-                for k in outer:
-                    node = node.setdefault(k, {})
-                node[last] = got
-        return from_numpy(tree, device)
+                leaves.append(got)
+        it = iter(leaves)
+        return ChainState(**_map(lambda _: _leaf_from_numpy(next(it), device),
+                                 dict(like)))
 
 
 def to_numpy(state: Mapping) -> dict:
-    """State -> nested dict of numpy leaves (phase words as ``uint32``)."""
-    return {k: to_numpy(v) if isinstance(v, Mapping) else _leaf_to_numpy(k, v)
-            for k, v in state.items()}
+    """State -> dict of numpy leaves, its nested nodes kept (phase words
+    as ``uint32``)."""
+    return _map(_leaf_to_numpy, dict(state))
 
 
 def from_numpy(tree: Mapping, device=None) -> ChainState:
-    """Nested mapping of numpy-compatible leaves -> ChainState on
-    ``device``, the card unless told otherwise (phase words as int64)."""
+    """Mapping of numpy-compatible leaves (nested nodes kept) -> ChainState
+    on ``device``, the card unless told otherwise (``uint32`` phase words
+    as int64)."""
     device = resolve_device(device)
-
-    def conv(t):
-        return {k: conv(v) if isinstance(v, Mapping)
-                else _leaf_from_numpy(k, v, device) for k, v in t.items()}
-
-    return ChainState(**conv(tree))
+    return ChainState(**_map(lambda a: _leaf_from_numpy(a, device),
+                             dict(tree)))

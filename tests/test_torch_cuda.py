@@ -34,7 +34,8 @@ IIR w-recurrence) bit-equal to its plain version in every type, and the
 IIR classes and zero-phase filters on the card within 1e-5 of max (float32
 "scan" is S3, bit-equal to the CPU's plain version only up to the b taps'
 convolution, which cuDNN sums in another order) or 1e-12 (float64) of the
-CPU's.
+CPU's.  The CLI's ``rx`` on the card writes exactly what ``RxChain`` on the
+card returns for the same blocks (bit-equal), through K1.
 """
 
 import numpy as np
@@ -1705,3 +1706,34 @@ def test_squelch_fsm_kernel_in_a_cuda_graph():
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_cli_rx_equals_rx_chain_on_card(tmp_path):
+    """``python -m solid_dsp_tpu_torch rx`` on a 2^20-sample ci16 recording
+    (blocks of 2^18, the default device): its output file equals the same
+    blocks through ``RxChain`` on the card bit for bit, and K1 launched on
+    every block."""
+    from solid_dsp_tpu_torch.__main__ import main
+    from solid_dsp_tpu_torch.models.rx_chain import RxChain
+    from solid_dsp_tpu_torch.runtime import read_iq, write_iq
+
+    dev = require_cuda()
+    n, block = 1 << 20, 1 << 18
+    k = np.arange(n)
+    rng = np.random.default_rng(14)
+    x = 0.5 * np.exp(1j * (0.2 * k + 2.0 * np.sin(2 * np.pi * 1e-4 * k)))
+    x += 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    src, dst = str(tmp_path / "in.ci16"), str(tmp_path / "out.cf32")
+    write_iq(src, x.astype(np.complex64), "ci16")
+    before = cuda_ddc.ddc_fm_cuda.launches
+    assert main(["rx", src, "--format", "ci16", "--block", str(block),
+                 "-o", dst]) == 0
+    assert cuda_ddc.ddc_fm_cuda.launches - before == n // block
+    chain = RxChain(carrier_freq=0.2, decimation=4, fir_taps=64, demod="fm",
+                    nco_mode="exact", agc_mode="block", device=dev)
+    rec = read_iq(src, "ci16")
+    want = np.concatenate([chain.execute_block(rec[i:i + block]).cpu()
+                           .numpy() for i in range(0, n, block)])
+    got = read_iq(dst)
+    assert got.shape == (n // 4,) and np.all(got.imag == 0)
+    assert np.array_equal(got.real, want)

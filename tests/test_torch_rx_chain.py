@@ -139,9 +139,12 @@ def test_port_never_imports_jax():
     end, both sharded channelizers, the sharded chain and its state
     interop, the sharded FIR), the IIR design and filters (both methods),
     zero-phase filtering, the autocorrelator, CIC, halfband and arbitrary
-    resamplers (both paths, with flush), the FM stereo back end and the DDC
-    loads no jax module and no module of the JAX
-    package (fresh interpreter: this one has jax)."""
+    resamplers (both paths, with flush), the FM stereo back end and the DDC,
+    the native runtime (IQ files, StreamPump), a composed chain and its
+    checkpoint, and the CLI (``rx``, and ``--help`` run as the package's
+    ``__main__``) loads no jax module and no module of the JAX package
+    (fresh interpreter: this one has jax); ``python -m solid_dsp_tpu_torch
+    --help`` runs."""
     code = (
         "import sys, numpy as np, torch\n"
         "from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig, "
@@ -237,6 +240,28 @@ def test_port_never_imports_jax():
         "torch.zeros(4096), 192000.0), 192000.0, deemphasis_tau=75e-6)\n"
         "ddc.DDC(0.5, ratio=48000 / 44100, device='cpu').execute_block(xc)\n"
         "channel.host_wrapped_phase(16, 0.1)\n"
+        "import os, runpy, tempfile\n"
+        "from solid_dsp_tpu_torch import runtime\n"
+        "from solid_dsp_tpu_torch.streaming.compose import (compose, "
+        "stage_agc, stage_fm_demod, stage_iir, stage_nco_mix_down)\n"
+        "import solid_dsp_tpu_torch.__main__\n"
+        "d = tempfile.mkdtemp()\n"
+        "runtime.write_iq(d + '/x.ci16', xc.numpy(), 'ci16')\n"
+        "with runtime.StreamPump(d + '/x.ci16', 'ci16', 1024) as pump:\n"
+        "    assert sum(len(b) for b in pump) == 2048\n"
+        "init, apply = compose(stage_nco_mix_down(0.2, device='cpu'), "
+        "stage_agc(0.01, 'exact', device='cpu'), "
+        "stage_iir([0.5], [1.0, -0.5], device='cpu'), "
+        "stage_fm_demod(0.1, device='cpu'))\n"
+        "y, st = apply(init(), xc)\n"
+        "st.save(d + '/ck')\n"
+        "assert solid_dsp_tpu_torch.__main__.main(['--device', 'cpu', 'rx', "
+        "d + '/x.ci16', '--format', 'ci16', '-o', d + '/y.cf32']) == 0\n"
+        "sys.argv = ['solid_dsp_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('solid_dsp_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'solid_dsp_tpu' or m.startswith('solid_dsp_tpu.')]\n"
         "print('BAD', bad)\n")
@@ -246,6 +271,10 @@ def test_port_never_imports_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "BAD []" in r.stdout, r.stdout
+    r = subprocess.run([sys.executable, "-m", "solid_dsp_tpu_torch",
+                        "--help"], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and "resample" in r.stdout, r.stderr[-2000:]
 
 
 def test_rx_chain_stream_raises_not_implemented():
