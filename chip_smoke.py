@@ -56,7 +56,14 @@ solid_dsp_tpu_torch/csrc/:
   UdpSource fed on localhost) and chain composition (streaming.compose):
   rx through K1 and, for the recording's ragged end, K3; rx --demod am and
   qpsk through K2; monitor --backend fused through K4; demo, --wav and
-  stage_iir through S3; stage_agc("exact") through S1.
+  stage_iir through S3; stage_agc("exact") through S1;
+* ROADMAP item 11 at the TPU sweep's sizes (bench_all.py's tracking,
+  detection, resample and cyclo rows): the Kalman trackers (kalman_apply,
+  rts_smooth, AlphaBetaTracker "scan") through S4, the Kalman recursions
+  of track_scan.cu, make_kalman_lti and the "parallel" route in torch ops;
+  LPC's synthesis lattice through S5 (track_scan.cu); the wavelets, the
+  zoom FFT, the cyclostationary scan, the DCT/DST/MDCT, the ADC model and
+  the G.711 codecs, the estimators and the RF measurements in torch ops.
 
 Phases, one line each:
 
@@ -277,6 +284,33 @@ Phases, one line each:
      samples against the fused RxChain (1e-5), and with
      stage_agc("exact") and stage_iir (S1, S3) against
      stage_agc("parallel").  Its launches are added to the kernels' line.
+ 39. item 11 (item11_phases): make_kalman_lti on cv_model(1, 0.05, 1) and
+     AlphaBetaTracker "parallel" and "scan" (S4's LTI entry, two blocks
+     carried) over 2^22 float32 measurements, kalman_apply (S4 forward,
+     two blocks carried) and rts_smooth (S4 both ways) over 2^20, each
+     within 1e-4 x max of the float64 walk on the host; denoise_soft("db4",
+     4) on 2^21 float32 against its float64 CPU run (1e-4) and the wavelet
+     round trip (1e-4, tests/test_wavelet.py:48); zoom_fft(x, 0.2, 0.3,
+     1024) over 256 x 2^14 complex64 against complex128 on the CPU (1e-4)
+     with the tone in its bin, czt on the DFT contour against
+     torch.fft.fft; cycle_profile over 64 alphas (nfft 256, hop 64) on 2^20
+     complex64, 8 alphas against complex128 on the CPU (1e-3), and
+     estimate_symbol_rate on an RRC QPSK burst (1/6 within 2e-4,
+     tests/test_cyclo.py); lpc and burg of order 16 over 256 frames of 2^14
+     (reflection coefficients within 1e-3 of float64), lattice_fir then
+     lattice_iir (S5) back to the input (1e-4), S5 at order 64 on one
+     lane of 2^20 against scipy's lfilter(1, A) in float64 (1e-4); DCT and
+     DST 1-4 (both backends where a type has two), MDCT and IMDCT over
+     (4096, 1024) against float64 (1e-5: full float32); adc_model(12) on
+     2^24 complex64 bit-equal to its CPU run, its subtractive dither's
+     contract, the mu- and A-law codes (at most 1e-6 of them unlike the
+     CPU's) and decodes; snr_m2m4, evm, tone_freq_kay / _fft and
+     tdoa_gcc_phat on 2^20, and channel_power, acpr, occupied_bandwidth,
+     sinad_db / enob / sfdr_db at nfft 4096 on 2^22 against their float64
+     CPU runs; each timed; S4's three entries and S5 against their plain
+     versions on the card (1e-4 x max) at T = 2^12 (S5: 256 lanes x 2^12,
+     order 16), timed over a CUDA graph beside their plain versions and
+     bounds.  S4 and S5's launches on these paths are the kernels' line's.
 
 A "[time]" line after each group of phases gives the script's elapsed
 time.  Then the kernels' JSON line (each kernel's launches on the main paths; its
@@ -464,6 +498,34 @@ CLI_SEPARATION_MIN_DB = 12.0   # tests/test_cli.py:221-227
 CLI_PEAK_DB_ATOL = 0.1    # F2: an event's peak at another cutting of blocks
 UDP_SECONDS = 2.0
 UDP_DATAGRAM = 1024       # ci16 samples a datagram
+# phase 39 (item 11): the TPU sweep's sizes (bench_all.py)
+T_LTI = 1 << 22           # kalman_lti_chunked_2state (:734-751)
+T_KF = 1 << 20            # kalman_apply and rts_smooth
+T_S4_TIMED = 1 << 12      # S4 and its plain versions timed side by side
+L_WAVELET = 1 << 21       # wavelet_denoise_db4_l4 (:777-788)
+ZOOM_ROWS, ZOOM_N, ZOOM_M = 256, 1 << 14, 1024   # zoom_fft_16k_to_1k_x256
+L_CYCLO, CYCLO_ALPHAS = 1 << 20, 64              # cyclo_scan_64alpha
+CYCLO_CHECKED = 8         # of the alphas also run in complex128 on the CPU
+LPC_FRAMES, LPC_N, LPC_ORDER = 256, 1 << 14, 16
+T_S5_TIMED = 1 << 12      # S5 and its plain version timed (256 lanes, p 16)
+T_S5_LONG, S5_ORDER = 1 << 20, 64
+TRIG_SHAPE = (4096, 1024)
+L_ADC = 1 << 24           # config 4's block
+L_EST = 1 << 20
+L_MEAS, MEAS_NFFT = 1 << 22, 4096
+S4_RTOL = 1e-4            # float32 against the float64 walk, x max|ref|
+S5_RTOL = 1e-4
+LPC_K_ATOL = 1e-3         # reflection coefficients, float32 vs float64
+TRIG_RTOL = 1e-5          # full float32 products (TF32 keeps ~1e-3)
+CZT_RTOL = 1e-4           # complex64 Bluestein, x max|ref|
+CYCLO_ATOL = 1e-3         # coherence in [0, 1]
+WAVELET_PR_ATOL = 1e-4    # tests/test_wavelet.py:48 (multilevel, float32)
+DENOISE_RTOL = 1e-4
+CODEC_MISMATCH = 1e-6     # codes off a chord boundary's rounding, a fraction
+SYMBOL_RATE_ATOL = 2e-4   # tests/test_cyclo.py:66-82
+EST_F_ATOL = 1e-6         # cycles a sample, float32 vs float64
+MEAS_DB_ATOL = 0.01
+SINAD_DB_ATOL = 0.1
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -3928,6 +3990,566 @@ def cli_phases(dev, smi) -> dict:
     return counts
 
 
+def kf_walk64(Z, A, C, Q, R, x0, P0):
+    """The 2-state, 1-measurement Kalman filter (cv_model's shapes) walked
+    in float64 on the CPU as plain Python floats: (X (T, 2), and the
+    filtered covariances and the predictions (T, ...) for the RTS pass)."""
+    (a00, a01), (a10, a11) = A.tolist()
+    c0, c1 = C.ravel().tolist()
+    (q00, q01), (q10, q11) = Q.tolist()
+    r = float(R.ravel()[0])
+    x0_, x1_ = (float(v) for v in x0)
+    (p00, p01), (p10, p11) = P0.tolist()
+    X, Pf, Xp, Pp = [], [], [], []
+    for z in Z.tolist():
+        xp0, xp1 = a00 * x0_ + a01 * x1_, a10 * x0_ + a11 * x1_
+        ap00, ap01 = a00 * p00 + a01 * p10, a00 * p01 + a01 * p11
+        ap10, ap11 = a10 * p00 + a11 * p10, a10 * p01 + a11 * p11
+        pp00 = ap00 * a00 + ap01 * a01 + q00
+        pp01 = ap00 * a10 + ap01 * a11 + q01
+        pp10 = ap10 * a00 + ap11 * a01 + q10
+        pp11 = ap10 * a10 + ap11 * a11 + q11
+        pc0, pc1 = pp00 * c0 + pp01 * c1, pp10 * c0 + pp11 * c1
+        s = c0 * pc0 + c1 * pc1 + r
+        k0, k1 = pc0 / s, pc1 / s
+        v = z - (c0 * xp0 + c1 * xp1)
+        x0_, x1_ = xp0 + k0 * v, xp1 + k1 * v
+        i00, i01, i10, i11 = 1 - k0 * c0, -k0 * c1, -k1 * c0, 1 - k1 * c1
+        p00, p01 = i00 * pp00 + i01 * pp10, i00 * pp01 + i01 * pp11
+        p10, p11 = i10 * pp00 + i11 * pp10, i10 * pp01 + i11 * pp11
+        X.append((x0_, x1_))
+        Pf.append((p00, p01, p10, p11))
+        Xp.append((xp0, xp1))
+        Pp.append((pp00, pp01, pp10, pp11))
+    return X, Pf, Xp, Pp
+
+
+def rts_walk64(A, X, Pf, Xp, Pp):
+    """The RTS pass over kf_walk64's outputs in float64 Python floats, the
+    2 x 2 solve by the adjugate: Xs (T, 2) as an array."""
+    (a00, a01), (a10, a11) = A.tolist()
+    xs0, xs1 = X[-1]
+    s00, s01, s10, s11 = Pf[-1]
+    out = [(xs0, xs1)]
+    for t in range(len(X) - 2, -1, -1):
+        f00, f01, f10, f11 = Pf[t]
+        q00, q01, q10, q11 = Pp[t + 1]
+        # B = P_f A', G = B (P-)^-1
+        b00, b01 = f00 * a00 + f01 * a01, f00 * a10 + f01 * a11
+        b10, b11 = f10 * a00 + f11 * a01, f10 * a10 + f11 * a11
+        det = q00 * q11 - q01 * q10
+        i00, i01, i10, i11 = q11 / det, -q01 / det, -q10 / det, q00 / det
+        g00, g01 = b00 * i00 + b01 * i10, b00 * i01 + b01 * i11
+        g10, g11 = b10 * i00 + b11 * i10, b10 * i01 + b11 * i11
+        d0, d1 = xs0 - Xp[t + 1][0], xs1 - Xp[t + 1][1]
+        xs0 = X[t][0] + g00 * d0 + g01 * d1
+        xs1 = X[t][1] + g10 * d0 + g11 * d1
+        e00, e01, e10, e11 = s00 - q00, s01 - q01, s10 - q10, s11 - q11
+        h00, h01 = g00 * e00 + g01 * e10, g00 * e01 + g01 * e11
+        h10, h11 = g10 * e00 + g11 * e10, g10 * e01 + g11 * e11
+        s00 = f00 + h00 * g00 + h01 * g01
+        s01 = f01 + h00 * g10 + h01 * g11
+        s10 = f10 + h10 * g00 + h11 * g01
+        s11 = f11 + h10 * g10 + h11 * g11
+        out.append((xs0, xs1))
+    return np.array(out[::-1])
+
+
+def lti_walk64(F, K, z) -> np.ndarray:
+    """x_t = F x_{t-1} + K z_t (2 states, x_{-1} = 0) in float64 Python
+    floats."""
+    (f00, f01), (f10, f11) = F.tolist()
+    k0, k1 = K.ravel().tolist()
+    x0_ = x1_ = 0.0
+    out = []
+    for zt in z.tolist():
+        x0_, x1_ = f00 * x0_ + f01 * x1_ + k0 * zt, \
+            f10 * x0_ + f11 * x1_ + k1 * zt
+        out.append((x0_, x1_))
+    return np.array(out)
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref| (host arrays or tensors)."""
+    got = got.detach().cpu().numpy() if torch.is_tensor(got) else got
+    ref = ref.detach().cpu().numpy() if torch.is_tensor(ref) else ref
+    got, ref = np.asarray(got), np.asarray(ref)
+    return float(np.max(np.abs(got.astype(ref.dtype) - ref))
+                 / max(float(np.max(np.abs(ref))), 1e-300))
+
+
+def item11_phases(dev, smi) -> list:
+    """Phase 39: ROADMAP item 11 on the card at the TPU sweep's sizes (the
+    Kalman trackers through S4, LPC through S5, the wavelets, the zoom FFT,
+    the cyclostationary scan, the DCT/DST/MDCT, the quantizers and codecs,
+    the estimators and the RF measurements), each held to its float64 CPU
+    run (or its plain version); S4 and S5 against their plain versions on
+    the card and timed.  Returns the kernels' entries of S4 and S5."""
+    import importlib
+
+    from solid_dsp_tpu_torch.analysis import cyclo, estimate, measurements
+    from solid_dsp_tpu_torch.analysis import snr as snr_ops
+    from solid_dsp_tpu_torch.design.firdes import firdes_rrcos
+    from solid_dsp_tpu_torch.ops import (cuda_track, czt, kalman, quantize,
+                                         trig_transforms, wavelet)
+    lpc = importlib.import_module("solid_dsp_tpu_torch.analysis.lpc")
+
+    rng = np.random.default_rng(SEED + 39)
+    cpu = torch.device("cpu")
+    counters = (cuda_track.kalman_filter_cuda, cuda_track.rts_backward_cuda,
+                cuda_track.kalman_lti_cuda, cuda_track.lattice_iir_cuda)
+    for c in counters:
+        c.launches = 0
+    main_launches = [0] * len(counters)
+    t_phase = time.perf_counter()
+
+    def main_path(fn):
+        """fn() on the phase's main path: the kernel launches it makes are
+        the kernels' line's (timing and comparison launches are not)."""
+        before = [c.launches for c in counters]
+        out = fn()
+        for i, c in enumerate(counters):
+            main_launches[i] += c.launches - before[i]
+        return out
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    # (a) the steady-state trackers over 2^22 float32 measurements
+    A, C, Q, R = kalman.cv_model(1.0, 0.05, 1.0)
+    K, F = kalman.steady_state_gain(A, C, Q, R)
+    z = rng.standard_normal(T_LTI).astype(np.float32)
+    zt = torch.from_numpy(z).to(dev)
+    x0 = torch.zeros(2, device=dev)
+    modal = kalman.make_kalman_lti(K, F)
+    X_modal, _ = main_path(lambda: modal(x0, zt))
+    trk_p = kalman.AlphaBetaTracker(float(K[0, 0]), float(K[1, 0]),
+                                    device=dev)
+    X_par = main_path(lambda: trk_p.execute_block(zt, "parallel"))
+    trk_s = kalman.AlphaBetaTracker(float(K[0, 0]), float(K[1, 0]),
+                                    device=dev)
+    h = T_LTI // 2
+    X_scan = main_path(lambda: torch.cat([
+        trk_s.execute_block(zt[:h], "scan"),
+        trk_s.execute_block(zt[h:], "scan")]))
+    torch.cuda.synchronize()
+    ref = lti_walk64(F, K, z.astype(np.float64))
+    errs = [rel_err(X, ref) for X in (X_modal, X_par, X_scan)]
+    ms_modal = cuda_ms(lambda: modal(x0, zt), 3)
+    ms_par = cuda_ms(lambda: trk_p.execute_block(zt, "parallel"), 3)
+    ms_scan = cuda_ms(lambda: trk_s.execute_block(zt, "scan"), 2)
+    print(f"[39 kalman LTI, cv_model(1, 0.05, 1), 2^22 float32] against the "
+          f"float64 CPU walk, x max|ref|: make_kalman_lti {errs[0]:.3g}, "
+          f"AlphaBetaTracker parallel {errs[1]:.3g}, scan (S4, two blocks) "
+          f"{errs[2]:.3g} (gate {S4_RTOL}); {ms_modal:.4f} / {ms_par:.4f} / "
+          f"{ms_scan:.4f} ms a block ({T_LTI / (ms_modal * 1e3):.1f} / "
+          f"{T_LTI / (ms_par * 1e3):.1f} / {T_LTI / (ms_scan * 1e3):.1f} "
+          f"Msamples/s) | {smi}", flush=True)
+    if not (max(errs) <= S4_RTOL and X_scan.shape == (T_LTI, 2)
+            and torch.isfinite(X_modal).all()):
+        fail("phase 39: the steady-state trackers disagree with the float64 "
+             "walk")
+
+    # (b) the full filter and the smoother over 2^20 (S4 forward, backward)
+    zk = rng.standard_normal(T_KF)
+    zkt = torch.from_numpy(zk.astype(np.float32)).to(dev)
+    P0 = 10.0 * np.eye(2)
+    st0 = kalman.kalman_init(np.zeros(2, np.float32),
+                             P0.astype(np.float32), device=dev)
+    Xk, (xk, Pk) = main_path(lambda: kalman.kalman_apply(
+        st0, zkt[:T_KF // 2], A, C, Q, R))
+    Xk2, _ = main_path(lambda: kalman.kalman_apply(
+        (xk, Pk), zkt[T_KF // 2:], A, C, Q, R))
+    Xk = torch.cat([Xk, Xk2])
+    Xs, Ps = main_path(lambda: kalman.rts_smooth(st0, zkt, A, C, Q, R))
+    torch.cuda.synchronize()
+    W = kf_walk64(zk, A, C, Q, R, np.zeros(2), P0)
+    e_kf = rel_err(Xk, np.array(W[0]))
+    e_rts = rel_err(Xs, rts_walk64(A, *W))
+    ms_kf = cuda_ms(lambda: kalman.kalman_apply(st0, zkt, A, C, Q, R), 2)
+    ms_rts = cuda_ms(lambda: kalman.rts_smooth(st0, zkt, A, C, Q, R), 2)
+    print(f"[39 kalman_apply (S4 forward, two blocks carried) and rts_smooth "
+          f"(S4 both ways), cv_model, 2^20 float32] against the float64 CPU "
+          f"walk, x max|ref|: filter {e_kf:.3g}, smoother {e_rts:.3g} (gate "
+          f"{S4_RTOL}); {ms_kf:.3f} ms ({ms_kf * 1e6 / T_KF:.1f} ns a step) "
+          f"and {ms_rts:.3f} ms | {smi}", flush=True)
+    if not (e_kf <= S4_RTOL and e_rts <= S4_RTOL and Ps.shape == (T_KF, 2, 2)):
+        fail("phase 39: the Kalman filter or smoother disagrees with the "
+             "float64 walk")
+
+    # (c) wavelets: denoise_soft("db4", 4) on 2^21 float32, and the round trip
+    xw = rng.standard_normal(L_WAVELET).astype(np.float32)
+    xwt = torch.from_numpy(xw).to(dev)
+    den = wavelet.denoise_soft(xwt, "db4", levels=4)
+    den64 = wavelet.denoise_soft(torch.from_numpy(xw.astype(np.float64)),
+                                 "db4", levels=4)
+    rec = wavelet.waverec(wavelet.wavedec(xwt, "db4", 4), "db4")
+    e_den, e_rec = rel_err(den, den64), float((rec - xwt).abs().max())
+    ms_w = cuda_ms(lambda: wavelet.denoise_soft(xwt, "db4", levels=4), 5)
+    print(f"[39 wavelets, 2^21 float32] denoise_soft(db4, 4) against its "
+          f"float64 CPU run {e_den:.3g} x max (gate {DENOISE_RTOL}); wavedec/"
+          f"waverec round trip max|err| {e_rec:.3g} (gate {WAVELET_PR_ATOL}); "
+          f"denoise {ms_w:.4f} ms ({L_WAVELET / (ms_w * 1e3):.1f} Msamples/s)"
+          f" | {smi}", flush=True)
+    if not (e_den <= DENOISE_RTOL and e_rec <= WAVELET_PR_ATOL):
+        fail("phase 39: the wavelets disagree")
+
+    # (d) the zoom FFT over 256 x 2^14 complex64, and czt on the DFT contour
+    f0 = 0.2537
+    k = np.arange(ZOOM_N)
+    xz = (np.exp(2j * np.pi * f0 * k)[None, :]
+          + 0.1 * cnoise(rng, (ZOOM_ROWS, ZOOM_N))).astype(np.complex64)
+    xzt = torch.from_numpy(xz).to(dev)
+    Zc = czt.zoom_fft(xzt, 0.2, 0.3, ZOOM_M, fs=1.0)
+    Z64 = czt.zoom_fft(torch.from_numpy(xz.astype(np.complex128)), 0.2, 0.3,
+                       ZOOM_M, fs=1.0)
+    peak = int(np.argmax(np.abs(host(Zc[0]))))
+    want = round((f0 - 0.2) / (0.1 / ZOOM_M))
+    e_zoom = rel_err(Zc, Z64)
+    e_dft = rel_err(czt.czt(xzt), torch.fft.fft(xzt))
+    ms_z = cuda_ms(lambda: czt.zoom_fft(xzt, 0.2, 0.3, ZOOM_M, fs=1.0), 5)
+    print(f"[39 zoom FFT, 256 x 2^14 complex64 -> 1024 bins on [0.2, 0.3)] "
+          f"against its complex128 CPU run {e_zoom:.3g} x max (gate "
+          f"{CZT_RTOL}), tone at bin {peak} want {want}; czt on the DFT "
+          f"contour against torch.fft.fft {e_dft:.3g}; {ms_z:.4f} ms "
+          f"({ZOOM_ROWS * ZOOM_N / (ms_z * 1e3):.1f} Msamples/s) | {smi}",
+          flush=True)
+    if not (e_zoom <= CZT_RTOL and e_dft <= CZT_RTOL and abs(peak - want) <= 1):
+        fail("phase 39: the zoom FFT disagrees")
+
+    # (e) the cyclostationary scan (64 alphas, nfft 256, hop 64, 2^20) and
+    # the symbol-rate search on an RRC-shaped QPSK burst
+    xc = cnoise(rng, L_CYCLO)
+    xct = torch.from_numpy(xc).to(dev)
+    alphas = np.linspace(0.03, 0.4, CYCLO_ALPHAS).astype(np.float32)
+    prof = cyclo.cycle_profile(xct, alphas, nfft=256, hop=64)
+    sub = alphas[::CYCLO_ALPHAS // CYCLO_CHECKED]
+    prof64 = cyclo.cycle_profile(torch.from_numpy(xc.astype(np.complex128)),
+                                 sub, nfft=256, hop=64)
+    e_cy = float(np.max(np.abs(host(prof)[::CYCLO_ALPHAS // CYCLO_CHECKED]
+                               - host(prof64))))
+    ms_cy = cuda_ms(lambda: cyclo.cycle_profile(xct, alphas, nfft=256,
+                                                hop=64), 3)
+    sps_ = 6
+    n_sym = (1 << 16) // sps_ + 16
+    up = np.zeros(n_sym * sps_, np.complex128)
+    up[::sps_] = GRAY[rng.integers(0, 4, n_sym)]
+    burst = np.convolve(up, firdes_rrcos(sps_, 8, 0.35))[:1 << 16]
+    burst = (burst / np.std(burst) + 0.5 * cnoise(rng, 1 << 16)).astype(
+        np.complex64)
+    sr = cyclo.estimate_symbol_rate(torch.from_numpy(burst).to(dev), 0.05,
+                                    0.3)
+    print(f"[39 cyclostationary scan, 64 alphas, nfft 256, hop 64, 2^20 "
+          f"complex64] profile against complex128 on the CPU at "
+          f"{CYCLO_CHECKED} alphas: max|d| {e_cy:.3g} (gate {CYCLO_ATOL}); "
+          f"{ms_cy:.3f} ms ({CYCLO_ALPHAS * L_CYCLO / (ms_cy * 1e3):.1f} "
+          f"Malpha-samples/s); estimate_symbol_rate on an RRC QPSK burst at "
+          f"6 samples a symbol: alpha_hat {sr['alpha_hat']:.6f} want "
+          f"{1 / 6:.6f} (gate {SYMBOL_RATE_ATOL}) | {smi}", flush=True)
+    if not (e_cy <= CYCLO_ATOL and abs(sr["alpha_hat"] - 1 / 6)
+            <= SYMBOL_RATE_ATOL):
+        fail("phase 39: the cyclostationary scan disagrees")
+
+    # (f) LPC: order 16 over 256 frames of 2^14 (lpc, burg), the lattices
+    # there and back (S5), S5 at order 64 on one lane of 2^20
+    import scipy.signal as sps
+    a_true = np.poly([0.9 * np.exp(0.6j), 0.9 * np.exp(-0.6j),
+                      0.8 * np.exp(1.9j), 0.8 * np.exp(-1.9j)]).real
+    xl = sps.lfilter([1.0], a_true, rng.standard_normal(
+        (LPC_FRAMES, LPC_N))).astype(np.float32)
+    xlt = torch.from_numpy(xl).to(dev)
+    xl64 = torch.from_numpy(xl.astype(np.float64))
+    e_k = []
+    for fn in (lpc.lpc, lpc.burg):
+        _, kg, _ = fn(xlt, LPC_ORDER)
+        _, kc, _ = fn(xl64, LPC_ORDER)
+        e_k.append(float(np.max(np.abs(host(kg) - host(kc)))))
+    _, kl, _ = lpc.burg(xlt, LPC_ORDER)
+    yl = lpc.lattice_fir(xlt, kl)
+    back = main_path(lambda: lpc.lattice_iir(yl, kl))
+    e_back = rel_err(back, xl)
+    ms_s5 = cuda_ms(lambda: lpc.lattice_iir(yl, kl), 3)
+    k64 = 0.6 * rng.uniform(-1, 1, S5_ORDER) / np.sqrt(np.arange(1, S5_ORDER
+                                                                  + 1))
+    y64 = rng.standard_normal(T_S5_LONG)
+    y64t = torch.from_numpy(y64.astype(np.float32)).to(dev)
+    k64t = torch.from_numpy(k64.astype(np.float32)).to(dev)
+    x64 = main_path(lambda: lpc.lattice_iir(y64t, k64t))
+    a64 = host(lpc.reflection_to_poly(torch.from_numpy(k64)))
+    e_64 = rel_err(x64, sps.lfilter([1.0], a64, y64))
+    ms_64 = cuda_ms_once(lambda: lpc.lattice_iir(y64t, k64t))
+    print(f"[39 LPC, order 16, 256 frames of 2^14 float32] reflection "
+          f"coefficients against float64 on the CPU: lpc {e_k[0]:.3g}, burg "
+          f"{e_k[1]:.3g} (gate {LPC_K_ATOL}); lattice_fir then lattice_iir "
+          f"(S5) back to the input {e_back:.3g} x max (gate {S5_RTOL}), S5 "
+          f"{ms_s5:.3f} ms ({LPC_FRAMES * LPC_N / (ms_s5 * 1e3):.1f} "
+          f"Msamples/s); S5 at order 64 on one lane of 2^20 against scipy's "
+          f"lfilter(1, A) in float64 {e_64:.3g} (gate {S5_RTOL}), "
+          f"{ms_64:.1f} ms ({ms_64 * 1e6 / T_S5_LONG:.1f} ns a sample) | "
+          f"{smi}", flush=True)
+    if not (max(e_k) <= LPC_K_ATOL and e_back <= S5_RTOL
+            and e_64 <= S5_RTOL):
+        fail("phase 39: LPC or the lattices disagree")
+
+    # (g) DCT / DST 1-4 (both backends where a type has two), MDCT / IMDCT
+    xg = rng.standard_normal(TRIG_SHAPE).astype(np.float32)
+    xgt, xg64 = torch.from_numpy(xg).to(dev), torch.from_numpy(
+        xg.astype(np.float64))
+    trig = []
+    for fn, ty, be in ([(trig_transforms.dct, t, "auto") for t in (1, 2, 3, 4)]
+                       + [(trig_transforms.dct, t, "matmul") for t in (1, 2)]
+                       + [(trig_transforms.dst, t, "auto") for t in (1, 2, 3, 4)]
+                       + [(trig_transforms.dst, 1, "matmul")]):
+        e = rel_err(fn(xgt, ty, be), fn(xg64, ty, be))
+        ms = cuda_ms(lambda: fn(xgt, ty, be), 5)
+        trig.append((f"{fn.__name__}{ty}/{be}", e, ms))
+    w = trig_transforms.mdct_window(TRIG_SHAPE[1] // 2)
+    Xm = trig_transforms.mdct(xgt, w)
+    e_md = rel_err(Xm, trig_transforms.mdct(xg64, w))
+    e_im = rel_err(trig_transforms.imdct(Xm, w),
+                   trig_transforms.imdct(torch.from_numpy(host(Xm).astype(
+                       np.float64)), w))
+    trig += [("mdct", e_md, cuda_ms(lambda: trig_transforms.mdct(xgt, w), 5)),
+             ("imdct", e_im, cuda_ms(lambda: trig_transforms.imdct(Xm, w),
+                                     5))]
+    print("[39 DCT/DST/MDCT, (4096, 1024) float32] against float64 on the "
+          f"CPU, x max (gate {TRIG_RTOL}), ms: "
+          + ", ".join(f"{n} {e:.2g} {ms:.4f}" for n, e, ms in trig)
+          + f" | {smi}", flush=True)
+    if not max(e for _, e, _ in trig) <= TRIG_RTOL:
+        fail("phase 39: a trigonometric transform disagrees")
+
+    # (h) the ADC model and the G.711 codecs on a 2^24 complex64 block
+    bits = 12
+    delta = 2.0 / (1 << bits)
+    xa = (0.4 * cnoise(rng, L_ADC)).astype(np.complex64)
+    xat = torch.from_numpy(xa).to(dev)
+    adc = quantize.adc_model(xat, bits)
+    adc_cpu = quantize.adc_model(torch.from_numpy(xa), bits)
+    same_adc = bool(np.array_equal(host(adc), host(adc_cpu)))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ed = host(quantize.adc_model(xat, bits, dither=True, generator=g)) - xa
+    inside = (np.abs(xa.real) < 1 - delta) & (np.abs(xa.imag) < 1 - delta)
+    e_in = ed[inside]
+    n_in = e_in.size
+    dith_ok = all(
+        float(np.max(np.abs(p))) <= delta / 2 * (1 + 1e-3)
+        and abs(float(np.mean(p))) < 5 * delta / np.sqrt(12 * n_in)
+        and abs(float(np.corrcoef(p, q)[0, 1])) < 5 / np.sqrt(n_in)
+        for p, q in ((e_in.real, xa.real[inside]),
+                     (e_in.imag, xa.imag[inside])))
+    codecs = []
+    xr_ = np.clip(xa.real, -1, 1)
+    xrt = torch.from_numpy(xr_).to(dev)
+    allc = torch.arange(256, dtype=torch.uint8)
+    for name in ("mulaw", "alaw"):
+        enc, dec = (getattr(quantize, f"{name}_{s}") for s in ("encode",
+                                                                "decode"))
+        cg, cc = host(enc(xrt)), host(enc(torch.from_numpy(xr_)))
+        codecs.append((name, int(np.sum(cg != cc)),
+                       bool(np.array_equal(host(dec(allc.to(dev))),
+                                           host(dec(allc)))),
+                       cuda_ms(lambda: dec(enc(xrt)), 5)))
+    ms_adc = cuda_ms(lambda: quantize.adc_model(xat, bits), 5)
+    print(f"[39 ADC and G.711, 2^24 complex64] adc_model(12) bit-equal to its "
+          f"CPU run {same_adc}, {ms_adc:.4f} ms; with subtractive dither "
+          f"inside the rails: |err| <= delta/2, mean ~0, uncorrelated "
+          f"{dith_ok}; codecs (name, codes unlike the CPU's of 2^24, "
+          f"decodes of all 256 codes equal, encode+decode ms): {codecs} | "
+          f"{smi}", flush=True)
+    if not (same_adc and dith_ok and all(
+            m <= CODEC_MISMATCH * L_ADC and d for _, m, d, _ in codecs)):
+        fail("phase 39: the ADC model or a codec disagrees")
+
+    # (i) the estimators on 2^20
+    kq = np.arange(L_EST)
+    sym = GRAY[rng.integers(0, 4, L_EST)]
+    yq = (sym + 0.3 * cnoise(rng, L_EST)).astype(np.complex64)
+    tone_ = (np.exp(2j * np.pi * 0.1234567 * kq + 0.7j)
+             + 0.3 * cnoise(rng, L_EST)).astype(np.complex64)
+    sg = np.convolve(rng.standard_normal(L_EST + 64), np.ones(4) / 4,
+                     "same").astype(np.float32)
+    xd, yd = sg[32:32 + L_EST], sg[25:25 + L_EST]        # y lags x by 7
+    on = {k_: torch.from_numpy(v).to(dev) for k_, v in
+          (("yq", yq), ("sym", sym.astype(np.complex64)), ("tone", tone_),
+           ("xd", xd), ("yd", yd))}
+    cp = {k_: torch.from_numpy(v.astype(np.complex128 if np.iscomplexobj(v)
+                                        else np.float64))
+          for k_, v in (("yq", yq), ("sym", sym), ("tone", tone_),
+                        ("xd", xd), ("yd", yd))}
+    ests = {}
+    for label, fn in (
+            ("snr_m2m4", lambda d: snr_ops.snr_m2m4(d["yq"])),
+            ("evm", lambda d: snr_ops.evm(d["yq"], d["sym"])),
+            ("tone_freq_kay", lambda d: estimate.tone_freq_kay(d["tone"])),
+            ("tone_freq_fft", lambda d: estimate.tone_freq_fft(d["tone"])),
+            ("tdoa", lambda d: estimate.tdoa_gcc_phat(d["xd"], d["yd"],
+                                                      32)[0])):
+        ests[label] = (float(fn(on)), float(fn(cp)),
+                       cuda_ms(lambda fn=fn: fn(on), 5))
+    ok_est = (abs(ests["snr_m2m4"][0] / ests["snr_m2m4"][1] - 1) <= 1e-3
+              and abs(ests["evm"][0] / ests["evm"][1] - 1) <= 1e-4
+              and abs(ests["tone_freq_kay"][0] - ests["tone_freq_kay"][1])
+              <= EST_F_ATOL
+              and abs(ests["tone_freq_fft"][0] - ests["tone_freq_fft"][1])
+              <= EST_F_ATOL
+              and abs(ests["tdoa"][0] - ests["tdoa"][1]) <= 0.01
+              and abs(ests["tdoa"][0] - 7.0) < 0.5)
+    print("[39 estimators, 2^20] (card, float64 CPU, card ms): "
+          + ", ".join(f"{k_} ({a:.9g}, {b:.9g}, {m:.4f})"
+                      for k_, (a, b, m) in ests.items())
+          + f"; gates: snr rel 1e-3, evm rel 1e-4, frequencies {EST_F_ATOL}, "
+          f"tdoa 0.01 | {smi}", flush=True)
+    if not ok_est:
+        fail("phase 39: an estimator disagrees with its float64 run")
+
+    # (j) the RF measurements at nfft 4096 on 2^22
+    km = np.arange(L_MEAS)
+    spec = np.fft.fft(cnoise(rng, L_MEAS).astype(np.complex128))
+    fgrid = np.fft.fftfreq(L_MEAS)
+    xm = np.fft.ifft(spec * (np.abs(fgrid) < 0.1) + 0.003 * spec)
+    xm = xm.astype(np.complex64)
+    tone2 = (np.exp(2j * np.pi * 0.12 * km) + 0.01 * np.exp(
+        2j * np.pi * 0.31 * km) + 1e-4 * cnoise(rng, L_MEAS)).astype(
+            np.complex64)
+    sine = np.sin(2 * np.pi * 75123.7 / L_MEAS * km)
+    sine = (np.round(sine * 2047) / 2047).astype(np.float32)
+    meas = {}
+    dv = {"xm": torch.from_numpy(xm).to(dev),
+          "tone2": torch.from_numpy(tone2).to(dev),
+          "sine": torch.from_numpy(sine).to(dev)}
+    cv = {"xm": torch.from_numpy(xm.astype(np.complex128)),
+          "tone2": torch.from_numpy(tone2.astype(np.complex128)),
+          "sine": torch.from_numpy(sine.astype(np.float64))}
+    for label, fn in (
+            ("channel_power", lambda v: float(measurements.channel_power(
+                v["xm"], 1.0, 0.0, 0.2, nfft=MEAS_NFFT))),
+            ("acpr_lower_db", lambda v: measurements.acpr(
+                v["xm"], 1.0, 0.2, nfft=MEAS_NFFT)["lower_db"].tolist()),
+            ("obw", lambda v: measurements.occupied_bandwidth(
+                v["xm"], 1.0, nfft=MEAS_NFFT)),
+            ("sinad_db", lambda v: measurements.sinad_db(v["sine"],
+                                                         nfft=MEAS_NFFT)),
+            ("enob", lambda v: measurements.enob(v["sine"], nfft=MEAS_NFFT)),
+            ("sfdr_db", lambda v: measurements.sfdr_db(v["tone2"],
+                                                       nfft=MEAS_NFFT))):
+        t0 = time.perf_counter()
+        got = fn(dv)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        meas[label] = (got, fn(cv), ms)
+    cpw = meas["channel_power"]
+    ok_meas = (abs(cpw[0] / cpw[1] - 1) <= 1e-4
+               and max(abs(a - b) for a, b in zip(*meas["acpr_lower_db"][:2]))
+               <= MEAS_DB_ATOL
+               and abs(meas["obw"][0] - meas["obw"][1]) <= 1.0 / MEAS_NFFT
+               and all(abs(meas[k_][0] - meas[k_][1]) <= SINAD_DB_ATOL
+                       for k_ in ("sinad_db", "sfdr_db"))
+               and abs(meas["enob"][0] - meas["enob"][1]) <= SINAD_DB_ATOL
+               and abs(meas["sfdr_db"][0] - 40.0) < 1.5)
+    print("[39 RF measurements, nfft 4096, 2^22] (card, float64 CPU, card ms "
+          "on the host clock): "
+          + ", ".join(f"{k_} ({a}, {b}, {m:.2f})"
+                      for k_, (a, b, m) in meas.items())
+          + f"; gates: power rel 1e-4, ACPR {MEAS_DB_ATOL} dB, OBW one bin, "
+          f"SINAD/SFDR/ENOB {SINAD_DB_ATOL} | {smi}", flush=True)
+    if not ok_meas:
+        fail("phase 39: an RF measurement disagrees with its float64 run")
+
+    # S4 and S5 against their plain versions on the card, timed side by side
+    # at T_S4_TIMED steps (the plain walks take ~25 launches a step)
+    zt_s = zkt[:T_S4_TIMED, None]
+    ops = [torch.from_numpy(a).to(dev, torch.float32) for a in (A, C, Q, R)]
+    xs0, Ps0 = st0
+    got_f = cuda_track.kalman_filter_cuda(xs0, Ps0, zt_s, *ops, keep=True)
+    box = {}
+
+    def plain_f():
+        box["f"] = kalman.kalman_walk_plain(xs0, Ps0, zt_s, *ops, keep=True)
+    plain_f_ms = cuda_ms_once(plain_f)
+    want_f = box["f"]
+    err_f = float(max((g_ - w_).abs().max() for g_, w_ in
+                      zip(got_f, want_f)))
+    got_b = cuda_track.rts_backward_cuda(*want_f[:1], *want_f[3:], ops[0])
+
+    def plain_b():
+        box["b"] = kalman.rts_backward_plain(want_f[0], *want_f[3:], ops[0])
+    plain_b_ms = cuda_ms_once(plain_b)
+    err_b = float(max((g_ - w_).abs().max() for g_, w_ in zip(got_b,
+                                                               box["b"])))
+    Fg = torch.from_numpy(F).to(dev, torch.float32)
+    Bl = zt[:T_S4_TIMED, None] @ torch.from_numpy(K.T).to(dev, torch.float32)
+    got_l = cuda_track.kalman_lti_cuda(x0, Bl, Fg)
+
+    def plain_l():
+        box["l"] = kalman.lti_walk_plain(x0, Bl, Fg)
+    plain_l_ms = cuda_ms_once(plain_l)
+    err_l = float(max((g_ - w_).abs().max() for g_, w_ in zip(got_l,
+                                                               box["l"])))
+    y5, k5 = yl[:, :T_S5_TIMED].contiguous(), kl
+    got_5 = cuda_track.lattice_iir_cuda(y5, k5)
+
+    def plain_5():
+        box["5"] = lpc.lattice_iir_plain(y5, k5)
+    plain_5_ms = cuda_ms_once(plain_5)
+    err_5 = float((got_5 - box["5"]).abs().max())
+    rel_5 = err_5 / float(box["5"].abs().max())
+    rels = [err_f / float(max(w_.abs().max() for w_ in want_f)),
+            err_b / float(max(w_.abs().max() for w_ in box["b"])),
+            err_l / float(max(w_.abs().max() for w_ in box["l"])), rel_5]
+    ms_f = graph_ms(lambda: cuda_track.kalman_filter_cuda(
+        xs0, Ps0, zt_s, *ops, keep=True), 5)
+    ms_b = graph_ms(lambda: cuda_track.rts_backward_cuda(
+        *want_f[:1], *want_f[3:], ops[0]), 5)
+    ms_l = graph_ms(lambda: cuda_track.kalman_lti_cuda(x0, Bl, Fg), 5)
+    ms_5 = graph_ms(lambda: cuda_track.lattice_iir_cuda(y5, k5), 5)
+    T, n4 = T_S4_TIMED, 2
+    # bytes: each input read once, each output written once; operations:
+    # the float32 step's multiply-adds (2 each), from the step's algebra
+    b_f = bound_ms(4 * T * (1 + 2 * n4 + 2 * n4 * n4) + 4 * 22,
+                   2 * T * 48, FP32_FLOPS)
+    b_b = bound_ms(4 * T * (2 * (n4 + n4 * n4) + n4 + n4 * n4) + 16,
+                   2 * T * 36, FP32_FLOPS)
+    b_l = bound_ms(4 * T * 2 * n4 + 4 * (n4 * n4 + 2 * n4),
+                   2 * T * n4 * (n4 + 1), FP32_FLOPS)
+    nl = LPC_FRAMES * T_S5_TIMED
+    b_5 = bound_ms(4 * 2 * nl + 4 * LPC_FRAMES * LPC_ORDER,
+                   2 * nl * 2 * LPC_ORDER, FP32_FLOPS)
+    print(f"[39 S4 and S5 vs plain on the card, float32] forward (keep) at "
+          f"T={T}: max|d| {err_f:.3g} ({rels[0]:.3g} x max), {ms_f:.4f} ms "
+          f"(CUDA graph), plain {plain_f_ms:.1f} ms, bound {b_f[0]:.5f} ms "
+          f"({b_f[1]}); backward: {err_b:.3g} ({rels[1]:.3g}), {ms_b:.4f} ms, "
+          f"plain {plain_b_ms:.1f} ms, bound {b_b[0]:.5f}; LTI: {err_l:.3g} "
+          f"({rels[2]:.3g}), {ms_l:.4f} ms, plain {plain_l_ms:.1f} ms, bound "
+          f"{b_l[0]:.5f}; S5 (256 lanes x {T_S5_TIMED}, order 16): {err_5:.3g} "
+          f"({rel_5:.3g}), {ms_5:.4f} ms, plain {plain_5_ms:.1f} ms, bound "
+          f"{b_5[0]:.5f} (gate {S4_RTOL} x max) | {smi}", flush=True)
+    if not max(rels) <= S4_RTOL:
+        fail("phase 39: S4 or S5 disagrees with its plain version")
+    print(f"[39 phase time] {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    kf_src = "solid_dsp_tpu/ops/kalman.py:{} (a lax.scan, no TPU kernel)"
+    entries = []
+    for (name, line, err, ms, plain, bnd, main_ms), launches in zip((
+            ("kalman_filter", kf_src.format(66), err_f, ms_f, plain_f_ms,
+             b_f, ms_kf),
+            ("rts_backward", kf_src.format(110), err_b, ms_b, plain_b_ms,
+             b_b, ms_rts),
+            ("kalman_lti", kf_src.format(172), err_l, ms_l, plain_l_ms, b_l,
+             ms_scan),
+            ("lattice_iir", "solid_dsp_tpu/analysis/lpc.py:233 (a lax.scan, "
+             "no TPU kernel)", err_5, ms_5, plain_5_ms, b_5, ms_s5)),
+            main_launches):
+        e = kernel_entry(name, "track_scan.cu", line, launches, err, ms,
+                         plain, bnd)
+        e["timed_shape"] = (f"T={T_S4_TIMED}" if name != "lattice_iir" else
+                            f"256 lanes x {T_S5_TIMED}, order 16")
+        e["main_path_ms"] = main_ms
+        entries.append(e)
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -4317,6 +4939,8 @@ def main() -> None:
     stamp("37")
     cli_counts = cli_phases(dev, smi)
     stamp("38")
+    kernels += item11_phases(dev, smi)
+    stamp("39")
     for k in kernels:
         k["launches"] += cli_counts.get(k["name"], 0)
     if not all(k["launches"] > 0 for k in kernels):

@@ -13,14 +13,20 @@ and resampler stages.  The Kaiser taps feed the receive chain's
 decimating filter (``models/rx_chain.py``), the FIR filters of
 ``ops/fir.py`` and the channelizer's prototype (``models/channelizer.py``);
 the metrics are ``FIRFilter``'s Firdes-trait methods; the root-raised
-cosine is the 2x-oversampled bank's reconstruction prototype.
+cosine is the 2x-oversampled bank's reconstruction prototype.  Also
+``firdes_doppler`` (:197, Jakes + Rice-K), ``firdes_hilbert`` (:322), the
+least-squares designs ``firdes_ls`` and ``firdes_equiripple`` (Lawson's
+reweighting) with their helpers (:347-421) and ``firdes_savgol`` (:424).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .specialfn import sinc
+import math
+
+from .specialfn import besselj, sinc
+from .windows import hamming
 from .windows import kaiser as kaiser_window
 
 __all__ = ["EstimationMethod", "estimate_required_filter_length",
@@ -28,7 +34,9 @@ __all__ = ["EstimationMethod", "estimate_required_filter_length",
            "estimate_required_filter_length_herrmann",
            "estimate_required_filter_stop_band_attenuation",
            "estimate_required_filter_transition", "kaiser_beta",
-           "firdes_kaiser", "firdes_notch", "firdes_rrcos",
+           "firdes_kaiser", "firdes_notch", "firdes_doppler", "firdes_rrcos",
+           "firdes_hilbert", "firdes_ls", "firdes_equiripple",
+           "firdes_savgol",
            "filter_autocorrelation", "filter_crosscorrelation",
            "filter_isi", "filter_energy"]
 
@@ -271,3 +279,116 @@ def firdes_rrcos(samples_per_symbol: int, delay_symbols: int,
             den = np.pi * ti * (1 - (4 * beta * ti) ** 2)
             h[i] = num / den
     return h / np.sqrt(np.sum(h ** 2))
+
+
+def firdes_doppler(filter_length: int, doppler_frequency: float,
+                   rice_fading_factor: float, theta: float) -> np.ndarray:
+    """Doppler filter (Jakes + Rice-K), Kaiser-windowed at beta 4
+    (reference firdes/mod.rs:389-418)."""
+    i = np.arange(filter_length, dtype=np.float64)
+    t = i - (filter_length - 1.0) / 2.0
+    j = 1.5 * besselj(np.abs(2.0 * np.pi * doppler_frequency * t), 0.0)
+    r = (1.5 * rice_fading_factor / (rice_fading_factor + 1.0)
+         * np.cos(2.0 * np.pi * doppler_frequency * t * np.cos(theta)))
+    return (j + r) * kaiser_window(filter_length, 4.0)
+
+
+def firdes_hilbert(ntaps: int) -> np.ndarray:
+    """Hamming-windowed FIR Hilbert transformer of odd length: 2/(pi k) at
+    odd offsets k from the centre, 0 elsewhere (group delay (N-1)/2)."""
+    n = int(ntaps)
+    if n % 2 == 0:
+        raise ValueError("ntaps must be odd")
+    k = np.arange(n) - (n - 1) // 2
+    h = np.zeros(n)
+    odd = (k % 2) != 0
+    h[odd] = 2.0 / (np.pi * k[odd])
+    return h * hamming(n)
+
+
+def _type1_design_matrix(ntaps: int, grid: np.ndarray):
+    """The cosine basis (G, (ntaps - 1)/2 + 1) of a type-I FIR on ``grid``."""
+    m = (ntaps - 1) // 2
+    return np.cos(np.outer(2.0 * np.pi * grid, np.arange(m + 1)))
+
+
+def _bands_grid(bands, desired, weights, grid_density, ntaps):
+    """(frequencies, targets, weights) of the bands' dense grid: at least 8
+    points a band, grid_density * ntaps (at least 64) in all, shared by the
+    bands' widths."""
+    pts, des, wts = [], [], []
+    n_total = max(grid_density * ntaps, 64)
+    span = sum(b[1] - b[0] for b in bands)
+    for (f0, f1), d, w in zip(bands, desired, weights):
+        n = max(int(round(n_total * (f1 - f0) / span)), 8)
+        pts.append(np.linspace(f0, f1, n))
+        des.append(np.full(n, float(d)))
+        wts.append(np.full(n, float(w)))
+    return np.concatenate(pts), np.concatenate(des), np.concatenate(wts)
+
+
+def _coeffs_to_taps(coeffs: np.ndarray, ntaps: int) -> np.ndarray:
+    """Cosine-basis coefficients -> the symmetric type-I impulse response."""
+    m = (ntaps - 1) // 2
+    h = np.zeros(ntaps)
+    h[m] = coeffs[0]
+    for k in range(1, m + 1):
+        h[m + k] = h[m - k] = 0.5 * coeffs[k]
+    return h
+
+
+def firdes_ls(ntaps: int, bands, desired, weights=None,
+              grid_density: int = 16) -> np.ndarray:
+    """Weighted least-squares multiband linear-phase FIR (type I; an even
+    ``ntaps`` grows by one).  bands [(f0, f1), ...] in cycles/sample,
+    ``desired`` a gain a band, ``weights`` an error weight a band."""
+    if ntaps % 2 == 0:
+        ntaps += 1
+    if weights is None:
+        weights = [1.0] * len(bands)
+    f, d, w = _bands_grid(bands, desired, weights, grid_density, ntaps)
+    A = _type1_design_matrix(ntaps, f)
+    coeffs, *_ = np.linalg.lstsq(A * w[:, None], d * w, rcond=None)
+    return _coeffs_to_taps(coeffs, ntaps)
+
+
+def firdes_equiripple(ntaps: int, bands, desired, weights=None,
+                      grid_density: int = 16, iterations: int = 60,
+                      beta: float = 0.5) -> np.ndarray:
+    """Near-equiripple multiband FIR by Lawson's iteratively reweighted least
+    squares: after each solve the grid's weights grow with the error
+    envelope (to the power ``beta``), renormalised to the largest band
+    weight."""
+    if ntaps % 2 == 0:
+        ntaps += 1
+    if weights is None:
+        weights = [1.0] * len(bands)
+    f, d, w0 = _bands_grid(bands, desired, weights, grid_density, ntaps)
+    A = _type1_design_matrix(ntaps, f)
+    w = w0.copy()
+    coeffs = None
+    for _ in range(iterations):
+        coeffs, *_ = np.linalg.lstsq(A * w[:, None], d * w, rcond=None)
+        err = np.abs((A @ coeffs - d) * w0)
+        env = err / (np.mean(err) + 1e-300)
+        w = w * np.power(env + 1e-12, beta)
+        w = w / np.max(w) * np.max(w0)
+    return _coeffs_to_taps(coeffs, ntaps)
+
+
+def firdes_savgol(window_length: int, polyorder: int,
+                  deriv: int = 0) -> np.ndarray:
+    """Savitzky-Golay taps: deriv! times row ``deriv`` of the pseudo-inverse
+    of the Vandermonde matrix over the centred odd window (the best-fit
+    polynomial's value or derivative at the centre, newest-last taps,
+    group delay (W-1)/2)."""
+    W, p, d = int(window_length), int(polyorder), int(deriv)
+    if W < 1 or W % 2 == 0:
+        raise ValueError("window_length must be odd and >= 1")
+    if not 0 <= p < W:
+        raise ValueError("need 0 <= polyorder < window_length")
+    if not 0 <= d <= p:
+        raise ValueError("need 0 <= deriv <= polyorder")
+    x = np.arange(W, dtype=np.float64) - (W - 1) / 2.0
+    A = x[:, None] ** np.arange(p + 1)[None, :]
+    return np.linalg.pinv(A)[d] * float(math.factorial(d))

@@ -2,20 +2,24 @@
 
 Port of the parts of ``solid_dsp_tpu/design/specialfn.py`` that the Kaiser
 window reaches: ``sinc``, and ``besseli`` at order 0 with the ``lngamma``
-behind it.  They reproduce the reference's fixed-length series (reference
-``src/math/mod.rs``); the filter design golden values depend on those exact
-formulas, so the arithmetic is the JAX package's, in the same order.  Other
-orders of I_nu are not ported.  ``csqrt`` (the complex square root of a
-real number) serves Bairstow's root pairs in ``design/polymath.py``.
+behind it; ``gamma``, ``lnbesseli`` (log I_nu of any order) and ``besselj``
+(J_nu, which ``firdes_doppler`` needs).  They reproduce the reference's
+fixed-length series (reference ``src/math/mod.rs``); the filter design
+golden values depend on those exact formulas, so the arithmetic is the JAX
+package's, in the same order.  ``besseli`` itself keeps order 0.
+``csqrt`` (the complex square root of a real number) serves Bairstow's
+root pairs in ``design/polymath.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["sinc", "besseli", "lngamma", "csqrt"]
+__all__ = ["sinc", "besseli", "lnbesseli", "besselj", "gamma", "lngamma",
+           "csqrt"]
 
 _BESSEL_ITERATIONS = 64
+_BESSEL_J_ITERATIONS = 128
 
 
 def sinc(x):
@@ -51,6 +55,85 @@ def lngamma(x):
     g = 0.5 * (np.log(2.0 * np.pi) - np.log(xx))
     g = g + xx * (np.log(xx + (1.0 / (12.0 * xx - 0.1 / xx))) - 1.0)
     out = np.where(neg, 0.0, acc + g)
+    return float(out[0]) if scalar else out
+
+
+def gamma(x):
+    """Gamma(x) = exp(lngamma(x)); the reflection pi / (Gamma(1 - x)
+    sin(pi x)) for x < 0 (reference math/mod.rs:156-169)."""
+    x = np.asarray(x, dtype=np.float64)
+    scalar = x.ndim == 0
+    x = np.atleast_1d(x)
+    out = np.empty_like(x)
+    neg = x < 0.0
+    if neg.any():
+        out[neg] = np.pi / (gamma(1.0 - x[neg]) * np.sin(np.pi * x[neg]))
+    out[~neg] = np.exp(lngamma(x[~neg]))
+    return float(out[0]) if scalar else out
+
+
+def lnbesseli(z, nu: float = 0.0):
+    """log I_nu(z): 0 (nu = 0) or -max float64 at z = 0; the closed form
+    at nu = 1/2; -Gamma(nu + 1) + nu ln(z/2) below 0.001 sqrt(nu + 1) (the
+    reference's formula); else nu ln(z/2) + ln of the 64-term series
+    sum_k exp(2k ln(z/2) - lngamma(k + 1) - lngamma(nu + k + 1))
+    (reference math/mod.rs:65-100)."""
+    z = np.asarray(z, dtype=np.float64)
+    scalar = z.ndim == 0
+    z = np.atleast_1d(z)
+    out = np.empty_like(z)
+    zero = z == 0.0
+    out[zero] = 0.0 if nu == 0.0 else -np.finfo(np.float64).max
+    zr = z[~zero]
+    if zr.size:
+        if nu == 0.5:
+            out[~zero] = 0.5 * np.log(2.0 / (np.pi * zr)) + np.log(np.sinh(zr))
+        else:
+            low = zr < 0.001 * np.sqrt(nu + 1.0)
+            res = np.empty_like(zr)
+            if low.any():
+                res[low] = -gamma(nu + 1.0) + nu * np.log(0.5 * zr[low])
+            if (~low).any():
+                zh = zr[~low]
+                y = np.zeros_like(zh)
+                for k in range(_BESSEL_ITERATIONS):
+                    y += np.exp(2.0 * k * np.log(0.5 * zh) - lngamma(k + 1.0)
+                                - lngamma(nu + k + 1.0))
+                res[~low] = nu * np.log(0.5 * zh) + np.log(y)
+            out[~zero] = res
+    return float(out[0]) if scalar else out
+
+
+def besselj(z, nu: float = 0.0):
+    """Bessel function of the first kind J_nu(z): 1 (nu = 0) or 0 at z = 0;
+    (z/2)^nu / Gamma(nu + 1) below 0.001 sqrt(nu + 1); else the 128-term
+    alternating series of exp((2i + |nu|)(ln z - ln 2) - lngamma(i + 1) -
+    lngamma(|nu| + i + 1)) (reference math/mod.rs:102-145)."""
+    z = np.asarray(z, dtype=np.float64)
+    scalar = z.ndim == 0
+    z = np.atleast_1d(z)
+    out = np.empty_like(z)
+    zero = z == 0.0
+    out[zero] = 1.0 if nu == 0.0 else 0.0
+    zr = z[~zero]
+    if zr.size:
+        low = zr < 0.001 * np.sqrt(nu + 1.0)
+        res = np.empty_like(zr)
+        if low.any():
+            res[low] = (0.5 * zr[low]) ** nu / gamma(nu + 1.0)
+        if (~low).any():
+            zh = zr[~low]
+            abs_nu = abs(nu)
+            J = np.zeros_like(zh)
+            ln_z = np.log(zh)
+            ln2 = np.log(2.0)
+            for i in range(_BESSEL_J_ITERATIONS):
+                t0 = 2.0 * i + abs_nu
+                term = np.exp(t0 * ln_z - t0 * ln2 - lngamma(i + 1.0)
+                              - lngamma(abs_nu + i + 1.0))
+                J += term if i % 2 == 0 else -term
+            res[~low] = J
+        out[~zero] = res
     return float(out[0]) if scalar else out
 
 

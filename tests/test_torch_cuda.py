@@ -35,8 +35,13 @@ IIR classes and zero-phase filters on the card within 1e-5 of max (float32
 "scan" is S3, bit-equal to the CPU's plain version only up to the b taps'
 convolution, which cuDNN sums in another order) or 1e-12 (float64) of the
 CPU's.  The CLI's ``rx`` on the card writes exactly what ``RxChain`` on the
-card returns for the same blocks (bit-equal), through K1.
+card returns for the same blocks (bit-equal), through K1.  S4 (the Kalman
+walks of csrc/track_scan.cu: forward, RTS backward, LTI) within rtol 1e-9
+(float64) or 1e-4 (float32) of its plain walks at n, m up to 8, and S5 (the
+all-pole lattice) the same in all four types at orders 1 to 80.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -1737,3 +1742,141 @@ def test_cli_rx_equals_rx_chain_on_card(tmp_path):
     got = read_iq(dst)
     assert got.shape == (n // 4,) and np.all(got.imag == 0)
     assert np.array_equal(got.real, want)
+
+
+# ---------------------------------------------------------------------------
+# S4 (the Kalman recursions) and S5 (the all-pole lattice), csrc/track_scan.cu
+# against their plain versions on the card.  Tolerances: float64 within
+# rtol 1e-9 of the plain walk (the solve and the sums in another order);
+# float32 within 1e-4 of each output's scale (the Riccati recursion is
+# contractive, so rounding does not grow); S5 within 1e-9 (float64 /
+# complex128) and 1e-4 (float32 / complex64) of max|x|.
+
+_KF_SHAPES = [(1, 1), (1, 3), (2, 1), (3, 2), (4, 4), (5, 3), (8, 8)]
+
+
+def _kf_model(n, m, seed):
+    rng = np.random.default_rng(seed)
+    A = 0.95 * np.eye(n) + 0.05 * rng.standard_normal((n, n))
+    C = rng.standard_normal((m, n))
+    Q = 0.01 * np.eye(n)
+    R = np.diag(rng.uniform(0.2, 1.0, m))
+    Z = rng.standard_normal((300, m))
+    return A, C, Q, R, Z
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-300)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m", _KF_SHAPES)
+def test_s4_forward_and_backward_match_plain_on_card(dt, n, m):
+    """S4's forward entry (kalman_apply, rts_smooth's forward pass with the
+    covariances kept) and backward entry (the RTS pass) against the plain
+    walks on the same card tensors; one launch each, counted."""
+    from solid_dsp_tpu_torch.ops import cuda_track
+    from solid_dsp_tpu_torch.ops import kalman as kf
+
+    dev = require_cuda()
+    A, C, Q, R, Z = _kf_model(n, m, 20 + n + 10 * m)
+    x0 = torch.zeros(n, dtype=dt, device=dev)
+    P0 = 10.0 * torch.eye(n, dtype=dt, device=dev)
+    Zt = torch.from_numpy(Z).to(dev, dt)
+    tol = 1e-9 if dt == torch.float64 else 1e-4
+    f0 = cuda_track.kalman_filter_cuda.launches
+    X, (xT, PT) = kf.kalman_apply((x0, P0), Zt, A, C, Q, R)
+    assert cuda_track.kalman_filter_cuda.launches == f0 + 1
+    ops = [torch.from_numpy(a).to(dev, dt) for a in (A, C, Q, R)]
+    Xp_, xp_, Pp_, Pf, Xpr, Ppr = kf.kalman_walk_plain(x0, P0, Zt, *ops,
+                                                       keep=True)
+    torch.cuda.synchronize()
+    assert X.dtype == dt and X.shape == (300, n)
+    assert _rel(X, Xp_) <= tol and _rel(xT, xp_) <= tol
+    assert _rel(PT, Pp_) <= tol
+    got = cuda_track.kalman_filter_cuda(x0, P0, Zt, *ops, keep=True)
+    for g, w in zip(got[3:], (Pf, Xpr, Ppr)):
+        assert _rel(g, w) <= tol
+    b0 = cuda_track.rts_backward_cuda.launches
+    Xs, Ps = kf.rts_smooth((x0, P0), Zt, A, C, Q, R)
+    assert cuda_track.rts_backward_cuda.launches == b0 + 1
+    Xs_p, Ps_p = kf.rts_backward_plain(Xp_, Pf, Xpr, Ppr, ops[0])
+    assert _rel(Xs, Xs_p) <= tol and _rel(Ps, Ps_p) <= tol
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_s4_lti_entry_matches_plain_on_card(dt, n):
+    """S4's LTI entry (kalman_lti_apply "scan", AlphaBetaTracker "scan")
+    against lti_walk_plain on the card and the parallel route."""
+    from solid_dsp_tpu_torch.ops import cuda_track
+    from solid_dsp_tpu_torch.ops import kalman as kf
+
+    dev = require_cuda()
+    rng = np.random.default_rng(40 + n)
+    F = 0.9 * np.eye(n) + 0.05 * rng.standard_normal((n, n))
+    K = rng.standard_normal((n, 1))
+    Z = torch.from_numpy(rng.standard_normal(1000)).to(dev, dt)
+    x0 = torch.from_numpy(rng.standard_normal(n)).to(dev, dt)
+    before = cuda_track.kalman_lti_cuda.launches
+    X, xT = kf.kalman_lti_apply(x0, Z, K, F, method="scan")
+    assert cuda_track.kalman_lti_cuda.launches == before + 1
+    Ft, Kt = (torch.from_numpy(a).to(dev, dt) for a in (F, K))
+    Xp, xp = kf.lti_walk_plain(x0, Z[:, None] @ Kt.T, Ft)
+    Xq, _ = kf.kalman_lti_apply(x0, Z, K, F, method="parallel")
+    tol = 1e-9 if dt == torch.float64 else 1e-4
+    assert _rel(X, Xp) <= tol and _rel(xT, xp) <= tol and _rel(X, Xq) <= tol
+    a, b = kf.alpha_beta_gains(0.1)
+    trk = kf.AlphaBetaTracker(a, b, dtype=dt)
+    z = torch.cumsum(torch.ones(2000, dtype=dt, device=dev), 0)
+    Y = torch.cat([trk.execute_block(z[:700], "scan"),
+                   trk.execute_block(z[700:], "scan")])
+    ref = kf.AlphaBetaTracker(a, b, dtype=dt).execute_block(z, "parallel")
+    assert Y.device == dev and _rel(Y, ref) <= tol
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64,
+                                torch.complex64, torch.complex128])
+@pytest.mark.parametrize("p", [1, 5, 16, 40, 64, 80])
+def test_s5_lattice_matches_plain_on_card(dt, p):
+    """S5 against lattice_iir_plain on the card, orders 1 to 64 in the
+    register buckets and 80 on the generic path, three lanes with their own
+    coefficients; lattice_fir of the result gives y back; one launch."""
+    from solid_dsp_tpu_torch.ops import cuda_track
+    lpc = importlib.import_module("solid_dsp_tpu_torch.analysis.lpc")
+
+    dev = require_cuda()
+    rng = np.random.default_rng(60 + p)
+    k = 0.6 * rng.uniform(-1, 1, (3, p)) / np.sqrt(np.arange(1, p + 1))
+    y = rng.standard_normal((3, 300))
+    if dt.is_complex:
+        k = k * np.exp(1j * rng.uniform(0, 2 * np.pi, (3, p)))
+        y = y + 1j * rng.standard_normal((3, 300))
+    kt, yt = (torch.from_numpy(a).to(dev, dt) for a in (k, y))
+    before = cuda_track.lattice_iir_cuda.launches
+    x = lpc.lattice_iir(yt, kt)
+    assert cuda_track.lattice_iir_cuda.launches == before + 1
+    xp = lpc.lattice_iir_plain(yt, kt)
+    tol = 1e-9 if dt in (torch.float64, torch.complex128) else 1e-4
+    assert x.dtype == dt and _rel(x, xp) <= tol
+    assert _rel(lpc.lattice_fir(x, kt), yt) <= 10 * tol
+
+
+def test_s4_s5_reject_cpu_and_wrong_types():
+    from solid_dsp_tpu_torch.ops import cuda_track
+
+    require_cuda()
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_track.lattice_iir_cuda(torch.zeros(3, 8), torch.zeros(3, 2))
+    with pytest.raises(TypeError):
+        cuda_track.lattice_iir_cuda(torch.zeros(8, device="cuda",
+                                                dtype=torch.int32),
+                                    torch.zeros(2, device="cuda",
+                                                dtype=torch.int32))
+    with pytest.raises(ValueError, match="n, m"):
+        cuda_track.kalman_filter_cuda(
+            torch.zeros(9, device="cuda"), torch.zeros(9, 9, device="cuda"),
+            torch.zeros(4, 1, device="cuda"),
+            torch.zeros(9, 9, device="cuda"), torch.zeros(1, 9, device="cuda"),
+            torch.zeros(9, 9, device="cuda"), torch.zeros(1, 1, device="cuda"))

@@ -138,3 +138,75 @@ def test_block_gain_update_matches_jax(ee, alpha, T):
         assert got[k].dtype == torch.float32
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-6)
+
+
+# ---------------------------------------------------- the design leftovers
+# gamma, lnbesseli and besselj; firdes_doppler, firdes_hilbert, the
+# least-squares designs and Savitzky-Golay: the same float64 numpy code on
+# both sides, so equal to 1e-12 (the iterative Lawson design to 1e-10).
+
+def test_gamma_lnbesseli_besselj_match_jax():
+    x = np.concatenate([np.linspace(0.1, 12.0, 40), [-0.5, -2.5, 3.0]])
+    np.testing.assert_allclose(specialfn.gamma(x), jspecialfn.gamma(x),
+                               rtol=1e-12, atol=0)
+    assert specialfn.gamma(5.0) == jspecialfn.gamma(5.0)
+    z = np.concatenate([np.linspace(0.0, 25.0, 51), [1e-5, 0.5, 1e-4]])
+    for nu in (0.0, 0.5, 1.0, 2.5, 7.0):
+        np.testing.assert_allclose(specialfn.lnbesseli(z, nu),
+                                   jspecialfn.lnbesseli(z, nu), rtol=1e-12,
+                                   atol=1e-300)
+        np.testing.assert_allclose(specialfn.besselj(z, nu),
+                                   jspecialfn.besselj(z, nu), rtol=1e-12,
+                                   atol=1e-15)
+    assert specialfn.besselj(1.0) == jspecialfn.besselj(1.0, 0.0)
+    assert specialfn.lnbesseli(0.0, 1.0) == jspecialfn.lnbesseli(0.0, 1.0)
+
+
+@pytest.mark.parametrize("n,fd,k,theta", [(51, 0.1, 2.0, 0.0),
+                                          (33, 0.02, 0.0, 0.7),
+                                          (64, 0.25, 5.0, 1.2)])
+def test_firdes_doppler_matches_jax(n, fd, k, theta):
+    np.testing.assert_allclose(firdes.firdes_doppler(n, fd, k, theta),
+                               jfirdes.firdes_doppler(n, fd, k, theta),
+                               rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.parametrize("n", [1, 15, 31, 101])
+def test_firdes_hilbert_matches_jax(n):
+    np.testing.assert_array_equal(firdes.firdes_hilbert(n),
+                                  jfirdes.firdes_hilbert(n))
+    with pytest.raises(ValueError, match="odd"):
+        firdes.firdes_hilbert(n + 1)
+
+
+@pytest.mark.parametrize("ntaps,bands,desired,weights", [
+    (63, [(0.0, 0.10), (0.16, 0.5)], [1.0, 0.0], None),
+    (40, [(0.0, 0.2), (0.25, 0.5)], [1.0, 0.0], [1.0, 10.0]),
+    (81, [(0.0, 0.1), (0.15, 0.3), (0.35, 0.5)], [0.0, 1.0, 0.0],
+     [3.0, 1.0, 3.0])])
+def test_ls_and_equiripple_match_jax(ntaps, bands, desired, weights):
+    for a, b in zip(firdes._bands_grid(bands, desired, weights or [1.0] * len(
+            bands), 16, ntaps | 1), jfirdes._bands_grid(
+                bands, desired, weights or [1.0] * len(bands), 16, ntaps | 1)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(firdes.firdes_ls(ntaps, bands, desired,
+                                                weights),
+                               jfirdes.firdes_ls(ntaps, bands, desired,
+                                                 weights),
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(firdes.firdes_equiripple(ntaps, bands, desired,
+                                                        weights),
+                               jfirdes.firdes_equiripple(ntaps, bands,
+                                                         desired, weights),
+                               rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("w,p,d", [(5, 2, 0), (11, 3, 1), (21, 4, 2),
+                                   (1, 0, 0)])
+def test_firdes_savgol_matches_jax(w, p, d):
+    np.testing.assert_allclose(firdes.firdes_savgol(w, p, d),
+                               jfirdes.firdes_savgol(w, p, d), rtol=0,
+                               atol=1e-12)
+    for bad in ((4, 2, 0), (5, 5, 0), (5, 2, 3)):
+        with pytest.raises(ValueError):
+            firdes.firdes_savgol(*bad)

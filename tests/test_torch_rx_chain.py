@@ -141,7 +141,9 @@ def test_port_never_imports_jax():
     zero-phase filtering, the autocorrelator, CIC, halfband and arbitrary
     resamplers (both paths, with flush), the FM stereo back end and the DDC,
     the native runtime (IQ files, StreamPump), a composed chain and its
-    checkpoint, and the CLI (``rx``, and ``--help`` run as the package's
+    checkpoint, item 11's ops and analysis (the Kalman smoother and a
+    tracker, the lattices, the cyclic scan, CZT, DCT, wavelets, codecs,
+    estimators, measurements), and the CLI (``rx``, and ``--help`` run as the package's
     ``__main__``) loads no jax module and no module of the JAX package
     (fresh interpreter: this one has jax); ``python -m solid_dsp_tpu_torch
     --help`` runs."""
@@ -192,6 +194,19 @@ def test_port_never_imports_jax():
         "fft.spectrogram(xc, 256); fft.welch_psd(xc, 256)\n"
         "an.stft_denoise(xc, 256, 64); an.goertzel_bank(xc, (0.1,), 256)\n"
         "an.fir_group_delay(np.ones(5), 0.1)\n"
+        "from solid_dsp_tpu_torch.ops import czt, kalman, quantize, "
+        "trig_transforms, wavelet\n"
+        "xr = xc.real.contiguous()\n"
+        "_, k, _ = an.burg(xr, 4); an.lattice_iir(an.lattice_fir(xr, k), k)\n"
+        "an.cycle_profile(xc, [0.1]); an.tone_snr(xc); an.acpr(xc, 1.0, 0.1)\n"
+        "an.tdoa_gcc_phat(xr, xr, 4); an.snr_m2m4(xc)\n"
+        "czt.zoom_fft(xc, 0.1, 0.2, 16); trig_transforms.dct(xr, 4)\n"
+        "wavelet.denoise_soft(xr[:1024]); quantize.mulaw_encode(xr)\n"
+        "A, C, Q, R = kalman.cv_model(1.0, 0.05, 1.0)\n"
+        "kalman.rts_smooth(kalman.kalman_init(np.zeros(2), np.eye(2), "
+        "device='cpu'), torch.randn(16, dtype=torch.float64), A, C, Q, R)\n"
+        "kalman.AlphaBetaTracker(0.5, 0.1, device='cpu').execute_block("
+        "xr[:64], 'scan')\n"
         "for mk in (farrow.make_farrow_resampler, "
         "cuda_resample.make_farrow_kernel_resampler):\n"
         "    init, apply, plan = mk(48000 / 44100, 2048, device='cpu')\n"

@@ -3,10 +3,11 @@
     python3 torch_kernel_sweep.py            # K6, the DDC body, K1
     python3 torch_kernel_sweep.py fir-route  # the FIR's two card routes
     python3 torch_kernel_sweep.py s3         # S3's chunk length and join
-    python3 torch_kernel_sweep.py latency    # S1 and S2's latency bounds
+    python3 torch_kernel_sweep.py latency    # S1, S2, S4, S5: latency bounds
     python3 torch_kernel_sweep.py k1-direct  # K1's direct route: R, warps
     python3 torch_kernel_sweep.py k1-route   # K1 as routed, both modes
     python3 torch_kernel_sweep.py fsm        # S1's FSM entry: chunk, block
+    python3 torch_kernel_sweep.py track-prefetch  # S4/S5: the L2 prefetch
 
 * K6 (csrc/iir_bank.cu) at T = 2^14, C = 256, S = 2 (ChannelBank's block):
   the chunk length Lc in {16, 32, 64, 128}, each timed over a CUDA graph of
@@ -59,9 +60,21 @@
   (``cuobjdump -sass``, one warp issuing one a cycle) the other; the
   larger over the SM clock is its bound, printed beside its time a sample
   at T = 2^16.  The SASS is kept beside the built libraries
-  (``solid_dsp_tpu_torch/_build/seq_scan.sass``).  S1's FSM entry is
+  (``solid_dsp_tpu_torch/_build/seq_scan.sass``).  The same for S4 and S5
+  (csrc/track_scan.cu, float32, one lane of 2^16): S4's forward entry at
+  n = 2, m = 1 (its chain holds a division: FDIV in the probe), its
+  backward and LTI entries at n = 2, S5 at orders 16 and 64
+  (``track_scan.sass``).  S1's FSM entry is
   time-parallel (the chunk-and-join kernel): its row prints its bytes
   bound (4 in and 4 out a step over 3.35 TB/s) beside its time instead.
+
+* ``track-prefetch``: S4's entries and S5 (csrc/track_scan.cu) as built
+  (the L2 prefetch of the chunk after next in the LTI walk only) against
+  two variants built beside them by text substitution, the prefetch in
+  every walk and in none, in turns (as built, every, none, none, every,
+  as built), at the main paths' shapes: the LTI walk over 2^22, the forward walk over 2^20 (with and
+  without the kept covariances), the backward walk over 2^20, S5 over 256
+  lanes of 2^14 at order 16 and one lane of 2^20 at order 64.
 
 * ``k1-direct``: K1's direct route (csrc/ddc_fm.cu, a warp a run of R
   outputs) at 256 taps and M = 128, 200, 240 and 512 taps, M = 256, ~2^24
@@ -100,7 +113,7 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import graph_ms, snr_db, timed
+from chip_smoke import cuda_ms, graph_ms, snr_db, timed
 
 
 FIR_ROUTE_SHAPES = (          # (taps, stride, outputs a sample, samples)
@@ -368,6 +381,7 @@ __global__ void probe(int op, float a, double da, float* out, double* dout,
     case 10: CHAIN(sincosf(v, &s, &c); v = s + c;) break;
     case 11: CHAIN(d = __fma_rn(d, 0.999, 1e-3);) break;
     case 12: CHAIN(v = v > 0.5f ? v * 0.75f : v + 0.1f;) break;
+    case 13: CHAIN(v = __fdiv_rn(1.3f, v);) break;
   }
   const long long t1 = clock64();
   out[0] = v;
@@ -382,7 +396,7 @@ extern "C" int probe_launch(int op, float a, double da, float* out,
 """
 LATENCY_OPS = ("FFMA", "FMUL", "FADD", "MUFU.EX2", "MUFU.LG2", "MUFU.SIN",
                "expf", "logf", "log10f", "atan2f", "sincosf", "DFMA",
-               "compare+select")
+               "compare+select", "FDIV")
 
 
 def latency_probe(dev) -> dict:
@@ -439,10 +453,28 @@ def sass_dump(source: str) -> str:
 #     FADD), the decision (compare and select on y), y conj(d) (FMUL +
 #     FADD), atan2, dtheta += alpha e (FMUL + FADD), theta = (theta +
 #     dtheta) + beta e (two FADDs, beta e off the chain).
+#   S4 forward (kf_forward_kernel, n = 2, m = 1): P -> A P (FMUL + FFMA)
+#     -> Pp = (A P) A' + Q (FMUL + FFMA + FADD) -> Pp C' (FMUL + FFMA) -> S
+#     (FMUL + FFMA + FADD) -> K = (Pp C') / S (FDIV) -> I - K C (FMUL +
+#     FADD) -> P = (I - K C) Pp (FMUL + FFMA); x's chain is shorter;
+#   S4 backward (rts_backward_kernel, n = 2): the gain G comes from the
+#     step's inputs only, so the chain is Ps -> Ps - Pp (FADD) -> G (Ps -
+#     Pp) (FMUL + FFMA) -> Pf + (..) G' (FMUL + FFMA + FADD);
+#   S4 LTI (kf_lti_kernel, n = 2): x -> F x (FMUL + FFMA) -> + b (FADD);
+#   S5 (lattice_iir_kernel, real): stage m of sample t + 1 needs b_m, which
+#     stage m - 1 of sample t wrote, so the samples overlap as a wavefront:
+#     b_m's update (FFMA), then stage m's g <- g - k_m b_m and stage m - 1's
+#     (FFMA each) a sample, whatever p; its 2p FFMAs a sample are the SASS
+#     floor.
 LATENCY_CHAINS = {
     "S1": {"FMUL": 4 + 2, "FFMA": 1, "FADD": 1, "logf": 1, "expf": 1},
     "S2": {"sincosf": 1, "FMUL": 3, "FADD": 5, "compare+select": 1,
            "atan2f": 1},
+    "S4 forward": {"FMUL": 6, "FFMA": 5, "FADD": 3, "FDIV": 1},
+    "S4 backward": {"FMUL": 2, "FFMA": 2, "FADD": 2},
+    "S4 LTI": {"FMUL": 1, "FFMA": 1, "FADD": 1},
+    "S5 p=16": {"FFMA": 3},
+    "S5 p=64": {"FFMA": 3},
 }
 _CARRIED = {"logf": "FADD", "log10f": "FADD", "atan2f": "FADD",
             "sincosf": "FADD", "expf": "FMUL"}
@@ -452,14 +484,16 @@ _SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                         r"([A-Z][A-Z0-9_.]*)\s*(.*?);")
 
 
-def sass_step_instructions(sass: str, kernel: str, loads: int,
-                           mufu: int | None = None) -> float:
+def sass_step_instructions(sass: str, kernel: str, loads: int | None,
+                           mufu: int | None = None, steps: int = 8) -> float:
     """Instructions a step of ``kernel``'s main loop in a cuobjdump -sass
     listing: among the loops (a backward branch's range) of the function
-    whose name holds ``kernel`` that issue ``loads`` global loads (and,
+    whose name holds ``kernel`` that issue ``loads`` global loads (any
+    number where ``loads`` is None; and,
     given ``mufu``, that many MUFU operations), the largest, or with
-    ``mufu`` the one with the fewest branches; over the walk's 8 steps
-    (CHUNK, unrolled).  One warp issues at most one instruction a cycle,
+    ``mufu`` the one with the fewest branches; over the ``steps`` steps a
+    loop holds (seq_scan.cu's walk: 8, CHUNK unrolled; track_scan.cu's: its
+    chunk).  One warp issues at most one instruction a cycle,
     so this is a second floor beside the chain's."""
     loops = []
     for part in sass.split("Function : ")[1:]:
@@ -472,14 +506,15 @@ def sass_step_instructions(sass: str, kernel: str, loads: int,
             if target and int(target.group(1), 16) < addr:
                 body = [i[1] for i in ins
                         if int(target.group(1), 16) <= i[0] <= addr]
-                if (sum(o.startswith("LDG") for o in body) == loads and (
+                if ((loads is None
+                     or sum(o.startswith("LDG") for o in body) == loads) and (
                         mufu is None
                         or sum(o.startswith("MUFU") for o in body) == mufu)):
                     loops.append((body.count("BRA"), len(body)))
     if not loops:
         raise ValueError(f"no main loop of {kernel} in the SASS")
     n = (min(loops)[1] if mufu is not None else max(b for _, b in loops))
-    return n / 8.0
+    return n / float(steps)
 
 
 def latency_sweep(dev, smi) -> None:
@@ -524,7 +559,8 @@ def latency_sweep(dev, smi) -> None:
     # walk (a float2 sample is two loads)
     issue = {"S1": sass_step_instructions(sass, "agc_scan_kernelIf", 8, 8),
              "S2": sass_step_instructions(sass, "costas_pll_kernelIf", 16)}
-    for name, chain in LATENCY_CHAINS.items():
+    for name in ("S1", "S2"):
+        chain = LATENCY_CHAINS[name]
         cycles = sum(n * (lat[op] - (lat[_CARRIED[op]]
                                      if op in _CARRIED else 0.0))
                      for op, n in chain.items())
@@ -544,6 +580,169 @@ def latency_sweep(dev, smi) -> None:
           f"2^16, bytes over 3.35 TB/s); measured {ms * 1e6 / T:.2f} ns a "
           f"step ({ms:.4f} ms): {bound / ms:.1%} of the bound | {smi}",
           flush=True)
+    track_latency(dev, smi, lat, mhz)
+
+
+
+
+def track_latency(dev, smi, lat: dict, mhz: float) -> None:
+    """S4's three entries and S5 (csrc/track_scan.cu, float32, one lane of
+    T = 2^16): each loop-carried chain (LATENCY_CHAINS) over the probe's
+    latencies and the main loop's SASS instructions a step, the larger
+    over the SM clock beside the time a step (CUDA graph of 5 launches)."""
+    import importlib
+
+    from solid_dsp_tpu_torch.ops import cuda_build, cuda_track, kalman
+
+    lpc = importlib.import_module("solid_dsp_tpu_torch.analysis.lpc")
+    sass = sass_dump("track_scan.cu")
+    out = cuda_build.BUILD_DIR / "track_scan.sass"
+    out.write_text(sass)
+    print(f"[latency] track_scan.cu SASS: {len(sass.splitlines())} lines, "
+          f"kept in {out}", flush=True)
+    T = 1 << 16
+    rng = np.random.default_rng(39)
+    A, C, Q, R = (torch.from_numpy(a).to(dev, torch.float32)
+                  for a in kalman.cv_model(1.0, 0.05, 1.0))
+    z = torch.from_numpy(rng.standard_normal((T, 1))).to(dev, torch.float32)
+    x0 = torch.zeros(2, device=dev)
+    P0 = 10.0 * torch.eye(2, device=dev)
+    kept = cuda_track.kalman_filter_cuda(x0, P0, z, A, C, Q, R, keep=True)
+    Bz = torch.cat([z, 0.1 * z], dim=1)
+    F = 0.9 * torch.eye(2, device=dev)
+    y = z[:, 0].contiguous()
+    k16 = torch.from_numpy(0.5 * rng.uniform(-1, 1, 16)).to(dev,
+                                                            torch.float32)
+    k64 = torch.from_numpy(0.5 * rng.uniform(-1, 1, 64)
+                           / np.sqrt(np.arange(1, 65))).to(dev, torch.float32)
+    runs = {
+        "S4 forward": (lambda: cuda_track.kalman_filter_cuda(
+            x0, P0, z, A, C, Q, R), "kf_forward_kernelIfLi2ELi1EE", 8),
+        "S4 backward": (lambda: cuda_track.rts_backward_cuda(
+            kept[0], *kept[3:], A), "rts_backward_kernelIfLi2EE", 4),
+        "S4 LTI": (lambda: cuda_track.kalman_lti_cuda(x0, Bz, F),
+                   "kf_lti_kernelIfLi2EE", 16),
+        "S5 p=16": (lambda: lpc.lattice_iir(y, k16),
+                    "lattice_iir_kernelIfLi16EE", 8),
+        "S5 p=64": (lambda: lpc.lattice_iir(y, k64),
+                    "lattice_iir_kernelIfLi64EE", 8),
+    }
+    for name, (fn, kernel, steps) in runs.items():
+        chain = LATENCY_CHAINS[name]
+        cycles = sum(n * lat[op] for op, n in chain.items())
+        # each kernel's main loop: a chunk of `steps` steps, unrolled
+        # (track_scan.cu's kf_chunk, rts_chunk, lti_chunk, LATTICE_CHUNK)
+        issue = sass_step_instructions(sass, kernel, None, steps=steps)
+        bound_ns = max(cycles, issue) / mhz * 1e3
+        ns = graph_ms(fn, 5) * 1e6 / T
+        print(f"[latency bound {name}] chain {chain}: {cycles:.1f} cycles a "
+              f"step; its SASS main loop {issue:.1f} instructions a step; "
+              f"bound {bound_ns:.1f} ns at {mhz:.0f} MHz (the larger); "
+              f"measured {ns:.1f} ns a step (T = 2^16): {bound_ns / ns:.0%} "
+              f"of the bound | {smi}", flush=True)
+
+
+# track_scan.cu's walks as built pass no-op prefetch callbacks but the LTI
+# walk's; one variant asks every walk's chunk after next into L2, the other
+# none
+TRACK_PREFETCH_NONE = (
+    ("""  }, [&](long long t) { prefetch_l2(in + t * NP); });""",
+     """  }, [](long long) {});"""),
+)
+TRACK_PREFETCH_EDITS = (
+    ("""    store_rows(a.Pp + row * NP * NP, Pp);
+    }
+  }, [](long long) {});""", """    store_rows(a.Pp + row * NP * NP, Pp);
+    }
+  }, [&](long long t) { prefetch_l2(Z + t * MP); });"""),
+    ("""    store_rows(a.Ps + t * NN, Ps);
+  }, [](long long) {});""", """    store_rows(a.Ps + t * NN, Ps);
+  }, [&](long long i) {
+    const long long t = base + T - 2 - i;
+    prefetch_l2(a.Xf + t * NP);
+    prefetch_l2(a.Pf + t * NN);
+    prefetch_l2(a.Xp + (t + 1) * NP);
+    prefetch_l2(a.Pp + (t + 1) * NN);
+  });"""),
+    ("""  const auto ahead = [](long long) {};""",
+     """  const auto ahead = [&](long long t) { prefetch_l2(yl + t); };"""),
+)
+
+
+def track_prefetch(dev, smi) -> None:
+    """S4 and S5 as built against the variant with the L2 prefetch in every
+    walk, in turns, at the main paths' shapes (CUDA events, 3 calls after
+    2 warm-up calls each)."""
+    import importlib
+
+    from solid_dsp_tpu_torch.ops import cuda_build, cuda_track, kalman
+
+    lpc = importlib.import_module("solid_dsp_tpu_torch.analysis.lpc")
+    libs = cuda_build.build()
+    d = cuda_build.BUILD_DIR / "track_prefetch"
+    d.mkdir(parents=True, exist_ok=True)
+    variants = {"as built": libs["track_scan.cu"]}
+    for label, edits in (("every walk", TRACK_PREFETCH_EDITS),
+                         ("no walk", TRACK_PREFETCH_NONE)):
+        src = (cuda_build.CSRC / "track_scan.cu").read_text()
+        for old, new in edits:
+            if old not in src:
+                raise ValueError("track_scan.cu changed: update "
+                                 "TRACK_PREFETCH_EDITS / _NONE")
+            src = src.replace(old, new)
+        stem = label.replace(" ", "_")
+        (d / f"{stem}.cu").write_text(src)
+        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                        str(d / f"lib{stem}.so"), str(d / f"{stem}.cu")],
+                       check=True, capture_output=True)
+        variants[label] = ctypes.CDLL(str(d / f"lib{stem}.so"))
+    rng = np.random.default_rng(0)
+    model = kalman.cv_model(1.0, 0.05, 1.0)
+    A, C, Q, R = (torch.from_numpy(a).to(dev, torch.float32) for a in model)
+    K, F = kalman.steady_state_gain(*model)
+    z22 = torch.from_numpy(rng.standard_normal(1 << 22)).to(dev,
+                                                            torch.float32)
+    B22 = z22[:, None] @ torch.from_numpy(K.T).to(dev, torch.float32)
+    Ft = torch.from_numpy(F).to(dev, torch.float32)
+    z20 = z22[:1 << 20, None].contiguous()
+    x0 = torch.zeros(2, device=dev)
+    P0 = 10 * torch.eye(2, device=dev)
+    kept = cuda_track.kalman_filter_cuda(x0, P0, z20, A, C, Q, R, keep=True)
+    yl = torch.from_numpy(rng.standard_normal((256, 1 << 14))).to(
+        dev, torch.float32)
+    kl = torch.from_numpy(0.5 * rng.uniform(-1, 1, (256, 16))).to(
+        dev, torch.float32)
+    y1 = z22[:1 << 20].contiguous()
+    k64 = torch.from_numpy(0.5 * rng.uniform(-1, 1, 64)
+                           / np.sqrt(np.arange(1, 65))).to(dev, torch.float32)
+    runs = {
+        "LTI 2^22": lambda: cuda_track.kalman_lti_cuda(x0, B22, Ft),
+        "forward 2^20": lambda: cuda_track.kalman_filter_cuda(
+            x0, P0, z20, A, C, Q, R),
+        "forward keep 2^20": lambda: cuda_track.kalman_filter_cuda(
+            x0, P0, z20, A, C, Q, R, keep=True),
+        "backward 2^20": lambda: cuda_track.rts_backward_cuda(
+            kept[0], *kept[3:], A),
+        "S5 256 x 2^14 p=16": lambda: lpc.lattice_iir(yl, kl),
+        "S5 2^20 p=64": lambda: lpc.lattice_iir(y1, k64),
+    }
+    res = {name: {v: [] for v in variants} for name in runs}
+    for turn in ("as built", "every walk", "no walk", "no walk",
+                 "every walk", "as built"):
+        cuda_build.launcher.cache_clear()
+        libs["track_scan.cu"] = variants[turn]
+        for name, fn in runs.items():
+            res[name][turn].append(cuda_ms(fn, 3))
+    cuda_build.launcher.cache_clear()
+    libs["track_scan.cu"] = variants["as built"]
+    for name, r in res.items():
+        print(f"[track-prefetch] {name}: as built "
+              + " / ".join(f"{v:.3f}" for v in r["as built"])
+              + " ms, prefetch in every walk "
+              + " / ".join(f"{v:.3f}" for v in r["every walk"])
+              + " ms, in none "
+              + " / ".join(f"{v:.3f}" for v in r["no walk"])
+              + f" ms | {smi}", flush=True)
 
 
 def main() -> None:
@@ -583,6 +782,9 @@ def main() -> None:
     if sys.argv[1:] == ["fsm"]:
         cuda_build.build()
         fsm_sweep(dev, smi)
+        return
+    if sys.argv[1:] == ["track-prefetch"]:
+        track_prefetch(dev, smi)
         return
     cuda_build.build()
 
