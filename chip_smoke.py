@@ -310,7 +310,24 @@ Phases, one line each:
      CPU runs; each timed; S4's three entries and S5 against their plain
      versions on the card (1e-4 x max) at T = 2^12 (S5: 256 lanes x 2^12,
      order 16), timed over a CUDA graph beside their plain versions and
-     bounds.  S4 and S5's launches on these paths are the kernels' line's.
+     bounds.  S4 and S5's launches on these paths are the kernels' line's;
+ 40. ROADMAP item 13a (item13a_phases) at the TPU sweep's rows
+     (bench_all.py:600-796), each timed by CUDA events (ms a call, the
+     host's enqueue), with the profiler's device busy time and the idle
+     share, its rate in the sweep's units, and checked: LDPC 648 (512
+     frames, 25 iterations) and polar (256, 128) BP (2048 frames, 15
+     iterations) bit-equal to their CPU runs and decoding every frame;
+     the QAM-64 soft demapper (2^21 symbols), the ZC-127 preamble
+     correlation (2^22), the K=7, Q=3 memory polynomial (2^22), ICF (4
+     iterations, 2^22) and the 32-tap block RLS (2^20) against their
+     float64 CPU runs; turbo (128 x 1024, 6 iterations) through S6
+     (bcjr_scan.cu), S6 against its plain version on the card on the
+     first walk's rows and the decode against the plain walks' decode
+     (|dLLR| <= 1e-4 max(1, max|LLR|)), every bit back; CA-CFAR (2^22,
+     guard 2, train 16) with F7 met: thresholds within 1e-5 of float64,
+     detections float64's except within that of the threshold; S6 timed
+     over a CUDA graph beside its plain version and its bound.  S6's
+     launches in the turbo decode are the kernels' line's.
 
 A "[time]" line after each group of phases gives the script's elapsed
 time.  Then the kernels' JSON line (each kernel's launches on the main paths; its
@@ -526,6 +543,20 @@ SYMBOL_RATE_ATOL = 2e-4   # tests/test_cyclo.py:66-82
 EST_F_ATOL = 1e-6         # cycles a sample, float32 vs float64
 MEAS_DB_ATOL = 0.01
 SINAD_DB_ATOL = 0.1
+# phase 40: item 13a at the TPU sweep's rows (bench_all.py:600-796)
+LDPC_FRAMES = 512
+L_DEMAP = 1 << 21
+L_PREAMBLE = 1 << 22
+POLAR_FRAMES = 2048
+TURBO_ROWS, TURBO_K = 128, 1024
+L_TX = 1 << 22            # dpd_mp_apply_k7q3, cfr_icf_4iter
+L_RLS = 1 << 20
+L_CFAR = 1 << 22
+L_LOCAL_F64 = 1 << 18     # a local function's float64 check: its first samples
+S6_RTOL = 1e-4            # x max(1, max|LLR|): step order vs radix-8 blocks
+TX_RTOL = 1e-4            # x max|ref|: complex64 against complex128
+RLS_RTOL = 1e-3           # complex64 normal equations over 2^20 samples
+F7_RTOL = 1e-5            # CA-CFAR thresholds against float64
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -4550,6 +4581,254 @@ def item11_phases(dev, smi) -> list:
     return entries
 
 
+def item13a_phases(dev, smi) -> list:
+    """Phase 40: ROADMAP item 13a on the card at the TPU sweep's rows, each
+    timed and checked (a float64 CPU run, or the CPU or plain version where
+    the gate is bit-level); turbo through S6, S6 against its plain version.
+    Returns S6's kernel entry."""
+    from solid_dsp_tpu_torch.models import (cfr, dpd, equalizer, framesync,
+                                            ldpc, linear_mod, polar, radar,
+                                            turbo)
+    from solid_dsp_tpu_torch.ops import cuda_bcjr
+    from solid_dsp_tpu_torch.utils import sequences
+
+    rng = np.random.default_rng(SEED + 40)
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    def rel(got, ref) -> float:
+        got, ref = np.asarray(got), np.asarray(ref)
+        return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+    def row(label, fn, count, unit, n=5):
+        """Rate in the sweep's unit over n calls (CUDA events), the host's
+        enqueue, the profiler's device busy time and the idle share."""
+        wall, enq = timed(fn, n)
+        busy, top = profiled_busy(fn, max(1, min(5, int(100.0 / wall))))
+        print(f"[40 {label}] {count / (wall * 1e3):.2f} {unit} (wall "
+              f"{wall:.4f} ms a call over {n}), host {enq:.4f} ms a call, "
+              f"device busy {busy:.4f} ms, idle "
+              f"{max(0.0, 1 - busy / wall):.0%}; largest kernels: {top} | "
+              f"{smi}", flush=True)
+
+    ok = True
+
+    # ldpc_decode_648_25it: 512 frames at Eb/N0 ~4.4 dB (BPSK, sigma 0.6)
+    code = ldpc.wifi_ldpc_648(dev)
+    info = rng.integers(0, 2, (LDPC_FRAMES, code.k))
+    cw = host(code.encode(info))
+    sig = 0.6
+    llr = (2.0 * ((1 - 2.0 * cw) + sig * rng.standard_normal(cw.shape))
+           / sig ** 2).astype(np.float32)
+    llr_d = torch.from_numpy(llr).to(dev)
+    bits_d, ok_d = code.decode(llr_d, 25)
+    bits_c, ok_c = ldpc.LDPCCode(code.H, device=cpu).decode(llr, 25)
+    good = (np.array_equal(host(bits_d), host(bits_c))
+            and np.array_equal(host(ok_d), host(ok_c))
+            and bool(ok_d.all()) and np.array_equal(host(bits_d), info))
+    print(f"[40 ldpc 648, {LDPC_FRAMES} frames, 25 it] card = CPU run "
+          f"(bits, syndromes) and every frame decoded: {good}", flush=True)
+    ok &= good
+    row(f"ldpc_decode_648_25it", lambda: code.decode(llr_d, 25),
+        LDPC_FRAMES * code.k, "Minfobits/s")
+
+    # llr_demap_qam64: 2^21 symbols, noise variance 0.1
+    pts = linear_mod.constellation("qam", 64)
+    ysym = (0.7 * (rng.standard_normal(L_DEMAP) + 1j
+                   * rng.standard_normal(L_DEMAP))).astype(np.complex64)
+    y_d = torch.from_numpy(ysym).to(dev)
+    got = host(linear_mod.demap_soft(y_d, pts, 0.1))
+    ref = host(linear_mod.demap_soft(torch.from_numpy(
+        ysym[:L_LOCAL_F64].astype(np.complex128)), pts, 0.1))
+    e_demap = rel(got[:ref.size], ref)
+    print(f"[40 llr_demap_qam64, 2^21] LLRs vs complex128 CPU on the first "
+          f"2^18 symbols: {e_demap:.3g} x max (gate {TX_RTOL})", flush=True)
+    ok &= e_demap <= TX_RTOL
+    row("llr_demap_qam64", lambda: linear_mod.demap_soft(y_d, pts, 0.1),
+        L_DEMAP, "Msymbols/s")
+
+    # preamble_correlate_127: ZC root 5 in 2^22 samples of noise
+    zc = sequences.zadoff_chu(5, 127)
+    x = (rng.standard_normal(L_PREAMBLE) + 1j
+         * rng.standard_normal(L_PREAMBLE)) / np.sqrt(2)
+    at = L_PREAMBLE // 3
+    x[at:at + 127] += 3.0 * zc
+    x = x.astype(np.complex64)
+    x_d = torch.from_numpy(x).to(dev)
+    rho2 = host(framesync.preamble_correlate(x_d, zc)[0])
+    n_chk = L_LOCAL_F64
+    ref = host(framesync.preamble_correlate(
+        torch.from_numpy(x[:n_chk].astype(np.complex128)), zc)[0])
+    e_pre = float(np.abs(rho2[:n_chk - 126] - ref[:n_chk - 126]).max())
+    start = int(framesync.detect_preamble(x_d, zc)[0])
+    print(f"[40 preamble_correlate_127, 2^22] |rho|^2 vs complex128 CPU on "
+          f"the first 2^18: {e_pre:.3g} (gate 1e-5); detected at {start}, "
+          f"planted at {at}", flush=True)
+    ok &= e_pre <= 1e-5 and start == at
+    row("preamble_correlate_127",
+        lambda: framesync.preamble_correlate(x_d, zc), L_PREAMBLE,
+        "Msamples/s")
+
+    # polar_bp_decode_256_15it: 2048 frames, LLRs 4 (1 - 2x) + N(0, 1)
+    pc = polar.PolarCode(256, 128, device=dev)
+    bits = rng.integers(0, 2, (POLAR_FRAMES, 128))
+    xcw = host(pc.encode(bits))
+    llr = ((1 - 2.0 * xcw) * 4 + rng.standard_normal(xcw.shape)).astype(
+        np.float32)
+    llr_d = torch.from_numpy(llr).to(dev)
+    out_d = polar.polar_decode_bp(llr_d, pc.frozen_mask, 15)
+    out_c = polar.polar_decode_bp(torch.from_numpy(llr), pc.frozen_mask, 15)
+    good = (all(np.array_equal(host(a), host(b))
+                for a, b in zip(out_d, out_c))
+            and np.array_equal(host(pc.decode(llr_d, 15)[0]), bits))
+    print(f"[40 polar 256/128, {POLAR_FRAMES} frames, 15 it] card = CPU run "
+          f"(u, x, ok) and every frame decoded: {good}", flush=True)
+    ok &= good
+    row("polar_bp_decode_256_15it",
+        lambda: polar.polar_decode_bp(llr_d, pc.frozen_mask, 15),
+        POLAR_FRAMES * 128, "Minfobits/s")
+
+    # turbo_decode_1024_6it through S6: 128 codewords, LLRs 4 (1 - 2c) + N
+    tc = turbo.TurboCode(TURBO_K, n_iter=6, device=dev)
+    tbits = rng.integers(0, 2, (TURBO_ROWS, TURBO_K))
+    tcw = host(tc.encode(tbits))
+    tllr = torch.from_numpy(((1 - 2.0 * tcw) * 4 + rng.standard_normal(
+        tcw.shape)).astype(np.float32)).to(dev)
+    cuda_bcjr.bcjr_maxlog_cuda.launches = 0
+    b_k, l_k = tc.decode(tllr)                       # the main path
+    launches = cuda_bcjr.bcjr_maxlog_cuda.launches
+    torch.cuda.synchronize()
+    box = {}
+
+    def plain_decode():
+        box["p"] = turbo.turbo_decode(tllr, tc.perm, 6, engine="torch")
+    plain_decode_ms = cuda_ms_once(plain_decode)
+    b_p, l_p = box["p"]
+    tol = S6_RTOL * max(1.0, float(l_p.abs().max()))
+    e_dec = float((l_k - l_p).abs().max())
+    sure = l_p.abs() > tol
+    good = (e_dec <= tol and torch.equal((l_k < 0)[sure], (l_p < 0)[sure])
+            and np.array_equal(host(b_k), tbits) and launches == 12)
+    # S6 against its plain version on the first walk's rows
+    T = TURBO_K
+    ls = torch.cat([tllr[:, :T], tllr[:, 3 * T:3 * T + 3]], -1).contiguous()
+    lp = torch.cat([tllr[:, T:2 * T], tllr[:, 3 * T + 3:3 * T + 6]],
+                   -1).contiguous()
+    tabs = turbo._rsc_tables(turbo.DEFAULT_FB, turbo.DEFAULT_FF, 3)[:4]
+    got = cuda_bcjr.bcjr_maxlog_cuda(ls, lp, T, *tabs)
+
+    def plain_walk():
+        box["w"] = turbo.bcjr_maxlog_plain(ls, lp, T)
+    plain_ms = cuda_ms_once(plain_walk)
+    want = box["w"]
+    e_s6 = float((got - want).abs().max())
+    tol6 = S6_RTOL * max(1.0, float(want.abs().max()))
+    sure = want.abs() > tol6
+    good &= e_s6 <= tol6 and torch.equal((got < 0)[sure], (want < 0)[sure])
+    ms_s6 = graph_ms(lambda: cuda_bcjr.bcjr_maxlog_cuda(ls, lp, T, *tabs),
+                     20)
+    Tm = T + 3
+    # bytes: ls, lp read once, the LLRs written once; operations a state a
+    # step: the forward's two gammas (4 each), two adds and a max, the
+    # backward's the same, the LLR's two adds a branch and two maxima
+    bnd = bound_ms(4.0 * TURBO_ROWS * (2 * Tm + T),
+                   28.0 * TURBO_ROWS * Tm * 8, FP32_FLOPS)
+    print(f"[40 turbo 1024, {TURBO_ROWS} rows, 6 it] S6 launches {launches} "
+          f"(want 12); decoded LLRs vs the plain walks' decode on the card: "
+          f"{e_dec:.3g} (gate {tol:.3g}); S6 vs plain on the first walk: "
+          f"{e_s6:.3g} (gate {tol6:.3g}); every bit back: "
+          f"{np.array_equal(host(b_k), tbits)}; S6 {ms_s6:.4f} ms a walk "
+          f"(CUDA graph), plain walk {plain_ms:.1f} ms, plain decode "
+          f"{plain_decode_ms:.1f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}) | "
+          f"{smi}", flush=True)
+    ok &= good
+    row("turbo_decode_1024_6it", lambda: tc.decode(tllr),
+        TURBO_ROWS * TURBO_K, "Minfobits/s", n=3)
+    decode_ms = timed(lambda: tc.decode(tllr), 3)[0]
+
+    # dpd_mp_apply_k7q3 and cfr_icf_4iter: 2^22 complex64
+    xt = (0.2 * (rng.standard_normal(L_TX) + 1j
+                 * rng.standard_normal(L_TX))).astype(np.complex64)
+    xt_d = torch.from_numpy(xt).to(dev)
+    c = np.r_[1.0, np.full(20, 1e-3)].astype(np.complex64)
+    c_d = torch.from_numpy(c).to(dev)
+    got = host(dpd.mp_apply(c_d, xt_d, 7, 3))
+    ref = host(dpd.mp_apply(torch.from_numpy(c.astype(np.complex128)),
+                            torch.from_numpy(xt[:L_LOCAL_F64].astype(
+                                np.complex128)), 7, 3))
+    e_dpd = rel(got[:L_LOCAL_F64], ref)
+    mask = cfr.band_mask(L_TX, 0.25)
+    got = host(cfr.cfr_icf(xt_d, 0.35, mask, 4))
+    ref = host(cfr.cfr_icf(torch.from_numpy(xt.astype(np.complex128)), 0.35,
+                           mask, 4))
+    e_cfr = rel(got, ref)
+    print(f"[40 dpd k7q3 / cfr icf 4 it, 2^22] vs complex128 CPU: mp_apply "
+          f"{e_dpd:.3g} x max (first 2^18), cfr_icf {e_cfr:.3g} x max (gate "
+          f"{TX_RTOL})", flush=True)
+    ok &= e_dpd <= TX_RTOL and e_cfr <= TX_RTOL
+    row("dpd_mp_apply_k7q3", lambda: dpd.mp_apply(c_d, xt_d, 7, 3), L_TX,
+        "Msamples/s")
+    m_d = torch.from_numpy(mask).to(dev)
+    row("cfr_icf_4iter", lambda: cfr.cfr_icf(xt_d, 0.35, m_d, 4), L_TX,
+        "Msamples/s")
+
+    # rls_equalizer_32tap: one block of 2^20 from the initial state
+    xr, dr = ((rng.standard_normal(L_RLS) + 1j * rng.standard_normal(L_RLS)
+               ).astype(np.complex64) for _ in range(2))
+    init, step = equalizer.make_rls(32, 0.9999, 1e-2, device=dev)
+    st0 = init()
+    xr_d, dr_d = torch.from_numpy(xr).to(dev), torch.from_numpy(dr).to(dev)
+    y = host(step(*st0, xr_d, dr_d)[0])
+    init64, step64 = equalizer.make_rls(32, 0.9999, 1e-2, torch.complex128,
+                                        cpu)
+    ref = host(step64(*init64(), torch.from_numpy(xr.astype(np.complex128)),
+                      torch.from_numpy(dr.astype(np.complex128)))[0])
+    e_rls = rel(y, ref)
+    print(f"[40 rls 32 taps, 2^20] y vs complex128 CPU: {e_rls:.3g} x max "
+          f"(gate {RLS_RTOL})", flush=True)
+    ok &= e_rls <= RLS_RTOL
+    row("rls_equalizer_32tap", lambda: step(*st0, xr_d, dr_d), L_RLS,
+        "Msamples/s")
+
+    # cfar_ca_g2t16 with F7 met: 2^22 exponential(1) cells
+    pw = rng.exponential(1.0, L_CFAR).astype(np.float32)
+    pw_d = torch.from_numpy(pw).to(dev)
+    det, thr = (host(v) for v in radar.cfar_ca(pw_d, 2, 16, 1e-4))
+    c64 = np.concatenate([[0.0], np.cumsum(pw.astype(np.float64))])
+    i = np.arange(L_CFAR)
+
+    def at_(off):
+        return c64[np.clip(i + off, 0, L_CFAR)]
+    total = at_(-2) - at_(-18) + at_(19) - at_(3)
+    cnt = np.maximum((np.clip(i - 2, 0, L_CFAR) - np.clip(i - 18, 0, L_CFAR))
+                     + (np.clip(i + 19, 0, L_CFAR)
+                        - np.clip(i + 3, 0, L_CFAR)), 1).astype(np.float64)
+    thr64 = cnt * (1e-4 ** (-1.0 / cnt) - 1.0) * total / cnt
+    e_f7 = float(np.abs(thr.astype(np.float64) / thr64 - 1).max())
+    clear = np.abs(pw - thr64) > F7_RTOL * thr64
+    good = e_f7 <= F7_RTOL and np.array_equal(det[clear],
+                                              (pw > thr64)[clear])
+    print(f"[40 cfar g2 t16, 2^22] F7: thresholds vs float64 {e_f7:.3g} "
+          f"relative (gate {F7_RTOL}); detections {int(det.sum())}, equal to "
+          f"float64's away from the threshold: {good}", flush=True)
+    ok &= good
+    row("cfar_ca_g2t16", lambda: radar.cfar_ca(pw_d, 2, 16, 1e-4), L_CFAR,
+        "Msamples/s")
+    print(f"[40 phase time] {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not ok:
+        fail("phase 40: an item-13a row disagrees with its reference")
+    e = kernel_entry("bcjr_maxlog", "bcjr_scan.cu",
+                     "solid_dsp_tpu/models/turbo.py:276 and :312 (lax.scans, "
+                     "no TPU kernel)", launches, e_s6, ms_s6, plain_ms, bnd)
+    e["timed_shape"] = f"{TURBO_ROWS} rows x {Tm} steps"
+    e["main_path_ms"] = decode_ms
+    return [e]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -4941,6 +5220,8 @@ def main() -> None:
     stamp("38")
     kernels += item11_phases(dev, smi)
     stamp("39")
+    kernels += item13a_phases(dev, smi)
+    stamp("40")
     for k in kernels:
         k["launches"] += cli_counts.get(k["name"], 0)
     if not all(k["launches"] > 0 for k in kernels):

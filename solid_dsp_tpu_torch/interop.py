@@ -51,6 +51,18 @@ State crosses between the two packages as numpy:
   :func:`tensors_to_numpy`, so a stream started in one package continues
   in the other.
 
+* item 13a's streaming objects, the same way through their ``state``
+  (``models/equalizer.py``, ``models/dpd.py``): ``LMSEqualizer`` and
+  ``CMAEqualizer`` (``taps``, ``tail``), ``RLSEqualizer`` (``R``, ``p``,
+  ``tail``; ``make_rls``'s carry is the tuple ``(R, p, tail)``),
+  ``FDAFCanceller`` (``state`` = (W, x_prev, P) as ``fdaf_step`` carries
+  it, and the host buffers ``xbuf``, ``dbuf``), ``Predistorter`` (``c``,
+  ``tail``); ``make_equalizer_trainer``'s carry is (taps, opt_state, tail)
+  with the JAX trainer's optax Adam state as the mapping ``{"count": ,
+  "mu": , "nu": }`` of its ``ScaleByAdamState``.  The codes' fixed data
+  (H and its layout, the frozen sets, the QPP permutations, the trellis)
+  is computed by the port's own copies, which the tests hold equal.
+
 The windowed FFT (K7) carries no state; its windows and tables, the FFT
 plans and the grid plans are rebuilt from the same arguments on both sides,
 and the tests hold the tables equal.  Every ``device`` defaults to the

@@ -253,12 +253,25 @@ def _check_backend(backend: str):
         raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
 
 
+def _empty_rows(x: torch.Tensor, n: int):
+    """The (..., n) result of a transform over a batch with no rows (a
+    zero in a leading axis), or None: cuFFT, oneMKL and K7 refuse one,
+    and JAX returns the empty array."""
+    if x.shape[:-1].numel():
+        return None
+    return x.new_zeros((*x.shape[:-1], n),
+                       dtype=torch.promote_types(x.dtype, torch.complex64))
+
+
 def fft(x, nfft: int | None = None, backend: str = "auto") -> torch.Tensor:
     """Unnormalized forward DFT along the last axis (zero-padded to
     ``nfft``); ``backend`` as in the module docstring."""
     _check_backend(backend)
     x = _as_complex(x)
     n = int(nfft or x.shape[-1])
+    empty = _empty_rows(x, n)
+    if empty is not None:
+        return empty
     if x.shape[-1] < n:
         x = torch.nn.functional.pad(x, (0, n - x.shape[-1]))
     if backend == "plan":
@@ -276,6 +289,9 @@ def ifft(x, nfft: int | None = None, backend: str = "auto") -> torch.Tensor:
     _check_backend(backend)
     x = _as_complex(x)
     n = int(nfft or x.shape[-1])
+    empty = _empty_rows(x, n)
+    if empty is not None:
+        return empty
     if backend == "plan":
         return _cached_plan(n, FFTDirection.REVERSE).execute(x)
     if backend == "matmul":
@@ -354,6 +370,9 @@ def windowed_fft(x, window: str = "hamming", nfft: int | None = None,
     x = torch.as_tensor(x)
     n = int(x.shape[-1])
     n_out = int(nfft or n)
+    empty = _empty_rows(x, n_out)
+    if empty is not None:
+        return empty
     fusable = (n == N_FFT and n_out == n and x.dim() == 2
                and int(x.shape[0]) % 8 == 0
                and torch.promote_types(x.dtype, torch.complex64)
@@ -394,6 +413,9 @@ def spectrogram(x, frame: int, hop: int | None = None,
     """Framed windowed FFT: (num_frames, nfft or frame); the frames are a
     strided view of x, copied once if K7 takes them."""
     x = torch.as_tensor(x)
+    if x.shape[-1] < frame:          # no whole frame: (..., 0, nfft)
+        return _empty_rows(x.new_empty((*x.shape[:-1], 0, frame)),
+                           int(nfft or frame))
     frames = x.unfold(-1, frame, hop or frame)
     return windowed_fft(frames, window, nfft or frame)
 

@@ -83,7 +83,8 @@ def conv1d_mxu(x: torch.Tensor, taps: torch.Tensor, stride: int = 1,
         return x.new_zeros((*lead, 0) if vec else (*lead, 0, O),
                            dtype=cd if cplx else x.dtype)
     if cplx:
-        xb = torch.view_as_real(x.reshape(-1, L).to(cd)).transpose(1, 2)
+        xb = torch.view_as_real(
+            x.reshape(-1, L).to(cd).resolve_conj()).transpose(1, 2)
         k = taps2.to(cd)
         kr, ki = k.real.T, k.imag.T                           # (O, n)
         w = torch.cat([torch.stack([kr, -ki], dim=1),

@@ -88,13 +88,13 @@ def adc_model(x: torch.Tensor, bits: int = 12, full_scale: float = 1.0,
 def mulaw_compress(x: torch.Tensor, mu: float = _MU) -> torch.Tensor:
     """sign(x) ln(1 + mu|x|) / ln(1 + mu), |x| <= 1."""
     x = torch.as_tensor(x)
-    return torch.sign(x) * torch.log1p(mu * torch.abs(x)) / np.log1p(mu)
+    return torch.sgn(x) * torch.log1p(mu * torch.abs(x)) / np.log1p(mu)
 
 
 def mulaw_expand(y: torch.Tensor, mu: float = _MU) -> torch.Tensor:
     """The inverse of :func:`mulaw_compress`."""
     y = torch.as_tensor(y)
-    return torch.sign(y) * (torch.exp(torch.abs(y) * np.log1p(mu)) - 1.0) / mu
+    return torch.sgn(y) * (torch.exp(torch.abs(y) * np.log1p(mu)) - 1.0) / mu
 
 
 def alaw_compress(x: torch.Tensor, A: float = _A) -> torch.Tensor:
@@ -104,7 +104,7 @@ def alaw_compress(x: torch.Tensor, A: float = _A) -> torch.Tensor:
     denom = 1.0 + np.log(A)
     small = A * ax / denom
     large = (1.0 + torch.log(torch.clamp(A * ax, min=1.0))) / denom
-    return torch.sign(x) * torch.where(ax < 1.0 / A, small, large)
+    return torch.sgn(x) * torch.where(ax < 1.0 / A, small, large)
 
 
 def alaw_expand(y: torch.Tensor, A: float = _A) -> torch.Tensor:
@@ -114,7 +114,7 @@ def alaw_expand(y: torch.Tensor, A: float = _A) -> torch.Tensor:
     denom = 1.0 + np.log(A)
     small = ay * denom / A
     large = torch.exp(ay * denom - 1.0) / A
-    return torch.sign(y) * torch.where(ay < 1.0 / denom, small, large)
+    return torch.sgn(y) * torch.where(ay < 1.0 / denom, small, large)
 
 
 def _code(exp: torch.Tensor, mant: torch.Tensor) -> torch.Tensor:

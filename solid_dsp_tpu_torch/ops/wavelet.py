@@ -138,5 +138,5 @@ def denoise_soft(x: torch.Tensor, wavelet: str = "db4", levels: int = 3,
     thr = torch.as_tensor(threshold, device=x.device)
     out = [coeffs[0]]
     for d in coeffs[1:]:
-        out.append(torch.sign(d) * torch.clamp(torch.abs(d) - thr, min=0.0))
+        out.append(torch.sgn(d) * torch.clamp(torch.abs(d) - thr, min=0.0))
     return waverec(out, wavelet)

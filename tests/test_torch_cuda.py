@@ -38,7 +38,12 @@ CPU's.  The CLI's ``rx`` on the card writes exactly what ``RxChain`` on the
 card returns for the same blocks (bit-equal), through K1.  S4 (the Kalman
 walks of csrc/track_scan.cu: forward, RTS backward, LTI) within rtol 1e-9
 (float64) or 1e-4 (float32) of its plain walks at n, m up to 8, and S5 (the
-all-pole lattice) the same in all four types at orders 1 to 80.
+all-pole lattice) the same in all four types at orders 1 to 80.  S6 (turbo's
+max-log BCJR walk, csrc/bcjr_scan.cu) within 1e-4 max(1, max|LLR|) of its
+plain version, hard bits equal above that, at K = 40 to 6144, batch 1 and
+128; turbo decoding on the card recovers every bit at the sweep's Eb/N0.
+P7: the transforms of a batch with no rows return JAX's empty shape and
+dtype on the card, with no K7 launch.
 """
 
 import importlib
@@ -683,6 +688,42 @@ def test_windowed_fft_auto_routes_cuda_frames_through_kernel():
     fft_ops.windowed_fft(x[:, :1000], "hamming")
     assert _fft_counts()[0] == before + 1
     assert snr_db(a.cpu().numpy(), b.cpu().numpy()) >= 90.0
+
+
+# P7 on the card: the cases of tests/test_torch_empty_blocks.py, each with
+# the shape and dtype JAX returns (that file holds the CPU results to JAX's)
+P7_CASES = {
+    "fft": ((0, 64), torch.complex64, (), (0, 64)),
+    "ifft": ((0, 64), torch.complex64, (), (0, 64)),
+    "fft_pad": ((0, 3, 40), torch.float32, (64,), (0, 3, 64)),
+    "windowed_fft": ((0, 64), torch.complex64, (), (0, 64)),
+    "windowed_fft_4096": ((0, 4096), torch.complex64, (), (0, 4096)),
+    "spectrogram": ((10,), torch.float32, (64,), (0, 64)),
+    "spectrogram_rows": ((3, 10), torch.complex64, (64, 32), (3, 0, 64)),
+}
+
+
+@pytest.mark.parametrize("call", list(P7_CASES))
+def test_p7_transforms_of_no_rows_return_empty_on_card(call):
+    """P7 on CUDA tensors: ``fft``, ``ifft`` and ``windowed_fft`` over a
+    batch with no rows and ``spectrogram`` of a block shorter than a frame
+    return the empty complex64 result on the card (cuFFT and K7 refuse a
+    transform with no rows), launching no K7; eight rows of 4096 (K7's
+    shape) launch it once."""
+    dev = require_cuda()
+    shape, dtype, args, want = P7_CASES[call]
+    name = call.split("_")[0] if call.startswith(("fft", "spec")) else (
+        "windowed_fft" if call.startswith("windowed") else call)
+    x = torch.ones(shape, dtype=dtype, device=dev)
+    before = _fft_counts()[0]
+    got = getattr(fft_ops, name)(x, *args)
+    torch.cuda.synchronize()
+    assert _fft_counts()[0] == before
+    assert tuple(got.shape) == want and got.dtype == torch.complex64
+    assert got.is_cuda
+    if call == "windowed_fft_4096":
+        fft_ops.windowed_fft(torch.ones((8, 4096), dtype=dtype, device=dev))
+        assert _fft_counts()[0] == before + 1
 
 
 @pytest.mark.parametrize("ratio,L", [(48000 / 44100, 8192), (1 / 16, 1000),
@@ -1880,3 +1921,80 @@ def test_s4_s5_reject_cpu_and_wrong_types():
             torch.zeros(4, 1, device="cuda"),
             torch.zeros(9, 9, device="cuda"), torch.zeros(1, 9, device="cuda"),
             torch.zeros(9, 9, device="cuda"), torch.zeros(1, 1, device="cuda"))
+
+
+# S6: turbo's max-log BCJR walk (csrc/bcjr_scan.cu), K over LTE's QPP range
+
+def _s6_gate(got, want):
+    """|dLLR| <= 1e-4 max(1, max|LLR|), and the hard bits equal wherever
+    |LLR| exceeds that tolerance (the walk's step order against the plain
+    version's radix-8 blocks: float32 association and renormalisation)."""
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    sure = want.abs() > tol
+    assert torch.equal((got < 0)[sure], (want < 0)[sure])
+
+
+@pytest.mark.parametrize("B", [1, 128])
+@pytest.mark.parametrize("T", [40, 41, 1023, 1024, 6144])
+def test_s6_matches_plain_on_card(B, T):
+    """S6 against bcjr_maxlog_plain on the same card rows (LLRs of
+    scales 1 to 20, as iterations grow them), tails appended, T + 3 not a
+    multiple of the plain version's radix for odd T; one launch."""
+    from solid_dsp_tpu_torch.models import turbo
+    from solid_dsp_tpu_torch.ops import cuda_bcjr
+
+    dev = require_cuda()
+    rng = np.random.default_rng(T + B)
+    scale = rng.uniform(1, 20, (B, 1))
+    ls, lp = (torch.from_numpy(scale * rng.standard_normal((B, T + 3))).to(
+        dev, torch.float32) for _ in range(2))
+    before = cuda_bcjr.bcjr_maxlog_cuda.launches
+    got = turbo.bcjr_maxlog(ls, lp, T)
+    assert cuda_bcjr.bcjr_maxlog_cuda.launches == before + 1
+    want = turbo.bcjr_maxlog_plain(ls, lp, T)
+    torch.cuda.synchronize()
+    assert got.shape == (B, T) and got.dtype == torch.float32
+    _s6_gate(got, want)
+
+
+@pytest.mark.parametrize("K,B", [(40, 1), (1024, 128), (6144, 4)])
+def test_s6_turbo_decode_on_card(K, B):
+    """TurboCode on the card: two S6 launches an iteration, the decoded
+    LLRs against the plain walks on the card (S6's gate) and every bit
+    back at the TPU sweep's Eb/N0 (LLRs 4 (1 - 2c) + N(0, 1))."""
+    from solid_dsp_tpu_torch.models import turbo
+    from solid_dsp_tpu_torch.ops import cuda_bcjr
+
+    dev = require_cuda()
+    code = turbo.TurboCode(K, n_iter=6, device=dev)
+    rng = np.random.default_rng(K)
+    bits = torch.from_numpy(rng.integers(0, 2, (B, K))).to(dev)
+    cw = code.encode(bits)
+    llr = (4.0 * (1 - 2.0 * cw) + torch.from_numpy(
+        rng.standard_normal(cw.shape)).to(dev)).to(torch.float32)
+    before = cuda_bcjr.bcjr_maxlog_cuda.launches
+    b_k, l_k = code.decode(llr)
+    assert cuda_bcjr.bcjr_maxlog_cuda.launches == before + 12
+    b_p, l_p = turbo.turbo_decode(llr, code.perm, 6, engine="torch")
+    assert cuda_bcjr.bcjr_maxlog_cuda.launches == before + 12
+    _s6_gate(l_k, l_p)
+    assert torch.equal(b_k, bits.to(torch.int32))
+
+
+def test_s6_rejects_wrong_inputs_on_card():
+    from solid_dsp_tpu_torch.models import turbo
+    from solid_dsp_tpu_torch.ops import cuda_bcjr
+
+    dev = require_cuda()
+    tabs = turbo._rsc_tables(turbo.DEFAULT_FB, turbo.DEFAULT_FF, 3)[:4]
+    ls = torch.zeros((2, 43), device=dev)
+    with pytest.raises(TypeError):
+        cuda_bcjr.bcjr_maxlog_cuda(ls.double(), ls.double(), 40, *tabs)
+    with pytest.raises(ValueError):
+        cuda_bcjr.bcjr_maxlog_cuda(ls, ls, 44, *tabs)
+    with pytest.raises(ValueError):
+        cuda_bcjr.bcjr_maxlog_cuda(ls, ls[:, :40], 40, *tabs)
+    tabs4 = turbo._rsc_tables(0o7, 0o5, 2)[:4]
+    with pytest.raises(ValueError, match="8-state"):
+        cuda_bcjr.bcjr_maxlog_cuda(ls, ls, 40, *tabs4)

@@ -226,3 +226,31 @@ def test_p3_conv_routes_return_empty(L, n, stride, O, monkeypatch):
                          (jtoep, jnp.asarray(x))):
         with pytest.raises(ValueError, match="shorter"):
             toeplitz(xs, taps, stride=stride)
+
+
+@pytest.mark.parametrize("call", ["fft", "ifft", "fft_pad", "windowed_fft",
+                                  "windowed_fft_4096", "spectrogram",
+                                  "spectrogram_rows"])
+def test_p7_transforms_of_no_rows_return_empty(call):
+    """P7: ``fft``, ``ifft`` and ``windowed_fft`` over a batch with no rows,
+    and ``spectrogram`` of a block shorter than one frame, return the empty
+    result with JAX's shape and dtype (oneMKL, cuFFT and K7 refuse a
+    transform with no rows, and ``unfold`` one with no frame)."""
+    from solid_dsp_tpu.ops import fft as jfft
+    from solid_dsp_tpu_torch.ops import fft as tfft
+
+    x, args = {
+        "fft": (np.zeros((0, 64), np.complex64), ()),
+        "ifft": (np.zeros((0, 64), np.complex64), ()),
+        "fft_pad": (np.zeros((0, 3, 40), np.float32), (64,)),
+        "windowed_fft": (np.zeros((0, 64), np.complex64), ()),
+        "windowed_fft_4096": (np.zeros((0, 4096), np.complex64), ()),
+        "spectrogram": (np.ones(10, np.float32), (64,)),
+        "spectrogram_rows": (np.ones((3, 10), np.complex64), (64, 32)),
+    }[call]
+    name = call.split("_")[0] if call.startswith(("fft", "spec")) else (
+        "windowed_fft" if call.startswith("windowed") else call)
+    want = np.asarray(getattr(jfft, name)(jnp.asarray(x), *args))
+    got = getattr(tfft, name)(torch.from_numpy(x), *args)
+    assert tuple(got.shape) == want.shape and got.numel() == 0
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)

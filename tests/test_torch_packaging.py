@@ -44,8 +44,8 @@ def test_package_data_ships_every_cuda_source_and_header():
     # headers that include headers
     for rel in sorted(needed):
         needed |= {f"csrc/{h}" for h in _includes(os.path.join(PKG, rel))}
-    assert {"csrc/hopper.cuh", "csrc/ddc_tc.cuh",
-            "csrc/ddc_direct.cuh"} <= needed
+    assert {"csrc/hopper.cuh", "csrc/ddc_tc.cuh", "csrc/ddc_direct.cuh",
+            "csrc/bcjr_scan.cu"} <= needed
     missing = sorted(r for r in needed if not _shipped(r))
     assert not missing, f"package data misses {missing}"
     for rel in needed:
@@ -65,7 +65,8 @@ def test_runtime_is_a_package_and_the_cli_a_script():
     project = _pyproject()
     packages = project["tool"]["setuptools"]["packages"]
     for name in ("solid_dsp_tpu_torch.runtime",
-                 "solid_dsp_tpu_torch.streaming"):
+                 "solid_dsp_tpu_torch.streaming",
+                 "solid_dsp_tpu_torch.utils"):
         assert name in packages
     assert (project["project"]["scripts"]["solid-dsp-tpu-torch"]
             == "solid_dsp_tpu_torch.__main__:main")

@@ -12,6 +12,7 @@ The chain through the CUDA kernel runs only on the card:
 tests/test_torch_cuda.py.
 """
 
+import importlib
 import os
 import subprocess
 import sys
@@ -143,7 +144,9 @@ def test_port_never_imports_jax():
     the native runtime (IQ files, StreamPump), a composed chain and its
     checkpoint, item 11's ops and analysis (the Kalman smoother and a
     tracker, the lattices, the cyclic scan, CZT, DCT, wavelets, codecs,
-    estimators, measurements), and the CLI (``rx``, and ``--help`` run as the package's
+    estimators, measurements), item 13a's modules (the sequences, the
+    linear modem, frame sync, LDPC, polar and turbo codes, DPD, CFR, the
+    equalizers and their trainer, the radar kit), and the CLI (``rx``, and ``--help`` run as the package's
     ``__main__``) loads no jax module and no module of the JAX package
     (fresh interpreter: this one has jax); ``python -m solid_dsp_tpu_torch
     --help`` runs."""
@@ -272,6 +275,35 @@ def test_port_never_imports_jax():
         "st.save(d + '/ck')\n"
         "assert solid_dsp_tpu_torch.__main__.main(['--device', 'cpu', 'rx', "
         "d + '/x.ci16', '--format', 'ci16', '-o', d + '/y.cf32']) == 0\n"
+        "from solid_dsp_tpu_torch.models import (LDPCCode, LinearModem, "
+        "TurboCode, cfr, dpd, equalizer, framesync, ldpc, polar, radar)\n"
+        "from solid_dsp_tpu_torch.utils import sequences\n"
+        "zc = sequences.zadoff_chu(5, 63); sequences.gold_codes(5, 3)\n"
+        "lm = LinearModem('qam', 16, device='cpu')\n"
+        "b = torch.randint(0, 2, (400,))\n"
+        "assert torch.equal(lm.demodulate(lm.modulate(b))[0][:400], "
+        "b.to(torch.int32))\n"
+        "fs = framesync.FrameSync(zc, 32, device='cpu')\n"
+        "fs.extract(torch.from_numpy(np.concatenate([np.zeros(50), "
+        "fs.full_preamble(), np.ones(80)]).astype(np.complex64)))\n"
+        "code = ldpc.wifi_ldpc_648('cpu')\n"
+        "cw = code.encode(torch.zeros(2, code.k, dtype=torch.int32))\n"
+        "assert bool(code.decode(4.0 * (1 - 2.0 * cw), 2)[1].all())\n"
+        "pc = polar.PolarCode(32, 16, n_iters=4, device='cpu')\n"
+        "pc.decode(4.0 * (1 - 2.0 * pc.encode(torch.ones(16))))\n"
+        "tc = TurboCode(40, n_iter=1, device='cpu')\n"
+        "tc.decode(4.0 * (1 - 2.0 * tc.encode(torch.ones(2, 40))))\n"
+        "xd = 0.1 * torch.randn(512, dtype=torch.complex64)\n"
+        "c, g = dpd.dpd_learn(dpd.saleh_pa, xd, 3, 2, 1)\n"
+        "dpd.Predistorter(c, 3, 2, device='cpu').execute_block(xd)\n"
+        "cfr.cfr_icf(xd, 0.2, cfr.band_mask(512, 0.25), 2)\n"
+        "equalizer.RLSEqualizer(4, device='cpu').execute_block(xd, xd)\n"
+        "equalizer.FDAFCanceller(16, device='cpu').execute_block(xd, xd)\n"
+        "init, step = equalizer.make_equalizer_trainer(3, device='cpu')\n"
+        "step(*init(), xd, xd)\n"
+        "radar.cfar_ca(torch.rand(300), 2, 8)\n"
+        "radar.range_doppler_map(radar.pulse_compress(xd.reshape(8, 64), "
+        "radar.lfm_chirp(8)))\n"
         "sys.argv = ['solid_dsp_tpu_torch', '--help']\n"
         "try:\n"
         "    runpy.run_module('solid_dsp_tpu_torch', run_name='__main__')\n"
@@ -348,3 +380,22 @@ def test_entry_points_default_to_the_card():
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             make_rx_chain(RxChainConfig(**CONFIG4))
+
+
+def test_p8_models_reexports_the_jax_names():
+    """P8: ``solid_dsp_tpu_torch.models`` re-exports what JAX's
+    ``models/__init__.py`` does for the modules the port has (the chain,
+    the channelizers, ChannelBank, and item 13a's LDPCCode, TurboCode and
+    LinearModem), each the class of its module."""
+    import solid_dsp_tpu.models as jm
+    import solid_dsp_tpu_torch.models as tm
+
+    names = ("RxChain", "RxChainConfig", "PolyphaseChannelizer",
+             "OversampledChannelizer", "ChannelBank", "LDPCCode",
+             "TurboCode", "LinearModem")
+    for name in names:
+        assert hasattr(jm, name)
+        obj = getattr(tm, name)
+        assert getattr(importlib.import_module(obj.__module__), name) is obj
+        assert obj.__module__.replace("solid_dsp_tpu_torch", "solid_dsp_tpu") \
+            == getattr(jm, name).__module__

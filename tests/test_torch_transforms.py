@@ -264,3 +264,28 @@ def test_denoise_median_of_an_even_count_is_jax_median():
     wrong = np.asarray(jwv.denoise_soft(jnp.asarray(x), "db2", 3,
                                         threshold=lower))
     assert np.abs(wrong - ref).max() > 1e-6
+
+
+@pytest.mark.parametrize("name", ["mulaw_compress", "mulaw_expand",
+                                  "alaw_compress", "alaw_expand"])
+def test_p6_companders_on_complex_input_equal_jax(name):
+    """P6: JAX's companders take complex input (``jnp.sign`` is z/|z|, 0
+    at 0); the port's use ``torch.sgn``, which is the same there and equal
+    to ``torch.sign`` on real input.  complex128 within 1e-12 of JAX's,
+    zeros included."""
+    x = _sig(257, 31, cplx=True, scale=0.4)
+    x[::17] = 0.0
+    want = np.asarray(getattr(jq, name)(jnp.asarray(x)))
+    got = getattr(tq, name)(torch.from_numpy(x)).numpy()
+    _close(got, want, rtol=1e-12, atol_rel=1e-12)
+
+
+@pytest.mark.parametrize("n", [1024, 1000])
+def test_p6_denoise_soft_complex_equals_jax(n):
+    """P6: complex soft thresholding shrinks |d| and keeps the phase,
+    d/|d| max(|d| - thr, 0), as JAX's ``jnp.sign`` gives it; complex128
+    within 1e-12 of JAX's (the real denoiser's gate)."""
+    x = _sig(n, 32, cplx=True)
+    want = np.asarray(jwv.denoise_soft(jnp.asarray(x), "db4", levels=3))
+    got = twv.denoise_soft(torch.from_numpy(x), "db4", levels=3).numpy()
+    _close(got, want, rtol=1e-12, atol_rel=1e-12)

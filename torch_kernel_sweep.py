@@ -3,7 +3,8 @@
     python3 torch_kernel_sweep.py            # K6, the DDC body, K1
     python3 torch_kernel_sweep.py fir-route  # the FIR's two card routes
     python3 torch_kernel_sweep.py s3         # S3's chunk length and join
-    python3 torch_kernel_sweep.py latency    # S1, S2, S4, S5: latency bounds
+    python3 torch_kernel_sweep.py latency    # S1, S2, S4-S6: latency bounds
+    python3 torch_kernel_sweep.py cfar-route # F7: CA-CFAR's two window sums
     python3 torch_kernel_sweep.py k1-direct  # K1's direct route: R, warps
     python3 torch_kernel_sweep.py k1-route   # K1 as routed, both modes
     python3 torch_kernel_sweep.py fsm        # S1's FSM entry: chunk, block
@@ -64,9 +65,16 @@
   (csrc/track_scan.cu, float32, one lane of 2^16): S4's forward entry at
   n = 2, m = 1 (its chain holds a division: FDIV in the probe), its
   backward and LTI entries at n = 2, S5 at orders 16 and 64
-  (``track_scan.sass``).  S1's FSM entry is
+  (``track_scan.sass``); S6 (csrc/bcjr_scan.cu) at 128 rows of 1027
+  steps, its chain a step a walk and its two walks' SASS loops
+  (``bcjr_scan.sass``).  S1's FSM entry is
   time-parallel (the chunk-and-join kernel): its row prints its bytes
   bound (4 in and 4 out a step over 3.35 TB/s) beside its time instead.
+
+* ``cfar-route``: ``models/radar.py::cfar_ca``'s window sums at the
+  sweep's 2^22 cells (F7): the box sum by conv1d (as built) against a
+  float64 running sum cast back, timed in turns, each with its
+  thresholds' error relative to float64.
 
 * ``track-prefetch``: S4's entries and S5 (csrc/track_scan.cu) as built
   (the L2 prefetch of the chunk after next in the LTI walk only) against
@@ -355,7 +363,9 @@ def fsm_sweep(dev, smi) -> None:
 
 # One thread runs a chain of 512 dependent operations of one kind between
 # two clock64 reads: cycles an operation (the loop's own counter and branch,
-# one every 16 operations, run beside the chain).
+# one every 16 operations, run beside the chain).  SHFL runs in a kernel of
+# its own on one warp, every lane on its own value: each lane takes its
+# neighbour's value and adds to it, the add taken off after.
 LATENCY_PROBE = r"""
 #include <cuda_runtime.h>
 #define CHAIN(BODY)                                         \
@@ -382,21 +392,39 @@ __global__ void probe(int op, float a, double da, float* out, double* dout,
     case 11: CHAIN(d = __fma_rn(d, 0.999, 1e-3);) break;
     case 12: CHAIN(v = v > 0.5f ? v * 0.75f : v + 0.1f;) break;
     case 13: CHAIN(v = __fdiv_rn(1.3f, v);) break;
+    case 14: CHAIN(asm volatile("max.f32 %0, %0, %1;" : "+f"(v) : "f"(s));)
+      break;
   }
   const long long t1 = clock64();
   out[0] = v;
   dout[0] = d;
   cyc[0] = t1 - t0;
 }
+// A kernel of its own: a shuffle in probe's switch made the compiler fence
+// the branched chains (FDIV, atan2f, sincosf) for reconvergence.  The
+// values are lane-dependent, since a shuffle of a warp-uniform value folds.
+__global__ void probe_shfl(float a, float* out, long long* cyc) {
+  float v = a + 1e-3f * threadIdx.x;
+  const long long t0 = clock64();
+  CHAIN(v = __shfl_xor_sync(0xffffffffu, v, 1) + 1e-3f;)
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) {
+    out[0] = v;
+    cyc[0] = t1 - t0;
+  }
+}
 extern "C" int probe_launch(int op, float a, double da, float* out,
                             double* dout, long long* cyc) {
-  probe<<<1, 1>>>(op, a, da, out, dout, cyc);
+  if (op == 15)
+    probe_shfl<<<1, 32>>>(a, out, cyc);
+  else
+    probe<<<1, 1>>>(op, a, da, out, dout, cyc);
   return (int)cudaGetLastError();
 }
 """
 LATENCY_OPS = ("FFMA", "FMUL", "FADD", "MUFU.EX2", "MUFU.LG2", "MUFU.SIN",
                "expf", "logf", "log10f", "atan2f", "sincosf", "DFMA",
-               "compare+select", "FDIV")
+               "compare+select", "FDIV", "FMNMX", "SHFL")
 
 
 def latency_probe(dev) -> dict:
@@ -461,6 +489,10 @@ def sass_dump(source: str) -> str:
 #     step's inputs only, so the chain is Ps -> Ps - Pp (FADD) -> G (Ps -
 #     Pp) (FMUL + FFMA) -> Pf + (..) G' (FMUL + FFMA + FADD);
 #   S4 LTI (kf_lti_kernel, n = 2): x -> F x (FMUL + FFMA) -> + b (FADD);
+#   S6 (bcjr_scan.cu, either walk): the neighbouring state's metric by a
+#     shuffle (SHFL), + gamma (FADD), the max of the two branches (FMNMX);
+#     the renormalisation once a chunk of 16 steps (three SHFL + FMNMX and
+#     an FADD) adds 0.19 SHFL, 0.19 FMNMX and 0.06 FADD a step;
 #   S5 (lattice_iir_kernel, real): stage m of sample t + 1 needs b_m, which
 #     stage m - 1 of sample t wrote, so the samples overlap as a wavefront:
 #     b_m's update (FFMA), then stage m's g <- g - k_m b_m and stage m - 1's
@@ -475,9 +507,10 @@ LATENCY_CHAINS = {
     "S4 LTI": {"FMUL": 1, "FFMA": 1, "FADD": 1},
     "S5 p=16": {"FFMA": 3},
     "S5 p=64": {"FFMA": 3},
+    "S6": {"SHFL": 1 + 3 / 16, "FADD": 1 + 1 / 16, "FMNMX": 1 + 3 / 16},
 }
 _CARRIED = {"logf": "FADD", "log10f": "FADD", "atan2f": "FADD",
-            "sincosf": "FADD", "expf": "FMUL"}
+            "sincosf": "FADD", "expf": "FMUL", "SHFL": "FADD"}
 
 
 _SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
@@ -533,7 +566,7 @@ def latency_sweep(dev, smi) -> None:
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(f"[latency, cycles an operation, one thread] "
+    print(f"[latency, cycles an operation, one thread (SHFL: a warp)] "
           + ", ".join(f"{k} {v:.1f}" for k, v in lat.items())
           + f" | SM clock now, max: {clocks} | {smi}", flush=True)
     sass = sass_dump("seq_scan.cu")
@@ -581,6 +614,97 @@ def latency_sweep(dev, smi) -> None:
           f"step ({ms:.4f} ms): {bound / ms:.1%} of the bound | {smi}",
           flush=True)
     track_latency(dev, smi, lat, mhz)
+    bcjr_latency(dev, smi, lat, mhz)
+
+
+def bcjr_latency(dev, smi, lat: dict, mhz: float) -> None:
+    """S6 (csrc/bcjr_scan.cu) at turbo_decode_1024_6it's shape, 128 rows
+    of 1024 + 3 steps: the chain a step (LATENCY_CHAINS["S6"], the same
+    in both walks) and the SASS instructions a step of the forward and the
+    backward main loop (a chunk of 16 steps unrolled; 32 and 48 loads),
+    the larger of the two walks' sums over the SM clock, beside the time
+    a step (CUDA graph of 5 launches, two walks of 1027 steps)."""
+    from solid_dsp_tpu_torch.models import turbo
+    from solid_dsp_tpu_torch.ops import cuda_bcjr, cuda_build
+
+    sass = sass_dump("bcjr_scan.cu")
+    out = cuda_build.BUILD_DIR / "bcjr_scan.sass"
+    out.write_text(sass)
+    B, T = 128, 1024
+    Tm = T + 3
+    rng = np.random.default_rng(40)
+    ls = torch.from_numpy(4 * rng.standard_normal((B, Tm))).to(dev,
+                                                               torch.float32)
+    lp = torch.from_numpy(4 * rng.standard_normal((B, Tm))).to(dev,
+                                                               torch.float32)
+    tabs = turbo._rsc_tables(turbo.DEFAULT_FB, turbo.DEFAULT_FF, 3)[:4]
+    chain = LATENCY_CHAINS["S6"]
+    cycles = sum(n * (lat[op] - (lat[_CARRIED[op]] if op in _CARRIED
+                                 else 0.0)) for op, n in chain.items())
+    issue = [sass_step_instructions(sass, "bcjr_kernel", loads, steps=16)
+             for loads in (32, 48)]
+    bound_ns = max(2 * cycles, sum(issue)) / mhz * 1e3
+    ms = graph_ms(lambda: cuda_bcjr.bcjr_maxlog_cuda(ls, lp, T, *tabs), 5)
+    ns_step = ms * 1e6 / Tm
+    print(f"[latency bound S6] SASS kept in {out}; chain {chain}: "
+          f"{cycles:.1f} cycles a step a walk; SASS main loops forward "
+          f"{issue[0]:.1f}, backward {issue[1]:.1f} instructions a step; "
+          f"bound {bound_ns:.1f} ns a step of both walks at {mhz:.0f} MHz "
+          f"(the larger); measured {ns_step:.1f} ns ({ms:.4f} ms a call of "
+          f"{B} x {Tm}): {bound_ns / ns_step:.0%} of the bound | {smi}",
+          flush=True)
+
+
+def cfar_route(dev, smi) -> None:
+    """F7's two exact window sums for models/radar.py::cfar_ca at
+    cfar_ca_g2t16's shape (2^22 exponential(1) cells, guard 2, train 16):
+    the box sum by conv1d with ones (as built) and a float64 running sum
+    cast back, each timed over a CUDA graph of 10 calls in turns (box,
+    f64, f64, box) with its thresholds' largest error relative to a
+    float64 evaluation on the CPU."""
+    from solid_dsp_tpu_torch.models import radar
+
+    N, guard, train, pfa = 1 << 22, 2, 16, 1e-4
+    rng = np.random.default_rng(0)
+    p_np = rng.exponential(1.0, N).astype(np.float32)
+    p = torch.from_numpy(p_np).to(dev)
+
+    def f64_route():
+        c = torch.cat([p.new_zeros(1, dtype=torch.float64),
+                       torch.cumsum(p.double(), 0)])
+        i = torch.arange(N, device=dev)
+
+        def at(off):
+            return c[torch.clamp(i + off, 0, N)]
+        total = ((at(-guard) - at(-guard - train))
+                 + (at(1 + guard + train) - at(1 + guard))).float()
+        count, alpha = radar._cfar_constants(N, guard, train, pfa,
+                                             torch.float32, dev)
+        thr = alpha * (total / count)
+        return p > thr, thr
+
+    routes = {"box (conv1d)": lambda: radar.cfar_ca(p, guard, train, pfa),
+              "float64 running sum": f64_route}
+    c = np.concatenate([[0.0], np.cumsum(p_np.astype(np.float64))])
+    i = np.arange(N)
+    at = lambda off: c[np.clip(i + off, 0, N)]  # noqa: E731
+    total = (at(-guard) - at(-guard - train) + at(1 + guard + train)
+             - at(1 + guard))
+    left_n = np.clip(i - guard, 0, N) - np.clip(i - guard - train, 0, N)
+    right_n = (np.clip(i + 1 + guard + train, 0, N)
+               - np.clip(i + 1 + guard, 0, N))
+    cnt = np.maximum(left_n + right_n, 1).astype(np.float64)
+    ref = cnt * (pfa ** (-1.0 / cnt) - 1.0) * total / cnt
+    times = {k: [] for k in routes}
+    for name in ("box (conv1d)", "float64 running sum",
+                 "float64 running sum", "box (conv1d)"):
+        times[name].append(graph_ms(routes[name], 10))
+    for name, fn in routes.items():
+        err = float(np.abs(fn()[1].cpu().numpy() / ref - 1).max())
+        print(f"[cfar route {name}] 2^22 cells, g2 t16: "
+              + " / ".join(f"{t:.4f}" for t in times[name])
+              + f" ms (CUDA graph of 10, in turns); thresholds' largest "
+              f"error {err:.3g} relative to float64 | {smi}", flush=True)
 
 
 
@@ -770,6 +894,9 @@ def main() -> None:
     if sys.argv[1:] == ["latency"]:
         cuda_build.build()
         latency_sweep(dev, smi)
+        return
+    if sys.argv[1:] == ["cfar-route"]:
+        cfar_route(dev, smi)
         return
     if sys.argv[1:] == ["k1-direct"]:
         cuda_build.build()
