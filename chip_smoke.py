@@ -63,7 +63,11 @@ solid_dsp_tpu_torch/csrc/:
   of track_scan.cu, make_kalman_lti and the "parallel" route in torch ops;
   LPC's synthesis lattice through S5 (track_scan.cu); the wavelets, the
   zoom FFT, the cyclostationary scan, the DCT/DST/MDCT, the ADC model and
-  the G.711 codecs, the estimators and the RF measurements in torch ops.
+  the G.711 codecs, the estimators and the RF measurements in torch ops;
+* ROADMAP items 13a and 13b: the codes, modems and transmit DSP (turbo
+  through S6, bcjr_scan.cu) and the link layer (the Viterbi decoder
+  through S7, viterbi_scan.cu; RS, CCSDS, the block codes, CRC, BER,
+  OFDM, MIMO, arrays) and the port's packets command.
 
 Phases, one line each:
 
@@ -327,7 +331,25 @@ Phases, one line each:
      guard 2, train 16) with F7 met: thresholds within 1e-5 of float64,
      detections float64's except within that of the threshold; S6 timed
      over a CUDA graph beside its plain version and its bound.  S6's
-     launches in the turbo decode are the kernels' line's.
+     launches in the turbo decode are the kernels' line's;
+ 41. ROADMAP item 13b (item13b_phases) at the sizes of the standards its
+     modules implement, each timed and checked like phase 40: the
+     Viterbi walk through S7 (viterbi_scan.cu) at 1024 rows of a 64-byte
+     packet (550 steps, soft, K = 7, Eb/N0 4 dB) and 64 rows of a CCSDS
+     frame (8166 steps), bits and final path metrics equal to its plain
+     walk on the card (all rows; 4 of the CCSDS rows), BER <= 1e-4, a
+     CCSDSLink(4) frame at 2.8 dB; RS(255, 223) over 4096 codewords with
+     1-16 byte errors in one in eight, all corrected; CRC-32 of 2^20 bits
+     equal to binascii.crc32; Golay(24, 12) and Hamming(7, 4) over 2^20
+     bits with errors within their radius, all corrected; ber_sweep (QPSK,
+     2^20 bits x 8 points) within the binomial 99.9% interval of
+     ber_theory; the packets command on a recording of 256 QPSK bursts
+     of 64 bytes (conv FEC, Es/N0 12 dB), every CRC passing, one S7
+     launch a burst (the kernels' line's launches), bursts/s by the
+     host's clock; 64 OFDMModem bursts through multipath, CFO and AWGN;
+     mmse_detect (2^20) and ml_detect (QPSK, 2^16) against complex128 on
+     their first 2^12; MUSIC on a 16-antenna ULA (2^14 snapshots) within
+     0.1 degrees of complex128.
 
 A "[time]" line after each group of phases gives the script's elapsed
 time.  Then the kernels' JSON line (each kernel's launches on the main paths; its
@@ -558,6 +580,24 @@ TX_RTOL = 1e-4            # x max|ref|: complex64 against complex128
 RLS_RTOL = 1e-3           # complex64 normal equations over 2^20 samples
 F7_RTOL = 1e-5            # CA-CFAR thresholds against float64
 
+# phase 41: item 13b at the sizes of the standards it implements
+VIT_ROWS = 1024           # packet rows: 64 bytes + CRC-32 = 544 bits
+VIT_BITS = 544
+VIT_BER = 1e-4            # K = 7 soft at Eb/N0 = 4 dB (~1e-5 expected)
+CCSDS_ROWS = 64           # 4 x 255 bytes + 6 tail = 8166 steps a row
+CCSDS_PLAIN = 4
+RS_WORDS = 4096
+L_BITS = 1 << 20
+N_BURSTS = 256
+N_OFDM = 64
+L_MIMO = 1 << 20
+L_ML = 1 << 16
+L_CHECK = 1 << 12
+MIMO_RTOL = 1e-4          # complex64 solves of the loaded normal equations
+ML_MAX_DIFF = 2           # of 4096 vectors: a float32 near-tie at most
+L_SNAP = 1 << 14
+MUSIC_DOAS = (-20.3, 31.7)
+DOA_ATOL = 0.1            # degrees
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
@@ -4829,6 +4869,314 @@ def item13a_phases(dev, smi) -> list:
     return [e]
 
 
+def item13b_phases(dev, smi) -> list:
+    """Phase 41: ROADMAP item 13b on the card at the sizes of the standards
+    its modules implement, each row checked and timed (CUDA events, the
+    host's enqueue, the profiler's device busy time and the idle share);
+    the Viterbi walk through S7 against its plain version, bits and path
+    metrics equal; the packets command on a recording of 256 bursts, its
+    S7 launches the kernels' line's.  Returns S7's kernel entry."""
+    import binascii
+    import tempfile
+
+    from solid_dsp_tpu_torch.__main__ import main as cli_main
+    from solid_dsp_tpu_torch.models import (array_proc, ber, block_codes,
+                                            ccsds, channel, fec, mimo)
+    from solid_dsp_tpu_torch.models.ofdm_link import OFDMModem
+    from solid_dsp_tpu_torch.models.packet import PacketModem
+    from solid_dsp_tpu_torch.ops import cuda_viterbi
+    from solid_dsp_tpu_torch.runtime import write_iq
+    from solid_dsp_tpu_torch.utils import bits as crc_bits
+
+    rng = np.random.default_rng(SEED + 41)
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    ok = True
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    def row(label, fn, count, unit, n=5):
+        wall, enq = timed(fn, n)
+        busy, top = profiled_busy(fn, max(1, min(5, int(100.0 / wall))))
+        print(f"[41 {label}] {count / (wall * 1e3):.2f} {unit} (wall "
+              f"{wall:.4f} ms a call over {n}), host {enq:.4f} ms a call, "
+              f"device busy {busy:.4f} ms, idle "
+              f"{max(0.0, 1 - busy / wall):.0%}; largest kernels: {top} | "
+              f"{smi}", flush=True)
+
+    def awgn_llr(c, ebn0_db, rate):
+        """BPSK LLRs of code bits c through AWGN at Eb/N0 (float32)."""
+        sigma = np.sqrt(1 / (2 * rate * 10 ** (ebn0_db / 10)))
+        y = (1 - 2.0 * c) + sigma * rng.standard_normal(c.shape)
+        return (2 * y / sigma ** 2).astype(np.float32)
+
+    # viterbi_k7_packet: 1024 rows of a 64-byte packet + CRC-32 (544 bits +
+    # 6 tail = 550 steps), soft, K = 7 (171, 133), Eb/N0 = 4 dB
+    info = rng.integers(0, 2, (VIT_ROWS, VIT_BITS))
+    coded = host(fec.conv_encode(torch.from_numpy(info).to(dev)))
+    llr_d = torch.from_numpy(awgn_llr(coded, 4.0, 0.5)).to(dev)
+    r = llr_d.reshape(VIT_ROWS, -1, 2)
+    T = r.shape[1]
+    bk, pk = fec.viterbi_walk(r, soft=True)
+    box = {}
+
+    def plain_walk():
+        box["p"] = fec.viterbi_walk(r, soft=True, engine="torch")
+    plain_ms = cuda_ms_once(plain_walk)
+    bp, pp = box["p"]
+    err7 = float((pk - pp).abs().max())
+    dec = host(fec.viterbi_decode(llr_d, soft=True))
+    ber7 = float(np.mean(dec != info))
+    good = torch.equal(bk, bp) and torch.equal(pk, pp) and ber7 <= VIT_BER
+    tabs = (fec._tables(fec.DEFAULT_POLYS, 7)[0], fec._predecessors(7))
+    ms7 = graph_ms(lambda: cuda_viterbi.viterbi_cuda(r, True, *tabs), 20)
+    # bytes: the LLRs read once, the bits and final metrics written once;
+    # operations a state a step: the branch metric (two adds a branch), two
+    # subtractions, two adds, the compare
+    bnd = bound_ms(4.0 * VIT_ROWS * (2 * T + T + 64),
+                   9.0 * VIT_ROWS * T * 64, FP32_FLOPS)
+    print(f"[41 viterbi_k7_packet, {VIT_ROWS} x {T} steps, soft] S7 = plain "
+          f"walk on the card (bits, metrics; max |dpm| {err7:.3g}): "
+          f"{torch.equal(bk, bp) and torch.equal(pk, pp)}; BER at Eb/N0 = "
+          f"4 dB {ber7:.3g} (gate {VIT_BER}); S7 {ms7:.4f} ms a call (CUDA "
+          f"graph, {ms7 / T * 1e6:.1f} ns a step, "
+          f"{VIT_ROWS * VIT_BITS / (ms7 * 1e3):.1f} Minfobits/s), plain "
+          f"walk {plain_ms:.1f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}) | {smi}",
+          flush=True)
+    ok &= good
+    row("viterbi_k7_packet", lambda: fec.viterbi_decode(llr_d, soft=True),
+        VIT_ROWS * VIT_BITS, "Minfobits/s")
+
+    # viterbi_k7_ccsds: 64 rows of a CCSDS frame at interleave depth 4
+    # (4 x 255 bytes + 6 tail = 8166 steps); CCSDSLink(4) at 2.8 dB
+    link = ccsds.CCSDSLink(4, dev)
+    payload = rng.integers(0, 256, link.payload_bytes, dtype=np.uint8
+                           ).tobytes()
+    tx = host(link.encode(payload))
+    R = len(payload) * 8 / len(tx)
+    rc = torch.from_numpy(np.stack([awgn_llr(tx, 2.8, R)
+                                    for _ in range(CCSDS_ROWS)])).to(dev)
+    dec_c, ok_c = link.decode(host(rc[0]))
+    rows_c = rc.reshape(CCSDS_ROWS, -1, 2)
+    Tc = rows_c.shape[1]
+
+    def plain_ccsds():
+        box["c"] = fec.viterbi_walk(rows_c[:CCSDS_PLAIN], soft=True,
+                                    engine="torch")
+    plain_c_ms = cuda_ms_once(plain_ccsds)
+    bk, pk = fec.viterbi_walk(rows_c[:CCSDS_PLAIN], soft=True)
+    same_c = torch.equal(bk, box["c"][0]) and torch.equal(pk, box["c"][1])
+    ms_c = graph_ms(lambda: cuda_viterbi.viterbi_cuda(rows_c, True, *tabs),
+                    5)
+    print(f"[41 viterbi_k7_ccsds, {CCSDS_ROWS} x {Tc} steps] S7 = plain walk "
+          f"on {CCSDS_PLAIN} rows (bits, metrics): {same_c}; CCSDSLink(4) "
+          f"at Eb/N0 = 2.8 dB: frame back {dec_c == payload and ok_c}; S7 "
+          f"{ms_c:.4f} ms a call ({ms_c / Tc * 1e6:.1f} ns a step), plain "
+          f"walk of {CCSDS_PLAIN} rows {plain_c_ms:.1f} ms | {smi}",
+          flush=True)
+    ok &= same_c and dec_c == payload and ok_c
+    row("viterbi_k7_ccsds", lambda: fec.viterbi_decode(rc, soft=True),
+        CCSDS_ROWS * 4 * 255 * 8, "Minfobits/s", n=3)
+
+    # rs_255_223: 4096 codewords, 1-16 byte errors in one in eight
+    msg = rng.integers(0, 256, (RS_WORDS, 223)).astype(np.int32)
+    cw = host(link.rs.encode(torch.from_numpy(msg)))
+    for i in range(0, RS_WORDS, 8):
+        ne = 1 + (i // 8) % 16
+        cw[i, rng.choice(255, ne, replace=False)] ^= rng.integers(1, 256, ne)
+    t0 = time.perf_counter()
+    out, okw = link.rs.decode(cw)
+    rs_s = time.perf_counter() - t0
+    good = bool(okw.all()) and np.array_equal(host(out), msg)
+    print(f"[41 rs_255_223, {RS_WORDS} codewords, 1-16 byte errors in one "
+          f"in eight] every codeword corrected: {good}; decode "
+          f"{RS_WORDS * 223 / rs_s / 1e6:.2f} Mbytes/s ({rs_s:.3f} s: "
+          f"syndromes on the card, the locator on the host for "
+          f"{RS_WORDS // 8} codewords) | {smi}", flush=True)
+    ok &= good
+    cw_d = torch.from_numpy(cw).to(dev)
+    row("rs_255_223 syndromes", lambda: link.rs.syndromes(cw_d),
+        RS_WORDS * 255, "Mbytes/s")
+
+    # crc32_2e20, golay24 and hamming_7_4 over 2^20 bits
+    data = rng.integers(0, 256, L_BITS // 8, dtype=np.uint8).tobytes()
+    bits_d = torch.from_numpy(crc_bits._bytes_to_bits_lsb_first(data).astype(
+        np.int32)).to(dev)
+
+    def crc_d():
+        return crc_bits.crc_compute(bits_d, 0xEDB88320, 32, 0xFFFFFFFF,
+                                    0xFFFFFFFF, True)
+    good_crc = int(crc_d()) == binascii.crc32(data)
+    print(f"[41 crc32_2e20] equal to binascii.crc32: {good_crc}", flush=True)
+    ok &= good_crc
+    row("crc32_2e20", crc_d, L_BITS, "Mbits/s")
+    for scheme, radius in (("g2412", 3), ("h74", 1)):
+        code = block_codes.BlockCode(scheme, dev)
+        nblk = L_BITS // code.k
+        d = rng.integers(0, 2, nblk * code.k)
+        c = host(code.encode(torch.from_numpy(d))).reshape(nblk, code.n)
+        for w in range(1, radius + 1):     # w flips in a block, blocks w mod
+            sel = np.nonzero(np.arange(nblk) % (radius + 1) == w)[0]
+            for _ in range(w):
+                c[sel, rng.integers(0, code.n, len(sel))] ^= 1
+        # two flips on one bit cancel; such a block has fewer errors
+        c_d = torch.from_numpy(c.reshape(-1)).to(dev)
+        got, fail = code.decode(c_d)
+        good = np.array_equal(host(got), d) and not bool(fail.any())
+        print(f"[41 {scheme}, 2^20 bits] errors within the radius ({radius}) "
+              f"in {1 - 1 / (radius + 1):.0%} of the blocks, all corrected: "
+              f"{good}", flush=True)
+        ok &= good
+        row(f"{scheme} decode", lambda: code.decode(c_d), nblk * code.k,
+            "Mbits/s")
+
+    # ber_sweep_qpsk: 2^20 bits x 8 points against ber_theory
+    grid = np.arange(8.0)
+    got = ber.ber_sweep(grid, "psk", 4, L_BITS, seed=SEED, device=dev)
+    want = channel.ber_theory("psk", 4, grid)
+    half = 3.29 * np.sqrt(want * (1 - want) / L_BITS) + 1.0 / L_BITS
+    good = bool(np.all(np.abs(got - want) <= half))
+    print(f"[41 ber_sweep_qpsk, 2^20 bits x 8 points] BER {np.round(got, 6)}"
+          f" within the binomial 99.9% interval of ber_theory: {good}",
+          flush=True)
+    ok &= good
+    row("ber_sweep_qpsk", lambda: ber.ber_sweep(grid, "psk", 4, L_BITS,
+                                                 device=dev),
+        8 * L_BITS, "Mbits/s", n=3)
+
+    # packets_cli_256: 256 QPSK bursts of 64 bytes (conv FEC) at Es/N0 =
+    # 12 dB through the packets command
+    pm = PacketModem(payload_bytes=64, device=dev)
+    payloads = [rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
+                for _ in range(N_BURSTS)]
+    bursts = [host(pm.transmit(p)) for p in payloads]
+    p_sig = float(np.mean(np.abs(bursts[0][2 * 127:]) ** 2))
+    nv = p_sig * pm.modem.sps / 10 ** (12.0 / 10)
+    gaps = rng.integers(200, 800, N_BURSTS + 1)
+    parts = [np.zeros(gaps[0], np.complex64)]
+    for b, g in zip(bursts, gaps[1:]):
+        parts += [b, np.zeros(g, np.complex64)]
+    rec = np.concatenate(parts)
+    rec = (rec + np.sqrt(nv / 2) * (rng.standard_normal(len(rec)) + 1j
+                                    * rng.standard_normal(len(rec)))
+           ).astype(np.complex64)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "bursts.cf32")
+        write_iq(src, rec)
+        argv = ["packets", src, "--payload-bytes", "64"]
+        run_cli(cli_main, argv)                          # warm
+        cuda_viterbi.viterbi_cuda.launches = 0
+        rc_cli, out, wall = run_cli(cli_main, argv)      # the main path
+        launches = cuda_viterbi.viterbi_cuda.launches
+    rows = [json.loads(line) for line in out.strip().splitlines()]
+    good = (rc_cli == 0 and rows[-1] == {"bursts": N_BURSTS,
+                                         "crc_ok": N_BURSTS}
+            and [bytes.fromhex(x["payload_hex"]) for x in rows[:-1]]
+            == payloads and launches == N_BURSTS)
+    print(f"[41 packets_cli_256, {len(rec)} samples] {rows[-1]}, payloads "
+          f"back and S7 launches {launches} (one a burst): {good}; "
+          f"{N_BURSTS / wall:.1f} bursts/s, "
+          f"{N_BURSTS * 64 * 8 / wall / 1e6:.3f} payload Mbit/s ({wall:.3f} "
+          f"s by the host's clock) | {smi}", flush=True)
+    ok &= good
+    main_ms = wall * 1e3 / N_BURSTS
+
+    # ofdm_modem_64: 64 OFDMModem bursts (16-QAM, conv FEC) through
+    # multipath, CFO and AWGN at 25 dB (tests/test_ofdm_link.py)
+    om = OFDMModem(64, device=dev)
+    n_ok = 0
+    t0 = time.perf_counter()
+    for _ in range(N_OFDM):
+        p = rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
+        txo = host(om.transmit(p))
+        s = np.concatenate([np.zeros(int(rng.integers(100, 600)),
+                                     np.complex64), txo,
+                            np.zeros(200, np.complex64)])
+        s = np.convolve(s, np.array([1.0, 0, 0.3 - 0.2j, 0, 0.1j]))[:len(s)]
+        s = s * np.exp(2j * np.pi * rng.uniform(-2e-3, 2e-3)
+                       * np.arange(len(s)))
+        sig = np.sqrt(np.mean(np.abs(txo) ** 2) * 10 ** (-2.5) / 2)
+        s = s + sig * (rng.standard_normal(len(s)) + 1j
+                       * rng.standard_normal(len(s)))
+        got, inf = om.receive(torch.from_numpy(s.astype(np.complex64)))
+        n_ok += int(inf["crc_ok"] and got == p)
+    ofdm_s = time.perf_counter() - t0
+    print(f"[41 ofdm_modem_64] CRCs passed {n_ok} of {N_OFDM}; "
+          f"{N_OFDM / ofdm_s:.1f} bursts/s with the host's channel | {smi}",
+          flush=True)
+    ok &= n_ok == N_OFDM
+
+    # mimo_4x4: mmse_detect over 2^20 vectors, ml_detect (QPSK) over 2^16,
+    # against complex128 on the CPU on their first 2^12
+    H = ((rng.standard_normal((L_MIMO, 4, 4)) + 1j * rng.standard_normal(
+        (L_MIMO, 4, 4))) / np.sqrt(2)).astype(np.complex64)
+    qpsk = GRAY.astype(np.complex64)
+    s_idx = rng.integers(0, 4, (L_MIMO, 4))
+    y = (np.einsum("brt,bt->br", H, qpsk[s_idx]) + 0.2 * (
+        rng.standard_normal((L_MIMO, 4)) + 1j * rng.standard_normal(
+            (L_MIMO, 4)))).astype(np.complex64)
+    H_d, y_d = torch.from_numpy(H).to(dev), torch.from_numpy(y).to(dev)
+    m_d = host(mimo.mmse_detect(H_d, y_d, 0.08))
+    m_64 = host(mimo.mmse_detect(torch.from_numpy(H[:L_CHECK]).to(
+        torch.complex128), torch.from_numpy(y[:L_CHECK]).to(
+        torch.complex128), 0.08))
+    e_mmse = float(np.abs(m_d[:L_CHECK] - m_64).max() / np.abs(m_64).max())
+    c_d = torch.from_numpy(qpsk).to(dev)
+    i_d = host(mimo.ml_detect(H_d[:L_ML], y_d[:L_ML], c_d)[0])
+    i_64 = host(mimo.ml_detect(torch.from_numpy(H[:L_CHECK]).to(
+        torch.complex128), torch.from_numpy(y[:L_CHECK]).to(
+        torch.complex128), torch.from_numpy(qpsk).to(torch.complex128))[0])
+    ml_diff = int(np.any(i_d[:L_CHECK] != i_64, axis=-1).sum())
+    print(f"[41 mimo_4x4] mmse_detect (2^20) vs complex128 on the first "
+          f"2^12: {e_mmse:.3g} x max (gate {MIMO_RTOL}); ml_detect (QPSK, "
+          f"2^16) vectors unlike complex128's on the first 2^12: {ml_diff} "
+          f"(gate {ML_MAX_DIFF}); symbol errors {np.mean(i_d != s_idx[:L_ML]):.3g}",
+          flush=True)
+    ok &= e_mmse <= MIMO_RTOL and ml_diff <= ML_MAX_DIFF
+    row("mmse_detect_4x4", lambda: mimo.mmse_detect(H_d, y_d, 0.08), L_MIMO,
+        "Mvectors/s")
+    row("ml_detect_4x4_qpsk", lambda: mimo.ml_detect(H_d[:L_ML], y_d[:L_ML],
+                                                      c_d), L_ML,
+        "Mvectors/s")
+
+    # music_16: a 16-antenna ULA, 2^14 snapshots, 1801 angles
+    k = np.arange(16)[:, None]
+    X = np.zeros((16, L_SNAP), np.complex128)
+    for th in MUSIC_DOAS:
+        a = np.exp(2j * np.pi * 0.5 * np.sin(np.deg2rad(th)) * k)
+        X += a * (rng.standard_normal(L_SNAP) + 1j * rng.standard_normal(
+            L_SNAP))[None, :] / np.sqrt(2)
+    X += np.sqrt(0.05) * (rng.standard_normal((16, L_SNAP)) + 1j
+                          * rng.standard_normal((16, L_SNAP)))
+    X_d = torch.from_numpy(X.astype(np.complex64)).to(dev)
+    thetas = np.deg2rad(np.linspace(-90, 90, 1801))
+    R_d = array_proc.spatial_covariance(X_d)
+    doa = np.rad2deg(array_proc.music_doa(R_d, 2, grid=1801))
+    doa64 = np.rad2deg(array_proc.music_doa(array_proc.spatial_covariance(
+        torch.from_numpy(X)), 2, grid=1801))
+    e_doa = float(np.abs(doa - doa64).max())
+    print(f"[41 music_16, 2^14 snapshots, 1801 angles] DoAs {np.round(doa, 3)}"
+          f" deg, vs complex128 {e_doa:.3g} deg (gate {DOA_ATOL}) | {smi}",
+          flush=True)
+    ok &= e_doa <= DOA_ATOL
+
+    def music():
+        R = array_proc.spatial_covariance(X_d)
+        return array_proc.music_spectrum(R, thetas, 2)
+    row("music_16", music, L_SNAP, "Msnapshots/s")
+    print(f"[41 phase time] {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not ok:
+        fail("phase 41: an item-13b row disagrees with its reference")
+    e = kernel_entry("viterbi_acs", "viterbi_scan.cu",
+                     "solid_dsp_tpu/models/fec.py:143 and :152 (lax.scans, "
+                     "no TPU kernel)", launches, err7, ms7, plain_ms, bnd)
+    e["timed_shape"] = f"{VIT_ROWS} rows x {T} steps"
+    e["main_path_ms"] = main_ms
+    return [e]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -5222,6 +5570,8 @@ def main() -> None:
     stamp("39")
     kernels += item13a_phases(dev, smi)
     stamp("40")
+    kernels += item13b_phases(dev, smi)
+    stamp("41")
     for k in kernels:
         k["launches"] += cli_counts.get(k["name"], 0)
     if not all(k["launches"] > 0 for k in kernels):

@@ -12,6 +12,8 @@ runs the plain PyTorch versions of the kernels):
 * ``convert``  -- convert IQ recording formats (rtl_sdr's cu8 included)
 * ``monitor``  -- channel-occupancy events over a wideband recording
 * ``resample`` -- rate-convert an IQ recording by any real factor
+* ``packets``  -- decode framed packet bursts (``PacketModem`` or
+                  ``OFDMModem``) from a recording, one JSON line a burst
 
 A recording is read by the native runtime's ``StreamPump`` (a C++ reader
 thread) in blocks of numpy complex64; each block is copied to the device,
@@ -33,8 +35,8 @@ IQ_CHOICES = ["cf32", "ci16", "ci8", "cf64", "cu8"]
 
 WAITING = """commands of the JAX package that wait for their modules
 (ROADMAP.md, queue 1):
-  tx, packets, adsb, ais   item 13 (the link layer and the rest of models/)
-  bench                    item 6 (the H100 benchmark)"""
+  tx, adsb, ais   item 13 (the rest of models/)
+  bench           item 6 (the H100 benchmark)"""
 
 
 def _input_path(name: str) -> str:
@@ -287,6 +289,45 @@ def _cmd_resample(args) -> int:
     return 0
 
 
+def _cmd_packets(args) -> int:
+    from .runtime import read_iq
+
+    x = read_iq(args.input, args.format)
+    try:
+        if args.phy == "ofdm":
+            from .models.ofdm_link import OFDMModem
+
+            modem = OFDMModem(payload_bytes=args.payload_bytes,
+                              m=args.order, scheme=args.scheme,
+                              fec_scheme=args.fec, device=args.device)
+        else:
+            from .models.packet import PacketModem
+
+            modem = PacketModem(payload_bytes=args.payload_bytes,
+                                m=args.order, scheme=args.scheme,
+                                fec_scheme=args.fec, device=args.device)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    try:
+        results = modem.receive_stream(x, max_bursts=args.max_bursts)
+    except ValueError as e:
+        # e.g. a capture truncated mid-burst: report instead of crashing
+        print(json.dumps({"bursts": 0, "crc_ok": 0,
+                          "error": str(e)[:160]}))
+        return 0
+    n_ok = 0
+    for data, info in results:
+        row = {"offset": int(info["offset"]),
+               "crc_ok": bool(info["crc_ok"])}
+        if info["crc_ok"]:
+            row["payload_hex"] = data.hex()
+            n_ok += 1
+        print(json.dumps(row))
+    print(json.dumps({"bursts": len(results), "crc_ok": n_ok}))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="solid_dsp_tpu_torch", epilog=WAITING,
@@ -360,6 +401,20 @@ def main(argv=None) -> int:
     rs.add_argument("--attenuation", type=float, default=60.0)
     rs.add_argument("--block", type=int, default=1 << 20)
     rs.set_defaults(fn=_cmd_resample)
+
+    pk = sub.add_parser("packets",
+                        help="decode framed packet bursts (JSON lines)")
+    pk.add_argument("input")
+    pk.add_argument("--phy", default="psk", choices=["psk", "ofdm"])
+    pk.add_argument("--format", default="cf32", choices=IQ_CHOICES)
+    pk.add_argument("--payload-bytes", type=int, default=64)
+    pk.add_argument("--order", type=int, default=4)
+    pk.add_argument("--scheme", default="psk",
+                    choices=["psk", "qam", "apsk"])
+    pk.add_argument("--fec", default="conv",
+                    choices=["conv", "ldpc", "polar", "turbo"])
+    pk.add_argument("--max-bursts", type=int, default=256)
+    pk.set_defaults(fn=_cmd_packets)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1,9 +1,12 @@
 """Demodulators and the FM broadcast-stereo back end, the front-end
 impairment correction, the composed receive chain, the digital
 down-converter (DDC), the config-5 channel models (the channelizer banks,
-ChannelBank, SpectrumMonitor and the burst detector's pieces), and ROADMAP
-item 13a: the linear modems, frame sync, LDPC, polar and turbo codes, DPD,
-CFR, the adaptive equalizers and the radar kit."""
+ChannelBank, SpectrumMonitor and the burst detector's pieces), ROADMAP
+item 13a (the linear modems, frame sync, LDPC, polar and turbo codes, DPD,
+CFR, the adaptive equalizers, the radar kit) and item 13b, the link layer:
+convolutional FEC, block codes, Reed-Solomon, CCSDS, the channel models,
+BER simulation, OFDM, the packet and OFDM modems, MIMO and array
+processing."""
 
 from . import (channel, channel_bank, channelizer, ddc, detect,  # noqa: F401
                fm, impairments, monitor, qpsk, rx_chain)
@@ -15,3 +18,9 @@ from . import (cfr, dpd, equalizer, framesync, ldpc, linear_mod,  # noqa: F401
 from .ldpc import LDPCCode  # noqa: F401
 from .turbo import TurboCode  # noqa: F401
 from .linear_mod import LinearModem  # noqa: F401
+from . import (array_proc, ber, block_codes, ccsds, fec,  # noqa: F401
+               mimo, ofdm, ofdm_link, ofdm_pilots, packet, rs)
+from .block_codes import BlockCode  # noqa: F401
+from .ber import ber_sweep, link_sim  # noqa: F401
+from .packet import PacketModem  # noqa: F401
+from .ofdm_link import OFDMModem  # noqa: F401

@@ -9,7 +9,8 @@ a hash of its source, the shared headers (``csrc/*.cuh``) and the flags,
 so that a built library is reused and a changed source is rebuilt.  The
 wrappers (``ops/cuda_ddc.py``, ``ops/cuda_chan.py``, ``ops/cuda_iir.py``,
 ``ops/cuda_fft.py``, ``ops/cuda_resample.py``, ``ops/cuda_halo.py``,
-``ops/cuda_scan.py``, ``ops/cuda_track.py``, ``ops/cuda_bcjr.py``) pass
+``ops/cuda_scan.py``, ``ops/cuda_track.py``, ``ops/cuda_bcjr.py``,
+``ops/cuda_viterbi.py``) pass
 ``tensor.data_ptr()`` and the current stream and raise on a non-zero
 return.
 
@@ -37,7 +38,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("ddc_fm.cu", "ddc_body.cu", "channelizer.cu", "iir_bank.cu",
            "windowed_fft.cu", "farrow.cu", "halo_frontend.cu", "seq_scan.cu",
-           "iir_scan.cu", "track_scan.cu", "bcjr_scan.cu")
+           "iir_scan.cu", "track_scan.cu", "bcjr_scan.cu",
+           "viterbi_scan.cu")
 ENGINES = ("auto", "cuda", "torch")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -11,6 +11,10 @@ counts and PCM within 2 LSB.  ``demo``: the printed head equal to 1e-12.
 ``convert``: identical bytes.  ``monitor`` (xla): events and summary equal.
 ``resample``: equal length and within 1e-5 of max|y| (the complex64 audio
 tail's tolerance, tests/test_torch_fm_stereo_ddc.py), the tone read back.
+``packets``: the JSON rows equal (offsets, CRC flags, payloads), on
+tests/test_cli.py's recording and on OFDM bursts; an unsupported ``--fec``
+for ``--phy ofdm`` returns 1 and a truncated OFDM capture prints JAX's error
+row.
 F2: the port's fused monitor takes blocks that are multiples of the channel
 count but not of 8 channels' rows, which the JAX CLI's fused monitor
 refuses.
@@ -305,6 +309,75 @@ def test_resample_matches_jax(tmp_path, capsys):
     capsys.readouterr()
 
 
+# --------------------------------------------------------------- packets
+
+def _packet_recording(tmp_path):
+    """tests/test_cli.py::test_cli_packets's recording: two JAX PacketModem
+    bursts of 16 bytes between gaps, AWGN of 0.05 a quadrature."""
+    from solid_dsp_tpu.models.packet import PacketModem as JaxPacketModem
+
+    rng = np.random.default_rng(5)
+    pm = JaxPacketModem(payload_bytes=16)
+    payloads = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+                for _ in range(2)]
+    parts = [np.zeros(400, np.complex64)]
+    for pl in payloads:
+        parts += [np.asarray(pm.transmit(pl)), np.zeros(500, np.complex64)]
+    s = np.concatenate(parts)
+    s = s + 0.05 * (rng.standard_normal(len(s))
+                    + 1j * rng.standard_normal(len(s)))
+    src = str(tmp_path / "pk.cf32")
+    write_iq(src, s.astype(np.complex64))
+    return src, payloads
+
+
+def test_packets_matches_jax(tmp_path, capsys):
+    src, payloads = _packet_recording(tmp_path)
+    args = [src, "--payload-bytes", "16"]
+    out_j, out_p = _run_both(["packets", *args], ["packets", *args], capsys)
+    rj, rp = _rows(out_j), _rows(out_p)
+    assert rp == rj
+    assert rp[-1] == {"bursts": 2, "crc_ok": 2}
+    assert [bytes.fromhex(r["payload_hex"]) for r in rp[:-1]] == payloads
+    # an unsupported fec for the ofdm phy fails cleanly, as in JAX
+    assert port("packets", src, "--phy", "ofdm", "--fec", "turbo") == 1
+    assert jax_main(["packets", src, "--phy", "ofdm", "--fec", "turbo"]) == 1
+    capsys.readouterr()
+
+
+def test_packets_ofdm_matches_jax(tmp_path, capsys):
+    """``--phy ofdm`` (OFDMModem at QPSK, conv FEC) on two JAX bursts: the
+    same rows; the capture cut inside its second burst makes both CLIs
+    print the same error row and return 0."""
+    from solid_dsp_tpu.models.ofdm_link import OFDMModem as JaxOFDMModem
+
+    rng = np.random.default_rng(6)
+    om = JaxOFDMModem(payload_bytes=16, m=4, scheme="psk")
+    payloads = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+                for _ in range(2)]
+    parts = [np.zeros(300, np.complex64)]
+    for pl in payloads:
+        parts += [np.asarray(om.transmit(pl)), np.zeros(400, np.complex64)]
+    s = np.concatenate(parts)
+    s = s + 0.02 * (rng.standard_normal(len(s))
+                    + 1j * rng.standard_normal(len(s)))
+    src = str(tmp_path / "ofdm.cf32")
+    write_iq(src, s.astype(np.complex64))
+    args = [src, "--phy", "ofdm", "--payload-bytes", "16"]
+    out_j, out_p = _run_both(["packets", *args], ["packets", *args], capsys)
+    rj, rp = _rows(out_j), _rows(out_p)
+    assert rp == rj
+    assert rp[-1] == {"bursts": 2, "crc_ok": 2}
+    assert [bytes.fromhex(r["payload_hex"]) for r in rp[:-1]] == payloads
+    cut = str(tmp_path / "cut.cf32")
+    write_iq(cut, s[: len(s) - 400 - om.frame_samples // 2].astype(
+        np.complex64))
+    args = [cut, "--phy", "ofdm", "--payload-bytes", "16"]
+    out_j, out_p = _run_both(["packets", *args], ["packets", *args], capsys)
+    assert _rows(out_p) == _rows(out_j)
+    assert _rows(out_p)[0]["bursts"] == 0 and "error" in _rows(out_p)[0]
+
+
 # ---------------------------------------------------------------- parser
 
 def test_help_names_the_commands_that_wait(capsys):
@@ -315,7 +388,7 @@ def test_help_names_the_commands_that_wait(capsys):
     for cmd in ("demo", "rx", "spectrum", "convert", "monitor", "resample"):
         assert cmd in out
     assert "item 13" in out and "item 6" in out
-    for cmd in ("tx", "packets", "adsb", "ais", "bench"):
+    for cmd in ("tx", "adsb", "ais", "bench"):
         assert cmd in out.split("wait for their modules")[1]
         with pytest.raises(SystemExit):
             port_main([cmd, "x"])

@@ -43,7 +43,11 @@ max-log BCJR walk, csrc/bcjr_scan.cu) within 1e-4 max(1, max|LLR|) of its
 plain version, hard bits equal above that, at K = 40 to 6144, batch 1 and
 128; turbo decoding on the card recovers every bit at the sweep's Eb/N0.
 P7: the transforms of a batch with no rows return JAX's empty shape and
-dtype on the card, with no K7 launch.
+dtype on the card, with no K7 launch.  S7 (the Viterbi ACS walk and
+traceback, csrc/viterbi_scan.cu) bit-equal to its plain version, decoded
+bits and final path metrics, at K = 3 to 11, hard and soft, rates 1/2 and
+1/3, batch 1 and 256, T from 12 to 8,166, and on a random hard stream
+(ties at nearly every step); the links decode on the card through it.
 """
 
 import importlib
@@ -1998,3 +2002,136 @@ def test_s6_rejects_wrong_inputs_on_card():
     tabs4 = turbo._rsc_tables(0o7, 0o5, 2)[:4]
     with pytest.raises(ValueError, match="8-state"):
         cuda_bcjr.bcjr_maxlog_cuda(ls, ls, 40, *tabs4)
+
+
+# S7: the Viterbi ACS walk and traceback (csrc/viterbi_scan.cu)
+
+S7_CODES = {3: (0o7, 0o5), 5: (0o23, 0o35), 7: (0o171, 0o133),
+            9: (0o561, 0o753)}
+
+
+def _s7_rows(rng, polys, K, B, T, soft, hard_flips=0.05):
+    """(B, T, n) received rows for tail-terminated codewords of T - K + 1
+    bits: float32 BPSK LLRs through AWGN (soft), or int32 bits with flips
+    (hard)."""
+    from solid_dsp_tpu_torch.models import fec
+
+    n = len(polys)
+    bits = rng.integers(0, 2, (B, T - K + 1))
+    c = fec.conv_encode(torch.from_numpy(bits), polys, K).numpy()
+    if soft:
+        rx = ((1 - 2.0 * c) + 0.8 * rng.standard_normal(c.shape)).astype(
+            np.float32)
+    else:
+        rx = (c ^ (rng.random(c.shape) < hard_flips)).astype(np.int32)
+    return bits, rx.reshape(B, T, n)
+
+
+@pytest.mark.parametrize("K", sorted(S7_CODES))
+@pytest.mark.parametrize("rate3", [False, True])
+@pytest.mark.parametrize("soft", [False, True])
+@pytest.mark.parametrize("B,T", [(1, 12), (256, 550), (1, 8166)])
+def test_s7_matches_plain_on_card(K, rate3, soft, B, T):
+    """S7 against viterbi_plain on the same card rows: the decoded bits
+    and the final path metrics exactly equal, at hard and soft decisions,
+    rates 1/2 and 1/3; one launch a batch."""
+    from solid_dsp_tpu_torch.models import fec
+    from solid_dsp_tpu_torch.ops import cuda_viterbi
+
+    dev = require_cuda()
+    polys = S7_CODES[K] + ((S7_CODES[K][0] ^ 0o2,) if rate3 else ())
+    rng = np.random.default_rng(K + 10 * B + T)
+    _, rx = _s7_rows(rng, polys, K, B, T, soft)
+    r = torch.from_numpy(rx).to(dev)
+    before = cuda_viterbi.viterbi_cuda.launches
+    bk, pk = fec.viterbi_walk(r, polys, K, soft)
+    assert cuda_viterbi.viterbi_cuda.launches == before + 1
+    bp, pp = fec.viterbi_walk(r, polys, K, soft, engine="torch")
+    assert cuda_viterbi.viterbi_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert bk.shape == (B, T) and pk.shape == (B, 1 << (K - 1))
+    assert torch.equal(bk, bp) and torch.equal(pk, pp)
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_s7_ties_and_k11_match_plain_on_card(soft):
+    """A hard stream of random bits (ties at nearly every step, decided by
+    the first-minimum rule) at K = 7, and K = 11 (1024 states, the
+    kernel's largest: 32 warps, the warp-level block minimum)."""
+    from solid_dsp_tpu_torch.models import fec
+
+    dev = require_cuda()
+    rng = np.random.default_rng(17)
+    r = torch.from_numpy(rng.integers(0, 2, (64, 600, 2)).astype(
+        np.int32)).to(dev)
+    if soft:
+        r = (1 - 2.0 * r + torch.from_numpy(rng.standard_normal(
+            (64, 600, 2))).to(dev)).to(torch.float32)
+    bk, pk = fec.viterbi_walk(r, soft=soft)
+    bp, pp = fec.viterbi_walk(r, soft=soft, engine="torch")
+    assert torch.equal(bk, bp) and torch.equal(pk, pp)
+    polys = (0o3345, 0o3613)
+    _, rx = _s7_rows(rng, polys, 11, 4, 300, soft)
+    r = torch.from_numpy(rx).to(dev)
+    bk, pk = fec.viterbi_walk(r, polys, 11, soft)
+    bp, pp = fec.viterbi_walk(r, polys, 11, soft, engine="torch")
+    assert torch.equal(bk, bp) and torch.equal(pk, pp)
+
+
+def test_s7_decodes_links_on_card():
+    """viterbi_decode, CCSDSLink and PacketModem on the card go through S7
+    and decode what they do on the CPU: the batch's bits back at Eb/N0 =
+    4 dB, a CCSDS frame at its operating point, a packet burst."""
+    from solid_dsp_tpu_torch.models import ccsds, fec, packet
+    from solid_dsp_tpu_torch.ops import cuda_viterbi
+
+    dev = require_cuda()
+    rng = np.random.default_rng(4)
+    bits = rng.integers(0, 2, (32, 544))
+    c = fec.conv_encode(torch.from_numpy(bits)).numpy()
+    sigma = np.sqrt(1 / (2 * 0.5 * 10 ** 0.4))
+    y = (1 - 2.0 * c) + sigma * rng.standard_normal(c.shape)
+    llr = torch.from_numpy((2 * y / sigma ** 2).astype(np.float32))
+    before = cuda_viterbi.viterbi_cuda.launches
+    got = fec.viterbi_decode(llr.to(dev), soft=True)
+    assert cuda_viterbi.viterbi_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), fec.viterbi_decode(llr, soft=True))
+    assert (got.cpu().numpy() != bits).mean() < 1e-3
+    link = ccsds.CCSDSLink(4, dev)
+    data = rng.integers(0, 256, link.payload_bytes, dtype=np.uint8).tobytes()
+    tx = link.encode(data).cpu().numpy()
+    R = len(data) * 8 / len(tx)
+    s = np.sqrt(1 / (2 * R * 10 ** 0.28))
+    yl = (1 - 2.0 * tx) + s * rng.standard_normal(len(tx))
+    assert link.decode((2 * yl / s ** 2).astype(np.float32)) == (data, True)
+    pm = packet.PacketModem(payload_bytes=64, device=dev)
+    burst = pm.transmit(bytes(range(64)))
+    x = torch.cat([torch.zeros(300, dtype=burst.dtype, device=dev), burst,
+                   torch.zeros(300, dtype=burst.dtype, device=dev)])
+    before = cuda_viterbi.viterbi_cuda.launches
+    out, info = pm.receive(x)
+    assert cuda_viterbi.viterbi_cuda.launches == before + 1
+    assert info["crc_ok"] and out == bytes(range(64))
+
+
+def test_s7_rejects_wrong_inputs_on_card():
+    from solid_dsp_tpu_torch.models import fec
+    from solid_dsp_tpu_torch.ops import cuda_viterbi
+
+    dev = require_cuda()
+    out, _ = fec._tables((0o171, 0o133), 7)
+    pred = fec._predecessors(7)
+    r = torch.zeros((2, 20, 2), device=dev)
+    with pytest.raises(TypeError):
+        cuda_viterbi.viterbi_cuda(r.double(), True, out, pred)
+    with pytest.raises(TypeError):
+        cuda_viterbi.viterbi_cuda(r, False, out, pred)
+    with pytest.raises(ValueError):
+        cuda_viterbi.viterbi_cuda(r[..., :1], True, out, pred)
+    with pytest.raises(ValueError, match="predecessors"):
+        cuda_viterbi.viterbi_cuda(r, True, out, pred[::-1])
+    bits, pm = cuda_viterbi.viterbi_cuda(r[:0], True, out, pred)
+    assert bits.shape == (0, 20) and pm.shape == (0, 64)
+    b0, p0 = cuda_viterbi.viterbi_cuda(r[:, :0], True, out, pred)
+    assert b0.shape == (2, 0) and torch.equal(
+        p0.cpu(), fec.viterbi_plain(r[:, :0].cpu(), out, True)[1])

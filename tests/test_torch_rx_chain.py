@@ -146,7 +146,11 @@ def test_port_never_imports_jax():
     tracker, the lattices, the cyclic scan, CZT, DCT, wavelets, codecs,
     estimators, measurements), item 13a's modules (the sequences, the
     linear modem, frame sync, LDPC, polar and turbo codes, DPD, CFR, the
-    equalizers and their trainer, the radar kit), and the CLI (``rx``, and ``--help`` run as the package's
+    equalizers and their trainer, the radar kit), item 13b's modules (the
+    CRC and scramblers, convolutional FEC, block codes, Reed-Solomon,
+    CCSDS, the channel models, BER, OFDM and its pilots, the packet and
+    OFDM modems, MIMO, array processing), and the CLI (``rx`` and
+    ``packets``, and ``--help`` run as the package's
     ``__main__``) loads no jax module and no module of the JAX package
     (fresh interpreter: this one has jax); ``python -m solid_dsp_tpu_torch
     --help`` runs."""
@@ -304,6 +308,41 @@ def test_port_never_imports_jax():
         "radar.cfar_ca(torch.rand(300), 2, 8)\n"
         "radar.range_doppler_map(radar.pulse_compress(xd.reshape(8, 64), "
         "radar.lfm_chirp(8)))\n"
+        "from solid_dsp_tpu_torch.models import (BlockCode, OFDMModem, "
+        "PacketModem, array_proc, ber, ccsds, channel, fec, mimo, ofdm, "
+        "ofdm_pilots, rs)\n"
+        "from solid_dsp_tpu_torch.utils import bits\n"
+        "assert bits.crc16_ccitt(b'123456789') == 0x29B1\n"
+        "bits.multiplicative_scramble(torch.ones(40, dtype=torch.int32))\n"
+        "cc = fec.ConvCode(device='cpu')\n"
+        "assert torch.equal(cc.decode(cc.encode(b[:50])), b[:50].int())\n"
+        "bk = BlockCode('g2412', 'cpu')\n"
+        "assert torch.equal(bk.decode(bk.encode(b[:48]))[0], b[:48].int())\n"
+        "rc = rs.rs_204_188('cpu')\n"
+        "assert bool(rc.decode(rc.encode(torch.zeros(188, dtype=torch.int32)))"
+        "[1])\n"
+        "ccsds.CCSDSLink(1, 'cpu')\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "channel.awgn(g, xd, snr_db=10.0); channel.tdl_fading_channel(g, "
+        "xd, 'epa')\n"
+        "ber.ber_sweep([4.0], n_bits=4000, device='cpu')\n"
+        "om = OFDMModem(16, m=4, scheme='psk', device='cpu')\n"
+        "assert om.receive(torch.cat([torch.zeros(50, dtype=torch.complex64), "
+        "om.transmit(bytes(16))]))[1]['crc_ok']\n"
+        "ofdm_pilots.interp_matrix(np.array([0, 5, 11]), 12)\n"
+        "H = torch.randn(8, 2, 2, dtype=torch.complex64)\n"
+        "mimo.ml_detect(H, torch.randn(8, 2, dtype=torch.complex64), "
+        "torch.tensor([1 + 0j, -1 + 0j]))\n"
+        "mimo.mmse_detect(H, torch.randn(8, 2, dtype=torch.complex64), 0.1)\n"
+        "R = array_proc.spatial_covariance(torch.randn(4, 256, "
+        "dtype=torch.complex64))\n"
+        "array_proc.music_doa(R, 1); array_proc.esprit_doa(R, 1)\n"
+        "pm = PacketModem(16, device='cpu')\n"
+        "runtime.write_iq(d + '/pk.cf32', torch.cat([torch.zeros(300, "
+        "dtype=torch.complex64), pm.transmit(bytes(16)), torch.zeros(300, "
+        "dtype=torch.complex64)]).numpy())\n"
+        "assert solid_dsp_tpu_torch.__main__.main(['--device', 'cpu', "
+        "'packets', d + '/pk.cf32', '--payload-bytes', '16']) == 0\n"
         "sys.argv = ['solid_dsp_tpu_torch', '--help']\n"
         "try:\n"
         "    runpy.run_module('solid_dsp_tpu_torch', run_name='__main__')\n"

@@ -67,9 +67,21 @@
   backward and LTI entries at n = 2, S5 at orders 16 and 64
   (``track_scan.sass``); S6 (csrc/bcjr_scan.cu) at 128 rows of 1027
   steps, its chain a step a walk and its two walks' SASS loops
-  (``bcjr_scan.sass``).  S1's FSM entry is
+  (``bcjr_scan.sass``); S7 (csrc/viterbi_scan.cu, soft, K = 7: its
+  single-warp form) at one row of 8166 steps, 1024 x 550 and 64 x 8166,
+  its chain a step (the probe adds REDUX, and a shared-memory exchange
+  across a two-warp barrier, the block form's) and its ACS loop's SASS
+  (``viterbi_scan.sass``).  S1's FSM entry is
   time-parallel (the chunk-and-join kernel): its row prints its bytes
   bound (4 in and 4 out a step over 3.35 TB/s) beside its time instead.
+
+* ``s7-variants``: S7's single-warp form at 64 states (soft, K = 7) as
+  built and with one part of its step taken away at a time (the warp
+  minimum, its key conversions, the ballots, the shuffles that put the
+  metrics back in place, the per-step reads of the values): text
+  substitutions of csrc/viterbi_scan.cu built beside the kernels, each
+  timed at one row of 8166 steps and at 1024 x 550 (wrong results; only
+  the times are read).
 
 * ``cfar-route``: ``models/radar.py::cfar_ca``'s window sums at the
   sweep's 2^22 cells (F7): the box sum by conv1d (as built) against a
@@ -413,10 +425,34 @@ __global__ void probe_shfl(float a, float* out, long long* cyc) {
     cyc[0] = t1 - t0;
   }
 }
+// Two warps, as S7's block at 64 states: a warp's integer minimum by
+// REDUX, and the exchange of a value through a double-buffered shared array
+// across a block barrier (store, bar.sync, load of the other warp's slot).
+__global__ void probe_block(int op, float a, float* out, long long* cyc) {
+  __shared__ float sm[2][64];
+  const int tid = threadIdx.x;
+  float v = a + 1e-3f * tid;
+  int k = tid;
+  int buf = 0;
+  const long long t0 = clock64();
+  if (op == 16) {
+    CHAIN(k = __reduce_min_sync(0xffffffffu, k + (tid & 1));)
+  } else {
+    CHAIN(sm[buf][tid] = v; __syncthreads(); v = sm[buf][tid ^ 32] + 1e-3f;
+          buf ^= 1;)
+  }
+  const long long t1 = clock64();
+  if (tid == 0) {
+    out[0] = v + k;
+    cyc[0] = t1 - t0;
+  }
+}
 extern "C" int probe_launch(int op, float a, double da, float* out,
                             double* dout, long long* cyc) {
   if (op == 15)
     probe_shfl<<<1, 32>>>(a, out, cyc);
+  else if (op >= 16)
+    probe_block<<<1, 64>>>(op, a, out, cyc);
   else
     probe<<<1, 1>>>(op, a, da, out, dout, cyc);
   return (int)cudaGetLastError();
@@ -424,7 +460,8 @@ extern "C" int probe_launch(int op, float a, double da, float* out,
 """
 LATENCY_OPS = ("FFMA", "FMUL", "FADD", "MUFU.EX2", "MUFU.LG2", "MUFU.SIN",
                "expf", "logf", "log10f", "atan2f", "sincosf", "DFMA",
-               "compare+select", "FDIV", "FMNMX", "SHFL")
+               "compare+select", "FDIV", "FMNMX", "SHFL", "REDUX",
+               "STS+BAR+LDS")
 
 
 def latency_probe(dev) -> dict:
@@ -493,6 +530,12 @@ def sass_dump(source: str) -> str:
 #     shuffle (SHFL), + gamma (FADD), the max of the two branches (FMNMX);
 #     the renormalisation once a chunk of 16 steps (three SHFL + FMNMX and
 #     an FADD) adds 0.19 SHFL, 0.19 FMNMX and 0.06 FADD a step;
+#   S7 (viterbi_scan.cu's single-warp form, 64 states): the new metrics'
+#     minimum (FMNMX of a lane's two), its key (compare and select), the
+#     warp's minimum (REDUX), the key back to a float (compare and
+#     select), pmn - min and + bm (two FADDs), the choice (compare and
+#     select); the four shuffles that put the metrics back in place run
+#     beside the key and REDUX, a shorter path;
 #   S5 (lattice_iir_kernel, real): stage m of sample t + 1 needs b_m, which
 #     stage m - 1 of sample t wrote, so the samples overlap as a wavefront:
 #     b_m's update (FFMA), then stage m's g <- g - k_m b_m and stage m - 1's
@@ -508,9 +551,11 @@ LATENCY_CHAINS = {
     "S5 p=16": {"FFMA": 3},
     "S5 p=64": {"FFMA": 3},
     "S6": {"SHFL": 1 + 3 / 16, "FADD": 1 + 1 / 16, "FMNMX": 1 + 3 / 16},
+    "S7": {"FMNMX": 1, "compare+select": 3, "REDUX": 1, "FADD": 2},
 }
 _CARRIED = {"logf": "FADD", "log10f": "FADD", "atan2f": "FADD",
-            "sincosf": "FADD", "expf": "FMUL", "SHFL": "FADD"}
+            "sincosf": "FADD", "expf": "FMUL", "SHFL": "FADD",
+            "STS+BAR+LDS": "FADD"}
 
 
 _SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
@@ -615,6 +660,7 @@ def latency_sweep(dev, smi) -> None:
           flush=True)
     track_latency(dev, smi, lat, mhz)
     bcjr_latency(dev, smi, lat, mhz)
+    viterbi_latency(dev, smi, lat, mhz)
 
 
 def bcjr_latency(dev, smi, lat: dict, mhz: float) -> None:
@@ -653,6 +699,138 @@ def bcjr_latency(dev, smi, lat: dict, mhz: float) -> None:
           f"(the larger); measured {ns_step:.1f} ns ({ms:.4f} ms a call of "
           f"{B} x {Tm}): {bound_ns / ns_step:.0%} of the bound | {smi}",
           flush=True)
+
+
+def viterbi_latency(dev, smi, lat: dict, mhz: float) -> None:
+    """S7 (csrc/viterbi_scan.cu), soft, K = 7 (its single-warp form): the
+    chain a step (LATENCY_CHAINS["S7"]) and the SASS instructions a step
+    of the ACS loop (the innermost loop holding the warp minimum's REDUX,
+    its instructions over its REDUXes, a step each), the larger over the
+    SM clock, beside the time a step at one row of 8166 steps (the latency
+    alone), at the packet shape (1024 x 550) and the CCSDS frame's (64 x
+    8166), CUDA graph of 5 launches."""
+    from solid_dsp_tpu_torch.models import fec
+    from solid_dsp_tpu_torch.ops import cuda_build, cuda_viterbi
+
+    sass = sass_dump("viterbi_scan.cu")
+    out = cuda_build.BUILD_DIR / "viterbi_scan.sass"
+    out.write_text(sass)
+    loops = []
+    for part in sass.split("Function : ")[1:]:
+        if "viterbi_warp_kernelILi2ELb1ELb1E" not in part.splitlines()[0]:
+            continue
+        ins = [(int(a, 16), op) for a, op, _ in _SASS_INSN.findall(part)]
+        for addr, op, args in _SASS_INSN.findall(part):
+            t = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+            if t and int(t.group(1), 16) < int(addr, 16):
+                body = [o for a, o in ins
+                        if int(t.group(1), 16) <= a <= int(addr, 16)]
+                steps = sum(o.startswith("REDUX") for o in body)
+                if steps:
+                    loops.append((len(body), steps))
+    n_ins, steps = min(loops)
+    issue = n_ins / steps
+    chain = LATENCY_CHAINS["S7"]
+    cycles = sum(n * (lat[op] - (lat[_CARRIED[op]] if op in _CARRIED
+                                 else 0.0)) for op, n in chain.items())
+    bound_ns = max(cycles, issue) / mhz * 1e3
+    tabs = (fec._tables(fec.DEFAULT_POLYS, 7)[0], fec._predecessors(7))
+    rng = np.random.default_rng(41)
+    for B, T in ((1, 8166), (1024, 550), (64, 8166)):
+        r = torch.from_numpy(rng.standard_normal((B, T, 2))).to(
+            dev, torch.float32)
+        ms = graph_ms(lambda: cuda_viterbi.viterbi_cuda(r, True, *tabs), 5)
+        ns = ms * 1e6 / T
+        print(f"[latency bound S7, {B} x {T}] SASS kept in {out}; chain "
+              f"{chain}: {cycles:.1f} cycles a step; its ACS loop "
+              f"{issue:.1f} instructions a step ({n_ins} over {steps} "
+              f"steps); bound {bound_ns:.1f} ns a step at {mhz:.0f} MHz "
+              f"(the larger); measured {ns:.1f} ns a step ({ms:.4f} ms a "
+              f"call): {bound_ns / ns:.0%} of the bound | {smi}", flush=True)
+
+
+# S7's single-warp form (csrc/viterbi_scan.cu, 64 states) with one part of
+# its step taken away at a time (each variant is wrong; only its time is
+# read): what each part costs a step.
+S7_VARIANTS = {
+    "as built": [],
+    "no warp minimum (the lane's own)": [
+        ("g = from_key(__reduce_min_sync(FULL, order_key(vmin)));",
+         "g = vmin;")],
+    "no key conversions": [
+        ("g = from_key(__reduce_min_sync(FULL, order_key(vmin)));",
+         "g = __int_as_float(__reduce_min_sync(FULL, "
+         "__float_as_int(vmin)));")],
+    "no ballots": [
+        ("const unsigned wa = __ballot_sync(FULL, cha);",
+         "const unsigned wa = cha;"),
+        ("const unsigned wb = __ballot_sync(FULL, chb);",
+         "const unsigned wb = chb;")],
+    "no shuffles back in place": [
+        ("__shfl_sync(FULL, va, src)", "va"),
+        ("__shfl_sync(FULL, vb, src)", "vb"),
+        ("__shfl_sync(FULL, va, src + 16)", "va"),
+        ("__shfl_sync(FULL, vb, src + 16)", "vb")],
+    "no shared-memory reads of the values": [
+        ("for (int k = 0; k < NK; ++k) rn[k] = rc[inext + k];",
+         "for (int k = 0; k < NK; ++k) rn[k] = rv[k];")],
+}
+
+
+def s7_variants(dev, smi) -> None:
+    """S7's single-warp form at 64 states (soft, K = 7) as built and with
+    one part of its step taken away (S7_VARIANTS: text substitutions of
+    viterbi_scan.cu, built beside the kernels), each timed over a CUDA
+    graph of 5 launches at one row of 8166 steps and at 1024 x 550."""
+    from solid_dsp_tpu_torch.models import fec
+    from solid_dsp_tpu_torch.ops import cuda_build, cuda_viterbi
+
+    out = cuda_build.BUILD_DIR / "s7_variants"
+    shutil.rmtree(out, ignore_errors=True)
+    source = (cuda_build.CSRC / "viterbi_scan.cu").read_text()
+    jobs = []
+    for i, (label, subs) in enumerate(S7_VARIANTS.items()):
+        d = out / f"v{i}"
+        d.mkdir(parents=True)
+        text = source
+        for a, b in subs:
+            if a not in text:
+                sys.exit(f"S7 variant {label!r}: {a!r} is not in the source")
+            text = text.replace(a, b)
+        (d / "viterbi_scan.cu").write_text(text)
+        jobs.append((label, d / "libs7.so", subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+             str(d / "libs7.so"), str(d / "viterbi_scan.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    out_tab = fec._tables(fec.DEFAULT_POLYS, 7)[0]
+    masks = torch.from_numpy(cuda_viterbi._masks(
+        np.asarray(out_tab, np.int64).tobytes(), 64, 2).view(np.int32)).to(
+        dev)
+    rng = np.random.default_rng(17)
+    for label, lib, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            sys.exit(f"S7 variant {label!r} did not build:\n{log[-4000:]}")
+        fn = ctypes.CDLL(str(lib)).viterbi_acs
+        fn.argtypes = list(cuda_viterbi._ARGS)
+        fn.restype = ctypes.c_int
+        times = []
+        for B, T in ((1, 8166), (1024, 550)):
+            r = torch.from_numpy(rng.standard_normal((B, T, 2))).to(
+                dev, torch.float32)
+            bits = torch.empty((B, T), dtype=torch.int32, device=dev)
+            pm = torch.empty((B, 64), dtype=torch.float32, device=dev)
+            dec = torch.empty((B, T, 2), dtype=torch.int32, device=dev)
+
+            def run():
+                cuda_build.check_launch(fn(
+                    r.data_ptr(), 1, masks.data_ptr(), bits.data_ptr(),
+                    pm.data_ptr(), dec.data_ptr(), B, T, 2, 64, dev.index,
+                    torch.cuda.current_stream(dev).cuda_stream), label)
+            ms = graph_ms(run, 5)
+            times.append(f"{B} x {T}: {ms * 1e6 / T:.1f} ns a step")
+        print(f"[s7 variant] {label}: {'; '.join(times)} | {smi}",
+              flush=True)
 
 
 def cfar_route(dev, smi) -> None:
@@ -912,6 +1090,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["track-prefetch"]:
         track_prefetch(dev, smi)
+        return
+    if sys.argv[1:] == ["s7-variants"]:
+        s7_variants(dev, smi)
         return
     cuda_build.build()
 
