@@ -14,6 +14,9 @@ runs the plain PyTorch versions of the kernels):
 * ``resample`` -- rate-convert an IQ recording by any real factor
 * ``packets``  -- decode framed packet bursts (``PacketModem`` or
                   ``OFDMModem``) from a recording, one JSON line a burst
+* ``tx``       -- synthesize an IQ recording with ``TxChain``
+* ``adsb``     -- decode ADS-B / Mode S frames from a recording
+* ``ais``      -- decode AIS bursts from a GMSK baseband recording
 
 A recording is read by the native runtime's ``StreamPump`` (a C++ reader
 thread) in blocks of numpy complex64; each block is copied to the device,
@@ -35,7 +38,6 @@ IQ_CHOICES = ["cf32", "ci16", "ci8", "cf64", "cu8"]
 
 WAITING = """commands of the JAX package that wait for their modules
 (ROADMAP.md, queue 1):
-  tx, adsb, ais   item 13 (the rest of models/)
   bench           item 6 (the H100 benchmark)"""
 
 
@@ -328,6 +330,71 @@ def _cmd_packets(args) -> int:
     return 0
 
 
+def _cmd_tx(args) -> int:
+    """Synthesize an IQ recording with the transmit chain."""
+    from .models.tx_chain import TxChain, TxChainConfig
+    from .runtime import write_iq
+
+    n = args.samples
+    if args.mod == "fm":
+        msg = np.sin(2 * np.pi * args.tone * np.arange(n))
+    elif args.mod in ("psk", "qam"):
+        rng = np.random.default_rng(args.seed)
+        k = max(1, int(np.log2(args.order)))
+        n -= n % k  # whole symbols only
+        msg = rng.integers(0, 2, n)
+    else:  # none: a complex test tone
+        msg = np.exp(2j * np.pi * args.tone * np.arange(n))
+    tx = TxChain(TxChainConfig(modulation=args.mod, order=args.order,
+                               carrier_freq=args.carrier,
+                               interpolation=args.interp),
+                 device=args.device)
+    iq = _host(tx.execute_block(torch.from_numpy(msg))).astype(np.complex64)
+    write_iq(args.output, iq, args.format)
+    print(json.dumps({"output": args.output, "samples": int(len(iq)),
+                      "format": args.format, "mod": args.mod,
+                      "carrier": args.carrier}))
+    return 0
+
+
+def _cmd_adsb(args) -> int:
+    from .models import adsb
+    from .runtime import read_iq
+
+    frames = adsb.decode(read_iq(args.input, args.format), sps=args.sps,
+                         threshold=args.threshold, device=args.device)
+    for fr in frames:
+        if fr["crc_ok"] or args.all:
+            print(json.dumps({
+                "start": fr["start"], "df": fr["df"],
+                "icao": f"{fr['icao']:06X}", "crc_ok": fr["crc_ok"],
+                "confidence": round(fr["confidence"], 3)}))
+    print(json.dumps({"frames": len(frames),
+                      "crc_ok": sum(f["crc_ok"] for f in frames)}),
+          file=sys.stderr)
+    return 0
+
+
+def _cmd_ais(args) -> int:
+    from .models import ais
+    from .runtime import read_iq
+
+    frames = ais.ais_receive(read_iq(args.input, args.format), sps=args.sps,
+                             device=args.device)
+    n_ok = 0
+    for payload, ok in frames:
+        if not ok and not args.all:
+            continue
+        n_ok += bool(ok)
+        row = {"crc_ok": bool(ok), "bits": int(len(payload))}
+        if len(payload) >= 168:
+            row.update(ais.parse_type123(payload[:168]))
+        print(json.dumps(row))
+    print(json.dumps({"frames": len(frames), "crc_ok": n_ok}),
+          file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="solid_dsp_tpu_torch", epilog=WAITING,
@@ -415,6 +482,34 @@ def main(argv=None) -> int:
                     choices=["conv", "ldpc", "polar", "turbo"])
     pk.add_argument("--max-bursts", type=int, default=256)
     pk.set_defaults(fn=_cmd_packets)
+
+    t = sub.add_parser("tx", help="synthesize an IQ recording (TxChain)")
+    t.add_argument("output")
+    t.add_argument("--mod", default="fm", choices=["fm", "psk", "qam",
+                                                   "none"])
+    t.add_argument("--order", type=int, default=4)
+    t.add_argument("--samples", type=int, default=1 << 16,
+                   help="message samples (fm/none) or bits (psk/qam)")
+    t.add_argument("--carrier", type=float, default=0.2)
+    t.add_argument("--interp", type=int, default=4)
+    t.add_argument("--tone", type=float, default=0.002)
+    t.add_argument("--format", default="cf32", choices=IQ_CHOICES)
+    t.add_argument("--seed", type=int, default=0)
+    t.set_defaults(fn=_cmd_tx)
+
+    for name, fn, help_ in (("adsb", _cmd_adsb,
+                             "decode ADS-B / Mode S frames (power or IQ)"),
+                            ("ais", _cmd_ais,
+                             "decode AIS bursts (GMSK baseband IQ)")):
+        a = sub.add_parser(name, help=help_)
+        a.add_argument("input")
+        a.add_argument("--format", default="cf32", choices=IQ_CHOICES)
+        a.add_argument("--sps", type=int, default=2 if name == "adsb" else 8)
+        if name == "adsb":
+            a.add_argument("--threshold", type=float, default=0.7)
+        a.add_argument("--all", action="store_true",
+                       help="also print CRC-failed frames")
+        a.set_defaults(fn=fn)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -2,7 +2,8 @@
 
 Port of ``solid_dsp_tpu/models/fm.py``: the phase-difference discriminator
 ``fm_demodulate`` (which the receive chain runs on its rotated, gained
-output, ``epilogue="rotate"``), ``fm_modulate`` (a cumulative phase), and
+output, ``epilogue="rotate"``) and its carry ``fm_demod_init`` (on
+``device``, the card by default), ``fm_modulate`` (a cumulative phase), and
 the broadcast layer on the discriminator's output: ``fm_stereo_mpx``
 composes the stereo multiplex, ``fm_stereo_decode`` isolates the 19 kHz
 pilot by a complex mix and a centred lowpass, regenerates the 38 kHz
@@ -19,11 +20,12 @@ import numpy as np
 import torch
 
 from ..design.firdes import firdes_kaiser
+from ..device import resolve_device
 from ..ops.fir import conv1d_mxu
 from ..ops.iir import iir_apply, iir_init
 from .channel import host_wrapped_phase
 
-__all__ = ["fm_modulate", "fm_demodulate", "fm_stereo_mpx",
+__all__ = ["fm_modulate", "fm_demodulate", "fm_demod_init", "fm_stereo_mpx",
            "fm_stereo_decode", "deemphasis_init", "deemphasis_apply"]
 
 _PILOT_HZ = 19_000.0
@@ -36,6 +38,13 @@ def fm_modulate(msg: torch.Tensor, kf: float, phase0=0.0):
     phase = phase0 + torch.cumsum(dphase, dim=-1)
     return torch.exp(1j * phase), torch.remainder(phase[..., -1],
                                                   2.0 * np.pi)
+
+
+def fm_demod_init(dtype=torch.complex64, batch_shape: tuple = (),
+                  device=None) -> torch.Tensor:
+    """The discriminator's carry, the previous sample: 1 + 0j, so the first
+    output is 0; on ``device`` (the card unless told otherwise)."""
+    return torch.ones(batch_shape, dtype=dtype, device=resolve_device(device))
 
 
 def fm_demodulate(state: torch.Tensor, x: torch.Tensor, kf: float):

@@ -10,7 +10,7 @@ so that a built library is reused and a changed source is rebuilt.  The
 wrappers (``ops/cuda_ddc.py``, ``ops/cuda_chan.py``, ``ops/cuda_iir.py``,
 ``ops/cuda_fft.py``, ``ops/cuda_resample.py``, ``ops/cuda_halo.py``,
 ``ops/cuda_scan.py``, ``ops/cuda_track.py``, ``ops/cuda_bcjr.py``,
-``ops/cuda_viterbi.py``) pass
+``ops/cuda_viterbi.py``, ``ops/cuda_cvsd.py``, ``ops/cuda_timing.py``) pass
 ``tensor.data_ptr()`` and the current stream and raise on a non-zero
 return.
 
@@ -39,7 +39,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("ddc_fm.cu", "ddc_body.cu", "channelizer.cu", "iir_bank.cu",
            "windowed_fft.cu", "farrow.cu", "halo_frontend.cu", "seq_scan.cu",
            "iir_scan.cu", "track_scan.cu", "bcjr_scan.cu",
-           "viterbi_scan.cu")
+           "viterbi_scan.cu", "cvsd_scan.cu", "gardner_scan.cu")
 ENGINES = ("auto", "cuda", "torch")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

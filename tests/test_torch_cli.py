@@ -14,7 +14,11 @@ tail's tolerance, tests/test_torch_fm_stereo_ddc.py), the tone read back.
 ``packets``: the JSON rows equal (offsets, CRC flags, payloads), on
 tests/test_cli.py's recording and on OFDM bursts; an unsupported ``--fec``
 for ``--phy ofdm`` returns 1 and a truncated OFDM capture prints JAX's error
-row.
+row.  ``tx``: the JSON line equal and the recording within 1e-4 of the JAX
+CLI's (cf32; ci16 within one count), at every ``--mod``; the port's ``rx``
+reads its FM back (correlation > 0.8).  ``adsb`` and ``ais``: the JSON
+lines and the stderr summary equal to the JAX CLI's on a recording of
+DF17 frames (IQ, noise, ``--all``) and of two AIS bursts.
 F2: the port's fused monitor takes blocks that are multiples of the channel
 count but not of 8 channels' rows, which the JAX CLI's fused monitor
 refuses.
@@ -385,13 +389,13 @@ def test_help_names_the_commands_that_wait(capsys):
         port_main(["--help"])
     assert e.value.code == 0
     out = capsys.readouterr().out
-    for cmd in ("demo", "rx", "spectrum", "convert", "monitor", "resample"):
-        assert cmd in out
-    assert "item 13" in out and "item 6" in out
-    for cmd in ("tx", "adsb", "ais", "bench"):
-        assert cmd in out.split("wait for their modules")[1]
-        with pytest.raises(SystemExit):
-            port_main([cmd, "x"])
+    waiting = out.split("wait for their modules")[1]
+    for cmd in ("demo", "rx", "spectrum", "convert", "monitor", "resample",
+                "packets", "tx", "adsb", "ais"):
+        assert cmd in out and cmd not in waiting
+    assert "item 6" in waiting and "bench" in waiting
+    with pytest.raises(SystemExit):
+        port_main(["bench", "x"])
     capsys.readouterr()
 
 
@@ -407,3 +411,92 @@ def test_default_device_is_the_card(tmp_path, capsys):
     with pytest.raises((RuntimeError, AssertionError)):
         port_main(["demo", "--samples", "64"])
     capsys.readouterr()
+
+
+# ------------------------------------------------------ tx, adsb, ais
+
+@pytest.mark.parametrize("mod,extra", [("fm", []), ("qam", ["--order", "16"]),
+                                       ("psk", ["--order", "8"]),
+                                       ("none", ["--format", "ci16"])])
+def test_tx_matches_jax(tmp_path, capsys, mod, extra):
+    a, b = str(tmp_path / "j.iq"), str(tmp_path / "p.iq")
+    args = ["--mod", mod, "--samples", "3001", "--carrier", "0.7", *extra]
+    out_j, out_p = _run_both(["tx", a, *args], ["tx", b, *args], capsys)
+    rj, rp = _rows(out_j), _rows(out_p)
+    assert rp[0].pop("output") == b and rj[0].pop("output") == a
+    assert rp == rj
+    fmt = "ci16" if "ci16" in extra else "cf32"
+    x, y = read_iq(a, fmt), read_iq(b, fmt)
+    assert len(y) == rp[0]["samples"] == len(x)
+    np.testing.assert_allclose(y, x, atol=1e-4 if fmt == "cf32" else 2.0
+                               / 32767)
+
+
+def test_tx_fm_reads_back_through_rx(tmp_path, capsys):
+    src, out = str(tmp_path / "tx.cf32"), str(tmp_path / "rx.cf32")
+    assert port("tx", src, "--samples", "16384") == 0
+    assert port("rx", src, "-o", out, "--carrier", "0.2") == 0
+    capsys.readouterr()
+    audio = read_iq(out).real[200:]
+    msg = np.sin(2 * np.pi * 0.002 * np.arange(16384))
+    best = max(abs(np.corrcoef(audio, msg[200 - lag: 200 - lag + len(audio)]
+                               )[0, 1]) for lag in range(40))
+    assert best > 0.8
+
+
+def _adsb_recording(tmp_path):
+    from solid_dsp_tpu_torch.models import adsb
+
+    rng = np.random.default_rng(5)
+    x = (0.02 * (rng.standard_normal(30000) + 1j * rng.standard_normal(
+        30000))).astype(np.complex64)
+    for i, s in enumerate((900, 7000, 15000, 22000)):
+        f = adsb.encode_df17(0x4840D6 + 17 * i, rng.integers(0, 2, 56))
+        if i == 2:
+            f[60] ^= 1                          # a frame that fails its CRC
+        env = adsb.ppm_modulate(f, 2)
+        x[s: s + len(env)] += env * np.exp(1j * (0.3 + i))
+    src = str(tmp_path / "adsb.cf32")
+    write_iq(src, x)
+    return src
+
+
+def test_adsb_matches_jax(tmp_path, capsys):
+    src = _adsb_recording(tmp_path)
+    for extra in ([], ["--all"]):
+        assert jax_main(["adsb", src, "--threshold", "0.6", *extra]) == 0
+        cj = capsys.readouterr()
+        assert port("adsb", src, "--threshold", "0.6", *extra) == 0
+        cp = capsys.readouterr()
+        assert _rows(cp.out) == _rows(cj.out)
+        assert json.loads(cp.err.strip().splitlines()[-1]) == \
+            json.loads(cj.err.strip().splitlines()[-1])
+    rows = _rows(cp.out)
+    assert len(rows) >= 4 and sum(r["crc_ok"] for r in rows) == 3
+    assert rows[0]["icao"] == "4840D6" and rows[0]["df"] == 17
+
+
+def test_ais_matches_jax(tmp_path, capsys):
+    from solid_dsp_tpu_torch.models import ais
+
+    p1 = ais.build_type1_payload(111111111, 10.0, 20.0, 3.5, 45.0)
+    p2 = ais.build_type1_payload(222222222, -33.9, 151.2)
+    gap = np.zeros(400, np.complex64)
+    s = np.concatenate([gap, ais.ais_transmit(p1, device="cpu"), gap,
+                        ais.ais_transmit(p2, device="cpu"), gap])
+    rng = np.random.default_rng(7)
+    s = s + 0.03 * (rng.standard_normal(len(s)) + 1j
+                    * rng.standard_normal(len(s)))
+    src = str(tmp_path / "ais.ci16")
+    write_iq(src, (0.5 * s).astype(np.complex64), "ci16")
+    for extra in ([], ["--all"]):
+        args = [src, "--format", "ci16", *extra]
+        assert jax_main(["ais", *args]) == 0
+        cj = capsys.readouterr()
+        assert port("ais", *args) == 0
+        cp = capsys.readouterr()
+        assert _rows(cp.out) == _rows(cj.out)
+        assert json.loads(cp.err.strip().splitlines()[-1]) == \
+            json.loads(cj.err.strip().splitlines()[-1])
+    rows = [r for r in _rows(cp.out) if r["crc_ok"]]
+    assert sorted(r["mmsi"] for r in rows) == [111111111, 222222222]

@@ -48,6 +48,14 @@ traceback, csrc/viterbi_scan.cu) bit-equal to its plain version, decoded
 bits and final path metrics, at K = 3 to 11, hard and soft, rates 1/2 and
 1/3, batch 1 and 256, T from 12 to 8,166, and on a random hard stream
 (ties at nearly every step); the links decode on the card through it.
+S8 (the CVSD walk, csrc/cvsd_scan.cu) bit-equal to its plain version,
+bits and trajectory, at 1 to 1024 lanes, 1 to 4096 samples and histories
+of 1, 3 and 32; 1024 voice lanes of 2^16 keep > 20 dB in band
+(tests/test_cvsd.py:59).  S9 (the Gardner loop, csrc/gardner_scan.cu)
+bit-equal to its plain version on the card and on the CPU, symbols and
+final mu, at sps 1 to 64, also where mu leaves the staged window; it
+tracks a clock drift over 2^17 symbols with no symbol error after
+acquisition.
 """
 
 import importlib
@@ -2135,3 +2143,187 @@ def test_s7_rejects_wrong_inputs_on_card():
     b0, p0 = cuda_viterbi.viterbi_cuda(r[:, :0], True, out, pred)
     assert b0.shape == (2, 0) and torch.equal(
         p0.cpu(), fec.viterbi_plain(r[:, :0].cpu(), out, True)[1])
+
+
+# S8: the CVSD walk (csrc/cvsd_scan.cu)
+
+def _s8_lanes(rng, B, N):
+    """Lanes b % 3 == 0: a two-tone voice at 4x oversampling, scaled by 0.2
+    to 1.0; b % 3 == 1: random levels; b % 3 == 2: the voice plus noise."""
+    t = np.arange(N) / 32000.0
+    voice = 0.5 * np.sin(2 * np.pi * 300 * t) + 0.25 * np.sin(
+        2 * np.pi * 800 * t)
+    x = np.stack([voice * (0.2 + 0.8 * (b % 5) / 4) for b in range(B)])
+    x[1::3] = rng.uniform(-1, 1, x[1::3].shape)
+    x[2::3] += 0.02 * rng.standard_normal(x[2::3].shape)
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("B,N", [(1, 1), (3, 31), (32, 64), (70, 1000),
+                                 (1024, 4096)])
+@pytest.mark.parametrize("n_history", [1, 3, 32])
+def test_s8_matches_plain_on_card(B, N, n_history):
+    """S8 against cvsd_walk_plain on the same card lanes: the bits and the
+    decoded trajectory exactly equal, ragged chunks and partial warps
+    included; one launch a direction."""
+    from solid_dsp_tpu_torch.models import cvsd
+    from solid_dsp_tpu_torch.ops import cuda_cvsd
+
+    dev = require_cuda()
+    rng = np.random.default_rng(B + N + n_history)
+    x = torch.from_numpy(_s8_lanes(rng, B, N)).to(dev)
+    if B * N > 1 << 16:
+        x = x[:, :512].contiguous()        # the plain walk's launches
+    before = cuda_cvsd.cvsd_cuda.launches
+    bk = cvsd.cvsd_encode(x, n_history=n_history)
+    yk = cvsd.cvsd_decode(bk, n_history=n_history)
+    assert cuda_cvsd.cvsd_cuda.launches == before + 2
+    bp = cvsd.cvsd_encode(x, n_history=n_history, engine="torch")
+    yp = cvsd.cvsd_decode(bp, n_history=n_history, engine="torch")
+    assert cuda_cvsd.cvsd_cuda.launches == before + 2
+    torch.cuda.synchronize()
+    assert bk.dtype == torch.int32 and yk.dtype == torch.float32
+    assert torch.equal(bk, bp) and torch.equal(yk, yp)
+
+
+def test_s8_full_lanes_quality_on_card():
+    """1024 lanes of 2^16 samples in one launch a direction: every lane's
+    decode is its encoder's trajectory (the first 2048 samples of 8 lanes
+    against the plain walk), and the voice lanes keep > 20 dB in band."""
+    import scipy.signal as sps_sig
+
+    from solid_dsp_tpu_torch.models import cvsd
+
+    dev = require_cuda()
+    rng = np.random.default_rng(8)
+    x = _s8_lanes(rng, 1024, 1 << 16)
+    xd = torch.from_numpy(x).to(dev)
+    bits = cvsd.cvsd_encode(xd)
+    y = cvsd.cvsd_decode(bits).cpu().numpy()
+    bp = cvsd.cvsd_encode(xd[:8, :2048], engine="torch")
+    assert torch.equal(bits[:8, :2048], bp)
+    lp = sps_sig.firwin(201, 1200, fs=32000)
+    for b in (3, 9, 1008):                 # clean voice, scale >= 0.6
+        xf = sps_sig.lfilter(lp, 1, x[b])[500:]
+        yf = sps_sig.lfilter(lp, 1, y[b])[500:]
+        assert 10 * np.log10(np.mean(xf ** 2) / np.mean((yf - xf) ** 2)) > 20
+
+
+def test_s8_rejects_and_limits_on_card():
+    from solid_dsp_tpu_torch.models import cvsd
+    from solid_dsp_tpu_torch.ops import cuda_cvsd
+
+    dev = require_cuda()
+    x = torch.zeros((2, 40), device=dev)
+    with pytest.raises(ValueError, match="history"):
+        cvsd.cvsd_encode(x, n_history=33)
+    with pytest.raises(ValueError, match="float32"):
+        cvsd.cvsd_encode(x.double())
+    b = cvsd.cvsd_encode(x.double(), n_history=33, engine="torch")
+    assert b.shape == (2, 40) and b.is_cuda
+    for shape in ((0, 40), (2, 0)):
+        assert cvsd.cvsd_encode(torch.zeros(shape, device=dev)).shape == shape
+    with pytest.raises(ValueError, match="lanes"):
+        cuda_cvsd.cvsd_cuda(x[0], False, 0.9, 0.01, 0.001, 0.2, 3, 0.98)
+
+
+# S9: the Gardner loop (csrc/gardner_scan.cu)
+
+def _s9_stream(rng, n_sym, sps, tau=0.4, drift=0.0):
+    """RRC QPSK at sps with a fractional offset (and a clock drift in
+    samples a symbol), through the matched filter, complex64."""
+    from solid_dsp_tpu_torch.design.firdes import firdes_rrcos
+
+    idx = rng.integers(0, 4, n_sym)
+    pts = np.array([1 + 1j, -1 + 1j, 1 - 1j, -1 - 1j]) / np.sqrt(2)
+    rrc = firdes_rrcos(sps, 6, 0.35)
+    n = n_sym * sps
+    t = (np.arange(n_sym) * (sps + drift) + tau)
+    up = np.zeros(n + 64, complex)
+    base = np.floor(t).astype(int)
+    fr = t - base
+    up[base] += pts[idx] * (1 - fr)      # a linear split of each impulse
+    up[base + 1] += pts[idx] * fr
+    tx = np.convolve(up[:n], rrc)[:n]
+    return idx, np.convolve(tx, rrc)[:n].astype(np.complex64)
+
+
+@pytest.mark.parametrize("sps,n_sym", [(8, 1), (8, 33), (8, 4096), (2, 3000),
+                                       (5, 2000), (1, 1500), (64, 300)])
+def test_s9_matches_plain_on_card(sps, n_sym):
+    """S9 against gardner_walk_plain on the card (and the CPU's plain walk):
+    the symbols and the final mu exactly equal; one launch a stream."""
+    from solid_dsp_tpu_torch.models import timing
+    from solid_dsp_tpu_torch.ops import cuda_timing
+
+    dev = require_cuda()
+    rng = np.random.default_rng(sps * 7 + n_sym)
+    _, x = _s9_stream(rng, n_sym + 2, max(sps, 2))
+    x = x[: (n_sym + 2) * sps + 4]
+    xd = torch.from_numpy(x).to(dev)
+    before = cuda_timing.gardner_cuda.launches
+    sk, mk = timing.gardner_scan(xd, sps, 0.02, 0.3)
+    assert cuda_timing.gardner_cuda.launches == before + 1
+    sp, mp = timing.gardner_scan(xd, sps, 0.02, 0.3, engine="torch")
+    sc, mc = timing.gardner_scan(torch.from_numpy(x), sps, 0.02, 0.3)
+    assert cuda_timing.gardner_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert sk.shape == ((len(x) - 4) // sps - 1,)
+    assert torch.equal(sk, sp) and torch.equal(mk, mp)
+    assert torch.equal(sk.cpu(), sc) and torch.equal(mk.cpu(), mc)
+
+
+@pytest.mark.parametrize("bandwidth,mu0", [(0.6, 0.0), (0.05, 45.5),
+                                           (0.05, -30.0)])
+def test_s9_reads_outside_its_window_on_card(bandwidth, mu0):
+    """Noise at a wide loop bandwidth (mu jumps beyond the window's
+    margin), and a start far off the strobe: the reads that fall outside the
+    staged window come from device memory, bit-equal to the plain walk."""
+    from solid_dsp_tpu_torch.models import timing
+
+    dev = require_cuda()
+    rng = np.random.default_rng(int(bandwidth * 100))
+    x = (rng.standard_normal(8 * 700) + 1j * rng.standard_normal(8 * 700)
+         ).astype(np.complex64)
+    xd = torch.from_numpy(x).to(dev)
+    sk, mk = timing.gardner_scan(xd, 8, bandwidth, mu0)
+    sp, mp = timing.gardner_scan(xd, 8, bandwidth, mu0, engine="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(sk, sp) and torch.equal(mk, mp)
+
+
+def test_s9_tracks_a_clock_drift_on_card():
+    """A 2^20-sample stream with a clock drift of 1e-4 sample a symbol: the
+    loop follows mu across the whole stream (the window follows it), SER
+    0 after acquisition; the first 2^12 symbols equal the plain walk."""
+    from solid_dsp_tpu_torch.models import timing
+
+    dev = require_cuda()
+    rng = np.random.default_rng(9)
+    idx, x = _s9_stream(rng, 1 << 17, 8, drift=1e-4)
+    xd = torch.from_numpy(x).to(dev)
+    sk, mk = timing.gardner_scan(xd, 8, 0.01)
+    sp, _ = timing.gardner_scan(xd[: 8 * 4100], 8, 0.01, engine="torch")
+    assert torch.equal(sk[: len(sp)], sp)
+    y = sk.cpu().numpy()[2000:]
+    got = (y.real < 0).astype(int) + 2 * (y.imag < 0)
+    best = min(float(np.mean(idx[2000 + lag: 2000 + lag + len(got) - 40]
+                             != got[: len(got) - 40]))
+               for lag in range(-20, 21))
+    assert best == 0.0 and abs(float(mk) - 1e-4 * (1 << 17)) < 4
+
+
+def test_s9_rejects_on_card():
+    from solid_dsp_tpu_torch.models import timing
+
+    dev = require_cuda()
+    x = torch.zeros(800, dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError, match="complex64"):
+        timing.gardner_scan(x.to(torch.complex128), 8)
+    with pytest.raises(ValueError, match="sps"):
+        timing.gardner_scan(x, 65)
+    s, _ = timing.gardner_scan(x.to(torch.complex128), 65, engine="torch")
+    assert s.is_cuda and s.shape == ((800 - 4) // 65 - 1,)
+    s, mu = timing.gardner_scan(x[:6], 8)
+    torch.cuda.synchronize()
+    assert s.shape == (0,) and float(mu) == 0.0

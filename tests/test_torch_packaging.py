@@ -45,7 +45,8 @@ def test_package_data_ships_every_cuda_source_and_header():
     for rel in sorted(needed):
         needed |= {f"csrc/{h}" for h in _includes(os.path.join(PKG, rel))}
     assert {"csrc/hopper.cuh", "csrc/ddc_tc.cuh", "csrc/ddc_direct.cuh",
-            "csrc/bcjr_scan.cu", "csrc/viterbi_scan.cu"} <= needed
+            "csrc/bcjr_scan.cu", "csrc/viterbi_scan.cu", "csrc/cvsd_scan.cu",
+            "csrc/gardner_scan.cu"} <= needed
     missing = sorted(r for r in needed if not _shipped(r))
     assert not missing, f"package data misses {missing}"
     for rel in needed:

@@ -149,8 +149,10 @@ def test_port_never_imports_jax():
     equalizers and their trainer, the radar kit), item 13b's modules (the
     CRC and scramblers, convolutional FEC, block codes, Reed-Solomon,
     CCSDS, the channel models, BER, OFDM and its pilots, the packet and
-    OFDM modems, MIMO, array processing), and the CLI (``rx`` and
-    ``packets``, and ``--help`` run as the package's
+    OFDM modems, MIMO, array processing), item 13c's modems and receivers
+    (the burst detector, CVSD, symbol timing, CSS, GMSK, FSK, DSSS, FHSS,
+    AM, CW, the transmit chain, AIS) and the CLI (``rx``, ``packets``,
+    ``tx``, ``adsb``, ``ais``, and ``--help`` run as the package's
     ``__main__``) loads no jax module and no module of the JAX package
     (fresh interpreter: this one has jax); ``python -m solid_dsp_tpu_torch
     --help`` runs."""
@@ -343,6 +345,36 @@ def test_port_never_imports_jax():
         "dtype=torch.complex64)]).numpy())\n"
         "assert solid_dsp_tpu_torch.__main__.main(['--device', 'cpu', "
         "'packets', d + '/pk.cf32', '--payload-bytes', '16']) == 0\n"
+        "from solid_dsp_tpu_torch.models import (adsb, ais, am, css, cvsd, "
+        "cw, dsss, fhss, fsk, gmsk, timing, TxChain, TxChainConfig)\n"
+        "from solid_dsp_tpu_torch.models.detect import BurstDetector\n"
+        "BurstDetector(device='cpu').execute_block(torch.ones(256, "
+        "dtype=torch.complex64))\n"
+        "cvsd.CVSD(device='cpu').decode(cvsd.cvsd_encode(torch.zeros(2, 64)))\n"
+        "timing.gardner_scan(torch.ones(200, dtype=torch.complex64), 4)\n"
+        "timing.symbol_sync_block(torch.ones(400, dtype=torch.complex64), 4)\n"
+        "css.CSSModem(7, device='cpu').demodulate(css.css_modulate("
+        "torch.zeros(14, dtype=torch.int64), 7))\n"
+        "st = gmsk.gmsk_mod_init(device='cpu')\n"
+        "iq, _ = gmsk.gmsk_modulate(st, torch.ones(32, dtype=torch.int32), 8)\n"
+        "gmsk.gmsk_demod_discriminator(gmsk.gmsk_demod_init(device='cpu'), "
+        "iq, 8); gmsk.gmsk_demod_matched(iq, 8)\n"
+        "fsk.fsk_demod_matched(fsk.fsk_modulate(torch.zeros(8, "
+        "dtype=torch.int64), 8, 2, 0.1)[0], 8, 2, 0.1)\n"
+        "dsss.dsss_acquire(torch.ones(256, dtype=torch.complex64), "
+        "torch.ones(16), 16); fhss.FHSS(device='cpu').hop(torch.ones(512, "
+        "dtype=torch.complex64))\n"
+        "am.am_demodulate_envelope(am.dc_blocker_init(device='cpu'), "
+        "torch.ones(64, dtype=torch.complex64))\n"
+        "cw.cw_decode(cw.cw_keyer('SOS', 16, device='cpu'))\n"
+        "TxChain(TxChainConfig(modulation='qam', order=16), device='cpu')"
+        ".execute_block(torch.zeros(64, dtype=torch.int64))\n"
+        "runtime.write_iq(d + '/ais.cf32', ais.ais_transmit("
+        "ais.build_type1_payload(1, 2.0, 3.0), device='cpu'))\n"
+        "for argv in (['tx', d + '/tx.cf32', '--samples', '4096'], "
+        "['adsb', d + '/tx.cf32'], ['ais', d + '/ais.cf32']):\n"
+        "    assert solid_dsp_tpu_torch.__main__.main(['--device', 'cpu', "
+        "*argv]) == 0\n"
         "sys.argv = ['solid_dsp_tpu_torch', '--help']\n"
         "try:\n"
         "    runpy.run_module('solid_dsp_tpu_torch', run_name='__main__')\n"
@@ -424,14 +456,15 @@ def test_entry_points_default_to_the_card():
 def test_p8_models_reexports_the_jax_names():
     """P8: ``solid_dsp_tpu_torch.models`` re-exports what JAX's
     ``models/__init__.py`` does for the modules the port has (the chain,
-    the channelizers, ChannelBank, and item 13a's LDPCCode, TurboCode and
-    LinearModem), each the class of its module."""
+    the channelizers, ChannelBank, item 13a's LDPCCode, TurboCode and
+    LinearModem, and item 13c's TxChain and TxChainConfig), each the class
+    of its module."""
     import solid_dsp_tpu.models as jm
     import solid_dsp_tpu_torch.models as tm
 
     names = ("RxChain", "RxChainConfig", "PolyphaseChannelizer",
              "OversampledChannelizer", "ChannelBank", "LDPCCode",
-             "TurboCode", "LinearModem")
+             "TurboCode", "LinearModem", "TxChain", "TxChainConfig")
     for name in names:
         assert hasattr(jm, name)
         obj = getattr(tm, name)

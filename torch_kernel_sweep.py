@@ -3,7 +3,7 @@
     python3 torch_kernel_sweep.py            # K6, the DDC body, K1
     python3 torch_kernel_sweep.py fir-route  # the FIR's two card routes
     python3 torch_kernel_sweep.py s3         # S3's chunk length and join
-    python3 torch_kernel_sweep.py latency    # S1, S2, S4-S6: latency bounds
+    python3 torch_kernel_sweep.py latency    # S1, S2, S4-S9: latency bounds
     python3 torch_kernel_sweep.py cfar-route # F7: CA-CFAR's two window sums
     python3 torch_kernel_sweep.py k1-direct  # K1's direct route: R, warps
     python3 torch_kernel_sweep.py k1-route   # K1 as routed, both modes
@@ -71,7 +71,11 @@
   single-warp form) at one row of 8166 steps, 1024 x 550 and 64 x 8166,
   its chain a step (the probe adds REDUX, and a shared-memory exchange
   across a two-warp barrier, the block form's) and its ACS loop's SASS
-  (``viterbi_scan.sass``).  S1's FSM entry is
+  (``viterbi_scan.sass``); S8 (csrc/cvsd_scan.cu), encode and decode, at
+  one lane and 1024 lanes of 2^16, and S9 (csrc/gardner_scan.cu) on 2^19
+  symbols at sps 8 (the probe adds floor-to-integer and a dependent shared
+  read), each its chain and its walk's SASS (``cvsd_scan.sass``,
+  ``gardner_scan.sass``).  S1's FSM entry is
   time-parallel (the chunk-and-join kernel): its row prints its bytes
   bound (4 in and 4 out a step over 3.35 TB/s) beside its time instead.
 
@@ -386,8 +390,12 @@ LATENCY_PROBE = r"""
   }
 __global__ void probe(int op, float a, double da, float* out, double* dout,
                       long long* cyc) {
+  __shared__ int si[64];
   float v = a, s = 0.f, c = 0.f;
   double d = da;
+  for (int i = 0; i < 64; ++i) si[i] = (i * 5 + op) & 63;
+  __syncthreads();
+  int k = op & 63;
   const long long t0 = clock64();
   switch (op) {
     case 0: CHAIN(v = __fmaf_rn(v, 0.999f, 1e-3f);) break;
@@ -406,9 +414,14 @@ __global__ void probe(int op, float a, double da, float* out, double* dout,
     case 13: CHAIN(v = __fdiv_rn(1.3f, v);) break;
     case 14: CHAIN(asm volatile("max.f32 %0, %0, %1;" : "+f"(v) : "f"(s));)
       break;
+    // S9's sample index from mu: floor, to an integer, back (the FADD of
+    // the float's return taken off as carried)
+    case 18: CHAIN(v = (float)(int)floorf(v) + 0.5f;) break;
+    // a shared-memory read whose address the previous read gave
+    case 19: CHAIN(k = si[k];) break;
   }
   const long long t1 = clock64();
-  out[0] = v;
+  out[0] = v + (float)k;
   dout[0] = d;
   cyc[0] = t1 - t0;
 }
@@ -451,7 +464,7 @@ extern "C" int probe_launch(int op, float a, double da, float* out,
                             double* dout, long long* cyc) {
   if (op == 15)
     probe_shfl<<<1, 32>>>(a, out, cyc);
-  else if (op >= 16)
+  else if (op == 16 || op == 17)
     probe_block<<<1, 64>>>(op, a, out, cyc);
   else
     probe<<<1, 1>>>(op, a, da, out, dout, cyc);
@@ -461,7 +474,7 @@ extern "C" int probe_launch(int op, float a, double da, float* out,
 LATENCY_OPS = ("FFMA", "FMUL", "FADD", "MUFU.EX2", "MUFU.LG2", "MUFU.SIN",
                "expf", "logf", "log10f", "atan2f", "sincosf", "DFMA",
                "compare+select", "FDIV", "FMNMX", "SHFL", "REDUX",
-               "STS+BAR+LDS")
+               "STS+BAR+LDS", "floor+F2I+I2F", "LDS")
 
 
 def latency_probe(dev) -> dict:
@@ -536,6 +549,21 @@ def sass_dump(source: str) -> str:
 #     select), pmn - min and + bm (two FADDs), the choice (compare and
 #     select); the four shuffles that put the metrics back in place run
 #     beside the key and REDUX, a shorter path;
+#   S8 (csrc/cvsd_scan.cu, its SASS), encode: ref -> FSETP (the bit) ->
+#     SEL, two LOP3 (the history word) -> ISETP (agreement) -> FSEL of
+#     gamma -> FADD (step; beta step's FMUL is off the chain) -> two FMNMX
+#     -> FSEL (+-step) -> FADD (ref) -> two FMNMX: 13 ops, the 7 integer
+#     and select ops counted at a simple ALU op's latency (FADD's; the probe
+#     has no integer chain); decode: the bits come from registers, so the
+#     history and agreement are off the chain, and each recurrence (step:
+#     FMUL, FADD, two FMNMX; ref: FMUL, FADD, two FMNMX after the select)
+#     carries 4 ops a step;
+#   S9 (csrc/gardner_scan.cu, its SASS): mu -> F2I.FLOOR (floor+F2I+I2F)
+#     -> IMAD, two VIMNMX, IADD3, ISETP (the index, its clip, the window
+#     test: 5 integer ops at FADD's latency) -> LDS -> the Farrow
+#     coefficient c2 (FMUL, three FADD) -> Horner (three FMUL and FADD) ->
+#     d = prev - sym and mid.re d.re + mid.im d.im (FADD, FMUL, FADD) ->
+#     alpha e, mu + (..), + rate (FMUL, two FADD);
 #   S5 (lattice_iir_kernel, real): stage m of sample t + 1 needs b_m, which
 #     stage m - 1 of sample t wrote, so the samples overlap as a wavefront:
 #     b_m's update (FFMA), then stage m's g <- g - k_m b_m and stage m - 1's
@@ -552,10 +580,13 @@ LATENCY_CHAINS = {
     "S5 p=64": {"FFMA": 3},
     "S6": {"SHFL": 1 + 3 / 16, "FADD": 1 + 1 / 16, "FMNMX": 1 + 3 / 16},
     "S7": {"FMNMX": 1, "compare+select": 3, "REDUX": 1, "FADD": 2},
+    "S8 encode": {"FADD": 9, "FMNMX": 4},
+    "S8 decode": {"FMUL": 1, "FADD": 1, "FMNMX": 2},
+    "S9": {"floor+F2I+I2F": 1, "LDS": 1, "FMUL": 6, "FADD": 15},
 }
 _CARRIED = {"logf": "FADD", "log10f": "FADD", "atan2f": "FADD",
             "sincosf": "FADD", "expf": "FMUL", "SHFL": "FADD",
-            "STS+BAR+LDS": "FADD"}
+            "STS+BAR+LDS": "FADD", "floor+F2I+I2F": "FADD"}
 
 
 _SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
@@ -661,6 +692,7 @@ def latency_sweep(dev, smi) -> None:
     track_latency(dev, smi, lat, mhz)
     bcjr_latency(dev, smi, lat, mhz)
     viterbi_latency(dev, smi, lat, mhz)
+    cvsd_gardner_latency(dev, smi, lat, mhz)
 
 
 def bcjr_latency(dev, smi, lat: dict, mhz: float) -> None:
@@ -747,6 +779,91 @@ def viterbi_latency(dev, smi, lat: dict, mhz: float) -> None:
               f"steps); bound {bound_ns:.1f} ns a step at {mhz:.0f} MHz "
               f"(the larger); measured {ns:.1f} ns a step ({ms:.4f} ms a "
               f"call): {bound_ns / ns:.0%} of the bound | {smi}", flush=True)
+
+
+def _chain_cycles(lat: dict, chain: dict) -> float:
+    return sum(n * (lat[op] - (lat[_CARRIED[op]] if op in _CARRIED else 0.0))
+               for op, n in chain.items())
+
+
+def _loop_sizes(sass: str, kernel: str, op_prefix: str) -> list:
+    """(instructions, count of ``op_prefix`` ops) of each loop (a backward
+    branch's range) of the function whose name holds ``kernel``."""
+    loops = []
+    for part in sass.split("Function : ")[1:]:
+        if kernel not in part.splitlines()[0]:
+            continue
+        ins = [(int(a, 16), op) for a, op, _ in _SASS_INSN.findall(part)]
+        for addr, op, args in _SASS_INSN.findall(part):
+            t = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+            if t and int(t.group(1), 16) < int(addr, 16):
+                body = [o for a, o in ins
+                        if int(t.group(1), 16) <= a <= int(addr, 16)]
+                loops.append((len(body), sum(o.startswith(op_prefix)
+                                             for o in body)))
+    return loops
+
+
+def cvsd_gardner_latency(dev, smi, lat: dict, mhz: float) -> None:
+    """S8 (csrc/cvsd_scan.cu) and S9 (csrc/gardner_scan.cu): each chain a
+    step (LATENCY_CHAINS); S8's bound the larger of it and its chunk
+    loop's SASS instructions over its 32 steps, S9's the chain (its
+    walker's loop also holds the untaken fall-back), over the SM clock,
+    beside the time a step: S8 at
+    one lane of 2^16 and 1024 lanes x 2^16 (chip_smoke.py phase 42's), S9
+    on one stream of 2^19 symbols at sps 8 (CUDA graph of 3 launches).
+    The SASS is kept beside the built libraries."""
+    from solid_dsp_tpu_torch.ops import cuda_build, cuda_cvsd, cuda_timing
+
+    args = (0.9, 0.01, 0.001, 0.2, 3, 0.98)
+    sass = sass_dump("cvsd_scan.cu")
+    out = cuda_build.BUILD_DIR / "cvsd_scan.sass"
+    out.write_text(sass)
+    rng = np.random.default_rng(42)
+    for name, decode, template in (("S8 encode", False, "ILb1E"),
+                                   ("S8 decode", True, "ILb0E")):
+        # the chunk loop: its 32 steps unrolled (32 shared reads or more)
+        n_ins, k_lds = min((n, k) for n, k in _loop_sizes(
+            sass, "cvsd_kernel" + template, "LDS") if k >= 32)
+        issue = n_ins / 32.0
+        cycles = _chain_cycles(lat, LATENCY_CHAINS[name])
+        bound_ns = max(cycles, issue) / mhz * 1e3
+        for B, N in ((1, 1 << 16), (1024, 1 << 16)):
+            x = torch.from_numpy(rng.uniform(-1, 1, (B, N)).astype(
+                np.float32)).to(dev)
+            v = cuda_cvsd.cvsd_cuda(x, False, *args) if decode else x
+            ms = graph_ms(lambda: cuda_cvsd.cvsd_cuda(v, decode, *args), 3)
+            ns = ms * 1e6 / N
+            print(f"[latency bound {name}, {B} x {N}] SASS kept in {out}; "
+                  f"chain {LATENCY_CHAINS[name]}: {cycles:.1f} cycles a "
+                  f"step; its chunk loop {issue:.1f} instructions a step "
+                  f"({n_ins} over 32 steps, {k_lds} shared reads); bound "
+                  f"{bound_ns:.1f} ns a step at {mhz:.0f} MHz (the larger); "
+                  f"measured {ns:.1f} ns a step ({ms:.4f} ms a call): "
+                  f"{bound_ns / ns:.0%} of the bound | {smi}", flush=True)
+    sass = sass_dump("gardner_scan.cu")
+    out = cuda_build.BUILD_DIR / "gardner_scan.sass"
+    out.write_text(sass)
+    # the walker's loop (the most shared reads) holds the fall-back's
+    # untaken branch too, so its size is printed, not taken as a floor
+    n_ins, k_lds = max(_loop_sizes(sass, "gardner_kernel", "LDS"),
+                       key=lambda t: t[1])
+    cycles = _chain_cycles(lat, LATENCY_CHAINS["S9"])
+    bound_ns = cycles / mhz * 1e3
+    n_sym = 1 << 19
+    x = torch.from_numpy((rng.standard_normal(8 * n_sym + 12) + 1j
+                          * rng.standard_normal(8 * n_sym + 12)).astype(
+        np.complex64)).to(dev)
+    ms = graph_ms(lambda: cuda_timing.gardner_cuda(x, 8, 0.01, 2.5e-5, 0.0,
+                                                   n_sym), 3)
+    ns = ms * 1e6 / n_sym
+    print(f"[latency bound S9, 2^19 symbols at sps 8] SASS kept in {out}; "
+          f"chain {LATENCY_CHAINS['S9']}: {cycles:.1f} cycles a symbol; its "
+          f"walker's loop {n_ins} instructions with its fall-back's branch "
+          f"({k_lds} shared reads); bound (the chain) {bound_ns:.1f} ns a "
+          f"symbol at {mhz:.0f} MHz; "
+          f"measured {ns:.1f} ns a symbol ({ms:.3f} ms a call): "
+          f"{bound_ns / ns:.0%} of the bound | {smi}", flush=True)
 
 
 # S7's single-warp form (csrc/viterbi_scan.cu, 64 states) with one part of
