@@ -71,7 +71,14 @@ solid_dsp_tpu_torch/csrc/:
 * ROADMAP item 13c: the CVSD codec through S8 (cvsd_scan.cu), the Gardner
   timing loop through S9 (gardner_scan.cu), the port's tx, adsb and ais
   commands and the other modems (AM, SSB, GMSK, FSK, CSS, DSSS, FHSS, CW,
-  the burst detector, the block symbol synchroniser).
+  the burst detector, the block symbol synchroniser);
+* ROADMAP items 13c's rest and 13d and 14's fault.py as two receivers a
+  user runs: a broadcast-FM station with RDS in a 1.824 Msps capture
+  through config 4's chain (K1), the stereo decoder (S3's de-emphasis)
+  and rds_receive, and a POCSAG pager channel cut out of a 2.4576 Msps
+  capture by the DDC body (K2, M = 64) and decoded by pocsag_receive;
+  DTMF, the modulation classifier, the channel sounder, the metrics and
+  profiling utilities, and checkpointed, supervised crash recovery.
 
 Phases, one line each:
 
@@ -376,6 +383,30 @@ Phases, one line each:
      CSS (SF 9), DSSS (Gold 31), FHSS, CW and the burst detector, each a
      round trip at 2^22 samples checked and timed like phase 41.  S8's and
      S9's launches on these paths are the kernels' line's.
+ 43. ROADMAP items 13c's rest, 13d and 14's fault.py (protocol_phases):
+     (a) 4 x 2^24 IQ (36.8 s) of a 1.824 Msps capture holding a stereo FM
+     station with RDS (PI/PS groups repeated) at +250 kHz, 30 dB CNR,
+     through config 4's chain tuned to it, fm_stereo_decode (75 us) and
+     rds_receive: PI and PS exact, >= 99 % of the whole groups sent
+     decoded, the group list equal to the plain chain's, the separation
+     >= 12 dB; (b) 4 x 2^24 IQ of a 2.4576 Msps capture holding 16 POCSAG
+     pages (CPFSK 1200 baud, +-4.5 kHz) at +300 kHz, through the chain at
+     M = 64, 256 taps, demod "none" (the body, K2) and pocsag_receive:
+     every page exact, equal to the plain chain's; (c) 1024 DTMF digits
+     at 20 dB SNR decoded exactly; (d) signal_moments over (1536, 4096)
+     bursts (five classes and noise, 15 dB, random phase and gain), the
+     labels equal to the CPU run's, the JAX tests' own bursts right and
+     >= 90 % a class over 32 bursts of their 100k symbols; (e) the
+     sounder (ZC 255, cp 64, 64 repeats) through an EVA channel: the
+     strong taps significant, the PDP within 1 dB, the CIR within 1e-4 of
+     its CPU run; (f) MetricsCollector over (a)'s blocks (rssi_db of the
+     state's gain, outputs equal), benchmark() within 10 % of CUDA
+     events, trace() holding K1's records, roofline against the card;
+     (g) a worker (tests/torch_fault_worker.py) running the chain over 8
+     x 2^20 on the card with a CheckpointManager, killed before block 4
+     and relaunched by run_supervised: bit-identical to an uninterrupted
+     run, no kernel rebuilt; save/load_distributed at world size 1.  K1's,
+     K2's and S3's launches on (a), (b) and (f) are the kernels' line's.
 
 A "[time]" line after each group of phases gives the script's elapsed
 time.  Then the kernels' JSON line (each kernel's launches on the main paths; its
@@ -646,6 +677,25 @@ ADSB_CLI_FRAMES = 256     # the adsb command's frame limit (JAX's decode)
 ADSB_MIN_FOUND = 0.99
 N_AIS = 256
 L_MODEM = 1 << 22
+FS_BCAST = 1.824e6        # a broadcast-FM capture: 4 x the 456 kHz MPX rate
+STATION_HZ = 250e3        # the station's offset in it
+L43 = 1 << 24             # phase 43's blocks (config 4's)
+N43 = 4                   # 4 x 2^24 = 36.8 s of broadcast
+RDS_PI, RDS_PS = 0x52A1, "SOLIDDSP"
+RDS_MIN_GROUPS = 0.99     # of the whole groups sent
+FS_PAGER = 2.4576e6       # a pager capture: 64 x the 38.4 kHz channel rate
+PAGER_HZ = 300e3
+PAGER_M, PAGER_TAPS, PAGER_CUTOFF = 64, 256, 0.005
+PAGER_SPS = 32            # 1200 baud at 38.4 kHz
+N_PAGES = 16
+N_DTMF = 1024             # digits, 80 ms tones and gaps at 8 kHz
+MOD_BURSTS, MOD_SYMBOLS = 256, 4096
+SOUNDER_REPEATS = 64
+CIR_RTOL = 1e-4           # x max|cir|, the card against its CPU run
+PDP_DB_ATOL = 1.0
+BENCH_RTOL = 0.10         # benchmark() against the block's CUDA-event time
+TRACE_BLOCKS = 10         # config-4 blocks inside trace()
+MOD_MIN_ACC = 0.9         # a class, 32 random bursts of 100k symbols
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
@@ -5686,6 +5736,510 @@ def item13c_phases(dev, smi) -> list:
     return [e_enc, e_dec, e9]
 
 
+def exact_cycles(n: int, freq: float, fs: float, dev) -> torch.Tensor:
+    """(freq k / fs) mod 1 for k < n, float64 on the card, exact: freq / fs
+    = p / q (a rational of floats) reduced in int64."""
+    from fractions import Fraction
+    r = Fraction(float(freq)) / Fraction(float(fs))
+    k = torch.arange(n, device=dev, dtype=torch.int64)
+    return torch.remainder(k * r.numerator, r.denominator).double() / \
+        r.denominator
+
+
+def broadcast_capture(dev, rng):
+    """Phase 43 (a)'s capture, built on the card: the stereo multiplex at
+    456 kHz (L a 1 kHz tone, R 3 kHz, pilot 0.1, fm_stereo_mpx) plus RDS at
+    0.06 (rds_modulate of PS group sets for RDS_PI / RDS_PS, repeated),
+    normalised, upsampled x4 by RationalResampler, FM-modulated at 75 kHz
+    deviation onto +STATION_HZ of a FS_BCAST capture (the exact wrapped
+    carrier phase), AWGN at 30 dB CNR.  Returns (N43 planar f32 blocks of
+    L43 on the card, the whole groups sent)."""
+    from solid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from solid_dsp_tpu_torch.models import fm as fm_models
+    from solid_dsp_tpu_torch.models import rds
+    from solid_dsp_tpu_torch.ops.fir import RationalResampler
+    fs = FS_BCAST / 4
+    n = N43 * L43 // 4
+    spb = int(round(fs / 1187.5))
+    n_bits = n // spb
+    sets = rds.make_ps_groups(RDS_PI, RDS_PS)
+    bits = np.tile(sets, -(-n_bits // len(sets)))[:n_bits]
+    sig = np.zeros(n, np.float32)
+    sig[: n_bits * spb] = rds.rds_modulate(bits, fs)
+    t = torch.arange(n, device=dev, dtype=torch.float64) / fs
+    mpx = fm_models.fm_stereo_mpx(torch.sin(2 * np.pi * 1000.0 * t),
+                                  torch.sin(2 * np.pi * 3000.0 * t), fs, 0.1)
+    mpx = mpx + 0.06 * torch.from_numpy(sig).to(dev, torch.float64)
+    mpx = mpx / mpx.abs().max()
+    h = firdes_kaiser(129, 0.11, 80.0, 0.0)
+    up = RationalResampler(4.0 * h / np.sum(h), 4, 1, dtype=torch.float64,
+                           device=dev)
+    m = up.execute_block(mpx)
+    del mpx, t
+    ph = (2 * np.pi * (75e3 / FS_BCAST)) * torch.cumsum(m, 0)
+    ph += 2 * np.pi * exact_cycles(len(m), STATION_HZ, FS_BCAST, dev)
+    del m
+    g = torch.Generator(device=dev).manual_seed(SEED + 43)
+    w = torch.randn((2, len(ph)), generator=g, device=dev,
+                    dtype=torch.float64) * np.sqrt(10 ** (-30 / 10) / 2)
+    planar = torch.stack([torch.cos(ph) + w[0], torch.sin(ph) + w[1]]).float()
+    del ph, w
+    return ([planar[:, i * L43:(i + 1) * L43].contiguous()
+             for i in range(N43)], n_bits // 104)
+
+
+def pager_capture(dev, rng):
+    """Phase 43 (b)'s capture: N_PAGES POCSAG pages (distinct 21-bit
+    addresses, two a frame slot, functions 0-3, alphanumeric messages at
+    their slot's capacity), each a transmission (preamble + batch) keyed
+    on a grid of 2048 bits, as CPFSK at 1200 baud, +-4.5 kHz (bit 0 the
+    high tone) at +PAGER_HZ of a FS_PAGER capture, the carrier off between
+    transmissions, AWGN 10 dB under the carrier over the whole band (28 dB
+    in the 38.4 kHz channel).  Built on the card.  Returns (N43 planar f32
+    blocks, the pages sent as (address, function, message))."""
+    from solid_dsp_tpu_torch.models import pocsag
+    alphabet = list("ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789 .,-")
+    sps = int(round(FS_PAGER / 1200.0))
+    n_sym = N43 * L43 // sps
+    grid = n_sym // N_PAGES
+    sym = np.zeros(n_sym)
+    pages, used = [], set()
+    for k in range(N_PAGES):
+        slot = k % 8
+        addr = int(rng.integers(0, 1 << 18)) << 3 | slot
+        while addr in used:
+            addr = int(rng.integers(0, 1 << 18)) << 3 | slot
+        used.add(addr)
+        msg = "".join(rng.choice(alphabet, (15 - 2 * slot) * 20 // 7))
+        pages.append((addr, k % 4, msg))
+        b = pocsag.pocsag_encode(addr, msg, k % 4)
+        sym[k * grid: k * grid + len(b)] = np.where(b == 0, 1.0, -1.0)
+    s = torch.from_numpy(sym).to(dev)
+    on = (s != 0).double().repeat_interleave(sps)
+    ph = (2 * np.pi * 4500.0 / FS_PAGER) * torch.cumsum(
+        s.repeat_interleave(sps), 0)
+    ph += 2 * np.pi * exact_cycles(len(ph), PAGER_HZ, FS_PAGER, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 431)
+    w = torch.randn((2, len(ph)), generator=g, device=dev,
+                    dtype=torch.float64) * np.sqrt(0.1 / 2)
+    planar = torch.stack([on * torch.cos(ph) + w[0],
+                          on * torch.sin(ph) + w[1]]).float()
+    del ph, w, on
+    return ([planar[:, i * L43:(i + 1) * L43].contiguous()
+             for i in range(N43)], pages)
+
+
+def chain_over(apply, init, blocks):
+    """(the chain's outputs over the blocks, concatenated; its state)."""
+    st, outs = init(), []
+    for b in blocks:
+        out, st = apply(st, b)
+        outs.append(out)
+    return torch.cat(outs), st
+
+
+def protocol_phases(dev, smi) -> dict:
+    """Phase 43: the last modules on the card as two real receivers and
+    the tools around them: (a) a broadcast-FM station with RDS through
+    config 4's chain (K1), the stereo decoder (S3's de-emphasis) and
+    rds_receive; (b) a POCSAG pager channel cut out of a wideband capture
+    by the DDC body (M = 64) and decoded by pocsag_receive; (c) DTMF;
+    (d) the modulation classifier; (e) the channel sounder through a TDL
+    channel; (f) MetricsCollector, benchmark, trace and roofline on
+    config 4's blocks; (g) a crash of a checkpointing worker on the card
+    resumed by run_supervised, and the distributed checkpoints at world
+    size 1.  Returns the kernels' launches on the receivers' and the
+    collector's paths."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from solid_dsp_tpu_torch.models import (dtmf, linear_mod, modclass,
+                                            pocsag, rds, sounder)
+    from solid_dsp_tpu_torch.models import channel as channel_models
+    from solid_dsp_tpu_torch.models import fm as fm_models
+    from solid_dsp_tpu_torch.models.rx_chain import (RxChain, RxChainConfig,
+                                                      make_rx_chain)
+    from solid_dsp_tpu_torch.ops import cuda_build, cuda_ddc
+    from solid_dsp_tpu_torch.parallel import fault
+    from solid_dsp_tpu_torch.utils import (MetricsCollector, benchmark,
+                                           profiling, rssi_db, trace)
+
+    rng = np.random.default_rng(SEED + 43)
+    t_phase = time.perf_counter()
+    ok = True
+    counts: dict = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    def wall_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def row(label, fn, count, unit, n=2):
+        wall, enq = timed(fn, n)
+        busy, top = profiled_busy(fn, max(1, n // 2))
+        print(f"[43 {label}] {count / (wall * 1e3):.2f} {unit} (wall "
+              f"{wall:.4f} ms a call over {n}), host {enq:.4f} ms a call, "
+              f"device busy {busy:.4f} ms, idle "
+              f"{max(0.0, 1 - busy / wall):.0%}; largest kernels: {top} | "
+              f"{smi}", flush=True)
+        return wall
+
+    # (a) broadcast FM with RDS through K1
+    (blocks, sent), t_cap = wall_s(lambda: broadcast_capture(dev, rng))
+    fs_mpx = FS_BCAST / 4
+    cfg = RxChainConfig(carrier_freq=2 * np.pi * STATION_HZ / FS_BCAST,
+                        decimation=4, fir_taps=64, fir_cutoff=0.1,
+                        agc_mode="block", demod="fm", nco_mode="exact",
+                        input_format="planar", fused_ddc="on",
+                        fir_precision="x3")
+    init, apply = make_rx_chain(cfg, dev)
+    init_p, apply_p = make_rx_chain(replace(cfg, ddc_engine="torch"), dev)
+    reset_cli_counts()
+    (mpx, _), t_chain = wall_s(lambda: chain_over(apply, init, blocks))
+    (stereo, t_st) = wall_s(lambda: fm_models.fm_stereo_decode(
+        mpx, fs_mpx, deemphasis_tau=75e-6))
+    info, t_rds = wall_s(lambda: rds.rds_receive(mpx, fs_mpx))
+    c_a = read_cli_counts()
+    add(c_a)
+    bits_k, t_demod = wall_s(lambda: rds.rds_demodulate_bits(mpx, fs_mpx))
+    groups_k, t_sync = wall_s(lambda: rds.block_sync_decode(bits_k))
+    mpx_p, _ = chain_over(apply_p, init_p, blocks)
+    groups_p = rds.block_sync_decode(rds.rds_demodulate_bits(mpx_p, fs_mpx))
+    left, right, pilot = (v.cpu().numpy() for v in stereo)
+    mid = slice(len(left) // 4, len(left) // 4 + (1 << 22))
+    l1, r1 = tone_power(left[mid], 1000.0, fs_mpx, 0), tone_power(
+        right[mid], 1000.0, fs_mpx, 0)
+    l3, r3 = tone_power(left[mid], 3000.0, fs_mpx, 0), tone_power(
+        right[mid], 3000.0, fs_mpx, 0)
+    sep_l, sep_r = 10 * np.log10(l1 / r1), 10 * np.log10(r3 / l3)
+    n_iq = N43 * L43
+    good_a = (info["pi"] == RDS_PI and info["ps"] == RDS_PS
+              and info["n_groups"] >= RDS_MIN_GROUPS * sent
+              and groups_k == groups_p and len(groups_k) == info["n_groups"]
+              and min(sep_l, sep_r) >= CLI_SEPARATION_MIN_DB
+              and c_a["ddc_fm"] == N43 and c_a["iir_scan"] > 0)
+    ok &= good_a
+    lg = f"{N43} x 2^{L43.bit_length() - 1}"
+    print(f"[43 (a) broadcast FM + RDS, {lg} IQ at {FS_BCAST / 1e6:g} "
+          f"Msps ({n_iq / FS_BCAST:.1f} s), station +{STATION_HZ / 1e3:g} "
+          f"kHz] PI {info['pi']:#06x} PS {info['ps']!r}: {info['n_groups']} "
+          f"of {sent} whole groups sent decoded (gate >= "
+          f"{RDS_MIN_GROUPS:.0%}), the same group list as the plain chain's "
+          f"MPX: {groups_k == groups_p}; stereo separation L {sep_l:.1f} dB, "
+          f"R {sep_r:.1f} dB (gate {CLI_SEPARATION_MIN_DB}), pilot "
+          f"{float(pilot):.4f}; K1 launches {c_a['ddc_fm']}, S3 "
+          f"{c_a['iir_scan']}; capture built in {t_cap:.2f} s; first calls' "
+          f"wall: chain {t_chain:.3f} s, stereo {t_st:.3f} s, rds_receive "
+          f"{t_rds:.3f} s; then rds_demodulate_bits {t_demod:.3f} s (the "
+          f"card and two copies), block sync {t_sync:.4f} s (host); at "
+          f"{time.perf_counter() - t_phase:.1f} s | {smi}", flush=True)
+    row(f"(a) chain, {lg} IQ", lambda: chain_over(apply, init, blocks),
+        n_iq, "Msamples/s of IQ", n=2)
+    row("(a) fm_stereo_decode", lambda: fm_models.fm_stereo_decode(
+        mpx, fs_mpx, deemphasis_tau=75e-6), len(mpx), "Msamples/s of MPX",
+        n=1)
+    row("(a) rds_receive", lambda: rds.rds_receive(mpx, fs_mpx),
+        len(mpx), "Msamples/s of MPX", n=2)
+    del stereo, mpx_p
+
+    # (f) metrics and profiling on the same blocks
+    chain = RxChain(cfg, device=dev)
+    mc = MetricsCollector()
+    reset_cli_counts()
+    outs = [mc.measure(chain, b) for b in blocks]
+    add(read_cli_counts())
+    gain = float(chain.state["agc"]["gain"])
+    last = mc.history[-1]
+    same_f = torch.equal(torch.cat(outs), mpx)
+    good_f = (last.rssi_db == rssi_db(gain)
+              and abs(last.rssi_db + 20.0 * np.log10(gain)) < 1e-9
+              and len(mc.history) == N43 and same_f)
+    # benchmark() and CUDA events around the same calls (the block's
+    # time by events bracketing them, after a warm-up)
+    st0 = init()
+    benchmark(apply, st0, blocks[0], warmup=2, iters=1)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    bench = benchmark(apply, st0, blocks[0], warmup=0, iters=50,
+                      samples=L43)
+    e1.record()
+    torch.cuda.synchronize()
+    bench_ms = bench["seconds_per_call"] * 1e3
+    ev_ms = e0.elapsed_time(e1) / 50
+    good_f &= abs(bench_ms - ev_ms) <= BENCH_RTOL * ev_ms
+    logdir = tempfile.mkdtemp(prefix="solid_trace_")
+    try:
+        with trace(logdir):      # the tracer may drop its first records
+            for _ in range(TRACE_BLOCKS):
+                apply(st0, blocks[0])
+        files = [f for f in os.listdir(logdir) if f.endswith(".json")]
+        with open(os.path.join(logdir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    knames = sorted({e["name"] for e in events
+                     if e.get("cat") == "kernel"})
+    k1_records = sum(1 for e in events if e.get("cat") == "kernel"
+                     and "ddc_fm" in e["name"])
+    good_f &= len(files) == 1 and k1_records > 0
+    T = L43 // 4
+    rl = profiling.roofline("config-4 block (K1 chain)", ev_ms / 1e3,
+                            8.0 * cfg.fir_taps * T, 8.0 * L43 + 4.0 * T)
+    ok &= good_f
+    print(f"[43 (f) metrics, profiling] MetricsCollector over the {N43} "
+          f"blocks: last {last.to_json()}; rssi_db = -20 log10(state gain "
+          f"{gain:.6g}): {last.rssi_db == rssi_db(gain)}; outputs equal to "
+          f"(a)'s: {same_f}; benchmark() {bench_ms:.4f} ms a block vs "
+          f"CUDA events around the same 50 calls {ev_ms:.4f} ms (gate "
+          f"{BENCH_RTOL:.0%}); trace wrote "
+          f"{len(files)} file, {k1_records} K1 records of {TRACE_BLOCKS} "
+          f"blocks, kernels {[k[:48] for k in knames]}; {rl!r} "
+          f"against {profiling.DEFAULT_CHIP}; at "
+          f"{time.perf_counter() - t_phase:.1f} s | {smi}", flush=True)
+    del outs, chain
+
+    # (b) a POCSAG pager channel through the DDC body
+    (pblocks, pages), t_pcap = wall_s(lambda: pager_capture(dev, rng))
+    cfg_p = RxChainConfig(carrier_freq=2 * np.pi * PAGER_HZ / FS_PAGER,
+                          decimation=PAGER_M, fir_taps=PAGER_TAPS,
+                          fir_cutoff=PAGER_CUTOFF, agc_mode="block",
+                          demod="none", nco_mode="exact",
+                          input_format="planar", fused_ddc="on",
+                          fir_precision="x3")
+    init_b, apply_b = make_rx_chain(cfg_p, dev)
+    init_bp, apply_bp = make_rx_chain(replace(cfg_p, ddc_engine="torch"),
+                                      dev)
+    route_b = cuda_ddc.body_geometry(PAGER_TAPS, PAGER_M)
+    fs_ch = FS_PAGER / PAGER_M
+    sep = 9000.0 / fs_ch
+    reset_cli_counts()
+    (z, _), t_pchain = wall_s(lambda: chain_over(apply_b, init_b, pblocks))
+    got, t_prx = wall_s(lambda: pocsag.pocsag_receive(z, PAGER_SPS, sep))
+    c_b = read_cli_counts()
+    add(c_b)
+    zp, _ = chain_over(apply_bp, init_bp, pblocks)
+    got_p = pocsag.pocsag_receive(zp, PAGER_SPS, sep)
+    syms, t_disc = wall_s(lambda: pocsag.fsk.fsk_demod_discriminator(
+        pocsag.fm_demod_init(device=dev), z, PAGER_SPS, 2, sep)[0].cpu())
+    _, t_frame = wall_s(lambda: pocsag.pocsag_decode_bits(
+        (1 - syms.numpy()).astype(np.int8)))
+    decoded = [(p["address"], p["function"], p["message"]) for p in got]
+    body_launches = c_b["ddc_body"] + c_b["ddc_body_unaligned"]
+    good_b = decoded == pages and got == got_p and body_launches == N43
+    ok &= good_b
+    print(f"[43 (b) POCSAG, {lg} IQ at {FS_PAGER / 1e6:g} Msps "
+          f"({N43 * L43 / FS_PAGER:.1f} s), channel +{PAGER_HZ / 1e3:g} kHz, "
+          f"M = {PAGER_M}, {PAGER_TAPS} taps] {len(got)} pages decoded, all "
+          f"{N_PAGES} exact (address, function, message): "
+          f"{decoded == pages}; the same pages as the plain chain's output: "
+          f"{got == got_p}; body route {route_b[0]} "
+          f"({'K2' if c_b['ddc_body'] else 'K3'}: {body_launches} launches); "
+          f"capture {t_pcap:.2f} s; wall: chain {t_pchain:.3f} s "
+          f"({N43 * L43 / t_pchain / 1e6:.1f} Msamples/s of IQ), "
+          f"pocsag_receive {t_prx:.3f} s (discriminator and copy "
+          f"{t_disc:.3f} s, framing and BCH on the host {t_frame:.3f} s); at "
+          f"{time.perf_counter() - t_phase:.1f} s | {smi}", flush=True)
+    row(f"(b) chain, {lg} IQ", lambda: chain_over(apply_b, init_b,
+                                                  pblocks),
+        N43 * L43, "Msamples/s of IQ", n=2)
+    del pblocks, zp
+
+    # (c) DTMF: 1024 digits, all 16 keys, 20 dB SNR
+    keys = "123A456B789C*0#D"
+    digits = "".join(rng.permutation(list(keys * (N_DTMF // 16))))
+    x = dtmf.dtmf_generate(digits)
+    x = x + 0.05 * rng.standard_normal(len(x)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    got_d, t_d = wall_s(lambda: dtmf.dtmf_decode(xd))
+    ok &= got_d == digits
+    print(f"[43 (c) DTMF, {N_DTMF} digits, {len(x)} samples at 8 kHz, 20 dB "
+          f"SNR] decoded == sent: {got_d == digits} ({len(got_d)} digits); "
+          f"{t_d:.3f} s ({len(x) / t_d / 1e6:.2f} Msamples/s) | {smi}",
+          flush=True)
+    row("(c) dtmf_decode", lambda: dtmf.dtmf_decode(xd), len(x),
+        "Msamples/s")
+
+    # (d) the classifier: 256 bursts of 4096 symbols a class at 15 dB,
+    # random phase and gain (+-20 dB), and 256 of noise; then the JAX
+    # test's length (100k symbols, 16 bursts a class) for its accuracy
+    def bursts(B, N):
+        xs = []
+        for scheme, m in modclass.DEFAULT_CLASSES:
+            pts = linear_mod.constellation(scheme, m)
+            pts = pts / np.sqrt(np.mean(np.abs(pts) ** 2))
+            s = pts[rng.integers(0, m, (B, N))] * np.exp(
+                2j * np.pi * rng.random((B, 1)))
+            s += np.sqrt(10 ** -1.5 / 2) * (rng.standard_normal((B, N))
+                                            + 1j * rng.standard_normal((B, N)))
+            xs.append(10 ** rng.uniform(-1, 1, (B, 1)) * s)
+        xs.append(10 ** rng.uniform(-1, 1, (B, 1)) * (
+            rng.standard_normal((B, N)) + 1j * rng.standard_normal((B, N)))
+            / np.sqrt(2))
+        want = [c for c in modclass.DEFAULT_CLASSES for _ in range(B)] + \
+            ["noise"] * B
+        return torch.from_numpy(np.concatenate(xs).astype(np.complex64)), want
+
+    def labels(xb):
+        m = torch.stack([v.double() for v in modclass.signal_moments(xb)])
+        m = m.cpu().numpy()
+        return [modclass.classify_moments(m[:, i])[0]
+                for i in range(m.shape[1])]
+
+    xb, want_b = bursts(MOD_BURSTS, MOD_SYMBOLS)
+    xbd = xb.to(dev)
+    lab, t_lab = wall_s(lambda: labels(xbd))
+    lab_cpu = labels(xb)
+    acc = {str(c): float(np.mean([lab[i] == c for i in range(len(lab))
+                                  if want_b[i] == c]))
+           for c in list(modclass.DEFAULT_CLASSES) + ["noise"]}
+    xl, want_l = bursts(32, 100_000)
+    lab_l = labels(xl.to(dev))
+    same_l = lab_l == labels(xl)
+    acc_l = {str(c): float(np.mean([lab_l[i] == c
+                                    for i in range(len(lab_l))
+                                    if want_l[i] == c]))
+             for c in list(modclass.DEFAULT_CLASSES) + ["noise"]}
+    # the JAX tests' own bursts (tests/test_modclass.py:16-25, 42-47 and
+    # 68-73: seed m, phase 0.3, 100k symbols; the noise burst of seed 5)
+    jax_cases = []
+    for scheme, m in modclass.DEFAULT_CLASSES:
+        r = np.random.default_rng(m)
+        pts = linear_mod.constellation(scheme, m)
+        pts = pts / np.sqrt(np.mean(np.abs(pts) ** 2))
+        sym = pts[r.integers(0, m, 100_000)] * np.exp(1j * 0.3)
+        sym = sym + np.sqrt(10 ** -1.5 / 2) * (
+            r.standard_normal(100_000) + 1j * r.standard_normal(100_000))
+        jax_cases.append((sym.astype(np.complex64), (scheme, m)))
+    r = np.random.default_rng(5)
+    jax_cases.append((((r.standard_normal(100_000) + 1j * r.standard_normal(
+        100_000)) / np.sqrt(2)).astype(np.complex64), "noise"))
+    jax_ok = all(modclass.classify(torch.from_numpy(v).to(dev))[0] == want
+                 for v, want in jax_cases)
+    ok &= (lab == lab_cpu and same_l and jax_ok
+           and min(acc_l.values()) >= MOD_MIN_ACC)
+    print(f"[43 (d) classifier, ({len(want_b)}, {MOD_SYMBOLS}) bursts, 15 dB, "
+          f"gain +-20 dB] labels equal to the CPU run's: {lab == lab_cpu}; "
+          f"accuracy at 4096 symbols {acc}; the JAX tests' own bursts "
+          f"(test_classify_at_15db, test_noise_rejected) right: {jax_ok}; "
+          f"32 bursts a class and of noise at their 100k symbols, gain "
+          f"+-20 dB: accuracy {acc_l} (gate {MOD_MIN_ACC} a class), equal "
+          f"to the CPU run's: {same_l}; moments + labels {t_lab:.3f} s; at "
+          f"{time.perf_counter() - t_phase:.1f} s | {smi}",
+          flush=True)
+    row("(d) signal_moments, (1536, 4096)", lambda: modclass.signal_moments(
+        xbd), xbd.numel(), "Msymbols/s", n=5)
+    del xbd, xl
+
+    # (e) the sounder: ZC 255, cp 64, 64 repeats through a TDL channel
+    tx = sounder.sound(255, 7, 64, SOUNDER_REPEATS, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 435)
+    y, h = channel_models.tdl_fading_channel(g, tx, "eva", 20e6,
+                                             doppler=1e-5)
+    # the gains the sounder sees: each tap's mean over the burst
+    y = channel_models.awgn(g, y, snr_db=10.0)
+    delays, _ = channel_models.tdl_taps("eva", 20e6)
+    cir, cinfo = sounder.estimate_cir(y, 255, 7, 64, SOUNDER_REPEATS, 64)
+    cir_c, cinfo_c = sounder.estimate_cir(y.cpu(), 255, 7, 64,
+                                          SOUNDER_REPEATS, 64)
+    true_p = (h.mean(dim=1).abs() ** 2).cpu().numpy()
+    noise = 10 ** (cinfo["noise_floor_db"] / 10)
+    sig = set(np.nonzero(cinfo["significant"])[0].tolist())
+    dl = [int(d) for d in delays]
+    strong = [d for d, p in zip(dl, true_p) if p >= 30 * noise]
+    off = sorted(sig - set(dl))
+    p_est = np.abs(cir) ** 2
+    pdp_err = max(abs(10 * np.log10(p_est[d] / p))
+                  for d, p in zip(dl, true_p) if p >= 1000 * noise)
+    cir_err = float(np.max(np.abs(cir - cir_c)) / np.max(np.abs(cir_c)))
+    good_e = (set(strong) <= sig and len(off) <= 2
+              and all(p_est[d] < 18 * noise for d in off)
+              and pdp_err <= PDP_DB_ATOL and cir_err <= CIR_RTOL)
+    ok &= good_e
+    print(f"[43 (e) sounder, ZC 255 cp 64 x {SOUNDER_REPEATS} through EVA at "
+          f"20 MHz, 10 dB a body] channel delays {dl}, significant taps "
+          f"{sorted(sig)} (every tap 15 dB over the floor among them: "
+          f"{set(strong) <= sig}; off the delays {off}, gate <= 2 under 18 x "
+          f"the floor); PDP of the taps 30 dB over the floor within "
+          f"{pdp_err:.3f} dB of the channel's (gate {PDP_DB_ATOL}); SNR "
+          f"{cinfo['snr_db']:.1f} dB; card vs CPU {cir_err:.2e} x max|cir| "
+          f"(gate {CIR_RTOL}) | {smi}", flush=True)
+
+    # (g) checkpoints and supervision on the card
+    repo = os.path.dirname(os.path.abspath(__file__))
+    worker = os.path.join(repo, "tests", "torch_fault_worker.py")
+    spec = importlib.util.spec_from_file_location("torch_fault_worker",
+                                                  worker)
+    wmod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(wmod)
+    built = sorted((p.name, p.stat().st_mtime_ns)
+                   for p in cuda_build.BUILD_DIR.glob("*.so"))
+    out_dir = tempfile.mkdtemp(prefix="solid_fault_")
+    crash = os.path.join(out_dir, "crash_once")
+    open(crash, "w").close()
+    env = {**os.environ, "PYTHONPATH": repo}
+    logs = []
+
+    def spawn(worker_id, attempt):
+        p = subprocess.Popen(
+            [sys.executable, worker, "chain", out_dir, crash, dev.type,
+             str(1 << 20)], env=env, cwd=repo, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        logs.append(p)
+        return p
+    try:
+        codes, t_g = wall_s(lambda: fault.run_supervised(
+            spawn, 1, max_restarts=2, timeout=180.0))
+        outs = [p.stdout.read() for p in logs]
+        init_w, apply_w = make_rx_chain(wmod.CONFIG4, dev)
+        st_w, same_g = init_w(), True
+        for i, xb in enumerate(wmod.make_blocks(123, 8, 1 << 20)):
+            out, st_w = apply_w(st_w, torch.from_numpy(xb).to(dev))
+            same_g &= np.array_equal(out.cpu().numpy(), np.load(
+                os.path.join(out_dir, f"block_{i}.npy")))
+        fault.save_distributed(st_w, os.path.join(out_dir, "d"), 7)
+        step = fault.latest_distributed_step(os.path.join(out_dir, "d"))
+        back = fault.load_distributed(os.path.join(out_dir, "d"), step,
+                                      like=init_w())
+        same_d = all(torch.equal(back[k], st_w[k]) if k != "agc" else all(
+            torch.equal(back[k][j], st_w[k][j]) for j in st_w[k])
+            for k in st_w)
+        on_card = all(v.device.type == dev.type for v in back.values()
+                      if isinstance(v, torch.Tensor))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rebuilt = sorted((p.name, p.stat().st_mtime_ns)
+                     for p in cuda_build.BUILD_DIR.glob("*.so")) != built
+    good_g = (codes == [0] and len(logs) == 2 and same_g and step == 7
+              and same_d and on_card and not rebuilt
+              and "resumed at block 4" in outs[-1])
+    ok &= good_g
+    print(f"[43 (g) checkpoints, supervision] the config-4 chain over 8 x "
+          f"2^20 on the card in a worker, killed before block 4 and "
+          f"relaunched by run_supervised: codes {codes}, {len(logs)} "
+          f"starts, resumed from its checkpoint: "
+          f"{'resumed at block 4' in outs[-1]}, output bit-identical to an "
+          f"uninterrupted run on the card: {same_g}; {t_g:.1f} s for both "
+          f"starts; kernels rebuilt by a worker: {rebuilt}; "
+          f"save_distributed / latest_distributed_step ({step}) / "
+          f"load_distributed at world size 1 on the card equal: {same_d} "
+          f"| {smi}", flush=True)
+    if not good_g:
+        print("\n".join(o[-2000:] for o in outs), flush=True)
+    print(f"[43 phase time] {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not ok:
+        fail("phase 43: a receiver or tool of the last modules disagrees "
+             "with its reference")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -6083,8 +6637,11 @@ def main() -> None:
     stamp("41")
     kernels += item13c_phases(dev, smi)
     stamp("42")
+    protocol_counts = protocol_phases(dev, smi)
+    stamp("43")
     for k in kernels:
-        k["launches"] += cli_counts.get(k["name"], 0)
+        k["launches"] += (cli_counts.get(k["name"], 0)
+                          + protocol_counts.get(k["name"], 0))
     if not all(k["launches"] > 0 for k in kernels):
         fail("a kernel of the main paths was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -37,12 +37,17 @@ resample``), the native C++ runtime (``runtime``: the ring buffer, IQ
 files, the threaded ``StreamPump``, UDP, TCP and rtl_tcp sources, SigMF;
 built with g++ at first use, ``runtime.build``) and ``streaming``'s
 reference ring buffer and window (``streaming.ring``,
-``streaming.window``) and chain composition (``streaming.compose``).
-Entry points run on the CUDA card unless the caller passes
-``device="cpu"`` (``device.py``).
+``streaming.window``) and chain composition (``streaming.compose``);
+the codes, modems, link layer and receivers of items 11 and 13 (with the
+scans S4-S9); the protocol decoders and measurement tools (``models``'
+``pocsag``, ``rds``, ``dtmf``, ``modclass``, ``sounder``), the
+observability layer (``utils``: ``metrics``, ``profiling``) and
+checkpointed, supervised recovery (``parallel.fault``).  Entry points run
+on the CUDA card unless the caller passes ``device="cpu"``
+(``device.py``).
 """
 
 __version__ = "0.1.0"
 
 from . import (analysis, design, device, interop, models, ops,  # noqa: F401
-               parallel, runtime, streaming)
+               parallel, runtime, streaming, utils)

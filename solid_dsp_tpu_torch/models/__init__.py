@@ -6,8 +6,10 @@ item 13a (the linear modems, frame sync, LDPC, polar and turbo codes, DPD,
 CFR, the adaptive equalizers, the radar kit) and item 13b, the link layer:
 convolutional FEC, block codes, Reed-Solomon, CCSDS, the channel models,
 BER simulation, OFDM, the packet and OFDM modems, MIMO and array
-processing; and the modems and receivers of item 13c: AM, GMSK, FSK, CSS,
-DSSS, FHSS, CW, CVSD, symbol timing, ADS-B, AIS and the transmit chain."""
+processing; the modems and receivers of item 13c: AM, GMSK, FSK, CSS,
+DSSS, FHSS, CW, CVSD, symbol timing, ADS-B, AIS and the transmit chain; and
+its protocol decoders and measurement tools: POCSAG, RDS, DTMF, the
+modulation classifier and the channel sounder."""
 
 from . import (channel, channel_bank, channelizer, ddc, detect,  # noqa: F401
                fm, impairments, monitor, qpsk, rx_chain)
@@ -28,3 +30,4 @@ from .ofdm_link import OFDMModem  # noqa: F401
 from . import (adsb, ais, am, css, cvsd, cw, dsss, fhss,  # noqa: F401
                fsk, gmsk, timing, tx_chain)
 from .tx_chain import TxChain, TxChainConfig  # noqa: F401
+from . import dtmf, modclass, pocsag, rds, sounder  # noqa: F401

@@ -31,12 +31,14 @@ def fsk_tones(m_ary: int, separation: float) -> np.ndarray:
 
 
 def fsk_modulate(symbols, sps: int, m_ary: int, separation: float,
-                 phase0=0.0):
+                 phase0=0.0, dtype=torch.float32):
     """CPFSK: symbols (0..M-1) -> complex baseband at sps samples a
-    symbol.  Returns (iq, phase_end)."""
+    symbol, the phase accumulated in ``dtype`` (float32, as the JAX
+    package without 64-bit mode; float64 gives complex128).  Returns (iq,
+    phase_end)."""
     symbols = torch.as_tensor(symbols)
     tones = device_constant(fsk_tones(m_ary, separation), symbols.device,
-                            torch.float32)
+                            dtype)
     f_inst = torch.repeat_interleave(tones[symbols.long()], sps, dim=-1)
     return fm_mod.fm_modulate(f_inst, 1.0, phase0)
 

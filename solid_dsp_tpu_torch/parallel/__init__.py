@@ -10,10 +10,9 @@ for the JAX package's fake-device CPU mesh).
 * ``pallas_halo`` — the time-sharded channelizer front end with its halo
   exchange inside one kernel (K9);
 * ``sharded``     — the sharded FIR, receive chain and channelizer, where
-  the carried state doubles as the inter-rank halo payload.
-
-The checkpoint manager and gang supervision of the JAX package's
-``parallel/fault.py`` are not ported yet (ROADMAP queue 1 item 14).
+  the carried state doubles as the inter-rank halo payload;
+* ``fault``       — atomic rotating checkpoints, per-rank distributed
+  checkpoints and gang-restart supervision.
 """
 
 from .mesh import init_distributed, local_block, make_mesh, mesh_axes  # noqa: F401
@@ -28,4 +27,12 @@ from .sharded import (  # noqa: F401
     sharded_fir,
     make_sharded_rx_chain,
     make_sharded_channelizer,
+)
+from .fault import (  # noqa: F401
+    CheckpointManager,
+    SupervisorError,
+    latest_distributed_step,
+    load_distributed,
+    run_supervised,
+    save_distributed,
 )

@@ -55,7 +55,12 @@ of 1, 3 and 32; 1024 voice lanes of 2^16 keep > 20 dB in band
 bit-equal to its plain version on the card and on the CPU, symbols and
 final mu, at sps 1 to 64, also where mu leaves the staged window; it
 tracks a clock drift over 2^17 symbols with no symbol error after
-acquisition.
+acquisition.  The protocol decoders where their input lies: rds_receive,
+pocsag_receive and dtmf_decode on the card decode exactly what they decode
+on the CPU; signal_moments within rtol 1e-5 and the labels equal;
+estimate_cir within 1e-5 x max (complex64) or 1e-12 (complex128); the
+MetricsCollector over a card chain reads -20 log10 of its AGC gain, within
+1e-4 dB of the CPU chain's, and benchmark waits for the card.
 """
 
 import importlib
@@ -2327,3 +2332,145 @@ def test_s9_rejects_on_card():
     s, mu = timing.gardner_scan(x[:6], 8)
     torch.cuda.synchronize()
     assert s.shape == (0,) and float(mu) == 0.0
+
+
+# ------------------------------------------------ the protocol decoders
+
+def _rds_mpx(fs, reps=3, noise=0.01, seed=2):
+    from solid_dsp_tpu_torch.models import rds
+
+    bits = np.tile(rds.make_ps_groups(0x52A1, "SOLIDDSP"), reps)
+    sig = rds.rds_modulate(bits, fs)
+    n = np.arange(len(sig))
+    rng = np.random.default_rng(seed)
+    return (0.4 * np.sin(2 * np.pi * 1000.0 / fs * n)
+            + 0.1 * np.sin(2 * np.pi * 19000.0 / fs * n) + 0.06 * sig
+            + noise * rng.standard_normal(len(n))).astype(np.float32)
+
+
+@pytest.mark.parametrize("fs", [228000.0, 456000.0])
+def test_rds_receive_on_card_equals_cpu(fs):
+    """The receiver where the MPX lies: identical bits and groups on the
+    card and on the CPU."""
+    from solid_dsp_tpu_torch.models import rds
+
+    dev = require_cuda()
+    mpx = torch.from_numpy(_rds_mpx(fs))
+    a = rds.rds_demodulate_bits(mpx.to(dev), fs)
+    b = rds.rds_demodulate_bits(mpx, fs)
+    np.testing.assert_array_equal(a, b)
+    got = rds.rds_receive(mpx.to(dev), fs)
+    assert got == rds.rds_receive(mpx, fs)
+    assert got["pi"] == 0x52A1 and got["ps"] == "SOLIDDSP"
+    assert got["n_groups"] >= 10
+
+
+def test_pocsag_receive_on_card_equals_cpu():
+    from solid_dsp_tpu_torch.models import pocsag
+
+    dev = require_cuda()
+    iq = pocsag.pocsag_transmit(1300120, "CARD PAGE 42", sps=8)
+    rng = np.random.default_rng(3)
+    iq = (iq + 0.1 * (rng.standard_normal(len(iq))
+                      + 1j * rng.standard_normal(len(iq)))).astype(
+                          np.complex64)
+    iq = np.concatenate([iq, iq[:5]])           # a ragged end
+    x = torch.from_numpy(iq)
+    got = pocsag.pocsag_receive(x.to(dev), 8)
+    assert got == pocsag.pocsag_receive(x, 8)
+    assert [(p["address"], p["message"]) for p in got] == [
+        (1300120, "CARD PAGE 42")]
+
+
+def test_dtmf_decode_on_card_equals_cpu():
+    from solid_dsp_tpu_torch.models import dtmf
+
+    dev = require_cuda()
+    rng = np.random.default_rng(4)
+    seq = "123A456B789C*0#D" * 4
+    x = dtmf.dtmf_generate(seq)
+    x = x + 0.05 * rng.standard_normal(len(x)).astype(np.float32)
+    xt = torch.from_numpy(np.concatenate([x, x[:77]]))
+    got = dtmf.dtmf_decode(xt.to(dev))
+    assert got == dtmf.dtmf_decode(xt) == seq
+    assert dtmf.dtmf_decode(xt[:100].to(dev)) == ""
+
+
+def test_signal_moments_and_classify_on_card_equal_cpu():
+    """Moments within rtol 1e-5 (float32 sums in another order) over a
+    (64, 4096) batch; the labels identical."""
+    from solid_dsp_tpu_torch.models import linear_mod, modclass
+
+    dev = require_cuda()
+    rng = np.random.default_rng(5)
+    bursts = []
+    for k in range(64):
+        scheme, m = modclass.DEFAULT_CLASSES[k % 5]
+        pts = linear_mod.constellation(scheme, m)
+        s = pts[rng.integers(0, m, 4096)] * np.exp(2j * np.pi * rng.random())
+        bursts.append(s + 0.1 * (rng.standard_normal(4096)
+                                 + 1j * rng.standard_normal(4096)))
+    x = torch.from_numpy(np.asarray(bursts, np.complex64))
+    got = modclass.signal_moments(x.to(dev))
+    want = modclass.signal_moments(x)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == (64,)
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-5)
+    for k in range(0, 64, 7):
+        assert modclass.classify(x[k].to(dev))[0] == \
+            modclass.classify(x[k])[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_estimate_cir_on_card_equals_cpu(dtype):
+    """The CIR within 1e-5 x max|cir| (complex64) or 1e-12 (complex128)
+    of the CPU's; significance flags equal."""
+    from solid_dsp_tpu_torch.models import sounder
+
+    dev = require_cuda()
+    tx = sounder.sound(255, 7, 64, repeats=16, device="cpu").numpy()
+    h = np.zeros(40, np.complex128)
+    h[0], h[5], h[31] = 1.0, 0.5j, -0.3
+    rng = np.random.default_rng(6)
+    rx = np.convolve(tx, h)[: len(tx)] + 0.05 * (
+        rng.standard_normal(len(tx)) + 1j * rng.standard_normal(len(tx)))
+    x = torch.from_numpy(rx).to(dtype)
+    a, ia = sounder.estimate_cir(x.to(dev), 255, 7, 64, 16, 40)
+    b, ib = sounder.estimate_cir(x, 255, 7, 64, 16, 40)
+    tol = 1e-5 if dtype == torch.complex64 else 1e-12
+    assert a.dtype == b.dtype
+    np.testing.assert_allclose(a, b, rtol=0, atol=tol * np.max(np.abs(b)))
+    np.testing.assert_array_equal(ia["significant"], ib["significant"])
+    assert np.nonzero(ia["significant"])[0].tolist() == [0, 5, 31]
+    assert sounder.sound(63, 5, 8).is_cuda
+
+
+def test_metrics_and_benchmark_on_a_card_chain():
+    """MetricsCollector over a config-4 chain on the card: its rssi_db is
+    -20 log10 of the state's AGC gain, equal to the CPU chain's within
+    1e-4 dB; benchmark waits for the card."""
+    from solid_dsp_tpu_torch.models.rx_chain import RxChain
+    from solid_dsp_tpu_torch.utils import (MetricsCollector, benchmark,
+                                           rssi_db)
+
+    dev = require_cuda()
+    cfg = RxChainConfig(carrier_freq=0.2, decimation=4, fir_taps=64,
+                        agc_mode="block", demod="fm", nco_mode="exact",
+                        input_format="planar", fused_ddc="on",
+                        fir_precision="x3")
+    chain, cpu = RxChain(cfg, device=dev), RxChain(cfg, device="cpu")
+    mc, mc_cpu = MetricsCollector(), MetricsCollector()
+    before = cuda_ddc.ddc_fm_cuda.launches
+    for xb in make_blocks(3, L=L_SMALL, seed=8):
+        out = mc.measure(chain, torch.from_numpy(xb))
+        mc_cpu.measure(cpu, torch.from_numpy(xb))
+        assert out.is_cuda
+    assert cuda_ddc.ddc_fm_cuda.launches == before + 3
+    for m, c in zip(mc.history, mc_cpu.history):
+        assert m.rssi_db == rssi_db(m.agc_gain)
+        assert abs(m.rssi_db - c.rssi_db) <= 1e-4
+    assert mc.history[-1].agc_gain == float(chain.state["agc"]["gain"])
+    x = torch.from_numpy(make_blocks(1, L=L_SMALL)[0]).to(dev)
+    res = benchmark(chain.execute_block, x, warmup=1, iters=5,
+                    samples=L_SMALL)
+    assert res["seconds_per_call"] > 0 and res["msamples_per_second"] > 0

@@ -142,7 +142,9 @@ def test_port_never_imports_jax():
     zero-phase filtering, the autocorrelator, CIC, halfband and arbitrary
     resamplers (both paths, with flush), the FM stereo back end and the DDC,
     the native runtime (IQ files, StreamPump), a composed chain and its
-    checkpoint, item 11's ops and analysis (the Kalman smoother and a
+    checkpoint, the protocol decoders and measurement tools (DTMF, the
+    classifier, the sounder, POCSAG, RDS), the metrics and profiling
+    utilities and ``parallel/fault.py``, item 11's ops and analysis (the Kalman smoother and a
     tracker, the lattices, the cyclic scan, CZT, DCT, wavelets, codecs,
     estimators, measurements), item 13a's modules (the sequences, the
     linear modem, frame sync, LDPC, polar and turbo codes, DPD, CFR, the
@@ -375,6 +377,29 @@ def test_port_never_imports_jax():
         "['adsb', d + '/tx.cf32'], ['ais', d + '/ais.cf32']):\n"
         "    assert solid_dsp_tpu_torch.__main__.main(['--device', 'cpu', "
         "*argv]) == 0\n"
+        "from solid_dsp_tpu_torch.models import (dtmf, modclass, pocsag, "
+        "rds, sounder)\n"
+        "from solid_dsp_tpu_torch.utils import (MetricsCollector, "
+        "benchmark, profiling, trace)\n"
+        "from solid_dsp_tpu_torch.parallel import fault\n"
+        "assert dtmf.dtmf_decode(dtmf.dtmf_generate('5')) == '5'\n"
+        "modclass.classify(xc)\n"
+        "sounder.estimate_cir(sounder.sound(63, 5, 8, device='cpu'), 63, 5, "
+        "8)\n"
+        "assert pocsag.pocsag_receive(pocsag.pocsag_transmit(8, 'HI'))[0]"
+        "['message'] == 'HI'\n"
+        "rds.rds_receive(np.zeros(4096, np.float32), 228000.0)\n"
+        "from solid_dsp_tpu_torch.models.rx_chain import RxChain\n"
+        "mc, rc = MetricsCollector(), RxChain(device='cpu')\n"
+        "mc.measure(rc, xc)\n"
+        "benchmark(torch.fft.fft, xc, warmup=0, iters=1)\n"
+        "with trace(d + '/trace'):\n"
+        "    torch.fft.fft(xc)\n"
+        "profiling.roofline('x', 1.0, 1.0, 1.0)\n"
+        "fault.CheckpointManager(d + '/ck2').save(rc.state, 0)\n"
+        "fault.save_distributed(rc.state, d + '/dck', 0)\n"
+        "assert fault.latest_distributed_step(d + '/dck') == 0\n"
+        "fault.load_distributed(d + '/dck', 0, like=rc.state)\n"
         "sys.argv = ['solid_dsp_tpu_torch', '--help']\n"
         "try:\n"
         "    runpy.run_module('solid_dsp_tpu_torch', run_name='__main__')\n"
