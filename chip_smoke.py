@@ -610,6 +610,13 @@ L_ADC = 1 << 24           # config 4's block
 L_EST = 1 << 20
 L_MEAS, MEAS_NFFT = 1 << 22, 4096
 S4_RTOL = 1e-4            # float32 against the float64 walk, x max|ref|
+S4_LTI_RTOL = 1e-6        # S4's LTI entry against lti_chunked_torch, x max
+S4_RTS_RTOL = 1e-5        # its backward entry against the chunked plain version
+# the one-thread entries these replaced, as this phase timed them on an
+# NVIDIA H100 80GB HBM3 at 700 W: ms at T_S4_TIMED, and on the main path
+# (AlphaBetaTracker "scan" over 2^22; rts_smooth over 2^20, both passes)
+ONE_THREAD_MS = {"kalman_lti": (0.0987, 100.06), "rts_backward": (0.9246,
+                                                                   378.40)}
 S5_RTOL = 1e-4
 LPC_K_ATOL = 1e-3         # reflection coefficients, float32 vs float64
 TRIG_RTOL = 1e-5          # full float32 products (TF32 keeps ~1e-3)
@@ -4294,14 +4301,28 @@ def item11_phases(dev, smi) -> list:
     X_modal, _ = main_path(lambda: modal(x0, zt))
     trk_p = kalman.AlphaBetaTracker(float(K[0, 0]), float(K[1, 0]),
                                     device=dev)
-    X_par = main_path(lambda: trk_p.execute_block(zt, "parallel"))
-    trk_s = kalman.AlphaBetaTracker(float(K[0, 0]), float(K[1, 0]),
-                                    device=dev)
-    h = T_LTI // 2
-    X_scan = main_path(lambda: torch.cat([
-        trk_s.execute_block(zt[:h], "scan"),
-        trk_s.execute_block(zt[h:], "scan")]))
-    torch.cuda.synchronize()
+    # both of the tracker's routes take S4's LTI entry on the card, never
+    # affine_scan (torch ops): count its calls while they run
+    affine, scans = kalman.affine_scan, [0]
+
+    def counted_affine(*args):
+        scans[0] += 1
+        return affine(*args)
+    kalman.affine_scan = counted_affine
+    try:
+        X_par = main_path(lambda: trk_p.execute_block(zt, "parallel"))
+        trk_s = kalman.AlphaBetaTracker(float(K[0, 0]), float(K[1, 0]),
+                                        device=dev)
+        h = T_LTI // 2
+        X_scan = main_path(lambda: torch.cat([
+            trk_s.execute_block(zt[:h], "scan"),
+            trk_s.execute_block(zt[h:], "scan")]))
+        torch.cuda.synchronize()
+    finally:
+        kalman.affine_scan = affine
+    if scans[0] or main_launches[2] != 3:
+        fail(f"phase 39: the trackers ran affine_scan {scans[0]} times and "
+             f"S4's LTI entry {main_launches[2]} times (want 0 and 3)")
     ref = lti_walk64(F, K, z.astype(np.float64))
     errs = [rel_err(X, ref) for X in (X_modal, X_par, X_scan)]
     ms_modal = cuda_ms(lambda: modal(x0, zt), 3)
@@ -4309,8 +4330,10 @@ def item11_phases(dev, smi) -> list:
     ms_scan = cuda_ms(lambda: trk_s.execute_block(zt, "scan"), 2)
     print(f"[39 kalman LTI, cv_model(1, 0.05, 1), 2^22 float32] against the "
           f"float64 CPU walk, x max|ref|: make_kalman_lti {errs[0]:.3g}, "
-          f"AlphaBetaTracker parallel {errs[1]:.3g}, scan (S4, two blocks) "
-          f"{errs[2]:.3g} (gate {S4_RTOL}); {ms_modal:.4f} / {ms_par:.4f} / "
+          f"AlphaBetaTracker parallel (S4) {errs[1]:.3g}, scan (S4, two "
+          f"blocks) {errs[2]:.3g} (gate {S4_RTOL}); the one-thread entry's "
+          f"scan took {ONE_THREAD_MS['kalman_lti'][1]} ms; "
+          f"{ms_modal:.4f} / {ms_par:.4f} / "
           f"{ms_scan:.4f} ms a block ({T_LTI / (ms_modal * 1e3):.1f} / "
           f"{T_LTI / (ms_par * 1e3):.1f} / {T_LTI / (ms_scan * 1e3):.1f} "
           f"Msamples/s) | {smi}", flush=True)
@@ -4341,7 +4364,9 @@ def item11_phases(dev, smi) -> list:
           f"(S4 both ways), cv_model, 2^20 float32] against the float64 CPU "
           f"walk, x max|ref|: filter {e_kf:.3g}, smoother {e_rts:.3g} (gate "
           f"{S4_RTOL}); {ms_kf:.3f} ms ({ms_kf * 1e6 / T_KF:.1f} ns a step) "
-          f"and {ms_rts:.3f} ms | {smi}", flush=True)
+          f"and {ms_rts:.3f} ms (with the one-thread backward entry "
+          f"{ONE_THREAD_MS['rts_backward'][1]} ms) | {smi}",
+          flush=True)
     if not (e_kf <= S4_RTOL and e_rts <= S4_RTOL and Ps.shape == (T_KF, 2, 2)):
         fail("phase 39: the Kalman filter or smoother disagrees with the "
              "float64 walk")
@@ -4646,6 +4671,8 @@ def item11_phases(dev, smi) -> list:
     plain_b_ms = cuda_ms_once(plain_b)
     err_b = float(max((g_ - w_).abs().max() for g_, w_ in zip(got_b,
                                                                box["b"])))
+    rel_bc = max(rel_err(g_, w_) for g_, w_ in zip(got_b, (
+        kalman.rts_backward_chunked_torch(want_f[0], *want_f[3:], ops[0]))))
     Fg = torch.from_numpy(F).to(dev, torch.float32)
     Bl = zt[:T_S4_TIMED, None] @ torch.from_numpy(K.T).to(dev, torch.float32)
     got_l = cuda_track.kalman_lti_cuda(x0, Bl, Fg)
@@ -4655,6 +4682,8 @@ def item11_phases(dev, smi) -> list:
     plain_l_ms = cuda_ms_once(plain_l)
     err_l = float(max((g_ - w_).abs().max() for g_, w_ in zip(got_l,
                                                                box["l"])))
+    rel_lc = max(rel_err(g_, w_) for g_, w_ in zip(got_l, (
+        kalman.lti_chunked_torch(x0, Bl, Fg))))
     y5, k5 = yl[:, :T_S5_TIMED].contiguous(), kl
     got_5 = cuda_track.lattice_iir_cuda(y5, k5)
 
@@ -4692,29 +4721,89 @@ def item11_phases(dev, smi) -> list:
           f"({rels[2]:.3g}), {ms_l:.4f} ms, plain {plain_l_ms:.1f} ms, bound "
           f"{b_l[0]:.5f}; S5 (256 lanes x {T_S5_TIMED}, order 16): {err_5:.3g} "
           f"({rel_5:.3g}), {ms_5:.4f} ms, plain {plain_5_ms:.1f} ms, bound "
-          f"{b_5[0]:.5f} (gate {S4_RTOL} x max) | {smi}", flush=True)
-    if not max(rels) <= S4_RTOL:
+          f"{b_5[0]:.5f} (gate {S4_RTOL} x max); the chunk-and-join "
+          f"entries against their chunked plain versions: backward "
+          f"{rel_bc:.3g} x max (gate {S4_RTS_RTOL}), LTI {rel_lc:.3g} (gate "
+          f"{S4_LTI_RTOL}); the one-thread entries took "
+          f"{ONE_THREAD_MS['rts_backward'][0]} / "
+          f"{ONE_THREAD_MS['kalman_lti'][0]} ms, three launches each "
+          f"now | {smi}", flush=True)
+    if not (max(rels) <= S4_RTOL and rel_bc <= S4_RTS_RTOL
+            and rel_lc <= S4_LTI_RTOL):
         fail("phase 39: S4 or S5 disagrees with its plain version")
+
+    # S4's chunk-and-join entries at the main path's sizes (the LTI over
+    # T_LTI, the backward walk over T_KF) against their chunked plain
+    # versions, timed beside their bytes bounds
+    Bm = zt[:, None] @ torch.from_numpy(K.T).to(dev, torch.float32)
+    got_lm = cuda_track.kalman_lti_cuda(x0, Bm, Fg)
+
+    def plain_lm():
+        box["lm"] = kalman.lti_chunked_torch(x0, Bm, Fg)
+    plain_lm_ms = cuda_ms_once(plain_lm)
+    rel_lm = max(rel_err(g_, w_) for g_, w_ in zip(got_lm, box["lm"]))
+    err_lm = float(max((g_ - w_).abs().max() for g_, w_ in zip(got_lm,
+                                                                box["lm"])))
+    kept = cuda_track.kalman_filter_cuda(xs0, Ps0, zkt[:, None], *ops,
+                                         keep=True)
+    got_bm = cuda_track.rts_backward_cuda(kept[0], *kept[3:], ops[0])
+
+    def plain_bm():
+        box["bm"] = kalman.rts_backward_chunked_torch(kept[0], *kept[3:],
+                                                      ops[0])
+    plain_bm_ms = cuda_ms_once(plain_bm)
+    rel_bm = max(rel_err(g_, w_) for g_, w_ in zip(got_bm, box["bm"]))
+    err_bm = float(max((g_ - w_).abs().max() for g_, w_ in zip(got_bm,
+                                                                box["bm"])))
+    ms_lm = graph_ms(lambda: cuda_track.kalman_lti_cuda(x0, Bm, Fg), 5)
+    ms_bm = graph_ms(lambda: cuda_track.rts_backward_cuda(
+        kept[0], *kept[3:], ops[0]), 5)
+    b_lm = bound_ms(4 * T_LTI * 2 * n4 + 4 * (n4 * n4 + 2 * n4),
+                    2 * T_LTI * n4 * (n4 + 1), FP32_FLOPS)
+    b_bm = bound_ms(4 * T_KF * (2 * (n4 + n4 * n4) + n4 + n4 * n4) + 16,
+                    2 * T_KF * 36, FP32_FLOPS)
+    print(f"[39 S4's chunk-and-join entries at the main path's sizes, "
+          f"float32] LTI over 2^22 against lti_chunked_torch: {rel_lm:.3g} x "
+          f"max (gate {S4_LTI_RTOL}), {ms_lm:.4f} ms (CUDA graph), "
+          f"{main_launches[2]} launches on the main path, bytes bound "
+          f"{b_lm[0]:.5f} ms ({b_lm[0] / ms_lm:.1%}), chunked plain "
+          f"{plain_lm_ms:.1f} ms; backward over 2^20 against "
+          f"rts_backward_chunked_torch: {rel_bm:.3g} (gate {S4_RTS_RTOL}), "
+          f"{ms_bm:.4f} ms, {main_launches[1]} launches, bytes bound "
+          f"{b_bm[0]:.5f} ms ({b_bm[0] / ms_bm:.1%}), chunked plain "
+          f"{plain_bm_ms:.1f} ms | {smi}", flush=True)
+    if not (rel_lm <= S4_LTI_RTOL and rel_bm <= S4_RTS_RTOL
+            and got_lm[0].shape == (T_LTI, 2)
+            and got_bm[1].shape == (T_KF, 2, 2)):
+        fail("phase 39: S4's chunk-and-join entries disagree with their "
+             "chunked plain versions at the main path's sizes")
     print(f"[39 phase time] {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
     kf_src = "solid_dsp_tpu/ops/kalman.py:{} (a lax.scan, no TPU kernel)"
     entries = []
-    for (name, line, err, ms, plain, bnd, main_ms), launches in zip((
-            ("kalman_filter", kf_src.format(66), err_f, ms_f, plain_f_ms,
-             b_f, ms_kf),
-            ("rts_backward", kf_src.format(110), err_b, ms_b, plain_b_ms,
-             b_b, ms_rts),
-            ("kalman_lti", kf_src.format(172), err_l, ms_l, plain_l_ms, b_l,
-             ms_scan),
-            ("lattice_iir", "solid_dsp_tpu/analysis/lpc.py:233 (a lax.scan, "
-             "no TPU kernel)", err_5, ms_5, plain_5_ms, b_5, ms_s5)),
+    # the chunk-and-join entries report their main-path sizes (their times
+    # at T_S4_TIMED are launch-bound and kept beside); no single PyTorch
+    # call computes any of these recurrences, so library_ms stays null
+    for (name, src, line, err, ms, plain, bnd, shape, extra), launches in zip((
+            ("kalman_filter", "track_scan.cu", kf_src.format(66), err_f,
+             ms_f, plain_f_ms, b_f, f"T={T_S4_TIMED}",
+             {"main_path_ms": ms_kf}),
+            ("rts_backward", "track_chunks.cu", kf_src.format(110), err_bm,
+             ms_bm, plain_bm_ms, b_bm, "T=2^20",
+             {"main_path_ms": ms_rts, f"ms_T{T_S4_TIMED}": ms_b,
+              f"walk_plain_ms_T{T_S4_TIMED}": plain_b_ms}),
+            ("kalman_lti", "track_chunks.cu", kf_src.format(172), err_lm,
+             ms_lm, plain_lm_ms, b_lm, "T=2^22",
+             {"main_path_ms": ms_scan, f"ms_T{T_S4_TIMED}": ms_l,
+              f"walk_plain_ms_T{T_S4_TIMED}": plain_l_ms}),
+            ("lattice_iir", "track_scan.cu", "solid_dsp_tpu/analysis/lpc.py:"
+             "233 (a lax.scan, no TPU kernel)", err_5, ms_5, plain_5_ms, b_5,
+             f"256 lanes x {T_S5_TIMED}, order 16", {"main_path_ms": ms_s5})),
             main_launches):
-        e = kernel_entry(name, "track_scan.cu", line, launches, err, ms,
-                         plain, bnd)
-        e["timed_shape"] = (f"T={T_S4_TIMED}" if name != "lattice_iir" else
-                            f"256 lanes x {T_S5_TIMED}, order 16")
-        e["main_path_ms"] = main_ms
+        e = kernel_entry(name, src, line, launches, err, ms, plain, bnd)
+        e["timed_shape"] = shape
+        e.update(extra)
         entries.append(e)
     return entries
 

@@ -1,45 +1,59 @@
 """The tracking and prediction recurrences on Hopper (S4, S5): wrappers of
-``csrc/track_scan.cu``.
+``csrc/track_scan.cu`` and ``csrc/track_chunks.cu``.
 
 S4 is the Kalman filter's walk (``ops/kalman.py``, JAX
-``ops/kalman.py:43-124, 172-177``) in three entries:
+``ops/kalman.py:43-124, 156-183``) in three entries:
 :func:`kalman_filter_cuda` (the predict/update walk, serving
 ``kalman_apply`` and ``rts_smooth``'s forward pass, which also keeps the
-filtered covariances and the predictions), :func:`rts_backward_cuda` (the
-smoother's backward walk) and :func:`kalman_lti_cuda` (the steady-state
-x = F x + b, ``kalman_lti_apply(method="scan")``).  S5 is the all-pole
-lattice (``analysis/lpc.py::lattice_iir``, JAX ``analysis/lpc.py:233-262``):
-:func:`lattice_iir_cuda`.  None replaces a TPU kernel: in the JAX package
-each is a ``lax.scan``.  One thread walks one sequence; the source has the
-design and its bound.
+filtered covariances and the predictions; one thread a sequence,
+``track_scan.cu``), :func:`rts_backward_cuda` (the smoother's backward
+walk) and :func:`kalman_lti_cuda` (the steady-state x = F x + b, both of
+``kalman_lti_apply``'s routes), the last two time-parallel chunk-and-join
+kernels (``track_chunks.cu``): chunks walked from a zero state, joined in
+float64 (the LTI entry through powers of F built on the host,
+``linrec.join_tables``; the backward entry through the chunks' own maps x
+-> M x + e, P -> M P M' + E, composed on the card), each chunk walked again
+from its true start.  S5 is the all-pole lattice
+(``analysis/lpc.py::lattice_iir``, JAX ``analysis/lpc.py:233-262``):
+:func:`lattice_iir_cuda`, one thread a lattice.  None replaces a TPU
+kernel: in the JAX package each is a ``lax.scan`` or an associative scan.
+The sources have the designs and their bounds.
 
 Each wrapper takes CUDA tensors only, checks types and shapes, launches on
 the current stream, raises if the launch fails (``cuda_build.check_launch``)
-and adds one to its ``launches`` count.  The kernels run fixed register
-buckets: the wrappers pad n and m to 1, 2, 4 or 8 (:func:`bucket`; zero
-rows and columns, R and the backward entry's P- with 1 on the padded
-diagonal, which leaves every real entry's arithmetic as it is) and the
-lattice's order to 4, 8, 16, 32 or 64 (zero reflection coefficients: a
-stage that leaves its error as it is), and cut the outputs back.  The
-Kalman kernels take n <= 8 states and m <= 8 measurements (:func:`fits`);
-``ops/kalman.py`` routes a larger model on the card to the plain version
-and counts it on the wrapper's ``plain_routes``.  The plain versions are
-``ops/kalman.py::kalman_walk_plain``, ``rts_backward_plain`` and
-``lti_walk_plain`` and ``analysis/lpc.py::lattice_iir_plain``; a CPU
-tensor takes them.
+and adds one to its ``launches`` count (``kalman_lti_cuda.parallel_launches``
+counts those of ``kalman_lti_apply``'s ``"parallel"`` route).  The kernels
+run fixed register buckets: the wrappers pad n and m to 1, 2, 4 or 8
+(:func:`bucket`; zero rows and columns, R and the backward entry's P- with
+1 on the padded diagonal, which leaves every real entry's arithmetic as it
+is) and the lattice's order to 4, 8, 16, 32 or 64 (zero reflection
+coefficients: a stage that leaves its error as it is), and cut the outputs
+back.  The Kalman kernels take n <= 8 states and m <= 8 measurements
+(:func:`fits`); ``ops/kalman.py`` routes a larger model on the card to the
+plain version and counts it on the wrapper's ``plain_routes``.  The plain
+versions are ``ops/kalman.py::kalman_walk_plain``, ``rts_backward_plain``
+and ``lti_walk_plain`` (the sequential walks a CPU tensor takes),
+``rts_backward_chunked_torch`` and ``lti_chunked_torch`` (the chunk-and-join
+kernels' association in torch ops, against which the card tests hold them)
+and ``analysis/lpc.py::lattice_iir_plain``.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import functools
+
+import numpy as np
 import torch
 
 from .cuda_build import check_launch, launcher, stream_of
+from .linrec import chunk_rows, host_values, join_tables, rounded
 
 __all__ = ["kalman_filter_cuda", "rts_backward_cuda", "kalman_lti_cuda",
-           "lattice_iir_cuda", "fits", "bucket", "MAX_STATES",
-           "LATTICE_ORDERS"]
+           "lattice_iir_cuda", "fits", "bucket", "lti_chunk", "lti_geometry",
+           "rts_geometry", "rts_min_chunk", "MAX_STATES", "LATTICE_ORDERS", "LTI_THREADS",
+           "RTS_CHUNK"]
 
 MAX_STATES = 8           # n and m a Kalman kernel takes
 # the lattice's register buckets; orders above the last run the generic
@@ -48,8 +62,10 @@ LATTICE_ORDERS = (4, 8, 16, 32, 64)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _KF_ARGS = (_P,) * 11 + (_I, _LL, _I, _I, _I, _P)
-_RTS_ARGS = (_P,) * 7 + (_I, _LL, _I, _I, _P)
-_LTI_ARGS = (_P,) * 4 + (_I, _LL, _I, _I, _P)
+# the chunk-and-join entries: pointers, lanes, T, N, Lc, tl, rl, device,
+# stream
+_LTI_ARGS = (_P,) * 8 + (_I, _LL) + (_I,) * 5 + (_P,)
+_RTS_ARGS = (_P,) * 9 + (_I, _LL) + (_I,) * 5 + (_P,)
 _LAT_ARGS = (_P,) * 4 + (_I, _LL, _I, _I, _P)
 _REAL = {torch.float32: "f32", torch.float64: "f64"}
 _LAT = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64",
@@ -75,6 +91,14 @@ def _pad(t: torch.Tensor, shape: tuple, diag: bool = False) -> torch.Tensor:
     if diag and shape[-1] > t.shape[-1]:
         out.diagonal(dim1=-2, dim2=-1)[..., t.shape[-1]:].fill_(1)
     return out
+
+
+def _operand(t: torch.Tensor, shape: tuple, diag: bool = False) -> torch.Tensor:
+    """A read-only kernel operand: t itself (made contiguous) where it has
+    ``shape`` already, else :func:`_pad`'s copy."""
+    if tuple(t.shape) == tuple(shape):
+        return t.contiguous()
+    return _pad(t, shape, diag)
 
 
 def _cut(t: torch.Tensor, shape: tuple) -> torch.Tensor:
@@ -149,60 +173,192 @@ kalman_filter_cuda.launches = 0
 kalman_filter_cuda.plain_routes = 0
 
 
+# csrc/track_chunks.cu's geometry: chunks a block of the LTI entry's
+# passes 1 and 3 (kLtiThreads) and its pass 2's threads at most (kJoin);
+# the backward entry's chunk length (torch_kernel_sweep.py s4)
+LTI_THREADS = 128
+_LTI_JOIN = 256
+RTS_CHUNK = 16
+
+
+def _pow2_log(n: int) -> int:
+    """log2 of the smallest power of two >= n (n >= 1)."""
+    return max(0, int(n - 1).bit_length())
+
+
+def _runs(nj: int, join_max: int):
+    """(tl, rl): 2^tl threads of pass 2, at most ``join_max``, each a run of
+    2^rl of the ``nj`` group starts."""
+    tl = min(_pow2_log(join_max), _pow2_log(nj))
+    return tl, _pow2_log(-(-nj // (1 << tl)))
+
+
+def lti_chunk(F: np.ndarray, dtype: torch.dtype) -> int:
+    """The LTI entry's chunk length for the one-step map F (n, n) in the
+    working type ``dtype``: ``linrec.chunk_rows`` of F, and at least one
+    sub-batch of the kernel's staging, 32 / N rows (N = bucket(n))."""
+    return max(chunk_rows(F, dtype), 32 // bucket(F.shape[-1]))
+
+
+def lti_geometry(T: int, chunk: int):
+    """(nc, ng, tl, rl, D) of one LTI launch over T steps: nc chunks of
+    ``chunk`` steps in ng groups of ``LTI_THREADS``, pass 2's 2^tl threads a
+    lane each a run of 2^rl groups, and D join tables Phi^(CB 2^d)."""
+    nc = -(-T // chunk)
+    ng = -(-nc // LTI_THREADS)
+    tl, rl = _runs(max(ng - 1, 1), _LTI_JOIN)
+    return nc, ng, tl, rl, rl + tl + 1
+
+
+def rts_min_chunk(dtype: torch.dtype, N: int) -> int:
+    """The backward entry's shortest chunk at the padded size N in
+    ``dtype``: its staging's sub-batch, the power of two (at most 32) of
+    steps whose 2N + 2N^2 inputs fill ~192 bytes (track_chunks.cu's
+    rts_sub)."""
+    per = (192 // torch.empty(0, dtype=dtype).element_size()) // (
+        2 * N + 2 * N * N)
+    return 1 << min(5, max(0, per.bit_length() - 1))
+
+
+def rts_geometry(T: int, N: int, chunk: int):
+    """(nc, ng, tl, rl) of one backward launch over T steps (T - 1 steps of
+    the walk) at the padded size N: nc chunks of ``chunk`` steps (at least
+    one) in ng groups of 128 chunks (32 at N = 8, where a chunk's map of 2N^2
+    + N float64 values would overflow a block's shared memory), pass 2's
+    2^tl threads a lane (at most 256, 128 at N = 4, 32 at N = 8) each a run
+    of 2^rl groups."""
+    nc = max(1, -(-(T - 1) // chunk))
+    ng = -(-nc // (128 if N <= 4 else 32))
+    tl, rl = _runs(max(ng - 1, 1), 256 if N <= 2 else 128 if N == 4 else 32)
+    return nc, ng, tl, rl
+
+
+def _lanes(name: str, t: torch.Tensor, tail: int):
+    """(L, leading shape) of t (*lanes, ...) with ``tail`` trailing axes:
+    no leading axis or one."""
+    if t.dim() not in (tail, tail + 1):
+        raise ValueError(f"{name} takes one sequence or a leading lane axis")
+    lead = tuple(t.shape[:t.dim() - tail])
+    L = lead[0] if lead else 1
+    if not 1 <= L <= 65535:
+        raise ValueError(f"{name} takes 1 to 65535 lanes, got {L}")
+    return L, lead
+
+
 def rts_backward_cuda(Xf: torch.Tensor, Pf: torch.Tensor, Xp: torch.Tensor,
-                      Pp: torch.Tensor, A: torch.Tensor):
-    """S4's backward entry (the RTS pass) on one card: Xf, Xp (T, n), Pf, Pp
-    (T, n, n) from :func:`kalman_filter_cuda` with ``keep``, A (n, n) ->
-    (Xs (T, n), Ps (T, n, n)); adds one to ``launches``."""
+                      Pp: torch.Tensor, A: torch.Tensor,
+                      chunk: int = RTS_CHUNK):
+    """S4's backward entry (the RTS pass) on one card, float32 or float64:
+    Xf, Xp ([L,] T, n), Pf, Pp ([L,] T, n, n) from :func:`kalman_filter_cuda`
+    with ``keep`` (L lanes, each its own sequence), A (n, n) -> (Xs ([L,] T,
+    n), Ps ([L,] T, n, n)); the last step is the filter's.  Chunks of
+    ``chunk`` steps (a power of two, at least :func:`rts_min_chunk`); adds
+    one to ``launches``."""
     name = "rts_backward_cuda"
     _check(name, _REAL, Xf, Pf, Xp, Pp, A)
-    T, n = (int(s) for s in Xf.shape)
+    L, lead = _lanes(name, Xf, 2)
+    T, n = (int(s) for s in Xf.shape[-2:])
     if not 1 <= n <= MAX_STATES or T < 1:
         raise ValueError(f"{name} takes 1 <= n <= {MAX_STATES} and T >= 1")
-    for t, shape, what in ((Pf, (T, n, n), "Pf"), (Xp, (T, n), "Xp"),
-                           (Pp, (T, n, n), "Pp"), (A, (n, n), "A")):
+    for t, shape, what in ((Pf, lead + (T, n, n), "Pf"),
+                           (Xp, lead + (T, n), "Xp"),
+                           (Pp, lead + (T, n, n), "Pp"), (A, (n, n), "A")):
         _shape(name, t, shape, what)
     N = bucket(n)
-    ops = [_pad(Xf, (T, N)), _pad(Pf, (T, N, N)), _pad(Xp, (T, N)),
-           _pad(Pp, (T, N, N), diag=True), _pad(A, (N, N))]
+    least = rts_min_chunk(Xf.dtype, N)
+    if chunk < least or chunk & (chunk - 1):
+        raise ValueError(f"{name}: chunk must be a power of two of at least "
+                         f"{least} steps")
+    ops = [_operand(Xf.reshape(L, T, n), (L, T, N)),
+           _operand(Pf.reshape(L, T, n, n), (L, T, N, N)),
+           _operand(Xp.reshape(L, T, n), (L, T, N)),
+           _operand(Pp.reshape(L, T, n, n), (L, T, N, N), diag=True),
+           _operand(A, (N, N))]
     Xs = torch.empty_like(ops[0])
     Ps = torch.empty_like(ops[1])
-    fn = launcher("track_scan.cu", f"rts_backward_{_REAL[Xf.dtype]}",
+    nc, ng, tl, rl = rts_geometry(T, N, chunk)
+    f64 = dict(dtype=torch.float64, device=Xf.device)
+    maps = torch.empty(L * nc * (2 * N * N + N), **f64)
+    starts = torch.empty(L * max(ng - 1, 1) * (N * N + N), **f64)
+    fn = launcher("track_chunks.cu", f"rts_chunked_{_REAL[Xf.dtype]}",
                   _RTS_ARGS)
     check_launch(fn(*(t.data_ptr() for t in ops), Xs.data_ptr(),
-                    Ps.data_ptr(), 1, T, N, Xf.device.index,
-                    stream_of(Xf)), name)
+                    Ps.data_ptr(), maps.data_ptr(), starts.data_ptr(), L, T,
+                    N, chunk, tl, rl, Xf.device.index, stream_of(Xf)), name)
     rts_backward_cuda.launches += 1
-    return _cut(Xs, (T, n)), _cut(Ps, (T, n, n))
+    return (_cut(Xs, (L, T, n)).reshape(*lead, T, n),
+            _cut(Ps, (L, T, n, n)).reshape(*lead, T, n, n))
 
 
 rts_backward_cuda.launches = 0
 
 
-def kalman_lti_cuda(x0: torch.Tensor, B: torch.Tensor, F: torch.Tensor):
-    """S4's LTI entry on one card: x_t = F x_{t-1} + b_t over B (T, n),
-    float32 or float64, n <= ``MAX_STATES`` -> (X (T, n), x_T); adds one
-    to ``launches``."""
+@functools.lru_cache(maxsize=64)
+def _lti_tables(f_bytes: bytes, N: int, dtype: torch.dtype, chunk: int,
+                D: int, device: torch.device):
+    """(join tables, F in ``dtype``) on ``device`` for the padded F (N, N)
+    of these float64 values (already rounded to ``dtype``), built once per
+    F and geometry."""
+    F = np.frombuffer(f_bytes, np.float64).reshape(N, N)
+    return (torch.from_numpy(join_tables(F, chunk, LTI_THREADS, D)).to(device),
+            torch.from_numpy(F.copy()).to(device, dtype))
+
+
+def kalman_lti_cuda(x0: torch.Tensor, B: torch.Tensor, F: torch.Tensor,
+                    F_host=None, parallel: bool = False,
+                    chunk: int | None = None):
+    """S4's LTI entry on one card: x_t = F x_{t-1} + b_t over B ([L,] T, n),
+    float32 or float64, n <= ``MAX_STATES``, from x0 ([L,] n) -> (X ([L,] T,
+    n), x_T ([L,] n)).  F (n, n) is rounded to B's dtype; ``F_host``, where
+    given, holds its values (numpy, or the tensor it came from; else
+    ``linrec.host_values`` reads F once per tensor).  Chunks of ``chunk``
+    steps (a power of two, at least 32 / bucket(n); by default
+    :func:`lti_chunk` of F).  Adds one
+    to ``launches``, and to ``parallel_launches`` for the ``"parallel"``
+    route (``parallel``); an empty block launches nothing."""
     name = "kalman_lti_cuda"
     _check(name, _REAL, B, x0, F)
-    T, n = (int(s) for s in B.shape)
-    if not 1 <= n <= MAX_STATES or T < 1:
-        raise ValueError(f"{name} takes 1 <= n <= {MAX_STATES} and T >= 1")
-    _shape(name, x0, (n,), "x0")
+    L, lead = _lanes(name, B, 2)
+    T, n = (int(s) for s in B.shape[-2:])
+    if not 1 <= n <= MAX_STATES:
+        raise ValueError(f"{name} takes 1 <= n <= {MAX_STATES}")
+    _shape(name, x0, lead + (n,), "x0")
     _shape(name, F, (n, n), "F")
+    if T == 0:
+        return B.clone(), x0.clone()
     N = bucket(n)
-    x1 = _pad(x0, (N,))
-    Bp, Fp = _pad(B, (T, N)), _pad(F, (N, N))
-    X = torch.empty((T, N), dtype=B.dtype, device=B.device)
-    fn = launcher("track_scan.cu", f"kf_lti_{_REAL[B.dtype]}", _LTI_ARGS)
-    check_launch(fn(Bp.data_ptr(), Fp.data_ptr(), x1.data_ptr(),
-                    X.data_ptr(), 1, T, N, B.device.index, stream_of(B)),
-                 name)
+    Fr = np.zeros((N, N))
+    Fr[:n, :n] = rounded(host_values(F if F_host is None else F_host),
+                         B.dtype)
+    if chunk is None:
+        chunk = lti_chunk(Fr[:n, :n], B.dtype)
+    if chunk < 32 // N or chunk & (chunk - 1):
+        raise ValueError(f"{name}: chunk must be a power of two of at least "
+                         f"{32 // N} steps")
+    nc, ng, tl, rl, D = lti_geometry(T, chunk)
+    tabs, Fd = _lti_tables(Fr.tobytes(), N, B.dtype, chunk, D, B.device)
+    Bp = _operand(B.reshape(L, T, n), (L, T, N))
+    st = _operand(x0.reshape(L, n), (L, N))
+    X = torch.empty_like(Bp)
+    st_out = torch.empty_like(st)
+    f64 = dict(dtype=torch.float64, device=B.device)
+    loc = torch.empty(L * nc * N, **f64)
+    G = torch.empty(L * max(ng - 1, 1) * N, **f64)
+    fn = launcher("track_chunks.cu", f"kf_lti_chunked_{_REAL[B.dtype]}",
+                  _LTI_ARGS)
+    check_launch(fn(Bp.data_ptr(), X.data_ptr(), Fd.data_ptr(),
+                    st.data_ptr(), st_out.data_ptr(), tabs.data_ptr(),
+                    loc.data_ptr(), G.data_ptr(), L, T, N, chunk, tl, rl,
+                    B.device.index, stream_of(B)), name)
     kalman_lti_cuda.launches += 1
-    return _cut(X, (T, n)), _cut(x1, (n,))
+    if parallel:
+        kalman_lti_cuda.parallel_launches += 1
+    return (_cut(X, (L, T, n)).reshape(B.shape),
+            _cut(st_out, (L, n)).reshape(x0.shape))
 
 
 kalman_lti_cuda.launches = 0
+kalman_lti_cuda.parallel_launches = 0
 kalman_lti_cuda.plain_routes = 0
 
 

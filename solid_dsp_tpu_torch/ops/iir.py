@@ -156,48 +156,6 @@ def iir_scan_torch(a_tail: torch.Tensor, w_state: torch.Tensor,
     return w, h
 
 
-def _join_chunks(A: np.ndarray, chunk: int, h0: torch.Tensor,
-                 ends: torch.Tensor) -> torch.Tensor:
-    """The chunks' true starts in float64 (complex128): S_0 = h0 and
-    S_{c+1} = Phi S_c + ends[c], Phi = A^chunk, by a doubling scan through
-    Phi^(2^d) (``linrec.join_tables``, the kernel's tables).  h0
-    (*lanes, N), ends (nc - 1, *lanes, N), both already wide; returns
-    (nc, *lanes, N)."""
-    n = ends.shape[0]
-    tabs = torch.from_numpy(linrec.join_tables(
-        A, chunk, 1, max(1, (n - 1).bit_length()))).to(ends.device)
-    v = ends.clone()
-    v[0] = v[0] + torch.einsum("ij,...j->...i", tabs[0], h0)
-    d, off = 0, 1
-    while off < n:
-        v = torch.cat([v[:off], v[off:] + torch.einsum(
-            "ij,...j->...i", tabs[1 + d], v[:-off])])
-        d, off = d + 1, 2 * off
-    return torch.cat([h0[None], v])
-
-
-def _chunked(walk, A: np.ndarray, chunk: int, h0: torch.Tensor,
-             x: torch.Tensor, wide: torch.dtype):
-    """The kernel's association of a linear recurrence over x (T, *lanes)
-    from the state h0 (*lanes, N): every chunk of ``chunk`` rows from a zero
-    state (``walk(h, rows) -> (out, h_end)``), the ends joined in ``wide``,
-    every chunk again from its start rounded to h0's type."""
-    T = int(x.shape[0])
-    nc = -(-T // chunk)
-    if nc <= 1:
-        return walk(h0, x)
-    lanes = tuple(x.shape[1:])
-    full = (nc - 1) * chunk
-    xs = x[:full].reshape(nc - 1, chunk, *lanes).movedim(0, 1)
-    _, ends = walk(torch.zeros((nc - 1, *h0.shape), dtype=h0.dtype,
-                               device=h0.device), xs)
-    starts = _join_chunks(A, chunk, h0.to(wide), ends.to(wide)).to(h0.dtype)
-    out, _ = walk(starts[:-1], xs)
-    tail, h_end = walk(starts[-1], x[full:])
-    return torch.cat([out.movedim(1, 0).reshape(full, *out.shape[2:]),
-                      tail]), h_end
-
-
 def iir_chunked_torch(a_tail: torch.Tensor, w_state: torch.Tensor,
                       x: torch.Tensor, chunk: int | None = None):
     """S3's plain version on the card's association: the blocks of
@@ -221,9 +179,9 @@ def iir_chunked_torch(a_tail: torch.Tensor, w_state: torch.Tensor,
         return x.clone(), h0.clone()
     A = linrec.companion(linrec.rounded(
         linrec.host_values(a_tail), x.dtype))
-    return _chunked(lambda h, rows: iir_scan_torch(a, h, rows), A,
-                    chunk or linrec.chunk_rows(A, x.dtype), h0, x,
-                    linrec.WIDE[x.dtype])
+    return linrec.chunked_walk(lambda h, rows: iir_scan_torch(a, h, rows), A,
+                               chunk or linrec.chunk_rows(A, x.dtype), h0,
+                               x, linrec.WIDE[x.dtype])
 
 
 def _w_recurrence_scan(a_tail, w_state, x, a_host=None):
@@ -390,9 +348,9 @@ def sos_cascade_chunked_torch(sos_b, sos_a_tail, state, x):
     sr = torch.view_as_real(st) if cplx else st
     sr = sr.movedim(-2 if cplx else -1, 1).reshape(2 * S, *xr.shape[1:])
     A = linrec.cascade_matrix(coef)
-    out, h = _chunked(lambda h, rows: _cascade_walk(co, h, rows), A,
-                      linrec.chunk_rows(A, rdt),
-                      sr.movedim(0, -1), xr, torch.float64)
+    out, h = linrec.chunked_walk(lambda h, rows: _cascade_walk(co, h, rows),
+                                 A, linrec.chunk_rows(A, rdt),
+                                 sr.movedim(0, -1), xr, torch.float64)
     h = h.movedim(-1, 0).reshape(S, 2, *xr.shape[1:]).movedim(
         1, -2 if cplx else -1)
     if cplx:

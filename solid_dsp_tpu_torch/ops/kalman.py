@@ -9,19 +9,26 @@ Port of ``solid_dsp_tpu/ops/kalman.py``:
 * ``steady_state_gain``: the asymptotic gain on the host (numpy float64);
 * ``kalman_lti_apply``: the steady-state filter x_k = F x_{k-1} + K z_k,
   ``"scan"`` (sequential) or ``"parallel"`` (``linrec.affine_scan`` in
-  torch ops);
+  torch ops) on a CPU tensor, both S4's LTI entry on a CUDA tensor;
 * ``make_kalman_lti``: the same filter by modal decomposition, n scalar
   recurrences on ``linrec.chunked_first_order`` and full-float32 products;
 * ``cv_model``, ``alpha_beta_gains`` and ``AlphaBetaTracker``.
 
-The per-step recursions are S4, CUDA kernels of ``csrc/track_scan.cu``
-(``ops/cuda_track.py``): on a CUDA tensor the filter's walk, the smoother's
-backward walk and the ``"scan"`` route launch them; a CPU tensor takes the
-plain versions here (:func:`kalman_walk_plain`, :func:`rts_backward_plain`,
-:func:`lti_walk_plain`), the same recursions as torch loops.  The kernels
-take n <= 8 states and m <= 8 measurements (``cuda_track.fits``); a CUDA
-tensor of a larger model takes the plain version on the card, counted on
-the wrapper's ``plain_routes``.
+The recursions are S4, CUDA kernels (``ops/cuda_track.py``): on a CUDA
+tensor the filter's walk (``csrc/track_scan.cu``, one thread a sequence),
+the smoother's backward walk and both routes of ``kalman_lti_apply``
+(``csrc/track_chunks.cu``, time-parallel chunk-and-join kernels) launch
+them.  A CPU tensor takes the plain versions here: the sequential walks
+:func:`kalman_walk_plain`, :func:`rts_backward_plain` and
+:func:`lti_walk_plain` (``"scan"``), or ``affine_scan`` (``"parallel"``),
+so that each route is held against JAX's route of the same name.
+:func:`lti_chunked_torch` and :func:`rts_backward_chunked_torch` are the
+chunk-and-join kernels' association in torch ops (vectorised over chunks,
+each chunk's steps in the kernels' order of operations), against which the
+card tests and ``chip_smoke.py`` hold the kernels; nothing on the card's
+main path runs them.  The kernels take n <= 8 states and m <= 8
+measurements (``cuda_track.fits``); a CUDA tensor of a larger model takes
+the plain version on the card, counted on the wrapper's ``plain_routes``.
 
 F3 (the JAX package's ``make_kalman_lti`` transposes any (1, m) gain, which
 is wrong for a one-state system with several measurements) is met here:
@@ -35,14 +42,15 @@ import numpy as np
 import torch
 
 from ..device import fp32_exact, resolve_device
-from . import cuda_track
+from . import cuda_track, linrec
 from .cuda_build import use_kernel
-from .linrec import affine_scan, chunked_first_order
+from .linrec import affine_scan, associative_scan, chunked_first_order
 
 __all__ = ["kalman_init", "kalman_apply", "rts_smooth",
            "steady_state_gain", "kalman_lti_apply", "make_kalman_lti",
            "alpha_beta_gains", "AlphaBetaTracker", "cv_model",
-           "kalman_walk_plain", "rts_backward_plain", "lti_walk_plain"]
+           "kalman_walk_plain", "rts_backward_plain", "lti_walk_plain",
+           "lti_chunked_torch", "rts_backward_chunked_torch"]
 
 
 def kalman_init(x0, P0, device=None):
@@ -137,11 +145,135 @@ def rts_backward_plain(Xf, Pf, Xp, Pp, A):
     return torch.stack(out_x[::-1]), torch.stack(out_P[::-1])
 
 
+def _seq_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_k a[..., k] b[..., k] taken left to right, each product and sum
+    rounded on its own (the chunk-and-join kernels' order)."""
+    a, b = torch.broadcast_tensors(a, b)
+    acc = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = acc + a[..., k] * b[..., k]
+    return acc
+
+
+def _rts_gain(Pf, Pp, A):
+    """The backward kernel's gain as Y = G' (Y[j, c] = G[c, j]) for steps
+    Pf, Pp (..., n, n): Y = (P_t A')' by sequential sums, then solved
+    against (P-_{t+1})' by elimination without pivoting, the kernel's
+    ``spd_solve`` order."""
+    n = A.shape[-1]
+    Y = _seq_dot(Pf[..., None, :, :], A[:, None, :])
+    M = Pp.transpose(-1, -2).clone()
+    for k in range(n):
+        inv = torch.ones_like(M[..., k, k]) / M[..., k, k]
+        for i in range(k + 1, n):
+            f = (M[..., i, k] * inv)[..., None]
+            M[..., i, k:] = M[..., i, k:] - f * M[..., k, k:]
+            Y[..., i, :] = Y[..., i, :] - f * Y[..., k, :]
+    for k in range(n - 1, -1, -1):
+        s = Y[..., k, :]
+        for j in range(k + 1, n):
+            s = s - M[..., k, j, None] * Y[..., j, :]
+        Y[..., k, :] = s / M[..., k, k, None]
+    return Y
+
+
+def _rts_step(Y, xf, Pf, xp, Pp, x, P):
+    """The plain step with the gain Y = G' in the kernels' order: x_t + G
+    (x - x-), P_t + (G (P - P-)) G'."""
+    Yt = Y.transpose(-1, -2)
+    x2 = xf + _seq_dot(Yt, (x - xp)[..., None, :])
+    GD = _seq_dot(Yt[..., :, None, :], (P - Pp).transpose(-1, -2)[..., None,
+                                                                  :, :])
+    return x2, Pf + _seq_dot(GD[..., :, None, :], Yt[..., None, :, :])
+
+
+def _map_after(earlier, later):
+    """Two chunk maps (M, e, E) composed, ``earlier`` applied first."""
+    M1, e1, E1 = earlier
+    M2, e2, E2 = later
+    return (M2 @ M1, (M2 @ e1[..., None])[..., 0] + e2,
+            M2 @ E1 @ M2.transpose(-1, -2) + E2)
+
+
+def rts_backward_chunked_torch(Xf, Pf, Xp, Pp, A, chunk: int | None = None):
+    """The backward kernel's association of the RTS pass in torch ops, the
+    same arguments and results as :func:`rts_backward_plain` (with
+    optional leading lane axes): the T - 1 steps (t = T-2 .. 0) cut into
+    chunks of ``chunk`` steps (``cuda_track.RTS_CHUNK``); every step's gain
+    at once in the kernel's order; each chunk's steps composed in float64
+    into one map x -> M x + e, P -> M P M' + E ((e, E) the chunk walked from
+    zero); the chunks' starts joined in float64 from the filter's last step
+    (a doubling scan of the maps); each chunk walked again from its start
+    rounded once to the working type, in the kernel's order of operations.
+    It differs from the kernel only by the order of the float64 sums."""
+    T = int(Xf.shape[-2])
+    if T <= 1:
+        return Xf.clone(), Pf.clone()
+    Lc = chunk or cuda_track.RTS_CHUNK
+    S = T - 1
+    nc = -(-S // Lc)
+    pad = nc * Lc - S
+    n = Xf.shape[-1]
+    A = A.to(Xf.dtype)
+
+    def walk_order(t, lo, tail, fill):
+        """Steps s = 0 .. S-1 (t = T-2-s) of t[..., lo:lo+S, *tail] on axis
+        0, padded to nc Lc steps with ``fill``, as (nc, Lc, ...)."""
+        v = t.narrow(-1 - len(tail), lo, S).flip(-1 - len(tail))
+        v = v.movedim(-1 - len(tail), 0)
+        if pad:
+            v = torch.cat([v, fill.expand(pad, *v.shape[1:]).to(v)])
+        return v.reshape(nc, Lc, *v.shape[1:])
+
+    zero = Xf.new_zeros(())
+    xf = walk_order(Xf, 0, (n,), zero)
+    pf = walk_order(Pf, 0, (n, n), zero)
+    xp = walk_order(Xp, 1, (n,), zero)
+    pp = walk_order(Pp, 1, (n, n), torch.eye(n, dtype=Xf.dtype,
+                                               device=Xf.device))
+    Y = _rts_gain(pf, pp, A)                     # (nc, Lc, ..., n, n)
+    w = [v.to(torch.float64) for v in (Y, xf, pf, xp, pp)]
+    M = torch.eye(n, dtype=torch.float64, device=Xf.device).expand(
+        nc, *Y.shape[2:]).clone()
+    e = torch.zeros((nc, *xf.shape[2:]), dtype=torch.float64,
+                    device=Xf.device)
+    E = torch.zeros_like(M)
+    for i in range(Lc):
+        e, E = _rts_step(*(v[:, i] for v in w), e, E)
+        M = w[0][:, i].transpose(-1, -2) @ M
+    last_x, last_P = Xf[..., -1, :], Pf[..., -1, :, :]
+    x, P = last_x[None], last_P[None]
+    if nc > 1:
+        pM, pe, pE = associative_scan(_map_after, (M[:-1], e[:-1], E[:-1]))
+        x0w, P0w = last_x.to(torch.float64), last_P.to(torch.float64)
+        xs = (pM @ x0w[..., None])[..., 0] + pe
+        Ps = pM @ P0w @ pM.transpose(-1, -2) + pE
+        x = torch.cat([x, xs.to(Xf.dtype)])
+        P = torch.cat([P, Ps.to(Xf.dtype)])
+    out_x, out_P = [], []
+    for i in range(Lc):
+        x, P = _rts_step(Y[:, i], xf[:, i], pf[:, i], xp[:, i], pp[:, i],
+                         x, P)
+        out_x.append(x)
+        out_P.append(P)
+
+    lead = Xf.dim() - 2
+
+    def time_order(outs, last):
+        """Walk-order outputs (each (nc, ...)) back in time order, the
+        filter's last step after them."""
+        v = torch.stack(outs, 1).reshape(nc * Lc, *outs[0].shape[1:])[:S]
+        v = v.flip(0).movedim(0, lead)
+        return torch.cat([v, last.unsqueeze(lead)], dim=lead)
+    return time_order(out_x, last_x), time_order(out_P, last_P)
+
+
 def rts_smooth(state, Z, A, C, Q, R):
     """Rauch-Tung-Striebel fixed-interval smoother over a block: the
     forward filter (``kalman_apply``'s model arguments), then the backward
     pass.  Returns (Xs (T, n), Ps (T, n, n)), every step smoothed by all T
-    measurements.  Both passes are S4 on a CUDA tensor."""
+    measurements.  Both passes are S4 on a CUDA tensor (the backward one
+    time-parallel)."""
     x, P = state
     Z2, A, C, Q, R, dt = _model(Z, x, A, C, Q, R)
     x, P = x.to(Z2.device, dt), P.to(Z2.device, dt)
@@ -188,25 +320,69 @@ def lti_walk_plain(x, B, F):
     return (torch.stack(outs) if outs else B.new_zeros(B.shape)), x
 
 
+def _lti_rows(F, x, rows):
+    """x_t = F x_{t-1} + b_t over rows (K, ..., n) from x (..., n), each
+    row's sum left to right, every operation rounded (the LTI kernel's
+    order): (X (K, ..., n), x_K)."""
+    outs = []
+    for b in rows:
+        acc = F[:, 0] * x[..., :1]
+        for j in range(1, F.shape[-1]):
+            acc = acc + F[:, j] * x[..., j:j + 1]
+        x = acc + b
+        outs.append(x)
+    return (torch.stack(outs) if outs else rows.clone()), x
+
+
+def lti_chunked_torch(x0, B, F, chunk: int | None = None):
+    """The LTI kernel's association in torch ops: x_t = F x_{t-1} + b_t
+    over B ([L,] T, n) from x0 ([L,] n) -> (X, x_T), F rounded to B's
+    dtype.  Chunks of ``chunk`` steps (by default ``cuda_track.lti_chunk``
+    of F, as the kernel takes) walked from a zero state in the kernel's order
+    (:func:`_lti_rows`), their ends joined in float64 through powers of F
+    (``linrec.join_tables``), each chunk walked again from its start
+    rounded once to B's dtype.  It differs from the kernel only by the order
+    of the float64 join's sums."""
+    dt = B.dtype
+    Fr = linrec.rounded(linrec.host_values(F), dt)
+    Ft = torch.from_numpy(Fr).to(B.device, dt)
+    x0 = x0.to(B.device, dt)
+    if B.shape[-2] == 0:
+        return B.clone(), x0.clone()
+    rows = B if B.dim() == 2 else B.movedim(-2, 0)
+    X, xT = linrec.chunked_walk(
+        lambda h, r: _lti_rows(Ft, h, r), Fr,
+        chunk or cuda_track.lti_chunk(Fr, dt), x0, rows, linrec.WIDE[dt])
+    return (X if B.dim() == 2 else X.movedim(0, -2)), xT
+
+
 def kalman_lti_apply(x0, Z, K, F, method: str = "parallel"):
     """The steady-state (LTI) filter x_k = F x_{k-1} + K z_k: x0 (n,), Z
-    (T, m) or (T,) -> (X (T, n), x_T).  ``"parallel"``: the affine
-    recurrence by ``linrec.affine_scan`` (log-depth, torch ops);
-    ``"scan"``: sequential, S4's LTI entry on a CUDA tensor."""
+    (T, m) or (T,) -> (X (T, n), x_T).  On a CUDA tensor both routes are
+    S4's LTI entry (time-parallel chunk-and-join).  On a CPU tensor
+    ``"parallel"`` is the affine recurrence by ``linrec.affine_scan``
+    (log-depth, torch ops) and ``"scan"`` the sequential walk."""
     Z = torch.as_tensor(Z)
     x0 = torch.as_tensor(x0, device=Z.device)
     dt = torch.promote_types(Z.dtype, x0.dtype)
+    F_host = F          # its values for the LTI kernel, read from the caller's
     F = torch.as_tensor(F, device=Z.device, dtype=dt)
     K = torch.as_tensor(K, device=Z.device, dtype=dt)
     if K.dim() == 1:
         K = K[:, None]
     Z2 = (Z[:, None] if Z.dim() == 1 else Z).to(dt)
     x0 = x0.to(dt)
-    with fp32_exact():
-        B = Z2 @ K.T                                     # (T, n): K z_k
+    # (T, n): K z_k; one measurement is one product a value, the same as
+    # the matmul's (whose k = 1 product ran 0.78 ms at 2^22 on the card)
+    if K.shape[1] == 1:
+        B = Z2 * K.T
+    else:
+        with fp32_exact():
+            B = Z2 @ K.T
+    if _use_s4(B, F.shape[-1], 1, cuda_track.kalman_lti_cuda):
+        return cuda_track.kalman_lti_cuda(x0, B, F, F_host,
+                                          parallel=method != "scan")
     if method == "scan":
-        if _use_s4(B, F.shape[-1], 1, cuda_track.kalman_lti_cuda):
-            return cuda_track.kalman_lti_cuda(x0, B, F)
         return lti_walk_plain(x0, B, F)
     T = B.shape[0]
     Fs = F.expand(T, *F.shape)

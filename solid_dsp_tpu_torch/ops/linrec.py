@@ -9,9 +9,10 @@ torch ops (log2 T levels, each one combine over the shifted sequence), which
 ``ops/agc.py::agc_apply_parallel`` also uses for its scalar affine scan and
 its 2x2 Newton combine.  Sums associate in another order than JAX's
 odd/even scan, so results agree to rounding.  The port adds the host's side
-of the chunk-and-join evaluation that S3 (``ops/cuda_scan.py``) and its
-plain versions (``ops/iir.py``) share: the one-step maps, the chunk rule and
-the float64 join tables.
+of the chunk-and-join evaluation that S3 (``ops/cuda_scan.py``), S4's LTI
+entry (``ops/cuda_track.py``) and their plain versions (``ops/iir.py``,
+``ops/kalman.py``) share: the one-step maps, the chunk rule, the float64
+join tables and the chunked association in torch ops.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..device import fp32_exact
 __all__ = ["associative_scan", "affine_combine", "affine_scan",
            "chunked_first_order", "host_values", "rounded", "companion",
            "cascade_matrix", "transient_gain", "chunk_rows", "join_tables",
-           "S3_CHUNK", "S3_SHORT_CHUNK", "S3_GAIN_LIMIT", "WIDE"]
+           "join_chunks", "chunked_walk", "S3_CHUNK", "S3_SHORT_CHUNK", "S3_GAIN_LIMIT", "WIDE"]
 
 
 def associative_scan(combine, elems, dim: int = 0):
@@ -260,3 +261,47 @@ def join_tables(A: np.ndarray, chunk: int, cb: int, D: int) -> np.ndarray:
             p = p @ p
     return np.stack(out).astype(np.complex128 if np.iscomplexobj(A)
                                 else np.float64)
+
+
+def join_chunks(A: np.ndarray, chunk: int, h0: torch.Tensor,
+                ends: torch.Tensor) -> torch.Tensor:
+    """The chunks' true starts in float64 (complex128): S_0 = h0 and
+    S_{c+1} = Phi S_c + ends[c], Phi = A^chunk, by a doubling scan through
+    Phi^(2^d) (:func:`join_tables`, the kernels' tables).  h0 (*lanes, N),
+    ends (nc - 1, *lanes, N), both already wide; returns (nc, *lanes,
+    N)."""
+    n = ends.shape[0]
+    tabs = torch.from_numpy(join_tables(
+        A, chunk, 1, max(1, (n - 1).bit_length()))).to(ends.device)
+    v = ends.clone()
+    v[0] = v[0] + torch.einsum("ij,...j->...i", tabs[0], h0)
+    d, off = 0, 1
+    while off < n:
+        v = torch.cat([v[:off], v[off:] + torch.einsum(
+            "ij,...j->...i", tabs[1 + d], v[:-off])])
+        d, off = d + 1, 2 * off
+    return torch.cat([h0[None], v])
+
+
+def chunked_walk(walk, A: np.ndarray, chunk: int, h0: torch.Tensor,
+                 x: torch.Tensor, wide: torch.dtype):
+    """The chunk-and-join kernels' association of a linear recurrence with
+    the one-step map A over x (T, *lanes) from the state h0: every chunk of
+    ``chunk`` rows from a zero state (``walk(h, rows) -> (out, h_end)``,
+    h of h0's shape with a leading chunk axis where rows has one), the ends
+    joined in ``wide`` (:func:`join_chunks`), every chunk again from its
+    start rounded once to h0's type."""
+    T = int(x.shape[0])
+    nc = -(-T // chunk)
+    if nc <= 1:
+        return walk(h0, x)
+    lanes = tuple(x.shape[1:])
+    full = (nc - 1) * chunk
+    xs = x[:full].reshape(nc - 1, chunk, *lanes).movedim(0, 1)
+    _, ends = walk(torch.zeros((nc - 1, *h0.shape), dtype=h0.dtype,
+                               device=h0.device), xs)
+    starts = join_chunks(A, chunk, h0.to(wide), ends.to(wide)).to(h0.dtype)
+    out, _ = walk(starts[:-1], xs)
+    tail, h_end = walk(starts[-1], x[full:])
+    return torch.cat([out.movedim(1, 0).reshape(full, *out.shape[2:]),
+                      tail]), h_end

@@ -1803,11 +1803,16 @@ def test_cli_rx_equals_rx_chain_on_card(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# S4 (the Kalman recursions) and S5 (the all-pole lattice), csrc/track_scan.cu
-# against their plain versions on the card.  Tolerances: float64 within
-# rtol 1e-9 of the plain walk (the solve and the sums in another order);
-# float32 within 1e-4 of each output's scale (the Riccati recursion is
-# contractive, so rounding does not grow); S5 within 1e-9 (float64 /
+# S4 (the Kalman recursions: the forward walk and S5, the all-pole lattice,
+# in csrc/track_scan.cu; the backward and LTI chunk-and-join entries in
+# csrc/track_chunks.cu) against their plain versions on the card.
+# Tolerances: float64 within rtol 1e-9 of the plain walk (the solve and the
+# sums in another order); float32 within 1e-4 of each output's scale (the
+# Riccati recursion is contractive, so rounding does not grow); the chunked
+# entries against their chunked plain versions (the same association, only
+# the float64 join's sums in another order): LTI 1e-6 (float32) and 1e-12
+# (float64) of max|X| times max(1, g / 16) for F's transient gain g,
+# backward 1e-5 and 1e-11 of each output's max; S5 within 1e-9 (float64 /
 # complex128) and 1e-4 (float32 / complex64) of max|x|.
 
 _KF_SHAPES = [(1, 1), (1, 3), (2, 1), (3, 2), (4, 4), (5, 3), (8, 8)]
@@ -1861,13 +1866,27 @@ def test_s4_forward_and_backward_match_plain_on_card(dt, n, m):
     assert cuda_track.rts_backward_cuda.launches == b0 + 1
     Xs_p, Ps_p = kf.rts_backward_plain(Xp_, Pf, Xpr, Ppr, ops[0])
     assert _rel(Xs, Xs_p) <= tol and _rel(Ps, Ps_p) <= tol
+    assert torch.equal(Xs[-1], X[-1]) and torch.equal(Ps[-1], PT)
+    # the kernel and its chunked plain version on the same inputs
+    Xs_k, Ps_k = cuda_track.rts_backward_cuda(Xp_, Pf, Xpr, Ppr, ops[0])
+    Xs_c, Ps_c = kf.rts_backward_chunked_torch(Xp_, Pf, Xpr, Ppr, ops[0])
+    ctol = 1e-11 if dt == torch.float64 else 1e-5
+    assert _rel(Xs_k, Xs_c) <= ctol and _rel(Ps_k, Ps_c) <= ctol
+
+
+def _lti_tol(dt, F):
+    from solid_dsp_tpu_torch.ops import linrec
+
+    g = linrec.transient_gain(np.asarray(F, np.float64))
+    return (1e-12 if dt == torch.float64 else 1e-6) * max(1.0, g / 16)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [1, 2, 3, 8])
 def test_s4_lti_entry_matches_plain_on_card(dt, n):
-    """S4's LTI entry (kalman_lti_apply "scan", AlphaBetaTracker "scan")
-    against lti_walk_plain on the card and the parallel route."""
+    """S4's LTI entry by both of kalman_lti_apply's routes (and
+    AlphaBetaTracker's) against lti_chunked_torch and the sequential walk
+    on the card; one launch a call, "parallel" counted apart."""
     from solid_dsp_tpu_torch.ops import cuda_track
     from solid_dsp_tpu_torch.ops import kalman as kf
 
@@ -1877,21 +1896,108 @@ def test_s4_lti_entry_matches_plain_on_card(dt, n):
     K = rng.standard_normal((n, 1))
     Z = torch.from_numpy(rng.standard_normal(1000)).to(dev, dt)
     x0 = torch.from_numpy(rng.standard_normal(n)).to(dev, dt)
-    before = cuda_track.kalman_lti_cuda.launches
-    X, xT = kf.kalman_lti_apply(x0, Z, K, F, method="scan")
-    assert cuda_track.kalman_lti_cuda.launches == before + 1
     Ft, Kt = (torch.from_numpy(a).to(dev, dt) for a in (F, K))
-    Xp, xp = kf.lti_walk_plain(x0, Z[:, None] @ Kt.T, Ft)
-    Xq, _ = kf.kalman_lti_apply(x0, Z, K, F, method="parallel")
+    B = Z[:, None] @ Kt.T
+    Xc, xc = kf.lti_chunked_torch(x0, B, Ft)
+    Xp, xp = kf.lti_walk_plain(x0, B, Ft)
     tol = 1e-9 if dt == torch.float64 else 1e-4
-    assert _rel(X, Xp) <= tol and _rel(xT, xp) <= tol and _rel(X, Xq) <= tol
+    for method in ("scan", "parallel"):
+        before = cuda_track.kalman_lti_cuda.launches
+        par = cuda_track.kalman_lti_cuda.parallel_launches
+        X, xT = kf.kalman_lti_apply(x0, Z, K, F, method=method)
+        assert cuda_track.kalman_lti_cuda.launches == before + 1
+        assert (cuda_track.kalman_lti_cuda.parallel_launches
+                == par + (method == "parallel"))
+        assert _rel(X, Xc) <= _lti_tol(dt, F) and _rel(xT, xc) <= _lti_tol(
+            dt, F)
+        assert _rel(X, Xp) <= tol and _rel(xT, xp) <= tol
     a, b = kf.alpha_beta_gains(0.1)
-    trk = kf.AlphaBetaTracker(a, b, dtype=dt)
     z = torch.cumsum(torch.ones(2000, dtype=dt, device=dev), 0)
-    Y = torch.cat([trk.execute_block(z[:700], "scan"),
-                   trk.execute_block(z[700:], "scan")])
-    ref = kf.AlphaBetaTracker(a, b, dtype=dt).execute_block(z, "parallel")
-    assert Y.device == dev and _rel(Y, ref) <= tol
+    ref = kf.AlphaBetaTracker(a, b, dtype=dt, device="cpu").execute_block(
+        z.cpu(), "scan")
+    for method in ("scan", "parallel"):
+        trk = kf.AlphaBetaTracker(a, b, dtype=dt)
+        Y = torch.cat([trk.execute_block(z[:700], method),
+                       trk.execute_block(z[700:], method)])
+        assert Y.device == dev and _rel(Y.cpu(), ref) <= tol
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("T,chunk", [(1, None), (64, None), (65, None),
+                                     (2 * 128 * 64 + 37, None),
+                                     (257 * 128 * 32 + 5, 32)])
+def test_s4_lti_chunks_match_chunked_plain_on_card(dt, n, T, chunk):
+    """S4's LTI entry over three lanes against lti_chunked_torch at T of
+    one step, one chunk, a chunk and one, several groups with a ragged end,
+    and enough groups that pass 2 runs several a thread; x_T carried."""
+    from solid_dsp_tpu_torch.ops import cuda_track
+    from solid_dsp_tpu_torch.ops import kalman as kf
+
+    dev = require_cuda()
+    rng = np.random.default_rng(70 + n)
+    F = 0.9 * np.eye(n) + 0.02 * rng.standard_normal((n, n))
+    B = torch.from_numpy(rng.standard_normal((3, T, n))).to(dev, dt)
+    x0 = torch.from_numpy(rng.standard_normal((3, n))).to(dev, dt)
+    Ft = torch.from_numpy(F).to(dev, dt)
+    before = cuda_track.kalman_lti_cuda.launches
+    X, xT = cuda_track.kalman_lti_cuda(x0, B, Ft, chunk=chunk)
+    assert cuda_track.kalman_lti_cuda.launches == before + 1
+    Xc, xc = kf.lti_chunked_torch(x0, B, Ft, chunk=chunk)
+    assert X.shape == (3, T, n) and xT.shape == (3, n)
+    assert _rel(X, Xc) <= _lti_tol(dt, F) and _rel(xT, xc) <= _lti_tol(dt, F)
+    h = T // 3
+    Xa, xa = cuda_track.kalman_lti_cuda(x0, B[:, :h], Ft, chunk=chunk)
+    Xb, xb = cuda_track.kalman_lti_cuda(xa, B[:, h:], Ft, chunk=chunk)
+    tol = 1e-9 if dt == torch.float64 else 1e-4
+    assert _rel(torch.cat([Xa, Xb], 1), X) <= tol and _rel(xb, xT) <= tol
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m", _KF_SHAPES)
+@pytest.mark.parametrize("case", ["one", "two", "chunk_and_one", "groups",
+                                  "runs"])
+def test_s4_backward_chunks_match_chunked_plain_on_card(dt, n, m, case):
+    """S4's backward entry over two lanes (the forward entry's outputs)
+    against rts_backward_chunked_torch at T of one and two steps, a chunk
+    and one, several groups with a ragged end, and, at its shortest chunk,
+    enough groups that pass 2 runs several a thread (32 a group at n > 4);
+    the last step the filter's, bit for bit; one launch."""
+    from solid_dsp_tpu_torch.ops import cuda_track
+    from solid_dsp_tpu_torch.ops import kalman as kf
+
+    N = cuda_track.bucket(n)
+    cb, join = (128, 256 if N <= 2 else 128) if N <= 4 else (32, 32)
+    chunk = (cuda_track.rts_min_chunk(dt, N) if case == "runs"
+             else cuda_track.RTS_CHUNK)
+    T = {"one": 1, "two": 2, "chunk_and_one": chunk + 2,
+         "groups": 2 * cb * chunk + 21,
+         "runs": (join + 2) * cb * chunk + 3}[case]
+    dev = require_cuda()
+    A, C, Q, R, _ = _kf_model(n, m, 30 + n + 10 * m)
+    ops = [torch.from_numpy(a).to(dev, dt) for a in (A, C, Q, R)]
+    rng = np.random.default_rng(T + n)
+    lanes = []
+    for _ in range(2):
+        Z = torch.from_numpy(rng.standard_normal((T, m))).to(dev, dt)
+        out = cuda_track.kalman_filter_cuda(
+            torch.zeros(n, dtype=dt, device=dev),
+            10.0 * torch.eye(n, dtype=dt, device=dev), Z, *ops, keep=True)
+        lanes.append((out[0], *out[3:]))
+    Xf, Pf, Xp, Pp = (torch.stack(v) for v in zip(*lanes))
+    before = cuda_track.rts_backward_cuda.launches
+    Xs, Ps = cuda_track.rts_backward_cuda(Xf, Pf, Xp, Pp, ops[0], chunk)
+    assert cuda_track.rts_backward_cuda.launches == before + 1
+    Xc, Pc = kf.rts_backward_chunked_torch(Xf, Pf, Xp, Pp, ops[0], chunk)
+    ctol = 1e-11 if dt == torch.float64 else 1e-5
+    assert Xs.shape == (2, T, n) and Ps.shape == (2, T, n, n)
+    assert _rel(Xs, Xc) <= ctol and _rel(Ps, Pc) <= ctol
+    assert torch.equal(Xs[:, -1], Xf[:, -1]) and torch.equal(Ps[:, -1],
+                                                              Pf[:, -1])
+    if case not in ("groups", "runs"):
+        Xw, Pw = kf.rts_backward_plain(Xf[1], Pf[1], Xp[1], Pp[1], ops[0])
+        tol = 1e-9 if dt == torch.float64 else 1e-4
+        assert _rel(Xs[1], Xw) <= tol and _rel(Ps[1], Pw) <= tol
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64,

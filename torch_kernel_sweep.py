@@ -3,12 +3,12 @@
     python3 torch_kernel_sweep.py            # K6, the DDC body, K1
     python3 torch_kernel_sweep.py fir-route  # the FIR's two card routes
     python3 torch_kernel_sweep.py s3         # S3's chunk length and join
+    python3 torch_kernel_sweep.py s4         # S4's chunked entries: Lc, lanes
     python3 torch_kernel_sweep.py latency    # S1, S2, S4-S9: latency bounds
     python3 torch_kernel_sweep.py cfar-route # F7: CA-CFAR's two window sums
     python3 torch_kernel_sweep.py k1-direct  # K1's direct route: R, warps
     python3 torch_kernel_sweep.py k1-route   # K1 as routed, both modes
     python3 torch_kernel_sweep.py fsm        # S1's FSM entry: chunk, block
-    python3 torch_kernel_sweep.py track-prefetch  # S4/S5: the L2 prefetch
 
 * K6 (csrc/iir_bank.cu) at T = 2^14, C = 256, S = 2 (ChannelBank's block):
   the chunk length Lc in {16, 32, 64, 128}, each timed over a CUDA graph of
@@ -63,9 +63,10 @@
   at T = 2^16.  The SASS is kept beside the built libraries
   (``solid_dsp_tpu_torch/_build/seq_scan.sass``).  The same for S4 and S5
   (csrc/track_scan.cu, float32, one lane of 2^16): S4's forward entry at
-  n = 2, m = 1 (its chain holds a division: FDIV in the probe), its
-  backward and LTI entries at n = 2, S5 at orders 16 and 64
-  (``track_scan.sass``); S6 (csrc/bcjr_scan.cu) at 128 rows of 1027
+  n = 2, m = 1 (its chain holds a division: FDIV in the probe), S5 at
+  orders 16 and 64 (``track_scan.sass``); S4's backward and LTI entries
+  are chunk-and-join kernels (csrc/track_chunks.cu), timed by ``s4``;
+  S6 (csrc/bcjr_scan.cu) at 128 rows of 1027
   steps, its chain a step a walk and its two walks' SASS loops
   (``bcjr_scan.sass``); S7 (csrc/viterbi_scan.cu, soft, K = 7: its
   single-warp form) at one row of 8166 steps, 1024 x 550 and 64 x 8166,
@@ -92,13 +93,16 @@
   float64 running sum cast back, timed in turns, each with its
   thresholds' error relative to float64.
 
-* ``track-prefetch``: S4's entries and S5 (csrc/track_scan.cu) as built
-  (the L2 prefetch of the chunk after next in the LTI walk only) against
-  two variants built beside them by text substitution, the prefetch in
-  every walk and in none, in turns (as built, every, none, none, every,
-  as built), at the main paths' shapes: the LTI walk over 2^22, the forward walk over 2^20 (with and
-  without the kept covariances), the backward walk over 2^20, S5 over 256
-  lanes of 2^14 at order 16 and one lane of 2^20 at order 64.
+* ``s4``: S4's chunk-and-join entries (csrc/track_chunks.cu), float32,
+  n = 2 (the trackers' and the smoother's size): the LTI entry's chunk
+  length Lc in {16, 32, 64, 128, 256} at one lane of 2^22 (the
+  AlphaBetaTracker's block) and at 64 lanes of 2^16, and the backward
+  entry's in {8, 16, 32, 64, 128} at one lane of 2^20 (rts_smooth's
+  block) and 16 lanes of 2^16, each timed over a CUDA graph of 5 calls
+  with its largest difference from the chunk as built and its share of
+  its bytes bound (each input read once, each output written once, over
+  3.35 TB/s); then the profiler's time of each entry's three kernels at
+  the main-path sizes as built.
 
 * ``k1-direct``: K1's direct route (csrc/ddc_fm.cu, a warp a run of R
   outputs) at 256 taps and M = 128, 200, 240 and 512 taps, M = 256, ~2^24
@@ -137,7 +141,7 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import cuda_ms, graph_ms, snr_db, timed
+from chip_smoke import graph_ms, snr_db, timed
 
 
 FIR_ROUTE_SHAPES = (          # (taps, stride, outputs a sample, samples)
@@ -249,6 +253,88 @@ def s3_sweep(dev, smi) -> None:
                   + ", ".join(f"{k} {t:.4f}" for t, k in sorted(rows,
                                                               reverse=True))
                   + f" | {smi}", flush=True)
+
+
+S4_LTI_CHUNKS = (16, 32, 64, 128, 256)
+S4_RTS_CHUNKS = (8, 16, 32, 64, 128)
+
+
+def _profiled_kernels(fn, n: int = 5) -> str:
+    """The profiler's ms a call of each kernel fn launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total / 1e3 / e.count, e.key[:50])
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count]
+    return ", ".join(f"{k} {t:.4f}" for t, k in sorted(rows, reverse=True))
+
+
+def s4_sweep(dev, smi) -> None:
+    """S4's chunk-and-join entries: the chunk length at the main-path sizes
+    and at many lanes, then each entry's three kernels as built."""
+    from solid_dsp_tpu_torch.ops import cuda_track, kalman
+
+    rng = np.random.default_rng(4)
+    model = kalman.cv_model(1.0, 0.05, 1.0)
+    K, F = kalman.steady_state_gain(*model)
+    Ft = torch.from_numpy(F).to(dev, torch.float32)
+    for L, T in ((1, 1 << 22), (64, 1 << 16)):
+        B = torch.from_numpy(rng.standard_normal((L, T, 2))).to(
+            dev, torch.float32)
+        x0 = torch.zeros((L, 2), device=dev)
+        want, _ = cuda_track.kalman_lti_cuda(x0, B, Ft)
+        bound = 4 * L * T * 2 * 2 / 3.35e12 * 1e3
+        for chunk in S4_LTI_CHUNKS:
+            def run():
+                return cuda_track.kalman_lti_cuda(x0, B, Ft, chunk=chunk)
+            err = float((run()[0] - want).abs().max() / want.abs().max())
+            ms = graph_ms(run, 5)
+            print(f"[S4 LTI n=2, {L} lane(s) of 2^{T.bit_length() - 1}, Lc "
+                  f"{chunk}] {ms:.4f} ms, {ms * 1e6 / (L * T):.4f} ns a step, "
+                  f"bytes bound {bound:.5f} ms ({bound / ms:.1%}), max|dX| "
+                  f"{err:.3g} x max against Lc as built | {smi}", flush=True)
+    A, C, Q, R = (torch.from_numpy(a).to(dev, torch.float32) for a in model)
+    for L, T in ((1, 1 << 20), (16, 1 << 16)):
+        lanes = []
+        for _ in range(L):
+            z = torch.from_numpy(rng.standard_normal((T, 1))).to(
+                dev, torch.float32)
+            out = cuda_track.kalman_filter_cuda(
+                torch.zeros(2, device=dev), 10 * torch.eye(2, device=dev), z,
+                A, C, Q, R, keep=True)
+            lanes.append((out[0], *out[3:]))
+        ops = [torch.stack(v) for v in zip(*lanes)]
+        want, _ = cuda_track.rts_backward_cuda(*ops, A)
+        # Xf, Pf, Xp, Pp read (2n + 2n^2 a step), Xs, Ps written (n + n^2)
+        bound = 4 * L * T * 18 / 3.35e12 * 1e3
+        for chunk in S4_RTS_CHUNKS:
+            def run():
+                return cuda_track.rts_backward_cuda(*ops, A, chunk=chunk)
+            err = float((run()[0] - want).abs().max() / want.abs().max())
+            ms = graph_ms(run, 5)
+            print(f"[S4 backward n=2, {L} lane(s) of 2^{T.bit_length() - 1}, "
+                  f"Lc {chunk}] {ms:.4f} ms, {ms * 1e6 / (L * T):.4f} ns a "
+                  f"step, bytes bound {bound:.5f} ms ({bound / ms:.1%}), "
+                  f"max|dXs| {err:.3g} x max against Lc as built | {smi}",
+                  flush=True)
+        if L == 1:
+            print(f"[S4 backward n=2, 2^20, Lc {cuda_track.RTS_CHUNK}, kernels "
+                  f"(profiler, ms a call)] "
+                  + _profiled_kernels(lambda: cuda_track.rts_backward_cuda(
+                      *ops, A)) + f" | {smi}", flush=True)
+    B = torch.from_numpy(rng.standard_normal((1 << 22, 2))).to(
+        dev, torch.float32)
+    x0 = torch.zeros(2, device=dev)
+    print(f"[S4 LTI n=2, 2^22, Lc as built, kernels (profiler, ms a call)] "
+          + _profiled_kernels(lambda: cuda_track.kalman_lti_cuda(x0, B, Ft))
+          + f" | {smi}", flush=True)
 
 
 K1_DIRECT_POINTS = ((256, 128), (256, 200), (256, 240), (512, 256))
@@ -574,8 +660,6 @@ LATENCY_CHAINS = {
     "S2": {"sincosf": 1, "FMUL": 3, "FADD": 5, "compare+select": 1,
            "atan2f": 1},
     "S4 forward": {"FMUL": 6, "FFMA": 5, "FADD": 3, "FDIV": 1},
-    "S4 backward": {"FMUL": 2, "FFMA": 2, "FADD": 2},
-    "S4 LTI": {"FMUL": 1, "FFMA": 1, "FADD": 1},
     "S5 p=16": {"FFMA": 3},
     "S5 p=64": {"FFMA": 3},
     "S6": {"SHFL": 1 + 3 / 16, "FADD": 1 + 1 / 16, "FMNMX": 1 + 3 / 16},
@@ -1005,10 +1089,12 @@ def cfar_route(dev, smi) -> None:
 
 
 def track_latency(dev, smi, lat: dict, mhz: float) -> None:
-    """S4's three entries and S5 (csrc/track_scan.cu, float32, one lane of
+    """S4's forward entry and S5 (csrc/track_scan.cu, float32, one lane of
     T = 2^16): each loop-carried chain (LATENCY_CHAINS) over the probe's
     latencies and the main loop's SASS instructions a step, the larger
-    over the SM clock beside the time a step (CUDA graph of 5 launches)."""
+    over the SM clock beside the time a step (CUDA graph of 5 launches).
+    S4's backward and LTI entries are chunk-and-join kernels, bound by
+    their bytes: ``s4`` times them."""
     import importlib
 
     from solid_dsp_tpu_torch.ops import cuda_build, cuda_track, kalman
@@ -1026,9 +1112,6 @@ def track_latency(dev, smi, lat: dict, mhz: float) -> None:
     z = torch.from_numpy(rng.standard_normal((T, 1))).to(dev, torch.float32)
     x0 = torch.zeros(2, device=dev)
     P0 = 10.0 * torch.eye(2, device=dev)
-    kept = cuda_track.kalman_filter_cuda(x0, P0, z, A, C, Q, R, keep=True)
-    Bz = torch.cat([z, 0.1 * z], dim=1)
-    F = 0.9 * torch.eye(2, device=dev)
     y = z[:, 0].contiguous()
     k16 = torch.from_numpy(0.5 * rng.uniform(-1, 1, 16)).to(dev,
                                                             torch.float32)
@@ -1037,10 +1120,6 @@ def track_latency(dev, smi, lat: dict, mhz: float) -> None:
     runs = {
         "S4 forward": (lambda: cuda_track.kalman_filter_cuda(
             x0, P0, z, A, C, Q, R), "kf_forward_kernelIfLi2ELi1EE", 8),
-        "S4 backward": (lambda: cuda_track.rts_backward_cuda(
-            kept[0], *kept[3:], A), "rts_backward_kernelIfLi2EE", 4),
-        "S4 LTI": (lambda: cuda_track.kalman_lti_cuda(x0, Bz, F),
-                   "kf_lti_kernelIfLi2EE", 16),
         "S5 p=16": (lambda: lpc.lattice_iir(y, k16),
                     "lattice_iir_kernelIfLi16EE", 8),
         "S5 p=64": (lambda: lpc.lattice_iir(y, k64),
@@ -1050,7 +1129,7 @@ def track_latency(dev, smi, lat: dict, mhz: float) -> None:
         chain = LATENCY_CHAINS[name]
         cycles = sum(n * lat[op] for op, n in chain.items())
         # each kernel's main loop: a chunk of `steps` steps, unrolled
-        # (track_scan.cu's kf_chunk, rts_chunk, lti_chunk, LATTICE_CHUNK)
+        # (track_scan.cu's kf_chunk, LATTICE_CHUNK)
         issue = sass_step_instructions(sass, kernel, None, steps=steps)
         bound_ns = max(cycles, issue) / mhz * 1e3
         ns = graph_ms(fn, 5) * 1e6 / T
@@ -1059,109 +1138,6 @@ def track_latency(dev, smi, lat: dict, mhz: float) -> None:
               f"bound {bound_ns:.1f} ns at {mhz:.0f} MHz (the larger); "
               f"measured {ns:.1f} ns a step (T = 2^16): {bound_ns / ns:.0%} "
               f"of the bound | {smi}", flush=True)
-
-
-# track_scan.cu's walks as built pass no-op prefetch callbacks but the LTI
-# walk's; one variant asks every walk's chunk after next into L2, the other
-# none
-TRACK_PREFETCH_NONE = (
-    ("""  }, [&](long long t) { prefetch_l2(in + t * NP); });""",
-     """  }, [](long long) {});"""),
-)
-TRACK_PREFETCH_EDITS = (
-    ("""    store_rows(a.Pp + row * NP * NP, Pp);
-    }
-  }, [](long long) {});""", """    store_rows(a.Pp + row * NP * NP, Pp);
-    }
-  }, [&](long long t) { prefetch_l2(Z + t * MP); });"""),
-    ("""    store_rows(a.Ps + t * NN, Ps);
-  }, [](long long) {});""", """    store_rows(a.Ps + t * NN, Ps);
-  }, [&](long long i) {
-    const long long t = base + T - 2 - i;
-    prefetch_l2(a.Xf + t * NP);
-    prefetch_l2(a.Pf + t * NN);
-    prefetch_l2(a.Xp + (t + 1) * NP);
-    prefetch_l2(a.Pp + (t + 1) * NN);
-  });"""),
-    ("""  const auto ahead = [](long long) {};""",
-     """  const auto ahead = [&](long long t) { prefetch_l2(yl + t); };"""),
-)
-
-
-def track_prefetch(dev, smi) -> None:
-    """S4 and S5 as built against the variant with the L2 prefetch in every
-    walk, in turns, at the main paths' shapes (CUDA events, 3 calls after
-    2 warm-up calls each)."""
-    import importlib
-
-    from solid_dsp_tpu_torch.ops import cuda_build, cuda_track, kalman
-
-    lpc = importlib.import_module("solid_dsp_tpu_torch.analysis.lpc")
-    libs = cuda_build.build()
-    d = cuda_build.BUILD_DIR / "track_prefetch"
-    d.mkdir(parents=True, exist_ok=True)
-    variants = {"as built": libs["track_scan.cu"]}
-    for label, edits in (("every walk", TRACK_PREFETCH_EDITS),
-                         ("no walk", TRACK_PREFETCH_NONE)):
-        src = (cuda_build.CSRC / "track_scan.cu").read_text()
-        for old, new in edits:
-            if old not in src:
-                raise ValueError("track_scan.cu changed: update "
-                                 "TRACK_PREFETCH_EDITS / _NONE")
-            src = src.replace(old, new)
-        stem = label.replace(" ", "_")
-        (d / f"{stem}.cu").write_text(src)
-        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-                        str(d / f"lib{stem}.so"), str(d / f"{stem}.cu")],
-                       check=True, capture_output=True)
-        variants[label] = ctypes.CDLL(str(d / f"lib{stem}.so"))
-    rng = np.random.default_rng(0)
-    model = kalman.cv_model(1.0, 0.05, 1.0)
-    A, C, Q, R = (torch.from_numpy(a).to(dev, torch.float32) for a in model)
-    K, F = kalman.steady_state_gain(*model)
-    z22 = torch.from_numpy(rng.standard_normal(1 << 22)).to(dev,
-                                                            torch.float32)
-    B22 = z22[:, None] @ torch.from_numpy(K.T).to(dev, torch.float32)
-    Ft = torch.from_numpy(F).to(dev, torch.float32)
-    z20 = z22[:1 << 20, None].contiguous()
-    x0 = torch.zeros(2, device=dev)
-    P0 = 10 * torch.eye(2, device=dev)
-    kept = cuda_track.kalman_filter_cuda(x0, P0, z20, A, C, Q, R, keep=True)
-    yl = torch.from_numpy(rng.standard_normal((256, 1 << 14))).to(
-        dev, torch.float32)
-    kl = torch.from_numpy(0.5 * rng.uniform(-1, 1, (256, 16))).to(
-        dev, torch.float32)
-    y1 = z22[:1 << 20].contiguous()
-    k64 = torch.from_numpy(0.5 * rng.uniform(-1, 1, 64)
-                           / np.sqrt(np.arange(1, 65))).to(dev, torch.float32)
-    runs = {
-        "LTI 2^22": lambda: cuda_track.kalman_lti_cuda(x0, B22, Ft),
-        "forward 2^20": lambda: cuda_track.kalman_filter_cuda(
-            x0, P0, z20, A, C, Q, R),
-        "forward keep 2^20": lambda: cuda_track.kalman_filter_cuda(
-            x0, P0, z20, A, C, Q, R, keep=True),
-        "backward 2^20": lambda: cuda_track.rts_backward_cuda(
-            kept[0], *kept[3:], A),
-        "S5 256 x 2^14 p=16": lambda: lpc.lattice_iir(yl, kl),
-        "S5 2^20 p=64": lambda: lpc.lattice_iir(y1, k64),
-    }
-    res = {name: {v: [] for v in variants} for name in runs}
-    for turn in ("as built", "every walk", "no walk", "no walk",
-                 "every walk", "as built"):
-        cuda_build.launcher.cache_clear()
-        libs["track_scan.cu"] = variants[turn]
-        for name, fn in runs.items():
-            res[name][turn].append(cuda_ms(fn, 3))
-    cuda_build.launcher.cache_clear()
-    libs["track_scan.cu"] = variants["as built"]
-    for name, r in res.items():
-        print(f"[track-prefetch] {name}: as built "
-              + " / ".join(f"{v:.3f}" for v in r["as built"])
-              + " ms, prefetch in every walk "
-              + " / ".join(f"{v:.3f}" for v in r["every walk"])
-              + " ms, in none "
-              + " / ".join(f"{v:.3f}" for v in r["no walk"])
-              + f" ms | {smi}", flush=True)
 
 
 def main() -> None:
@@ -1186,6 +1162,10 @@ def main() -> None:
         cuda_build.build()
         s3_sweep(dev, smi)
         return
+    if sys.argv[1:] == ["s4"]:
+        cuda_build.build()
+        s4_sweep(dev, smi)
+        return
     if sys.argv[1:] == ["latency"]:
         cuda_build.build()
         latency_sweep(dev, smi)
@@ -1204,9 +1184,6 @@ def main() -> None:
     if sys.argv[1:] == ["fsm"]:
         cuda_build.build()
         fsm_sweep(dev, smi)
-        return
-    if sys.argv[1:] == ["track-prefetch"]:
-        track_prefetch(dev, smi)
         return
     if sys.argv[1:] == ["s7-variants"]:
         s7_variants(dev, smi)
