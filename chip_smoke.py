@@ -59,8 +59,8 @@ solid_dsp_tpu_torch/csrc/:
   stage_iir through S3; stage_agc("exact") through S1;
 * ROADMAP item 11 at the TPU sweep's sizes (bench_all.py's tracking,
   detection, resample and cyclo rows): the Kalman trackers (kalman_apply,
-  rts_smooth, AlphaBetaTracker "scan") through S4, the Kalman recursions
-  of track_scan.cu, make_kalman_lti and the "parallel" route in torch ops;
+  rts_smooth, AlphaBetaTracker, make_kalman_lti) through S4, the Kalman
+  recursions' chunk-and-join kernels (track_forward.cu, track_chunks.cu);
   LPC's synthesis lattice through S5 (track_scan.cu); the wavelets, the
   zoom FFT, the cyclostationary scan, the DCT/DST/MDCT, the ADC model and
   the G.711 codecs, the estimators and the RF measurements in torch ops;
@@ -300,10 +300,13 @@ Phases, one line each:
      stage_agc("exact") and stage_iir (S1, S3) against
      stage_agc("parallel").  Its launches are added to the kernels' line.
  39. item 11 (item11_phases): make_kalman_lti on cv_model(1, 0.05, 1) and
-     AlphaBetaTracker "parallel" and "scan" (S4's LTI entry, two blocks
-     carried) over 2^22 float32 measurements, kalman_apply (S4 forward,
-     two blocks carried) and rts_smooth (S4 both ways) over 2^20, each
-     within 1e-4 x max of the float64 walk on the host; denoise_soft("db4",
+     AlphaBetaTracker "parallel" and "scan" (S4's LTI entry, one launch
+     each, the scan's two blocks carried) over 2^22 float32 measurements,
+     kalman_apply (S4 forward, two blocks carried) and rts_smooth (S4
+     forward with the covariances kept, then backward) over 2^20, each
+     within 1e-4 x max of the float64 walk on the host, the forward entry
+     alone timed with and without the covariances kept beside its bytes
+     bounds; denoise_soft("db4",
      4) on 2^21 float32 against its float64 CPU run (1e-4) and the wavelet
      round trip (1e-4, tests/test_wavelet.py:48); zoom_fft(x, 0.2, 0.3,
      1024) over 256 x 2^14 complex64 against complex128 on the CPU (1e-4)
@@ -325,7 +328,10 @@ Phases, one line each:
      CPU runs; each timed; S4's three entries and S5 against their plain
      versions on the card (1e-4 x max) at T = 2^12 (S5: 256 lanes x 2^12,
      order 16), timed over a CUDA graph beside their plain versions and
-     bounds.  S4 and S5's launches on these paths are the kernels' line's;
+     bounds; S4's three chunk-and-join entries against their chunked plain
+     versions at T = 2^12 and at the main paths' 2^20 (forward, backward)
+     and 2^22 (LTI): 1e-5, 1e-5 and 1e-6 x max.  S4 and S5's launches on
+     these paths are the kernels' line's;
  40. ROADMAP item 13a (item13a_phases) at the TPU sweep's rows
      (bench_all.py:600-796), each timed by CUDA events (ms a call, the
      host's enqueue), with the profiler's device busy time and the idle
@@ -612,11 +618,16 @@ L_MEAS, MEAS_NFFT = 1 << 22, 4096
 S4_RTOL = 1e-4            # float32 against the float64 walk, x max|ref|
 S4_LTI_RTOL = 1e-6        # S4's LTI entry against lti_chunked_torch, x max
 S4_RTS_RTOL = 1e-5        # its backward entry against the chunked plain version
+S4_FWD_RTOL = 1e-5        # its forward entry against the chunked plain version
 # the one-thread entries these replaced, as this phase timed them on an
 # NVIDIA H100 80GB HBM3 at 700 W: ms at T_S4_TIMED, and on the main path
-# (AlphaBetaTracker "scan" over 2^22; rts_smooth over 2^20, both passes)
+# (AlphaBetaTracker "scan" over 2^22; rts_smooth over 2^20, both passes
+# one-thread; kalman_apply over 2^20); and rts_smooth over 2^20 with the
+# one-thread forward entry before the backward one
 ONE_THREAD_MS = {"kalman_lti": (0.0987, 100.06), "rts_backward": (0.9246,
-                                                                   378.40)}
+                                                                   378.40),
+                 "kalman_filter": (0.5697, 113.28)}
+ONE_THREAD_FORWARD_RTS_MS = 143.87
 S5_RTOL = 1e-4
 LPC_K_ATOL = 1e-3         # reflection coefficients, float32 vs float64
 TRIG_RTOL = 1e-5          # full float32 products (TF32 keeps ~1e-3)
@@ -4298,11 +4309,14 @@ def item11_phases(dev, smi) -> list:
     zt = torch.from_numpy(z).to(dev)
     x0 = torch.zeros(2, device=dev)
     modal = kalman.make_kalman_lti(K, F)
+    before_modal = cuda_track.kalman_lti_cuda.launches
     X_modal, _ = main_path(lambda: modal(x0, zt))
+    modal_launches = cuda_track.kalman_lti_cuda.launches - before_modal
     trk_p = kalman.AlphaBetaTracker(float(K[0, 0]), float(K[1, 0]),
                                     device=dev)
-    # both of the tracker's routes take S4's LTI entry on the card, never
-    # affine_scan (torch ops): count its calls while they run
+    # make_kalman_lti and both of the tracker's routes take S4's LTI entry
+    # on the card, never affine_scan (torch ops): count its calls while
+    # they run
     affine, scans = kalman.affine_scan, [0]
 
     def counted_affine(*args):
@@ -4320,19 +4334,22 @@ def item11_phases(dev, smi) -> list:
         torch.cuda.synchronize()
     finally:
         kalman.affine_scan = affine
-    if scans[0] or main_launches[2] != 3:
+    if scans[0] or modal_launches != 1 or main_launches[2] != 4:
         fail(f"phase 39: the trackers ran affine_scan {scans[0]} times and "
-             f"S4's LTI entry {main_launches[2]} times (want 0 and 3)")
+             f"S4's LTI entry {main_launches[2]} times, make_kalman_lti "
+             f"{modal_launches} of them (want 0, 4 and 1)")
     ref = lti_walk64(F, K, z.astype(np.float64))
     errs = [rel_err(X, ref) for X in (X_modal, X_par, X_scan)]
     ms_modal = cuda_ms(lambda: modal(x0, zt), 3)
     ms_par = cuda_ms(lambda: trk_p.execute_block(zt, "parallel"), 3)
     ms_scan = cuda_ms(lambda: trk_s.execute_block(zt, "scan"), 2)
     print(f"[39 kalman LTI, cv_model(1, 0.05, 1), 2^22 float32] against the "
-          f"float64 CPU walk, x max|ref|: make_kalman_lti {errs[0]:.3g}, "
+          f"float64 CPU walk, x max|ref|: make_kalman_lti (S4 LTI, "
+          f"{modal_launches} launch) {errs[0]:.3g}, "
           f"AlphaBetaTracker parallel (S4) {errs[1]:.3g}, scan (S4, two "
           f"blocks) {errs[2]:.3g} (gate {S4_RTOL}); the one-thread entry's "
-          f"scan took {ONE_THREAD_MS['kalman_lti'][1]} ms; "
+          f"scan took {ONE_THREAD_MS['kalman_lti'][1]} ms, the modal route "
+          f"in torch ops 19.31-33.65 ms; "
           f"{ms_modal:.4f} / {ms_par:.4f} / "
           f"{ms_scan:.4f} ms a block ({T_LTI / (ms_modal * 1e3):.1f} / "
           f"{T_LTI / (ms_par * 1e3):.1f} / {T_LTI / (ms_scan * 1e3):.1f} "
@@ -4358,15 +4375,30 @@ def item11_phases(dev, smi) -> list:
     W = kf_walk64(zk, A, C, Q, R, np.zeros(2), P0)
     e_kf = rel_err(Xk, np.array(W[0]))
     e_rts = rel_err(Xs, rts_walk64(A, *W))
-    ms_kf = cuda_ms(lambda: kalman.kalman_apply(st0, zkt, A, C, Q, R), 2)
-    ms_rts = cuda_ms(lambda: kalman.rts_smooth(st0, zkt, A, C, Q, R), 2)
+    ms_kf = cuda_ms(lambda: kalman.kalman_apply(st0, zkt, A, C, Q, R), 3)
+    ms_rts = cuda_ms(lambda: kalman.rts_smooth(st0, zkt, A, C, Q, R), 3)
+    # the forward entry alone over 2^20, without and with the covariances
+    # kept, beside its bytes bounds: Z read, X (and Pf, Xp, Pp) written
+    ops = [torch.from_numpy(a).to(dev, torch.float32) for a in (A, C, Q, R)]
+    xs0, Ps0 = st0
+    n4 = 2
+    ms_fwd = graph_ms(lambda: cuda_track.kalman_filter_cuda(
+        xs0, Ps0, zkt[:, None], *ops), 5)
+    ms_fwdk = graph_ms(lambda: cuda_track.kalman_filter_cuda(
+        xs0, Ps0, zkt[:, None], *ops, keep=True), 5)
+    b_fwd = bound_ms(4 * T_KF * (1 + n4) + 4 * 22, 2 * T_KF * 48, FP32_FLOPS)
+    b_fwdk = bound_ms(4 * T_KF * (1 + 2 * n4 + 2 * n4 * n4) + 4 * 22,
+                      2 * T_KF * 48, FP32_FLOPS)
     print(f"[39 kalman_apply (S4 forward, two blocks carried) and rts_smooth "
           f"(S4 both ways), cv_model, 2^20 float32] against the float64 CPU "
           f"walk, x max|ref|: filter {e_kf:.3g}, smoother {e_rts:.3g} (gate "
-          f"{S4_RTOL}); {ms_kf:.3f} ms ({ms_kf * 1e6 / T_KF:.1f} ns a step) "
-          f"and {ms_rts:.3f} ms (with the one-thread backward entry "
-          f"{ONE_THREAD_MS['rts_backward'][1]} ms) | {smi}",
-          flush=True)
+          f"{S4_RTOL}); {ms_kf:.4f} ms and {ms_rts:.4f} ms a call by events "
+          f"(one-thread forward entry: {ONE_THREAD_MS['kalman_filter'][1]} "
+          f"and {ONE_THREAD_FORWARD_RTS_MS} ms); the forward entry alone "
+          f"(CUDA graph) {ms_fwd:.4f} ms, bytes bound {b_fwd[0]:.5f} ms "
+          f"({b_fwd[0] / ms_fwd:.1%}), with the covariances kept "
+          f"{ms_fwdk:.4f} ms, bound {b_fwdk[0]:.5f} ms "
+          f"({b_fwdk[0] / ms_fwdk:.1%}) | {smi}", flush=True)
     if not (e_kf <= S4_RTOL and e_rts <= S4_RTOL and Ps.shape == (T_KF, 2, 2)):
         fail("phase 39: the Kalman filter or smoother disagrees with the "
              "float64 walk")
@@ -4653,8 +4685,6 @@ def item11_phases(dev, smi) -> list:
     # S4 and S5 against their plain versions on the card, timed side by side
     # at T_S4_TIMED steps (the plain walks take ~25 launches a step)
     zt_s = zkt[:T_S4_TIMED, None]
-    ops = [torch.from_numpy(a).to(dev, torch.float32) for a in (A, C, Q, R)]
-    xs0, Ps0 = st0
     got_f = cuda_track.kalman_filter_cuda(xs0, Ps0, zt_s, *ops, keep=True)
     box = {}
 
@@ -4664,6 +4694,9 @@ def item11_phases(dev, smi) -> list:
     want_f = box["f"]
     err_f = float(max((g_ - w_).abs().max() for g_, w_ in
                       zip(got_f, want_f)))
+    rel_fc = max(rel_err(g_, w_) for g_, w_ in zip(got_f, (
+        kalman.kalman_forward_chunked_torch(xs0, Ps0, zt_s, *ops,
+                                            keep=True))))
     got_b = cuda_track.rts_backward_cuda(*want_f[:1], *want_f[3:], ops[0])
 
     def plain_b():
@@ -4701,7 +4734,7 @@ def item11_phases(dev, smi) -> list:
         *want_f[:1], *want_f[3:], ops[0]), 5)
     ms_l = graph_ms(lambda: cuda_track.kalman_lti_cuda(x0, Bl, Fg), 5)
     ms_5 = graph_ms(lambda: cuda_track.lattice_iir_cuda(y5, k5), 5)
-    T, n4 = T_S4_TIMED, 2
+    T = T_S4_TIMED
     # bytes: each input read once, each output written once; operations:
     # the float32 step's multiply-adds (2 each), from the step's algebra
     b_f = bound_ms(4 * T * (1 + 2 * n4 + 2 * n4 * n4) + 4 * 22,
@@ -4722,14 +4755,15 @@ def item11_phases(dev, smi) -> list:
           f"{b_l[0]:.5f}; S5 (256 lanes x {T_S5_TIMED}, order 16): {err_5:.3g} "
           f"({rel_5:.3g}), {ms_5:.4f} ms, plain {plain_5_ms:.1f} ms, bound "
           f"{b_5[0]:.5f} (gate {S4_RTOL} x max); the chunk-and-join "
-          f"entries against their chunked plain versions: backward "
-          f"{rel_bc:.3g} x max (gate {S4_RTS_RTOL}), LTI {rel_lc:.3g} (gate "
-          f"{S4_LTI_RTOL}); the one-thread entries took "
+          f"entries against their chunked plain versions: forward "
+          f"{rel_fc:.3g} x max (gate {S4_FWD_RTOL}), backward {rel_bc:.3g} "
+          f"(gate {S4_RTS_RTOL}), LTI {rel_lc:.3g} (gate {S4_LTI_RTOL}); the "
+          f"one-thread entries took {ONE_THREAD_MS['kalman_filter'][0]} / "
           f"{ONE_THREAD_MS['rts_backward'][0]} / "
           f"{ONE_THREAD_MS['kalman_lti'][0]} ms, three launches each "
           f"now | {smi}", flush=True)
-    if not (max(rels) <= S4_RTOL and rel_bc <= S4_RTS_RTOL
-            and rel_lc <= S4_LTI_RTOL):
+    if not (max(rels) <= S4_RTOL and rel_fc <= S4_FWD_RTOL
+            and rel_bc <= S4_RTS_RTOL and rel_lc <= S4_LTI_RTOL):
         fail("phase 39: S4 or S5 disagrees with its plain version")
 
     # S4's chunk-and-join entries at the main path's sizes (the LTI over
@@ -4746,6 +4780,14 @@ def item11_phases(dev, smi) -> list:
                                                                 box["lm"])))
     kept = cuda_track.kalman_filter_cuda(xs0, Ps0, zkt[:, None], *ops,
                                          keep=True)
+
+    def plain_fm():
+        box["fm"] = kalman.kalman_forward_chunked_torch(
+            xs0, Ps0, zkt[:, None], *ops, keep=True)
+    plain_fm_ms = cuda_ms_once(plain_fm)
+    rel_fm = max(rel_err(g_, w_) for g_, w_ in zip(kept, box["fm"]))
+    err_fm = float(max((g_ - w_).abs().max() for g_, w_ in zip(kept,
+                                                                box["fm"])))
     got_bm = cuda_track.rts_backward_cuda(kept[0], *kept[3:], ops[0])
 
     def plain_bm():
@@ -4763,7 +4805,11 @@ def item11_phases(dev, smi) -> list:
     b_bm = bound_ms(4 * T_KF * (2 * (n4 + n4 * n4) + n4 + n4 * n4) + 16,
                     2 * T_KF * 36, FP32_FLOPS)
     print(f"[39 S4's chunk-and-join entries at the main path's sizes, "
-          f"float32] LTI over 2^22 against lti_chunked_torch: {rel_lm:.3g} x "
+          f"float32] forward over 2^20 (covariances kept) against "
+          f"kalman_forward_chunked_torch: {rel_fm:.3g} x max (gate "
+          f"{S4_FWD_RTOL}), {main_launches[0]} launches on the main path, "
+          f"chunked plain {plain_fm_ms:.1f} ms; "
+          f"LTI over 2^22 against lti_chunked_torch: {rel_lm:.3g} x "
           f"max (gate {S4_LTI_RTOL}), {ms_lm:.4f} ms (CUDA graph), "
           f"{main_launches[2]} launches on the main path, bytes bound "
           f"{b_lm[0]:.5f} ms ({b_lm[0] / ms_lm:.1%}), chunked plain "
@@ -4772,7 +4818,8 @@ def item11_phases(dev, smi) -> list:
           f"{ms_bm:.4f} ms, {main_launches[1]} launches, bytes bound "
           f"{b_bm[0]:.5f} ms ({b_bm[0] / ms_bm:.1%}), chunked plain "
           f"{plain_bm_ms:.1f} ms | {smi}", flush=True)
-    if not (rel_lm <= S4_LTI_RTOL and rel_bm <= S4_RTS_RTOL
+    if not (rel_fm <= S4_FWD_RTOL and rel_lm <= S4_LTI_RTOL
+            and rel_bm <= S4_RTS_RTOL and kept[3].shape == (T_KF, 2, 2)
             and got_lm[0].shape == (T_LTI, 2)
             and got_bm[1].shape == (T_KF, 2, 2)):
         fail("phase 39: S4's chunk-and-join entries disagree with their "
@@ -4783,12 +4830,16 @@ def item11_phases(dev, smi) -> list:
     kf_src = "solid_dsp_tpu/ops/kalman.py:{} (a lax.scan, no TPU kernel)"
     entries = []
     # the chunk-and-join entries report their main-path sizes (their times
-    # at T_S4_TIMED are launch-bound and kept beside); no single PyTorch
+    # at T_S4_TIMED are launch-bound and kept beside; the forward entry's
+    # with the covariances kept, as rts_smooth runs it and as its error and
+    # plain time were taken, kalman_apply's run beside); no single PyTorch
     # call computes any of these recurrences, so library_ms stays null
     for (name, src, line, err, ms, plain, bnd, shape, extra), launches in zip((
-            ("kalman_filter", "track_scan.cu", kf_src.format(66), err_f,
-             ms_f, plain_f_ms, b_f, f"T={T_S4_TIMED}",
-             {"main_path_ms": ms_kf}),
+            ("kalman_filter", "track_forward.cu", kf_src.format(66), err_fm,
+             ms_fwdk, plain_fm_ms, b_fwdk, "T=2^20, covariances kept",
+             {"main_path_ms": ms_kf, "ms_without_keep": ms_fwd,
+              "bound_without_keep_ms": b_fwd[0], f"ms_T{T_S4_TIMED}": ms_f,
+              f"walk_plain_ms_T{T_S4_TIMED}": plain_f_ms}),
             ("rts_backward", "track_chunks.cu", kf_src.format(110), err_bm,
              ms_bm, plain_bm_ms, b_bm, "T=2^20",
              {"main_path_ms": ms_rts, f"ms_T{T_S4_TIMED}": ms_b,

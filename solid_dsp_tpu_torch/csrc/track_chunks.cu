@@ -1,6 +1,8 @@
 // S4's steady-state (LTI) walk and the Rauch-Tung-Striebel smoother's
 // backward walk, for Hopper (sm_90a): time-parallel chunk-and-join
-// recurrences.
+// recurrences.  S4's third entry, the filter's forward walk, is
+// track_forward.cu, of the same three-pass shape and the backward entry's
+// staging; track_chunks.cuh holds what the two files share.
 //
 // Neither replaces a TPU kernel: in the JAX package each is a lax.scan or an
 // associative scan, solid_dsp_tpu/ops/kalman.py::kalman_apply's RTS pass in
@@ -103,16 +105,9 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "track_chunks.cuh"
 
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float quot(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double quot(double a, double b) { return __ddiv_rn(a, b); }
+namespace {
 
 // ---------------------------------------------------------------------------
 // LTI
@@ -121,14 +116,6 @@ __device__ __forceinline__ double quot(double a, double b) { return __ddiv_rn(a,
 constexpr int kLtiThreads = 128;   // chunks a block of passes 1 and 3 (CB)
 constexpr int kSub = 32;           // elements a chunk a sub-batch
 constexpr int kJoin = 256;         // threads a block of pass 2, at most
-
-// One launch's shape: L lanes of T steps, chunks of Lc steps (a power of
-// two), nc chunks in ng groups of CB; pass 2's 2^tl threads a lane, each a
-// run of 2^rl groups.
-struct Geo {
-  long long T;
-  int L, Lc, nc, ng, tl, rl;
-};
 
 template <typename R, int N>
 __host__ __device__ constexpr size_t lti_smem() {
@@ -152,10 +139,6 @@ __device__ __forceinline__ void lti_step(const R (&F)[N][N], R (&x)[N], const R*
   for (int i = 0; i < N; ++i) x[i] = xn[i];
 }
 
-// Walk this thread's chunk c0 + threadIdx.x of one lane (in, out: the
-// lane's (T, N) rows) from x, staged as the note above says; kWrite: the
-// states go to out.  Every thread of the block calls it; it ends with a
-// __syncthreads, the tile free again.
 // Walk this thread's chunk c0 + threadIdx.x of one lane (in, out: the
 // lane's (T, N) rows) from x, staged as the note above says: a sub-batch is
 // SB = 32 / N rows (kSub values) of each of the block's chunks, and thread
@@ -222,14 +205,6 @@ __device__ __forceinline__ void lti_walk(const R (&F)[N][N], R (&x)[N], const R*
     if (sb + 1 < nsb) put();
     __syncthreads();
   }
-}
-
-template <typename R, int N>
-__device__ __forceinline__ void load_f(R (&F)[N][N], const R* __restrict__ Fm) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) F[i][j] = Fm[i * N + j];
 }
 
 // Pass 1: chunk ends from a zero state, joined within each group.
@@ -402,16 +377,6 @@ lti_chunk_run(const R* __restrict__ Bin, R* __restrict__ X, const R* __restrict_
   }
 }
 
-// The arguments every entry checks: L lanes in 1 .. 65535, Lc a power of
-// two, 2^tl <= the pass-2 threads, rl >= 0, and nc, ng those of T.
-bool bad_geometry(long long T, int L, int Lc, int nc, int ng, int cb, int tl, int rl,
-                  int join_max) {
-  if (T <= 0 || L <= 0 || L > 65535 || Lc <= 0 || (Lc & (Lc - 1)) || tl < 0 ||
-      (1 << tl) > join_max || rl < 0 || rl > 30 || nc <= 0 || ng <= 0)
-    return true;
-  return ng != (nc + cb - 1) / cb;
-}
-
 template <typename R, int N>
 int lti_launch(const R* Bin, R* X, const R* F, const R* st_in, R* st_out,
                const double* tabs, double* loc, double* G, const Geo& g,
@@ -474,7 +439,6 @@ __host__ __device__ constexpr int rts_join(int N) {
   return N <= 2 ? 256 : N == 4 ? 128 : 32;
 }
 __host__ __device__ constexpr int map_size(int N) { return 2 * N * N + N; }
-__host__ __device__ constexpr int state_size(int N) { return N * N + N; }
 
 template <typename R>
 struct RtsArgs {
@@ -517,31 +481,6 @@ struct Tile {
   static constexpr int XS = 2 * IN, PS = 2 * IN + SB * N;
   static constexpr int STRIDE = 2 * IN + (kOut ? SB * (N + N * N) : 0) + 1;
 };
-
-template <typename R>
-__device__ __forceinline__ void copy_async(R* dst, const R* src) {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "n"((int)sizeof(R))
-               : "memory");
-#else
-  *dst = *src;
-#endif
-}
-__device__ __forceinline__ void copy_commit() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;" ::: "memory");
-#endif
-}
-// wait until at most `Pending` of this thread's newest copy groups are
-// still in flight
-template <int Pending>
-__device__ __forceinline__ void copy_wait() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_group %0;" ::"n"(Pending) : "memory");
-#endif
-}
 
 // Copy W values a row of rows t_lo(qc) + o .. + SB - 1 of src (the lane's
 // rows from lrow) for each of the block's CB chunks qc into dst + qc
@@ -627,34 +566,6 @@ __device__ __forceinline__ void walk_staged(const RtsArgs<R>& a, R* tile, long l
     }
     __syncthreads();
     after(sb);
-  }
-}
-
-// Y <- M^-1 Y for M symmetric positive definite: forward elimination
-// without pivoting, then back substitution; M is overwritten.
-template <typename R, int N>
-__device__ __forceinline__ void spd_solve(R (&M)[N][N], R (&Y)[N][N]) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const R inv = quot(R(1), M[k][k]);
-#pragma unroll
-    for (int i = k + 1; i < N; ++i) {
-      const R f = mul(M[i][k], inv);
-#pragma unroll
-      for (int j = k; j < N; ++j) M[i][j] = sub(M[i][j], mul(f, M[k][j]));
-#pragma unroll
-      for (int j = 0; j < N; ++j) Y[i][j] = sub(Y[i][j], mul(f, Y[k][j]));
-    }
-  }
-#pragma unroll
-  for (int k = N - 1; k >= 0; --k) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      R s = Y[k][j];
-#pragma unroll
-      for (int l = k + 1; l < N; ++l) s = sub(s, mul(M[k][l], Y[l][j]));
-      Y[k][j] = quot(s, M[k][k]);
-    }
   }
 }
 
@@ -1077,15 +988,6 @@ rts_chunk_run(const RtsArgs<R> a, const double* __restrict__ maps,
             a.Ps[(l * g.T + t) * N * N + w] = tile[qc * Tl::STRIDE + Tl::PS + w];
         }
       });
-}
-
-// Raise a kernel's dynamic shared memory limit where it needs more than the
-// default 48 KB.
-template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
 }
 
 template <typename R, int N>

@@ -110,14 +110,20 @@ def preamble_score(power, sps: int = 2) -> torch.Tensor:
 def _pick(score: np.ndarray, n: int, sps: int, threshold: float,
           limit: int) -> np.ndarray:
     """The host frame walk: candidates above the threshold, one a frame
-    span (the better-scoring start kept while it leaves room for a frame)."""
-    frame = 16 * sps + 224 * sps
+    span; a later candidate replaces the span's start where it scores
+    higher, leaves room for a frame and lies within the start's preamble.
+    F10: JAX's walk (``solid_dsp_tpu/models/adsb.py:133-143``) lets any
+    candidate of the span replace it, so a window over the frame's last
+    pulses and quieter noise after them takes the frame's start."""
+    n_pre = 16 * sps
+    frame = n_pre + 224 * sps
     starts = []
     for t in np.nonzero(score > threshold)[0]:
         if len(starts) >= limit:
             break
         if starts and t - starts[-1] < frame:
-            if score[t] > score[starts[-1]] and int(t) + frame <= n:
+            if (t - starts[-1] < n_pre and score[t] > score[starts[-1]]
+                    and int(t) + frame <= n):
                 starts[-1] = int(t)
             continue
         if int(t) + frame <= n:

@@ -38,7 +38,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("ddc_fm.cu", "ddc_body.cu", "channelizer.cu", "iir_bank.cu",
            "windowed_fft.cu", "farrow.cu", "halo_frontend.cu", "seq_scan.cu",
-           "iir_scan.cu", "track_scan.cu", "track_chunks.cu", "bcjr_scan.cu",
+           "iir_scan.cu", "track_scan.cu", "track_chunks.cu", "track_forward.cu",
+           "bcjr_scan.cu",
            "viterbi_scan.cu", "cvsd_scan.cu", "gardner_scan.cu")
 ENGINES = ("auto", "cuda", "torch")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

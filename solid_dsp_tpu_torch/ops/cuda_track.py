@@ -1,23 +1,26 @@
 """The tracking and prediction recurrences on Hopper (S4, S5): wrappers of
-``csrc/track_scan.cu`` and ``csrc/track_chunks.cu``.
+``csrc/track_forward.cu``, ``csrc/track_chunks.cu`` and
+``csrc/track_scan.cu``.
 
 S4 is the Kalman filter's walk (``ops/kalman.py``, JAX
-``ops/kalman.py:43-124, 156-183``) in three entries:
-:func:`kalman_filter_cuda` (the predict/update walk, serving
-``kalman_apply`` and ``rts_smooth``'s forward pass, which also keeps the
-filtered covariances and the predictions; one thread a sequence,
-``track_scan.cu``), :func:`rts_backward_cuda` (the smoother's backward
-walk) and :func:`kalman_lti_cuda` (the steady-state x = F x + b, both of
-``kalman_lti_apply``'s routes), the last two time-parallel chunk-and-join
-kernels (``track_chunks.cu``): chunks walked from a zero state, joined in
-float64 (the LTI entry through powers of F built on the host,
-``linrec.join_tables``; the backward entry through the chunks' own maps x
--> M x + e, P -> M P M' + E, composed on the card), each chunk walked again
-from its true start.  S5 is the all-pole lattice
-(``analysis/lpc.py::lattice_iir``, JAX ``analysis/lpc.py:233-262``):
-:func:`lattice_iir_cuda`, one thread a lattice.  None replaces a TPU
-kernel: in the JAX package each is a ``lax.scan`` or an associative scan.
-The sources have the designs and their bounds.
+``ops/kalman.py:43-124, 156-183``) in three entries, each a time-parallel
+chunk-and-join kernel of three launches: :func:`kalman_filter_cuda` (the
+predict/update walk, serving ``kalman_apply`` and ``rts_smooth``'s forward
+pass, which also keeps the filtered covariances and the predictions;
+``track_forward.cu``: each chunk's filtering element, whose data-free
+parts :func:`forward_tables` builds on the host, joined in float64 on the
+card), :func:`rts_backward_cuda` (the smoother's backward walk) and
+:func:`kalman_lti_cuda` (the steady-state x = F x + b, both of
+``kalman_lti_apply``'s routes), the last two in ``track_chunks.cu``: chunks
+walked from a zero state, joined in float64 (the LTI entry through powers
+of F built on the host, ``linrec.join_tables``; the backward entry through
+the chunks' own maps x -> M x + e, P -> M P M' + E, composed on the card).
+Each entry walks every chunk again from its true start.  S5 is the
+all-pole lattice (``analysis/lpc.py::lattice_iir``, JAX
+``analysis/lpc.py:233-262``): :func:`lattice_iir_cuda`, one thread a
+lattice (``track_scan.cu``).  None replaces a TPU kernel: in the JAX
+package each is a ``lax.scan`` or an associative scan.  The sources have
+the designs and their bounds.
 
 Each wrapper takes CUDA tensors only, checks types and shapes, launches on
 the current stream, raises if the launch fails (``cuda_build.check_launch``)
@@ -33,9 +36,10 @@ back.  The Kalman kernels take n <= 8 states and m <= 8 measurements
 plain version and counts it on the wrapper's ``plain_routes``.  The plain
 versions are ``ops/kalman.py::kalman_walk_plain``, ``rts_backward_plain``
 and ``lti_walk_plain`` (the sequential walks a CPU tensor takes),
-``rts_backward_chunked_torch`` and ``lti_chunked_torch`` (the chunk-and-join
-kernels' association in torch ops, against which the card tests hold them)
-and ``analysis/lpc.py::lattice_iir_plain``.
+``kalman_forward_chunked_torch``, ``rts_backward_chunked_torch`` and
+``lti_chunked_torch`` (the chunk-and-join kernels' association in torch
+ops, against which the card tests hold them) and
+``analysis/lpc.py::lattice_iir_plain``.
 """
 
 from __future__ import annotations
@@ -52,8 +56,9 @@ from .linrec import chunk_rows, host_values, join_tables, rounded
 
 __all__ = ["kalman_filter_cuda", "rts_backward_cuda", "kalman_lti_cuda",
            "lattice_iir_cuda", "fits", "bucket", "lti_chunk", "lti_geometry",
-           "rts_geometry", "rts_min_chunk", "MAX_STATES", "LATTICE_ORDERS", "LTI_THREADS",
-           "RTS_CHUNK"]
+           "rts_geometry", "rts_min_chunk", "forward_tables", "fwd_sub",
+           "fwd_geometry", "MAX_STATES", "LATTICE_ORDERS", "LTI_THREADS",
+           "RTS_CHUNK", "FWD_CHUNK"]
 
 MAX_STATES = 8           # n and m a Kalman kernel takes
 # the lattice's register buckets; orders above the last run the generic
@@ -61,7 +66,8 @@ MAX_STATES = 8           # n and m a Kalman kernel takes
 LATTICE_ORDERS = (4, 8, 16, 32, 64)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_KF_ARGS = (_P,) * 11 + (_I, _LL, _I, _I, _I, _P)
+# the forward entry: pointers, lanes, T, N, M, Lc, tl, rl, device, stream
+_FWD_ARGS = (_P,) * 16 + (_I, _LL) + (_I,) * 6 + (_P,)
 # the chunk-and-join entries: pointers, lanes, T, N, Lc, tl, rl, device,
 # stream
 _LTI_ARGS = (_P,) * 8 + (_I, _LL) + (_I,) * 5 + (_P,)
@@ -125,52 +131,6 @@ def _shape(name: str, t: torch.Tensor, shape: tuple, what: str):
     if tuple(t.shape) != shape:
         raise ValueError(f"{name}: {what} must be {shape}, got "
                          f"{tuple(t.shape)}")
-
-
-def kalman_filter_cuda(x: torch.Tensor, P: torch.Tensor, Z: torch.Tensor,
-                       A: torch.Tensor, C: torch.Tensor, Q: torch.Tensor,
-                       R: torch.Tensor, keep: bool = False):
-    """S4's forward entry over Z (T, m) on one card, float32 or float64: x
-    (n,), P (n, n), A (n, n), C (m, n), Q (n, n), R (m, m), n and m at most
-    ``MAX_STATES``.  Returns (X (T, n), x_T, P_T) and, with ``keep``, also
-    (Pf (T, n, n), Xp (T, n), Pp (T, n, n)); adds one to ``launches``."""
-    name = "kalman_filter_cuda"
-    _check(name, _REAL, Z, x, P, A, C, Q, R)
-    T, m = (int(s) for s in Z.shape)
-    n = int(A.shape[0])
-    if not fits(n, m) or T < 1:
-        raise ValueError(f"{name} takes 1 <= n, m <= {MAX_STATES} and T >= "
-                         f"1, got n={n}, m={m}, T={T}")
-    for t, shape, what in ((x, (n,), "x"), (P, (n, n), "P"),
-                           (A, (n, n), "A"), (C, (m, n), "C"),
-                           (Q, (n, n), "Q"), (R, (m, m), "R")):
-        _shape(name, t, shape, what)
-    dev = Z.device
-    N, M = bucket(n), bucket(m)
-    x1 = _pad(x, (N,))
-    P1 = _pad(P, (N, N))
-    X = torch.empty((T, N), dtype=Z.dtype, device=dev)
-    kept = ((torch.empty((T, N, N), dtype=Z.dtype, device=dev),
-             torch.empty((T, N), dtype=Z.dtype, device=dev),
-             torch.empty((T, N, N), dtype=Z.dtype, device=dev))
-            if keep else ())
-    ptrs = [t.data_ptr() for t in kept] or [None] * 3
-    ops = [_pad(Z, (T, M)), _pad(A, (N, N)), _pad(C, (M, N)),
-           _pad(Q, (N, N)), _pad(R, (M, M), diag=True)]
-    fn = launcher("track_scan.cu", f"kf_forward_{_REAL[Z.dtype]}", _KF_ARGS)
-    check_launch(fn(*(t.data_ptr() for t in ops), x1.data_ptr(),
-                    P1.data_ptr(), X.data_ptr(), *ptrs, 1, T, N, M,
-                    dev.index, stream_of(Z)), name)
-    kalman_filter_cuda.launches += 1
-    outs = [_cut(X, (T, n)), _cut(x1, (n,)), _cut(P1, (n, n))]
-    if keep:
-        Pf, Xp, Pp = kept
-        outs += [_cut(Pf, (T, n, n)), _cut(Xp, (T, n)), _cut(Pp, (T, n, n))]
-    return tuple(outs)
-
-
-kalman_filter_cuda.launches = 0
-kalman_filter_cuda.plain_routes = 0
 
 
 # csrc/track_chunks.cu's geometry: chunks a block of the LTI entry's
@@ -291,6 +251,167 @@ def rts_backward_cuda(Xf: torch.Tensor, Pf: torch.Tensor, Xp: torch.Tensor,
 
 
 rts_backward_cuda.launches = 0
+
+
+def forward_tables(A: np.ndarray, C: np.ndarray, Q: np.ndarray,
+                   R: np.ndarray, chunk: int):
+    """The forward entry's tables for a model (numpy float64: A (n, n), C
+    (m, n), Q (n, n), R (m, m)) and a chunk of ``chunk`` steps.  Step t's
+    filtering element (Sarkka and Garcia-Fernandez's: the conditional
+    x_t | x_{t-1}, z_t = N(As x_{t-1} + K z_t, Cs) and the likelihood of z_t
+    in information form over x_{t-1}, eta = G z_t, Js) has S = C Q C' + R,
+    K = Q C' S^-1, As = (I - K C) A, Cs = (I - K C) Q, G = A' C' S^-1 and
+    Js = G C A; only (b, eta) depend on z.  Composing ``chunk`` such steps
+    gives a chunk's element, whose (A, C, J) parts are the same for every
+    full chunk and whose (b, eta) are sums of its measurements: b = sum_i
+    Wb[i] z_i, eta = sum_i We[i] z_i.  Returns (Ac, Cc, Jc, Wb, We), Wb and
+    We (chunk, n, m).  No inverse of A is taken: each composition solves
+    I + C J, whose eigenvalues are at least 1."""
+    n = A.shape[0]
+    eye = np.eye(n)
+    S = C @ Q @ C.T + R
+    K = np.linalg.solve(S.T, C @ Q.T).T
+    G = np.linalg.solve(S.T, C @ A).T
+    As = (eye - K @ C) @ A
+    Cs = (eye - K @ C) @ Q
+    Cs = (Cs + Cs.T) / 2
+    Js = G @ C @ A
+    Js = (Js + Js.T) / 2
+    Ae, Ce, Je, Wb, We = As, Cs, Js, K[None], G[None]
+    for _ in range(1, chunk):
+        W = np.linalg.inv(eye + Ce @ Js)
+        T1 = As @ W
+        U = Ae.T @ W.T
+        We = np.concatenate([We - U @ Js @ Wb, (U @ G)[None]])
+        Wb = np.concatenate([T1 @ Wb, (T1 @ Ce @ G + K)[None]])
+        Ae, Ce, Je = T1 @ Ae, T1 @ Ce @ As.T + Cs, U @ Js @ Ae + Je
+    return Ae, Ce, Je, Wb, We
+
+
+# csrc/track_forward.cu's geometry: the chunk length (torch_kernel_sweep.py
+# s4) and the sub-batch budget of its staging, bytes a chunk
+FWD_CHUNK = 32
+_FWD_TILE_BYTES = 384
+
+
+def fwd_sub(dtype: torch.dtype, N: int, M: int, keep: bool) -> int:
+    """The forward entry's staging sub-batch at the padded sizes N, M: the
+    power of two (at most 32) of steps whose two buffers of measurements
+    (M values a step) and outputs (X, and with ``keep`` Pf, Xp and Pp) fill
+    ~384 bytes a chunk (track_forward.cu's fwd_sub)."""
+    size = torch.empty(0, dtype=dtype).element_size()
+    per = (_FWD_TILE_BYTES // size) // (
+        2 * M + N + (2 * N * N + N if keep else 0))
+    return 1 << min(5, max(0, per.bit_length() - 1))
+
+
+def fwd_geometry(T: int, N: int, chunk: int):
+    """(nc, ng, tl, rl) of one forward launch over T steps at the padded
+    size N: nc chunks of ``chunk`` steps in ng groups of 128 (32 at N = 8,
+    where a chunk's element of 3N^2 + 2N float64 values would overflow a
+    block's shared memory), pass 2's 2^tl threads a lane (at most 256, 64
+    at N = 4, 16 at N = 8) each a run of 2^rl groups."""
+    nc = -(-T // chunk)
+    ng = -(-nc // (128 if N <= 4 else 32))
+    tl, rl = _runs(max(ng - 1, 1), 256 if N <= 2 else 64 if N == 4 else 16)
+    return nc, ng, tl, rl
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_tables(model: bytes, n: int, m: int, N: int, M: int, chunk: int,
+                device: torch.device) -> torch.Tensor:
+    """:func:`forward_tables` of the model whose float64 values (A, C, Q, R,
+    already rounded to the working type) are ``model``, padded to N, M and
+    laid out as the kernel reads them (Ac, Cc, Jc (N, N), Wb, We (chunk, N,
+    M)), on ``device``; built once per model, chunk and device."""
+    v = np.frombuffer(model, np.float64)
+    sizes = (n * n, m * n, n * n, m * m)
+    A, C, Q, R = (a.reshape(s) for a, s in zip(
+        np.split(v, np.cumsum(sizes)[:-1]), ((n, n), (m, n), (n, n), (m, m))))
+    Ac, Cc, Jc, Wb, We = forward_tables(A, C, Q, R, chunk)
+    mats = np.zeros((3, N, N))
+    mats[:, :n, :n] = (Ac, Cc, Jc)
+    W = np.zeros((2, chunk, N, M))
+    W[:, :, :n, :m] = (Wb, We)
+    return torch.from_numpy(np.concatenate([mats.ravel(), W.ravel()])).to(
+        device)
+
+
+def kalman_filter_cuda(x: torch.Tensor, P: torch.Tensor, Z: torch.Tensor,
+                       A: torch.Tensor, C: torch.Tensor, Q: torch.Tensor,
+                       R: torch.Tensor, keep: bool = False,
+                       chunk: int = FWD_CHUNK, host=None):
+    """S4's forward entry over Z ([L,] T, m) on one card, float32 or
+    float64: x ([L,] n), P ([L,] n, n), A (n, n), C (m, n), Q (n, n), R (m,
+    m), n and m at most ``MAX_STATES``, L lanes each its own sequence.
+    Returns (X ([L,] T, n), x_T, P_T) and, with ``keep``, also (Pf ([L,] T,
+    n, n), Xp ([L,] T, n), Pp ([L,] T, n, n)).  Chunks of ``chunk`` steps (a
+    power of two; at least the kernel's sub-batch, :func:`fwd_sub` without
+    ``keep``); ``host``, where given, holds the model's values (numpy, or
+    the tensors they came from; else ``linrec.host_values`` reads A, C, Q,
+    R once per tensor) for the tables of :func:`forward_tables`.  Adds one
+    to ``launches``."""
+    name = "kalman_filter_cuda"
+    _check(name, _REAL, Z, x, P, A, C, Q, R)
+    L, lead = _lanes(name, Z, 2)
+    T, m = (int(s) for s in Z.shape[-2:])
+    n = int(A.shape[0])
+    if not fits(n, m) or T < 1:
+        raise ValueError(f"{name} takes 1 <= n, m <= {MAX_STATES} and T >= "
+                         f"1, got n={n}, m={m}, T={T}")
+    for t, shape, what in ((x, lead + (n,), "x"), (P, lead + (n, n), "P"),
+                           (A, (n, n), "A"), (C, (m, n), "C"),
+                           (Q, (n, n), "Q"), (R, (m, m), "R")):
+        _shape(name, t, shape, what)
+    dev, dt = Z.device, Z.dtype
+    N, M = bucket(n), bucket(m)
+    least = fwd_sub(dt, N, M, False)
+    if chunk < least or chunk & (chunk - 1):
+        raise ValueError(f"{name}: chunk must be a power of two of at least "
+                         f"{least} steps")
+    nc, ng, tl, rl = fwd_geometry(T, N, chunk)
+    tabs = None
+    if nc > 1:
+        model = np.concatenate([host_values(h).ravel()
+                                for h in host or (A, C, Q, R)])
+        tabs = _fwd_tables(rounded(model, dt).tobytes(), n, m, N, M, chunk,
+                           dev)
+    ops = [_operand(Z.reshape(L, T, m), (L, T, M)), _operand(A, (N, N)),
+           _operand(C, (M, N)), _operand(Q, (N, N)),
+           _operand(R, (M, M), diag=True), _operand(x.reshape(L, n), (L, N)),
+           _operand(P.reshape(L, n, n), (L, N, N))]
+    X = torch.empty((L, T, N), dtype=dt, device=dev)
+    xo = torch.empty((L, N), dtype=dt, device=dev)
+    Po = torch.empty((L, N, N), dtype=dt, device=dev)
+    kept = ((torch.empty((L, T, N, N), dtype=dt, device=dev),
+             torch.empty((L, T, N), dtype=dt, device=dev),
+             torch.empty((L, T, N, N), dtype=dt, device=dev))
+            if keep else ())
+    f64 = dict(dtype=torch.float64, device=dev)
+    elems = torch.empty(L * nc * (3 * N * N + 2 * N), **f64)
+    starts = torch.empty(L * max(ng - 1, 1) * (N * N + N), **f64)
+    fn = launcher("track_forward.cu", f"kf_forward_chunked_{_REAL[dt]}",
+                  _FWD_ARGS)
+    check_launch(fn(*(t.data_ptr() for t in ops), X.data_ptr(),
+                    xo.data_ptr(), Po.data_ptr(),
+                    *([t.data_ptr() for t in kept] or [None] * 3),
+                    None if tabs is None else tabs.data_ptr(),
+                    elems.data_ptr(), starts.data_ptr(), L, T, N, M, chunk,
+                    tl, rl, dev.index, stream_of(Z)), name)
+    kalman_filter_cuda.launches += 1
+    outs = [_cut(X, (L, T, n)).reshape(*lead, T, n),
+            _cut(xo, (L, n)).reshape(*lead, n),
+            _cut(Po, (L, n, n)).reshape(*lead, n, n)]
+    if keep:
+        Pf, Xp, Pp = kept
+        outs += [_cut(Pf, (L, T, n, n)).reshape(*lead, T, n, n),
+                 _cut(Xp, (L, T, n)).reshape(*lead, T, n),
+                 _cut(Pp, (L, T, n, n)).reshape(*lead, T, n, n)]
+    return tuple(outs)
+
+
+kalman_filter_cuda.launches = 0
+kalman_filter_cuda.plain_routes = 0
 
 
 @functools.lru_cache(maxsize=64)

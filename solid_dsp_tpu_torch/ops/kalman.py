@@ -3,7 +3,7 @@
 Port of ``solid_dsp_tpu/ops/kalman.py``:
 
 * ``kalman_apply``: the full time-varying filter (predict/update with the
-  Riccati recursion carried), sequential;
+  Riccati recursion carried);
 * ``rts_smooth``: that filter forward, then the Rauch-Tung-Striebel pass
   backward;
 * ``steady_state_gain``: the asymptotic gain on the host (numpy float64);
@@ -11,24 +11,27 @@ Port of ``solid_dsp_tpu/ops/kalman.py``:
   ``"scan"`` (sequential) or ``"parallel"`` (``linrec.affine_scan`` in
   torch ops) on a CPU tensor, both S4's LTI entry on a CUDA tensor;
 * ``make_kalman_lti``: the same filter by modal decomposition, n scalar
-  recurrences on ``linrec.chunked_first_order`` and full-float32 products;
+  recurrences on ``linrec.chunked_first_order`` and full-float32 products
+  (on a CUDA tensor, S4's LTI entry);
 * ``cv_model``, ``alpha_beta_gains`` and ``AlphaBetaTracker``.
 
-The recursions are S4, CUDA kernels (``ops/cuda_track.py``): on a CUDA
-tensor the filter's walk (``csrc/track_scan.cu``, one thread a sequence),
-the smoother's backward walk and both routes of ``kalman_lti_apply``
-(``csrc/track_chunks.cu``, time-parallel chunk-and-join kernels) launch
-them.  A CPU tensor takes the plain versions here: the sequential walks
-:func:`kalman_walk_plain`, :func:`rts_backward_plain` and
-:func:`lti_walk_plain` (``"scan"``), or ``affine_scan`` (``"parallel"``),
-so that each route is held against JAX's route of the same name.
+The recursions are S4, CUDA kernels (``ops/cuda_track.py``), time-parallel
+chunk-and-join kernels that a CUDA tensor launches: the filter's forward
+walk (``csrc/track_forward.cu``, Sarkka and Garcia-Fernandez's filtering
+elements joined in float64), the smoother's backward walk and both routes
+of ``kalman_lti_apply`` and of ``make_kalman_lti``'s apply
+(``csrc/track_chunks.cu``).  A CPU tensor takes the plain versions here:
+the sequential walks :func:`kalman_walk_plain`, :func:`rts_backward_plain`
+and :func:`lti_walk_plain` (``"scan"``), or ``affine_scan``
+(``"parallel"``), and the modal route, so that each route is held against
+JAX's route of the same name.  :func:`kalman_forward_chunked_torch`,
 :func:`lti_chunked_torch` and :func:`rts_backward_chunked_torch` are the
-chunk-and-join kernels' association in torch ops (vectorised over chunks,
-each chunk's steps in the kernels' order of operations), against which the
-card tests and ``chip_smoke.py`` hold the kernels; nothing on the card's
-main path runs them.  The kernels take n <= 8 states and m <= 8
-measurements (``cuda_track.fits``); a CUDA tensor of a larger model takes
-the plain version on the card, counted on the wrapper's ``plain_routes``.
+kernels' association in torch ops (vectorised over chunks, each chunk's
+steps in the kernels' order of operations), against which the card tests
+and ``chip_smoke.py`` hold the kernels; nothing on the card's main path
+runs them.  The kernels take n <= 8 states and m <= 8 measurements
+(``cuda_track.fits``); a CUDA tensor of a larger model takes the plain
+version on the card, counted on the wrapper's ``plain_routes``.
 
 F3 (the JAX package's ``make_kalman_lti`` transposes any (1, m) gain, which
 is wrong for a one-state system with several measurements) is met here:
@@ -50,7 +53,8 @@ __all__ = ["kalman_init", "kalman_apply", "rts_smooth",
            "steady_state_gain", "kalman_lti_apply", "make_kalman_lti",
            "alpha_beta_gains", "AlphaBetaTracker", "cv_model",
            "kalman_walk_plain", "rts_backward_plain", "lti_walk_plain",
-           "lti_chunked_torch", "rts_backward_chunked_torch"]
+           "lti_chunked_torch", "rts_backward_chunked_torch",
+           "kalman_forward_chunked_torch"]
 
 
 def kalman_init(x0, P0, device=None):
@@ -102,6 +106,112 @@ def kalman_walk_plain(x, P, Z, A, C, Q, R, keep: bool = False):
     return (X, x, P) + ((Pf, Xp, Pp) if keep else ())
 
 
+def _kf_step(x, P, z, A, C, Q, R):
+    """One predict/update in the forward kernel's order (each sum left to
+    right, every product and sum rounded on its own, the gain by
+    :func:`_solve_in_order`) for states x (..., n), P (..., n, n) and
+    measurements z (..., m): (x, P, xp, Pp)."""
+    n = A.shape[-1]
+    xp = _seq_dot(A, x[..., None, :])
+    AP = _seq_dot(A[:, None, :], P.transpose(-1, -2)[..., None, :, :])
+    Pp = _seq_dot(AP[..., :, None, :], A) + Q
+    Y = _seq_dot(Pp[..., None, :, :], C[:, None, :])        # (P- C')'
+    St = _seq_dot(C, Y[..., :, None, :]) + R.T              # (C P- C' + R)'
+    Kt = _solve_in_order(St, Y).transpose(-1, -2)           # K (..., n, m)
+    v = z - _seq_dot(C, xp[..., None, :])
+    x2 = xp + _seq_dot(Kt, v[..., None, :])
+    IKC = (torch.eye(n, dtype=A.dtype, device=A.device)
+           - _seq_dot(Kt[..., :, None, :], C.T))
+    P2 = _seq_dot(IKC[..., :, None, :], Pp.transpose(-1, -2)[..., None, :, :])
+    return x2, P2, xp, Pp
+
+
+def _mv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def _element_after(earlier, later):
+    """Two filtering elements (A, b, C, eta, J) composed in float64,
+    ``earlier`` applied first (Sarkka and Garcia-Fernandez's combination):
+    W = (I + C1 J2)^-1, A = A2 W A1, b = A2 W (b1 + C1 eta2) + b2, C = A2 W
+    C1 A2' + C2, eta = A1' W' (eta2 - J2 b1) + eta1, J = A1' W' J2 A1 +
+    J1."""
+    A1, b1, C1, e1, J1 = earlier
+    A2, b2, C2, e2, J2 = later
+    eye = torch.eye(A1.shape[-1], dtype=A1.dtype, device=A1.device)
+    W = torch.linalg.inv(eye + C1 @ J2)
+    T1 = A2 @ W
+    U = A1.transpose(-1, -2) @ W.transpose(-1, -2)
+    return (T1 @ A1, _mv(T1, b1 + _mv(C1, e2)) + b2,
+            T1 @ C1 @ A2.transpose(-1, -2) + C2,
+            _mv(U, e2 - _mv(J2, b1)) + e1, U @ J2 @ A1 + J1)
+
+
+def _element_apply(el, x, P):
+    """The state (x, P) before an element's first step carried through it:
+    W = (I + P J)^-1, x = A W (x + P eta) + b, P = A W P A' + C."""
+    A, b, C, e, J = el
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    T1 = A @ torch.linalg.inv(eye + P @ J)
+    return (_mv(T1, x + _mv(P, e)) + b,
+            T1 @ P @ A.transpose(-1, -2) + C)
+
+
+def kalman_forward_chunked_torch(x, P, Z, A, C, Q, R, keep: bool = False,
+                                 chunk: int | None = None):
+    """The forward kernel's association of the filter's walk in torch ops,
+    the same arguments and results as :func:`kalman_walk_plain` (model
+    tensors of Z's type, T >= 1), with an optional leading lane axis on x, P
+    and Z.  The T steps are cut into chunks of ``chunk`` steps
+    (``cuda_track.FWD_CHUNK``); each full chunk's filtering element is its
+    (A, C, J) parts from ``cuda_track.forward_tables`` and its (b, eta)
+    summed from its measurements in float64; the chunks' starts (x, P) are
+    joined in float64 from the carried state (a doubling scan of the
+    elements); each chunk is walked again from its start rounded once to the
+    working type, in the kernel's order of operations (:func:`_kf_step`).
+    It differs from the kernel only by the order of the float64 sums."""
+    dt = Z.dtype
+    T, m = (int(v) for v in Z.shape[-2:])
+    n = A.shape[-1]
+    lead = tuple(Z.shape[:-2])
+    x, P = x.to(Z.device, dt), P.to(Z.device, dt)
+    Lc = chunk or cuda_track.FWD_CHUNK
+    nc = -(-T // Lc)
+    xs, Ps = x[None], P[None]
+    if nc > 1:
+        f64 = dict(dtype=torch.float64, device=Z.device)
+        vals = [linrec.rounded(linrec.host_values(a), dt).reshape(a.shape)
+                for a in (A, C, Q, R)]
+        Ac, Cc, Jc, Wb, We = (torch.from_numpy(t).to(**f64) for t in
+                              cuda_track.forward_tables(*vals, Lc))
+        zc = Z[..., :(nc - 1) * Lc, :].to(torch.float64).reshape(
+            *lead, nc - 1, Lc, m).movedim(len(lead), 0)
+        mats = [t.expand(nc - 1, *lead, n, n) for t in (Ac, Cc, Jc)]
+        pre = linrec.associative_scan(_element_after, (
+            mats[0], torch.einsum("inj,...ij->...n", Wb, zc), mats[1],
+            torch.einsum("inj,...ij->...n", We, zc), mats[2]))
+        xj, Pj = _element_apply(pre, x.to(torch.float64),
+                                P.to(torch.float64))
+        xs, Ps = torch.cat([xs, xj.to(dt)]), torch.cat([Ps, Pj.to(dt)])
+    zp = torch.cat([Z, Z.new_zeros(lead + (nc * Lc - T, m))], dim=-2)
+    zp = zp.reshape(*lead, nc, Lc, m).movedim(len(lead), 0)
+    ops = [a.to(Z.device, dt) for a in (A, C, Q, R)]
+    outs = []
+    for i in range(Lc):
+        xs, Ps, xp, Pp = _kf_step(xs, Ps, zp[..., i, :], *ops)
+        outs.append((xs, Ps, xp, Pp) if keep else (xs, Ps))
+    k = len(lead)
+
+    def time_order(vs):
+        """Per-step outputs (each (nc, *lead, ...)) as (*lead, T, ...)."""
+        v = torch.stack(vs, 1 + k).movedim(0, k)
+        return v.flatten(k, k + 1).narrow(k, 0, T)
+    cols = [time_order(c) for c in zip(*outs)]
+    X, Pf = cols[0], cols[1]
+    return (X, X[..., -1, :], Pf[..., -1, :, :]) + (
+        (Pf, cols[2], cols[3]) if keep else ())
+
+
 def _use_s4(t: torch.Tensor, n: int, m: int, counter) -> bool:
     """Whether S4 runs: a CUDA tensor of a model that fits the kernel; a
     CUDA tensor of a larger model adds one to ``counter.plain_routes``."""
@@ -117,12 +227,14 @@ def kalman_apply(state, Z, A, C, Q, R):
     """The full Kalman filter over a block: state (x (n,), P (n, n)), Z
     (T, m) or (T,) -> (X_est (T, n), new state).  x- = A x, P- = A P A' +
     Q, S = C P- C' + R, K = P- C' S^-1, x = x- + K (z - C x-), P = (I - K
-    C) P-.  S4's forward entry on a CUDA tensor."""
+    C) P-.  S4's forward entry (time-parallel) on a CUDA tensor."""
     x, P = state
+    host = (A, C, Q, R)
     Z2, A, C, Q, R, dt = _model(Z, x, A, C, Q, R)
     x, P = x.to(Z2.device, dt), P.to(Z2.device, dt)
     if _use_s4(Z2, A.shape[-1], C.shape[0], cuda_track.kalman_filter_cuda):
-        X, x, P = cuda_track.kalman_filter_cuda(x, P, Z2, A, C, Q, R)
+        X, x, P = cuda_track.kalman_filter_cuda(x, P, Z2, A, C, Q, R,
+                                                host=host)
         return X, (x, P)
     X, x, P = kalman_walk_plain(x, P, Z2, A, C, Q, R)
     return X, (x, P)
@@ -155,14 +267,12 @@ def _seq_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _rts_gain(Pf, Pp, A):
-    """The backward kernel's gain as Y = G' (Y[j, c] = G[c, j]) for steps
-    Pf, Pp (..., n, n): Y = (P_t A')' by sequential sums, then solved
-    against (P-_{t+1})' by elimination without pivoting, the kernel's
-    ``spd_solve`` order."""
-    n = A.shape[-1]
-    Y = _seq_dot(Pf[..., None, :, :], A[:, None, :])
-    M = Pp.transpose(-1, -2).clone()
+def _solve_in_order(M, Y):
+    """M^-1 Y for M (..., k, k) symmetric positive definite and Y (..., k,
+    c): elimination without pivoting, then back substitution, every
+    operation rounded on its own (the kernels' ``spd_solve`` order)."""
+    M, Y = M.clone(), Y.clone()
+    n = M.shape[-1]
     for k in range(n):
         inv = torch.ones_like(M[..., k, k]) / M[..., k, k]
         for i in range(k + 1, n):
@@ -175,6 +285,14 @@ def _rts_gain(Pf, Pp, A):
             s = s - M[..., k, j, None] * Y[..., j, :]
         Y[..., k, :] = s / M[..., k, k, None]
     return Y
+
+
+def _rts_gain(Pf, Pp, A):
+    """The backward kernel's gain as Y = G' (Y[j, c] = G[c, j]) for steps
+    Pf, Pp (..., n, n): Y = (P_t A')' by sequential sums, then solved
+    against (P-_{t+1})' (:func:`_solve_in_order`)."""
+    Y = _seq_dot(Pf[..., None, :, :], A[:, None, :])
+    return _solve_in_order(Pp.transpose(-1, -2), Y)
 
 
 def _rts_step(Y, xf, Pf, xp, Pp, x, P):
@@ -272,14 +390,15 @@ def rts_smooth(state, Z, A, C, Q, R):
     """Rauch-Tung-Striebel fixed-interval smoother over a block: the
     forward filter (``kalman_apply``'s model arguments), then the backward
     pass.  Returns (Xs (T, n), Ps (T, n, n)), every step smoothed by all T
-    measurements.  Both passes are S4 on a CUDA tensor (the backward one
-    time-parallel)."""
+    measurements.  Both passes are S4 on a CUDA tensor, each
+    time-parallel."""
     x, P = state
+    host = (A, C, Q, R)
     Z2, A, C, Q, R, dt = _model(Z, x, A, C, Q, R)
     x, P = x.to(Z2.device, dt), P.to(Z2.device, dt)
     if _use_s4(Z2, A.shape[-1], C.shape[0], cuda_track.kalman_filter_cuda):
         Xf, _, _, Pf, Xp, Pp = cuda_track.kalman_filter_cuda(
-            x, P, Z2, A, C, Q, R, keep=True)
+            x, P, Z2, A, C, Q, R, keep=True, host=host)
         return cuda_track.rts_backward_cuda(Xf, Pf, Xp, Pp, A)
     Xf, _, _, Pf, Xp, Pp = kalman_walk_plain(x, P, Z2, A, C, Q, R, keep=True)
     return rts_backward_plain(Xf, Pf, Xp, Pp, A)
@@ -412,7 +531,10 @@ def make_kalman_lti(K, F, chunk: int = 256):
     ``F`` (n, n) are host arrays (the gain oriented by F: F3).  A defective
     F (cond(V) > 1e8) takes ``kalman_lti_apply(method="parallel")`` with K
     and F rounded to float32, as the JAX package does.  The products run at
-    full float32; ``apply`` runs where Z lies."""
+    full float32; ``apply`` runs where Z lies: on a CUDA tensor it is S4's
+    LTI entry (``kalman_lti_apply`` with K and F rounded to Z's type), the
+    same filter walked time-parallel, where the modal route takes ~20-30 ms
+    of torch ops at 2^22 on an H100."""
     F = np.asarray(F, np.float64)
     n = F.shape[0]
     K = _oriented_gain(K, n)
@@ -441,6 +563,9 @@ def make_kalman_lti(K, F, chunk: int = 256):
 
     def apply(x0, Z):
         Z = torch.as_tensor(Z)
+        if use_kernel("auto", Z):
+            return kalman_lti_apply(
+                torch.as_tensor(x0, device=Z.device, dtype=Z.dtype), Z, K, F)
         Z2 = Z[:, None] if Z.dim() == 1 else Z
         rdt, dev = Z2.dtype, Z2.device
         x0 = torch.as_tensor(x0, device=dev, dtype=rdt)

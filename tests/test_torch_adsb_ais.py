@@ -128,6 +128,38 @@ def test_decode_streams_match_jax():
     assert adsb.decode(np.zeros(500, np.float32), device=CPU) == []
 
 
+def test_f10_a_frames_tail_does_not_take_its_start():
+    """F10: a frame in noise, then quieter noise.  The window over the
+    frame's last pulses and the quiet samples after them scores higher than
+    the frame's preamble; JAX's walk swaps the start for it and the frame
+    fails its CRC.  The port replaces a start only within its preamble and
+    decodes the frame; elsewhere both walks pick the same starts."""
+    rng = np.random.default_rng(3)
+    env = adsb.ppm_modulate(adsb.encode_df17(0xABCDEF,
+                                             rng.integers(0, 2, 56)))
+    lead = 200
+    power = np.concatenate([0.05 * rng.random(lead + len(env)),
+                            0.005 * rng.random(2000)]).astype(np.float32)
+    power[lead: lead + len(env)] += env
+    score = _np(adsb.preamble_score(torch.from_numpy(power)))
+    tail = np.nonzero(score > 0.7)[0]
+    tail = tail[(tail > lead + 32) & (tail < lead + len(env))]
+    assert tail.size and score[tail].max() > score[lead]
+    want = jadsb.decode(power)
+    assert len(want) == 1 and want[0]["start"] in tail
+    assert not want[0]["crc_ok"]
+    got = adsb.decode(power, device=CPU)
+    assert [(f["start"], f["crc_ok"], f["icao"]) for f in got] == [
+        (lead, True, 0xABCDEF)]
+    # a stationary stream: the two walks agree
+    stream = 0.05 * rng.random(20000).astype(np.float32)
+    for s in (1500, 6000, 12000):
+        stream[s: s + len(env)] += env
+    np.testing.assert_array_equal(
+        adsb.detect_preambles(stream, threshold=0.6, device=CPU),
+        jadsb.detect_preambles(stream, threshold=0.6))
+
+
 def test_ais_framing_matches_jax():
     data = np.unpackbits(np.frombuffer(b"123456789", np.uint8)[:, None],
                          axis=1, bitorder="little").reshape(-1)

@@ -36,9 +36,11 @@ IIR classes and zero-phase filters on the card within 1e-5 of max (float32
 convolution, which cuDNN sums in another order) or 1e-12 (float64) of the
 CPU's.  The CLI's ``rx`` on the card writes exactly what ``RxChain`` on the
 card returns for the same blocks (bit-equal), through K1.  S4 (the Kalman
-walks of csrc/track_scan.cu: forward, RTS backward, LTI) within rtol 1e-9
-(float64) or 1e-4 (float32) of its plain walks at n, m up to 8, and S5 (the
-all-pole lattice) the same in all four types at orders 1 to 80.  S6 (turbo's
+walks: forward, RTS backward, LTI, each a chunk-and-join kernel) within
+rtol 1e-9 (float64) or 1e-4 (float32) of its plain walks at n, m up to 8
+and within 1e-11 or 1e-5 of its chunked plain version, and S5 (the
+all-pole lattice, csrc/track_scan.cu) the same as the walks in all four
+types at orders 1 to 80.  S6 (turbo's
 max-log BCJR walk, csrc/bcjr_scan.cu) within 1e-4 max(1, max|LLR|) of its
 plain version, hard bits equal above that, at K = 40 to 6144, batch 1 and
 128; turbo decoding on the card recovers every bit at the sweep's Eb/N0.
@@ -1803,16 +1805,17 @@ def test_cli_rx_equals_rx_chain_on_card(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# S4 (the Kalman recursions: the forward walk and S5, the all-pole lattice,
-# in csrc/track_scan.cu; the backward and LTI chunk-and-join entries in
-# csrc/track_chunks.cu) against their plain versions on the card.
+# S4 (the Kalman recursions: the forward chunk-and-join entry in
+# csrc/track_forward.cu, the backward and LTI chunk-and-join entries in
+# csrc/track_chunks.cu) and S5 (the all-pole lattice, csrc/track_scan.cu)
+# against their plain versions on the card.
 # Tolerances: float64 within rtol 1e-9 of the plain walk (the solve and the
 # sums in another order); float32 within 1e-4 of each output's scale (the
 # Riccati recursion is contractive, so rounding does not grow); the chunked
 # entries against their chunked plain versions (the same association, only
 # the float64 join's sums in another order): LTI 1e-6 (float32) and 1e-12
 # (float64) of max|X| times max(1, g / 16) for F's transient gain g,
-# backward 1e-5 and 1e-11 of each output's max; S5 within 1e-9 (float64 /
+# forward and backward 1e-5 and 1e-11 of each output's max; S5 within 1e-9 (float64 /
 # complex128) and 1e-4 (float32 / complex64) of max|x|.
 
 _KF_SHAPES = [(1, 1), (1, 3), (2, 1), (3, 2), (4, 4), (5, 3), (8, 8)]
@@ -1998,6 +2001,97 @@ def test_s4_backward_chunks_match_chunked_plain_on_card(dt, n, m, case):
         Xw, Pw = kf.rts_backward_plain(Xf[1], Pf[1], Xp[1], Pp[1], ops[0])
         tol = 1e-9 if dt == torch.float64 else 1e-4
         assert _rel(Xs[1], Xw) <= tol and _rel(Ps[1], Pw) <= tol
+
+
+def _fwd_case_model(n, m, model, seed):
+    A, C, Q, R, _ = _kf_model(n, m, seed)
+    if model == "singular":
+        A[0] = 0.0
+    elif model == "walk":
+        # an unobserved random walk: P grows without bound
+        A, C = np.eye(n), np.zeros((m, n))
+        C[:, 0] = 1.0
+        if n > 1:
+            C[:, -1] = 0.0
+    return A, C, Q, R
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m", _KF_SHAPES)
+@pytest.mark.parametrize("case", ["one", "chunk_and_one", "groups", "runs",
+                                  "singular", "walk"])
+def test_s4_forward_chunks_match_chunked_plain_on_card(dt, n, m, case):
+    """S4's forward entry over two lanes (their own carried states, P0 of
+    10 I and 1e-6 I) against kalman_forward_chunked_torch at T of one step,
+    a chunk and one, several groups with a ragged end and, at its shortest
+    chunk, enough groups that pass 2 runs several a thread; a singular A
+    and an unobserved random walk; with and without the covariances kept,
+    one launch a call; against the sequential walk where T is short."""
+    from solid_dsp_tpu_torch.ops import cuda_track
+    from solid_dsp_tpu_torch.ops import kalman as kf
+
+    N, M = cuda_track.bucket(n), cuda_track.bucket(m)
+    cb, join = (128, 256 if N <= 2 else 64) if N <= 4 else (32, 16)
+    least = cuda_track.fwd_sub(dt, N, M, False)
+    chunk = least if case == "runs" else max(cuda_track.FWD_CHUNK, least)
+    T = {"one": 1, "chunk_and_one": chunk + 1, "groups": 2 * cb * chunk + 21,
+         "runs": (join + 2) * cb * chunk + 3, "singular": 301,
+         "walk": 301}[case]
+    dev = require_cuda()
+    A, C, Q, R = _fwd_case_model(n, m, case, 50 + n + 10 * m)
+    ops = [torch.from_numpy(a).to(dev, dt) for a in (A, C, Q, R)]
+    rng = np.random.default_rng(T + n)
+    Z = torch.from_numpy(rng.standard_normal((2, T, m))).to(dev, dt)
+    x0 = torch.from_numpy(rng.standard_normal((2, n))).to(dev, dt)
+    P0 = torch.stack([10.0 * torch.eye(n), 1e-6 * torch.eye(n)]).to(dev, dt)
+    ctol = 1e-11 if dt == torch.float64 else 1e-5
+    tol = 1e-9 if dt == torch.float64 else 1e-4
+    for keep in (False, True):
+        before = cuda_track.kalman_filter_cuda.launches
+        got = cuda_track.kalman_filter_cuda(x0, P0, Z, *ops, keep=keep,
+                                            chunk=chunk)
+        assert cuda_track.kalman_filter_cuda.launches == before + 1
+        want = kf.kalman_forward_chunked_torch(x0, P0, Z, *ops, keep=keep,
+                                               chunk=chunk)
+        assert len(got) == len(want) == (6 if keep else 3)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == dt
+            assert _rel(g, w) <= ctol
+    if T <= 301:
+        for i in range(2):
+            walk = kf.kalman_walk_plain(x0[i], P0[i], Z[i], *ops, keep=True)
+            for g, w in zip(got, walk):
+                assert _rel(g[i], w) <= tol
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_make_kalman_lti_takes_s4_lti_entry_on_card(dt):
+    """make_kalman_lti's apply on a CUDA tensor is S4's LTI entry, one
+    launch a call (counted as "parallel"), for real and complex modes,
+    within 1e-4 (float32) or 1e-9 (float64) of the sequential walk."""
+    from solid_dsp_tpu_torch.ops import cuda_track
+    from solid_dsp_tpu_torch.ops import kalman as kf
+
+    dev = require_cuda()
+    A, C, Q, R = kf.cv_model(1.0, 0.05, 1.0)
+    K, F = kf.steady_state_gain(A, C, Q, R)
+    rot = 0.97 * np.array([[np.cos(0.3), -np.sin(0.3)],
+                           [np.sin(0.3), np.cos(0.3)]])
+    rng = np.random.default_rng(61)
+    z = torch.from_numpy(rng.standard_normal(3000)).to(dev, dt)
+    x0 = torch.from_numpy(rng.standard_normal(2)).to(dev, dt)
+    tol = 1e-9 if dt == torch.float64 else 1e-4
+    for KK, FF in ((K, F), (np.array([[0.3], [0.1]]), rot)):
+        apply = kf.make_kalman_lti(KK, FF)
+        before = cuda_track.kalman_lti_cuda.launches
+        par = cuda_track.kalman_lti_cuda.parallel_launches
+        X, xT = apply(x0, z)
+        assert cuda_track.kalman_lti_cuda.launches == before + 1
+        assert cuda_track.kalman_lti_cuda.parallel_launches == par + 1
+        Kt, Ft = (torch.from_numpy(a).to(dev, dt) for a in (KK, FF))
+        Xw, xw = kf.lti_walk_plain(x0, z[:, None] * Kt.T, Ft)
+        assert X.device == dev and X.dtype == dt
+        assert _rel(X, Xw) <= tol and _rel(xT, xw) <= tol
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64,

@@ -253,3 +253,192 @@ def test_chunk_geometry_covers_every_chunk():
             cb = 128 if N <= 4 else 32
             assert nc >= 1 and nc * 32 >= T - 1
             assert ng * cb >= nc and (1 << (tl + rl)) >= max(ng - 1, 1)
+
+
+# S4's forward entry (csrc/track_forward.cu): kalman_forward_chunked_torch,
+# its association (filtering elements of full chunks joined in float64,
+# each chunk walked again from its start rounded once), against JAX's
+# kalman_apply and rts_smooth.  Gates: float64 within 1e-9 x max of each
+# output of JAX's; float32 within 1e-4 x max of the float64 walk; lanes and
+# two blocks with the state carried equal their own runs to 1e-12 x max.
+
+def _fwd_model(name):
+    """(A, C, Q, R, x0, P0) of a forward case: the constant-velocity model,
+    random models of n states and m measurements, a singular A (a zero
+    row), an unobserved random walk (P grows without bound) and P0 far from
+    steady state."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "cv":
+        A, C, Q, R = tk.cv_model(1.0, 0.05, 1.0)
+        return A, C, Q, R, np.zeros(2), 10.0 * np.eye(2)
+    if name == "walk":
+        A = np.eye(2)
+        C = np.array([[1.0, 0.0]])
+        return A, C, 0.1 * np.eye(2), np.array([[0.5]]), np.zeros(2), np.eye(2)
+    n, m = {"n1m1": (1, 1), "n3m2": (3, 2), "n8m3": (8, 3), "singular": (3, 3),
+            "p0_large": (2, 2), "p0_small": (2, 1)}[name]
+    A = 0.95 * np.eye(n) + 0.05 * rng.standard_normal((n, n))
+    if name == "singular":
+        A[1] = 0.0
+    C = rng.standard_normal((m, n))
+    Q = 0.01 * np.eye(n)
+    R = np.diag(rng.uniform(0.2, 1.0, m))
+    P0 = {"p0_large": 10.0, "p0_small": 1e-6}.get(name, 1.0) * np.eye(n)
+    return A, C, Q, R, rng.standard_normal(n), P0
+
+
+FWD_MODELS = ["cv", "n1m1", "n3m2", "n8m3", "singular", "walk", "p0_large",
+              "p0_small"]
+FWD_T = 301                       # a multiple of no chunk below but 1
+
+
+def _fwd_inputs(name, T, dtype=torch.float64, seed=0):
+    A, C, Q, R, x0, P0 = _fwd_model(name)
+    Z = np.random.default_rng(seed + T).standard_normal((T, C.shape[0]))
+    ops = [torch.from_numpy(a).to(dtype) for a in (A, C, Q, R)]
+    return (A, C, Q, R, x0, P0, Z, ops,
+            torch.from_numpy(x0).to(dtype), torch.from_numpy(P0).to(dtype))
+
+
+def _rel_close(got, ref, rtol):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=rtol * max(np.abs(ref).max(), 1e-300))
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 16, 64, 512])
+@pytest.mark.parametrize("model", FWD_MODELS)
+def test_forward_chunked_matches_jax(model, chunk):
+    """kalman_forward_chunked_torch in float64 against JAX's kalman_apply
+    (X and the carried state) and rts_smooth's forward pass (the kept
+    covariances and predictions, against kalman_walk_plain, which the
+    JAX parity tests hold), at chunks of 1, 3, 16, 64 steps and one chunk
+    longer than T."""
+    A, C, Q, R, x0, P0, Z, ops, xt, Pt = _fwd_inputs(model, FWD_T)
+    X, xT, PT, Pf, Xp, Pp = tk.kalman_forward_chunked_torch(
+        xt, Pt, torch.from_numpy(Z), *ops, keep=True, chunk=chunk)
+    Xj, (xj, Pj) = jk.kalman_apply(jk.kalman_init(jnp.asarray(x0),
+                                                  jnp.asarray(P0)),
+                                   jnp.asarray(Z), A, C, Q, R)
+    for got, ref in ((X, Xj), (xT, xj), (PT, Pj)):
+        _rel_close(got, ref, 1e-9)
+    want = tk.kalman_walk_plain(xt, Pt, torch.from_numpy(Z), *ops, keep=True)
+    for got, ref in zip((Pf, Xp, Pp), want[3:]):
+        _rel_close(got, ref, 1e-9)
+
+
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 2 * 128 * 16 + 5])
+@pytest.mark.parametrize("model", ["cv", "n3m2", "walk"])
+def test_forward_chunked_at_any_t_matches_jax(model, T):
+    """T of one step, a chunk less one, one chunk, a chunk and one, and
+    several groups of 128 chunks of 16 with a ragged end."""
+    A, C, Q, R, x0, P0, Z, ops, xt, Pt = _fwd_inputs(model, T)
+    X, xT, PT = tk.kalman_forward_chunked_torch(xt, Pt, torch.from_numpy(Z),
+                                                *ops, chunk=16)
+    Xj, (xj, Pj) = jk.kalman_apply(jk.kalman_init(jnp.asarray(x0),
+                                                  jnp.asarray(P0)),
+                                   jnp.asarray(Z), A, C, Q, R)
+    assert X.shape == (T, A.shape[0])
+    for got, ref in ((X, Xj), (xT, xj), (PT, Pj)):
+        _rel_close(got, ref, 1e-9)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("model", FWD_MODELS)
+def test_forward_chunked_float32_within_1e4_of_float64(model, chunk):
+    A, C, Q, R, x0, P0, Z, ops, xt, Pt = _fwd_inputs(model, 2 * 128 * 16 + 5)
+    ops32 = [o.float() for o in ops]
+    got = tk.kalman_forward_chunked_torch(
+        xt.float(), Pt.float(), torch.from_numpy(Z).float(), *ops32,
+        keep=True, chunk=chunk)
+    want = tk.kalman_walk_plain(xt, Pt, torch.from_numpy(Z), *ops, keep=True)
+    assert got[0].dtype == torch.float32
+    for g, w in zip(got, want):
+        _rel_close(g.double(), w, 1e-4)
+
+
+@pytest.mark.parametrize("model", ["cv", "n3m2", "n8m3", "walk"])
+def test_forward_chunked_lanes_and_carried_state(model):
+    """Two lanes (their own measurements and carried states) equal their
+    own runs, and two blocks with (x_T, P_T) carried equal one block."""
+    A, C, Q, R, x0, P0, Z, ops, xt, Pt = _fwd_inputs(model, 700)
+    Zt = torch.from_numpy(Z)
+    lanes = torch.stack([Zt, -0.5 * Zt])
+    x0s = torch.stack([xt, 2 * xt + 1])
+    P0s = torch.stack([Pt, 3 * Pt])
+    got = tk.kalman_forward_chunked_torch(x0s, P0s, lanes, *ops, keep=True,
+                                          chunk=16)
+    for i in range(2):
+        own = tk.kalman_forward_chunked_torch(x0s[i], P0s[i], lanes[i], *ops,
+                                              keep=True, chunk=16)
+        for g, w in zip(got, own):
+            _rel_close(g[i], w, 1e-12)
+    X, xT, PT = tk.kalman_forward_chunked_torch(xt, Pt, Zt, *ops, chunk=16)
+    h = 16 * 5 + 3
+    Xa, xa, Pa = tk.kalman_forward_chunked_torch(xt, Pt, Zt[:h], *ops,
+                                                 chunk=16)
+    Xb, xb, Pb = tk.kalman_forward_chunked_torch(xa, Pa, Zt[h:], *ops,
+                                                 chunk=16)
+    _rel_close(torch.cat([Xa, Xb]), X, 1e-12)
+    _rel_close(xb, xT, 1e-12)
+    _rel_close(Pb, PT, 1e-12)
+
+
+@pytest.mark.parametrize("model", ["cv", "n3m2", "singular", "walk"])
+def test_forward_then_backward_chunked_matches_jax_rts(model):
+    """rts_backward_chunked_torch on kalman_forward_chunked_torch's kept
+    outputs equals JAX's rts_smooth (float64, rtol 1e-8 with atol 1e-10
+    on the states and 1e-12 on the covariances, as
+    test_rts_backward_chunked_matches_jax)."""
+    A, C, Q, R, x0, P0, Z, ops, xt, Pt = _fwd_inputs(model, 2 * 128 * 16 + 5)
+    X, _, _, Pf, Xp, Pp = tk.kalman_forward_chunked_torch(
+        xt, Pt, torch.from_numpy(Z), *ops, keep=True)
+    Xs, Ps = tk.rts_backward_chunked_torch(X, Pf, Xp, Pp, ops[0], chunk=LC)
+    Xj, Pj = jk.rts_smooth(jk.kalman_init(jnp.asarray(x0), jnp.asarray(P0)),
+                           jnp.asarray(Z), A, C, Q, R)
+    scale_x = float(np.abs(np.asarray(Xj)).max())
+    scale_p = float(np.abs(np.asarray(Pj)).max())
+    _close(Xs, Xj, 1e-8, 1e-10 * max(1.0, scale_x))
+    _close(Ps, Pj, 1e-8, 1e-12 * max(1.0, scale_p))
+
+
+def test_forward_tables_are_the_composed_steps():
+    """cuda_track.forward_tables' chunk element applied to a state equals
+    the filter walked over that chunk (float64), for the measurements as
+    the coefficients Wb, We weigh them."""
+    A, C, Q, R, x0, P0, Z, ops, xt, Pt = _fwd_inputs("n3m2", 24)
+    Ac, Cc, Jc, Wb, We = cuda_track.forward_tables(A, C, Q, R, 24)
+    assert Wb.shape == We.shape == (24, 3, 2)
+    el = tuple(torch.from_numpy(a) for a in (
+        Ac, np.einsum("inj,ij->n", Wb, Z), Cc, np.einsum("inj,ij->n", We, Z),
+        Jc))
+    x, P = tk._element_apply(el, xt, Pt)
+    _, xw, Pw = tk.kalman_walk_plain(xt, Pt, torch.from_numpy(Z), *ops)
+    _rel_close(x, xw, 1e-12)
+    _rel_close(P, Pw, 1e-12)
+
+
+def test_forward_geometry_covers_every_chunk():
+    """The forward kernel's launch shapes: every chunk in a group, the
+    groups' starts in pass 2's runs; the sub-batch the wrapper's chunk
+    must be a multiple of."""
+    for T in (1, 15, 16, 17, 128 * 32, 128 * 32 + 1, 1 << 20, (1 << 24) + 7):
+        for N in (1, 2, 4, 8):
+            for chunk in (16, 32, 64):
+                nc, ng, tl, rl = cuda_track.fwd_geometry(T, N, chunk)
+                cb = 128 if N <= 4 else 32
+                join = 256 if N <= 2 else 64 if N == 4 else 16
+                assert nc * chunk >= T > (nc - 1) * chunk
+                assert ng * cb >= nc > (ng - 1) * cb
+                assert (1 << tl) <= join and (1 << (tl + rl)) >= max(ng - 1, 1)
+    assert cuda_track.fwd_sub(torch.float32, 2, 1, False) == 16
+    assert cuda_track.fwd_sub(torch.float32, 2, 1, True) == 4
+    assert cuda_track.fwd_sub(torch.float64, 8, 8, True) == 1
+    for dt in (torch.float32, torch.float64):
+        for N in (1, 2, 4, 8):
+            for M in (1, 2, 4, 8):
+                assert (cuda_track.fwd_sub(dt, N, M, False)
+                        >= cuda_track.fwd_sub(dt, N, M, True))
+                assert cuda_track.FWD_CHUNK % cuda_track.fwd_sub(
+                    dt, N, M, False) == 0

@@ -3,7 +3,7 @@
     python3 torch_kernel_sweep.py            # K6, the DDC body, K1
     python3 torch_kernel_sweep.py fir-route  # the FIR's two card routes
     python3 torch_kernel_sweep.py s3         # S3's chunk length and join
-    python3 torch_kernel_sweep.py s4         # S4's chunked entries: Lc, lanes
+    python3 torch_kernel_sweep.py s4         # S4's three entries: Lc, lanes
     python3 torch_kernel_sweep.py latency    # S1, S2, S4-S9: latency bounds
     python3 torch_kernel_sweep.py cfar-route # F7: CA-CFAR's two window sums
     python3 torch_kernel_sweep.py k1-direct  # K1's direct route: R, warps
@@ -61,11 +61,10 @@
   (``cuobjdump -sass``, one warp issuing one a cycle) the other; the
   larger over the SM clock is its bound, printed beside its time a sample
   at T = 2^16.  The SASS is kept beside the built libraries
-  (``solid_dsp_tpu_torch/_build/seq_scan.sass``).  The same for S4 and S5
-  (csrc/track_scan.cu, float32, one lane of 2^16): S4's forward entry at
-  n = 2, m = 1 (its chain holds a division: FDIV in the probe), S5 at
-  orders 16 and 64 (``track_scan.sass``); S4's backward and LTI entries
-  are chunk-and-join kernels (csrc/track_chunks.cu), timed by ``s4``;
+  (``solid_dsp_tpu_torch/_build/seq_scan.sass``).  The same for S5
+  (csrc/track_scan.cu, float32, one lane of 2^16) at orders 16 and 64
+  (``track_scan.sass``); S4's three entries are chunk-and-join kernels
+  (csrc/track_forward.cu, csrc/track_chunks.cu), timed by ``s4``;
   S6 (csrc/bcjr_scan.cu) at 128 rows of 1027
   steps, its chain a step a walk and its two walks' SASS loops
   (``bcjr_scan.sass``); S7 (csrc/viterbi_scan.cu, soft, K = 7: its
@@ -93,8 +92,11 @@
   float64 running sum cast back, timed in turns, each with its
   thresholds' error relative to float64.
 
-* ``s4``: S4's chunk-and-join entries (csrc/track_chunks.cu), float32,
-  n = 2 (the trackers' and the smoother's size): the LTI entry's chunk
+* ``s4``: S4's chunk-and-join entries (csrc/track_forward.cu,
+  csrc/track_chunks.cu), float32, n = 2 (the trackers' and the smoother's
+  size): the forward entry's chunk length Lc in {16, 32, 64, 128} at one
+  lane of 2^20 (kalman_apply's and rts_smooth's block) and at 16 lanes of
+  2^16, with and without the covariances kept; the LTI entry's chunk
   length Lc in {16, 32, 64, 128, 256} at one lane of 2^22 (the
   AlphaBetaTracker's block) and at 64 lanes of 2^16, and the backward
   entry's in {8, 16, 32, 64, 128} at one lane of 2^20 (rts_smooth's
@@ -257,6 +259,7 @@ def s3_sweep(dev, smi) -> None:
 
 S4_LTI_CHUNKS = (16, 32, 64, 128, 256)
 S4_RTS_CHUNKS = (8, 16, 32, 64, 128)
+S4_FWD_CHUNKS = (16, 32, 64, 128)
 
 
 def _profiled_kernels(fn, n: int = 5) -> str:
@@ -283,6 +286,38 @@ def s4_sweep(dev, smi) -> None:
 
     rng = np.random.default_rng(4)
     model = kalman.cv_model(1.0, 0.05, 1.0)
+    ops = [torch.from_numpy(a).to(dev, torch.float32) for a in model]
+    for L, T in ((1, 1 << 20), (16, 1 << 16)):
+        z = torch.from_numpy(rng.standard_normal((L, T, 1))).to(
+            dev, torch.float32)
+        x0 = torch.zeros((L, 2), device=dev)
+        P0 = 10 * torch.eye(2, device=dev).expand(L, 2, 2).contiguous()
+        for keep in (False, True):
+            want = cuda_track.kalman_filter_cuda(x0, P0, z, *ops, keep=keep)
+            # Z read; X (and Pf, Xp, Pp) written
+            bound = 4 * L * T * (1 + (2 + 8 + 2 + 4 if keep else 2)) \
+                / 3.35e12 * 1e3
+            for chunk in S4_FWD_CHUNKS:
+                def run():
+                    return cuda_track.kalman_filter_cuda(x0, P0, z, *ops,
+                                                         keep=keep,
+                                                         chunk=chunk)
+                err = max(float((g - w).abs().max() / w.abs().max())
+                          for g, w in zip(run(), want))
+                ms = graph_ms(run, 5)
+                print(f"[S4 forward n=2 m=1, {L} lane(s) of "
+                      f"2^{T.bit_length() - 1}, keep={keep}, Lc {chunk}] "
+                      f"{ms:.4f} ms, {ms * 1e6 / (L * T):.4f} ns a step, bytes "
+                      f"bound {bound:.5f} ms ({bound / ms:.1%}), max|d| "
+                      f"{err:.3g} x max against Lc as built | {smi}",
+                      flush=True)
+            if L == 1:
+                print(f"[S4 forward n=2, 2^20, keep={keep}, Lc "
+                      f"{cuda_track.FWD_CHUNK}, kernels (profiler, ms a "
+                      f"call)] " + _profiled_kernels(
+                          lambda: cuda_track.kalman_filter_cuda(
+                              x0, P0, z, *ops, keep=keep)) + f" | {smi}",
+                      flush=True)
     K, F = kalman.steady_state_gain(*model)
     Ft = torch.from_numpy(F).to(dev, torch.float32)
     for L, T in ((1, 1 << 22), (64, 1 << 16)):
@@ -300,23 +335,21 @@ def s4_sweep(dev, smi) -> None:
                   f"{chunk}] {ms:.4f} ms, {ms * 1e6 / (L * T):.4f} ns a step, "
                   f"bytes bound {bound:.5f} ms ({bound / ms:.1%}), max|dX| "
                   f"{err:.3g} x max against Lc as built | {smi}", flush=True)
-    A, C, Q, R = (torch.from_numpy(a).to(dev, torch.float32) for a in model)
+    A = ops[0]
     for L, T in ((1, 1 << 20), (16, 1 << 16)):
-        lanes = []
-        for _ in range(L):
-            z = torch.from_numpy(rng.standard_normal((T, 1))).to(
-                dev, torch.float32)
-            out = cuda_track.kalman_filter_cuda(
-                torch.zeros(2, device=dev), 10 * torch.eye(2, device=dev), z,
-                A, C, Q, R, keep=True)
-            lanes.append((out[0], *out[3:]))
-        ops = [torch.stack(v) for v in zip(*lanes)]
-        want, _ = cuda_track.rts_backward_cuda(*ops, A)
+        z = torch.from_numpy(rng.standard_normal((L, T, 1))).to(
+            dev, torch.float32)
+        out = cuda_track.kalman_filter_cuda(
+            torch.zeros((L, 2), device=dev),
+            10 * torch.eye(2, device=dev).expand(L, 2, 2).contiguous(), z,
+            *ops, keep=True)
+        kept = (out[0], *out[3:])
+        want, _ = cuda_track.rts_backward_cuda(*kept, A)
         # Xf, Pf, Xp, Pp read (2n + 2n^2 a step), Xs, Ps written (n + n^2)
         bound = 4 * L * T * 18 / 3.35e12 * 1e3
         for chunk in S4_RTS_CHUNKS:
             def run():
-                return cuda_track.rts_backward_cuda(*ops, A, chunk=chunk)
+                return cuda_track.rts_backward_cuda(*kept, A, chunk=chunk)
             err = float((run()[0] - want).abs().max() / want.abs().max())
             ms = graph_ms(run, 5)
             print(f"[S4 backward n=2, {L} lane(s) of 2^{T.bit_length() - 1}, "
@@ -328,7 +361,7 @@ def s4_sweep(dev, smi) -> None:
             print(f"[S4 backward n=2, 2^20, Lc {cuda_track.RTS_CHUNK}, kernels "
                   f"(profiler, ms a call)] "
                   + _profiled_kernels(lambda: cuda_track.rts_backward_cuda(
-                      *ops, A)) + f" | {smi}", flush=True)
+                      *kept, A)) + f" | {smi}", flush=True)
     B = torch.from_numpy(rng.standard_normal((1 << 22, 2))).to(
         dev, torch.float32)
     x0 = torch.zeros(2, device=dev)
@@ -617,14 +650,6 @@ def sass_dump(source: str) -> str:
 #     FADD), the decision (compare and select on y), y conj(d) (FMUL +
 #     FADD), atan2, dtheta += alpha e (FMUL + FADD), theta = (theta +
 #     dtheta) + beta e (two FADDs, beta e off the chain).
-#   S4 forward (kf_forward_kernel, n = 2, m = 1): P -> A P (FMUL + FFMA)
-#     -> Pp = (A P) A' + Q (FMUL + FFMA + FADD) -> Pp C' (FMUL + FFMA) -> S
-#     (FMUL + FFMA + FADD) -> K = (Pp C') / S (FDIV) -> I - K C (FMUL +
-#     FADD) -> P = (I - K C) Pp (FMUL + FFMA); x's chain is shorter;
-#   S4 backward (rts_backward_kernel, n = 2): the gain G comes from the
-#     step's inputs only, so the chain is Ps -> Ps - Pp (FADD) -> G (Ps -
-#     Pp) (FMUL + FFMA) -> Pf + (..) G' (FMUL + FFMA + FADD);
-#   S4 LTI (kf_lti_kernel, n = 2): x -> F x (FMUL + FFMA) -> + b (FADD);
 #   S6 (bcjr_scan.cu, either walk): the neighbouring state's metric by a
 #     shuffle (SHFL), + gamma (FADD), the max of the two branches (FMNMX);
 #     the renormalisation once a chunk of 16 steps (three SHFL + FMNMX and
@@ -659,7 +684,6 @@ LATENCY_CHAINS = {
     "S1": {"FMUL": 4 + 2, "FFMA": 1, "FADD": 1, "logf": 1, "expf": 1},
     "S2": {"sincosf": 1, "FMUL": 3, "FADD": 5, "compare+select": 1,
            "atan2f": 1},
-    "S4 forward": {"FMUL": 6, "FFMA": 5, "FADD": 3, "FDIV": 1},
     "S5 p=16": {"FFMA": 3},
     "S5 p=64": {"FFMA": 3},
     "S6": {"SHFL": 1 + 3 / 16, "FADD": 1 + 1 / 16, "FMNMX": 1 + 3 / 16},
@@ -1089,15 +1113,14 @@ def cfar_route(dev, smi) -> None:
 
 
 def track_latency(dev, smi, lat: dict, mhz: float) -> None:
-    """S4's forward entry and S5 (csrc/track_scan.cu, float32, one lane of
-    T = 2^16): each loop-carried chain (LATENCY_CHAINS) over the probe's
-    latencies and the main loop's SASS instructions a step, the larger
-    over the SM clock beside the time a step (CUDA graph of 5 launches).
-    S4's backward and LTI entries are chunk-and-join kernels, bound by
-    their bytes: ``s4`` times them."""
+    """S5 (csrc/track_scan.cu, float32, one lane of T = 2^16): its
+    loop-carried chain (LATENCY_CHAINS) over the probe's latencies and the
+    main loop's SASS instructions a step, the larger over the SM clock
+    beside the time a step (CUDA graph of 5 launches).  S4's entries are
+    chunk-and-join kernels, bound by their bytes: ``s4`` times them."""
     import importlib
 
-    from solid_dsp_tpu_torch.ops import cuda_build, cuda_track, kalman
+    from solid_dsp_tpu_torch.ops import cuda_build
 
     lpc = importlib.import_module("solid_dsp_tpu_torch.analysis.lpc")
     sass = sass_dump("track_scan.cu")
@@ -1107,19 +1130,12 @@ def track_latency(dev, smi, lat: dict, mhz: float) -> None:
           f"kept in {out}", flush=True)
     T = 1 << 16
     rng = np.random.default_rng(39)
-    A, C, Q, R = (torch.from_numpy(a).to(dev, torch.float32)
-                  for a in kalman.cv_model(1.0, 0.05, 1.0))
-    z = torch.from_numpy(rng.standard_normal((T, 1))).to(dev, torch.float32)
-    x0 = torch.zeros(2, device=dev)
-    P0 = 10.0 * torch.eye(2, device=dev)
-    y = z[:, 0].contiguous()
+    y = torch.from_numpy(rng.standard_normal(T)).to(dev, torch.float32)
     k16 = torch.from_numpy(0.5 * rng.uniform(-1, 1, 16)).to(dev,
                                                             torch.float32)
     k64 = torch.from_numpy(0.5 * rng.uniform(-1, 1, 64)
                            / np.sqrt(np.arange(1, 65))).to(dev, torch.float32)
     runs = {
-        "S4 forward": (lambda: cuda_track.kalman_filter_cuda(
-            x0, P0, z, A, C, Q, R), "kf_forward_kernelIfLi2ELi1EE", 8),
         "S5 p=16": (lambda: lpc.lattice_iir(y, k16),
                     "lattice_iir_kernelIfLi16EE", 8),
         "S5 p=64": (lambda: lpc.lattice_iir(y, k64),
@@ -1129,7 +1145,7 @@ def track_latency(dev, smi, lat: dict, mhz: float) -> None:
         chain = LATENCY_CHAINS[name]
         cycles = sum(n * lat[op] for op, n in chain.items())
         # each kernel's main loop: a chunk of `steps` steps, unrolled
-        # (track_scan.cu's kf_chunk, LATTICE_CHUNK)
+        # (track_scan.cu's LATTICE_CHUNK)
         issue = sass_step_instructions(sass, kernel, None, steps=steps)
         bound_ns = max(cycles, issue) / mhz * 1e3
         ns = graph_ms(fn, 5) * 1e6 / T
