@@ -50,9 +50,12 @@ traceback, csrc/viterbi_scan.cu) bit-equal to its plain version, decoded
 bits and final path metrics, at K = 3 to 11, hard and soft, rates 1/2 and
 1/3, batch 1 and 256, T from 12 to 8,166, and on a random hard stream
 (ties at nearly every step); the links decode on the card through it.
-S8 (the CVSD walk, csrc/cvsd_scan.cu) bit-equal to its plain version,
-bits and trajectory, at 1 to 1024 lanes, 1 to 4096 samples and histories
-of 1, 3 and 32; 1024 voice lanes of 2^16 keep > 20 dB in band
+S8 (the CVSD codec, csrc/cvsd_scan.cu): the encoder bit-equal to the
+plain walk, also for parameters outside the decoder's range; the
+chunk-and-join decoder bit-equal to its chunked plain version and within
+CHUNKED_ATOL of the walk, at 1 to 1024 lanes, 1 to ~70,000 samples,
+histories of 1, 3 and 32, the edge parameters and +-1, {0, 1, 2} and bool
+words; 1024 voice lanes of 2^16 keep > 20 dB in band
 (tests/test_cvsd.py:59).  S9 (the Gardner loop, csrc/gardner_scan.cu)
 bit-equal to its plain version on the card and on the CPU, symbols and
 final mu, at sps 1 to 64, also where mu leaves the staged window; it
@@ -2368,9 +2371,11 @@ def _s8_lanes(rng, B, N):
                                  (1024, 4096)])
 @pytest.mark.parametrize("n_history", [1, 3, 32])
 def test_s8_matches_plain_on_card(B, N, n_history):
-    """S8 against cvsd_walk_plain on the same card lanes: the bits and the
-    decoded trajectory exactly equal, ragged chunks and partial warps
-    included; one launch a direction."""
+    """S8 against its plain versions on the same card lanes: the bits equal
+    to cvsd_walk_plain's, the decoded trajectory equal to
+    cvsd_decode_chunked_torch's and within CHUNKED_ATOL of the walk's,
+    ragged chunks and partial warps included; one call a direction, five
+    kernels a decode."""
     from solid_dsp_tpu_torch.models import cvsd
     from solid_dsp_tpu_torch.ops import cuda_cvsd
 
@@ -2380,15 +2385,84 @@ def test_s8_matches_plain_on_card(B, N, n_history):
     if B * N > 1 << 16:
         x = x[:, :512].contiguous()        # the plain walk's launches
     before = cuda_cvsd.cvsd_cuda.launches
+    passes = cuda_cvsd.cvsd_cuda.pass_launches
     bk = cvsd.cvsd_encode(x, n_history=n_history)
     yk = cvsd.cvsd_decode(bk, n_history=n_history)
     assert cuda_cvsd.cvsd_cuda.launches == before + 2
+    assert cuda_cvsd.cvsd_cuda.pass_launches == passes + 5
     bp = cvsd.cvsd_encode(x, n_history=n_history, engine="torch")
     yp = cvsd.cvsd_decode(bp, n_history=n_history, engine="torch")
+    yc = cvsd.cvsd_decode_chunked_torch(bp, n_history=n_history)
     assert cuda_cvsd.cvsd_cuda.launches == before + 2
     torch.cuda.synchronize()
     assert bk.dtype == torch.int32 and yk.dtype == torch.float32
-    assert torch.equal(bk, bp) and torch.equal(yk, yp)
+    assert torch.equal(bk, bp) and torch.equal(yk, yc)
+    assert float((yk - yp).abs().max()) <= cvsd.CHUNKED_ATOL
+
+
+# the decoder's edges: parameters (a constant step, leak 1, a boost below
+# the floor's decay, a loud input that holds ref on +-1) and shapes (one
+# sample, shorter than a chunk, ragged, lanes not a multiple of 32, several
+# blocks a lane and runs of R = 2 and R = 5 chunks in the joins)
+_S8_EDGES = {"default": {}, "leak 1": {"leak": 1.0},
+             "dmin = dmax": {"delta_min": 0.05, "delta_max": 0.05},
+             "small gamma": {"gamma": 1e-5}, "loud": {"gain": 4.0}}
+
+
+@pytest.mark.parametrize("edge", list(_S8_EDGES))
+@pytest.mark.parametrize("n_history", [1, 3, 32])
+def test_s8_decode_equals_chunked_plain_on_card(edge, n_history):
+    """S8's decoder bit-equal to cvsd_decode_chunked_torch at its chunk
+    length, and its encoder to cvsd_walk_plain, at the edges."""
+    from solid_dsp_tpu_torch.models import cvsd
+    from solid_dsp_tpu_torch.ops import cuda_cvsd
+
+    dev = require_cuda()
+    kw = dict(_S8_EDGES[edge])
+    gain = kw.pop("gain", 1.0)
+    chunk = cuda_cvsd.DECODE_CHUNK
+    rng = np.random.default_rng(chunk + n_history)
+    for B, N in ((1, 1), (3, chunk - 5), (37, 3 * chunk + 7),
+                 (2, 300 * chunk + 3), (3, 1100 * chunk + 5)):
+        x = torch.from_numpy(np.clip(gain * _s8_lanes(rng, B, N), -1, 1)).to(
+            dev)
+        bits = cvsd.cvsd_encode(x, n_history=n_history, **kw)
+        n = min(N, 2048)                   # the plain walk's launches
+        assert torch.equal(bits[:, :n], cvsd.cvsd_encode(
+            x[:, :n], n_history=n_history, engine="torch", **kw))
+        y = cuda_cvsd.cvsd_cuda(bits, True, kw.get("beta", 0.9),
+                                kw.get("gamma", 0.01),
+                                kw.get("delta_min", 0.001),
+                                kw.get("delta_max", 0.2), n_history,
+                                kw.get("leak", 0.98))
+        want = cvsd.cvsd_decode_chunked_torch(bits, n_history=n_history,
+                                              **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want), (B, N)
+
+
+@pytest.mark.parametrize("alphabet", ["nrz", "ternary", "bool"])
+@pytest.mark.parametrize("n_history", [1, 3, 32])
+def test_s8_decodes_any_words_on_card(alphabet, n_history):
+    """The decoder's history holds the raw words and a word signs the
+    step when it is 1, as JAX's does: +-1 (NRZ), {0, 1, 2} and bool words
+    against the plain walk (within CHUNKED_ATOL) and the chunked plain
+    version (bit-equal)."""
+    from solid_dsp_tpu_torch.models import cvsd
+
+    dev = require_cuda()
+    rng = np.random.default_rng(n_history)
+    B, N = 40, 1500
+    words = {"nrz": 2 * rng.integers(0, 2, (B, N)) - 1,
+             "ternary": rng.integers(0, 3, (B, N)),
+             "bool": rng.integers(0, 2, (B, N)).astype(bool)}[alphabet]
+    w = torch.from_numpy(words).to(dev)
+    y = cvsd.cvsd_decode(w, n_history=n_history)
+    yp = cvsd.cvsd_decode(w, n_history=n_history, engine="torch")
+    yc = cvsd.cvsd_decode_chunked_torch(w, n_history=n_history)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yc)
+    assert float((y - yp).abs().max()) <= cvsd.CHUNKED_ATOL
 
 
 def test_s8_full_lanes_quality_on_card():
@@ -2416,7 +2490,7 @@ def test_s8_full_lanes_quality_on_card():
 
 def test_s8_rejects_and_limits_on_card():
     from solid_dsp_tpu_torch.models import cvsd
-    from solid_dsp_tpu_torch.ops import cuda_cvsd
+    from solid_dsp_tpu_torch.ops import cuda_build, cuda_cvsd
 
     dev = require_cuda()
     x = torch.zeros((2, 40), device=dev)
@@ -2430,6 +2504,48 @@ def test_s8_rejects_and_limits_on_card():
         assert cvsd.cvsd_encode(torch.zeros(shape, device=dev)).shape == shape
     with pytest.raises(ValueError, match="lanes"):
         cuda_cvsd.cvsd_cuda(x[0], False, 0.9, 0.01, 0.001, 0.2, 3, 0.98)
+    bits = cvsd.cvsd_encode(x)
+    built = cuda_build.launcher("cvsd_scan.cu", "cvsd_decode_chunk", ())
+    assert built() == cuda_cvsd.DECODE_CHUNK
+    for beta, dmin, dmax, leak in ((1.5, 0.001, 0.2, 0.98),
+                                   (0.9, 0.3, 0.2, 0.98),
+                                   (0.9, 0.001, 0.2, 0.0)):
+        with pytest.raises(ValueError, match="beta"):
+            cuda_cvsd.cvsd_cuda(bits, True, beta, 0.01, dmin, dmax, 3, leak)
+    assert cvsd.cvsd_decode(bits, beta=1.5, engine="torch").is_cuda
+    before = cuda_cvsd.cvsd_cuda.pass_launches
+    for shape in ((0, 40), (2, 0)):
+        w = torch.zeros(shape, dtype=torch.int32, device=dev)
+        assert cvsd.cvsd_decode(w).shape == shape
+    assert cuda_cvsd.cvsd_cuda.pass_launches == before
+
+
+# parameters outside the decoder's range (params_proved), which the
+# encoder takes through the instantiation that keeps every clamp
+_S8_LOOSE = {"beta > 1": {"beta": 1.3}, "leak 0": {"leak": 0.0},
+             "leak > 1": {"leak": 1.2}, "dmin < 0": {"delta_min": -0.05},
+             "dmin > dmax": {"delta_min": 0.3, "delta_max": 0.2},
+             "negative slopes": {"beta": -0.5, "leak": -0.9}}
+
+
+@pytest.mark.parametrize("loose", list(_S8_LOOSE))
+@pytest.mark.parametrize("n_history", [1, 3])
+def test_s8_encode_any_params_on_card(loose, n_history):
+    """The encoder bit-equal to cvsd_walk_plain for parameters outside
+    the decoder's range, where the dropped clamps could bind."""
+    from solid_dsp_tpu_torch.models import cvsd
+    from solid_dsp_tpu_torch.ops import cuda_cvsd
+
+    dev = require_cuda()
+    kw = _S8_LOOSE[loose]
+    rng = np.random.default_rng(n_history)
+    x = torch.from_numpy(_s8_lanes(rng, 37, 700)).to(dev)
+    before = cuda_cvsd.cvsd_cuda.launches
+    bits = cvsd.cvsd_encode(x, n_history=n_history, **kw)
+    assert cuda_cvsd.cvsd_cuda.launches == before + 1
+    want = cvsd.cvsd_encode(x, n_history=n_history, engine="torch", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, want)
 
 
 # S9: the Gardner loop (csrc/gardner_scan.cu)

@@ -5,8 +5,9 @@ the plain versions; F8.
 
 Gates: CVSD bits equal to JAX's and the decoded trajectory within
 tests/test_cvsd.py:47's 1e-5, in-band SNR > 20 dB at 4x oversampling
-(:59), a bit error healed (:71-72); S8's order of float operations
-(numpy float32 with the 32-bit history word) bit-equal to the plain walk.
+(:59), a bit error healed (:71-72); S8's steps (numpy float32: the encoder's two-branch step
+with the 32-bit history word, the decoder's walk inside a chunk) bit-equal
+to the plain walk.
 Timing: the Oerder-Meyr estimate within 1e-4 samples of JAX's and the
 fractional-delay taps within 1e-6; ``symbol_sync_block``'s symbols within
 1e-4 and tests/test_timing.py's SER < 0.01; ``gardner_scan`` against JAX
@@ -89,23 +90,45 @@ def test_cvsd_quality_and_error_healing():
 
 
 def _s8_emulated(v, decode, beta=0.9, gamma=0.01, dmin=0.001, dmax=0.2,
-                 n_history=3, leak=0.98):
-    """S8's step (csrc/cvsd_scan.cu) in numpy float32 scalars: the history
-    a word under its mask, agreement as all zeros or all ones, each product
-    and sum rounded once, the clamps as fmaxf then fminf."""
+                 n_history=3, leak=0.98, all_clamps=False):
+    """S8's steps (csrc/cvsd_scan.cu) in numpy float32 scalars, each product
+    and sum rounded once, the clamps as fmaxf then fminf.  Encode: the
+    two-branch step, both outcomes of the bit from the old state (the
+    history word under its mask, agreeing when all ones or all zeros), the
+    clamps that cannot bind dropped (``all_clamps``: kept, the encoder's
+    instantiation for any parameters), the compare only selecting.
+    Decode: the walk a chunk makes from its start, the history the raw
+    words."""
     f = np.float32
+    be, ga, lo, hi, lk = f(beta), f(gamma), f(dmin), f(dmax), f(leak)
     mask = (1 << n_history) - 1
     out = np.empty(v.shape, np.float32 if decode else np.int32)
     for i, lane in enumerate(v):
         ref, step, hist = f(0), f(dmin), 0
+        words = [0] * n_history
         for j, s in enumerate(lane):
-            bit = (1 if s == 1 else 0) if decode else int(f(s) >= ref)
-            hist = ((hist << 1) | bit) & mask
-            boost = f(gamma) if hist in (0, mask) else f(0)
-            step = min(max(f(f(beta) * step) + boost, f(dmin)), f(dmax))
-            ref = min(max(f(f(leak) * ref) + (step if bit else -step),
-                          f(-1)), f(1))
-            out[i, j] = ref if decode else bit
+            if decode:
+                words = words[1:] + [int(s)]
+                boost = ga if len(set(words)) == 1 else f(0)
+                step = min(max(f(be * step) + boost, lo), hi)
+                ref = min(max(f(lk * ref) + (step if s == 1 else -step),
+                              f(-1)), f(1))
+                out[i, j] = ref
+                continue
+            h1, h0 = ((hist << 1) | 1) & mask, (hist << 1) & mask
+            bs = f(be * step)
+            boosted = min(max(f(bs + ga), lo), hi)
+            plain = min(max(f(bs + f(0)), lo), hi) if all_clamps else max(
+                bs, lo)
+            s1 = boosted if h1 == mask else plain
+            s0 = boosted if h0 == 0 else plain
+            lr = f(lk * ref)
+            r1, r0 = min(f(lr + s1), f(1)), max(f(lr - s0), f(-1))
+            if all_clamps:
+                r1, r0 = max(r1, f(-1)), min(r0, f(1))
+            bit = f(s) >= ref
+            ref, step, hist = (r1, s1, h1) if bit else (r0, s0, h0)
+            out[i, j] = int(bit)
     return out
 
 

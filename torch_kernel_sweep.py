@@ -4,7 +4,8 @@
     python3 torch_kernel_sweep.py fir-route  # the FIR's two card routes
     python3 torch_kernel_sweep.py s3         # S3's chunk length and join
     python3 torch_kernel_sweep.py s4         # S4's three entries: Lc, lanes
-    python3 torch_kernel_sweep.py latency    # S1, S2, S4-S9: latency bounds
+    python3 torch_kernel_sweep.py latency    # S1, S2, S5-S9: latency bounds
+    python3 torch_kernel_sweep.py s8         # S8: decode's Lc, encode's parts
     python3 torch_kernel_sweep.py cfar-route # F7: CA-CFAR's two window sums
     python3 torch_kernel_sweep.py k1-direct  # K1's direct route: R, warps
     python3 torch_kernel_sweep.py k1-route   # K1 as routed, both modes
@@ -71,13 +72,25 @@
   single-warp form) at one row of 8166 steps, 1024 x 550 and 64 x 8166,
   its chain a step (the probe adds REDUX, and a shared-memory exchange
   across a two-warp barrier, the block form's) and its ACS loop's SASS
-  (``viterbi_scan.sass``); S8 (csrc/cvsd_scan.cu), encode and decode, at
-  one lane and 1024 lanes of 2^16, and S9 (csrc/gardner_scan.cu) on 2^19
+  (``viterbi_scan.sass``); S8's encoder (csrc/cvsd_scan.cu: its walking
+  warp's full chunk in the SASS) at one lane and 1024 lanes of 2^16 (its
+  decoder is time-parallel: ``s8``), and S9 (csrc/gardner_scan.cu) on 2^19
   symbols at sps 8 (the probe adds floor-to-integer and a dependent shared
   read), each its chain and its walk's SASS (``cvsd_scan.sass``,
   ``gardner_scan.sass``).  S1's FSM entry is
   time-parallel (the chunk-and-join kernel): its row prints its bytes
   bound (4 in and 4 out a step over 3.35 TB/s) beside its time instead.
+
+* ``s8``: S8's decoder (csrc/cvsd_scan.cu, the chunk-and-join of clamped
+  affine maps): its chunk length Lc as built (64) and, in side builds of
+  the source (``S8_DECODE_SIDE``), 32 and 128, at one lane and 1024 lanes
+  of 2^16 (chip_smoke.py phase 42's input), each timed
+  over a CUDA graph of 5 calls beside its bytes bound (4 in and 4 out a
+  sample over 3.35 TB/s) with its largest difference from the chunk as
+  built; the profiler's time of each of its five kernels; then the
+  encoder as built and with one part changed (``S8_VARIANTS``: the first
+  design's one-chain step, the moving warp idle), built beside the kernels
+  by text substitution and timed at the same shapes.
 
 * ``s7-variants``: S7's single-warp form at 64 states (soft, K = 7) as
   built and with one part of its step taken away at a time (the warp
@@ -143,7 +156,7 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import graph_ms, snr_db, timed
+from chip_smoke import graph_ms, profiled_rows, sco_lanes, snr_db, timed
 
 
 FIR_ROUTE_SHAPES = (          # (taps, stride, outputs a sample, samples)
@@ -660,15 +673,15 @@ def sass_dump(source: str) -> str:
 #     select), pmn - min and + bm (two FADDs), the choice (compare and
 #     select); the four shuffles that put the metrics back in place run
 #     beside the key and REDUX, a shorter path;
-#   S8 (csrc/cvsd_scan.cu, its SASS), encode: ref -> FSETP (the bit) ->
-#     SEL, two LOP3 (the history word) -> ISETP (agreement) -> FSEL of
-#     gamma -> FADD (step; beta step's FMUL is off the chain) -> two FMNMX
-#     -> FSEL (+-step) -> FADD (ref) -> two FMNMX: 13 ops, the 7 integer
-#     and select ops counted at a simple ALU op's latency (FADD's; the probe
-#     has no integer chain); decode: the bits come from registers, so the
-#     history and agreement are off the chain, and each recurrence (step:
-#     FMUL, FADD, two FMNMX; ref: FMUL, FADD, two FMNMX after the select)
-#     carries 4 ops a step;
+#   S8's encoder (csrc/cvsd_scan.cu::enc_step, its SASS): both outcomes of
+#     the bit come from the old state and the compare only selects, so the
+#     longest loop-carried cycle spans two steps: ref -> FSETP (the bit) ->
+#     FSEL (the step) (compare and select) -> FMUL (beta step) -> FADD (+
+#     gamma) -> two FMNMX (the boosted step) -> FSEL (bit 1's candidate, by
+#     its agreement) -> FADD (leak ref + it) -> FMNMX -> the ref's select by
+#     the next bit: per step half a compare and select, 1.5 FMUL (one FMUL,
+#     two selects at FMUL's latency), one FADD, 1.5 FMNMX; the step's own
+#     cycle, the history's and ref's (FSETP, select) are shorter;
 #   S9 (csrc/gardner_scan.cu, its SASS): mu -> F2I.FLOOR (floor+F2I+I2F)
 #     -> IMAD, two VIMNMX, IADD3, ISETP (the index, its clip, the window
 #     test: 5 integer ops at FADD's latency) -> LDS -> the Farrow
@@ -688,8 +701,8 @@ LATENCY_CHAINS = {
     "S5 p=64": {"FFMA": 3},
     "S6": {"SHFL": 1 + 3 / 16, "FADD": 1 + 1 / 16, "FMNMX": 1 + 3 / 16},
     "S7": {"FMNMX": 1, "compare+select": 3, "REDUX": 1, "FADD": 2},
-    "S8 encode": {"FADD": 9, "FMNMX": 4},
-    "S8 decode": {"FMUL": 1, "FADD": 1, "FMNMX": 2},
+    "S8 encode": {"FMUL": 1.5, "FADD": 1, "FMNMX": 1.5,
+                  "compare+select": 0.5},
     "S9": {"floor+F2I+I2F": 1, "LDS": 1, "FMUL": 6, "FADD": 15},
 }
 _CARRIED = {"logf": "FADD", "log10f": "FADD", "atan2f": "FADD",
@@ -912,43 +925,57 @@ def _loop_sizes(sass: str, kernel: str, op_prefix: str) -> list:
     return loops
 
 
+def _walker_chunk(sass: str, kernel: str) -> int:
+    """Instructions of S8's walking warp over a full chunk, in the function
+    whose name holds ``kernel``: from its first staged read (an LDS.128
+    that a compare follows, where the moving warp's are followed by
+    stores) to the unconditional branch past the partial chunk's walk."""
+    for part in sass.split("Function : ")[1:]:
+        if kernel not in part.splitlines()[0]:
+            continue
+        ins = _SASS_INSN.findall(part)
+        ops = [op for _, op, _ in ins]
+        first = next(i for i, op in enumerate(ops) if op.startswith(
+            "LDS.128") and any(o.startswith("FSETP") for o in ops[i:i + 4]))
+        end = next(i for i in range(first, len(ops)) if ops[i] == "BRA")
+        return end - first + 1
+    raise ValueError(f"no {kernel} in the SASS")
+
+
 def cvsd_gardner_latency(dev, smi, lat: dict, mhz: float) -> None:
-    """S8 (csrc/cvsd_scan.cu) and S9 (csrc/gardner_scan.cu): each chain a
-    step (LATENCY_CHAINS); S8's bound the larger of it and its chunk
-    loop's SASS instructions over its 32 steps, S9's the chain (its
+    """S8's encoder (csrc/cvsd_scan.cu) and S9 (csrc/gardner_scan.cu): each
+    chain a step (LATENCY_CHAINS); S8's bound the larger of it and its
+    walking warp's full chunk in the SASS (``_walker_chunk``) over its 32
+    steps, S9's the chain (its
     walker's loop also holds the untaken fall-back), over the SM clock,
-    beside the time a step: S8 at
-    one lane of 2^16 and 1024 lanes x 2^16 (chip_smoke.py phase 42's), S9
-    on one stream of 2^19 symbols at sps 8 (CUDA graph of 3 launches).
-    The SASS is kept beside the built libraries."""
+    beside the time a step: S8 at one lane of 2^16 and 1024 lanes x 2^16
+    (chip_smoke.py phase 42's), S9 on one stream of 2^19 symbols at sps 8
+    (CUDA graph of 3 launches).  S8's decoder is time-parallel: ``s8``
+    times it against its bytes bound.  The SASS is kept beside the built
+    libraries."""
     from solid_dsp_tpu_torch.ops import cuda_build, cuda_cvsd, cuda_timing
 
     args = (0.9, 0.01, 0.001, 0.2, 3, 0.98)
     sass = sass_dump("cvsd_scan.cu")
     out = cuda_build.BUILD_DIR / "cvsd_scan.sass"
     out.write_text(sass)
+    # the instantiation the codec's parameters take (clamps dropped)
+    n_ins = _walker_chunk(sass, "cvsd_encode_kernelILb0E")
+    issue = n_ins / 32.0
+    cycles = _chain_cycles(lat, LATENCY_CHAINS["S8 encode"])
+    bound_ns = max(cycles, issue) / mhz * 1e3
     rng = np.random.default_rng(42)
-    for name, decode, template in (("S8 encode", False, "ILb1E"),
-                                   ("S8 decode", True, "ILb0E")):
-        # the chunk loop: its 32 steps unrolled (32 shared reads or more)
-        n_ins, k_lds = min((n, k) for n, k in _loop_sizes(
-            sass, "cvsd_kernel" + template, "LDS") if k >= 32)
-        issue = n_ins / 32.0
-        cycles = _chain_cycles(lat, LATENCY_CHAINS[name])
-        bound_ns = max(cycles, issue) / mhz * 1e3
-        for B, N in ((1, 1 << 16), (1024, 1 << 16)):
-            x = torch.from_numpy(rng.uniform(-1, 1, (B, N)).astype(
-                np.float32)).to(dev)
-            v = cuda_cvsd.cvsd_cuda(x, False, *args) if decode else x
-            ms = graph_ms(lambda: cuda_cvsd.cvsd_cuda(v, decode, *args), 3)
-            ns = ms * 1e6 / N
-            print(f"[latency bound {name}, {B} x {N}] SASS kept in {out}; "
-                  f"chain {LATENCY_CHAINS[name]}: {cycles:.1f} cycles a "
-                  f"step; its chunk loop {issue:.1f} instructions a step "
-                  f"({n_ins} over 32 steps, {k_lds} shared reads); bound "
-                  f"{bound_ns:.1f} ns a step at {mhz:.0f} MHz (the larger); "
-                  f"measured {ns:.1f} ns a step ({ms:.4f} ms a call): "
-                  f"{bound_ns / ns:.0%} of the bound | {smi}", flush=True)
+    for B, N in ((1, 1 << 16), (1024, 1 << 16)):
+        x = sco_lanes(B, N, dev)
+        ms = graph_ms(lambda: cuda_cvsd.cvsd_cuda(x, False, *args), 3)
+        ns = ms * 1e6 / N
+        print(f"[latency bound S8 encode, {B} x {N}] SASS kept in {out}; "
+              f"chain {LATENCY_CHAINS['S8 encode']}: {cycles:.1f} cycles a "
+              f"step; its walking warp's chunk {issue:.1f} instructions a "
+              f"step ({n_ins} over 32 steps); bound {bound_ns:.1f} ns a step "
+              f"at {mhz:.0f} MHz (the larger); measured {ns:.1f} ns a step "
+              f"({ms:.4f} ms a call): {bound_ns / ns:.0%} of the bound | "
+              f"{smi}", flush=True)
     sass = sass_dump("gardner_scan.cu")
     out = cuda_build.BUILD_DIR / "gardner_scan.sass"
     out.write_text(sass)
@@ -972,6 +999,144 @@ def cvsd_gardner_latency(dev, smi, lat: dict, mhz: float) -> None:
           f"symbol at {mhz:.0f} MHz; "
           f"measured {ns:.1f} ns a symbol ({ms:.3f} ms a call): "
           f"{bound_ns / ns:.0%} of the bound | {smi}", flush=True)
+
+
+# S8's encoder (csrc/cvsd_scan.cu) with one part changed at a time: the
+# first design's one-chain step in the new loop, the next step selected by
+# its boost flag instead of by the bit between the two candidates (both
+# bit-equal), and the moving warp idle (no staging, no stores: wrong bits,
+# only the walk's time is read).
+S8_VARIANTS = {
+    "as built": [],
+    "the first design's step (one chain)": [
+        ("  const unsigned h1 = ((hist << 1) | 1u) & p.mask;",
+         "  { const unsigned bit = xv >= ref ? 1u : 0u;\n"
+         "  hist = ((hist << 1) | bit) & p.mask;\n"
+         "  const bool agree = (hist == 0u) | (hist == p.mask);\n"
+         "  step = clampf(__fadd_rn(__fmul_rn(p.beta, step), agree ? p.gamma"
+         " : 0.0f), p.dmin, p.dmax);\n"
+         "  ref = clampf(__fadd_rn(__fmul_rn(p.leak, ref), bit ? step : "
+         "-step), -1.0f, 1.0f);\n  return bit; }\n"
+         "  const unsigned h1 = ((hist << 1) | 1u) & p.mask;")],
+    "the step selected by its boost flag (bit ? a1 : a0)": [
+        ("  step = bit ? s1 : s0;", "  step = (bit ? a1 : a0) ? boosted : plain;")],
+    "the moving warp idle": [
+        ("      if (k + 1 < nch) {\n        stage(buf ^ 1);",
+         "      if (false) {\n        stage(buf ^ 1);"),
+        ("      if (k > 0) expand(k - 1);", "")],
+}
+
+
+# S8's decoder built at other chunk lengths than the source's (DQ, its
+# 32-sample groups a chunk, substituted): Lc 32 and 128 beside the 64 the
+# package builds.
+S8_DECODE_SIDE = {lc: [("constexpr int DQ = 2;",
+                        f"constexpr int DQ = {lc // 32};")]
+                  for lc in (32, 128)}
+
+
+def _build_s8_variants(out, variants: dict) -> dict:
+    """Build csrc/cvsd_scan.cu with each variant's text substitutions under
+    ``out``, all nvcc runs started together: {label: ctypes library}."""
+    from solid_dsp_tpu_torch.ops import cuda_build
+
+    shutil.rmtree(out, ignore_errors=True)
+    source = (cuda_build.CSRC / "cvsd_scan.cu").read_text()
+    jobs = []
+    for i, (label, subs) in enumerate(variants.items()):
+        d = out / f"v{i}"
+        d.mkdir(parents=True)
+        text = source
+        for a, b in subs:
+            if a not in text:
+                sys.exit(f"S8 variant {label!r}: {a!r} is not in the source")
+            text = text.replace(a, b)
+        (d / "cvsd_scan.cu").write_text(text)
+        jobs.append((label, d / "libs8.so", subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+             str(d / "libs8.so"), str(d / "cvsd_scan.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for label, lib, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            sys.exit(f"S8 variant {label!r} did not build:\n{log[-4000:]}")
+        libs[label] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def s8_sweep(dev, smi) -> None:
+    """S8's decoder (the chunk-and-join) at its chunk length as built and
+    at the side builds' (S8_DECODE_SIDE), one lane and 1024 lanes of 2^16
+    (phase 42's input), against its bytes bound; its five kernels as built
+    (profiler); then the encoder's variants (S8_VARIANTS) at the same
+    shapes.  The side builds and the variants build together, beside the
+    kernels."""
+    from solid_dsp_tpu_torch.ops import cuda_build, cuda_cvsd
+
+    args = (0.9, 0.01, 0.001, 0.2, 3, 0.98)
+    variants = {**{f"decode Lc {lc}": subs
+                   for lc, subs in S8_DECODE_SIDE.items()}, **S8_VARIANTS}
+    libs = _build_s8_variants(cuda_build.BUILD_DIR / "s8_variants", variants)
+    decoders = {cuda_cvsd.DECODE_CHUNK: None}
+    for lc in S8_DECODE_SIDE:
+        lib = libs[f"decode Lc {lc}"]
+        if lib.cvsd_decode_chunk() != lc:
+            sys.exit(f"S8's side build for Lc {lc} has chunks of "
+                     f"{lib.cvsd_decode_chunk()}")
+        fn = lib.cvsd_decode_f32
+        fn.argtypes = list(cuda_cvsd._DEC_ARGS)
+        fn.restype = ctypes.c_int
+        decoders[lc] = fn
+    for B, N in ((1, 1 << 16), (1024, 1 << 16)):
+        words = cuda_cvsd.cvsd_cuda(sco_lanes(B, N, dev), False, *args)
+        want = cuda_cvsd.cvsd_cuda(words, True, *args)
+        y = torch.empty_like(want)
+        bound = 8.0 * B * N / 3.35e12 * 1e3      # 4 in, 4 out a sample
+        for lc in sorted(decoders):
+            fn = decoders[lc]
+            if fn is None:
+                def run():
+                    return cuda_cvsd.cvsd_cuda(words, True, *args)
+                label = "as built"
+            else:
+                def run(fn=fn, lc=lc):
+                    cuda_build.check_launch(cuda_cvsd.decode_launch(
+                        fn, words, y, lc, *args), f"Lc {lc}")
+                    return y
+                label = "side build"
+            err = float((run() - want).abs().max())
+            ms = graph_ms(run, 5)
+            print(f"[S8 decode, {B} x 2^16, Lc {lc}, {label}] {ms:.4f} ms, "
+                  f"{ms * 1e6 / (B * N):.4f} ns a sample, bytes bound "
+                  f"{bound:.5f} ms ({bound / ms:.1%}), max|dy| {err:.3g} "
+                  f"against Lc {cuda_cvsd.DECODE_CHUNK} | {smi}", flush=True)
+        rows = profiled_rows(lambda: cuda_cvsd.cvsd_cuda(words, True, *args),
+                             5)
+        print(f"[S8 decode, {B} x 2^16, Lc {cuda_cvsd.DECODE_CHUNK}, kernels "
+              f"(profiler, ms a call)] "
+              + "; ".join(f"{k[:48]} {t:.4f} ({c} records)"
+                          for t, k, c in rows) + f" | {smi}", flush=True)
+    f32 = np.float32
+    for label in S8_VARIANTS:
+        fn = libs[label].cvsd_encode_f32
+        fn.argtypes = list(cuda_cvsd._ENC_ARGS)
+        fn.restype = ctypes.c_int
+        times = []
+        for B, N in ((1, 1 << 16), (1024, 1 << 16)):
+            x = sco_lanes(B, N, dev)
+            bits = torch.empty((B, N), dtype=torch.int32, device=dev)
+
+            def run():
+                cuda_build.check_launch(fn(
+                    x.data_ptr(), bits.data_ptr(), B, N, f32(0.9), f32(0.01),
+                    f32(0.001), f32(0.2), f32(0.98), 7, 0,
+                    torch.cuda.current_stream(dev).cuda_stream), label)
+            ms = graph_ms(run, 3)
+            times.append(f"{B} x 2^16: {ms:.4f} ms, {ms * 1e6 / N:.1f} ns a "
+                         "step")
+        print(f"[s8 encode variant] {label}: {'; '.join(times)} | {smi}",
+              flush=True)
 
 
 # S7's single-warp form (csrc/viterbi_scan.cu, 64 states) with one part of
@@ -1200,6 +1365,10 @@ def main() -> None:
     if sys.argv[1:] == ["fsm"]:
         cuda_build.build()
         fsm_sweep(dev, smi)
+        return
+    if sys.argv[1:] == ["s8"]:
+        cuda_build.build()
+        s8_sweep(dev, smi)
         return
     if sys.argv[1:] == ["s7-variants"]:
         s7_variants(dev, smi)
