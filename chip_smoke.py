@@ -65,8 +65,9 @@ solid_dsp_tpu_torch/csrc/:
   zoom FFT, the cyclostationary scan, the DCT/DST/MDCT, the ADC model and
   the G.711 codecs, the estimators and the RF measurements in torch ops;
 * ROADMAP items 13a and 13b: the codes, modems and transmit DSP (turbo
-  through S6, bcjr_scan.cu) and the link layer (the Viterbi decoder
-  through S7, viterbi_scan.cu; RS, CCSDS, the block codes, CRC, BER,
+  through S6's fused decode and walk, bcjr_scan.cu) and the link layer
+  (the Viterbi decoder through S7, viterbi_scan.cu; RS, CCSDS, the block
+  codes, CRC, BER,
   OFDM, MIMO, arrays) and the port's packets command;
 * ROADMAP item 13c: the CVSD codec through S8 (cvsd_scan.cu), the Gardner
   timing loop through S9 (gardner_scan.cu), the port's tx, adsb and ais
@@ -341,14 +342,19 @@ Phases, one line each:
      the QAM-64 soft demapper (2^21 symbols), the ZC-127 preamble
      correlation (2^22), the K=7, Q=3 memory polynomial (2^22), ICF (4
      iterations, 2^22) and the 32-tap block RLS (2^20) against their
-     float64 CPU runs; turbo (128 x 1024, 6 iterations) through S6
-     (bcjr_scan.cu), S6 against its plain version on the card on the
-     first walk's rows and the decode against the plain walks' decode
-     (|dLLR| <= 1e-4 max(1, max|LLR|)), every bit back; CA-CFAR (2^22,
-     guard 2, train 16) with F7 met: thresholds within 1e-5 of float64,
-     detections float64's except within that of the threshold; S6 timed
-     over a CUDA graph beside its plain version and its bound.  S6's
-     launches in the turbo decode are the kernels' line's;
+     float64 CPU runs; turbo (128 x 1024, 6 iterations) through S6's
+     fused decode (bcjr_scan.cu, one launch a decode), bit-equal to
+     turbo_decode_chunked_torch on the card and within S6's gate of the
+     plain walks' decode (|dLLR| <= 1e-4 max(1, max|LLR|)), every bit
+     back, and 4 x 8192 (above the fused decode's shared memory) through
+     S6's walk entry, 12 launches, bit-equal to the chunked loop; the walk
+     entry on the first walk's rows bit-equal to bcjr_maxlog_chunked_torch
+     and within the gate of bcjr_maxlog_plain, timed over a CUDA graph at
+     128 rows and one row beside its bound, and the fused decode timed
+     the same way; CA-CFAR (2^22, guard 2, train 16) with F7 met:
+     thresholds within 1e-5 of float64, detections float64's except
+     within that of the threshold.  S6's launches on the two turbo paths
+     are the kernels' line's;
  41. ROADMAP item 13b (item13b_phases) at the sizes of the standards its
      modules implement, each timed and checked like phase 40: the
      Viterbi walk through S7 (viterbi_scan.cu) at 1024 rows of a 64-byte
@@ -654,11 +660,12 @@ L_DEMAP = 1 << 21
 L_PREAMBLE = 1 << 22
 POLAR_FRAMES = 2048
 TURBO_ROWS, TURBO_K = 128, 1024
+TURBO_LONG_ROWS, TURBO_LONG_K = 4, 8192   # above the fused decode's budget
 L_TX = 1 << 22            # dpd_mp_apply_k7q3, cfr_icf_4iter
 L_RLS = 1 << 20
 L_CFAR = 1 << 22
 L_LOCAL_F64 = 1 << 18     # a local function's float64 check: its first samples
-S6_RTOL = 1e-4            # x max(1, max|LLR|): step order vs radix-8 blocks
+S6_RTOL = 1e-4            # x max(1, max|LLR|): chunks vs radix-8 blocks
 TX_RTOL = 1e-4            # x max|ref|: complex64 against complex128
 RLS_RTOL = 1e-3           # complex64 normal equations over 2^20 samples
 F7_RTOL = 1e-5            # CA-CFAR thresholds against float64
@@ -4878,8 +4885,9 @@ def item11_phases(dev, smi) -> list:
 def item13a_phases(dev, smi) -> list:
     """Phase 40: ROADMAP item 13a on the card at the TPU sweep's rows, each
     timed and checked (a float64 CPU run, or the CPU or plain version where
-    the gate is bit-level); turbo through S6, S6 against its plain version.
-    Returns S6's kernel entry."""
+    the gate is bit-level); turbo through S6's fused decode and, for
+    codewords too long for it, its walk entry, both against the chunked and
+    the plain versions.  Returns S6's two kernel entries."""
     from solid_dsp_tpu_torch.models import (cfr, dpd, equalizer, framesync,
                                             ldpc, linear_mod, polar, radar,
                                             turbo)
@@ -4899,14 +4907,20 @@ def item13a_phases(dev, smi) -> list:
 
     def row(label, fn, count, unit, n=5):
         """Rate in the sweep's unit over n calls (CUDA events), the host's
-        enqueue, the profiler's device busy time and the idle share."""
+        enqueue, the profiler's device busy time and the idle share (a
+        listing with no kernel record is taken again over more calls, and
+        reads "not measured" if it stays empty)."""
         wall, enq = timed(fn, n)
-        busy, top = profiled_busy(fn, max(1, min(5, int(100.0 / wall))))
+        for n_prof in (max(1, min(5, int(100.0 / wall))), 20, 50):
+            busy, top = profiled_busy(fn, n_prof)
+            if busy > 0:
+                break
+        idle = (f"{max(0.0, 1 - busy / wall):.0%}" if busy > 0
+                else "not measured")
         print(f"[40 {label}] {count / (wall * 1e3):.2f} {unit} (wall "
               f"{wall:.4f} ms a call over {n}), host {enq:.4f} ms a call, "
-              f"device busy {busy:.4f} ms, idle "
-              f"{max(0.0, 1 - busy / wall):.0%}; largest kernels: {top} | "
-              f"{smi}", flush=True)
+              f"device busy {busy:.4f} ms, idle {idle}; largest kernels: "
+              f"{top} | {smi}", flush=True)
 
     ok = True
 
@@ -4985,29 +4999,57 @@ def item13a_phases(dev, smi) -> list:
         lambda: polar.polar_decode_bp(llr_d, pc.frozen_mask, 15),
         POLAR_FRAMES * 128, "Minfobits/s")
 
-    # turbo_decode_1024_6it through S6: 128 codewords, LLRs 4 (1 - 2c) + N
-    tc = turbo.TurboCode(TURBO_K, n_iter=6, device=dev)
-    tbits = rng.integers(0, 2, (TURBO_ROWS, TURBO_K))
-    tcw = host(tc.encode(tbits))
-    tllr = torch.from_numpy(((1 - 2.0 * tcw) * 4 + rng.standard_normal(
-        tcw.shape)).astype(np.float32)).to(dev)
+    # turbo_decode_1024_6it through S6's fused decode: 128 codewords, LLRs
+    # 4 (1 - 2c) + N; then codewords too long for it (the walk route)
+    def turbo_case(K, rows):
+        code = turbo.TurboCode(K, n_iter=6, device=dev)
+        bits = rng.integers(0, 2, (rows, K))
+        cw = host(code.encode(bits))
+        llr = torch.from_numpy(((1 - 2.0 * cw) * 4 + rng.standard_normal(
+            cw.shape)).astype(np.float32)).to(dev)
+        return code, bits, llr
+
+    def s6_counts():
+        return (cuda_bcjr.turbo_decode_cuda.launches,
+                cuda_bcjr.bcjr_maxlog_cuda.launches)
+
+    tc, tbits, tllr = turbo_case(TURBO_K, TURBO_ROWS)
+    tl, lbits, lllr = turbo_case(TURBO_LONG_K, TURBO_LONG_ROWS)
+    cuda_bcjr.turbo_decode_cuda.launches = 0
     cuda_bcjr.bcjr_maxlog_cuda.launches = 0
     b_k, l_k = tc.decode(tllr)                       # the main path
-    launches = cuda_bcjr.bcjr_maxlog_cuda.launches
+    fused_launches, walks_in_fused = s6_counts()
+    cuda_bcjr.turbo_decode_cuda.launches = 0
+    cuda_bcjr.bcjr_maxlog_cuda.launches = 0
+    b_l, l_l = tl.decode(lllr)                       # long codewords
+    fused_in_long, walk_launches = s6_counts()
     torch.cuda.synchronize()
     box = {}
 
     def plain_decode():
         box["p"] = turbo.turbo_decode(tllr, tc.perm, 6, engine="torch")
+
+    def chunked_decode():
+        box["c"] = turbo.turbo_decode_chunked_torch(tllr, tc.perm, 6)
     plain_decode_ms = cuda_ms_once(plain_decode)
+    chunked_decode_ms = cuda_ms_once(chunked_decode)
     b_p, l_p = box["p"]
+    b_c, l_c = box["c"]
+    b_lc, l_lc = turbo.turbo_decode_chunked_torch(lllr, tl.perm, 6)
     tol = S6_RTOL * max(1.0, float(l_p.abs().max()))
     e_dec = float((l_k - l_p).abs().max())
     sure = l_p.abs() > tol
+    same_fused = torch.equal(l_k, l_c) and torch.equal(b_k, b_c)
+    same_long = torch.equal(l_l, l_lc) and torch.equal(b_l, b_lc)
     good = (e_dec <= tol and torch.equal((l_k < 0)[sure], (l_p < 0)[sure])
-            and np.array_equal(host(b_k), tbits) and launches == 12)
-    # S6 against its plain version on the first walk's rows
+            and same_fused and same_long
+            and np.array_equal(host(b_k), tbits)
+            and np.array_equal(host(b_l), lbits)
+            and (fused_launches, walks_in_fused) == (1, 0)
+            and (fused_in_long, walk_launches) == (0, 12))
+    # S6's walk entry on the first walk's rows, all of them and one
     T = TURBO_K
+    Tm = T + 3
     ls = torch.cat([tllr[:, :T], tllr[:, 3 * T:3 * T + 3]], -1).contiguous()
     lp = torch.cat([tllr[:, T:2 * T], tllr[:, 3 * T + 3:3 * T + 6]],
                    -1).contiguous()
@@ -5016,28 +5058,59 @@ def item13a_phases(dev, smi) -> list:
 
     def plain_walk():
         box["w"] = turbo.bcjr_maxlog_plain(ls, lp, T)
+
+    def chunked_walk():
+        box["wc"] = turbo.bcjr_maxlog_chunked_torch(ls, lp, T)
     plain_ms = cuda_ms_once(plain_walk)
+    chunked_ms = cuda_ms_once(chunked_walk)
     want = box["w"]
     e_s6 = float((got - want).abs().max())
     tol6 = S6_RTOL * max(1.0, float(want.abs().max()))
     sure = want.abs() > tol6
-    good &= e_s6 <= tol6 and torch.equal((got < 0)[sure], (want < 0)[sure])
+    same_walk = torch.equal(got, box["wc"]) and torch.equal(
+        cuda_bcjr.bcjr_maxlog_cuda(ls[:1], lp[:1], T, *tabs), box["wc"][:1])
+    good &= (e_s6 <= tol6 and same_walk
+             and torch.equal((got < 0)[sure], (want < 0)[sure]))
     ms_s6 = graph_ms(lambda: cuda_bcjr.bcjr_maxlog_cuda(ls, lp, T, *tabs),
                      20)
-    Tm = T + 3
-    # bytes: ls, lp read once, the LLRs written once; operations a state a
-    # step: the forward's two gammas (4 each), two adds and a max, the
-    # backward's the same, the LLR's two adds a branch and two maxima
-    bnd = bound_ms(4.0 * TURBO_ROWS * (2 * Tm + T),
-                   28.0 * TURBO_ROWS * Tm * 8, FP32_FLOPS)
-    print(f"[40 turbo 1024, {TURBO_ROWS} rows, 6 it] S6 launches {launches} "
-          f"(want 12); decoded LLRs vs the plain walks' decode on the card: "
-          f"{e_dec:.3g} (gate {tol:.3g}); S6 vs plain on the first walk: "
-          f"{e_s6:.3g} (gate {tol6:.3g}); every bit back: "
-          f"{np.array_equal(host(b_k), tbits)}; S6 {ms_s6:.4f} ms a walk "
-          f"(CUDA graph), plain walk {plain_ms:.1f} ms, plain decode "
-          f"{plain_decode_ms:.1f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}) | "
+    ms_s6_row = graph_ms(lambda: cuda_bcjr.bcjr_maxlog_cuda(
+        ls[:1], lp[:1], T, *tabs), 20)
+    ms_fused = graph_ms(lambda: tc.decode(tllr), 5)
+
+    # the bounds: bytes, ls and lp read once and the LLRs written once (a
+    # walk), the codewords read once and the LLRs and bits written once (a
+    # decode); operations a state a step: the forward's two gammas (4
+    # each), two adds and a max, the backward's the same, the LLR's two
+    # adds a branch and two maxima, the decode's three adds and
+    # subtractions a bit a half-iteration beside them
+    def walk_bound(rows):
+        return bound_ms(4.0 * rows * (2 * Tm + T), 28.0 * rows * Tm * 8,
+                        FP32_FLOPS)
+    bnd, bnd_row = walk_bound(TURBO_ROWS), walk_bound(1)
+    bnd_dec = bound_ms(4.0 * TURBO_ROWS * (3 * T + 12) + 8.0 * TURBO_ROWS * T,
+                       12 * TURBO_ROWS * (28.0 * Tm * 8 + 3 * T), FP32_FLOPS)
+    print(f"[40 turbo 1024, {TURBO_ROWS} rows, 6 it] fused decode launches "
+          f"{fused_launches} (want 1; walk launches {walks_in_fused}); LLRs "
+          f"and bits equal to turbo_decode_chunked_torch's on the card: "
+          f"{same_fused}; vs the plain walks' decode {e_dec:.3g} (gate "
+          f"{tol:.3g}); every bit back: {np.array_equal(host(b_k), tbits)}; "
+          f"{TURBO_LONG_ROWS} x {TURBO_LONG_K} (above the fused decode's "
+          f"shared memory): walk launches {walk_launches} (want 12), fused "
+          f"{fused_in_long}, equal to the chunked loop's {same_long}, every "
+          f"bit back {np.array_equal(host(b_l), lbits)} | {smi}", flush=True)
+    print(f"[40 S6 walk entry, {TURBO_ROWS} x {Tm} and 1 x {Tm}] equal to "
+          f"bcjr_maxlog_chunked_torch: {same_walk}; vs bcjr_maxlog_plain "
+          f"{e_s6:.3g} (gate {tol6:.3g}); {ms_s6:.4f} ms a walk of "
+          f"{TURBO_ROWS} rows (CUDA graph), bound {bnd[0]:.5f} ms "
+          f"({bnd[1]}, {bnd[0] / ms_s6:.1%}); one row {ms_s6_row:.4f} ms, "
+          f"bound {bnd_row[0]:.6f} ({bnd_row[0] / ms_s6_row:.2%}); plain "
+          f"walk {plain_ms:.1f} ms, chunked plain walk {chunked_ms:.1f} ms | "
           f"{smi}", flush=True)
+    print(f"[40 S6 fused decode, {TURBO_ROWS} x {TURBO_K}, 6 it] "
+          f"{ms_fused:.4f} ms a decode (CUDA graph), bound {bnd_dec[0]:.5f} "
+          f"ms ({bnd_dec[1]}, {bnd_dec[0] / ms_fused:.1%}); plain decode "
+          f"{plain_decode_ms:.1f} ms, chunked plain decode "
+          f"{chunked_decode_ms:.1f} ms | {smi}", flush=True)
     ok &= good
     row("turbo_decode_1024_6it", lambda: tc.decode(tllr),
         TURBO_ROWS * TURBO_K, "Minfobits/s", n=3)
@@ -5117,10 +5190,20 @@ def item13a_phases(dev, smi) -> list:
         fail("phase 40: an item-13a row disagrees with its reference")
     e = kernel_entry("bcjr_maxlog", "bcjr_scan.cu",
                      "solid_dsp_tpu/models/turbo.py:276 and :312 (lax.scans, "
-                     "no TPU kernel)", launches, e_s6, ms_s6, plain_ms, bnd)
+                     "no TPU kernel)", walk_launches, e_s6, ms_s6, plain_ms,
+                     bnd)
     e["timed_shape"] = f"{TURBO_ROWS} rows x {Tm} steps"
-    e["main_path_ms"] = decode_ms
-    return [e]
+    e["one_row_ms"] = ms_s6_row
+    e["chunked_plain_ms"] = chunked_ms
+    f = kernel_entry("turbo_decode", "bcjr_scan.cu",
+                     "solid_dsp_tpu/models/turbo.py:326-344 (_turbo_decode_"
+                     "perm's loop over the lax.scans; no TPU kernel)",
+                     fused_launches, e_dec, ms_fused, plain_decode_ms,
+                     bnd_dec)
+    f["timed_shape"] = f"{TURBO_ROWS} codewords x {TURBO_K} bits, 6 it"
+    f["main_path_ms"] = decode_ms
+    f["chunked_plain_ms"] = chunked_decode_ms
+    return [e, f]
 
 
 def item13b_phases(dev, smi) -> list:

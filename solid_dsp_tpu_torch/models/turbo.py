@@ -15,15 +15,31 @@ bit 0.  Flat codeword layout (length 3T + 4m):
 (..., 3T + 4m) LLRs), and a 1-D input is one codeword.
 
 **The walk.**  Each half-iteration's forward (alpha) and backward (beta)
-recurrences and the a-posteriori LLRs are one call of
-:func:`bcjr_maxlog` over the (B, T + m) rows: on a CUDA tensor the
-hand-written Hopper kernel S6 (``ops/cuda_bcjr.py``,
-``csrc/bcjr_scan.cu``: one lane a trellis state, a step at a time), on a
-CPU tensor its plain version :func:`bcjr_maxlog_plain`, the torch-ops
-port of JAX's radix-8 blocked max-plus scan in JAX's order of operations
-(``_bcjr_extrinsic``, JAX ``models/turbo.py:195-324``), which the CPU
-tests hold against JAX.  The RSC encoder's walk runs as torch ops over
-the rows, a step at a time.
+recurrences and the a-posteriori LLRs of one constituent over (B, T + m)
+rows are :func:`bcjr_maxlog`.  Max-log BCJR is linear in the max-plus
+semiring (alpha_{t+1} = M_t (x) alpha_t, beta_t = N_t (x) beta_{t+1},
+(A (x) x)[n] = max_j A[n, j] + x[j]), so on the card the hand-written
+Hopper kernel S6 (``ops/cuda_bcjr.py``, ``csrc/bcjr_scan.cu``) walks it as
+a time-parallel chunk-and-join: each chunk of :data:`CHUNK` steps
+composes its 8 x 8 step matrices, a float64 join carries alpha and beta
+over the chunks' boundaries, and each chunk is walked again from exact
+boundary metrics with its LLRs.  :func:`bcjr_maxlog_chunked_torch` holds
+that geometry and order of operations in torch ops (the card's kernels
+are bit-equal to it).  A CPU tensor takes :func:`bcjr_maxlog_plain`, the
+torch-ops port of JAX's radix-8 blocked max-plus scan in JAX's order of
+operations (``_bcjr_extrinsic``, JAX ``models/turbo.py:195-324``), which
+the CPU tests hold against JAX.  The RSC encoder's walk runs as torch ops
+over the rows, a step at a time.
+
+**The decode.**  On a CUDA tensor :func:`turbo_decode` runs every
+iteration of both constituents in one launch of S6's fused entry
+(``cuda_bcjr.turbo_decode_cuda``: a thread block a codeword, its rows in
+shared memory), where the codeword fits the block's shared memory (K up
+to 7,133 on an H100, LTE's 6144 included); a longer codeword takes two
+launches of the walk an iteration (``cuda_bcjr.bcjr_maxlog_cuda``), a
+route by shape.
+:func:`turbo_decode_chunked_torch` is the fused decode's counterpart in
+torch ops.
 
 The functions run where their input lies; :class:`TurboCode` moves its
 inputs to its device (the card unless told otherwise).
@@ -41,7 +57,9 @@ from ..ops import cuda_bcjr
 from ..ops.cuda_build import use_kernel
 
 __all__ = ["qpp_permutation", "turbo_encode", "turbo_decode",
-           "bcjr_maxlog", "bcjr_maxlog_plain", "TurboCode", "LTE_QPP"]
+           "turbo_decode_chunked_torch", "bcjr_maxlog", "bcjr_maxlog_plain",
+           "bcjr_maxlog_chunked_torch", "TurboCode", "LTE_QPP", "CHUNK",
+           "RENORM"]
 
 # natural bit order (bit j = coefficient of D^j): LTE's "13/15" (3GPP TS
 # 36.212 5.1.3.2), feedback 0o15 = 1 + D^2 + D^3, feedforward 0o13
@@ -58,6 +76,8 @@ LTE_QPP = {
 
 NEG = -1e9               # log-metric of an unreachable state
 RADIX = 8                # the plain version's block of steps (JAX's R)
+CHUNK = 32               # S6's chunk of steps (csrc/bcjr_scan.cu's LC)
+RENORM = 16              # S6's renormalisation period in a chunk (RN)
 
 
 def qpp_permutation(K: int, f1: int | None = None,
@@ -281,45 +301,185 @@ def bcjr_maxlog_plain(ls: torch.Tensor, lp: torch.Tensor, T: int,
     return llr[:, :T]
 
 
+@lru_cache(maxsize=8)
+def _walk_tables(fb: int, ff: int, m: int):
+    """S6's tables, per direction (0: the forward walk's incoming
+    transitions, 1: the backward walk's outgoing ones) and state x: the
+    states ``src`` (2, S, 2) whose metrics x's two branches read, and the
+    signs ``su``, ``sp`` (2, S, 2) of the branches' input and parity, so
+    that a branch's gamma is 0.5 (su ls + sp lp)."""
+    ns, p, prev, prev_u, _ = _rsc_tables(fb, ff, m)
+    prev_p = p[prev, prev_u]
+    src = np.stack([prev, ns]).astype(np.int64)
+    su = np.stack([1 - 2 * prev_u, np.broadcast_to([1, -1], ns.shape)])
+    sp = np.stack([1 - 2 * prev_p, 1 - 2 * p])
+    return src, su.astype(np.float32), sp.astype(np.float32)
+
+
+def _gammas(ls, lp, su, sp):
+    """0.5 (su ls + sp lp) a step and branch: rows (N,) -> (N, S, 2); the
+    products are exact (signs), the sum rounds once, the half is exact."""
+    return 0.5 * (su * ls[:, None, None] + sp * lp[:, None, None])
+
+
+def _chunk_matrices(ls, lp, length: int, src, su, sp, forward: bool):
+    """S6's pass 1 on tasks of ``length`` steps, rows ls, lp (N, length):
+    each chunk's max-plus product of its step matrices, (N, S, S) float32
+    (forward: P = M_last (x) ... (x) M_first, row n the paths that end in
+    state n; backward: Q = N_first (x) ... (x) N_last).  From the identity,
+    step k (k = 0 .. CHUNK - 1; the step at position k forward, CHUNK - 1 -
+    k backward, positions past ``length`` skipped) is X'[x, j] = max_c
+    (g(x, c) + X[src[x, c], j]); after step k with (k + 1) % RENORM == 0
+    and k + 1 < CHUNK the matrix drops its largest entry (a constant that
+    the join's renormalisation cancels)."""
+    N, S = ls.shape[0], src.shape[0]
+    X = torch.full((N, S, S), NEG, dtype=torch.float32, device=ls.device)
+    X[:, torch.arange(S), torch.arange(S)] = 0.0
+    for k in range(CHUNK):
+        i = k if forward else CHUNK - 1 - k
+        if i >= length:
+            continue
+        g = _gammas(ls[:, i], lp[:, i], su, sp)
+        X = torch.maximum(g[:, :, 0, None] + X[:, src[:, 0]],
+                          g[:, :, 1, None] + X[:, src[:, 1]])
+        if (k + 1) % RENORM == 0 and k + 1 < CHUNK:
+            X = X - X.amax(dim=(1, 2), keepdim=True)
+    return X
+
+
+def _join(mats: torch.Tensor) -> list:
+    """S6's join over one row's chunk matrices in the order of the walk,
+    (B, n, S, S) float32: from e_0 (0 in state 0, NEG elsewhere) the
+    float64 vector v_{r+1} = mats_r (x) v_r, not renormalised along the
+    way; each boundary renormalised by its max and rounded to float32
+    once.  Returns the n + 1 boundary vectors (B, S), e_0 first."""
+    B, n, S = mats.shape[:3]
+    a = torch.full((B, S), NEG, dtype=torch.float64, device=mats.device)
+    a[:, 0] = 0.0
+    out = [a.float()]
+    for r in range(n):
+        a = (mats[:, r].double() + a[:, None, :]).amax(-1)
+        out.append((a - a.amax(-1, keepdim=True)).float())
+    return out
+
+
+def _chunk_llrs(ls, lp, length: int, alpha, beta, src, su, sp):
+    """S6's pass 3 on tasks of ``length`` steps, rows ls, lp (N, length),
+    from the boundary metrics alpha (before the first step) and beta
+    (after the last), (N, S) float32: the forward walk stores alpha before
+    each step, renormalised by its max after the update that gives the
+    alpha at position i + 1 when (i + 1) % RENORM == 0; the backward walk
+    gives each step's LLR, max_s (alpha + g0) + beta[ns[s, 0]] - max_s
+    (alpha + g1) + beta[ns[s, 1]], then beta at position i, renormalised
+    when i % RENORM == 0.  Returns the (N, length) LLRs."""
+    fsrc, bsrc = src
+    alphas = []
+    for i in range(length):
+        alphas.append(alpha)
+        if i + 1 < length:
+            g = _gammas(ls[:, i], lp[:, i], su[0], sp[0])
+            alpha = torch.maximum(g[..., 0] + alpha[:, fsrc[:, 0]],
+                                  g[..., 1] + alpha[:, fsrc[:, 1]])
+            if (i + 1) % RENORM == 0:
+                alpha = alpha - alpha.amax(-1, keepdim=True)
+    out = [None] * length
+    for i in range(length - 1, -1, -1):
+        g = _gammas(ls[:, i], lp[:, i], su[1], sp[1])
+        b0, b1 = beta[:, bsrc[:, 0]], beta[:, bsrc[:, 1]]
+        out[i] = (((alphas[i] + g[..., 0]) + b0).amax(-1)
+                  - ((alphas[i] + g[..., 1]) + b1).amax(-1))
+        if i > 0:
+            beta = torch.maximum(g[..., 0] + b0, g[..., 1] + b1)
+            if i % RENORM == 0:
+                beta = beta - beta.amax(-1, keepdim=True)
+    return torch.stack(out, 1)
+
+
+def bcjr_maxlog_chunked_torch(ls: torch.Tensor, lp: torch.Tensor, T: int,
+                              fb: int = DEFAULT_FB, ff: int = DEFAULT_FF,
+                              m: int = DEFAULT_M) -> torch.Tensor:
+    """S6's chunk-and-join in torch ops: the (B, T) a-posteriori LLRs of
+    one terminated constituent over rows ``ls = l_sys + l_apr`` and ``lp``
+    (B, T + m) float32 with the tails appended, in the kernel's geometry
+    and order of operations (``csrc/bcjr_scan.cu``, bit-equal to it).
+
+    The T + m steps are cut into chunks of :data:`CHUNK` (the last one
+    ragged, any length 1 .. CHUNK).  Pass 1: the forward product of every
+    chunk but the last and the backward product of every chunk but the
+    first (:func:`_chunk_matrices`).  Join: alpha from state 0 over the
+    chunks' starts and beta, terminated in state 0 after the tail's m
+    steps, over their ends, in float64 (:func:`_join`).  Pass 3: each
+    chunk walked from its boundary metrics with its LLRs
+    (:func:`_chunk_llrs`).  The geometry depends on T + m only.  Against
+    the plain version the values differ by float32 association and where
+    the renormalisations fall, within S6's gate."""
+    src_np, su_np, sp_np = _walk_tables(fb, ff, m)
+    dev = ls.device
+    src = device_constant(src_np, dev, torch.long)
+    su = device_constant(su_np, dev, torch.float32)
+    sp = device_constant(sp_np, dev, torch.float32)
+    S = src.shape[1]
+    B, Tm = ls.shape
+    L = CHUNK
+    C = -(-Tm // L)
+    last = Tm - (C - 1) * L
+
+    def tasks(x, c0, c1):                 # chunks c0 .. c1 - 1, all full
+        return x[:, c0 * L:c1 * L].reshape(B * (c1 - c0), L)
+
+    def matrices(c0, c1, forward):        # chunks c0 .. c1 - 1, (B, n, S, S)
+        d = 0 if forward else 1
+        full = c1 if (c1 < C or last == L) else c1 - 1
+        parts = []
+        if full > c0:
+            parts.append(_chunk_matrices(
+                tasks(ls, c0, full), tasks(lp, c0, full), L, src[d], su[d],
+                sp[d], forward).reshape(B, full - c0, S, S))
+        if full < c1:
+            parts.append(_chunk_matrices(ls[:, full * L:], lp[:, full * L:],
+                                         last, src[d], su[d], sp[d],
+                                         forward)[:, None])
+        return torch.cat(parts, 1)
+
+    if C > 1:
+        starts = _join(matrices(0, C - 1, True))
+        ends = _join(matrices(1, C, False).flip(1))[::-1]
+    else:
+        starts = ends = _join(ls.new_zeros((B, 0, S, S)))
+    starts, ends = torch.stack(starts, 1), torch.stack(ends, 1)   # (B, C, S)
+    full = C if last == L else C - 1
+    out = []
+    if full:
+        out.append(_chunk_llrs(
+            tasks(ls, 0, full), tasks(lp, 0, full), L,
+            starts[:, :full].reshape(-1, S), ends[:, :full].reshape(-1, S),
+            src, su, sp).reshape(B, full * L))
+    if full < C:
+        out.append(_chunk_llrs(ls[:, full * L:], lp[:, full * L:], last,
+                               starts[:, -1], ends[:, -1], src, su, sp))
+    return torch.cat(out, 1)[:, :T]
+
+
 def bcjr_maxlog(ls: torch.Tensor, lp: torch.Tensor, T: int,
                 fb: int = DEFAULT_FB, ff: int = DEFAULT_FF,
                 m: int = DEFAULT_M, engine: str = "auto") -> torch.Tensor:
     """The (B, T) a-posteriori LLRs of one constituent over (B, T + m)
-    rows: S6 on a CUDA tensor (``engine`` "auto" or "cuda"), the plain
-    version on a CPU tensor or with ``engine="torch"``."""
+    rows: S6's walk on a CUDA tensor (``engine`` "auto" or "cuda", one
+    launch), the plain version on a CPU tensor or with ``engine="torch"``."""
     if use_kernel(engine, ls):
         return cuda_bcjr.bcjr_maxlog_cuda(ls, lp, T,
                                           *_rsc_tables(fb, ff, m)[:4])
     return bcjr_maxlog_plain(ls, lp, T, fb, ff, m)
 
 
-def _bcjr_extrinsic(l_sys, lp, l_apr, t_sys, fb, ff, m, engine):
-    """Rows (B, T) of channel systematic and a-priori LLRs, the (B, m)
-    systematic tail and the parity rows lp (B, T + m), tail appended ->
-    (extrinsic, a-posteriori) LLRs (B, T)."""
-    ls = torch.cat([l_sys + l_apr, t_sys], -1)
-    llr = bcjr_maxlog(ls, lp, l_sys.shape[-1], fb, ff, m, engine)
-    return llr - l_sys - l_apr, llr
-
-
-def turbo_decode(rx_llr, perm, n_iter: int = 8, fb: int = DEFAULT_FB,
-                 ff: int = DEFAULT_FF, m: int = DEFAULT_M,
-                 engine: str = "auto"):
-    """Iteratively decode (..., 3T + 4m) LLRs in the :func:`turbo_encode`
-    layout (positive favours 0).  Returns (bits (..., T) int32, llr
-    (..., T) float32), the hard decisions and the final a-posteriori LLRs.
-    Any leading axes are a batch (JAX vmaps instead); each iteration runs
-    two walks (``bcjr_maxlog``: S6 on the card)."""
-    rx = torch.as_tensor(rx_llr).to(torch.float32)
-    perm = np.asarray(perm, np.int64)
+def _decode_rows(rows, perm, n_iter: int, walk, m: int):
+    """The iterations of :func:`turbo_decode` over (B, 3T + 4m) rows, each
+    half-iteration one ``walk(ls, lp, T)``: JAX's ``_turbo_decode_perm``
+    (``ls = l_sys + l_apr``, the extrinsic ``(llr - l_sys) - l_apr``, the
+    QPP gathers) with a batch axis.  Returns the final LLRs (B, T)."""
     T = perm.size
-    if rx.shape[-1] != 3 * T + 4 * m:
-        raise ValueError(f"expected {3 * T + 4 * m} LLRs a codeword, got "
-                         f"{rx.shape[-1]}")
     inv = np.empty_like(perm)
     inv[perm] = np.arange(T)
-    lead = rx.shape[:-1]
-    rows = rx.reshape(-1, rx.shape[-1])
     pj = device_constant(perm, rows.device, torch.long)
     ij = device_constant(inv, rows.device, torch.long)
     ls = rows[:, :T]
@@ -328,14 +488,79 @@ def turbo_decode(rx_llr, perm, n_iter: int = 8, fb: int = DEFAULT_FB,
     lp1 = torch.cat([rows[:, T:2 * T], t[:, 1]], -1)
     lp2 = torch.cat([rows[:, 2 * T:3 * T], t[:, 3]], -1)
     ls2 = ls[:, pj]
+
+    def extrinsic(l_sys, lp, l_apr, t_sys):
+        llr = walk(torch.cat([l_sys + l_apr, t_sys], -1), lp, T)
+        return llr - l_sys - l_apr, llr
+
     apr1 = torch.zeros_like(ls)
     llr = ls
     for _ in range(int(n_iter)):
-        ext1, _ = _bcjr_extrinsic(ls, lp1, apr1, t[:, 0], fb, ff, m, engine)
-        ext2, llr2 = _bcjr_extrinsic(ls2, lp2, ext1[:, pj], t[:, 2], fb, ff,
-                                     m, engine)
+        ext1, _ = extrinsic(ls, lp1, apr1, t[:, 0])
+        ext2, llr2 = extrinsic(ls2, lp2, ext1[:, pj], t[:, 2])
         apr1 = ext2[:, ij]
         llr = llr2[:, ij]
+    return llr
+
+
+def _as_rows(rx_llr, perm, m: int):
+    rx = torch.as_tensor(rx_llr).to(torch.float32)
+    perm = np.asarray(perm, np.int64)
+    T = perm.size
+    if rx.shape[-1] != 3 * T + 4 * m:
+        raise ValueError(f"expected {3 * T + 4 * m} LLRs a codeword, got "
+                         f"{rx.shape[-1]}")
+    return rx.shape[:-1], rx.reshape(-1, rx.shape[-1]), perm
+
+
+def turbo_decode(rx_llr, perm, n_iter: int = 8, fb: int = DEFAULT_FB,
+                 ff: int = DEFAULT_FF, m: int = DEFAULT_M,
+                 engine: str = "auto"):
+    """Iteratively decode (..., 3T + 4m) LLRs in the :func:`turbo_encode`
+    layout (positive favours 0).  Returns (bits (..., T) int32, llr
+    (..., T) float32), the hard decisions and the final a-posteriori LLRs.
+    Any leading axes are a batch (JAX vmaps instead).
+
+    On a CUDA tensor (``engine`` "auto" or "cuda") the decode is S6 on the
+    8-state trellis: the whole decode, every iteration of both
+    constituents, in one launch of ``cuda_bcjr.turbo_decode_cuda`` where
+    the codeword fits a thread block's shared memory
+    (``cuda_bcjr.fused_fits``: K up to 7,133 on an H100; the kernel
+    returns the bits too); a longer codeword takes two launches of the walk
+    (``bcjr_maxlog_cuda``) an iteration, a route by shape.  Both are
+    bit-equal to :func:`turbo_decode_chunked_torch`.  A CPU tensor, or
+    ``engine="torch"``, takes the plain walks (:func:`bcjr_maxlog_plain`,
+    JAX's order)."""
+    lead, rows, perm = _as_rows(rx_llr, perm, m)
+    T = perm.size
+    if n_iter >= 1 and use_kernel(engine, rows):
+        tabs = _rsc_tables(fb, ff, m)[:4]
+        if cuda_bcjr.fused_fits(T, rows.device):
+            bits, llr = cuda_bcjr.turbo_decode_cuda(rows, perm, n_iter, *tabs)
+            return bits.reshape(*lead, T), llr.reshape(*lead, T)
+        llr = _decode_rows(rows, perm, n_iter, lambda a, b, n: (
+            cuda_bcjr.bcjr_maxlog_cuda(a, b, n, *tabs)), m)
+    elif n_iter >= 1:
+        llr = _decode_rows(rows, perm, n_iter, lambda a, b, n: (
+            bcjr_maxlog_plain(a, b, n, fb, ff, m)), m)
+    else:
+        llr = rows[:, :T]
+    llr = llr.reshape(*lead, T)
+    return (llr < 0).to(torch.int32), llr
+
+
+def turbo_decode_chunked_torch(rx_llr, perm, n_iter: int = 8,
+                               fb: int = DEFAULT_FB, ff: int = DEFAULT_FF,
+                               m: int = DEFAULT_M):
+    """:func:`turbo_decode` with each walk :func:`bcjr_maxlog_chunked_torch`,
+    in torch ops where the input lies: the counterpart of S6's fused
+    decode (and of its half-iteration route), bit-equal to both on the
+    card.  Returns (bits, llr) as :func:`turbo_decode` does."""
+    lead, rows, perm = _as_rows(rx_llr, perm, m)
+    T = perm.size
+    llr = rows[:, :T] if n_iter < 1 else _decode_rows(
+        rows, perm, n_iter, lambda a, b, n: bcjr_maxlog_chunked_torch(
+            a, b, n, fb, ff, m), m)
     llr = llr.reshape(*lead, T)
     return (llr < 0).to(torch.int32), llr
 

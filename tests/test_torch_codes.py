@@ -1,5 +1,5 @@
 """Port vs JAX package: models/ldpc.py, models/polar.py and
-models/turbo.py on the CPU, and S6's arithmetic emulated.
+models/turbo.py on the CPU, and S6's chunk-and-join in torch ops.
 
 The same seeded numpy LLRs go through both packages (LDPC 648 at a few
 iterations, polar N <= 64, turbo K <= 128; the JAX decoders are compiled
@@ -10,10 +10,15 @@ port's gather-and-sum routing adds the same messages in another order than
 JAX's one-hot matmuls); polar u_hat, x_hat and ok equal; the turbo
 decoder's a-posteriori LLRs within 1e-5 x max of JAX's vmapped decode (the
 plain walk is JAX's radix-8 scan in JAX's order) and its bits equal.  S6
-(``csrc/bcjr_scan.cu``) walks step by step and renormalises once a chunk
-of 16 steps (the backward walk's chunks start after the tail's 3
-steps): that arithmetic, emulated here in float32 numpy, agrees with the
-plain version within S6's card gate, |dLLR| <= 1e-4 max(1, max|LLR|).
+(``csrc/bcjr_scan.cu``) walks the trellis as a chunk-and-join in the
+max-plus semiring; ``bcjr_maxlog_chunked_torch`` holds its geometry and
+order of operations (the card's kernel is bit-equal to it) and
+``turbo_decode_chunked_torch`` the fused decode's.  Both are held against
+JAX's ``_bcjr_extrinsic`` and vmapped ``turbo_decode`` and against the
+plain walk within S6's card gate, |dLLR| <= 1e-4 max(1, max|LLR|), hard
+bits equal above it, at T + 3 leaving last chunks of 1 to 32 steps and
+LLR scales 1 to 20; the chunk products against float64 products of the
+step matrices.
 """
 
 import jax
@@ -231,61 +236,143 @@ def test_turbo_noiseless_roundtrip_odd_sizes():
         np.testing.assert_array_equal(_np(tc.decode(llr)[0]), bits)
 
 
-def _s6_emulated(ls, lp, T, chunk=16):
-    """csrc/bcjr_scan.cu's arithmetic in float32 numpy: the forward walk
-    storing alpha before each step, renormalised by the max after every
-    chunk of ``chunk`` steps; the backward walk's m tail steps, then its T
-    information steps with the LLRs, renormalised after every chunk of
-    them."""
-    f = np.float32
-    ns, p, prev, prev_u, _ = tturbo._rsc_tables(0o15, 0o13, 3)
-    prev_p = p[prev, prev_u]
-    su, sq, sp = (1 - 2 * prev_u).astype(f), (1 - 2 * prev_p).astype(f), (
-        1 - 2 * p).astype(f)
-    B, Tm = ls.shape
-    alpha = np.full((B, 8), -1e9, f)
-    alpha[:, 0] = 0
-    A = np.zeros((B, Tm, 8), f)
-    for t in range(Tm):
-        A[:, t] = alpha
-        g = f(0.5) * (su * ls[:, t, None, None] + sq * lp[:, t, None, None])
-        alpha = np.maximum(g[..., 0] + alpha[:, prev[:, 0]],
-                           g[..., 1] + alpha[:, prev[:, 1]])
-        if (t + 1) % chunk == 0 or t == Tm - 1:
-            alpha = alpha - alpha.max(1, keepdims=True)
-    beta = np.full((B, 8), -1e9, f)
-    beta[:, 0] = 0
-    out = np.zeros((B, T), f)
-    for k in range(Tm):
-        t = Tm - 1 - k
-        b0, b1 = beta[:, ns[:, 0]], beta[:, ns[:, 1]]
-        g0 = f(0.5) * (ls[:, t, None] + sp[:, 0] * lp[:, t, None])
-        g1 = f(0.5) * (sp[:, 1] * lp[:, t, None] - ls[:, t, None])
-        if t < T:
-            out[:, t] = (((A[:, t] + g0) + b0).max(1)
-                         - ((A[:, t] + g1) + b1).max(1))
-        beta = np.maximum(g0 + b0, g1 + b1)
-        j = k - (Tm - T)                  # the information steps' count
-        if j >= 0 and ((j + 1) % chunk == 0 or j == T - 1):
-            beta = beta - beta.max(1, keepdims=True)
-    return out
-
-
-@pytest.mark.parametrize("T,scale", [(40, 2.0), (61, 6.0), (128, 20.0)])
-def test_s6_arithmetic_emulated_matches_plain(T, scale):
-    """The kernel's step-by-step order against the plain radix-8 walk: the
-    card gate |dLLR| <= 1e-4 max(1, max|LLR|), hard bits equal where |LLR|
-    is above it; T + 3 steps, odd T included."""
-    rng = np.random.default_rng(T)
-    ls = (scale * rng.standard_normal((5, T + 3))).astype(np.float32)
-    lp = (scale * rng.standard_normal((5, T + 3))).astype(np.float32)
-    want = _np(tturbo.bcjr_maxlog_plain(torch.from_numpy(ls),
-                                        torch.from_numpy(lp), T))
-    got = _s6_emulated(ls, lp, T)
+def _s6_gate(got, want):
+    """S6's gate: |dLLR| <= 1e-4 max(1, max|LLR|), hard bits equal where
+    |LLR| is above it."""
+    got, want = np.asarray(got), np.asarray(want)
     tol = 1e-4 * max(1.0, float(np.abs(want).max()))
     assert np.abs(got - want).max() <= tol
     sure = np.abs(want) > tol
     np.testing.assert_array_equal((got < 0)[sure], (want < 0)[sure])
+
+
+def _s6_rows(T, scale, B=2, seed=0):
+    rng = np.random.default_rng(seed + T)
+    return tuple((scale * rng.standard_normal((B, T + 3))).astype(np.float32)
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("T,scale", [(40, 2.0), (61, 6.0), (128, 20.0)])
+def test_s6_arithmetic_emulated_matches_plain(T, scale):
+    """The kernel's order of operations (``bcjr_maxlog_chunked_torch``:
+    chunks of 32 steps, their products, the float64 join, the chunks'
+    walks) against the plain radix-8 walk: the card gate |dLLR| <= 1e-4
+    max(1, max|LLR|), hard bits equal where |LLR| is above it; T + 3
+    steps, odd T included."""
+    ls, lp = _s6_rows(T, scale, B=5)
+    want = _np(tturbo.bcjr_maxlog_plain(torch.from_numpy(ls),
+                                        torch.from_numpy(lp), T))
+    got = _np(tturbo.bcjr_maxlog_chunked_torch(torch.from_numpy(ls),
+                                               torch.from_numpy(lp), T))
+    _s6_gate(got, want)
+
+
+@pytest.fixture(scope="module")
+def jax_walk():
+    """JAX's ``_bcjr_extrinsic`` over rows ls (l_sys + l_apr and its tail)
+    and lp: the a-posteriori LLRs, one jit a shape."""
+    tabs = jturbo._rsc_tables(0o15, 0o13, 3)
+
+    @jax.jit
+    def walk(ls, lp):
+        T = ls.shape[-1] - 3
+        return jax.vmap(lambda a, b: jturbo._bcjr_extrinsic(
+            a[:T], b[:T], jnp.zeros_like(a[:T]), a[T:], b[T:], tabs, 3)[1])(
+                ls, lp)
+    return walk
+
+
+@pytest.mark.parametrize("scale", [1.0, 20.0])
+@pytest.mark.parametrize("T", [1, 29, 30, 31, 40, 41, 1022, 1023, 1024,
+                               6144])
+def test_s6_chunked_matches_jax_and_plain(jax_walk, T, scale):
+    """``bcjr_maxlog_chunked_torch`` against JAX's walk and the plain
+    version within S6's gate: T + 3 = 4 (one chunk of 4 steps), 32 (one
+    full chunk), 33 and 34 (a last chunk of 1 and 2 steps), 43, 44, 1025
+    and 1026 (1 and 2 again), 1027 and 6147 (3); LLR scales 1 and 20."""
+    ls, lp = _s6_rows(T, scale)
+    got = _np(tturbo.bcjr_maxlog_chunked_torch(torch.from_numpy(ls),
+                                               torch.from_numpy(lp), T))
+    assert got.shape == (2, T) and got.dtype == np.float32
+    _s6_gate(got, np.asarray(jax_walk(jnp.asarray(ls), jnp.asarray(lp))))
+    _s6_gate(got, _np(tturbo.bcjr_maxlog_plain(torch.from_numpy(ls),
+                                               torch.from_numpy(lp), T)))
+
+
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("length", [1, 2, 3, 32])
+def test_s6_chunk_products_are_max_plus_products(forward, length):
+    """A chunk's matrix (pass 1) is the float64 max-plus product of its
+    step matrices (the plain version's M_t and N_t) up to the constant its
+    renormalisations drop, NEG entries where fewer than m = 3 steps leave
+    a state unreachable."""
+    ls, lp = (torch.from_numpy(a[:, :length]) for a in _s6_rows(29, 8.0))
+    src, su, sp = (torch.from_numpy(a) for a in tturbo._walk_tables(
+        0o15, 0o13, 3))
+    d = 0 if forward else 1
+    got = tturbo._chunk_matrices(ls, lp, length, src[d], su[d], sp[d],
+                                 forward).double()
+    g = tturbo._gammas(ls.double().reshape(-1), lp.double().reshape(-1),
+                       su[d].double(), sp[d].double()).reshape(
+        2, length, 8, 2)
+    want = torch.full((2, 8, 8), -np.inf, dtype=torch.float64)
+    want[:, range(8), range(8)] = 0.0
+    steps = range(length) if forward else range(length - 1, -1, -1)
+    for i in steps:
+        nxt = torch.full_like(want, -np.inf)
+        for c in range(2):
+            nxt = torch.maximum(nxt, g[:, i, :, c, None]
+                                + want[:, src[d][:, c]])
+        want = nxt
+    finite = torch.isfinite(want)
+    assert torch.equal(finite, got > tturbo.NEG / 2)
+    shift = (got - want)[finite].reshape(2, -1)
+    assert float((shift - shift[:, :1]).abs().max()) <= 1e-4 * 8 * length
+    if length >= 3:
+        assert bool(finite.all())
+
+
+def test_s6_chunked_decode_equals_vmapped_jax(turbo_case):
+    """``turbo_decode_chunked_torch``, the fused decode's order, against
+    JAX's vmapped decode (K = 64, three iterations): S6's gate, the bits
+    equal; the plain decode within the same gate of it."""
+    K, n_iter, perm, bits, llr, bj, lj = turbo_case
+    bc, lc = tturbo.turbo_decode_chunked_torch(torch.from_numpy(llr), perm,
+                                               n_iter)
+    assert bc.shape == (4, K) and bc.dtype == torch.int32
+    _s6_gate(_np(lc), lj)
+    np.testing.assert_array_equal(_np(bc), bj)
+    _s6_gate(_np(lc), _np(tturbo.turbo_decode(torch.from_numpy(llr), perm,
+                                              n_iter)[1]))
+    b1, l1 = tturbo.turbo_decode_chunked_torch(torch.from_numpy(llr[1]),
+                                               perm, n_iter)
+    assert b1.shape == (K,) and torch.equal(l1, lc[1])
+    b0, l0 = tturbo.turbo_decode_chunked_torch(torch.from_numpy(llr), perm,
+                                               0)
+    np.testing.assert_array_equal(_np(l0), llr[:, :K])
+
+
+@pytest.mark.parametrize("K", [40, 128])
+def test_s6_chunked_decode_six_iterations(K):
+    """The last iteration's LLRs of a six-iteration decode (grown to
+    hundreds, the precision argument's worst case) at the TPU sweep's
+    Eb/N0 (4 (1 - 2c) + N(0, 1)): the chunked decode against JAX's vmapped
+    decode and the plain one, S6's gate, every bit back."""
+    perm = jturbo.qpp_permutation(K)
+    rng = np.random.default_rng(K + 6)
+    bits = rng.integers(0, 2, (3, K))
+    cw = np.stack([np.asarray(jturbo.turbo_encode(b, perm)) for b in bits])
+    llr = ((1 - 2.0 * cw) * 4 + rng.standard_normal(cw.shape)).astype(
+        np.float32)
+    bj, lj = jax.vmap(lambda l: jturbo.turbo_decode(l, perm, 6))(
+        jnp.asarray(llr))
+    bc, lc = tturbo.turbo_decode_chunked_torch(torch.from_numpy(llr), perm,
+                                               6)
+    assert float(np.abs(np.asarray(lj)).max()) > 100
+    _s6_gate(_np(lc), np.asarray(lj))
+    _s6_gate(_np(lc), _np(tturbo.turbo_decode(torch.from_numpy(llr), perm,
+                                              6)[1]))
+    np.testing.assert_array_equal(_np(bc), bits)
 
 
 def test_s6_wrapper_refuses_cpu_tensors_and_other_trellises():
@@ -295,6 +382,12 @@ def test_s6_wrapper_refuses_cpu_tensors_and_other_trellises():
         cuda_bcjr.bcjr_maxlog_cuda(ls, ls, 40, ns, p, prev, prev_u)
     with pytest.raises(ValueError, match="CUDA"):
         tturbo.bcjr_maxlog(ls, ls, 40, engine="cuda")
+    rows = torch.zeros((2, 132))
+    perm = tturbo.qpp_permutation(40)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_bcjr.turbo_decode_cuda(rows, perm, 2, ns, p, prev, prev_u)
+    with pytest.raises(ValueError, match="CUDA"):
+        tturbo.turbo_decode(rows, perm, 2, engine="cuda")
     tabs = cuda_bcjr._tables(*(np.asarray(a, np.int64).tobytes()
                                for a in (ns, p, prev, prev_u)))
     flat = np.array(list(tabs)).reshape(5, 8, 2)

@@ -41,9 +41,12 @@ rtol 1e-9 (float64) or 1e-4 (float32) of its plain walks at n, m up to 8
 and within 1e-11 or 1e-5 of its chunked plain version, and S5 (the
 all-pole lattice, csrc/track_scan.cu) the same as the walks in all four
 types at orders 1 to 80.  S6 (turbo's
-max-log BCJR walk, csrc/bcjr_scan.cu) within 1e-4 max(1, max|LLR|) of its
-plain version, hard bits equal above that, at K = 40 to 6144, batch 1 and
-128; turbo decoding on the card recovers every bit at the sweep's Eb/N0.
+max-log BCJR walk, csrc/bcjr_scan.cu, the chunk-and-join) bit-equal to
+bcjr_maxlog_chunked_torch and within 1e-4 max(1, max|LLR|) of its plain
+version, hard bits equal above that, at K = 40 to 6144, batch 1 and 128;
+the fused decode, one launch, bit-equal to turbo_decode_chunked_torch and
+within that gate of the plain walks' decode, recovering every bit at the
+sweep's Eb/N0; a longer codeword through the walk entry.
 P7: the transforms of a batch with no rows return JAX's empty shape and
 dtype on the card, with no K7 launch.  S7 (the Viterbi ACS walk and
 traceback, csrc/viterbi_scan.cu) bit-equal to its plain version, decoded
@@ -2143,12 +2146,14 @@ def test_s4_s5_reject_cpu_and_wrong_types():
             torch.zeros(9, 9, device="cuda"), torch.zeros(1, 1, device="cuda"))
 
 
-# S6: turbo's max-log BCJR walk (csrc/bcjr_scan.cu), K over LTE's QPP range
+# S6: turbo's max-log BCJR walk (csrc/bcjr_scan.cu, the chunk-and-join),
+# K over LTE's QPP range
 
 def _s6_gate(got, want):
     """|dLLR| <= 1e-4 max(1, max|LLR|), and the hard bits equal wherever
-    |LLR| exceeds that tolerance (the walk's step order against the plain
-    version's radix-8 blocks: float32 association and renormalisation)."""
+    |LLR| exceeds that tolerance (the chunk-and-join's association against
+    the plain version's radix-8 blocks: float32 association and
+    renormalisation)."""
     tol = 1e-4 * max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= tol
     sure = want.abs() > tol
@@ -2156,15 +2161,17 @@ def _s6_gate(got, want):
 
 
 @pytest.mark.parametrize("B", [1, 128])
-@pytest.mark.parametrize("T", [40, 41, 1023, 1024, 6144])
+@pytest.mark.parametrize("T", [40, 41, 49, 1023, 1024, 6144])
 def test_s6_matches_plain_on_card(B, T):
-    """S6 against bcjr_maxlog_plain on the same card rows (LLRs of
-    scales 1 to 20, as iterations grow them), tails appended, T + 3 not a
-    multiple of the plain version's radix for odd T; one launch."""
+    """S6's walk entry bit-equal to bcjr_maxlog_chunked_torch and within
+    S6's gate of bcjr_maxlog_plain on the same card rows (LLRs of scales 1
+    to 20, as iterations grow them), tails appended (T + 3 leaves last
+    chunks of 11, 12, 20, 2, 3 and 3 steps); one launch."""
     from solid_dsp_tpu_torch.models import turbo
-    from solid_dsp_tpu_torch.ops import cuda_bcjr
+    from solid_dsp_tpu_torch.ops import cuda_bcjr, cuda_build
 
     dev = require_cuda()
+    assert cuda_build.build()["bcjr_scan.cu"].bcjr_chunk() == turbo.CHUNK
     rng = np.random.default_rng(T + B)
     scale = rng.uniform(1, 20, (B, 1))
     ls, lp = (torch.from_numpy(scale * rng.standard_normal((B, T + 3))).to(
@@ -2172,34 +2179,108 @@ def test_s6_matches_plain_on_card(B, T):
     before = cuda_bcjr.bcjr_maxlog_cuda.launches
     got = turbo.bcjr_maxlog(ls, lp, T)
     assert cuda_bcjr.bcjr_maxlog_cuda.launches == before + 1
+    chunked = turbo.bcjr_maxlog_chunked_torch(ls, lp, T)
     want = turbo.bcjr_maxlog_plain(ls, lp, T)
     torch.cuda.synchronize()
     assert got.shape == (B, T) and got.dtype == torch.float32
+    assert torch.equal(got, chunked)
     _s6_gate(got, want)
 
 
-@pytest.mark.parametrize("K,B", [(40, 1), (1024, 128), (6144, 4)])
-def test_s6_turbo_decode_on_card(K, B):
-    """TurboCode on the card: two S6 launches an iteration, the decoded
-    LLRs against the plain walks on the card (S6's gate) and every bit
-    back at the TPU sweep's Eb/N0 (LLRs 4 (1 - 2c) + N(0, 1))."""
+@pytest.mark.parametrize("T", [41, 1023])
+def test_s6_generic_layout_on_card(T):
+    """Pass 1 takes its shift-register layout (a lane a column) for the
+    trellises of models/turbo.py::_rsc_tables whose feedforward has the D^3
+    tap and its generic one (a lane a row, shuffles) for other tables: the
+    LTE trellis with its states relabelled (state 0 kept) gives the same
+    LLRs bit for bit, and 15/7 its chunked plain version's."""
     from solid_dsp_tpu_torch.models import turbo
     from solid_dsp_tpu_torch.ops import cuda_bcjr
 
     dev = require_cuda()
-    code = turbo.TurboCode(K, n_iter=6, device=dev)
-    rng = np.random.default_rng(K)
-    bits = torch.from_numpy(rng.integers(0, 2, (B, K))).to(dev)
+    tabs = [np.asarray(a, np.int64) for a in turbo._rsc_tables(
+        turbo.DEFAULT_FB, turbo.DEFAULT_FF, 3)[:4]]
+    sig = np.array([0, 3, 6, 1, 7, 2, 5, 4])
+    ns, p, prev, prev_u = tabs
+    rel = [np.empty_like(a) for a in tabs]
+    rel[0][sig], rel[1][sig] = sig[ns], p
+    rel[2][sig], rel[3][sig] = sig[prev], prev_u
+    assert cuda_bcjr.shift_layout(*tabs) and not cuda_bcjr.shift_layout(*rel)
+    for fb, ff in ((0o13, 0o15), (0o17, 0o15)):
+        assert cuda_bcjr.shift_layout(*turbo._rsc_tables(fb, ff, 3)[:4])
+    # no D^3 feedforward tap: a row's two branches take different halves
+    t7 = turbo._rsc_tables(0o15, 0o7, 3)[:4]
+    assert not cuda_bcjr.shift_layout(*t7)
+    rng = np.random.default_rng(T)
+    ls, lp = (torch.from_numpy(20 * rng.standard_normal((4, T + 3))).to(
+        dev, torch.float32) for _ in range(2))
+    got = cuda_bcjr.bcjr_maxlog_cuda(ls, lp, T, *rel)
+    assert torch.equal(got, turbo.bcjr_maxlog_chunked_torch(ls, lp, T))
+    got = cuda_bcjr.bcjr_maxlog_cuda(ls, lp, T, *t7)
+    assert torch.equal(got, turbo.bcjr_maxlog_chunked_torch(ls, lp, T, 0o15,
+                                                            0o7, 3))
+
+
+def _s6_codewords(code, B, seed):
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    bits = torch.from_numpy(rng.integers(0, 2, (B, code.K))).to(dev)
     cw = code.encode(bits)
     llr = (4.0 * (1 - 2.0 * cw) + torch.from_numpy(
         rng.standard_normal(cw.shape)).to(dev)).to(torch.float32)
-    before = cuda_bcjr.bcjr_maxlog_cuda.launches
+    return bits, llr
+
+
+@pytest.mark.parametrize("K,B", [(40, 1), (1024, 128), (6144, 4)])
+def test_s6_turbo_decode_on_card(K, B):
+    """TurboCode on the card: one launch of the fused decode (no walk
+    launch), its LLRs and bits bit-equal to turbo_decode_chunked_torch on
+    the card, within S6's gate of the plain walks' decode, and every bit
+    back at the TPU sweep's Eb/N0 (LLRs 4 (1 - 2c) + N(0, 1))."""
+    from solid_dsp_tpu_torch.models import turbo
+    from solid_dsp_tpu_torch.ops import cuda_bcjr
+
+    require_cuda()
+    code = turbo.TurboCode(K, n_iter=6, device="cuda")
+    bits, llr = _s6_codewords(code, B, K)
+    before = cuda_bcjr.turbo_decode_cuda.launches
+    walks = cuda_bcjr.bcjr_maxlog_cuda.launches
     b_k, l_k = code.decode(llr)
-    assert cuda_bcjr.bcjr_maxlog_cuda.launches == before + 12
+    assert cuda_bcjr.turbo_decode_cuda.launches == before + 1
+    assert cuda_bcjr.bcjr_maxlog_cuda.launches == walks
+    b_c, l_c = turbo.turbo_decode_chunked_torch(llr, code.perm, 6)
     b_p, l_p = turbo.turbo_decode(llr, code.perm, 6, engine="torch")
-    assert cuda_bcjr.bcjr_maxlog_cuda.launches == before + 12
+    assert cuda_bcjr.turbo_decode_cuda.launches == before + 1
+    assert b_k.dtype == torch.int32 and l_k.shape == (B, K)
+    assert torch.equal(l_k, l_c) and torch.equal(b_k, b_c)
     _s6_gate(l_k, l_p)
     assert torch.equal(b_k, bits.to(torch.int32))
+
+
+def test_s6_long_codeword_takes_the_walk_route():
+    """A codeword above the fused decode's shared memory (K = 8192 here)
+    takes the walk entry, two launches an iteration, bit-equal to the
+    chunked loop; the fused entry refuses it."""
+    from solid_dsp_tpu_torch.models import turbo
+    from solid_dsp_tpu_torch.ops import cuda_bcjr
+
+    dev = require_cuda()
+    K = 8192
+    assert cuda_bcjr.fused_fits(6144, dev) and not cuda_bcjr.fused_fits(K,
+                                                                        dev)
+    code = turbo.TurboCode(K, n_iter=3, device=dev)
+    bits, llr = _s6_codewords(code, 2, K)
+    fused = cuda_bcjr.turbo_decode_cuda.launches
+    walks = cuda_bcjr.bcjr_maxlog_cuda.launches
+    b_k, l_k = code.decode(llr)
+    assert cuda_bcjr.bcjr_maxlog_cuda.launches == walks + 6
+    assert cuda_bcjr.turbo_decode_cuda.launches == fused
+    b_c, l_c = turbo.turbo_decode_chunked_torch(llr, code.perm, 3)
+    assert torch.equal(l_k, l_c) and torch.equal(b_k, b_c)
+    assert torch.equal(b_k, bits.to(torch.int32))
+    tabs = turbo._rsc_tables(turbo.DEFAULT_FB, turbo.DEFAULT_FF, 3)[:4]
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_bcjr.turbo_decode_cuda(llr, code.perm, 3, *tabs)
 
 
 def test_s6_rejects_wrong_inputs_on_card():
@@ -2218,6 +2299,16 @@ def test_s6_rejects_wrong_inputs_on_card():
     tabs4 = turbo._rsc_tables(0o7, 0o5, 2)[:4]
     with pytest.raises(ValueError, match="8-state"):
         cuda_bcjr.bcjr_maxlog_cuda(ls, ls, 40, *tabs4)
+    perm = turbo.qpp_permutation(40)
+    rows = torch.zeros((2, 132), device=dev)
+    with pytest.raises(TypeError):
+        cuda_bcjr.turbo_decode_cuda(rows.double(), perm, 2, *tabs)
+    with pytest.raises(ValueError):
+        cuda_bcjr.turbo_decode_cuda(rows[:, :-1], perm, 2, *tabs)
+    with pytest.raises(ValueError, match="permutation"):
+        cuda_bcjr.turbo_decode_cuda(rows, np.zeros(40, np.int64), 2, *tabs)
+    with pytest.raises(ValueError, match="8-state"):
+        cuda_bcjr.turbo_decode_cuda(rows, perm, 2, *tabs4)
 
 
 # S7: the Viterbi ACS walk and traceback (csrc/viterbi_scan.cu)

@@ -4,8 +4,9 @@
     python3 torch_kernel_sweep.py fir-route  # the FIR's two card routes
     python3 torch_kernel_sweep.py s3         # S3's chunk length and join
     python3 torch_kernel_sweep.py s4         # S4's three entries: Lc, lanes
-    python3 torch_kernel_sweep.py latency    # S1, S2, S5-S9: latency bounds
+    python3 torch_kernel_sweep.py latency    # S1, S2, S5, S7-S9: bounds
     python3 torch_kernel_sweep.py s8         # S8: decode's Lc, encode's parts
+    python3 torch_kernel_sweep.py s6         # S6: Lc, the passes, both entries
     python3 torch_kernel_sweep.py cfar-route # F7: CA-CFAR's two window sums
     python3 torch_kernel_sweep.py k1-direct  # K1's direct route: R, warps
     python3 torch_kernel_sweep.py k1-route   # K1 as routed, both modes
@@ -65,10 +66,9 @@
   (``solid_dsp_tpu_torch/_build/seq_scan.sass``).  The same for S5
   (csrc/track_scan.cu, float32, one lane of 2^16) at orders 16 and 64
   (``track_scan.sass``); S4's three entries are chunk-and-join kernels
-  (csrc/track_forward.cu, csrc/track_chunks.cu), timed by ``s4``;
-  S6 (csrc/bcjr_scan.cu) at 128 rows of 1027
-  steps, its chain a step a walk and its two walks' SASS loops
-  (``bcjr_scan.sass``); S7 (csrc/viterbi_scan.cu, soft, K = 7: its
+  (csrc/track_forward.cu, csrc/track_chunks.cu), timed by ``s4``, and S6
+  (csrc/bcjr_scan.cu) is a chunk-and-join bound by its work, timed by
+  ``s6``; S7 (csrc/viterbi_scan.cu, soft, K = 7: its
   single-warp form) at one row of 8166 steps, 1024 x 550 and 64 x 8166,
   its chain a step (the probe adds REDUX, and a shared-memory exchange
   across a two-warp barrier, the block form's) and its ACS loop's SASS
@@ -91,6 +91,17 @@
   encoder as built and with one part changed (``S8_VARIANTS``: the first
   design's one-chain step, the moving warp idle), built beside the kernels
   by text substitution and timed at the same shapes.
+
+* ``s6``: S6, turbo decoding's max-log BCJR walk (csrc/bcjr_scan.cu, the
+  chunk-and-join in the max-plus semiring): its chunk length as built (32)
+  and, in side builds of the source (``S6_SIDE``), 16 and 64, each with
+  its registers and spills, the walk entry at 128 rows and one row of 1027
+  steps (chip_smoke.py phase 40's first walk) beside its bytes bound and
+  the fused decode of 128 and one codeword of 1024 bits at six iterations,
+  each timed over a CUDA graph with its largest difference from the build
+  as built; then each pass's time (pass 1, the join, pass 3) from side
+  builds that leave passes out, and pass 1's generic (shuffle) layout
+  against the shift-register one it takes for these tables.
 
 * ``s7-variants``: S7's single-warp form at 64 states (soft, K = 7) as
   built and with one part of its step taken away at a time (the warp
@@ -663,10 +674,6 @@ def sass_dump(source: str) -> str:
 #     FADD), the decision (compare and select on y), y conj(d) (FMUL +
 #     FADD), atan2, dtheta += alpha e (FMUL + FADD), theta = (theta +
 #     dtheta) + beta e (two FADDs, beta e off the chain).
-#   S6 (bcjr_scan.cu, either walk): the neighbouring state's metric by a
-#     shuffle (SHFL), + gamma (FADD), the max of the two branches (FMNMX);
-#     the renormalisation once a chunk of 16 steps (three SHFL + FMNMX and
-#     an FADD) adds 0.19 SHFL, 0.19 FMNMX and 0.06 FADD a step;
 #   S7 (viterbi_scan.cu's single-warp form, 64 states): the new metrics'
 #     minimum (FMNMX of a lane's two), its key (compare and select), the
 #     warp's minimum (REDUX), the key back to a float (compare and
@@ -699,7 +706,6 @@ LATENCY_CHAINS = {
            "atan2f": 1},
     "S5 p=16": {"FFMA": 3},
     "S5 p=64": {"FFMA": 3},
-    "S6": {"SHFL": 1 + 3 / 16, "FADD": 1 + 1 / 16, "FMNMX": 1 + 3 / 16},
     "S7": {"FMNMX": 1, "compare+select": 3, "REDUX": 1, "FADD": 2},
     "S8 encode": {"FMUL": 1.5, "FADD": 1, "FMNMX": 1.5,
                   "compare+select": 0.5},
@@ -811,47 +817,8 @@ def latency_sweep(dev, smi) -> None:
           f"step ({ms:.4f} ms): {bound / ms:.1%} of the bound | {smi}",
           flush=True)
     track_latency(dev, smi, lat, mhz)
-    bcjr_latency(dev, smi, lat, mhz)
     viterbi_latency(dev, smi, lat, mhz)
     cvsd_gardner_latency(dev, smi, lat, mhz)
-
-
-def bcjr_latency(dev, smi, lat: dict, mhz: float) -> None:
-    """S6 (csrc/bcjr_scan.cu) at turbo_decode_1024_6it's shape, 128 rows
-    of 1024 + 3 steps: the chain a step (LATENCY_CHAINS["S6"], the same
-    in both walks) and the SASS instructions a step of the forward and the
-    backward main loop (a chunk of 16 steps unrolled; 32 and 48 loads),
-    the larger of the two walks' sums over the SM clock, beside the time
-    a step (CUDA graph of 5 launches, two walks of 1027 steps)."""
-    from solid_dsp_tpu_torch.models import turbo
-    from solid_dsp_tpu_torch.ops import cuda_bcjr, cuda_build
-
-    sass = sass_dump("bcjr_scan.cu")
-    out = cuda_build.BUILD_DIR / "bcjr_scan.sass"
-    out.write_text(sass)
-    B, T = 128, 1024
-    Tm = T + 3
-    rng = np.random.default_rng(40)
-    ls = torch.from_numpy(4 * rng.standard_normal((B, Tm))).to(dev,
-                                                               torch.float32)
-    lp = torch.from_numpy(4 * rng.standard_normal((B, Tm))).to(dev,
-                                                               torch.float32)
-    tabs = turbo._rsc_tables(turbo.DEFAULT_FB, turbo.DEFAULT_FF, 3)[:4]
-    chain = LATENCY_CHAINS["S6"]
-    cycles = sum(n * (lat[op] - (lat[_CARRIED[op]] if op in _CARRIED
-                                 else 0.0)) for op, n in chain.items())
-    issue = [sass_step_instructions(sass, "bcjr_kernel", loads, steps=16)
-             for loads in (32, 48)]
-    bound_ns = max(2 * cycles, sum(issue)) / mhz * 1e3
-    ms = graph_ms(lambda: cuda_bcjr.bcjr_maxlog_cuda(ls, lp, T, *tabs), 5)
-    ns_step = ms * 1e6 / Tm
-    print(f"[latency bound S6] SASS kept in {out}; chain {chain}: "
-          f"{cycles:.1f} cycles a step a walk; SASS main loops forward "
-          f"{issue[0]:.1f}, backward {issue[1]:.1f} instructions a step; "
-          f"bound {bound_ns:.1f} ns a step of both walks at {mhz:.0f} MHz "
-          f"(the larger); measured {ns_step:.1f} ns ({ms:.4f} ms a call of "
-          f"{B} x {Tm}): {bound_ns / ns_step:.0%} of the bound | {smi}",
-          flush=True)
 
 
 def viterbi_latency(dev, smi, lat: dict, mhz: float) -> None:
@@ -1035,33 +1002,36 @@ S8_DECODE_SIDE = {lc: [("constexpr int DQ = 2;",
                   for lc in (32, 128)}
 
 
-def _build_s8_variants(out, variants: dict) -> dict:
-    """Build csrc/cvsd_scan.cu with each variant's text substitutions under
-    ``out``, all nvcc runs started together: {label: ctypes library}."""
+def _build_variants(source: str, out, variants: dict) -> dict:
+    """Build csrc/``source`` with each variant's text substitutions under
+    ``out``, all nvcc runs started together: {label: (ctypes library, the
+    compiler's output)}."""
     from solid_dsp_tpu_torch.ops import cuda_build
 
     shutil.rmtree(out, ignore_errors=True)
-    source = (cuda_build.CSRC / "cvsd_scan.cu").read_text()
+    text0 = (cuda_build.CSRC / source).read_text()
     jobs = []
     for i, (label, subs) in enumerate(variants.items()):
         d = out / f"v{i}"
         d.mkdir(parents=True)
-        text = source
+        text = text0
         for a, b in subs:
             if a not in text:
-                sys.exit(f"S8 variant {label!r}: {a!r} is not in the source")
+                sys.exit(f"{source} variant {label!r}: {a!r} is not in the "
+                         "source")
             text = text.replace(a, b)
-        (d / "cvsd_scan.cu").write_text(text)
-        jobs.append((label, d / "libs8.so", subprocess.Popen(
+        (d / source).write_text(text)
+        jobs.append((label, d / "libvariant.so", subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-             str(d / "libs8.so"), str(d / "cvsd_scan.cu")],
+             str(d / "libvariant.so"), str(d / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for label, lib, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode:
-            sys.exit(f"S8 variant {label!r} did not build:\n{log[-4000:]}")
-        libs[label] = ctypes.CDLL(str(lib))
+            sys.exit(f"{source} variant {label!r} did not build:\n"
+                     f"{log[-4000:]}")
+        libs[label] = (ctypes.CDLL(str(lib)), log)
     return libs
 
 
@@ -1077,7 +1047,9 @@ def s8_sweep(dev, smi) -> None:
     args = (0.9, 0.01, 0.001, 0.2, 3, 0.98)
     variants = {**{f"decode Lc {lc}": subs
                    for lc, subs in S8_DECODE_SIDE.items()}, **S8_VARIANTS}
-    libs = _build_s8_variants(cuda_build.BUILD_DIR / "s8_variants", variants)
+    libs = {label: lib for label, (lib, _) in _build_variants(
+        "cvsd_scan.cu", cuda_build.BUILD_DIR / "s8_variants",
+        variants).items()}
     decoders = {cuda_cvsd.DECODE_CHUNK: None}
     for lc in S8_DECODE_SIDE:
         lib = libs[f"decode Lc {lc}"]
@@ -1137,6 +1109,137 @@ def s8_sweep(dev, smi) -> None:
                          "step")
         print(f"[s8 encode variant] {label}: {'; '.join(times)} | {smi}",
               flush=True)
+
+
+# S6 (csrc/bcjr_scan.cu) built at other chunk lengths than the source's (LC
+# substituted: 16 and 64 beside the 32 the package builds) and with passes
+# left out (wrong LLRs; only the times are read): what each pass costs.
+_S6_CALL = "      chunk_matrices<Src, {}>(src, mats, slots, tr, C, last);\n"
+_S6_PASS1 = ("    if (tr.shift)\n" + _S6_CALL.format("true") + "    else\n"
+             + _S6_CALL.format("false"), "")
+_S6_JOIN = ("    if (threadIdx.x < 32)\n      join(mats, bnd, C);\n    else\n",
+            "    if (threadIdx.x >= 32)\n")
+_S6_PASS3 = ("  chunk_llrs(src, bnd, slots, tr, C, last, T);\n"
+             "  __syncthreads();\n}", "}")
+_S6_GENERIC = ("    if (tr.shift)\n", "    if (false)\n")
+S6_SIDE = {
+    **{f"Lc {lc}": [("constexpr int LC = 32;", f"constexpr int LC = {lc};")]
+       for lc in (16, 64)},
+    "the generic layout": [_S6_GENERIC],
+    "no pass 3": [_S6_PASS3],
+    "pass 1 only": [_S6_JOIN, _S6_PASS3],
+    "pass 1 only, the generic layout": [_S6_JOIN, _S6_PASS3, _S6_GENERIC],
+    "no pass 1": [_S6_PASS1],
+    "pass 3 only": [_S6_PASS1, _S6_JOIN],
+    "no passes": [_S6_PASS1, _S6_JOIN, _S6_PASS3],
+}
+S6_ROWS, S6_K = 128, 1024     # turbo_decode_1024_6it's codewords
+
+
+def s6_sweep(dev, smi) -> None:
+    """S6 (the chunk-and-join) at its chunk length as built and at the side
+    builds' (S6_SIDE), its walk entry at 128 rows and one row of 1027 steps
+    (phase 40's first walk) against its bound, and its fused decode of 128
+    and one codeword of 1024 bits at six iterations, each over a CUDA graph
+    with its largest difference from the build as built; then the passes'
+    times from the builds that leave passes out (pass 1 alone; the join,
+    pass 1 and the join less pass 1; pass 3, the whole less pass 1 and the
+    join).  Each side build's registers and spills are printed."""
+    from solid_dsp_tpu_torch.models import turbo
+    from solid_dsp_tpu_torch.ops import cuda_bcjr, cuda_build
+
+    libs = _build_variants("bcjr_scan.cu",
+                           cuda_build.BUILD_DIR / "s6_variants", S6_SIDE)
+    for label, (_, log) in libs.items():
+        use = [ln.strip() for ln in log.splitlines()
+               if "registers" in ln or "spill" in ln]
+        print(f"[S6 side build {label}] ptxas: {' / '.join(use)}", flush=True)
+    tables = turbo._rsc_tables(turbo.DEFAULT_FB, turbo.DEFAULT_FF, 3)[:4]
+    tabs = cuda_bcjr._trellis("s6 sweep", tables)
+    B, K, n_iter = S6_ROWS, S6_K, 6
+    code = turbo.TurboCode(K, n_iter=n_iter, device=dev)
+    rng = np.random.default_rng(40)
+    cw = code.encode(torch.from_numpy(rng.integers(0, 2, (B, K))).to(dev))
+    rx = (4.0 * (1 - 2.0 * cw) + torch.from_numpy(
+        rng.standard_normal(tuple(cw.shape))).to(dev)).to(torch.float32)
+    ls = torch.cat([rx[:, :K], rx[:, 3 * K:3 * K + 3]], -1).contiguous()
+    lp = torch.cat([rx[:, K:2 * K], rx[:, 3 * K + 3:3 * K + 6]],
+                   -1).contiguous()
+    perm = torch.from_numpy(code.perm.astype(np.int32)).to(dev)
+
+    def stream():                 # the capturing stream inside a CUDA graph
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def walker(label, lib):
+        if lib is None:
+            return lambda a, b: cuda_bcjr.bcjr_maxlog_cuda(a, b, K, *tables)
+        fn = lib.bcjr_maxlog_f32
+        fn.argtypes = list(cuda_bcjr._ARGS)
+        fn.restype = ctypes.c_int
+        nf = lib.bcjr_scratch_floats
+        nf.argtypes = [ctypes.c_int]
+        nf.restype = ctypes.c_longlong
+
+        def run(a, b):
+            rows, Tm = a.shape
+            llr = torch.empty((rows, K), dtype=torch.float32, device=dev)
+            scratch = torch.empty((rows, nf(Tm)), dtype=torch.float32,
+                                  device=dev)
+            cuda_build.check_launch(fn(
+                a.data_ptr(), b.data_ptr(), llr.data_ptr(),
+                scratch.data_ptr(), ctypes.addressof(tabs), rows, Tm, K,
+                dev.index, stream()), label)
+            return llr
+        return run
+
+    def decoder(label, lib):
+        if lib is None:
+            return lambda r: code.decode(r)[1]
+        fn = lib.turbo_decode_f32
+        fn.argtypes = list(cuda_bcjr._DECODE_ARGS)
+        fn.restype = ctypes.c_int
+
+        def run(r):
+            rows = r.shape[0]
+            llr = torch.empty((rows, K), dtype=torch.float32, device=dev)
+            bits = torch.empty((rows, K), dtype=torch.int32, device=dev)
+            cuda_build.check_launch(fn(
+                r.data_ptr(), perm.data_ptr(), llr.data_ptr(),
+                bits.data_ptr(), ctypes.addressof(tabs), rows, K, n_iter,
+                dev.index, stream()), label)
+            return llr
+        return run
+
+    builds = {"Lc 32, as built": None, **{k: v[0] for k, v in libs.items()}}
+    times = {}
+    for rows in (B, 1):
+        walk_ref = cuda_bcjr.bcjr_maxlog_cuda(ls[:rows], lp[:rows], K,
+                                              *tables)
+        dec_ref = code.decode(rx[:rows])[1]
+        bound = (4.0 * rows * (3 * K + 6)) / 3.35e12 * 1e3
+        for label, lib in builds.items():
+            walk, dec = walker(label, lib), decoder(label, lib)
+            a, b, r = ls[:rows], lp[:rows], rx[:rows]
+            err_w = float((walk(a, b) - walk_ref).abs().max())
+            err_d = float((dec(r) - dec_ref).abs().max())
+            ms_w = graph_ms(lambda: walk(a, b), 20)
+            ms_d = graph_ms(lambda: dec(r), 5)
+            times[rows, label] = ms_w, ms_d
+            print(f"[S6 {label}, {rows} x {K + 3}] walk {ms_w:.4f} ms "
+                  f"(bytes bound {bound:.6f} ms, {bound / ms_w:.2%}), max|d| "
+                  f"{err_w:.3g}; fused decode of {rows} x {K} at {n_iter} "
+                  f"it {ms_d:.4f} ms ({ms_d / (2 * n_iter) * 1e3:.2f} us a "
+                  f"half-iteration), max|d| {err_d:.3g} | {smi}", flush=True)
+        t = {k[1]: v for k, v in times.items() if k[0] == rows}
+        for i, what in ((0, "walk"), (1, "fused decode")):
+            p1, no3 = t["pass 1 only"][i], t["no pass 3"][i]
+            whole = t["Lc 32, as built"][i]
+            print(f"[S6 passes, {rows} x {K + 3}, {what}, ms] pass 1 "
+                  f"{p1:.4f} ({t['pass 1 only, the generic layout'][i]:.4f}"
+                  f" in the generic layout), join {no3 - p1:.4f}, pass 3 "
+                  f"{whole - no3:.4f} (alone {t['pass 3 only'][i]:.4f}), the "
+                  f"launch with no pass {t['no passes'][i]:.4f}; whole "
+                  f"{whole:.4f} | {smi}", flush=True)
 
 
 # S7's single-warp form (csrc/viterbi_scan.cu, 64 states) with one part of
@@ -1369,6 +1472,10 @@ def main() -> None:
     if sys.argv[1:] == ["s8"]:
         cuda_build.build()
         s8_sweep(dev, smi)
+        return
+    if sys.argv[1:] == ["s6"]:
+        cuda_build.build()
+        s6_sweep(dev, smi)
         return
     if sys.argv[1:] == ["s7-variants"]:
         s7_variants(dev, smi)
