@@ -357,10 +357,13 @@ Phases, one line each:
      are the kernels' line's;
  41. ROADMAP item 13b (item13b_phases) at the sizes of the standards its
      modules implement, each timed and checked like phase 40: the
-     Viterbi walk through S7 (viterbi_scan.cu) at 1024 rows of a 64-byte
-     packet (550 steps, soft, K = 7, Eb/N0 4 dB) and 64 rows of a CCSDS
-     frame (8166 steps), bits and final path metrics equal to its plain
-     walk on the card (all rows; 4 of the CCSDS rows), BER <= 1e-4, a
+     Viterbi walk through S7 (viterbi_scan.cu, the chunked walk) at 1024
+     rows of a 64-byte packet (550 steps, soft, K = 7, Eb/N0 4 dB), one
+     such row and 64 rows of a CCSDS frame (8166 steps), bits and final
+     path metrics equal to its plain walk and to viterbi_chunked_torch on
+     the card (all rows; 4 of the CCSDS rows), each timed by a CUDA graph
+     beside the sequential kernel's recorded time, its bound, its chunk
+     plan, its re-walked chunks and re-traced pieces, BER <= 1e-4, a
      CCSDSLink(4) frame at 2.8 dB; RS(255, 223) over 4096 codewords with
      1-16 byte errors in one in eight, all corrected; CRC-32 of 2^20 bits
      equal to binascii.crc32; Golay(24, 12) and Hamming(7, 4) over 2^20
@@ -676,6 +679,11 @@ VIT_BITS = 544
 VIT_BER = 1e-4            # K = 7 soft at Eb/N0 = 4 dB (~1e-5 expected)
 CCSDS_ROWS = 64           # 4 x 255 bytes + 6 tail = 8166 steps a row
 CCSDS_PLAIN = 4
+# S7 as a sequential kernel (one warp walking a whole row; NVIDIA H100 80GB
+# HBM3, 700 W, CUDA graph): ms a call at (rows, steps), a recorded figure
+# and not a measurement of the run, printed beside the chunked walk's and
+# kept out of the kernels line
+S7_SEQUENTIAL_MS = {(1024, 550): 0.0663, (64, 8166): 0.7668, (1, 550): 0.0532}
 RS_WORDS = 4096
 L_BITS = 1 << 20
 N_BURSTS = 256
@@ -5248,6 +5256,62 @@ def item13b_phases(dev, smi) -> list:
         y = (1 - 2.0 * c) + sigma * rng.standard_normal(c.shape)
         return (2 * y / sigma ** 2).astype(np.float32)
 
+    tabs = (fec._tables(fec.DEFAULT_POLYS, 7)[0], fec._predecessors(7))
+    box = {}
+    shapes = {}
+
+    def s7_shape(label, r, plain_rows):
+        """S7 on rows r against viterbi_plain and viterbi_chunked_torch (on
+        the first plain_rows), its re-walked chunks and re-traced pieces in
+        the checked call, its CUDA-graph time and bound; returns (equal,
+        ms, bound, max |dpm| against the plain walk)."""
+        B, T = r.shape[:2]
+        plan = cuda_viterbi.chunk_plan(B, T, 64)
+        fec.viterbi_walk(r, soft=True)                 # makes the counters
+        cuda_viterbi.viterbi_cuda.fixups.zero_()
+        bk, pk = fec.viterbi_walk(r, soft=True)
+        rewalked, retraced = cuda_viterbi.viterbi_cuda.fixups.tolist()
+        sub = r[:plain_rows]
+
+        def plain():
+            box["p"] = fec.viterbi_walk(sub, soft=True, engine="torch")
+
+        def chunked():
+            box["c"] = fec.viterbi_chunked_torch(sub, tabs[0], True,
+                                                 plan[0], plan[1])
+        plain_ms = cuda_ms_once(plain)
+        chunked_ms = cuda_ms_once(chunked)
+        bp, pp = box["p"]
+        bc, pc, fix_c = box["c"]
+        err = float((pk[:plain_rows] - pp).abs().max())
+        same = (torch.equal(bk[:plain_rows], bp)
+                and torch.equal(pk[:plain_rows], pp)
+                and torch.equal(bk[:plain_rows], bc)
+                and torch.equal(pk[:plain_rows], pc))
+        ms = graph_ms(lambda: cuda_viterbi.viterbi_cuda(r, True, *tabs), 20)
+        # bytes: the LLRs read once, the bits and final metrics written
+        # once; operations a state a step: the branch metric (two adds a
+        # branch), two subtractions, two adds, the compare
+        bnd = bound_ms(4.0 * B * (2 * T + T + 64), 9.0 * B * T * 64,
+                       FP32_FLOPS)
+        before = S7_SEQUENTIAL_MS[(B, T)]
+        print(f"[41 S7 {label}, {B} x {T} steps, soft] bit-equal to "
+              f"viterbi_plain and viterbi_chunked_torch on {plain_rows} "
+              f"rows (bits, metrics): {same}; L, W, F, C = {plan}; "
+              f"re-walked chunks {rewalked} (chunked plain on its rows "
+              f"{fix_c}), re-traced {retraced}; S7 {ms:.4f} ms a call (CUDA "
+              f"graph, {ms / T * 1e6:.1f} ns a step; the sequential kernel's "
+              f"recorded {before} ms, {before / ms:.2f}x), bound {bnd[0]:.5f} ms "
+              f"({bnd[1]}, {bnd[0] / ms:.1%} of it); viterbi_plain "
+              f"{plain_ms:.1f} ms, viterbi_chunked_torch {chunked_ms:.1f} "
+              f"ms on {plain_rows} rows | {smi}", flush=True)
+        shapes[label] = {"shape": f"{B} x {T}", "ms": ms,
+                         "bound_ms": bnd[0],
+                         "plan": list(plan), "rewalked": rewalked,
+                         "retraced": retraced, "plain_ms": plain_ms,
+                         "chunked_plain_ms": chunked_ms}
+        return same, ms, bnd, err, plain_ms
+
     # viterbi_k7_packet: 1024 rows of a 64-byte packet + CRC-32 (544 bits +
     # 6 tail = 550 steps), soft, K = 7 (171, 133), Eb/N0 = 4 dB
     info = rng.integers(0, 2, (VIT_ROWS, VIT_BITS))
@@ -5255,35 +5319,18 @@ def item13b_phases(dev, smi) -> list:
     llr_d = torch.from_numpy(awgn_llr(coded, 4.0, 0.5)).to(dev)
     r = llr_d.reshape(VIT_ROWS, -1, 2)
     T = r.shape[1]
-    bk, pk = fec.viterbi_walk(r, soft=True)
-    box = {}
-
-    def plain_walk():
-        box["p"] = fec.viterbi_walk(r, soft=True, engine="torch")
-    plain_ms = cuda_ms_once(plain_walk)
-    bp, pp = box["p"]
-    err7 = float((pk - pp).abs().max())
     dec = host(fec.viterbi_decode(llr_d, soft=True))
     ber7 = float(np.mean(dec != info))
-    good = torch.equal(bk, bp) and torch.equal(pk, pp) and ber7 <= VIT_BER
-    tabs = (fec._tables(fec.DEFAULT_POLYS, 7)[0], fec._predecessors(7))
-    ms7 = graph_ms(lambda: cuda_viterbi.viterbi_cuda(r, True, *tabs), 20)
-    # bytes: the LLRs read once, the bits and final metrics written once;
-    # operations a state a step: the branch metric (two adds a branch), two
-    # subtractions, two adds, the compare
-    bnd = bound_ms(4.0 * VIT_ROWS * (2 * T + T + 64),
-                   9.0 * VIT_ROWS * T * 64, FP32_FLOPS)
-    print(f"[41 viterbi_k7_packet, {VIT_ROWS} x {T} steps, soft] S7 = plain "
-          f"walk on the card (bits, metrics; max |dpm| {err7:.3g}): "
-          f"{torch.equal(bk, bp) and torch.equal(pk, pp)}; BER at Eb/N0 = "
-          f"4 dB {ber7:.3g} (gate {VIT_BER}); S7 {ms7:.4f} ms a call (CUDA "
-          f"graph, {ms7 / T * 1e6:.1f} ns a step, "
-          f"{VIT_ROWS * VIT_BITS / (ms7 * 1e3):.1f} Minfobits/s), plain "
-          f"walk {plain_ms:.1f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}) | {smi}",
-          flush=True)
-    ok &= good
+    same, ms7, bnd, err7, plain_ms = s7_shape("viterbi_k7_packet", r,
+                                              VIT_ROWS)
+    print(f"[41 viterbi_k7_packet] BER at Eb/N0 = 4 dB {ber7:.3g} (gate "
+          f"{VIT_BER}); {VIT_ROWS * VIT_BITS / (ms7 * 1e3):.1f} Minfobits/s "
+          f"through S7", flush=True)
+    ok &= same and ber7 <= VIT_BER
     row("viterbi_k7_packet", lambda: fec.viterbi_decode(llr_d, soft=True),
         VIT_ROWS * VIT_BITS, "Minfobits/s")
+    same1 = s7_shape("one_packet", r[:1], 1)[0]
+    ok &= same1
 
     # viterbi_k7_ccsds: 64 rows of a CCSDS frame at interleave depth 4
     # (4 x 255 bytes + 6 tail = 8166 steps); CCSDSLink(4) at 2.8 dB
@@ -5296,22 +5343,9 @@ def item13b_phases(dev, smi) -> list:
                                     for _ in range(CCSDS_ROWS)])).to(dev)
     dec_c, ok_c = link.decode(host(rc[0]))
     rows_c = rc.reshape(CCSDS_ROWS, -1, 2)
-    Tc = rows_c.shape[1]
-
-    def plain_ccsds():
-        box["c"] = fec.viterbi_walk(rows_c[:CCSDS_PLAIN], soft=True,
-                                    engine="torch")
-    plain_c_ms = cuda_ms_once(plain_ccsds)
-    bk, pk = fec.viterbi_walk(rows_c[:CCSDS_PLAIN], soft=True)
-    same_c = torch.equal(bk, box["c"][0]) and torch.equal(pk, box["c"][1])
-    ms_c = graph_ms(lambda: cuda_viterbi.viterbi_cuda(rows_c, True, *tabs),
-                    5)
-    print(f"[41 viterbi_k7_ccsds, {CCSDS_ROWS} x {Tc} steps] S7 = plain walk "
-          f"on {CCSDS_PLAIN} rows (bits, metrics): {same_c}; CCSDSLink(4) "
-          f"at Eb/N0 = 2.8 dB: frame back {dec_c == payload and ok_c}; S7 "
-          f"{ms_c:.4f} ms a call ({ms_c / Tc * 1e6:.1f} ns a step), plain "
-          f"walk of {CCSDS_PLAIN} rows {plain_c_ms:.1f} ms | {smi}",
-          flush=True)
+    same_c = s7_shape("viterbi_k7_ccsds", rows_c, CCSDS_PLAIN)[0]
+    print(f"[41 viterbi_k7_ccsds] CCSDSLink(4) at Eb/N0 = 2.8 dB: frame "
+          f"back {dec_c == payload and ok_c} | {smi}", flush=True)
     ok &= same_c and dec_c == payload and ok_c
     row("viterbi_k7_ccsds", lambda: fec.viterbi_decode(rc, soft=True),
         CCSDS_ROWS * 4 * 255 * 8, "Minfobits/s", n=3)
@@ -5511,6 +5545,7 @@ def item13b_phases(dev, smi) -> list:
                      "no TPU kernel)", launches, err7, ms7, plain_ms, bnd)
     e["timed_shape"] = f"{VIT_ROWS} rows x {T} steps"
     e["main_path_ms"] = main_ms
+    e["shapes"] = shapes
     return [e]
 
 

@@ -16,9 +16,12 @@ JAX's 1-D result.  A batch of rows decodes in one walk.
 **The walk.**  :func:`viterbi_walk` runs the add-compare-select (ACS)
 recurrence over all 2^(K-1) states and the traceback from state 0: on a
 CUDA tensor the hand-written Hopper kernel S7 (``ops/cuda_viterbi.py``,
-``csrc/viterbi_scan.cu``: a warp a row with the metrics in registers up to
-64 states, a block a row and a thread a state above, one launch a batch),
-on a CPU tensor its plain version :func:`viterbi_plain`, JAX's
+``csrc/viterbi_scan.cu``: the rows cut into chunks walked side by side from
+a warm-up, checked bit for bit at every seam and walked again where the
+check fails, then traced back by chunks; a warp a chunk with the metrics
+in registers up to 64 states, a block a chunk above; three launches a
+batch; :func:`viterbi_chunked_torch` is its passes in torch ops), on a
+CPU tensor its plain version :func:`viterbi_plain`, JAX's
 two scans (``fec.py:143`` and ``:152``) as torch ops in JAX's order of
 operations, which the CPU tests hold bit-equal to JAX.  S7 makes the same
 float32 operations in the same order, so it is bit-equal to the plain
@@ -44,7 +47,7 @@ from ..ops.cuda_build import use_kernel
 __all__ = ["conv_encode", "viterbi_decode", "ConvCode",
            "interleave", "deinterleave", "puncture", "depuncture",
            "PUNCTURE_2_3", "PUNCTURE_3_4", "PUNCTURE_5_6", "PUNCTURE_7_8",
-           "viterbi_walk", "viterbi_plain"]
+           "viterbi_walk", "viterbi_plain", "viterbi_chunked_torch"]
 
 DEFAULT_POLYS = (0o171, 0o133)
 DEFAULT_K = 7
@@ -112,6 +115,30 @@ def conv_encode(bits, polys: tuple = DEFAULT_POLYS,
     return torch.stack(outs, -1).reshape(*lead, T * len(polys))
 
 
+def _branch_metrics(rt: torch.Tensor, o: torch.Tensor, soft: bool):
+    """(..., S, 2) float32 branch metrics of received values rt (..., n)
+    against the outputs o (S, 2, n) of each candidate's branch, summed over
+    the n outputs in index order (soft: o r; hard: |o - r| in int32)."""
+    bm = None
+    for k in range(rt.shape[-1]):
+        x = rt[..., None, None, k]
+        term = o[..., k] * x if soft else torch.abs(o[..., k] - x)
+        bm = term if bm is None else bm + term
+    return bm.to(torch.float32)
+
+
+def _candidates(out_tab, dev, soft: bool):
+    """(pred (S, 2) long, o (S, 2, n)): the two predecessors of each next
+    state and the outputs of the branch each candidate takes."""
+    out = np.asarray(out_tab)
+    S = out.shape[0]
+    pred_np = _predecessors(S.bit_length())
+    b_of = np.arange(S) & 1
+    return (device_constant(pred_np, dev, torch.long),
+            device_constant(out[pred_np, b_of[:, None]], dev,
+                            torch.float32 if soft else torch.int32))
+
+
 def viterbi_plain(r: torch.Tensor, out_tab, soft: bool):
     """S7's plain version over rows r (B, T, n): float32 LLRs (``soft``) or
     int32 hard bits, the (S, 2, n) output table.  Returns (bits (B, T)
@@ -122,27 +149,14 @@ def viterbi_plain(r: torch.Tensor, out_tab, soft: bool):
     renormalisation by the min at every step; then the traceback from
     state 0."""
     dev = r.device
-    out = np.asarray(out_tab)
-    S, _, n = out.shape
-    K = S.bit_length()
+    S = np.asarray(out_tab).shape[0]
     B, T = int(r.shape[0]), int(r.shape[1])
-    pred_np = _predecessors(K)
-    pred = device_constant(pred_np, dev, torch.long)
-    b_of = np.arange(S) & 1
-    # the branch (pred[ns, c], b(ns)) each candidate takes: its n outputs
-    o = device_constant(out[pred_np, b_of[:, None]], dev,
-                        torch.float32 if soft else torch.int32)  # (S, 2, n)
+    pred, o = _candidates(out_tab, dev, soft)
     pm = torch.full((B, S), BIG, dtype=torch.float32, device=dev)
     pm[:, 0] = 0.0
     choices = torch.empty((B, T, S), dtype=torch.bool, device=dev)
     for t0 in range(0, T, _BM_STEPS):
-        rt = r[:, t0:t0 + _BM_STEPS]                       # (B, c, n)
-        bm = None
-        for k in range(n):
-            x = rt[:, :, None, None, k]
-            term = o[..., k] * x if soft else torch.abs(o[..., k] - x)
-            bm = term if bm is None else bm + term
-        bm = bm.to(torch.float32)                          # (B, c, S, 2)
+        bm = _branch_metrics(r[:, t0:t0 + _BM_STEPS], o, soft)  # (B, c, S, 2)
         for i in range(bm.shape[1]):
             cand = pm[:, pred] + bm[:, i]                  # (B, S, 2)
             ch = cand[..., 1] < cand[..., 0]
@@ -157,6 +171,121 @@ def viterbi_plain(r: torch.Tensor, out_tab, soft: bool):
         bits[:, t] = (s & 1).to(torch.int32)
         s = pred[s, c]
     return bits, pm
+
+
+def viterbi_chunked_torch(r: torch.Tensor, out_tab, soft: bool, L: int,
+                          W: int):
+    """S7's passes in torch ops (``csrc/viterbi_scan.cu``) over rows r (B,
+    T, n), float32 LLRs (``soft``) or int32 hard bits, and the (S, 2, n)
+    output table: chunks of L steps after a first chunk of L + W steps
+    (``ops/cuda_viterbi.py::chunk_layout``), each chunk after the first
+    started W steps before its seam from all-zero metrics.  Returns (bits
+    (B, T) int32, final path metrics (B, S) float32, the count of re-walked
+    chunks), bit-equal to :func:`viterbi_plain` for every input.
+
+    Pass 1: every chunk of every row walked as one batch, a step of each at
+    once in the kernel's order, keeping its vector at the seam (its guess)
+    and at its end and storing the decisions from its seam on.  Pass 2: in
+    order, a chunk whose guess is not bit-equal (as int32) to the true end
+    vector before it is walked again from that vector, rows side by side.
+    Pass 3: the row cut into pieces of ``cuda_viterbi.TRACE_PIECE`` steps,
+    each traced back from state 0 at D = ``cuda_viterbi.trace_ahead``
+    steps past its end (the last piece from state 0 at T), writing its
+    bits; then from the last seam back, a
+    piece whose state at its end differs from the true start state of the
+    piece after it is traced again from that state (counted on
+    ``viterbi_chunked_torch.retraced``)."""
+    dev = r.device
+    S = np.asarray(out_tab).shape[0]
+    B, T = int(r.shape[0]), int(r.shape[1])
+    F, C = cuda_viterbi.chunk_layout(T, L, W)
+    t = cuda_viterbi.seams(T, int(L), F, C)
+    tc = torch.tensor(t[:-1], device=dev)
+    te = torch.tensor(t[1:], device=dev)
+    exact = torch.arange(C, device=dev) == 0
+    start = torch.where(exact, 0, tc - W)
+    pred, o = _candidates(out_tab, dev, soft)
+    init = torch.full((S,), BIG, dtype=torch.float32, device=dev)
+    init[0] = 0.0
+    pm = torch.where(exact[:, None], init, 0.0).expand(B, C, S).contiguous()
+    guess = pm.clone()
+    choices = torch.zeros((B, T, S), dtype=torch.bool, device=dev)
+
+    def step(pm, rt):                       # rt (..., n) -> (pm, choices)
+        cand = pm[..., pred] + _branch_metrics(rt, o, soft)
+        ch = cand[..., 1] < cand[..., 0]
+        pmn = torch.where(ch, cand[..., 1], cand[..., 0])
+        return pmn - torch.amin(pmn, dim=-1, keepdim=True), ch
+
+    # pass 1
+    for j in range(int((te - start).max()) if T else 0):
+        tj = start + j
+        guess = torch.where((tj == tc)[:, None], pm, guess)
+        live = tj < te
+        tt = tj.clamp(max=T - 1)
+        new, ch = step(pm, r[:, tt])                        # (B, C, S)
+        pm = torch.where(live[:, None], new, pm)
+        keep = (live & (tj >= tc)).nonzero()[:, 0]
+        choices[:, tt[keep]] = ch[:, keep]
+    ends = pm
+    # pass 2
+    fixups = 0
+    for c in range(1, C):
+        bad = (guess[:, c].view(torch.int32)
+               != ends[:, c - 1].view(torch.int32)).any(-1).nonzero()[:, 0]
+        if not len(bad):
+            continue
+        fixups += len(bad)
+        p = ends[bad, c - 1]
+        for tt in range(t[c], t[c + 1]):
+            p, ch = step(p, r[bad, tt])
+            choices[bad, tt] = ch
+        ends[bad, c] = p
+    # pass 3, over pieces of TRACE_PIECE steps
+    bits = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    rows = torch.arange(B, device=dev)[:, None]
+    Lt = cuda_viterbi.TRACE_PIECE
+    Ct = -(-T // Lt)
+    lo_all = torch.arange(Ct, device=dev) * Lt
+    te_all = (lo_all + Lt).clamp(max=T)
+
+    def trace(s, ks, hi, write):
+        """Pieces ks traced back from states s (B, len(ks)) at steps hi,
+        writing the bits below each piece's end where ``write`` (B, 1);
+        returns (the states after step lo - 1, the states at te)."""
+        lo, top = lo_all[ks], te_all[ks]
+        s_te = s.clone()
+        for j in range(int((hi - lo).max())):
+            tj = hi - 1 - j
+            live = tj >= lo
+            tt = tj.clamp(min=0)
+            s_te = torch.where(tj == top - 1, s, s_te)
+            bi, ki = (live & (tj < top) & write).nonzero(as_tuple=True)
+            bits[bi, tt[ki]] = (s[bi, ki] & 1).to(torch.int32)
+            ch = choices[rows, tt, s].long()
+            s = torch.where(live, pred[s, ch], s)
+        return s, s_te
+    retraced = 0
+    if Ct:
+        every = torch.arange(Ct, device=dev)
+        D = cuda_viterbi.trace_ahead(S)
+        hi = torch.where(every == Ct - 1, T, (te_all + D).clamp(max=T))
+        start, s_te = trace(torch.zeros((B, Ct), dtype=torch.long,
+                                        device=dev), every, hi,
+                            torch.ones((B, 1), dtype=torch.bool, device=dev))
+        s_next = start[:, Ct - 1]
+        for k in range(Ct - 2, -1, -1):
+            bad = s_te[:, k] != s_next
+            s_k = start[:, k]
+            if bool(bad.any()):
+                retraced += int(bad.sum())
+                one = every[k:k + 1]
+                redo, _ = trace(s_next[:, None], one, te_all[one],
+                                bad[:, None])
+                s_k = torch.where(bad, redo[:, 0], s_k)
+            s_next = s_k
+    viterbi_chunked_torch.retraced = retraced
+    return bits, ends[:, C - 1].clone(), fixups
 
 
 def viterbi_walk(r: torch.Tensor, polys: tuple = DEFAULT_POLYS,

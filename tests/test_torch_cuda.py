@@ -2444,6 +2444,106 @@ def test_s7_rejects_wrong_inputs_on_card():
         p0.cpu(), fec.viterbi_plain(r[:, :0].cpu(), out, True)[1])
 
 
+S7_MORE = {11: (0o3345, 0o3613)}
+
+
+@pytest.mark.parametrize("K", [3, 5, 7, 9, 11])
+@pytest.mark.parametrize("B,T", [(1, 12), (1, 550), (1, 8166), (256, 12),
+                                 (256, 550), (256, 8166), (1024, 12),
+                                 (1024, 550), (1024, 8166)])
+def test_s7_chunked_matches_plain_on_card(K, B, T):
+    """The chunked walk as chunk_plan cuts it (soft, rate 1/2) bit-equal to
+    viterbi_plain and to viterbi_chunked_torch on the card, bits and final
+    path metrics, with the chunked plain version's count of re-walked
+    chunks and of re-traced chunks."""
+    from solid_dsp_tpu_torch.models import fec
+    from solid_dsp_tpu_torch.ops import cuda_viterbi
+
+    dev = require_cuda()
+    polys = {**S7_CODES, **S7_MORE}[K]
+    rng = np.random.default_rng(K + B + T)
+    _, rx = _s7_rows(rng, polys, K, B, T, True)
+    r = torch.from_numpy(rx).to(dev)
+    out, _ = fec._tables(polys, K)
+    L, W, _, _ = cuda_viterbi.chunk_plan(B, T, 1 << (K - 1))
+    fec.viterbi_walk(r, polys, K, True)
+    cuda_viterbi.viterbi_cuda.fixups.zero_()
+    bk, pk = fec.viterbi_walk(r, polys, K, True)
+    fix = cuda_viterbi.viterbi_cuda.fixups.tolist()
+    bp, pp = fec.viterbi_walk(r, polys, K, True, engine="torch")
+    bc, pc, fc = fec.viterbi_chunked_torch(r, out, True, L, W)
+    assert torch.equal(bk, bp) and torch.equal(pk, pp)
+    assert torch.equal(bk, bc) and torch.equal(pk, pc)
+    assert fix == [fc, fec.viterbi_chunked_torch.retraced]
+
+
+@pytest.mark.parametrize("K", [5, 7, 9])
+@pytest.mark.parametrize("soft", [False, True])
+@pytest.mark.parametrize("W,per", [(0, 0), (2, 1), (96, 0)])
+def test_s7_rewalks_forced_on_card(K, soft, W, per, monkeypatch):
+    """A warm-up of 0 or 2 steps (the wrapper's argument) and a trace
+    lookahead D of 0 or K - 1 steps (TRACE_AHEAD_PER_MEMORY 0 or 1): nearly
+    every seam fails its check, the chunks are walked again in pass 2 and
+    the pieces traced again in pass 3, and the result stays bit-equal to
+    the plain walk, with the chunked plain version's counts.  A warm-up of
+    96 with D = 0: the pieces alone are traced again."""
+    from solid_dsp_tpu_torch.models import fec
+    from solid_dsp_tpu_torch.ops import cuda_viterbi
+
+    dev = require_cuda()
+    polys = S7_CODES[K]
+    rng = np.random.default_rng(K + 10 * W + soft)
+    _, rx = _s7_rows(rng, polys, K, 16, 700, soft, hard_flips=0.08)
+    r = torch.from_numpy(rx).to(dev)
+    out, _ = fec._tables(polys, K)
+    pred = fec._predecessors(K)
+    cuda_viterbi.viterbi_cuda(r, soft, out, pred)
+    monkeypatch.setattr(cuda_viterbi, "TRACE_AHEAD_PER_MEMORY", per)
+    L = cuda_viterbi.chunk_plan(16, 700, 1 << (K - 1), W)[0]
+    cuda_viterbi.viterbi_cuda.fixups.zero_()
+    bk, pk = cuda_viterbi.viterbi_cuda(r, soft, out, pred, warmup=W)
+    fix = cuda_viterbi.viterbi_cuda.fixups.tolist()
+    bp, pp = fec.viterbi_walk(r, polys, K, soft, engine="torch")
+    bc, pc, fc = fec.viterbi_chunked_torch(r, out, soft, L, W)
+    assert torch.equal(bk, bp) and torch.equal(pk, pp)
+    assert torch.equal(bk, bc) and torch.equal(pk, pc)
+    assert fix == [fc, fec.viterbi_chunked_torch.retraced]
+    assert fc > 100 if W <= 2 else fix[1] > 100
+
+
+def test_s7_repeats_and_graph_replay_on_card():
+    """Two launches on the same rows give the same bits and metrics, and so
+    does a CUDA graph of the call replayed (the scratch, the ticket and the
+    counters are the call's own); the re-walk count grows by the same
+    amount each replay."""
+    from solid_dsp_tpu_torch.models import fec
+    from solid_dsp_tpu_torch.ops import cuda_viterbi
+
+    dev = require_cuda()
+    rng = np.random.default_rng(23)
+    _, rx = _s7_rows(rng, S7_CODES[7], 7, 64, 2000, True)
+    r = torch.from_numpy(rx).to(dev)
+    tabs = (fec._tables(S7_CODES[7], 7)[0], fec._predecessors(7))
+    b1, p1 = cuda_viterbi.viterbi_cuda(r, True, *tabs, warmup=4)
+    b2, p2 = cuda_viterbi.viterbi_cuda(r, True, *tabs, warmup=4)
+    torch.cuda.synchronize()
+    assert torch.equal(b1, b2) and torch.equal(p1, p2)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        bg, pg = cuda_viterbi.viterbi_cuda(r, True, *tabs, warmup=4)
+    before = cuda_viterbi.viterbi_cuda.fixups.clone()
+    g.replay()
+    torch.cuda.synchronize()
+    once = cuda_viterbi.viterbi_cuda.fixups - before
+    assert torch.equal(bg, b1) and torch.equal(pg, p1)
+    bg.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(bg, b1) and torch.equal(pg, p1)
+    assert torch.equal(cuda_viterbi.viterbi_cuda.fixups - before, 2 * once)
+    assert int(once[0]) > 0
+
+
 # S8: the CVSD walk (csrc/cvsd_scan.cu)
 
 def _s8_lanes(rng, B, N):

@@ -320,6 +320,10 @@ def test_port_never_imports_jax():
         "bits.multiplicative_scramble(torch.ones(40, dtype=torch.int32))\n"
         "cc = fec.ConvCode(device='cpu')\n"
         "assert torch.equal(cc.decode(cc.encode(b[:50])), b[:50].int())\n"
+        "r7 = (1 - 2.0 * cc.encode(b[:50])).reshape(1, -1, 2)\n"
+        "t7 = fec._tables(fec.DEFAULT_POLYS, 7)[0]\n"
+        "assert torch.equal(fec.viterbi_chunked_torch(r7, t7, True, 16, 4)[0],"
+        " fec.viterbi_plain(r7, t7, True)[0])\n"
         "bk = BlockCode('g2412', 'cpu')\n"
         "assert torch.equal(bk.decode(bk.encode(b[:48]))[0], b[:48].int())\n"
         "rc = rs.rs_204_188('cpu')\n"

@@ -17,9 +17,11 @@ before block 4.  A relaunch resumes from the newest checkpoint.
 
 is one rank of a gloo group (a ``FileStore`` at ``store``): each rank runs
 its own channel of the chain over 4 chunks, writing its state through
-``save_distributed`` after each; rank 1 hard-exits before chunk 2 if
+``save_distributed`` after each and waiting at a barrier until every
+rank has saved it; rank 1 hard-exits before chunk 2 if
 ``crash_flag`` exists.  A relaunched gang resumes from
-``latest_distributed_step`` through ``load_distributed`` and checks every
+``latest_distributed_step`` (read by every rank before any saves) through
+``load_distributed`` and checks every
 chunk it computes bit-equal to an uninterrupted run replayed in the
 worker, then writes ``out_dir/PASS_rank<r>``.
 """
@@ -90,6 +92,7 @@ def dist_main(rank: int, world: int, store: str, out_dir: str,
         x = make_blocks(77 + rank, DIST_CHUNKS, DIST_BLOCK)
         ckdir = os.path.join(out_dir, "dckpts")
         step = fault.latest_distributed_step(ckdir)
+        dist.barrier()    # every rank has read it before any rank saves
         if step >= 0:
             state = fault.load_distributed(ckdir, step, like=init())
             start = step + 1
@@ -109,7 +112,10 @@ def dist_main(rank: int, world: int, store: str, out_dir: str,
             if not torch.equal(out, ref[i]):
                 raise AssertionError(f"rank{rank}: chunk {i} differs")
             fault.save_distributed(state, ckdir, i)
-        dist.barrier()
+            # a step ends when every rank has saved it (as a step with a
+            # collective does): no rank runs ahead of another, so the
+            # crash before chunk 2 always finds step 1 saved by both
+            dist.barrier()
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"PASS_rank{rank}"), "w") as f:

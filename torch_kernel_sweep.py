@@ -11,6 +11,7 @@
     python3 torch_kernel_sweep.py k1-direct  # K1's direct route: R, warps
     python3 torch_kernel_sweep.py k1-route   # K1 as routed, both modes
     python3 torch_kernel_sweep.py fsm        # S1's FSM entry: chunk, block
+    python3 torch_kernel_sweep.py s7 [SEQ]   # S7: passes, L, W, D, the step
 
 * K6 (csrc/iir_bank.cu) at T = 2^14, C = 256, S = 2 (ChannelBank's block):
   the chunk length Lc in {16, 32, 64, 128}, each timed over a CUDA graph of
@@ -103,13 +104,25 @@
   builds that leave passes out, and pass 1's generic (shuffle) layout
   against the shift-register one it takes for these tables.
 
-* ``s7-variants``: S7's single-warp form at 64 states (soft, K = 7) as
-  built and with one part of its step taken away at a time (the warp
-  minimum, its key conversions, the ballots, the shuffles that put the
-  metrics back in place, the per-step reads of the values): text
-  substitutions of csrc/viterbi_scan.cu built beside the kernels, each
-  timed at one row of 8166 steps and at 1024 x 550 (wrong results; only
-  the times are read).
+* ``s7 [SEQ]``: S7, the Viterbi walk (csrc/viterbi_scan.cu, the chunked
+  walk; soft, rate 1/2) at ``S7_SHAPES``: chip_smoke.py phase 41's shapes
+  (K = 7: 1024 x 550 at Eb/N0 = 4 dB, 64 x 8166 at 2.8 dB, one row of
+  550), the block form (K = 9) at 1024 x 550 and the CCSDS rows at 1 dB.
+  Each as built (chunk_plan) with its re-walked chunks and re-traced
+  pieces, bit-equal to viterbi_plain on ``S7_PLAIN_ROWS`` rows, and each
+  of its three passes alone (side builds that leave the others out, on
+  the scratch of a whole call); where SEQ is given (an earlier
+  viterbi_scan.cu with the sequential kernel's C entry, as ``git show
+  <commit>:solid_dsp_tpu_torch/csrc/viterbi_scan.cu`` writes it), that
+  kernel on the same rows in the same run, checked bit-equal.  Then, at
+  phase 41's shapes, pass 3 at the trace's lookaheads ``S7_D`` and the
+  chunk length L and the warm-up W swept (``S7_L``, ``S7_W``), each with
+  its counts and checked bit-equal to the call as built; then side
+  builds of the source (``S7_VARIANTS``: a part of the ACS step taken
+  away, timed with pass 1 alone since their wrong metrics would re-walk
+  every chunk; pass 3's words loaded 8 or 32 steps ahead; 1, 2 or 8
+  chunks a block), at the plans as built.  Every time is over a CUDA
+  graph of 20 calls.  Keeps the SASS in _build/viterbi_scan.sass.
 
 * ``cfar-route``: ``models/radar.py::cfar_ca``'s window sums at the
   sweep's 2^22 cells (F7): the box sum by conv1d (as built) against a
@@ -822,13 +835,14 @@ def latency_sweep(dev, smi) -> None:
 
 
 def viterbi_latency(dev, smi, lat: dict, mhz: float) -> None:
-    """S7 (csrc/viterbi_scan.cu), soft, K = 7 (its single-warp form): the
-    chain a step (LATENCY_CHAINS["S7"]) and the SASS instructions a step
-    of the ACS loop (the innermost loop holding the warp minimum's REDUX,
-    its instructions over its REDUXes, a step each), the larger over the
-    SM clock, beside the time a step at one row of 8166 steps (the latency
-    alone), at the packet shape (1024 x 550) and the CCSDS frame's (64 x
-    8166), CUDA graph of 5 launches."""
+    """S7 (csrc/viterbi_scan.cu), soft, K = 7 (its single-warp form, pass
+    1's acs_chunks_warp): the chain a step (LATENCY_CHAINS["S7"]) and the
+    SASS instructions a step of the ACS loop (the unrolled round of 32
+    steps, its instructions over its REDUXes), the larger over the SM
+    clock, beside the time a step of a call at one row of 8166 steps, at
+    the packet shape (1024 x 550) and the CCSDS frame's (64 x 8166), CUDA
+    graph of 5 launches (the chunked walk: a step of a call is T steps'
+    share of it, not one warp's step)."""
     from solid_dsp_tpu_torch.models import fec
     from solid_dsp_tpu_torch.ops import cuda_build, cuda_viterbi
 
@@ -837,7 +851,7 @@ def viterbi_latency(dev, smi, lat: dict, mhz: float) -> None:
     out.write_text(sass)
     loops = []
     for part in sass.split("Function : ")[1:]:
-        if "viterbi_warp_kernelILi2ELb1ELb1E" not in part.splitlines()[0]:
+        if "acs_chunks_warpILi2ELb1ELb1E" not in part.splitlines()[0]:
             continue
         ins = [(int(a, 16), op) for a, op, _ in _SASS_INSN.findall(part)]
         for addr, op, args in _SASS_INSN.findall(part):
@@ -848,7 +862,10 @@ def viterbi_latency(dev, smi, lat: dict, mhz: float) -> None:
                 steps = sum(o.startswith("REDUX") for o in body)
                 if steps:
                     loops.append((len(body), steps))
-    n_ins, steps = min(loops)
+    # the unrolled round (the most steps a loop), of the two step codes
+    # (four or two branch metrics) the shorter: K = 7's (171, 133) shares
+    most = max(steps for _, steps in loops)
+    n_ins, steps = min(loop for loop in loops if loop[1] == most)
     issue = n_ins / steps
     chain = LATENCY_CHAINS["S7"]
     cycles = sum(n * (lat[op] - (lat[_CARRIED[op]] if op in _CARRIED
@@ -1242,86 +1259,257 @@ def s6_sweep(dev, smi) -> None:
                   f"{whole:.4f} | {smi}", flush=True)
 
 
-# S7's single-warp form (csrc/viterbi_scan.cu, 64 states) with one part of
-# its step taken away at a time (each variant is wrong; only its time is
-# read): what each part costs a step.
+# S7 (csrc/viterbi_scan.cu) in side builds: the passes alone (each on the
+# scratch of a whole call, so that it reads what it would read), and the
+# single-warp form (64 states) with one part of its step taken away at a
+# time, built with pass 1 alone (each such variant is wrong, and its wrong
+# metrics would re-walk every chunk in pass 2; only its time is read: what
+# each part costs a step); pass 3's lookahead of words and the chunks a
+# block, whole calls.
+_S7_PASS = {1: ("  {  // pass 1\n", "  if (false) {  // pass 1\n"),
+            2: ("  {  // pass 2\n", "  if (false) {  // pass 2\n"),
+            3: ("  if (p.T > 0) {  // pass 3\n", "  if (false) {  // pass 3\n")}
+_S7_PASS1_ALONE = [_S7_PASS[2], _S7_PASS[3]]
 S7_VARIANTS = {
     "as built": [],
-    "no warp minimum (the lane's own)": [
+    **{f"pass {i} alone": [sub for k, sub in _S7_PASS.items() if k != i]
+       for i in (1, 2, 3)},
+    "pass 1 alone, no warp minimum (the lane's own)": [
         ("g = from_key(__reduce_min_sync(FULL, order_key(vmin)));",
-         "g = vmin;")],
-    "no key conversions": [
+         "g = vmin;")] + _S7_PASS1_ALONE,
+    "pass 1 alone, no key conversions": [
         ("g = from_key(__reduce_min_sync(FULL, order_key(vmin)));",
          "g = __int_as_float(__reduce_min_sync(FULL, "
-         "__float_as_int(vmin)));")],
-    "no ballots": [
+         "__float_as_int(vmin)));")] + _S7_PASS1_ALONE,
+    "pass 1 alone, no ballots": [
         ("const unsigned wa = __ballot_sync(FULL, cha);",
          "const unsigned wa = cha;"),
         ("const unsigned wb = __ballot_sync(FULL, chb);",
-         "const unsigned wb = chb;")],
-    "no shuffles back in place": [
+         "const unsigned wb = chb;")] + _S7_PASS1_ALONE,
+    "pass 1 alone, no shuffles back in place": [
         ("__shfl_sync(FULL, va, src)", "va"),
         ("__shfl_sync(FULL, vb, src)", "vb"),
         ("__shfl_sync(FULL, va, src + 16)", "va"),
-        ("__shfl_sync(FULL, vb, src + 16)", "vb")],
-    "no shared-memory reads of the values": [
+        ("__shfl_sync(FULL, vb, src + 16)", "vb")] + _S7_PASS1_ALONE,
+    "pass 1 alone, no shared-memory reads of the values": [
         ("for (int k = 0; k < NK; ++k) rn[k] = rc[inext + k];",
-         "for (int k = 0; k < NK; ++k) rn[k] = rv[k];")],
+         "for (int k = 0; k < NK; ++k) rn[k] = rv[k];")] + _S7_PASS1_ALONE,
+    "pass 1 alone, one shuffle back in place of four": [
+        ("__shfl_sync(FULL, vb, src)", "vb"),
+        ("__shfl_sync(FULL, va, src + 16)", "va"),
+        ("__shfl_sync(FULL, vb, src + 16)", "vb")] + _S7_PASS1_ALONE,
+    "pass 3 loads 8 steps ahead": [("constexpr int TA = 16;",
+                                    "constexpr int TA = 8;")],
+    "pass 3 loads 32 steps ahead": [("constexpr int TA = 16;",
+                                     "constexpr int TA = 32;")],
+    "CPB 1": [("constexpr int CPB = 4;", "constexpr int CPB = 1;")],
+    "CPB 2": [("constexpr int CPB = 4;", "constexpr int CPB = 2;")],
+    "CPB 8": [("constexpr int CPB = 4;", "constexpr int CPB = 8;")],
 }
+# label: (rows, steps, Eb/N0 dB, K, code rate): chip_smoke.py phase 41's
+# three shapes, then the block form (K = 9, 256 states) at the packet
+# shape and the CCSDS rows at 1 dB, below any operating point (the BER
+# sweeps of models/ber.py go there), where seams fail and pass 2 re-walks
+S7_SHAPES = {"1024 x 550": (1024, 550, 4.0, 7, 0.5),
+             "64 x 8166": (64, 8166, 2.8, 7, 0.5 * 223 / 255),
+             "1 x 550": (1, 550, 4.0, 7, 0.5),
+             "1024 x 550, K = 9": (1024, 550, 4.0, 9, 0.5),
+             "64 x 8166 at 1 dB": (64, 8166, 1.0, 7, 0.5 * 223 / 255)}
+S7_POLYS = {7: (0o171, 0o133), 9: (0o561, 0o753)}
+S7_PLAIN_ROWS = 4          # rows held against viterbi_plain at each shape
+S7_W = (96, 132, 160)
+S7_D = (32, 48, 66, 96, 132)
+S7_L = {"1024 x 550": (104, 150, 209, 275, 418),
+        "64 x 8166": (128, 192, 252, 384, 512),
+        "1 x 550": (16, 32, 64, 128)}
+# The sequential kernel's C entry (one warp a row walking all its steps):
+# viterbi_acs(rx, soft, masks, bits, pm, dec, B, T, n, S, device, stream)
+_S7_SEQUENTIAL_ARGS = ((ctypes.c_void_p, ctypes.c_int)
+                       + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+                       + (ctypes.c_void_p,))
 
 
-def s7_variants(dev, smi) -> None:
-    """S7's single-warp form at 64 states (soft, K = 7) as built and with
-    one part of its step taken away (S7_VARIANTS: text substitutions of
-    viterbi_scan.cu, built beside the kernels), each timed over a CUDA
-    graph of 5 launches at one row of 8166 steps and at 1024 x 550."""
+def _s7_rows(dev, B: int, T: int, ebn0: float, K: int, rate: float,
+             seed: int):
+    """(B, T, 2) float32 LLRs of codewords of the rate-1/2 code S7_POLYS[K]
+    through BPSK and AWGN at Eb/N0 for a code rate ``rate`` (chip_smoke.py
+    phase 41's awgn_llr)."""
+    from solid_dsp_tpu_torch.models import fec
+
+    rng = np.random.default_rng(seed)
+    info = rng.integers(0, 2, (B, T - K + 1))
+    c = fec.conv_encode(torch.from_numpy(info), S7_POLYS[K], K).numpy()
+    sigma = np.sqrt(1 / (2 * rate * 10 ** (ebn0 / 10)))
+    y = (1 - 2.0 * c) + sigma * rng.standard_normal(c.shape)
+    return torch.from_numpy((2 * y / sigma ** 2).astype(np.float32)).to(
+        dev).reshape(B, T, 2)
+
+
+class _S7Call:
+    """One scratch for S7 calls on soft rows r (B, T, 2) of the code
+    S7_POLYS[K] with the chunk plan (L, W, C) and the trace's lookahead D:
+    run(fn) launches the library function fn (viterbi_acs's signature) on
+    it; bits, pm and fix (re-walked chunks, re-traced pieces) are its
+    outputs."""
+
+    def __init__(self, r, K: int, plan, D: int):
+        from solid_dsp_tpu_torch.models import fec
+        from solid_dsp_tpu_torch.ops import cuda_viterbi
+
+        dev = r.device
+        B, T = r.shape[:2]
+        S = 1 << (K - 1)
+        out_tab = fec._tables(S7_POLYS[K], K)[0]
+        self.r, self.S, self.plan, self.D = r, S, plan, D
+        self.masks = torch.from_numpy(cuda_viterbi._masks(
+            np.asarray(out_tab, np.int64).tobytes(), S, 2).view(
+                np.int32)).to(dev)
+        self.bits = torch.empty((B, T), dtype=torch.int32, device=dev)
+        self.pm = torch.empty((B, S), dtype=torch.float32, device=dev)
+        self.dec = torch.empty((B, T, max(1, S // 32)), dtype=torch.int32,
+                               device=dev)
+        self.vec = torch.empty((B, plan[2], 2, S), dtype=torch.float32,
+                               device=dev)
+        self.ends = torch.empty((B, -(-T // cuda_viterbi.TRACE_PIECE), 2),
+                                dtype=torch.int32, device=dev)
+        self.tick = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.fix = torch.zeros(2, dtype=torch.int64, device=dev)
+
+    def run(self, fn) -> None:
+        from solid_dsp_tpu_torch.ops import cuda_build, cuda_viterbi
+
+        B, T = self.r.shape[:2]
+        L, W, C = self.plan
+        cuda_build.check_launch(fn(
+            self.r.data_ptr(), 1, self.masks.data_ptr(), self.bits.data_ptr(),
+            self.pm.data_ptr(), self.dec.data_ptr(), self.vec.data_ptr(),
+            self.ends.data_ptr(), self.tick.data_ptr(), self.fix.data_ptr(),
+            B, T, 2, self.S, L, W, C, cuda_viterbi.TRACE_PIECE, self.D,
+            self.r.device.index, torch.cuda.current_stream().cuda_stream),
+            "s7")
+
+    def sequential(self, fn) -> None:
+        """The sequential kernel fn on the same rows, bits, pm and dec."""
+        from solid_dsp_tpu_torch.ops import cuda_build
+
+        B, T = self.r.shape[:2]
+        cuda_build.check_launch(fn(
+            self.r.data_ptr(), 1, self.masks.data_ptr(), self.bits.data_ptr(),
+            self.pm.data_ptr(), self.dec.data_ptr(), B, T, 2, self.S,
+            self.r.device.index, torch.cuda.current_stream().cuda_stream),
+            "s7 sequential")
+
+    def counted(self, fn):
+        """(bits, pm, [re-walked, re-traced]) of one call of fn."""
+        self.fix.zero_()
+        self.run(fn)
+        torch.cuda.synchronize()
+        return self.bits.clone(), self.pm.clone(), self.fix.tolist()
+
+
+def s7_sweep(dev, smi, sequential: str | None = None) -> None:
+    """S7 (the chunked walk) at S7_SHAPES: as built (chunk_plan), its
+    re-walked chunks and re-traced pieces, bit-equal to viterbi_plain on
+    S7_PLAIN_ROWS rows, and each pass alone (side builds, on the scratch of
+    a whole call); the sequential kernel built from ``sequential`` (an
+    earlier viterbi_scan.cu with its C entry, _S7_SEQUENTIAL_ARGS) on the
+    same rows where given, checked bit-equal; pass 3 at the lookaheads
+    S7_D; then L and W swept (S7_L, S7_W) at phase 41's three shapes; each
+    time over a CUDA graph of 20 calls.  Then the step's variants
+    (S7_VARIANTS) at the three shapes' plans as built.  The SASS is kept in
+    _build/viterbi_scan.sass."""
     from solid_dsp_tpu_torch.models import fec
     from solid_dsp_tpu_torch.ops import cuda_build, cuda_viterbi
 
-    out = cuda_build.BUILD_DIR / "s7_variants"
-    shutil.rmtree(out, ignore_errors=True)
-    source = (cuda_build.CSRC / "viterbi_scan.cu").read_text()
-    jobs = []
-    for i, (label, subs) in enumerate(S7_VARIANTS.items()):
-        d = out / f"v{i}"
-        d.mkdir(parents=True)
-        text = source
-        for a, b in subs:
-            if a not in text:
-                sys.exit(f"S7 variant {label!r}: {a!r} is not in the source")
-            text = text.replace(a, b)
-        (d / "viterbi_scan.cu").write_text(text)
-        jobs.append((label, d / "libs7.so", subprocess.Popen(
+    seq_job = None
+    if sequential:
+        out = cuda_build.BUILD_DIR / "s7_sequential"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        seq_job = subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-             str(d / "libs7.so"), str(d / "viterbi_scan.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    out_tab = fec._tables(fec.DEFAULT_POLYS, 7)[0]
-    masks = torch.from_numpy(cuda_viterbi._masks(
-        np.asarray(out_tab, np.int64).tobytes(), 64, 2).view(np.int32)).to(
-        dev)
-    rng = np.random.default_rng(17)
-    for label, lib, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            sys.exit(f"S7 variant {label!r} did not build:\n{log[-4000:]}")
-        fn = ctypes.CDLL(str(lib)).viterbi_acs
-        fn.argtypes = list(cuda_viterbi._ARGS)
-        fn.restype = ctypes.c_int
+             str(out / "libsequential.so"), sequential],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = _build_variants("viterbi_scan.cu",
+                           cuda_build.BUILD_DIR / "s7_variants", S7_VARIANTS)
+    seq = None
+    if seq_job is not None:
+        log, _ = seq_job.communicate()
+        if seq_job.returncode:
+            sys.exit(f"the sequential kernel did not build:\n{log[-4000:]}")
+        seq = ctypes.CDLL(str(out / "libsequential.so")).viterbi_acs
+        seq.argtypes = list(_S7_SEQUENTIAL_ARGS)
+        seq.restype = ctypes.c_int
+    fns = {}
+    for label, (lib, _) in libs.items():
+        fns[label] = lib.viterbi_acs
+        fns[label].argtypes = list(cuda_viterbi._ARGS)
+        fns[label].restype = ctypes.c_int
+    (cuda_build.BUILD_DIR / "viterbi_scan.sass").write_text(
+        sass_dump("viterbi_scan.cu"))
+    built = cuda_viterbi.launcher("viterbi_scan.cu", "viterbi_acs",
+                                  cuda_viterbi._ARGS)
+    plans = {}
+    for seed, (name, (B, T, ebn0, K, rate)) in enumerate(S7_SHAPES.items()):
+        S = 1 << (K - 1)
+        r = _s7_rows(dev, B, T, ebn0, K, rate, seed + 1)
+        L, W, _, C = cuda_viterbi.chunk_plan(B, T, S)
+        D = cuda_viterbi.trace_ahead(S)
+        plans[name] = (r, K, (L, W, C), D)
+        call = _S7Call(r, K, (L, W, C), D)
+        bits, pm, fx = call.counted(built)
+        sub = r[:S7_PLAIN_ROWS]
+        bp, pp = fec.viterbi_plain(sub, fec._tables(S7_POLYS[K], K)[0], True)
+        plain = (torch.equal(bits[:S7_PLAIN_ROWS], bp)
+                 and torch.equal(pm[:S7_PLAIN_ROWS], pp))
+        whole = graph_ms(lambda: call.run(built), 20)
+        passes = "; ".join(
+            f"pass {i} alone "
+            f"{graph_ms(lambda: call.run(fns[f'pass {i} alone']), 20):.4f}"
+            for i in (1, 2, 3))
+        line = (f"[s7 {name}] as built L, W, C = {(L, W, C)}, D = {D}: "
+                f"{whole:.4f} ms; {passes} ms; re-walked chunks {fx[0]} of "
+                f"{B * (C - 1)} seams, re-traced pieces {fx[1]}; bit-equal "
+                f"to viterbi_plain on {len(sub)} rows: {plain}")
+        if seq is not None:
+            call.sequential(seq)
+            torch.cuda.synchronize()
+            same = torch.equal(call.bits, bits) and torch.equal(call.pm, pm)
+            seq_ms = graph_ms(lambda: call.sequential(seq), 20)
+            again = graph_ms(lambda: call.run(built), 20)
+            line += (f"; the sequential kernel {seq_ms:.4f} ms (bit-equal: "
+                     f"{same}), the chunked walk again {again:.4f} ms")
+        print(f"{line} | {smi}", flush=True)
+        if name not in S7_L:
+            continue
+        for D2 in S7_D:
+            c2 = _S7Call(r, K, (L, W, C), D2)
+            b2, p2, f2 = c2.counted(built)
+            same = torch.equal(b2, bits) and torch.equal(p2, pm)
+            print(f"[s7 {name}] D = {D2}: pass 3 alone "
+                  f"{graph_ms(lambda: c2.run(fns['pass 3 alone']), 20):.4f} "
+                  f"ms, re-traced pieces {f2[1]}, bit-equal to as built: "
+                  f"{same} | {smi}", flush=True)
+        for W2 in S7_W:
+            for L2 in S7_L[name]:
+                C2 = cuda_viterbi.chunk_layout(T, L2, W2)[1]
+                c2 = _S7Call(r, K, (L2, W2, C2), D)
+                b2, p2, f2 = c2.counted(built)
+                same = torch.equal(b2, bits) and torch.equal(p2, pm)
+                ms = graph_ms(lambda: c2.run(built), 20)
+                print(f"[s7 {name}] L = {L2}, W = {W2}, C = {C2}: {ms:.4f} "
+                      f"ms, re-walked chunks and re-traced pieces {f2}, "
+                      f"bit-equal to as built: {same} | {smi}", flush=True)
+    for label, fn in fns.items():
+        if label.startswith("pass ") and label.endswith(" alone"):
+            continue
         times = []
-        for B, T in ((1, 8166), (1024, 550)):
-            r = torch.from_numpy(rng.standard_normal((B, T, 2))).to(
-                dev, torch.float32)
-            bits = torch.empty((B, T), dtype=torch.int32, device=dev)
-            pm = torch.empty((B, 64), dtype=torch.float32, device=dev)
-            dec = torch.empty((B, T, 2), dtype=torch.int32, device=dev)
-
-            def run():
-                cuda_build.check_launch(fn(
-                    r.data_ptr(), 1, masks.data_ptr(), bits.data_ptr(),
-                    pm.data_ptr(), dec.data_ptr(), B, T, 2, 64, dev.index,
-                    torch.cuda.current_stream(dev).cuda_stream), label)
-            ms = graph_ms(run, 5)
-            times.append(f"{B} x {T}: {ms * 1e6 / T:.1f} ns a step")
+        for name in S7_L:
+            r, K, plan, D = plans[name]
+            call = _S7Call(r, K, plan, D)
+            call.run(built)
+            times.append(f"{name} {graph_ms(lambda: call.run(fn), 20):.4f} "
+                         "ms")
         print(f"[s7 variant] {label}: {'; '.join(times)} | {smi}",
               flush=True)
 
@@ -1477,8 +1665,9 @@ def main() -> None:
         cuda_build.build()
         s6_sweep(dev, smi)
         return
-    if sys.argv[1:] == ["s7-variants"]:
-        s7_variants(dev, smi)
+    if sys.argv[1:2] == ["s7"] and len(sys.argv) <= 3:
+        cuda_build.build()
+        s7_sweep(dev, smi, *sys.argv[2:])
         return
     cuda_build.build()
 
