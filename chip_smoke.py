@@ -79,7 +79,12 @@ solid_dsp_tpu_torch/csrc/:
   and rds_receive, and a POCSAG pager channel cut out of a 2.4576 Msps
   capture by the DDC body (K2, M = 64) and decoded by pocsag_receive;
   DTMF, the modulation classifier, the channel sounder, the metrics and
-  profiling utilities, and checkpointed, supervised crash recovery.
+  profiling utilities, and checkpointed, supervised crash recovery;
+* ROADMAP item 7b: ci16 recordings as raw int16 into the DDC kernels'
+  loads (ddc_fm.cu, ddc_body.cu: K1-K3 reading interleaved int16,
+  converted in registers), config 4's chains in ci16 and the CLI's rx
+  through its raw reader (pinned buffers, a side stream) against the
+  pump's route.
 
 Phases, one line each:
 
@@ -285,8 +290,9 @@ Phases, one line each:
      RxChain on the card and >= 90 dB against the plain body, the stereo
      multiplex read back (correlation > 0.8), K1 on every whole block and
      K3 on the ragged end, each timed file to file (two turns) and split
-     a block under the profiler (pump wait, H2D copy, kernels, D2H copy,
-     write; the idle share); rx --demod am and qpsk on 2^24 samples (K2;
+     a block under the profiler (the raw reader's wait, H2D copy, kernels,
+     D2H copy, write, the unaccounted rest; the idle share): ci16 goes to the card
+     as raw int16 (runtime/raw.py), so K1 and K3 run their int16 routes; rx --demod am and qpsk on 2^24 samples (K2;
      the AM tone, QPSK SER < 1e-3); rx --wav --stereo --rate 2400000 on
      2^24 (separation > 12 dB on both rails; S3); monitor --channels 256
      --backend fused --block 2^22 (K4; three bursts on their channels,
@@ -430,6 +436,27 @@ Phases, one line each:
      and relaunched by run_supervised: bit-identical to an uninterrupted
      run, no kernel rebuilt; save/load_distributed at world size 1.  K1's,
      K2's and S3's launches on (a), (b) and (f) are the kernels' line's.
+ 44. ROADMAP item 7b (ci16_phases): (a) K1, K2 and K3 on raw int16 (the
+     *_i16 entry points) on every route and in both modes, at config 4's
+     2^24 (K3 at 2^24 + 52; the tensor-core routes) and at phase 37's
+     256 taps / M = 128 and 128 / 200 (the direct routes): bit-equal to
+     the same kernel on the planes the chain's conversion makes, counted
+     on the int16 counter of their route and mode, within the plain
+     version's gate on the int16 (K1 audio >= 90 dB, energy 1e-5, edges
+     1e-4; K2/K3 z >= 90 dB x3, >= 120 dB fast), each timed by a CUDA
+     graph beside its bound (4 B a sample in), the old route's planar pass
+     and float32 kernel, and its plain version; (b) config 4's FM, AM and
+     QPSK chains in ci16 over 4 blocks of 2^24, state carried: bit-equal
+     to the planar chain on the planes, phase 5's and 9's gates against
+     the plain chain, the int16 launches one a block, ms a block by CUDA
+     events against the old route (turns new, old, old, new); (c) phase
+     38's recording through rx --format ci16 --block 2^20 (the raw
+     route) and, converted by read_iq, through rx --format cf32 (the
+     pump's route): the same bytes, K1's and K3's int16 launches on the
+     raw route only, each route's block split (reader or pump wait, H2D,
+     kernels, D2H, write, the unaccounted rest of the wall, idle share).  The
+     int16 routes' launches on (b) and (c)'s raw run are the kernels'
+     line's (entries ddc_fm_i16, ddc_body_i16, ddc_body_unaligned_i16).
 
 A "[time]" line after each group of phases gives the script's elapsed
 time.  Then the kernels' JSON line (each kernel's launches on the main paths; its
@@ -738,8 +765,14 @@ PDP_DB_ATOL = 1.0
 BENCH_RTOL = 0.10         # benchmark() against the block's CUDA-event time
 TRACE_BLOCKS = 10         # config-4 blocks inside trace()
 MOD_MIN_ACC = 0.9         # a class, 32 random bursts of 100k symbols
+# phase 44: ci16 from the recording to the DDC kernels' loads
+CI16_SCALE = 16000.0      # int16 counts of unit amplitude
+CI16_DIRECT = ((256, 128, "ddc_fm"), (256, 128, "ddc_body"),
+               (128, 200, "ddc_body_unaligned"))   # phase 37's direct routes
+CI16_BLOCK = 1 << 20      # rx's default --block
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 
 
@@ -932,6 +965,15 @@ def bound_ms(nbytes: float, flops: float, peak: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fir_ops(n: int, T: int, route: str, fast: bool):
+    """(operations, peak) of a DDC body's FIR, 8 a complex tap an output:
+    a tensor-core route runs one bf16 pass (fast) or three TF32 passes
+    (x3); a direct route runs FP32 FMA in both modes."""
+    if route == "direct":
+        return 8 * n * T, FP32_FLOPS
+    return (8 * n * T, BF16_FLOPS) if fast else (3 * 8 * n * T, TF32_FLOPS)
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain, bound,
@@ -3415,8 +3457,8 @@ def p4_phases(dev, smi) -> list:
                 x_ext = torch.nn.functional.pad(x_ext, (n - M, 0))
             l_ms = graph_ms(lambda: torch.nn.functional.conv1d(
                 x_ext, w, stride=M), 20)
-            bnd = bound_ms(4 * (2 * L + 2 * D + 2 * n + 2 * T), 8 * n * T,
-                           BF16_FLOPS if mode == "fast" else FP32_FLOPS)
+            bnd = bound_ms(4 * (2 * L + 2 * D + 2 * n + 2 * T),
+                           *fir_ops(n, T, "direct", mode == "fast"))
             stats[(n, M, mode)] = (err, k_ms, p_ms, l_ms, bnd)
             good = (snr >= BODY_FAST_MIN_SNR_DB and once and same
                     and bool(torch.isfinite(zk).all())
@@ -3537,8 +3579,8 @@ def p4_phases(dev, smi) -> list:
             p_ms = cuda_ms(lambda: cuda_ddc.ddc_fm_torch(body, x, tail), 5)
             # each input read once, the audio and stats written once; the
             # FIR's 8 operations a complex tap an output
-            bnd = bound_ms(4 * (2 * L + 2 * D + 2 * n + T + 5), 8 * n * T,
-                           BF16_FLOPS if fast else FP32_FLOPS)
+            bnd = bound_ms(4 * (2 * L + 2 * D + 2 * n + T + 5),
+                           *fir_ops(n, T, "direct", fast))
             k1[(n, M, mode)] = (err, k_ms, p_ms, bnd)
             staged = STAGED_K1_MS.get((n, M, mode))
             good = (route[0] == "direct" and snr >= MIN_SNR_DB and counted
@@ -3628,12 +3670,18 @@ def best_corr(y: np.ndarray, ref: np.ndarray, start: int = 1000,
 
 def cli_counters():
     """{name: (wrapper, attribute)} of the kernels the CLI and compose
-    paths reach."""
+    paths reach.  A DDC body's count is its route's, float32 and int16
+    blocks alike (rx --format ci16 ships int16); "<name>_i16" counts the
+    int16 ones."""
     from solid_dsp_tpu_torch.ops import cuda_chan, cuda_ddc, cuda_scan
     return {"ddc_fm": (cuda_ddc.ddc_fm_cuda, "launches"),
             "ddc_body": (cuda_ddc.ddc_body_cuda, "launches"),
             "ddc_body_unaligned": (cuda_ddc.ddc_body_unaligned_cuda,
                                    "launches"),
+            "ddc_fm_i16": (cuda_ddc.ddc_fm_cuda, "i16_launches"),
+            "ddc_body_i16": (cuda_ddc.ddc_body_cuda, "i16_launches"),
+            "ddc_body_unaligned_i16": (cuda_ddc.ddc_body_unaligned_cuda,
+                                       "i16_launches"),
             "channelizer": (cuda_chan.chan_fused_cuda, "launches"),
             "agc_scan": (cuda_scan.agc_scan_cuda, "launches"),
             "iir_scan": (cuda_scan.iir_scan_cuda, "launches"),
@@ -3663,7 +3711,8 @@ def run_cli(cli_main, argv) -> tuple:
 
 def cli_profiled(cli_main, argv, warm_argv) -> dict:
     """The CLI's main(argv) under torch.profiler (after warm_argv in the
-    warm-up step), the host's time in StreamPump.next_block ("pump") and in
+    warm-up step), the host's time in StreamPump.next_block or waiting for
+    the raw ci16 reader's next buffer, Ci16Reader._take ("pump"), and in
     write_iq ("write") summed by wrappers that only read the clock, and the
     device's records split into host-to-device copies, device-to-host
     copies and kernels (ms, summed over the run)."""
@@ -3671,13 +3720,22 @@ def cli_profiled(cli_main, argv, warm_argv) -> dict:
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from solid_dsp_tpu_torch import runtime
+    from solid_dsp_tpu_torch.runtime.raw import Ci16Reader
     spans = {"pump": 0.0, "write": 0.0}
     next_block, write_iq = runtime.StreamPump.next_block, runtime.write_iq
+    take = Ci16Reader._take
 
     def timed_next(self):
         t = time.perf_counter()
         try:
             return next_block(self)
+        finally:
+            spans["pump"] += time.perf_counter() - t
+
+    def timed_take(self):
+        t = time.perf_counter()
+        try:
+            return take(self)
         finally:
             spans["pump"] += time.perf_counter() - t
 
@@ -3694,11 +3752,13 @@ def cli_profiled(cli_main, argv, warm_argv) -> dict:
         run_cli(cli_main, warm_argv)
         prof.step()
         runtime.StreamPump.next_block = timed_next
+        Ci16Reader._take = timed_take
         runtime.write_iq = timed_write
         try:
             rc, _, wall = run_cli(cli_main, argv)
         finally:
             runtime.StreamPump.next_block = next_block
+            Ci16Reader._take = take
             runtime.write_iq = write_iq
         prof.step()
     if rc != 0:
@@ -3724,18 +3784,25 @@ def cli_profiled(cli_main, argv, warm_argv) -> dict:
 
 
 def split_line(label: str, n_samples: int, n_blocks: int, wall_s: float,
-               prof: dict, smi: str) -> str:
-    """The file-to-file rate and the split of a block."""
+               prof: dict, smi: str, phase: int = 38,
+               wait: str = "pump wait") -> str:
+    """The file-to-file rate and the split of a block: the wait for the
+    reader (``wait``), the copies and kernels on the device, the write,
+    and the rest of the block's wall time, unaccounted: the device's work
+    runs asynchronously and may overlap the host's, so the rest is not a
+    measured span of host work."""
     busy = prof["kernels"] + prof["h2d"] + prof["d2h"]
     pw = prof["wall"] * 1e3
-    return (f"[38 {label}] {n_samples / wall_s / 1e6:.1f} Msamples/s file "
-            f"to file ({n_samples} samples in {wall_s:.3f} s, {n_blocks} "
-            f"blocks); a block (profiled run, {pw / n_blocks:.3f} ms): pump "
-            f"wait {prof['pump'] * 1e3 / n_blocks:.3f} ms, H2D copy "
+    rest = pw - prof["pump"] * 1e3 - busy - prof["write"] * 1e3
+    return (f"[{phase} {label}] {n_samples / wall_s / 1e6:.1f} Msamples/s "
+            f"file to file ({n_samples} samples in {wall_s:.3f} s, "
+            f"{n_blocks} blocks); a block (profiled run, {pw / n_blocks:.3f} "
+            f"ms): {wait} {prof['pump'] * 1e3 / n_blocks:.3f} ms, H2D copy "
             f"{prof['h2d'] / n_blocks:.3f} ms, device busy (kernels) "
             f"{prof['kernels'] / n_blocks:.3f} ms, D2H copy "
             f"{prof['d2h'] / n_blocks:.3f} ms, write "
-            f"{prof['write'] * 1e3 / n_blocks:.3f} ms; device idle "
+            f"{prof['write'] * 1e3 / n_blocks:.3f} ms, unaccounted wall "
+            f"{max(0.0, rest) / n_blocks:.3f} ms; device idle "
             f"{max(0.0, 1 - prof['kernels'] / pw):.1%} (no kernel), "
             f"{max(0.0, 1 - busy / pw):.1%} (no kernel and no copy); "
             f"largest kernels: {prof['top']} | {smi}")
@@ -3943,7 +4010,8 @@ def cli_phases(dev, smi) -> dict:
                   f"{want_k1}), K3 {c['ddc_body_unaligned']}, K2 "
                   f"{c['ddc_body']}", flush=True)
             print(split_line(f"rx --block {B}, ci16 -> FM -> cf32", n_used,
-                             n_blocks, wall, prof, smi)
+                             n_blocks, wall, prof, smi,
+                             wait="raw reader wait")
                   + f"; second turn {n_used / wall2 / 1e6:.1f} Msamples/s",
                   flush=True)
             if not (rc == rc2 == 0 and equal and snr >= MIN_SNR_DB
@@ -6556,6 +6624,331 @@ def protocol_phases(dev, smi) -> dict:
     return counts
 
 
+def ci16_block(kind: str, b: int, L: int, dev, sym=None) -> torch.Tensor:
+    """Block b of phase 44's ci16 input, (L, 2) int16 on the card: config
+    4's tone (as make_block), the AM carrier (make_am_block) or the QPSK
+    symbols ``sym`` (make_qpsk_block), each continuing block b - 1, with
+    complex noise from a generator seeded by the kind and b; built in
+    float64 on the card, times CI16_SCALE, rounded."""
+    k = torch.arange(b * L, (b + 1) * L, device=dev, dtype=torch.float64)
+    if kind == "fm":
+        x = 0.1 * torch.exp(2j * np.pi * (0.2 / (2 * np.pi) + 0.001) * k)
+        sigma = 0.003
+    elif kind == "am":
+        x = 0.5 * (1 + 0.5 * torch.cos(2 * np.pi * AM_TONE * k)) * torch.exp(
+            0.2j * k)
+        sigma = 0.003
+    else:
+        gray = torch.from_numpy(GRAY).to(dev)
+        x = 0.5 * gray[sym[(k // 32).long()]] * torch.exp(
+            1j * (0.2 + QPSK_OFFSET) * k)
+        sigma = 0.05
+    g = torch.Generator(device=dev).manual_seed(
+        SEED + 4400 + 10 * b + ("fm", "am", "qpsk").index(kind))
+    w = torch.randn((2, L), generator=g, device=dev, dtype=torch.float64)
+    x = x + sigma * torch.complex(w[0], w[1])
+    iq = torch.stack([x.real, x.imag], dim=1) * CI16_SCALE
+    return torch.round(iq).clamp(-32768, 32767).to(torch.int16).contiguous()
+
+
+def ci16_phases(dev, smi) -> list:
+    """Phase 44: ci16 from the recording to the DDC kernels' loads.  (a)
+    K1, K2 and K3 on raw int16 on every route and in both modes, at config
+    4's shape (tensor cores) and phase 37's (direct): bit for bit against
+    the same kernel on the planes the chain's conversion makes
+    (ci16_planes, the old route's _planar pass) and against the plain
+    version on the int16, timed by CUDA graphs beside the planar pass and
+    the float32 kernel; (b) config 4's FM, AM and QPSK chains in ci16 over
+    4 blocks of 2^24, state carried: bit-equal to the planar chain on the
+    planes, against the plain chain (phase 5's and 9's gates), ms a block
+    against the old route (the planar pass, then the float32 kernels);
+    (c) phase 38's recording through rx --format ci16 --block 2^20, the
+    raw route, against the same samples as read_iq converts them through
+    rx --format cf32, the pump's route: the same bytes, and each route's
+    block split.  Returns the int16 routes' kernel entries (their launches
+    from (b) and (c)'s raw runs)."""
+    import tempfile
+
+    from solid_dsp_tpu_torch.__main__ import main as cli_main
+    from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig, make_rx_chain
+    from solid_dsp_tpu_torch.ops import cuda_ddc
+    from solid_dsp_tpu_torch.ops import ddc as ddc_ops
+    from solid_dsp_tpu_torch.ops.nco import constrain
+    from solid_dsp_tpu_torch.runtime import read_iq, write_iq
+
+    t_phase = time.perf_counter()
+    fns = {"ddc_fm": cuda_ddc.ddc_fm_cuda, "ddc_body": cuda_ddc.ddc_body_cuda,
+           "ddc_body_unaligned": cuda_ddc.ddc_body_unaligned_cuda}
+    sources = {"ddc_fm": "ddc_fm.cu", "ddc_body": "ddc_body.cu",
+               "ddc_body_unaligned": "ddc_body.cu"}
+    lines = {"ddc_fm": 645, "ddc_body": 405, "ddc_body_unaligned": 177}
+
+    def reset_i16():
+        for fn in fns.values():
+            for c in cuda_ddc.I16_COUNTERS:
+                setattr(fn, c, 0)
+
+    def i16_counts():
+        return {k: sum(getattr(fn, c) for c in cuda_ddc.I16_COUNTERS)
+                for k, fn in fns.items()}
+
+    def planes(x):
+        return ddc_ops.ci16_planes(x, torch.float32)
+
+    # (a) every route and mode
+    rng = np.random.default_rng(SEED + 44)
+    x_all = ci16_block("fm", 0, L_UNALIGNED, dev)
+    points = [(64, 4, name) for name in fns] + list(CI16_DIRECT)
+    stats = {}
+    ok = True
+    for n, M, name in points:
+        taps = RxChainConfig(fir_taps=n, decimation=M).design_taps()
+        D = max(n - M, 0)
+        tail = torch.from_numpy((0.1 * rng.standard_normal((2, D))).astype(
+            np.float32)).to(dev)
+        hop = 64 * M
+        L = (L_UNALIGNED if name == "ddc_body_unaligned" and M == 4
+             else L_FULL // hop * hop)
+        x = x_all[:L]
+        T = L // M
+        for mode in cuda_ddc.MODES:
+            fast = mode == "fast"
+            if name == "ddc_fm":
+                body = cuda_ddc.make_ddc_fm(taps, constrain(0.2), M, 0.1, dev,
+                                            mode=mode)
+                kern, plain = cuda_ddc.ddc_fm_cuda, cuda_ddc.ddc_fm_torch
+                route = cuda_ddc.fm_geometry(n, M, fast)[0]
+                out_bytes = 4 * (T + 5)
+            else:
+                body = cuda_ddc.make_ddc_body(taps, constrain(0.2), M, dev,
+                                              mode=mode)
+                kern, plain = body.route(L), ddc_ops.ddc_body_torch
+                route = cuda_ddc.body_geometry(n, M, fast)[0]
+                out_bytes = 8 * T
+            counter = ("i16_direct_" if route == "direct" else "i16_") + (
+                "fast_launches" if fast else "launches")
+            before = getattr(kern, counter)
+            x2 = planes(x)
+            k16 = kern(body, x, tail)
+            k32 = kern(body, x2, tail)
+            ref = plain(body, x, tail)
+            torch.cuda.synchronize()
+            counted = kern is fns[name] and getattr(kern, counter) == before + 1
+            if name == "ddc_fm":
+                same = torch.equal(k16[0], k32[0]) and torch.equal(k16[1],
+                                                                   k32[1])
+                got, want = k16[0].cpu().numpy(), ref[0].cpu().numpy()
+                sk, sp = k16[1].cpu().numpy(), ref[1].cpu().numpy()
+                err_e = abs(float(sk[0]) - float(sp[0])) / abs(float(sp[0]))
+                err_z = float(np.max(np.abs(sk[1:] - sp[1:])))
+                gate = MIN_SNR_DB
+                extra = (f", energy rel err {err_e:.3g} (gate {ENERGY_RTOL}),"
+                         f" edges {err_z:.3g} (gate {EDGE_ATOL})")
+                stats_ok = err_e <= ENERGY_RTOL and err_z <= EDGE_ATOL
+            else:
+                same = torch.equal(k16, k32)
+                got, want = k16.cpu().numpy(), ref.cpu().numpy()
+                gate = BODY_FAST_MIN_SNR_DB if fast else MIN_SNR_DB
+                extra, stats_ok = "", True
+            snr = snr_db(got, want)
+            err = float(np.max(np.abs(got - want)))
+            k_ms = graph_ms(lambda: kern(body, x, tail), 20)
+            f_ms = graph_ms(lambda: kern(body, x2, tail), 20)
+            pass_ms = graph_ms(lambda: planes(x), 20)
+            p_ms = cuda_ms(lambda: plain(body, x, tail), 5)
+            bnd = bound_ms(4 * L + 4 * (2 * D + 2 * n) + out_bytes,
+                           *fir_ops(n, T, route, fast))
+            stats[(name, route, mode)] = (err, k_ms, p_ms, bnd)
+            good = (same and counted and snr >= gate and stats_ok
+                    and np.all(np.isfinite(got)))
+            ok &= good
+            print(f"[44 a {name} int16, {route} route, {mode}, {n} taps, M = "
+                  f"{M}, L = {L}] bit-equal to the float32 kernel on the "
+                  f"planes {same}, counted on .{counter} {counted}, "
+                  f"{snr:.1f} dB against the plain version on the int16 "
+                  f"(gate {gate}), max |err| {err:.3g}{extra}; kernel (CUDA "
+                  f"graph of 20) {k_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]}, 4 B a sample in); the old route: planar pass "
+                  f"{pass_ms:.4f} ms + float32 kernel {f_ms:.4f} ms = "
+                  f"{pass_ms + f_ms:.4f} ms; plain {p_ms:.4f} ms | {smi}",
+                  flush=True)
+    del x_all
+    if not ok:
+        fail("phase 44 (a): an int16 route disagrees")
+
+    # (b) config 4's chains in ci16, state carried
+    cfg = RxChainConfig(carrier_freq=0.2, decimation=4, fir_taps=64,
+                        agc_mode="block", demod="fm", nco_mode="exact",
+                        input_format="ci16", fused_ddc="on",
+                        fir_precision="x3")
+    M = cfg.decimation
+    T = L_FULL // M
+    sym_np = qpsk_symbols(N_CHAIN, L_FULL)
+    sym = torch.from_numpy(sym_np).to(dev)
+    main = dict.fromkeys(fns, 0)
+    want_counts = {"fm": {"ddc_fm": N_CHAIN, "ddc_body": 0,
+                          "ddc_body_unaligned": 0},
+                   "am": {"ddc_fm": 0, "ddc_body": N_CHAIN,
+                          "ddc_body_unaligned": 0}}
+    want_counts["qpsk"] = want_counts["am"]
+
+    def chain_ms(init, apply, blks, prep):
+        """ms a block of the chain over N_TIMED blocks, CUDA events."""
+        st = init()
+        for xb in blks:
+            _, st = apply(st, prep(xb))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for i in range(N_TIMED):
+            _, st = apply(st, prep(blks[i % N_CHAIN]))
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / N_TIMED
+
+    for demod in ("fm", "am", "qpsk"):
+        blks = [ci16_block(demod, b, L_FULL, dev, sym) for b in range(N_CHAIN)]
+        ccfg = replace(cfg, demod=demod)
+        init_k, apply_k = make_rx_chain(ccfg, dev)
+        init_f, apply_f = make_rx_chain(replace(ccfg, input_format="planar"),
+                                        dev)
+        init_p, apply_p = make_rx_chain(replace(ccfg, ddc_engine="torch"), dev)
+        st_k = init_k()
+        torch.cuda.synchronize()
+        reset_i16()
+        outs_k = []
+        for xb in blks:
+            out, st_k = apply_k(st_k, xb)
+            outs_k.append(out)
+        torch.cuda.synchronize()
+        counts = i16_counts()
+        for key in main:
+            main[key] += counts[key]
+        st_f, st_p, outs_f, outs_p = init_f(), init_p(), [], []
+        for xb in blks:
+            out, st_f = apply_f(st_f, planes(xb))
+            outs_f.append(out)
+            out, st_p = apply_p(st_p, xb)
+            outs_p.append(out)
+        out_k = torch.cat(outs_k).cpu().numpy()
+        out_f = torch.cat(outs_f).cpu().numpy()
+        out_p = torch.cat(outs_p).cpu().numpy()
+        same = np.array_equal(out_k, out_f) and all(
+            torch.equal(st_k[key], st_f[key])
+            for key in ("nco_theta", "fir_tail", "fm_prev"))
+        snr = snr_db(out_k, out_p)
+        theta_want = (N_CHAIN * L_FULL * int(constrain(0.2))) & 0xFFFFFFFF
+        if demod == "fm":
+            tone = 4 * 0.001 / cfg.fm_kf
+            got = float(np.median(out_k[1000:]))
+            what = f"tone {got:.6f} want {tone:.6f}"
+            sig_ok = abs(got - tone) <= TONE_ATOL
+            gate = MIN_SNR_DB
+        elif demod == "am":
+            env = out_k[T:2 * T].astype(np.float64)
+            peak = int(np.argmax(np.abs(np.fft.rfft(env - env.mean()))[1:])) + 1
+            what = f"tone at bin {peak} want {round(AM_TONE * M * T)}"
+            sig_ok = peak == round(AM_TONE * M * T)
+            gate = MIN_SNR_DB
+        else:
+            sers = [best_aligned_ser(sym_np[b * T // 8:(b + 1) * T // 8],
+                                     (out_k[b * T:(b + 1) * T][11::8].real < 0)
+                                     .astype(int)
+                                     + 2 * (out_k[b * T:(b + 1) * T][11::8]
+                                            .imag < 0))
+                    for b in range(N_CHAIN)]
+            what = (f"SER per block {[round(v, 6) for v in sers]} (gate "
+                    f"{MAX_SER})")
+            sig_ok = max(sers) < MAX_SER
+            gate = QPSK_MIN_SNR_DB
+        # turns: new, old, old, new; the old route is _planar's pass then
+        # the float32 kernels
+        new1 = chain_ms(init_k, apply_k, blks, lambda xb: xb)
+        old1 = chain_ms(init_f, apply_f, blks, planes)
+        old2 = chain_ms(init_f, apply_f, blks, planes)
+        new2 = chain_ms(init_k, apply_k, blks, lambda xb: xb)
+        good = (same and counts == want_counts[demod] and snr >= gate
+                and sig_ok and int(st_k["nco_theta"]) == theta_want
+                and np.all(np.isfinite(out_k)) and out_k.shape == (
+                    N_CHAIN * T,))
+        print(f"[44 b {demod} chain in ci16, {N_CHAIN} x 2^24, state "
+              f"carried] bit-equal to the planar chain on the planes (output "
+              f"and state) {same}, {snr:.1f} dB against the plain chain (gate "
+              f"{gate}), {what}, int16 launches {counts}; ms a block (CUDA "
+              f"events over {N_TIMED} blocks, turns new, old, old, new): "
+              f"ci16 {new1:.4f} / {new2:.4f}, old route (planar pass + "
+              f"float32 kernels) {old1:.4f} / {old2:.4f} | {smi}", flush=True)
+        if not good:
+            fail(f"phase 44 (b): the ci16 {demod} chain is wrong")
+        del blks
+
+    # (c) phase 38's recording through rx --format ci16 (the raw route),
+    # and the same samples as read_iq converts them through rx --format
+    # cf32 (the pump's route: complex64 from the host)
+    with tempfile.TemporaryDirectory() as tmp:
+        n_rec = L_REC + REC_TAIL
+        x, _ = fm_recording(dev, n_rec)
+        rec = os.path.join(tmp, "capture.ci16")
+        write_iq(rec, x, "ci16")
+        tiny = os.path.join(tmp, "tiny.ci16")
+        write_iq(tiny, x[:1 << 16], "ci16")
+        del x
+        files = {"raw": (rec, tiny, "ci16")}
+        for name, f in (("capture", rec), ("tiny", tiny)):
+            write_iq(os.path.join(tmp, f"{name}.cf32"), read_iq(f, "ci16"),
+                     "cf32")
+        files["pump"] = (os.path.join(tmp, "capture.cf32"),
+                         os.path.join(tmp, "tiny.cf32"), "cf32")
+        outs, calls = {}, {}
+        for ingest, (src, warm_src, fmt) in files.items():
+            out = os.path.join(tmp, f"{ingest}.out.cf32")
+            argv = ["rx", src, "--format", fmt, "--block", str(CI16_BLOCK),
+                    "-o", out]
+            warm = ["rx", warm_src, "--format", fmt, "-o",
+                    os.path.join(tmp, "warm.out.cf32")]
+            run_cli(cli_main, warm)
+            reset_i16()
+            rc, _, wall = run_cli(cli_main, argv)
+            counts = i16_counts()
+            if ingest == "raw":
+                for key in main:
+                    main[key] += counts[key]
+            with open(out, "rb") as f:
+                outs[ingest] = f.read()
+            prof = cli_profiled(cli_main, argv, warm)
+            calls[ingest] = (rc, counts)
+            print(split_line(f"c rx --format {fmt} --block 2^20, "
+                             f"{ingest} route", n_rec - n_rec % 4,
+                             -(-n_rec // CI16_BLOCK), wall, prof, smi,
+                             phase=44, wait=("raw reader wait" if ingest ==
+                                             "raw" else "pump wait"))
+                  + f"; int16 launches {counts}", flush=True)
+    whole = n_rec // CI16_BLOCK
+    same = outs["raw"] == outs["pump"]
+    print(f"[44 c rx raw route against pump route] the same bytes {same} "
+          f"({len(outs['raw'])} bytes), int16 launches raw "
+          f"{calls['raw'][1]} (want K1 {whole}, K3 1), pump "
+          f"{calls['pump'][1]} (want none)", flush=True)
+    if not (same and calls["raw"][0] == calls["pump"][0] == 0
+            and len(outs["raw"]) == 8 * (n_rec // 4)
+            and calls["raw"][1] == {"ddc_fm": whole, "ddc_body": 0,
+                                    "ddc_body_unaligned": 1}
+            and not any(calls["pump"][1].values())):
+        fail("phase 44 (c): rx's raw route differs from the pump's")
+
+    print(f"[44 int16 launches on the main paths ((b) and (c)'s raw route)] "
+          f"{main}, phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    entries = []
+    for name in fns:
+        route = "tc"
+        err, k_ms, p_ms, bnd = stats[(name, route, "x3")]
+        entries.append(kernel_entry(
+            f"{name}_i16", sources[name],
+            f"solid_dsp_tpu/ops/pallas_ddc.py:{lines[name]}", main[name], err,
+            k_ms, p_ms, bnd))
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a GPU")
@@ -6622,12 +7015,12 @@ def main() -> None:
     k_ms = graph_ms(lambda: cuda_ddc.ddc_fm_cuda(body, x, tail), 20)
     k_b2b = cuda_ms(lambda: cuda_ddc.ddc_fm_cuda(body, x, tail), 20)
     p_ms = cuda_ms(lambda: cuda_ddc.ddc_fm_torch(body, x, tail), 20)
-    # bound: each input read once, each output written once; the FIR's 8
-    # FLOPs a complex tap a decimated output in FP32 (x3)
+    # bound: each input read once, each output written once; the FIR's
+    # operations on the route it takes
     n, D, T = cfg.fir_taps, cfg.fir_taps - M, L_FULL // M
-    b3 = bound_ms(4 * (2 * L_FULL + 2 * D + 2 * n + T + 5), 8 * n * T,
-                  FP32_FLOPS)
     route3 = cuda_ddc.fm_geometry(n, M)
+    b3 = bound_ms(4 * (2 * L_FULL + 2 * D + 2 * n + T + 5),
+                  *fir_ops(n, T, route3[0], False))
     print(f"[3 kernel vs plain f32, L=2^24] audio {snr3:.1f} dB (gate "
           f"{MIN_SNR_DB}), max |err| {max_abs:.3g}, energy rel err "
           f"{err_e:.3g} (gate {ENERGY_RTOL}), z0/zlast err {err_z:.3g} "
@@ -6752,7 +7145,9 @@ def main() -> None:
             l7 = graph_ms(lambda: torch.nn.functional.conv1d(x_ext, w,
                                                              stride=M), 20)
             b7 = bound_ms(4 * (2 * L + 2 * D7 + 2 * n7 + 2 * (L // M)),
-                          8 * n7 * (L // M), FP32_FLOPS)
+                          *fir_ops(n7, L // M,
+                                   cuda_ddc.body_geometry(n7, M, False)[0],
+                                   False))
             body_stats[route] = (max_abs7, k7, p7, l7, L, b7)
             timing = (f"; kernel (TF32 x3 wgmma, CUDA graph of 20 launches) "
                      f"{k7:.4f} ms, bound {b7[0]:.4f} ms ({b7[1]}), plain "
@@ -6955,8 +7350,12 @@ def main() -> None:
     stamp("42")
     protocol_counts = protocol_phases(dev, smi)
     stamp("43")
+    kernels += ci16_phases(dev, smi)
+    stamp("44")
     for k in kernels:
+        # the CLI's DDC counts hold both inputs: each entry takes its own
         k["launches"] += (cli_counts.get(k["name"], 0)
+                          - cli_counts.get(k["name"] + "_i16", 0)
                           + protocol_counts.get(k["name"], 0))
     if not all(k["launches"] > 0 for k in kernels):
         fail("a kernel of the main paths was never launched")

@@ -20,8 +20,14 @@ runs the plain PyTorch versions of the kernels):
 
 A recording is read by the native runtime's ``StreamPump`` (a C++ reader
 thread) in blocks of numpy complex64; each block is copied to the device,
-and each result back.  ``-`` reads standard input, so the tool composes
-with SDR programs: ``rtl_sdr - | python -m solid_dsp_tpu_torch rx - ...``.
+and each result back.  ``rx --format ci16`` reads the int16 itself
+(``runtime/raw.py::Ci16Reader``, a reader thread filling pinned buffers,
+each block copied to the card on a side stream) and hands it to the chain
+as ``input_format="ci16"``, whose DDC kernels convert in registers: the
+same output bits as ``rx --format cf32`` on the samples as ``read_iq``
+converts them, at half the bytes a sample.  ``-`` reads standard input, so
+the tool composes with SDR programs:
+``rtl_sdr - | python -m solid_dsp_tpu_torch rx - ...``.
 """
 
 from __future__ import annotations
@@ -75,17 +81,23 @@ def _cmd_demo(args) -> int:
 def _cmd_rx(args) -> int:
     from .models.rx_chain import RxChain
     from .runtime import StreamPump, write_iq
+    from .runtime.raw import Ci16Reader
 
+    # ci16 goes to the kernels as raw int16; other formats through the pump
+    raw = args.format == "ci16"
     chain = RxChain(
         carrier_freq=args.carrier, decimation=args.decimation,
         fir_taps=args.taps, demod=args.demod, nco_mode="exact",
         agc_mode="block", dtype=torch.complex64, device=args.device,
+        input_format="ci16" if raw else "cf32",
     )
     outs = []
     t0 = time.perf_counter()
     nsamp = 0
-    with StreamPump(_input_path(args.input), fmt=args.format,
-                    block=args.block) as pump:
+    source = (Ci16Reader(_input_path(args.input), args.block, chain.device)
+              if raw else StreamPump(_input_path(args.input), fmt=args.format,
+                                     block=args.block))
+    with source as pump:
         for blk in pump:
             # the chain takes whole decimation periods: the recording's
             # ragged end is dropped, and an empty block ends the stream

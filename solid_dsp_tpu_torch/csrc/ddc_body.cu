@@ -22,8 +22,13 @@
 // the decimated rate, or feeds it to a rotation-invariant epilogue; energy
 // and the last sample are torch reductions in the glue (ops/ddc.py).
 //
+// The block is float32 planes, or the raw interleaved int16 (L, 2) of a
+// ci16 recording (the *_i16 entry points: ddc_tc.cuh's kI16 stages and
+// ddc_direct.cuh's int16 words, converted in registers to the planes'
+// values bit for bit).
+//
 // Bound: bytes (8 a sample in, 8 an output out: 0.050 ms at L = 2^24 on an
-// H100 SXM).  The earlier design (FP32 FMA fed from shared memory, two
+// H100 SXM; int16 in, 4 a sample: 0.030 ms).  The earlier design (FP32 FMA fed from shared memory, two
 // shared loads for four FMAs) ran at 30 % of it, held by shared-memory
 // bandwidth.  Design: the banded-Toeplitz frame product on the tensor cores
 // of ddc_tc.cuh (shared with the fused DDC + FM kernel, ddc_fm.cu), in
@@ -59,6 +64,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "ddc_direct.cuh"
 #include "ddc_tc.cuh"
 
@@ -71,8 +78,9 @@ struct StoreZ {
   static constexpr bool kPre = false;
   float* z;
 
-  __device__ __forceinline__ void from_span(const Geom&, long long, const float*,
-                                            const float*, int, int) {}
+  template <class Span>
+  __device__ __forceinline__ void from_span(const Geom&, long long,
+                                            const Span&, int, int) {}
 
   __device__ __forceinline__ void tile(const Geom& g, long long tau,
                                        float (&acc)[P], int w, int lane) {
@@ -93,21 +101,23 @@ struct StoreZ {
   }
 };
 
-template <int P, bool kFast>
+template <int P, bool kFast, bool kI16>
 __global__ void __launch_bounds__(256, 1)
-ddc_body_tc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
+ddc_body_tc_kernel(const void* __restrict__ x, const float* __restrict__ tail,
                    const float* __restrict__ bank, float* __restrict__ z,
                    const Geom g, long long n_tiles, int wgs, int stages,
                    unsigned bank_bytes) {
   StoreZ<P> epi{z};
-  ddc_tc_run<P, kFast>(x, tail, bank, g, n_tiles, wgs, stages, bank_bytes, epi);
+  ddc_tc_run<P, kFast, kI16>(x, tail, bank, g, n_tiles, wgs, stages,
+                             bank_bytes, epi);
 }
 
-template <int P>
-int launch(const float* x, const float* tail, const float* bank, float* z,
+template <int P, bool kI16>
+int launch(const void* x, const float* tail, const float* bank, float* z,
            const Geom& g, int wgs, int stages, unsigned bank_bytes, size_t smem,
            bool fast, int device, cudaStream_t stream) {
-  auto kernel = fast ? ddc_body_tc_kernel<P, true> : ddc_body_tc_kernel<P, false>;
+  auto kernel = fast ? ddc_body_tc_kernel<P, true, kI16>
+                     : ddc_body_tc_kernel<P, false, kI16>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -124,9 +134,11 @@ int launch(const float* x, const float* tail, const float* bank, float* z,
 constexpr int kDirectThreads = 256;   // threads a block, direct route
 
 // The direct route: z[t] for t = warp, warp + warps, ..., each the warp
-// dot of ddc_direct.cuh over the window x[t M + M - n + i].
+// dot of ddc_direct.cuh over the window x[t M + M - n + i]; X is float
+// (planes) or unsigned (int16 words).
+template <class X>
 __global__ void __launch_bounds__(kDirectThreads)
-ddc_body_direct_kernel(const float* __restrict__ x, const float* __restrict__ tail,
+ddc_body_direct_kernel(const X* __restrict__ x, const float* __restrict__ tail,
                        const float* __restrict__ taps, float* __restrict__ z,
                        long long L, long long T, int n, int M, int fast) {
   const int lane = threadIdx.x & 31;
@@ -143,6 +155,56 @@ ddc_body_direct_kernel(const float* __restrict__ x, const float* __restrict__ ta
   }
 }
 
+template <bool kI16>
+int direct_launch(const void* x, const float* tail, const float* taps, float* z,
+                  long long L, int n, int M, int fast, int device,
+                  cudaStream_t stream) {
+  if (M <= 0 || n < 1 || L <= 0 || L % M != 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const long long T = L / M;
+  const long long per_block = kDirectThreads / 32;
+  long long blocks = (T + per_block - 1) / per_block;
+  const long long most = 16LL * sm_count(device);   // 64 warps an SM
+  if (blocks > most) blocks = most;
+  using X = std::conditional_t<kI16, unsigned, float>;
+  ddc_body_direct_kernel<X><<<(unsigned)blocks, kDirectThreads, 0, stream>>>(
+      static_cast<const X*>(x), tail, taps, z, L, T, n, M, fast);
+  return (int)cudaGetLastError();
+}
+
+template <bool kI16>
+int tc_launch(const void* x, const float* tail, const float* bank, float* z,
+              long long L, int n, int M, int P, int hpad, int KP, int wgs,
+              int stages, int smem, int fast, int device, cudaStream_t stream) {
+  if (M <= 0 || n < 1 || L <= 0 || L % M != 0 || hpad < n - M || hpad < 0 ||
+      hpad % 4 ||
+      KP % 32 || KP < hpad + P * M || (wgs != 1 && wgs != 2) ||
+      (stages != 1 && stages != 2) ||
+      (reinterpret_cast<unsigned long long>(bank) & 15) ||
+      (reinterpret_cast<unsigned long long>(x) & 3))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const Geom g = make_geom(x, L, n, M, P, hpad, KP, 0, kI16);
+  const unsigned bank_bytes = tc_bank_bytes(P, KP, fast != 0);
+  if ((size_t)smem < tc_smem_bytes(g, P, wgs, stages, 0, fast != 0, kI16))
+    return (int)cudaErrorInvalidValue;
+  switch (P) {
+    case 4: return launch<4, kI16>(x, tail, bank, z, g, wgs, stages, bank_bytes,
+                                   smem, fast != 0, device, stream);
+    case 8: return launch<8, kI16>(x, tail, bank, z, g, wgs, stages, bank_bytes,
+                                   smem, fast != 0, device, stream);
+    case 16: return launch<16, kI16>(x, tail, bank, z, g, wgs, stages,
+                                     bank_bytes, smem, fast != 0, device, stream);
+    case 32: return launch<32, kI16>(x, tail, bank, z, g, wgs, stages,
+                                     bank_bytes, smem, fast != 0, device, stream);
+    case 64: return launch<64, kI16>(x, tail, bank, z, g, wgs, stages,
+                                     bank_bytes, smem, fast != 0, device, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // The direct route: x (2, L), tail (2, max(n - M, 0)), taps (2, n) [re row;
@@ -153,17 +215,7 @@ extern "C" int ddc_body_direct_launch(const float* x, const float* tail,
                                       const float* taps, float* z, long long L,
                                       int n, int M, int fast, int device,
                                       cudaStream_t stream) {
-  if (M <= 0 || n < 1 || L <= 0 || L % M != 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return (int)dev_err;
-  const long long T = L / M;
-  const long long per_block = kDirectThreads / 32;
-  long long blocks = (T + per_block - 1) / per_block;
-  const long long most = 16LL * sm_count(device);   // 64 warps an SM
-  if (blocks > most) blocks = most;
-  ddc_body_direct_kernel<<<(unsigned)blocks, kDirectThreads, 0, stream>>>(
-      x, tail, taps, z, L, T, n, M, fast);
-  return (int)cudaGetLastError();
+  return direct_launch<false>(x, tail, taps, z, L, n, M, fast, device, stream);
 }
 
 // The tensor-core route.  x (2, L), tail (2, max(n - M, 0)), z (2, L / M)
@@ -180,30 +232,25 @@ extern "C" int ddc_body_launch(const float* x, const float* tail,
                                int M, int P, int hpad, int KP, int wgs,
                                int stages, int smem, int fast, int device,
                                cudaStream_t stream) {
-  if (M <= 0 || n < 1 || L <= 0 || L % M != 0 || hpad < n - M || hpad < 0 ||
-      hpad % 4 ||
-      KP % 32 || KP < hpad + P * M || (wgs != 1 && wgs != 2) ||
-      (stages != 1 && stages != 2) ||
-      (reinterpret_cast<unsigned long long>(bank) & 15) ||
-      (reinterpret_cast<unsigned long long>(x) & 3))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return (int)dev_err;
-  const Geom g = make_geom(x, L, n, M, P, hpad, KP, 0);
-  const unsigned bank_bytes = tc_bank_bytes(P, KP, fast != 0);
-  if ((size_t)smem < tc_smem_bytes(g, P, wgs, stages, 0, fast != 0))
-    return (int)cudaErrorInvalidValue;
-  switch (P) {
-    case 4: return launch<4>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, fast != 0,
-                                device, stream);
-    case 8: return launch<8>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, fast != 0,
-                                device, stream);
-    case 16: return launch<16>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, fast != 0,
-                                device, stream);
-    case 32: return launch<32>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, fast != 0,
-                                device, stream);
-    case 64: return launch<64>(x, tail, bank, z, g, wgs, stages, bank_bytes, smem, fast != 0,
-                                device, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return tc_launch<false>(x, tail, bank, z, L, n, M, P, hpad, KP, wgs, stages,
+                          smem, fast, device, stream);
+}
+
+// ddc_body_direct_launch on the raw int16 block x (L, 2), 4-byte aligned.
+extern "C" int ddc_body_direct_launch_i16(const void* x, const float* tail,
+                                          const float* taps, float* z,
+                                          long long L, int n, int M, int fast,
+                                          int device, cudaStream_t stream) {
+  return direct_launch<true>(x, tail, taps, z, L, n, M, fast, device, stream);
+}
+
+// ddc_body_launch on the raw int16 block x (L, 2), 4-byte aligned; smem
+// from body_tc_geometry(..., ci16=True) (a stage holds the span's words).
+extern "C" int ddc_body_launch_i16(const void* x, const float* tail,
+                                   const float* bank, float* z, long long L,
+                                   int n, int M, int P, int hpad, int KP,
+                                   int wgs, int stages, int smem, int fast,
+                                   int device, cudaStream_t stream) {
+  return tc_launch<true>(x, tail, bank, z, L, n, M, P, hpad, KP, wgs, stages,
+                         smem, fast, device, stream);
 }

@@ -12,9 +12,12 @@
 // kernels' mode="fast": products exact, f32 sums), the 32 partial sums then
 // added by a butterfly of shuffles, so every lane holds the sum.  A warp's
 // lanes read consecutive samples straight from device memory (the carried
-// tail before the block, zeros before the tail and past the block); the
-// windows of neighbouring outputs overlap by n - M samples, which come from
-// L1 and L2.  Needs no shared memory, so it takes every (n, M).
+// tail before the block, zeros before the tail and past the block): float32
+// planes, or the interleaved int16 of a ci16 block as one 4-byte word a
+// sample, converted in registers (ddc_tc.cuh's ci16_half: the planes'
+// values bit for bit); the windows of neighbouring outputs overlap by
+// n - M samples, which come from L1 and L2.  Needs no shared memory, so it
+// takes every (n, M).
 
 #pragma once
 
@@ -22,10 +25,26 @@
 
 namespace {
 
-// (zr, zi) of the window from sample s0 of the planar (2, L) block x and
-// the carried tail (2, D); taps (2, n) [re row; im row].  Every lane of the
-// warp calls it and gets the sum.
-__device__ __forceinline__ void warp_dot(const float* __restrict__ x,
+// Sample s of both planes of the block x (L samples) and its carried tail
+// (2, D): planar float32 (2, L), or interleaved int16 (L, 2) words.
+__device__ __forceinline__ float2 window_pair(const float* __restrict__ x,
+                                              const float* __restrict__ tail,
+                                              long long s, long long L, int D) {
+  return make_float2(span_value(x, tail, s, L, D),
+                     span_value(x + L, tail + D, s, L, D));
+}
+__device__ __forceinline__ float2 window_pair(const unsigned* __restrict__ x,
+                                              const float* __restrict__ tail,
+                                              long long s, long long L, int D) {
+  return make_float2(span_value_i16<0>(x, tail, s, L, D),
+                     span_value_i16<1>(x, tail + D, s, L, D));
+}
+
+// (zr, zi) of the window from sample s0 of the block x (float32 planes or
+// int16 words) and the carried tail (2, D); taps (2, n) [re row; im row].
+// Every lane of the warp calls it and gets the sum.
+template <class X>
+__device__ __forceinline__ void warp_dot(const X* __restrict__ x,
                                          const float* __restrict__ tail,
                                          const float* __restrict__ taps,
                                          long long L, int D, int n,
@@ -35,8 +54,8 @@ __device__ __forceinline__ void warp_dot(const float* __restrict__ x,
   zi = 0.f;
 #pragma unroll 4
   for (int i = lane; i < n; i += 32) {
-    float a = span_value(x, tail, s0 + i, L, D);
-    float b = span_value(x + L, tail + D, s0 + i, L, D);
+    const float2 v = window_pair(x, tail, s0 + i, L, D);
+    float a = v.x, b = v.y;
     float hr = __ldg(taps + i), hi = __ldg(taps + n + i);
     if (round) {
       a = bf16_round(a);

@@ -15,8 +15,13 @@
 // K1's tile-0 seam reads them, and the caller overwrites audio[0] from its
 // carried state.
 //
+// The block is float32 planes, or the raw interleaved int16 (L, 2) of a
+// ci16 recording (the *_i16 entry points: ddc_tc.cuh's kI16 stages and
+// ddc_direct.cuh's int16 words, each sample converted in registers to the
+// planes' float32 bit for bit, so the audio and stats are the planes').
+//
 // Bound: bytes (8 a sample in, 4 an output out: 0.045 ms at L = 2^24, M = 4
-// on an H100 SXM).  The first design (direct-form FIR in FP32 FMA fed from
+// on an H100 SXM; int16 in, 4 a sample: 0.025 ms).  The first design (direct-form FIR in FP32 FMA fed from
 // shared memory) ran at 22 % of it, held by shared-memory bandwidth like
 // the body's first design.  Design, two
 // routes chosen from (n, M) alone (ops/cuda_ddc.py::fm_geometry):
@@ -70,6 +75,8 @@
 // seams between warps through shared memory (a barrier in the epilogue).
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "ddc_direct.cuh"
 #include "ddc_tc.cuh"
@@ -150,16 +157,18 @@ struct FmEpilogue {
   // z[t0 + 16 w P - 1] (t0 the tile's first output) by an FP32 dot over its
   // window, which starts pre + hpad - n + 16 w hop samples into the span;
   // fast: its operands rounded to bf16 unless it is a TPU tile's seam
+  template <class Span>
   __device__ __forceinline__ void from_span(const Geom& g, long long tau,
-                                            const float* re, const float* im,
-                                            int w, int lane) {
+                                            const Span& span, int w,
+                                            int lane) {
     const int o = g.pre + g.hpad - n + 16 * w * g.hop;
     const bool round =
         kFast && ((tau * kFrames + 16 * w) * P) % seam_period != 0;
     float zr = 0.f, zi = 0.f;
     for (int i = lane; i < n; i += 32) {
       float hr = __ldg(taps + i), hi = __ldg(taps + n + i);
-      float a = re[o + i], b = im[o + i];
+      const float2 v = span.at(o + i);
+      float a = v.x, b = v.y;
       if (round) {
         hr = bf16_round(hr);
         hi = bf16_round(hi);
@@ -239,9 +248,9 @@ struct FmEpilogue {
   }
 };
 
-template <int P, bool kFast>
+template <int P, bool kFast, bool kI16>
 __global__ void __launch_bounds__(256, 1)
-ddc_fm_tc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
+ddc_fm_tc_kernel(const void* __restrict__ x, const float* __restrict__ tail,
                  const float* __restrict__ bank, const float* __restrict__ taps,
                  float* __restrict__ audio, float* __restrict__ stats,
                  float* __restrict__ partials, unsigned* ticket, const Geom g,
@@ -250,21 +259,23 @@ ddc_fm_tc_kernel(const float* __restrict__ x, const float* __restrict__ tail,
   extern __shared__ __align__(128) unsigned char smem[];
   // after the bars: the stats' words
   float* red = reinterpret_cast<float*>(
-      smem + tc_smem_bytes(g, P, wgs, stages, 0, kFast));
+      smem + tc_smem_bytes(g, P, wgs, stages, 0, kFast, kI16));
   FmEpilogue<P, kFast> epi{taps, audio, stats, n, cd, sd, scale, seam_period,
                            0.f, 0.f, 0.f};
-  ddc_tc_run<P, kFast>(x, tail, bank, g, n_tiles, wgs, stages, bank_bytes, epi);
+  ddc_tc_run<P, kFast, kI16>(x, tail, bank, g, n_tiles, wgs, stages,
+                             bank_bytes, epi);
   finish_stats(epi.esum, red, partials, ticket, stats);
 }
 
-template <int P>
-int launch_tc(const float* x, const float* tail, const float* bank,
+template <int P, bool kI16>
+int launch_tc(const void* x, const float* tail, const float* bank,
               const float* taps, float* audio, float* stats, float* partials,
               unsigned* ticket, const Geom& g, int wgs, int stages,
               unsigned bank_bytes, size_t smem, int max_blocks, int n, float cd,
               float sd, float scale, bool fast, long long seam_period,
               int device, cudaStream_t stream) {
-  auto kernel = fast ? ddc_fm_tc_kernel<P, true> : ddc_fm_tc_kernel<P, false>;
+  auto kernel = fast ? ddc_fm_tc_kernel<P, true, kI16>
+                     : ddc_fm_tc_kernel<P, false, kI16>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -286,8 +297,8 @@ int launch_tc(const float* x, const float* tail, const float* bank,
 // of the run by the warp dot of ddc_direct.cuh; lane j keeps output j and
 // its predecessor, and lanes 0 .. R - 1 run the discriminators side by
 // side and store the run's audio with one coalesced store.
-template <int R>
-__global__ void ddc_fm_direct_kernel(const float* __restrict__ x,
+template <int R, class X>
+__global__ void ddc_fm_direct_kernel(const X* __restrict__ x,
                                      const float* __restrict__ tail,
                                      const float* __restrict__ taps,
                                      float* __restrict__ audio,
@@ -348,16 +359,97 @@ __global__ void ddc_fm_direct_kernel(const float* __restrict__ x,
   finish_stats(e, red, partials, ticket, stats);
 }
 
-template <int R>
-int launch_direct(const float* x, const float* tail, const float* taps,
+template <int R, bool kI16>
+int launch_direct(const void* x, const float* tail, const float* taps,
                   float* audio, float* stats, float* partials, unsigned* ticket,
                   long long L, long long T, int n, int M, int warps, int blocks,
                   float cd, float sd, float scale, int fast,
                   long long seam_period, cudaStream_t stream) {
-  ddc_fm_direct_kernel<R><<<(unsigned)blocks, 32 * warps, 0, stream>>>(
-      x, tail, taps, audio, stats, partials, ticket, L, T, n, M, cd, sd, scale,
-      fast, seam_period);
+  using X = std::conditional_t<kI16, unsigned, float>;
+  ddc_fm_direct_kernel<R, X><<<(unsigned)blocks, 32 * warps, 0, stream>>>(
+      static_cast<const X*>(x), tail, taps, audio, stats, partials, ticket, L,
+      T, n, M, cd, sd, scale, fast, seam_period);
   return (int)cudaGetLastError();
+}
+
+template <bool kI16>
+int tc_launch(const void* x, const float* tail, const float* bank,
+              const float* taps, float* audio, float* stats, float* partials,
+              unsigned* ticket, long long L, int n, int M, int P, int hpad,
+              int KP, int pre, int wgs, int stages, int smem, int max_blocks,
+              float cd, float sd, float scale, int fast, long long seam_period,
+              int device, cudaStream_t stream) {
+  if (M <= 0 || n <= M || L <= 0 || L % M != 0 || hpad < n - M || hpad % 4 ||
+      KP % 32 || KP < hpad + P * M || pre < n - hpad || pre < 0 || pre % 4 ||
+      (wgs != 1 && wgs != 2) || (stages != 1 && stages != 2) || max_blocks < 1 ||
+      (fast && (seam_period <= 0 || seam_period % (16 * P))) ||
+      (reinterpret_cast<unsigned long long>(bank) & 15) ||
+      (reinterpret_cast<unsigned long long>(audio) & 15) ||
+      (reinterpret_cast<unsigned long long>(x) & 3))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const Geom g = make_geom(x, L, n, M, P, hpad, KP, pre, kI16);
+  const unsigned bank_bytes = tc_bank_bytes(P, KP, fast != 0);
+  if ((size_t)smem < tc_smem_bytes(g, P, wgs, stages, kFmExtra, fast != 0, kI16))
+    return (int)cudaErrorInvalidValue;
+  switch (P) {
+    case 4: return launch_tc<4, kI16>(x, tail, bank, taps, audio, stats, partials,
+                                      ticket, g, wgs, stages, bank_bytes, smem,
+                                      max_blocks, n, cd, sd, scale, fast != 0,
+                                      seam_period, device, stream);
+    case 8: return launch_tc<8, kI16>(x, tail, bank, taps, audio, stats, partials,
+                                      ticket, g, wgs, stages, bank_bytes, smem,
+                                      max_blocks, n, cd, sd, scale, fast != 0,
+                                      seam_period, device, stream);
+    case 16: return launch_tc<16, kI16>(x, tail, bank, taps, audio, stats,
+                                        partials, ticket, g, wgs, stages,
+                                        bank_bytes, smem, max_blocks, n, cd, sd,
+                                        scale, fast != 0, seam_period, device,
+                                        stream);
+    case 32: return launch_tc<32, kI16>(x, tail, bank, taps, audio, stats,
+                                        partials, ticket, g, wgs, stages,
+                                        bank_bytes, smem, max_blocks, n, cd, sd,
+                                        scale, fast != 0, seam_period, device,
+                                        stream);
+    case 64: return launch_tc<64, kI16>(x, tail, bank, taps, audio, stats,
+                                        partials, ticket, g, wgs, stages,
+                                        bank_bytes, smem, max_blocks, n, cd, sd,
+                                        scale, fast != 0, seam_period, device,
+                                        stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool kI16>
+int direct_launch(const void* x, const float* tail, const float* taps,
+                  float* audio, float* stats, float* partials, unsigned* ticket,
+                  long long L, int n, int M, int R, int warps, int blocks,
+                  float cd, float sd, float scale, int fast,
+                  long long seam_period, int device, cudaStream_t stream) {
+  if (M <= 0 || n <= M || L <= 0 || L % M != 0 || warps < 1 || warps > 32 ||
+      blocks < 1 || R < 1 || (fast && (seam_period <= 0 || seam_period % R)))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const long long T = L / M;
+  switch (R) {
+    case 4: return launch_direct<4, kI16>(x, tail, taps, audio, stats, partials,
+                                          ticket, L, T, n, M, warps, blocks, cd,
+                                          sd, scale, fast, seam_period, stream);
+    case 8: return launch_direct<8, kI16>(x, tail, taps, audio, stats, partials,
+                                          ticket, L, T, n, M, warps, blocks, cd,
+                                          sd, scale, fast, seam_period, stream);
+    case 16: return launch_direct<16, kI16>(x, tail, taps, audio, stats,
+                                            partials, ticket, L, T, n, M, warps,
+                                            blocks, cd, sd, scale, fast,
+                                            seam_period, stream);
+    case 32: return launch_direct<32, kI16>(x, tail, taps, audio, stats,
+                                            partials, ticket, L, T, n, M, warps,
+                                            blocks, cd, sd, scale, fast,
+                                            seam_period, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -383,43 +475,10 @@ extern "C" int ddc_fm_launch(const float* x, const float* tail, const float* ban
                              float cd, float sd, float scale, int fast,
                              long long seam_period, int device,
                              cudaStream_t stream) {
-  if (M <= 0 || n <= M || L <= 0 || L % M != 0 || hpad < n - M || hpad % 4 ||
-      KP % 32 || KP < hpad + P * M || pre < n - hpad || pre < 0 || pre % 4 ||
-      (wgs != 1 && wgs != 2) || (stages != 1 && stages != 2) || max_blocks < 1 ||
-      (fast && (seam_period <= 0 || seam_period % (16 * P))) ||
-      (reinterpret_cast<unsigned long long>(bank) & 15) ||
-      (reinterpret_cast<unsigned long long>(audio) & 15) ||
-      (reinterpret_cast<unsigned long long>(x) & 3))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return (int)dev_err;
-  const Geom g = make_geom(x, L, n, M, P, hpad, KP, pre);
-  const unsigned bank_bytes = tc_bank_bytes(P, KP, fast != 0);
-  if ((size_t)smem < tc_smem_bytes(g, P, wgs, stages, kFmExtra, fast != 0))
-    return (int)cudaErrorInvalidValue;
-  switch (P) {
-    case 4: return launch_tc<4>(x, tail, bank, taps, audio, stats, partials, ticket,
-                                g, wgs, stages, bank_bytes, smem, max_blocks, n, cd,
-                                sd, scale, fast != 0, seam_period, device,
-                                stream);
-    case 8: return launch_tc<8>(x, tail, bank, taps, audio, stats, partials, ticket,
-                                g, wgs, stages, bank_bytes, smem, max_blocks, n, cd,
-                                sd, scale, fast != 0, seam_period, device,
-                                stream);
-    case 16: return launch_tc<16>(x, tail, bank, taps, audio, stats, partials, ticket,
-                                  g, wgs, stages, bank_bytes, smem, max_blocks, n, cd,
-                                  sd, scale, fast != 0, seam_period, device,
-                                stream);
-    case 32: return launch_tc<32>(x, tail, bank, taps, audio, stats, partials, ticket,
-                                  g, wgs, stages, bank_bytes, smem, max_blocks, n, cd,
-                                  sd, scale, fast != 0, seam_period, device,
-                                stream);
-    case 64: return launch_tc<64>(x, tail, bank, taps, audio, stats, partials, ticket,
-                                  g, wgs, stages, bank_bytes, smem, max_blocks, n, cd,
-                                  sd, scale, fast != 0, seam_period, device,
-                                stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return tc_launch<false>(x, tail, bank, taps, audio, stats, partials, ticket,
+                          L, n, M, P, hpad, KP, pre, wgs, stages, smem,
+                          max_blocks, cd, sd, scale, fast, seam_period, device,
+                          stream);
 }
 
 // The direct route: x, tail, taps, fast and seam_period as above; runs of R
@@ -434,25 +493,37 @@ extern "C" int ddc_fm_direct_launch(const float* x, const float* tail,
                                     float cd, float sd, float scale, int fast,
                                     long long seam_period, int device,
                                     cudaStream_t stream) {
-  if (M <= 0 || n <= M || L <= 0 || L % M != 0 || warps < 1 || warps > 32 ||
-      blocks < 1 || R < 1 || (fast && (seam_period <= 0 || seam_period % R)))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return (int)dev_err;
-  const long long T = L / M;
-  switch (R) {
-    case 4: return launch_direct<4>(x, tail, taps, audio, stats, partials,
-                                    ticket, L, T, n, M, warps, blocks, cd, sd,
-                                    scale, fast, seam_period, stream);
-    case 8: return launch_direct<8>(x, tail, taps, audio, stats, partials,
-                                    ticket, L, T, n, M, warps, blocks, cd, sd,
-                                    scale, fast, seam_period, stream);
-    case 16: return launch_direct<16>(x, tail, taps, audio, stats, partials,
-                                      ticket, L, T, n, M, warps, blocks, cd, sd,
-                                      scale, fast, seam_period, stream);
-    case 32: return launch_direct<32>(x, tail, taps, audio, stats, partials,
-                                      ticket, L, T, n, M, warps, blocks, cd, sd,
-                                      scale, fast, seam_period, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return direct_launch<false>(x, tail, taps, audio, stats, partials, ticket, L,
+                              n, M, R, warps, blocks, cd, sd, scale, fast,
+                              seam_period, device, stream);
+}
+
+// ddc_fm_launch on the raw int16 block x (L, 2), 4-byte aligned; smem from
+// fm_geometry(..., ci16=True) (a stage holds the span's words).
+extern "C" int ddc_fm_launch_i16(const void* x, const float* tail,
+                                 const float* bank, const float* taps,
+                                 float* audio, float* stats, float* partials,
+                                 unsigned* ticket, long long L, int n, int M,
+                                 int P, int hpad, int KP, int pre, int wgs,
+                                 int stages, int smem, int max_blocks, float cd,
+                                 float sd, float scale, int fast,
+                                 long long seam_period, int device,
+                                 cudaStream_t stream) {
+  return tc_launch<true>(x, tail, bank, taps, audio, stats, partials, ticket, L,
+                         n, M, P, hpad, KP, pre, wgs, stages, smem, max_blocks,
+                         cd, sd, scale, fast, seam_period, device, stream);
+}
+
+// ddc_fm_direct_launch on the raw int16 block x (L, 2), 4-byte aligned.
+extern "C" int ddc_fm_direct_launch_i16(const void* x, const float* tail,
+                                        const float* taps, float* audio,
+                                        float* stats, float* partials,
+                                        unsigned* ticket, long long L, int n,
+                                        int M, int R, int warps, int blocks,
+                                        float cd, float sd, float scale,
+                                        int fast, long long seam_period,
+                                        int device, cudaStream_t stream) {
+  return direct_launch<true>(x, tail, taps, audio, stats, partials, ticket, L,
+                             n, M, R, warps, blocks, cd, sd, scale, fast,
+                             seam_period, device, stream);
 }

@@ -44,7 +44,20 @@
 //     epilogue reads the n-sample windows of the outputs before its rows
 //     there).  A span that starts off a 16-byte boundary is copied from the
 //     next aligned sample; the threads fill the few samples before it, the
-//     carried tail, the zeros before the tail and past the block.
+//     carried tail, the zeros before the tail and past the block;
+//   * the block is float32 planes (2, L), or (kI16) the interleaved int16 of
+//     a ci16 recording, (L, 2): one 4-byte word a sample holding both
+//     planes, so a stage is one TMA bulk copy of the span's words, half the
+//     bytes of the planes' two, and the rule above keeps its sample
+//     arithmetic (16 bytes are still 4 samples).  A thread's two 16-byte
+//     shared loads of a row then hold 8 samples of both planes where they
+//     held 8 of one (the same addresses, so the same conflict-free
+//     pattern); the group's plane is picked out and converted in registers
+//     (ci16_half: exact, then one rounded product by the float32 scale),
+//     so the fragments are those the planes give.  The carried tail stays
+//     float32 (chain state): the tile whose span starts before the block
+//     reads those samples from it (SpanI16) and its stage holds zeros
+//     there.
 
 #pragma once
 
@@ -56,6 +69,79 @@
 namespace {
 
 constexpr int kFrames = 64;          // frames of a tile: wgmma's 64 rows
+
+// 1/32767 rounded to float32: the native runtime's ci16 constant k and
+// ops/ddc.py::ci16_scale, so v * k is the float32 sample of every route.
+constexpr float kCi16Scale = 0x1.0002p-15f;
+
+// Plane kP (0: the real part, the word's low half; 1: the imaginary part,
+// its high half) of one interleaved int16 word, as float32 times
+// kCi16Scale.  The half's v offset to u = v + 32768 (its sign bit flipped)
+// in the low bits of 1.5 * 2^23's pattern is the float 1.5 * 2^23 + u, so
+// one bitwise op (a shift more for the high half) and one float subtract
+// of 1.5 * 2^23 + 32768 give v exactly (I2F runs on the quarter-rate
+// unit); then ONE rounded product, which must never be contracted into an
+// FMA nor folded into the taps (that would round every product
+// differently).
+template <int kP>
+__device__ __forceinline__ float ci16_half(unsigned w) {
+  const unsigned u = (kP ? w >> 16 : w & 0xFFFFu) ^ 0x4B408000u;
+  return __fmul_rn(__fsub_rn(__uint_as_float(u), 12615680.f), kCi16Scale);
+}
+
+__device__ __forceinline__ float2 ci16_pair(unsigned w) {
+  return make_float2(ci16_half<0>(w), ci16_half<1>(w));
+}
+
+template <int kP>
+__device__ __forceinline__ float4 ci16_plane4(const uint4& u) {
+  return make_float4(ci16_half<kP>(u.x), ci16_half<kP>(u.y),
+                     ci16_half<kP>(u.z), ci16_half<kP>(u.w));
+}
+
+// One value of a plane around the block: the plane xp, its carried tail tp
+// before it, zeros before the tail and past the block.
+__device__ __forceinline__ float span_value(const float* __restrict__ xp,
+                                            const float* __restrict__ tp,
+                                            long long s, long long L, int D) {
+  if (s >= 0) return s < L ? xp[s] : 0.f;
+  return s >= -D ? tp[s + D] : 0.f;
+}
+
+// span_value of plane kP of the interleaved int16 block xw (L words), tp
+// that plane's float32 tail.
+template <int kP>
+__device__ __forceinline__ float span_value_i16(const unsigned* __restrict__ xw,
+                                                const float* __restrict__ tp,
+                                                long long s, long long L,
+                                                int D) {
+  if (s >= 0) return s < L ? ci16_half<kP>(xw[s]) : 0.f;
+  return s >= -D ? tp[s + D] : 0.f;
+}
+
+// A tile's span in shared memory, read a sample of both planes at a time:
+// at(k) is span sample k (sample s0 + k of the block).  Float32: the two
+// planes' stages.  Int16: the stage's words, and for samples before the
+// block the float32 tail (2, D), which the stage does not hold.
+struct SpanF32 {
+  const float* re;
+  const float* im;
+  __device__ __forceinline__ float2 at(int k) const {
+    return make_float2(re[k], im[k]);
+  }
+};
+struct SpanI16 {
+  const unsigned* w;
+  const float* tail;
+  long long s0;
+  int D;
+  __device__ __forceinline__ float2 at(int k) const {
+    const long long s = s0 + k;
+    if (s >= 0) return ci16_pair(w[k]);
+    return s >= -D ? make_float2(tail[s + D], tail[2 * D + s])
+                   : make_float2(0.f, 0.f);
+  }
+};
 
 // d (64 x N f32 of this warpgroup) += A (64 x 8 tf32, registers) . B (8 x N
 // tf32, shared memory descriptor b): wgmma m64nNk8, N = 2P.
@@ -191,26 +277,23 @@ __device__ __forceinline__ float4 load4(const float* p, bool vec) {
   return make_float4(p[0], p[1], p[2], p[3]);
 }
 
-// One value of the span: the block, the carried tail before it, zeros
-// before the tail and past the block.
-__device__ __forceinline__ float span_value(const float* __restrict__ xp,
-                                            const float* __restrict__ tp,
-                                            long long s, long long L, int D) {
-  if (s >= 0) return s < L ? xp[s] : 0.f;
-  return s >= -D ? tp[s + D] : 0.f;
+__device__ __forceinline__ uint4 load4(const unsigned* p, bool vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(p);
+  return make_uint4(p[0], p[1], p[2], p[3]);
 }
 
 struct Geom {
   long long L, T;
   int D, hpad, hop, KP, pre;       // pre: span samples before the first window
-  int span, SP;                    // SP: floats a plane of a stage
-  int off[2];                      // float offset of each plane mod 4
+  int span, SP;                    // SP: 4-byte words a plane of a stage
+  int off[2];                      // word offset of each plane mod 4
 };
 
-// The geometry of one launch on the block x (2, L); the bank's layout and
-// the shared memory follow from P, hpad, KP and pre.
-inline Geom make_geom(const float* x, long long L, int n, int M, int P,
-                      int hpad, int KP, int pre) {
+// The geometry of one launch on the block x, planes (2, L) or (i16) int16
+// (L, 2); the bank's layout and the shared memory follow from P, hpad, KP
+// and pre.
+inline Geom make_geom(const void* x, long long L, int n, int M, int P,
+                      int hpad, int KP, int pre, bool i16) {
   Geom g;
   g.L = L;
   g.T = L / M;
@@ -223,7 +306,7 @@ inline Geom make_geom(const float* x, long long L, int n, int M, int P,
   g.SP = (g.span + 4 + 3) / 4 * 4;
   const unsigned long long xa = reinterpret_cast<unsigned long long>(x) >> 2;
   g.off[0] = (int)(xa & 3);
-  g.off[1] = (int)((xa + (unsigned long long)L) & 3);
+  g.off[1] = i16 ? g.off[0] : (int)((xa + (unsigned long long)L) & 3);
   return g;
 }
 
@@ -234,12 +317,14 @@ __host__ __device__ inline unsigned tc_bank_bytes(int P, int KP, bool fast) {
   return (unsigned)((fast ? KP / 8 : 2 * (KP / 4)) * 32 * 2 * P);
 }
 
-// Shared memory of one block: the bank, the stages, the barriers and
-// `extra` bytes for the epilogue (ops/cuda_ddc.py computes the same).
+// Shared memory of one block: the bank, the stages (two planes of float32,
+// or one of int16 words), the barriers and `extra` bytes for the epilogue
+// (ops/cuda_ddc.py computes the same).
 __host__ __device__ inline size_t tc_smem_bytes(const Geom& g, int P, int wgs,
                                                 int stages, int extra,
-                                                bool fast) {
-  return tc_bank_bytes(P, g.KP, fast) + (size_t)wgs * stages * 2 * g.SP * 4 +
+                                                bool fast, bool i16) {
+  return tc_bank_bytes(P, g.KP, fast) +
+         (size_t)wgs * stages * (i16 ? 1 : 2) * g.SP * 4 +
          (1 + stages * wgs) * 8 + extra;
 }
 
@@ -273,12 +358,13 @@ struct Frags<true> {
 };
 
 // The persistent loop of one block: every tile of this block's warpgroups
-// is computed into acc and handed to the epilogue.  Epi provides
-//   from_span(g, tau, re, im, w, lane): called by every warp once all the tile's
-//     products are issued, while the last run, with the tile's span of each
-//     plane in shared memory (re[0], im[0] the span's first sample); the
-//     span is released after (work here before the last products were
-//     issued held back the whole warpgroup's next wgmma);
+// is computed into acc and handed to the epilogue.  x is the block, planes
+// (2, L) or (kI16) int16 (L, 2).  Epi provides
+//   from_span(g, tau, span, w, lane): called by every warp once all the
+//     tile's products are issued, while the last run, with the tile's span
+//     in shared memory (span.at(k): span sample k of both planes, a SpanF32
+//     or SpanI16); the span is released after (work here before the last
+//     products were issued held back the whole warpgroup's next wgmma);
 //   tile(g, tau, acc, w, lane): the tile's finished sums, acc[4 j + 2 h + e]
 //     being frame row 16 w + (lane >> 2) + 8 h, column 8 j + 2 (lane & 3) + e
 //     (wgmma's accumulator layout), after its products and before the next
@@ -287,24 +373,27 @@ struct Frags<true> {
 //     time).
 // The shared memory holds the bank, then the stages, then the barriers;
 // `extra` bytes after them are the epilogue's.
-template <int P, bool kFast, class Epi>
-__device__ __forceinline__ void ddc_tc_run(const float* __restrict__ x,
+template <int P, bool kFast, bool kI16, class Epi>
+__device__ __forceinline__ void ddc_tc_run(const void* __restrict__ x,
                                            const float* __restrict__ tail,
                                            const float* __restrict__ bank,
                                            const Geom& g, long long n_tiles,
                                            int wgs, int stages,
                                            unsigned bank_bytes, Epi& epi) {
   constexpr int N = 2 * P;
+  constexpr int kPlanes = kI16 ? 1 : 2;      // stage buffers a stage
   extern __shared__ __align__(128) unsigned char smem[];
   const unsigned sbase = smem_addr(smem);
   float* stage_mem = reinterpret_cast<float*>(smem + bank_bytes);
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(
-      smem + bank_bytes + (size_t)wgs * stages * 2 * g.SP * 4);
+      smem + bank_bytes + (size_t)wgs * stages * kPlanes * g.SP * 4);
   // bars[0]: the bank; bars[1 + stages wg + stage]: a stage's span
   const int wg = threadIdx.x >> 7;
   const int tid = threadIdx.x & 127;
   const int w = tid >> 5, lane = tid & 31, r = lane >> 2, c = lane & 3;
-  const float* planes[2] = {x, x + g.L};
+  const float* xf = static_cast<const float*>(x);
+  const unsigned* xw = static_cast<const unsigned*>(x);
+  const float* planes[2] = {xf, xf + g.L};
   const float* tails[2] = {tail, tail + g.D};
   const int pre = Epi::kPre ? g.pre : 0;
 
@@ -321,8 +410,10 @@ __device__ __forceinline__ void ddc_tc_run(const float* __restrict__ x,
 
   const long long first = (long long)blockIdx.x * wgs + wg;
   const long long stride = (long long)gridDim.x * wgs;
-  float* my_stages = stage_mem + (size_t)wg * stages * 2 * g.SP;
-  auto stage_plane = [&](int st, int p) { return my_stages + (st * 2 + p) * g.SP; };
+  float* my_stages = stage_mem + (size_t)wg * stages * kPlanes * g.SP;
+  auto stage_plane = [&](int st, int p) {
+    return my_stages + (st * kPlanes + p) * g.SP;
+  };
   auto tile_start = [&](long long tau) {          // first sample of the span
     return tau * kFrames * g.hop - g.hpad - pre;
   };
@@ -335,15 +426,17 @@ __device__ __forceinline__ void ddc_tc_run(const float* __restrict__ x,
     const long long s0 = tile_start(tau);
     long long c0[2], c1[2];
     unsigned bytes = 0;
-    for (int p = 0; p < 2; ++p) {
+    for (int p = 0; p < kPlanes; ++p) {
       copied(g, p, s0, c0[p], c1[p]);
       bytes += (unsigned)(c1[p] - c0[p]) * 4u;
     }
     mbar_expect_tx(bar, bytes);
-    for (int p = 0; p < 2; ++p)
+    for (int p = 0; p < kPlanes; ++p)
       if (c1[p] > c0[p])
         bulk_load(smem_addr(stage_plane(st, p) + (c0[p] - s0 + g.off[p])),
-                  planes[p] + c0[p], (unsigned)(c1[p] - c0[p]) * 4u, bar);
+                  kI16 ? static_cast<const void*>(xw + c0[p])
+                       : static_cast<const void*>(planes[p] + c0[p]),
+                  (unsigned)(c1[p] - c0[p]) * 4u, bar);
   };
   if (tid == 0)
     for (int i = 0; i < stages; ++i) load_tile(i);
@@ -360,17 +453,26 @@ __device__ __forceinline__ void ddc_tc_run(const float* __restrict__ x,
     const long long s0 = tile_start(tau);
     mbar_wait(smem_addr(bars + 1 + stages * wg + st),
               (unsigned)((i / stages) & 1));
-    // the span's samples no copy brought
-    for (int p = 0; p < 2; ++p) {
+    // the span's samples no copy brought (int16: the block's words, zeros
+    // elsewhere; the tail is read from device memory where needed)
+    for (int p = 0; p < kPlanes; ++p) {
       long long c0, c1;
       copied(g, p, s0, c0, c1);
       float* buf = stage_plane(st, p) + g.off[p];
-      for (long long s = s0 + tid; s < c0; s += 128)
-        buf[s - s0] = span_value(planes[p], tails[p], s, g.L, g.D);
-      for (long long s = c1 + tid; s < s0 + g.span; s += 128)
-        buf[s - s0] = span_value(planes[p], tails[p], s, g.L, g.D);
+      auto fill = [&](long long s) {
+        if constexpr (kI16)
+          reinterpret_cast<unsigned*>(buf)[s - s0] =
+              s >= 0 && s < g.L ? xw[s] : 0u;
+        else
+          buf[s - s0] = span_value(planes[p], tails[p], s, g.L, g.D);
+      };
+      for (long long s = s0 + tid; s < c0; s += 128) fill(s);
+      for (long long s = c1 + tid; s < s0 + g.span; s += 128) fill(s);
     }
     named_sync(1 + wg, 128);
+    const bool head = s0 < 0;                       // the span reads the tail
+    const SpanI16 span16{reinterpret_cast<const unsigned*>(stage_plane(st, 0)) +
+                             g.off[0], tail, s0, g.D};
 
     float acc[P];
 #pragma unroll
@@ -382,12 +484,53 @@ __device__ __forceinline__ void ddc_tc_run(const float* __restrict__ x,
     // 2c, 2c+1 (register 0, row r; 1, row r+8) and 2c+8, 2c+9 (2 and 3)
     auto build = [&](int q, Frags<kFast>& f) {
       const int p = q / groups, m = q - p * groups;
-      const float* row =
-          stage_plane(st, p) + g.off[p] + pre + (16 * w + r) * g.hop + 4 * c;
       const int ja = 32 * m + 16 * sw, jb = 32 * m + 16 * (1 - sw);
-      const float4 u0 = load4(row + ja, vec), u1 = load4(row + jb, vec);
-      const float4 v0 = load4(row + 8 * g.hop + ja, vec);
-      const float4 v1 = load4(row + 8 * g.hop + jb, vec);
+      float4 u0, u1, v0, v1;
+      if constexpr (kI16) {
+        // the same two 16-byte loads of a row hold both planes' 4 samples:
+        // all four loads issued first, then the group's plane converted
+        // (a branch a plane, so each picks its half by constant shifts);
+        // the tile whose span starts before the block takes the samples
+        // before it from the tail (4 at a time: a load's first sample is a
+        // multiple of 4; its stage holds zeros there)
+        const int k0 = pre + (16 * w + r) * g.hop + 4 * c;
+        const unsigned* row = span16.w + k0;
+        const int js[4] = {ja, jb, 8 * g.hop + ja, 8 * g.hop + jb};
+        uint4 raw[4];
+        float4 got[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) raw[i] = load4(row + js[i], vec);
+        if (p == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) got[i] = ci16_plane4<0>(raw[i]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) got[i] = ci16_plane4<1>(raw[i]);
+        }
+        if (head) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int k = k0 + js[i];
+            if (s0 + k < 0) {
+              const float2 a = span16.at(k), b = span16.at(k + 1);
+              const float2 d = span16.at(k + 2), e = span16.at(k + 3);
+              got[i] = p ? make_float4(a.y, b.y, d.y, e.y)
+                         : make_float4(a.x, b.x, d.x, e.x);
+            }
+          }
+        }
+        u0 = got[0];
+        u1 = got[1];
+        v0 = got[2];
+        v1 = got[3];
+      } else {
+        const float* row =
+            stage_plane(st, p) + g.off[p] + pre + (16 * w + r) * g.hop + 4 * c;
+        u0 = load4(row + ja, vec);
+        u1 = load4(row + jb, vec);
+        v0 = load4(row + 8 * g.hop + ja, vec);
+        v1 = load4(row + 8 * g.hop + jb, vec);
+      }
       const float4 ra = sw ? u1 : u0, rb = sw ? u0 : u1;
       const float4 sa = sw ? v1 : v0, sb = sw ? v0 : v1;
       if constexpr (kFast) {
@@ -475,8 +618,13 @@ __device__ __forceinline__ void ddc_tc_run(const float* __restrict__ x,
         hold(fb);
       }
     }
-    epi.from_span(g, tau, stage_plane(st, 0) + g.off[0],
-                  stage_plane(st, 1) + g.off[1], w, lane);
+    if constexpr (kI16)
+      epi.from_span(g, tau, span16, w, lane);
+    else
+      epi.from_span(g, tau,
+                    SpanF32{stage_plane(st, 0) + g.off[0],
+                            stage_plane(st, 1) + g.off[1]},
+                    w, lane);
     // every fragment is in registers: the stage is free for the tile after
     // next while the last products run and the epilogue works
     named_sync(1 + wg, 128);

@@ -27,7 +27,11 @@ FIR, AGC and demodulation (FM, QPSK, AM or none) as one block transform
   stages with a non-finite value, each stage read on the host).
 
 Input is planar (2, L) float, complex (L,) (``cf32``) or raw interleaved
-int16 IQ (L, 2) (``ci16``, scaled by 1/32767).
+int16 IQ (L, 2) (``ci16``, scaled by 1/32767).  The fused route hands a
+ci16 block to the DDC bodies as it is: the kernels read the int16 and
+scale it in registers, and the glue converts only the samples it reads
+(``ops/ddc.py::ci16_planes``), so no pass on the device writes the block
+as float planes first.
 """
 
 from __future__ import annotations
@@ -161,22 +165,11 @@ def rx_chain_init(cfg: RxChainConfig, device=None) -> ChainState:
     return ChainState(**parts)
 
 
-def _ci16_scale(rdtype: torch.dtype) -> float:
-    return float((np.float64 if rdtype == torch.float64 else np.float32)(
-        1.0 / 32767.0))
-
-
 def _planar(cfg: RxChainConfig, x: torch.Tensor) -> torch.Tensor:
-    """The block as contiguous (2, L) planes of the chain's real type."""
-    rdt = _rdtype(cfg)
-    if cfg.input_format == "ci16":
-        # (L, 2) int16 -> real times (1/32767 in the real type), written
-        # straight into the planar layout: one pass
-        x2 = torch.empty((2, x.shape[0]), dtype=rdt, device=x.device)
-        return torch.mul(x.T, _ci16_scale(rdt), out=x2)
-    if cfg.input_format == "cf32":
-        return torch.stack([x.real, x.imag]).to(rdt)
-    return x.to(rdt)
+    """A planar block as (2, L) planes of the chain's real type: what the
+    fused route hands its bodies for ``input_format="planar"`` (ci16
+    blocks go to them as raw int16, cf32 ones as complex samples)."""
+    return x.to(_rdtype(cfg))
 
 
 def _complex_in(cfg: RxChainConfig, x: torch.Tensor) -> torch.Tensor:
@@ -185,7 +178,7 @@ def _complex_in(cfg: RxChainConfig, x: torch.Tensor) -> torch.Tensor:
     taken as it comes."""
     rdt = _rdtype(cfg)
     if cfg.input_format == "ci16":
-        xs = x.to(rdt) * _ci16_scale(rdt)
+        xs = x.to(rdt) * ddc_ops.ci16_scale(rdt)
         return torch.complex(xs[..., 0], xs[..., 1]).to(cfg.dtype)
     if cfg.input_format == "planar":
         return torch.complex(x[0].to(rdt), x[1].to(rdt)).to(cfg.dtype)
@@ -260,7 +253,14 @@ def make_rx_chain(cfg: RxChainConfig, device=None):
                              f"of the decimation {M}")
         parts = {}
         planar_in = fused and not impair and cfg.input_format != "cf32"
-        if planar_in:
+        if planar_in and cfg.input_format == "ci16":
+            # the raw int16 block goes to the bodies as it is; the kernels
+            # read a sample as one 4-byte word, so a block 2 bytes off
+            # (a view into a flat int16 buffer) is copied once, aligned
+            x2 = x.contiguous()
+            if x2.data_ptr() % 4:
+                x2 = x2.clone()
+        elif planar_in:
             x2 = _planar(cfg, x)
         else:
             x = _complex_in(cfg, x)

@@ -59,6 +59,16 @@ Two implementations of K1's function:
   take it under ``engine="auto"``; on the card it is the reference and the
   timing baseline.
 
+Every kernel also reads the raw interleaved int16 block of a ci16
+recording, (L, 2) contiguous, in place of the planes: the tensor-core
+routes bring it into shared memory by TMA at 4 bytes a sample (both
+planes), the direct routes read it as 4-byte words, and each converts a
+sample in registers (the magic-number add, then one rounded multiply by
+``ops/ddc.py::ci16_scale``), so an int16 launch gives the bits of the
+float32 launch on the planes the chain's conversion makes.  Such a launch
+counts on its route's counter and, beside it, on the same counter named
+with ``i16_`` in front (``ddc_fm_cuda.i16_launches``, ...).
+
 Both kernels are built from the repository's sources by ``nvcc`` at the
 first launch, into ``solid_dsp_tpu_torch/_build/``, and called through
 ctypes (``ops/cuda_build.py``).  Calling a :class:`DdcFmBody` or a
@@ -77,7 +87,8 @@ import torch
 
 from ..device import fp32_exact
 from .cuda_build import check_launch, launcher, stream_of
-from .ddc import _bf16, _fold_banks, ddc_body_torch, ddc_taps
+from .ddc import (_bf16, _check_x2, _fold_banks, _is_ci16, block_len,
+                  ci16_planes, ddc_body_torch, ddc_taps)
 from .fir import _banks_np
 from .nco import TWO_PI, U32, U32_MASK
 
@@ -195,7 +206,8 @@ class DdcFmBody:
 
     def __call__(self, x2: torch.Tensor, tail: torch.Tensor,
                  engine: str = "auto"):
-        """Run the body on x2 (2, L) and tail (2, n-M): ``"auto"`` launches
+        """Run the body on x2 (2, L) planes or (L, 2) raw int16 and tail
+        (2, n-M): ``"auto"`` launches
         the kernel for CUDA tensors and takes the plain version for CPU
         tensors; ``"cuda"`` always launches (and raises on CPU tensors);
         ``"torch"`` always takes the plain version."""
@@ -239,10 +251,7 @@ def make_ddc_fm(taps: np.ndarray, dtheta, M: int, kf: float, device,
 
 
 def _check_block(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
-    L = int(x2.shape[-1])
-    if x2.dim() != 2 or x2.shape[0] != 2 or L % (body.P * body.M) or L == 0:
-        raise ValueError(f"x2 must be (2, L) with L a positive multiple of "
-                         f"{body.P * body.M}, got {tuple(x2.shape)}")
+    _check_x2(x2, body.P * body.M)
     if tuple(tail.shape) != (2, body.n - body.M):
         raise ValueError(f"tail must be (2, {body.n - body.M}), "
                          f"got {tuple(tail.shape)}")
@@ -255,8 +264,11 @@ def ddc_fm_torch(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
     the frames, the previous frames' rows, the tail and the banks to bf16
     first; the seams, the output before each TPU tile of
     :func:`fm_seam_frames` frames, stay f32 dots of the unrounded samples,
-    as in the TPU kernel."""
+    as in the TPU kernel.  A raw int16 block (L, 2) is converted once by
+    ``ops/ddc.py::ci16_planes`` (the frames read every sample)."""
     _check_block(body, x2, tail)
+    if _is_ci16(x2):
+        x2 = ci16_planes(x2, body.taps.dtype)
     P, M, n = body.P, body.M, body.n
     hop = P * M
     D = n - M
@@ -316,16 +328,21 @@ def launch_geometry(n: int, M: int):
 
 
 @functools.lru_cache(maxsize=None)
-def fm_geometry(n: int, M: int, fast: bool = False):
+def fm_geometry(n: int, M: int, fast: bool = False, ci16: bool = False):
     """K1's route for n taps and decimation M in a mode (``fast``), from
     (n, M) alone: ``("tc", fm_tc_geometry(n, M, fast=fast))`` where the
     tensor-core kernel's bank and spans fit one block's shared memory, else
     ``("direct", launch_geometry(n, M))``, which takes every (n, M) that
-    :func:`fm_supported` accepts."""
+    :func:`fm_supported` accepts.  ``ci16``: the geometry of a raw int16
+    block, on the route and frame width of the planes (so its sums are
+    theirs) with the int16 stages' shared memory."""
     try:
-        return "tc", fm_tc_geometry(n, M, fast=fast)
+        geo = fm_tc_geometry(n, M, fast=fast)
     except ValueError:
         return "direct", launch_geometry(n, M)
+    if ci16:
+        geo = fm_tc_geometry(n, M, P=geo[0], fast=fast, ci16=True)
+    return "tc", geo
 
 
 @functools.cache
@@ -349,37 +366,51 @@ def ddc_fm_cuda(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor):
     """Launch the Hopper kernel: returns (audio (T,), stats (5,)), both
     written by the kernel.
 
-    Takes f32 CUDA tensors only (x2 contiguous) and raises on anything
-    else.  The route comes from (n, M) alone (:func:`fm_geometry`); adds one
-    per launch to ``ddc_fm_cuda.launches`` (tensor-core route, x3),
-    ``.fast_launches`` (tensor-core route, fast), ``.direct_launches``
-    (direct route, x3) or ``.direct_fast_launches`` (direct route, fast).
+    Takes CUDA tensors only, x2 contiguous f32 planes (2, L) or raw int16
+    (L, 2), and raises on anything else.  The route comes from (n, M) alone
+    (:func:`fm_geometry`); adds one per launch to ``ddc_fm_cuda.launches``
+    (tensor-core route, x3), ``.fast_launches`` (tensor-core route, fast),
+    ``.direct_launches`` (direct route, x3) or ``.direct_fast_launches``
+    (direct route, fast), and for int16 also to ``.i16_launches``,
+    ``.i16_fast_launches``, ``.i16_direct_launches`` or
+    ``.i16_direct_fast_launches``.
     """
     _check_block(body, x2, tail)
     if not (x2.is_cuda and tail.is_cuda and body.taps.is_cuda):
         raise ValueError("ddc_fm_cuda needs CUDA tensors (x2, tail and the "
                          "body's taps); CPU tensors take ddc_fm_torch")
-    if x2.dtype != torch.float32 or body.taps.dtype != torch.float32:
-        raise TypeError("ddc_fm_cuda computes in float32")
-    if not x2.is_contiguous():
-        raise ValueError("ddc_fm_cuda needs a contiguous (2, L) block")
-    if tail.dtype != torch.float32 or tail.device != x2.device:
-        raise TypeError("ddc_fm_cuda needs a float32 tail on the block's card")
+    _check_kernel_input(x2, tail, body, "ddc_fm_cuda")
     fast = body.mode == "fast"
-    route, geo = fm_geometry(body.n, body.M, fast)
+    ci16 = _is_ci16(x2)
+    route, geo = fm_geometry(body.n, body.M, fast, ci16)
     out = _launch_fm(body, x2, tail, route, geo)
-    counter = {("tc", False): "launches", ("tc", True): "fast_launches",
-               ("direct", False): "direct_launches",
-               ("direct", True): "direct_fast_launches"}[route, fast]
-    setattr(ddc_fm_cuda, counter, getattr(ddc_fm_cuda, counter) + 1)
+    _count(ddc_fm_cuda, body, route, ci16)
     return out
+
+
+def _check_kernel_input(x2, tail, body, name: str, D=None):
+    """TypeError or ValueError unless x2 is a contiguous float32 (2, L) or
+    int16 (L, 2) block, 4-byte aligned, with a float32 tail (2, D) on its
+    card and float32 taps: what the kernels read."""
+    if x2.dtype not in (torch.float32, torch.int16) or (
+            body.taps.dtype != torch.float32):
+        raise TypeError(f"{name} computes in float32 on float32 planes or "
+                        f"raw int16")
+    if not x2.is_contiguous() or x2.data_ptr() % 4:
+        raise ValueError(f"{name} needs a contiguous, 4-byte aligned block")
+    if D is not None and tuple(tail.shape) != (2, D):
+        raise ValueError(f"tail must be (2, {D}), got {tuple(tail.shape)}")
+    if tail.dtype != torch.float32 or tail.device != x2.device:
+        raise TypeError(f"{name} needs a float32 tail on the block's card")
 
 
 def _launch_fm(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor,
                route: str, geo):
     """One launch of K1 on ``route`` with its geometry ``geo``
-    (:func:`fm_geometry`); the block already checked."""
-    L = x2.shape[-1]
+    (:func:`fm_geometry`); the block, planes or raw int16, already
+    checked."""
+    L = block_len(x2)
+    sfx = "_i16" if _is_ci16(x2) else ""
     T = L // body.M
     dev = x2.device
     tail = tail.contiguous()
@@ -393,7 +424,7 @@ def _launch_fm(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor,
         blocks = _sm_count(dev.index)
         # [stats (5) | one partial energy a block]
         scratch = torch.empty(5 + blocks, dtype=torch.float32, device=dev)
-        fn = launcher("ddc_fm.cu", "ddc_fm_launch", _DDC_FM_ARGS)
+        fn = launcher("ddc_fm.cu", f"ddc_fm_launch{sfx}", _DDC_FM_ARGS)
         check_launch(fn(x2.data_ptr(), tail.data_ptr(), bank.data_ptr(),
                         body.taps.data_ptr(), audio.data_ptr(),
                         scratch.data_ptr(), scratch.data_ptr() + 20,
@@ -407,7 +438,8 @@ def _launch_fm(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor,
         blocks = min(-(-T // (R * warps)),
                      _sm_count(dev.index) * max(1, 64 // warps))
         scratch = torch.empty(5 + blocks, dtype=torch.float32, device=dev)
-        fn = launcher("ddc_fm.cu", "ddc_fm_direct_launch", _DDC_FM_DIRECT_ARGS)
+        fn = launcher("ddc_fm.cu", f"ddc_fm_direct_launch{sfx}",
+                      _DDC_FM_DIRECT_ARGS)
         check_launch(fn(x2.data_ptr(), tail.data_ptr(), body.taps.data_ptr(),
                         audio.data_ptr(), scratch.data_ptr(),
                         scratch.data_ptr() + 20, ticket.data_ptr(), L, body.n,
@@ -417,10 +449,11 @@ def _launch_fm(body: DdcFmBody, x2: torch.Tensor, tail: torch.Tensor,
     return audio, scratch[:5]
 
 
-ddc_fm_cuda.launches = 0
-ddc_fm_cuda.fast_launches = 0
-ddc_fm_cuda.direct_launches = 0
-ddc_fm_cuda.direct_fast_launches = 0
+COUNTERS = ("launches", "fast_launches", "direct_launches",
+            "direct_fast_launches")
+I16_COUNTERS = tuple("i16_" + c for c in COUNTERS)
+for _c in COUNTERS + I16_COUNTERS:
+    setattr(ddc_fm_cuda, _c, 0)
 
 
 @dataclass(frozen=True, eq=False)
@@ -456,14 +489,15 @@ class DdcBody:
 
     def __call__(self, x2: torch.Tensor, tail: torch.Tensor,
                  engine: str = "auto") -> torch.Tensor:
-        """z (2, L / M) of x2 (2, L) and tail (2, max(n-M, 0)): ``"auto"``
+        """z (2, L / M) of x2 (2, L) planes or (L, 2) raw int16 and tail
+        (2, max(n-M, 0)): ``"auto"``
         launches the kernel :meth:`route` gives for CUDA tensors and takes
         the plain version for CPU tensors and where the JAX package runs
         XLA; ``"cuda"`` always launches (and raises where no kernel takes
         the block); ``"torch"`` always takes the plain version."""
         if engine not in ("auto", "cuda", "torch"):
             raise ValueError(f"unknown ddc_engine {engine!r}")
-        kernel = self.route(int(x2.shape[-1]))
+        kernel = self.route(block_len(x2))
         if engine == "torch" or (engine == "auto"
                                  and (not x2.is_cuda or kernel is None)):
             return ddc_body_torch(self, x2, tail)
@@ -496,11 +530,13 @@ def make_ddc_body(taps: np.ndarray, dtheta, M: int, device,
 
 
 def _tc_geometry(n: int, M: int, pre: int = 0, extra: int = 0, P=None,
-                 wgs=None, fast: bool = False):
+                 wgs=None, fast: bool = False, ci16: bool = False):
     """(P, hpad, KP, wgs, stages, smem) of the tensor-core product
     (csrc/ddc_tc.cuh) in x3 or (``fast``) bf16 with spans starting ``pre``
     samples early and ``extra`` bytes of shared memory for the epilogue; P
-    and wgs are chosen unless given."""
+    and wgs are chosen unless given.  A stage holds the span's two float32
+    planes, or (``ci16``) its interleaved int16, one 4-byte word a
+    sample."""
     hpad = -(-max(n - M, 0) // 4) * 4
     if P is None:
         P = 4
@@ -520,15 +556,16 @@ def _tc_geometry(n: int, M: int, pre: int = 0, extra: int = 0, P=None,
         for w, stages in ((2, 2), (1, 2), (1, 1)):
             if wgs is not None and w != wgs:
                 continue
-            smem = (bank + w * stages * 2 * SP * 4 + (1 + stages * w) * 8
-                    + extra)
+            smem = (bank + w * stages * (1 if ci16 else 2) * SP * 4
+                    + (1 + stages * w) * 8 + extra)
             if smem <= _SMEM_LIMIT:
                 return P, hpad, KP, w, stages, smem
     raise ValueError(f"the DDC tensor-core kernel's bank and spans do not "
                      f"fit shared memory at {n} taps and decimation {M}")
 
 
-def body_tc_geometry(n: int, M: int, fast: bool = False):
+def body_tc_geometry(n: int, M: int, fast: bool = False, P=None,
+                     ci16: bool = False):
     """(P, hpad, KP, wgs, stages, smem) of the tensor-core body kernel for n
     taps, decimation M and its mode (``fast``: the bf16 bank, a quarter of
     x3's shared memory): frames of P outputs (hop = P*M samples), each read
@@ -540,36 +577,43 @@ def body_tc_geometry(n: int, M: int, fast: bool = False):
     smallest power of two >= 4 with hop >= 64, halved while the bank and
     stages do not fit one block's shared memory (two warpgroups of two
     stages, else one of two, else one of one); raises ValueError when even
-    P = 4 does not fit."""
-    return _tc_geometry(n, M, fast=fast)
+    P = 4 does not fit.  ``P`` pins the frame width; ``ci16``: stages of
+    raw int16 (:func:`_tc_geometry`)."""
+    return _tc_geometry(n, M, P=P, fast=fast, ci16=ci16)
 
 
 @functools.lru_cache(maxsize=None)
-def body_geometry(n: int, M: int, fast: bool = False):
+def body_geometry(n: int, M: int, fast: bool = False, ci16: bool = False):
     """The body's route for n taps and decimation M in a mode (``fast``),
     from (n, M) alone, as :func:`fm_geometry` picks K1's: ``("tc",
     body_tc_geometry(n, M, fast))`` where the tensor-core kernel's bank and
     spans fit one block's shared memory, else ``("direct", None)``, the
     direct-form FIR of ``csrc/ddc_body.cu`` (a warp an output, FP32 FMA;
-    fast: bf16 operands), which takes every (n, M)."""
+    fast: bf16 operands), which takes every (n, M).  ``ci16``: a raw int16
+    block's, on the planes' route and frame width."""
     try:
-        return "tc", body_tc_geometry(n, M, fast=fast)
+        geo = body_tc_geometry(n, M, fast=fast)
     except ValueError:
         return "direct", None
+    if ci16:
+        geo = body_tc_geometry(n, M, fast=fast, P=geo[0], ci16=True)
+    return "tc", geo
 
 
 @functools.lru_cache(maxsize=None)
-def fm_tc_geometry(n: int, M: int, P=None, wgs=None, fast: bool = False):
+def fm_tc_geometry(n: int, M: int, P=None, wgs=None, fast: bool = False,
+                   ci16: bool = False):
     """(P, hpad, KP, pre, wgs, stages, smem) of K1's tensor-core route: the
     body's geometry (:func:`body_tc_geometry`) with spans starting ``pre``
     samples early (n - hpad rounded up to 4: every warp reads the window of
     the output before its rows there) and the stats' shared words.  ``P``
     and ``wgs`` pin the frame width and warpgroups a block (the sweep of
-    torch_kernel_sweep.py); raises ValueError where it does not fit."""
+    torch_kernel_sweep.py); ``ci16``: stages of raw int16; raises
+    ValueError where it does not fit."""
     hpad = -(-(n - M) // 4) * 4
     pre = -(-max(n - hpad, 0) // 4) * 4
     P, hpad, KP, wgs, stages, smem = _tc_geometry(n, M, pre, _FM_EXTRA, P,
-                                                  wgs, fast)
+                                                  wgs, fast, ci16)
     return P, hpad, KP, pre, wgs, stages, smem
 
 
@@ -674,42 +718,35 @@ def _launch_body(body: DdcBody, x2: torch.Tensor, tail: torch.Tensor,
     if not (x2.is_cuda and tail.is_cuda and body.taps.is_cuda):
         raise ValueError(f"{name} needs CUDA tensors (x2, tail and the body's "
                          "taps); CPU tensors take ddc_body_torch")
-    if x2.dtype != torch.float32 or body.taps.dtype != torch.float32:
-        raise TypeError(f"{name} computes in float32")
-    if not x2.is_contiguous():
-        raise ValueError(f"{name} needs a contiguous (2, L) block")
-    D = max(body.n - body.M, 0)
-    if tuple(tail.shape) != (2, D):
-        raise ValueError(f"tail must be (2, {D}), got {tuple(tail.shape)}")
-    if tail.dtype != torch.float32 or tail.device != x2.device:
-        raise TypeError(f"{name} needs a float32 tail on the block's card")
+    _check_kernel_input(x2, tail, body, name, max(body.n - body.M, 0))
     fast = body.mode == "fast"
-    route, geo = body_geometry(body.n, body.M, fast)
+    ci16 = _is_ci16(x2)
+    sfx = "_i16" if ci16 else ""
+    L = block_len(x2)
+    route, geo = body_geometry(body.n, body.M, fast, ci16)
     tail = tail.contiguous()
-    z = torch.empty((2, x2.shape[-1] // body.M), dtype=torch.float32,
-                    device=x2.device)
+    z = torch.empty((2, L // body.M), dtype=torch.float32, device=x2.device)
     if route == "tc":
         P, hpad, KP, wgs, stages, smem = geo
         bank = _tc_bank(body, P, hpad, KP)
-        fn = launcher("ddc_body.cu", "ddc_body_launch", _DDC_BODY_ARGS)
+        fn = launcher("ddc_body.cu", f"ddc_body_launch{sfx}",
+                      _DDC_BODY_ARGS)
         check_launch(fn(x2.data_ptr(), tail.data_ptr(), bank.data_ptr(),
-                        z.data_ptr(), x2.shape[-1], body.n, body.M, P, hpad,
-                        KP, wgs, stages, smem, int(fast), x2.device.index,
+                        z.data_ptr(), L, body.n, body.M, P, hpad, KP, wgs,
+                        stages, smem, int(fast), x2.device.index,
                         stream_of(x2)), name)
     else:
-        fn = launcher("ddc_body.cu", "ddc_body_direct_launch",
+        fn = launcher("ddc_body.cu", f"ddc_body_direct_launch{sfx}",
                       _DDC_BODY_DIRECT_ARGS)
         check_launch(fn(x2.data_ptr(), tail.data_ptr(), body.taps.data_ptr(),
-                        z.data_ptr(), x2.shape[-1], body.n, body.M,
-                        int(fast), x2.device.index, stream_of(x2)), name)
+                        z.data_ptr(), L, body.n, body.M, int(fast),
+                        x2.device.index, stream_of(x2)), name)
     return z, route
 
 
 def _check_route(body: DdcBody, x2: torch.Tensor, fn, name: str):
-    L = int(x2.shape[-1])
-    if x2.dim() != 2 or x2.shape[0] != 2 or L == 0 or L % body.M:
-        raise ValueError(f"x2 must be (2, L) with L a positive multiple of "
-                         f"{body.M}, got {tuple(x2.shape)}")
+    _check_x2(x2, body.M)
+    L = block_len(x2)
     if body.route(L) is not fn:
         hop = body.P * body.M
         raise ValueError(
@@ -719,27 +756,31 @@ def _check_route(body: DdcBody, x2: torch.Tensor, fn, name: str):
             f"K3's the others where 0 < n - 1 <= {hop}")
 
 
-def _count(fn, body: DdcBody, route: str):
+def _count(fn, body, route: str, ci16: bool):
     """One launch more on ``fn.launches`` (x3) or ``fn.fast_launches``, or
     on the direct route ``fn.direct_launches`` or
-    ``fn.direct_fast_launches``."""
+    ``fn.direct_fast_launches``; a raw int16 block's also on the same name
+    with ``i16_`` in front."""
     name = ("direct_" if route == "direct" else "") + (
         "fast_launches" if body.mode == "fast" else "launches")
-    setattr(fn, name, getattr(fn, name) + 1)
+    for c in (name, "i16_" + name) if ci16 else (name,):
+        setattr(fn, c, getattr(fn, c) + 1)
 
 
 def ddc_body_cuda(body: DdcBody, x2: torch.Tensor,
                   tail: torch.Tensor) -> torch.Tensor:
     """K2's route: launch ``csrc/ddc_body.cu`` on a block whose length is a
     multiple of P*M, where :func:`full_supported` holds; returns z
-    (2, L / M).  Takes f32 CUDA tensors only and raises on anything else.
+    (2, L / M).  Takes CUDA tensors only (f32 planes or raw int16 (L, 2))
+    and raises on anything else.
     The kernel's route comes from (n, M) alone (:func:`body_geometry`).
     Adds one to ``ddc_body_cuda.launches`` (x3) or ``.fast_launches`` on
     the tensor-core route, ``.direct_launches`` or
-    ``.direct_fast_launches`` on the direct one."""
+    ``.direct_fast_launches`` on the direct one, and for int16 also on the
+    ``i16_`` counter of the same name."""
     _check_route(body, x2, ddc_body_cuda, "ddc_body_cuda")
     z, route = _launch_body(body, x2, tail, "ddc_body_cuda")
-    _count(ddc_body_cuda, body, route)
+    _count(ddc_body_cuda, body, route, _is_ci16(x2))
     return z
 
 
@@ -749,16 +790,15 @@ def ddc_body_unaligned_cuda(body: DdcBody, x2: torch.Tensor,
     length that is a multiple of M but not of P*M, or n <= M), where
     :func:`body_supported` holds.  Adds one to
     ``ddc_body_unaligned_cuda.launches`` (x3) or ``.fast_launches``, or on
-    the direct route ``.direct_launches`` or ``.direct_fast_launches``."""
+    the direct route ``.direct_launches`` or ``.direct_fast_launches``, and
+    for int16 also on the ``i16_`` counter of the same name."""
     _check_route(body, x2, ddc_body_unaligned_cuda,
                  "ddc_body_unaligned_cuda")
     z, route = _launch_body(body, x2, tail, "ddc_body_unaligned_cuda")
-    _count(ddc_body_unaligned_cuda, body, route)
+    _count(ddc_body_unaligned_cuda, body, route, _is_ci16(x2))
     return z
 
 
-ddc_body_cuda.launches = ddc_body_cuda.fast_launches = 0
-ddc_body_cuda.direct_launches = ddc_body_cuda.direct_fast_launches = 0
-ddc_body_unaligned_cuda.launches = ddc_body_unaligned_cuda.fast_launches = 0
-ddc_body_unaligned_cuda.direct_launches = 0
-ddc_body_unaligned_cuda.direct_fast_launches = 0
+for _c in COUNTERS + I16_COUNTERS:
+    setattr(ddc_body_cuda, _c, 0)
+    setattr(ddc_body_unaligned_cuda, _c, 0)

@@ -21,6 +21,12 @@ discriminator of the rotated, gained signal only needs
 z[t] conj(z[t-1]) e^{-j rad(dw)}: the rotation and the positive AGC gain
 cancel in the phase difference; :func:`ddc_fm_fused` is the glue around the
 fused DDC + FM body (K1).
+
+Every body and its glue takes the block either as real planes (2, L) or as
+the raw interleaved int16 IQ of a ci16 recording, (L, 2): the kernels read
+the int16 and scale it in registers, and the glue converts only the few
+samples it reads itself (:func:`ci16_planes`, the chain's conversion), so
+both forms give the same bits.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from .fir import _bank_rem_np, _banks_np
 from .nco import (TWO_PI, U32, U32_MASK, nco_complex_exponential,
                   phase_to_rad)
 
-__all__ = ["ddc_taps", "ddc_body_torch", "ddc_apply_planar_pieces",
+__all__ = ["ddc_taps", "ci16_scale", "ci16_planes", "block_len",
+           "ddc_body_torch", "ddc_apply_planar_pieces",
            "ddc_apply_planar_raw",
            "ddc_apply_planar", "ddc_apply", "ddc_fm_epilogue",
            "ddc_am_epilogue", "ddc_energy_pieces", "ddc_pieces_last_rotated",
@@ -45,6 +52,39 @@ def ddc_taps(taps: np.ndarray, dtheta: np.uint32) -> np.ndarray:
     drad = np.float64(dtheta) * (TWO_PI / U32)
     i = np.arange(len(taps), dtype=np.float64)
     return np.asarray(taps, np.complex128) * np.exp(-1j * drad * i)
+
+
+def ci16_scale(rdtype: torch.dtype) -> float:
+    """The ci16 scale 1/32767 rounded to the real type: in float32 the
+    constant ``k`` of the native runtime's conversion and of the kernels'
+    (``csrc/ddc_tc.cuh``), so that int16 times it is the same float32
+    everywhere."""
+    return float((np.float64 if rdtype == torch.float64 else np.float32)(
+        1.0 / 32767.0))
+
+
+def ci16_planes(x: torch.Tensor, rdtype: torch.dtype, lo: int = 0,
+                hi: int | None = None) -> torch.Tensor:
+    """Samples [lo, hi) of the raw int16 block x (L, 2) as contiguous real
+    planes (2, hi - lo) of ``rdtype``: each int16 times
+    :func:`ci16_scale`, one product rounded to ``rdtype``, written straight
+    into the planar layout.  (An int16 tensor times a Python float
+    computes in float32 whatever the output, so a float64 block is
+    widened first.)"""
+    x = x[lo:hi].T
+    if rdtype == torch.float64:
+        x = x.to(rdtype)
+    out = torch.empty(x.shape, dtype=rdtype, device=x.device)
+    return torch.mul(x, ci16_scale(rdtype), out=out)
+
+
+def _is_ci16(x2: torch.Tensor) -> bool:
+    return x2.dtype == torch.int16
+
+
+def block_len(x2: torch.Tensor) -> int:
+    """Samples of a block given as planes (2, L) or as raw int16 (L, 2)."""
+    return int(x2.shape[0] if _is_ci16(x2) else x2.shape[-1])
 
 
 def _fold_banks(Hr: np.ndarray, Hi: np.ndarray, bank_dt) -> np.ndarray:
@@ -117,8 +157,10 @@ def ddc_body_torch(body, x2: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
     taps or the dtype (float64; n > 64*M + 1).
 
     ``body`` holds the taps ``(2, n)`` [re; im] of h_bp, n, M and the mode
-    (``ops/cuda_ddc.py::DdcBody``); x2 is the (2, L) block, L any multiple
-    of M, and tail the carried x[-D .. -1], (2, D), D = max(n - M, 0).
+    (``ops/cuda_ddc.py::DdcBody``); x2 is the (2, L) block, or the raw
+    int16 block (L, 2) (converted by :func:`ci16_planes` once: the frames
+    read every sample), L any multiple of M, and tail the carried
+    x[-D .. -1], (2, D), D = max(n - M, 0).
     Returns z (2, L / M).  The pieces of the JAX module's XLA path, in its
     order: the first outputs, whose windows straddle the tail, as one
     small matmul (none for n <= M); whole frames of P outputs as
@@ -132,11 +174,11 @@ def ddc_body_torch(body, x2: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
     n, M = body.n, body.M
     n1 = n - 1
     first = M - 1                # decimator phase 0
+    _check_x2(x2, M)
+    if _is_ci16(x2):
+        x2 = ci16_planes(x2, body.taps.dtype)
     L = int(x2.shape[-1])
     D = max(n - M, 0)
-    if x2.dim() != 2 or x2.shape[0] != 2 or L % M or L == 0:
-        raise ValueError(f"x2 must be (2, L) with L a positive multiple of "
-                         f"{M}, got {tuple(x2.shape)}")
     if tuple(tail.shape) != (2, D):
         raise ValueError(f"tail must be (2, {D}), got {tuple(tail.shape)}")
     if body.mode == "fast":
@@ -174,6 +216,17 @@ def ddc_body_torch(body, x2: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
 
 
+def _check_x2(x2: torch.Tensor, quantum: int):
+    """ValueError unless x2 is planes (2, L) or raw int16 (L, 2) with L a
+    positive multiple of ``quantum``."""
+    L = block_len(x2)
+    shape = (L, 2) if _is_ci16(x2) else (2, L)
+    if x2.dim() != 2 or tuple(x2.shape) != shape or L % quantum or L == 0:
+        raise ValueError(f"x2 must be (2, L) planes or (L, 2) int16 with L a "
+                         f"positive multiple of {quantum}, got "
+                         f"{tuple(x2.shape)} {x2.dtype}")
+
+
 def _phase_words(body, theta0: torch.Tensor, L: int):
     """(w0, theta_end): the rotation word of output 0,
     theta0 + (M-1)*d - (n-1)*d, and the block's end phase theta0 + L*d,
@@ -187,9 +240,13 @@ def _phase_words(body, theta0: torch.Tensor, L: int):
 
 def _new_tail(tail2: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """The last n-1 raw samples after this block: a short block keeps part
-    of the old tail."""
+    of the old tail.  A raw int16 block converts only those samples; the
+    tail stays real planes (chain state)."""
     n1 = int(tail2.shape[-1])
-    L = int(x2.shape[-1])
+    L = block_len(x2)
+    if _is_ci16(x2):
+        new = ci16_planes(x2, tail2.dtype, max(L - n1, 0))
+        return new if L >= n1 else torch.cat([tail2[:, L:], new], dim=1)
     if L >= n1:
         return x2[:, L - n1 :]
     return torch.cat([tail2[:, L:], x2], dim=1)
@@ -203,8 +260,8 @@ def ddc_apply_planar_pieces(body, tail2, theta0, x2, engine: str = "auto"):
         the kernel or the plain version from ``engine`` and the device.
       tail2: carried raw-input tail planes (2, n-1).
       theta0: int64 phase word of the block's first sample.
-      x2: input planes (2, L), L a multiple of M (any length, short
-        blocks included).
+      x2: input planes (2, L), or the raw int16 block (L, 2), L a multiple
+        of M (any length, short blocks included).
 
     Returns (z, new_tail2, theta_end, w0, dw): the true DDC output is
     y[t] = (z[0, t] + j z[1, t]) e^{-j rad(w_t)}, w_t = w0 + t*dw.  The
@@ -212,7 +269,7 @@ def ddc_apply_planar_pieces(body, tail2, theta0, x2, engine: str = "auto"):
     here the body is one planar z (2, L / M).
     """
     z = body(x2, tail2[:, body.M - 1 :].contiguous(), engine)
-    w0, theta_end = _phase_words(body, theta0, int(x2.shape[-1]))
+    w0, theta_end = _phase_words(body, theta0, block_len(x2))
     return z, _new_tail(tail2, x2), theta_end, w0, body.dw
 
 
@@ -234,8 +291,8 @@ def ddc_apply_planar(body, tail2, theta0, x2, engine: str = "auto",
     yre, yim, new_tail2, theta_end, w0, dw = ddc_apply_planar_raw(
         body, tail2, theta0, x2, engine)
     rot = nco_complex_exponential(w0, dw, int(yre.shape[-1]), mode=rot_mode)
-    c = rot.real.to(x2.dtype)
-    s = rot.imag.to(x2.dtype)
+    c = rot.real.to(yre.dtype)
+    s = rot.imag.to(yre.dtype)
     return yre * c + yim * s, yim * c - yre * s, new_tail2, theta_end
 
 
@@ -333,7 +390,8 @@ def ddc_fm_fused(body, tail2, theta0, x2, prev_re, prev_im, gain,
         decimation M, phase increment, FM index.
       tail2: carried raw-input tail planes (2, n-1).
       theta0: int64 phase word of the block's first sample.
-      x2: input planes (2, L), L a multiple of 64*M.
+      x2: input planes (2, L), or the raw int16 block (L, 2), L a multiple
+        of 64*M.
       prev_re, prev_im: carried last chain output (rotated, gained).
       gain: this block's AGC gain (real, positive).
       engine: "auto" | "cuda" | "torch" (``ops/cuda_ddc.py::DdcFmBody``).
@@ -349,7 +407,7 @@ def ddc_fm_fused(body, tail2, theta0, x2, prev_re, prev_im, gain,
     neighbour) passes any prev and sets out[0] with :func:`fm_first_sample`.
     """
     M = body.M
-    L = int(x2.shape[-1])
+    L = block_len(x2)
     if L % (body.P * M):
         raise ValueError(f"block length {L} must be a multiple of "
                          f"{body.P * M} (64*M) for the fused FM body")

@@ -91,7 +91,7 @@ from solid_dsp_tpu_torch.ops import (cuda_chan, cuda_ddc, cuda_fft, cuda_iir,
                                      linrec, nco, zerophase)
 from solid_dsp_tpu_torch.ops import fir as fir_ops
 from solid_dsp_tpu_torch.ops import fft as fft_ops
-from torch_parity import (L_SMALL, make_blocks, make_qpsk_blocks,
+from torch_parity import (CONFIG4, L_SMALL, make_blocks, make_qpsk_blocks,
                           require_cuda, run_torch, snr_db)
 
 pytestmark = pytest.mark.gpu
@@ -2981,3 +2981,219 @@ def test_metrics_and_benchmark_on_a_card_chain():
     res = benchmark(chain.execute_block, x, warmup=1, iters=5,
                     samples=L_SMALL)
     assert res["seconds_per_call"] > 0 and res["msamples_per_second"] > 0
+
+
+# ------------------------------------------- ci16: K1-K3 reading raw int16
+# Each int16 launch (the *_i16 entry points of csrc/ddc_fm.cu and
+# csrc/ddc_body.cu) is held bit for bit against the same kernel launched on
+# the planes the chain's conversion makes of the same block
+# (ops/ddc.py::ci16_planes), on every route and in both modes, and against
+# its plain version on the int16 at the float32 launches' gates.
+
+# (n, M, L): config 4's shape on the tensor-core routes (K1 and K2, K3's
+# unaligned length, a block shorter than the filter) and the direct routes
+# at phase 37's points (K1 and K2 at 256 taps / M = 128, K3 at 128 / 200)
+CI16_POINTS = [(64, 4, L_SMALL), (64, 4, L_SMALL + 52), (64, 4, 32),
+               (256, 128, 8192 * 16), (256, 128, 8192 * 16 + 128 * 3),
+               (128, 200, 200 * 701)]
+
+
+def _ci16(seed, L, dev, offset=0):
+    """A random int16 block (L, 2) on dev, its first sample ``offset``
+    4-byte words past an aligned allocation."""
+    rng = np.random.default_rng(seed)
+    raw = torch.from_numpy(rng.integers(-32768, 32768, (L + offset, 2),
+                                        dtype=np.int16)).to(dev)
+    return raw[offset:]
+
+
+def _i16_counts(fn):
+    return tuple(getattr(fn, c) for c in cuda_ddc.I16_COUNTERS)
+
+
+@pytest.mark.parametrize("mode", cuda_ddc.MODES)
+@pytest.mark.parametrize("n,M,L", CI16_POINTS)
+def test_ci16_kernels_bit_equal_to_planes_on_card(n, M, L, mode):
+    """K2/K3 (and K1 where it takes the block) on raw int16 equal the same
+    kernel on ci16_planes of it bit for bit, counted on the int16 counter
+    of their route and mode, and within the plain version's gate (z >= 90
+    dB x3, >= 120 dB fast; K1 audio >= 90 dB); on the tensor-core route
+    also from a block 1-3 words off a 16-byte boundary (its copies start at
+    the next aligned sample)."""
+    dev = require_cuda()
+    taps = RxChainConfig(fir_taps=n).design_taps()
+    body = cuda_ddc.make_ddc_body(taps, nco.constrain(0.2), M, dev,
+                                  mode=mode)
+    fast = mode == "fast"
+    route = cuda_ddc.body_geometry(n, M, fast)[0]
+    name = ("i16_direct_" if route == "direct" else "i16_") + (
+        "fast_launches" if fast else "launches")
+    kernel = body.route(L)
+    D = max(n - M, 0)
+    rng = np.random.default_rng(n + L)
+    tail = torch.from_numpy((0.3 * rng.standard_normal((2, D))).astype(
+        np.float32)).to(dev)
+    for offset in (0, 1, 2, 3) if route == "tc" and L > 32 else (0,):
+        x16 = _ci16(L + offset, L, dev, offset)
+        x2 = ddc_ops.ci16_planes(x16, torch.float32)
+        before = getattr(kernel, name)
+        z16 = kernel(body, x16, tail)
+        assert getattr(kernel, name) == before + 1
+        assert torch.equal(z16, kernel(body, x2, tail))
+        zp = ddc_ops.ddc_body_torch(body, x16, tail)
+        assert snr_db(z16.cpu().numpy(), zp.cpu().numpy()) >= (
+            120.0 if fast else 90.0)
+    if cuda_ddc.fm_supported(n, M) and L % (64 * M) == 0:
+        fm = cuda_ddc.make_ddc_fm(taps, nco.constrain(0.2), M, 0.1, dev,
+                                  mode=mode)
+        froute = cuda_ddc.fm_geometry(n, M, fast)[0]
+        fname = ("i16_direct_" if froute == "direct" else "i16_") + (
+            "fast_launches" if fast else "launches")
+        x16 = _ci16(L, L, dev)
+        x2 = ddc_ops.ci16_planes(x16, torch.float32)
+        before = getattr(cuda_ddc.ddc_fm_cuda, fname)
+        a16, s16 = cuda_ddc.ddc_fm_cuda(fm, x16, tail)
+        assert getattr(cuda_ddc.ddc_fm_cuda, fname) == before + 1
+        a32, s32 = cuda_ddc.ddc_fm_cuda(fm, x2, tail)
+        assert torch.equal(a16, a32) and torch.equal(s16, s32)
+        ap, _ = cuda_ddc.ddc_fm_torch(fm, x16, tail)
+        assert snr_db(a16.cpu().numpy(), ap.cpu().numpy()) >= 90.0
+
+
+def test_ci16_kernels_refuse_what_they_cannot_read():
+    """An int16 block that is not contiguous or not 4-byte aligned, or
+    planes of a type the kernels do not read, raises: no fall-back to a
+    planar pass."""
+    dev = require_cuda()
+    body = cuda_ddc.make_ddc_body(RxChainConfig().design_taps(),
+                                  nco.constrain(0.2), 4, dev)
+    tail = torch.zeros((2, 60), device=dev)
+    wide = _ci16(1, 2 * L_SMALL, dev)
+    with pytest.raises(ValueError):
+        cuda_ddc.ddc_body_cuda(body, wide[::2], tail)
+    flat = _ci16(2, L_SMALL + 1, dev).reshape(-1)[1:2 * L_SMALL + 1]
+    with pytest.raises(ValueError):                 # 2 bytes off
+        cuda_ddc.ddc_body_cuda(body, flat.reshape(L_SMALL, 2), tail)
+    with pytest.raises(TypeError):                  # planes of float64
+        cuda_ddc.ddc_body_cuda(body, ddc_ops.ci16_planes(
+            wide[:L_SMALL], torch.float64), tail)
+
+
+@pytest.mark.parametrize("L", [L_SMALL, L_SMALL + 52])
+@pytest.mark.parametrize("fir_precision", ["x3", "default"])
+@pytest.mark.parametrize("demod", ["fm", "am", "qpsk"])
+def test_ci16_chain_on_card_never_takes_planar(monkeypatch, demod,
+                                               fir_precision, L):
+    """A ci16 chain on the card hands the int16 to K1-K3 (their int16
+    counters rise, one a block) and never calls ``_planar`` (patched to
+    raise on a CUDA tensor); its output and state are bit-equal to the
+    planar chain on the planes of the same blocks."""
+    from solid_dsp_tpu_torch.models import rx_chain as port_rx
+
+    dev = require_cuda()
+    blocks = [np.round(b.T * 16000.0).astype(np.int16)
+              for b in make_blocks(2, L=L, seed=21)]
+    planes = [ddc_ops.ci16_planes(torch.from_numpy(b), torch.float32).numpy()
+              for b in blocks]
+    want, wst = run_torch(planes, device=dev, demod=demod,
+                          fir_precision=fir_precision)
+    planar = port_rx._planar
+
+    def refuse(cfg, x):
+        if x.is_cuda:
+            raise AssertionError("a ci16 block on the card reached _planar")
+        return planar(cfg, x)
+
+    monkeypatch.setattr(port_rx, "_planar", refuse)
+    fns = (cuda_ddc.ddc_fm_cuda, cuda_ddc.ddc_body_cuda,
+           cuda_ddc.ddc_body_unaligned_cuda)
+    before = sum(sum(_i16_counts(f)) for f in fns)
+    got, st = run_torch(blocks, device=dev, demod=demod, input_format="ci16",
+                        fir_precision=fir_precision)
+    assert sum(sum(_i16_counts(f)) for f in fns) == before + 2
+    assert np.array_equal(got, want)
+    for key in ("nco_theta", "fir_tail", "fm_prev"):
+        assert torch.equal(st[key], wst[key])
+
+
+@pytest.mark.parametrize("demod", ["fm", "am"])
+def test_ci16_chain_on_card_takes_a_block_off_alignment(demod):
+    """A contiguous (L, 2) int16 block whose data starts 2 bytes off a
+    4-byte boundary (a view into a flat buffer) still goes to the int16
+    kernels, copied once, aligned: output and state bit-equal to the same
+    samples from an aligned block."""
+    from solid_dsp_tpu_torch.models.rx_chain import make_rx_chain
+
+    dev = require_cuda()
+    L = L_SMALL
+    flat = _ci16(3, L + 1, dev).reshape(-1)
+    off = flat[1:2 * L + 1].view(L, 2)
+    assert off.is_contiguous() and off.data_ptr() % 4 == 2
+    fns = (cuda_ddc.ddc_fm_cuda, cuda_ddc.ddc_body_cuda,
+           cuda_ddc.ddc_body_unaligned_cuda)
+    outs = []
+    for x in (off.clone(), off):
+        init, apply = make_rx_chain(RxChainConfig(
+            **{**CONFIG4, "demod": demod, "input_format": "ci16"}), dev)
+        before = sum(sum(_i16_counts(f)) for f in fns)
+        y, st = apply(init(), x)
+        assert sum(sum(_i16_counts(f)) for f in fns) == before + 1
+        outs.append((y, st))
+    assert torch.equal(outs[0][0], outs[1][0])
+    for key in ("nco_theta", "fir_tail", "fm_prev"):
+        assert torch.equal(outs[0][1][key], outs[1][1][key])
+
+
+def test_ci16_reader_on_card_equals_the_file(tmp_path):
+    """Ci16Reader to the card: pinned buffers, blocks on the card equal to
+    the file's int16 over many more blocks than buffers (each buffer
+    refilled only once its copy is done), the short last block included."""
+    from solid_dsp_tpu_torch.runtime.raw import Ci16Reader
+
+    dev = require_cuda()
+    rng = np.random.default_rng(31)
+    raw = rng.integers(-32768, 32768, ((1 << 20) + 77, 2), dtype=np.int16)
+    src = str(tmp_path / "in.ci16")
+    raw.tofile(src)
+    got = []
+    with Ci16Reader(src, 1 << 16, dev) as reader:
+        assert all(b.is_pinned() for b in reader._bufs)
+        for x in reader:
+            assert x.is_cuda and x.dtype == torch.int16
+            torch.cuda._sleep(200_000)       # the consumer lags the reader
+            got.append(x.cpu())
+    assert [len(b) for b in got] == [1 << 16] * 16 + [77]
+    assert np.array_equal(torch.cat(got).numpy(), raw)
+
+
+@pytest.mark.parametrize("demod", ["fm", "am", "qpsk"])
+def test_cli_rx_raw_route_equals_pump_route_on_card(tmp_path, demod):
+    """``rx --format ci16`` on the card: the raw route (int16 to K1-K3)
+    writes the same bytes as ``rx --format cf32`` on the samples as
+    ``read_iq`` converts them (the pump's route, complex64 from the host),
+    on a recording with an unaligned last block and a ragged end; the raw
+    route's launches are int16 launches."""
+    from solid_dsp_tpu_torch.__main__ import main
+    from solid_dsp_tpu_torch.runtime import read_iq, write_iq
+
+    require_cuda()
+    n = (1 << 20) + 3001
+    x2 = (make_qpsk_blocks(1, L=n, seed=5)[0] if demod == "qpsk"
+          else make_blocks(1, L=n, seed=5))[0]
+    src = str(tmp_path / "in.ci16")
+    write_iq(src, (x2[0] + 1j * x2[1]).astype(np.complex64), "ci16")
+    conv = str(tmp_path / "in.cf32")
+    write_iq(conv, read_iq(src, "ci16"), "cf32")
+    fns = (cuda_ddc.ddc_fm_cuda, cuda_ddc.ddc_body_cuda,
+           cuda_ddc.ddc_body_unaligned_cuda)
+    outs = {}
+    for ingest, path, fmt in (("raw", src, "ci16"), ("pump", conv, "cf32")):
+        dst = str(tmp_path / f"{ingest}.out.cf32")
+        before = sum(sum(_i16_counts(f)) for f in fns)
+        assert main(["rx", path, "--format", fmt, "--demod", demod,
+                     "--block", str(1 << 18), "-o", dst]) == 0
+        i16 = sum(sum(_i16_counts(f)) for f in fns) - before
+        assert i16 == (5 if ingest == "raw" else 0)
+        outs[ingest] = open(dst, "rb").read()
+    assert len(outs["raw"]) == 8 * (n // 4)
+    assert outs["raw"] == outs["pump"]

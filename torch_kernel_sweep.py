@@ -12,6 +12,7 @@
     python3 torch_kernel_sweep.py k1-route   # K1 as routed, both modes
     python3 torch_kernel_sweep.py fsm        # S1's FSM entry: chunk, block
     python3 torch_kernel_sweep.py s7 [SEQ]   # S7: passes, L, W, D, the step
+    python3 torch_kernel_sweep.py ci16-lib   # K1/K2 int16: one library or own
 
 * K6 (csrc/iir_bank.cu) at T = 2^14, C = 256, S = 2 (ChannelBank's block):
   the chunk length Lc in {16, 32, 64, 128}, each timed over a CUDA graph of
@@ -1039,8 +1040,9 @@ def _build_variants(source: str, out, variants: dict) -> dict:
             text = text.replace(a, b)
         (d / source).write_text(text)
         jobs.append((label, d / "libvariant.so", subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-             str(d / "libvariant.so"), str(d / source)],
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+             str(cuda_build.CSRC), "-o", str(d / "libvariant.so"),
+             str(d / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for label, lib, proc in jobs:
@@ -1050,6 +1052,68 @@ def _build_variants(source: str, out, variants: dict) -> dict:
                      f"{log[-4000:]}")
         libs[label] = (ctypes.CDLL(str(lib)), log)
     return libs
+
+
+def ci16_library(dev, smi) -> None:
+    """K1's and K2's int16 tensor-core entry points at config 4 (64 taps,
+    M = 4, 2^24 samples), x3 and fast, from ddc_fm.cu and ddc_body.cu as
+    they are (one library with the float32 entry points) and with the
+    float32 entry points left out (the int16 instances in a library of
+    their own), timed over a CUDA graph of 20 launches in turns: as is,
+    alone, alone, as is; each launch bit-equal to the other build's."""
+    from solid_dsp_tpu_torch.models.rx_chain import RxChainConfig
+    from solid_dsp_tpu_torch.ops import cuda_build, cuda_ddc
+    from solid_dsp_tpu_torch.ops.nco import constrain
+
+    out = cuda_build.BUILD_DIR / "ci16_lib"
+    cut = {"ddc_fm.cu": ("// The tensor-core route.  x (2, L), tail (2, n - M)",
+                         "// ddc_fm_launch on the raw int16 block"),
+           "ddc_body.cu": ("// The direct route: x (2, L), tail (2, max(n - M, 0))",
+                           "// ddc_body_direct_launch on the raw int16")}
+    libs = {}
+    for source, (a, b) in cut.items():
+        built = _build_variants(source, out / source, {
+            "as is": [], "alone": [(a, "#if 0\n" + a), (b, "#endif\n" + b)]})
+        for label, (lib, _) in built.items():
+            libs.setdefault(label, {})[source] = lib
+
+    def use(label):
+        def typed(source, name, argtypes):
+            fn = getattr(libs[label][source], name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            return fn
+        cuda_ddc.launcher = typed
+
+    L, n, M = 1 << 24, 64, 4
+    rng = np.random.default_rng(44)
+    x = torch.from_numpy(rng.integers(-16000, 16000, (L, 2),
+                                      dtype=np.int16)).to(dev)
+    tail = torch.from_numpy((0.1 * rng.standard_normal((2, n - M))).astype(
+        np.float32)).to(dev)
+    taps = RxChainConfig(fir_taps=n, decimation=M).design_taps()
+    calls = {}
+    for mode in cuda_ddc.MODES:
+        fm = cuda_ddc.make_ddc_fm(taps, constrain(0.2), M, 0.1, dev, mode=mode)
+        body = cuda_ddc.make_ddc_body(taps, constrain(0.2), M, dev, mode=mode)
+        calls[f"K1 {mode}"] = lambda fm=fm: cuda_ddc.ddc_fm_cuda(fm, x, tail)
+        calls[f"K2 {mode}"] = lambda body=body: cuda_ddc.ddc_body_cuda(
+            body, x, tail)
+    launcher0 = cuda_ddc.launcher
+    try:
+        outs = {}
+        for label in ("as is", "alone", "alone", "as is"):
+            use(label)
+            times = []
+            for key, fn in calls.items():
+                got = fn()
+                got = got[0] if isinstance(got, tuple) else got
+                same = outs.setdefault(key, got.clone())
+                times.append(f"{key} {graph_ms(fn, 20):.4f} ms"
+                             f"{'' if torch.equal(got, same) else ' DIFFERS'}")
+            print(f"[ci16-lib {label}] {', '.join(times)} | {smi}", flush=True)
+    finally:
+        cuda_ddc.launcher = launcher0
 
 
 def s8_sweep(dev, smi) -> None:
@@ -1467,8 +1531,15 @@ def s7_sweep(dev, smi, sequential: str | None = None) -> None:
             f"pass {i} alone "
             f"{graph_ms(lambda: call.run(fns[f'pass {i} alone']), 20):.4f}"
             for i in (1, 2, 3))
+        # chip_smoke.py phase 41's bound: the LLRs read once, the bits and
+        # final metrics written once; 9 operations a state a step
+        t_bytes = 4.0 * B * (2 * T + T + S) / 3.35e12 * 1e3
+        t_ops = 9.0 * B * T * S / 67e12 * 1e3
+        bound = (f"bound {max(t_bytes, t_ops):.5f} ms "
+                 f"({'bytes' if t_bytes >= t_ops else 'operations'})")
         line = (f"[s7 {name}] as built L, W, C = {(L, W, C)}, D = {D}: "
-                f"{whole:.4f} ms; {passes} ms; re-walked chunks {fx[0]} of "
+                f"{whole:.4f} ms, {bound}; {passes} ms; re-walked chunks "
+                f"{fx[0]} of "
                 f"{B * (C - 1)} seams, re-traced pieces {fx[1]}; bit-equal "
                 f"to viterbi_plain on {len(sub)} rows: {plain}")
         if seq is not None:
@@ -1664,6 +1735,9 @@ def main() -> None:
     if sys.argv[1:] == ["s6"]:
         cuda_build.build()
         s6_sweep(dev, smi)
+        return
+    if sys.argv[1:] == ["ci16-lib"]:
+        ci16_library(dev, smi)
         return
     if sys.argv[1:2] == ["s7"] and len(sys.argv) <= 3:
         cuda_build.build()
